@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation path
-at the full width of the README's model, through its hand-written CUDA kernels.
+"""Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation and
+supervised training paths at the full width of the README's model, through its
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
 Phase 0 builds the kernels from ``videopose3d_torch/ops/kernels/csrc`` with nvcc
-for sm_90a.  Phase 1 holds each kernel against its plain PyTorch version at the
-shapes the evaluation path gives it (B=2 TTA rows, a 2,000-frame video plus 242
-padding frames, 1024 channels), in float32 and bfloat16, and times both.  Phase 2
-writes synthetic Human3.6M archives and a random full-width checkpoint
-(-arc 3,3,3,3,3, 1024 channels) and runs ``videopose3d_torch.runner.main
---evaluate`` with the fused engine in float32 and bfloat16 and with the plain
-float32 engine (each after a warm-up call), checking the protocol numbers and
-that every kernel launched.
+for sm_90a.  Phase 1 holds each evaluation kernel (K3) against its plain PyTorch
+version at the shapes the evaluation path gives it (B=2 TTA rows, a 2,000-frame
+video plus 242 padding frames, 1024 channels), in float32 and bfloat16, and times
+both.  Phase 2 writes synthetic Human3.6M archives and a random full-width
+checkpoint (-arc 3,3,3,3,3, 1024 channels) and runs
+``videopose3d_torch.runner.main --evaluate`` with the fused engine in float32 and
+bfloat16 and with the plain float32 engine (each after a warm-up call), checking
+the protocol numbers and that every kernel launched.  Phase 3 holds the training
+kernels against their plain versions at the training path's shapes: the window
+gather (K1) at 1,024 windows of 243 rows, bitwise, and each forward and backward
+kernel of the train block (K2) at the four residual blocks' shapes (n = 27,648 /
+9,216 / 3,072 / 1,024 rows of 1,024 channels) in float32 and bfloat16, plus the
+whole block with its backward in float32; it times each kernel and plain
+version.  Phase 4 trains the full-width model for one epoch of batch 1,024 with
+``runner.main`` from the random checkpoint, with the fused train engine twice and
+the plain one once (dropout 0.25, the same seed), and checks the losses, the
+kernel launches, determinism, and that the saved checkpoint evaluates.
 
 Fails (non-zero exit, no result line) when no CUDA device is available or any
 phase fails.  The last line of standard output is the run's JSON summary.
@@ -26,6 +36,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,6 +76,40 @@ KERNELS = (
     ("fused_shrink_block", "shrink", "videopose3d_tpu/ops/pallas/temporal_block.py:414"),
 )
 SOURCE = "videopose3d_torch/ops/kernels/csrc/temporal_block.cu"
+
+# The training path.  K1 at the full-width batch: 1,024 windows of the receptive
+# field's 243 rows of 17 x 2 keypoints.
+GATHER = dict(batch=1024, window=243, cols=34, rows=300_000)
+GATHER_SOURCE = "videopose3d_torch/ops/kernels/csrc/gather_rows.cu"
+GATHER_REPLACES = "videopose3d_tpu/ops/pallas/gather_rows.py:103"
+# K2 per residual block of the strided model at batch 1,024: input frames T
+# (n = 1024 * T / 3 rows), filter width 3, residual tap 1.
+TRAIN_BLOCK_FRAMES = (81, 27, 9, 3)
+TRAIN_SOURCE = "videopose3d_torch/ops/kernels/csrc/train_block.cu"
+TRAIN_KERNELS = (
+    # wrapper key, TPU kernel body it replaces, FLOP per row / C^2 (0: elementwise)
+    ("conv_stats", "videopose3d_tpu/ops/pallas/train_block.py:318", 6),
+    ("norm_drop_matmul_stats", "videopose3d_tpu/ops/pallas/train_block.py:342", 2),
+    ("norm_drop_res", "videopose3d_tpu/ops/pallas/train_block.py:369", 0),
+    ("relu_mask_bn_sums", "videopose3d_tpu/ops/pallas/train_block.py:399", 0),
+    ("dz_matmul_dd", "videopose3d_tpu/ops/pallas/train_block.py:436", 2),
+    ("dw_gemm", "videopose3d_tpu/ops/pallas/train_block.py:436", 2),
+    ("du_dtaps_res", "videopose3d_tpu/ops/pallas/train_block.py:459", 6),
+)
+# Whole train block, kernels vs plain chain: gradients within this relative norm
+# error.  Across the full-width chain a few float32 pre-activations within ~2e-7
+# of 0 (~5 of 28M at n = 27,648) fall on opposite sides of a ReLU gate under the
+# two summation orders; each flip moves one cotangent entry by |g|, and the
+# per-channel sums of zero-mean cotangents cancel to ~sqrt(n) |g|, so a flip
+# shows at ~1e-4 of those sums and of the gradients built on them (measured
+# 1.1e-4 to 7.6e-4 on an H100).  Each kernel is held per tensor at TOL on the
+# same inputs; this bound checks the chaining, where a fault is O(1).
+GRAD_NORM_TOL = 1e-2
+# Training run: 1 epoch at batch 1,024 on half of each training video.
+TRAIN_SUBSET = "0.5"
+# First-step loss of the fused train engine vs the plain one (same weights, same
+# dropout masks, TF32 off): float32 sums in other orders, ~1e-6 relative.
+FIRST_STEP_AGREE = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -180,10 +225,11 @@ def phase1(cfg, model, device):
 
 
 def write_dataset(root):
-    """Synthetic H36M-format archives: S9 and S11, 2 actions, 4 cameras, 1,500
-    frames each (random world-space mocap, uniform pixel keypoints)."""
+    """Synthetic H36M-format archives: training subjects S1 and S5, test subjects
+    S9 and S11, 2 actions, 4 cameras, 1,500 frames each (random world-space mocap,
+    uniform pixel keypoints)."""
     rng = np.random.default_rng(SEED + 2)
-    subjects, actions, n = ("S9", "S11"), ("Walking 1", "Eating 2"), 1500
+    subjects, actions, n = ("S9", "S11", "S1", "S5"), ("Walking 1", "Eating 2"), 1500
     p3 = {s: {a: (rng.standard_normal((n, 1, 3)) * 0.1
                   + rng.standard_normal((n, 32, 3)) * 0.2).astype(np.float32)
               for a in actions} for s in subjects}
@@ -210,15 +256,9 @@ def run_cli(argv):
         runner.main(argv)
     torch.cuda.synchronize()
     out = buf.getvalue()
-    numbers, action, rate = {}, None, None
-    for line in out.splitlines():
-        if m := _ACTION.match(line):
-            action = m.group(1)
-            numbers[action] = []
-        elif (m := _PROTO.match(line)) and action is not None:
-            numbers[action].append(float(m.group(2)))
-        elif m := _RATE.match(line):
-            rate = (float(m.group(3)), int(m.group(1)))
+    numbers = protocol_lines(out)
+    rate = next(((float(m.group(3)), int(m.group(1)))
+                 for m in map(_RATE.match, out.splitlines()) if m), None)
     check(numbers and all(len(v) == 4 for v in numbers.values()),
           f"protocol lines missing from the output:\n{out}")
     check(all(math.isfinite(v) for vs in numbers.values() for v in vs),
@@ -276,6 +316,261 @@ def phase2(model, tmp):
     return launches
 
 
+def compare(name, got, want, dt):
+    """max |got - want| against TOL[dt] * max(1, max |want|) for one tensor."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    check(err <= TOL[dt] * scale, f"{name}: max abs error {err} > {TOL[dt] * scale}")
+    return err
+
+
+def train_block_inputs(frames, dt, device):
+    """Block inputs of the full-width training step: batch 1024, ``frames``
+    input frames, 1024 channels, dropout masks at rate 0.25, from SEED."""
+    rng = np.random.default_rng(SEED + frames)
+    b, c, fw = 1024, CHANNELS, 3
+    f = lambda a, d=dt: torch.from_numpy(np.asarray(a, np.float32)).to(device, d)
+    bound = 1 / np.sqrt(fw * c)
+    return dict(
+        x=f(rng.standard_normal((b, frames, c))),
+        wa=f(rng.uniform(-bound, bound, (fw, c, c))),
+        wb=f(rng.uniform(-1, 1, (c, c)) / np.sqrt(c)),
+        bn=[f(rng.uniform(lo, hi, c), torch.float32)
+            for lo, hi in ((0.5, 1.5), (-0.2, 0.2), (0.5, 1.5), (-0.2, 0.2))],
+        masks=[f((rng.uniform(size=(b, frames // fw, c)) < 0.75) / 0.75)
+               for _ in range(2)],
+        shifts=[f(rng.uniform(-0.1, 0.1, c), torch.float32) for _ in range(2)],
+        g=f(rng.standard_normal((b, frames // fw, c)) * 1e-3))
+
+
+def train_block_stages(p):
+    """(kernel key, args, kwargs) for each K2 kernel, the inputs taken from the
+    block's plain forward and backward chain so that they are what the step
+    gives each kernel."""
+    from videopose3d_torch.models.temporal import BN_EPS
+    from videopose3d_torch.ops.kernels import train_block as trb
+    b, t, c = p["x"].shape
+    n = b * (t // 3)
+    x3 = p["x"].reshape(n, 3, c)
+    ma, mb = (m.reshape(n, c) for m in p["masks"])
+    sa, ba, sb, bb = p["bn"]
+    shift_a, shift_b = p["shifts"]
+    u, res, s1, s2 = trb.conv_stats_plain(x3, p["wa"], shift_a, center=1)
+    mean_a, var_a = trb._finalize_stats(s1, s2, n, shift_a)
+    gate_a = trb._affine_consts(mean_a, var_a, sa, ba, x3.dtype)
+    d, v, s1, s2 = trb.norm_drop_matmul_stats_plain(u, ma, gate_a, p["wb"], shift_b)
+    mean_b, var_b = trb._finalize_stats(s1, s2, n, shift_b)
+    gate_b = trb._affine_consts(mean_b, var_b, sb, bb, x3.dtype)
+    g2 = p["g"].reshape(n, c)
+    stat_b = torch.stack([mean_b, torch.rsqrt(var_b + BN_EPS)])
+    stat_a = torch.stack([mean_a, torch.rsqrt(var_a + BN_EPS)])
+    gz, s1, s2 = trb.relu_mask_bn_sums_plain(g2, v, mb, stat_b, gate_b)
+    coef_b = trb._bwd_consts(mean_b, var_b, sb, s1, s2, n)
+    dz, dd = trb.dz_matmul_dd_plain(gz, v, coef_b, p["wb"])
+    ga, s1, s2 = trb.relu_mask_bn_sums_plain(dd, u, ma, stat_a, gate_a)
+    coef_a = trb._bwd_consts(mean_a, var_a, sa, s1, s2, n)
+    return [
+        ("conv_stats", (x3, p["wa"], shift_a), {"center": 1}),
+        ("norm_drop_matmul_stats", (u, ma, gate_a, p["wb"], shift_b), {}),
+        ("norm_drop_res", (v, mb, gate_b, res), {}),
+        ("relu_mask_bn_sums", (g2, v, mb, stat_b, gate_b), {}),
+        ("dz_matmul_dd", (gz, v, coef_b, p["wb"]), {}),
+        ("dw_gemm", (d, dz), {}),
+        ("du_dtaps_res", (ga, u, g2, coef_a, p["wa"]), {"center": 1}),
+    ]
+
+
+def whole_train_block(p, plain):
+    """The block's forward and backward in float32: out, stats, all gradients."""
+    from videopose3d_torch.ops.kernels import train_block as trb
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (p["x"], p["wa"], p["wb"], *p["bn"])]
+    outs = trb.fused_train_block(*leaves, *p["masks"], *p["shifts"], center=1, fw=3,
+                                 plain=plain)
+    return [o.detach() for o in outs] + list(torch.autograd.grad(outs[0], leaves, p["g"]))
+
+
+def phase3(device):
+    """The training kernels against their plain versions at the training path's
+    shapes, and their times."""
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import train_block as trb
+    saved = (dict(gr.LAUNCHES), dict(trb.LAUNCHES))
+    results = []
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    flat = torch.randn(GATHER["rows"], GATHER["cols"], generator=gen).to(device)
+    row0 = torch.randint(0, GATHER["rows"] - GATHER["window"] + 1, (GATHER["batch"],),
+                         generator=gen).to(device)
+    got = gr.gather_windows(flat, row0, window=GATHER["window"])
+    want = gr.gather_windows_plain(flat, row0, window=GATHER["window"])
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "gather_windows: kernel and plain version differ")
+    ms = cuda_ms(lambda: gr.gather_windows(flat, row0, window=GATHER["window"]))
+    plain_ms = cuda_ms(lambda: gr.gather_windows_plain(flat, row0, window=GATHER["window"]))
+    gbps = 2 * got.numel() * 4 / (ms * 1e-3) / 1e9
+    print(f"phase3 gather_windows float32 {GATHER}: bitwise equal; kernel {ms:.4f} ms "
+          f"({gbps:.0f} GB/s moved), plain {plain_ms:.4f} ms")
+    results.append({"name": f"gather_windows (float32, B={GATHER['batch']}, "
+                            f"window={GATHER['window']}, C={GATHER['cols']})",
+                    "key": ("gather", "gather_windows"), "route": "cuda",
+                    "source": GATHER_SOURCE, "replaces": GATHER_REPLACES,
+                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+
+    flops = {key: f for key, _, f in TRAIN_KERNELS}
+    replaces = {key: r for key, r, _ in TRAIN_KERNELS}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).replace("torch.", "")
+        for frames in TRAIN_BLOCK_FRAMES:
+            p = train_block_inputs(frames, dt, device)
+            n = 1024 * frames // 3
+            for key, args, kwargs in train_block_stages(p):
+                kernel, plain = getattr(trb, key), getattr(trb, key + "_plain")
+                got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err = max(compare(f"{key} {dname} n={n} output {i}", a, w, dt)
+                          for i, (a, w) in enumerate(zip(got, want)))
+                ms = cuda_ms(lambda: kernel(*args, **kwargs))
+                plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
+                tflops = (f"{flops[key] * n * CHANNELS ** 2 / (ms * 1e-3) / 1e12:.1f} "
+                          "TFLOP/s" if flops[key] else "elementwise")
+                print(f"phase3 {key:22s} {dname:8s} n={n:6d}: max_abs_err {err:.3e}; "
+                      f"kernel {ms:.3f} ms ({tflops}), plain {plain_ms:.3f} ms")
+                results.append({"name": f"{key} ({dname}, n={n}, C={CHANNELS})",
+                                "key": ("train", key), "route": "cuda",
+                                "source": TRAIN_SOURCE, "replaces": replaces[key],
+                                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            if dt == torch.float32:
+                # The whole block, forward and backward, as the train step runs
+                # it: outputs and statistics per tensor at TOL, gradients by
+                # relative norm error (GRAD_NORM_TOL says why).
+                got, want = whole_train_block(p, False), whole_train_block(p, True)
+                names = ["out", "mean_a", "var_a", "mean_b", "var_b", "dx", "dwa", "dwb",
+                         "dscale_a", "dbias_a", "dscale_b", "dbias_b"]
+                for nm, a, w in zip(names[:5], got[:5], want[:5]):
+                    compare(f"train block n={n} {nm}", a, w, dt)
+                rel = {nm: float((a.double() - w.double()).norm() / w.double().norm())
+                       for nm, a, w in zip(names[5:], got[5:], want[5:])}
+                print(f"phase3 train block forward+backward float32 n={n:6d}: outputs "
+                      f"and stats within tolerance; gradient relative norm errors "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+                check(all(v <= GRAD_NORM_TOL for v in rel.values()),
+                      f"train block n={n}: gradients differ: {rel}")
+            del p
+    gr.LAUNCHES.update(saved[0])  # comparison launches do not count
+    trb.LAUNCHES.update(saved[1])
+    return results
+
+
+_EPOCH = re.compile(r"^\[1\] time \S+ lr \S+ 3d_train (\S+) 3d_eval (\S+) 3d_valid (\S+)$")
+_TRAINED = re.compile(r"^INFO: trained (\d+) steps in (\S+) s \((\S+) frames/s")
+
+
+def train_cli(argv):
+    """runner.main training in-process; returns (per-step losses, epoch line
+    numbers, (steps, seconds, frames/s), final protocol numbers, launches)."""
+    from videopose3d_torch import runner, train
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import train_block as trb
+    losses = []
+    step = train.SupervisedTrainer.step
+
+    def recording_step(self, *args, **kwargs):
+        loss = step(self, *args, **kwargs)
+        losses.append(loss)
+        return loss
+
+    for counts in (gr.LAUNCHES, trb.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    buf = io.StringIO()
+    train.SupervisedTrainer.step = recording_step
+    try:
+        with contextlib.redirect_stdout(buf):
+            runner.main(argv)
+    finally:
+        train.SupervisedTrainer.step = step
+    torch.cuda.synchronize()
+    launches = {**gr.LAUNCHES, **trb.LAUNCHES}
+    out = buf.getvalue()
+    epoch = [m for m in map(_EPOCH.match, out.splitlines()) if m]
+    trained = [m for m in map(_TRAINED.match, out.splitlines()) if m]
+    check(len(epoch) == 1 and len(trained) == 1, f"no epoch or trained line:\n{out}")
+    numbers = [float(v) for v in epoch[0].groups()]
+    rate = (int(trained[0].group(1)), float(trained[0].group(2)), float(trained[0].group(3)))
+    check(all(math.isfinite(v) for v in numbers), f"non-finite epoch losses: {numbers}")
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite step losses: {losses}")
+    return losses, numbers, rate, out, launches
+
+
+def phase4(tmp):
+    """One full-width training epoch per engine through runner.main."""
+    data = os.path.join(tmp, "data")
+    init = os.path.join(tmp, "checkpoint", "random_full_width.bin")
+    runs = {}
+    for name, engine in (("pallas", "pallas"), ("xla", "xla"), ("pallas again", "pallas")):
+        ckpt = os.path.join(tmp, "train_" + name.replace(" ", "_"))
+        os.makedirs(ckpt)
+        shutil.copy(init, ckpt)
+        argv = ["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
+                "-b", "1024", "-e", "1", "-drop", "0.25", "--seed", str(SEED),
+                "-str", "S1,S5", "-ste", "S9,S11", "--subset", TRAIN_SUBSET,
+                "--data-dir", data, "-c", ckpt, "-r", "random_full_width.bin",
+                "--checkpoint-frequency", "1", "--device", "cuda",
+                "--train-engine", engine]
+        losses, numbers, (steps, seconds, fps), out, launches = train_cli(argv)
+        runs[name] = (losses, launches, ckpt, out)
+        print(f"phase4 train {name:12s}: {steps} steps of batch 1024 in {seconds:.3f} s, "
+              f"{seconds / steps * 1e3:.2f} ms/step, {fps:.1f} training frames/s; "
+              f"first-step loss {float(losses[0]):.6f}, epoch 3d_train/3d_eval/3d_valid "
+              f"{numbers[0]:.4f}/{numbers[1]:.4f}/{numbers[2]:.4f} mm; launches {launches}")
+    first_p, first_x = float(runs["pallas"][0][0]), float(runs["xla"][0][0])
+    rel = abs(first_p - first_x) / abs(first_x)
+    print(f"phase4 first-step loss pallas {first_p!r} vs xla {first_x!r}: relative "
+          f"difference {rel:.3e} (bound {FIRST_STEP_AGREE:.0e})")
+    check(rel <= FIRST_STEP_AGREE, f"first-step losses differ: {first_p} vs {first_x}")
+    for name in ("pallas", "pallas again"):
+        launches = runs[name][1]
+        check(all(v > 0 for v in launches.values()),
+              f"{name} run did not launch every training kernel: {launches}")
+    from videopose3d_torch.ops.kernels import train_block as trb
+    check(not any(runs["xla"][1][k] for k in trb.LAUNCHES),
+          f"xla run launched train-block kernels: {runs['xla'][1]}")
+    check(torch.equal(runs["pallas"][0], runs["pallas again"][0]),
+          "two pallas runs gave different losses")
+    print("phase4 two pallas runs: bitwise-equal losses over "
+          f"{runs['pallas'][0].numel()} steps")
+    # The saved checkpoint evaluates to the numbers the run printed.
+    trained = protocol_lines(runs["pallas"][3])
+    evaluated, _, _, _ = run_cli(["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch",
+                                  str(CHANNELS), "-str", "S1", "-ste", "S9,S11",
+                                  "--data-dir", data, "-c", runs["pallas"][2],
+                                  "--evaluate", "epoch_1.bin", "--device", "cuda"])
+    worst = max(abs(g - w) / abs(w) for a in trained for g, w in zip(evaluated[a], trained[a]))
+    print(f"phase4 epoch_1.bin --evaluate vs the training run's final evaluation: "
+          f"worst relative protocol difference {worst:.3e}")
+    check(evaluated.keys() == trained.keys() and worst <= 1e-5,
+          f"reloaded checkpoint evaluates differently: {evaluated} vs {trained}")
+    return runs["pallas again"][1]
+
+
+def protocol_lines(out):
+    numbers, action = {}, None
+    for line in out.splitlines():
+        if m := _ACTION.match(line):
+            action = m.group(1)
+            numbers[action] = []
+        elif (m := _PROTO.match(line)) and action is not None:
+            numbers[action].append(float(m.group(2)))
+    return numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this test runs on a GPU",
@@ -300,8 +595,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg, model = random_model(device)
     kernel_results = phase1(cfg, model, device)
+    train_kernel_results = phase3(device)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase2(model, tmp)
+        train_launches = phase4(tmp)
 
     keys = {name: (key, replaces) for name, key, replaces in KERNELS}
     dtypes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -314,6 +611,9 @@ def main() -> int:
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[("fused", dname)][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]})
+    for r in train_kernel_results:
+        entries.append({**{k: v for k, v in r.items() if k != "key"},
+                        "launches": train_launches[r["key"][1]]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

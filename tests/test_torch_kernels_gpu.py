@@ -1,4 +1,6 @@
-"""The CUDA fused-block kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the fused
+evaluation blocks (K3), the window gather (K1) and the train block with its
+backward (K2).
 
 Needs a CUDA device (marker ``gpu``; skipped elsewhere).  Imports no JAX, so it
 also runs on a machine without it:
@@ -8,14 +10,16 @@ also runs on a machine without it:
 Tolerance, max |kernel - plain| <= tol * max(1, max |plain|): float32 1e-4
 (float32 sums in other orders, TF32 off); bfloat16 1.6e-2 (four bf16 steps:
 the outputs and intermediates are rounded to bf16, and another summation order
-may flip their last bit).
+may flip their last bit).  The gather is pure data movement: bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from videopose3d_torch.ops.kernels import gather_rows as gr
 from videopose3d_torch.ops.kernels import temporal_block as tb
+from videopose3d_torch.ops.kernels import train_block as trb
 
 pytestmark = pytest.mark.gpu
 
@@ -153,3 +157,116 @@ def test_fused_forward_matches_plain_forward(cuda, dt, fw, causal):
     tol = {"float32": 1e-4, "bfloat16": 3e-2}[dt]
     err = float((got - want).abs().max())
     assert err <= tol * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,window,batch,out_cols", [
+    (4096, 34, 243, 64, None),
+    (280_000, 34, 243, 1024, None),   # the full-width training batch
+    (512, 51, 1, 64, None),           # 3D-target-sized windows
+    (300, 34, 27, 16, 17),            # a column prefix
+    (100, 33, 9, 8, None),            # odd row width: 2- or 4-byte words
+])
+def test_gather_kernel_matches_plain(cuda, dt, rows, cols, window, batch, out_cols):
+    g = torch.Generator().manual_seed(rows + window)
+    flat = torch.randn(rows, cols, generator=g).to(cuda, dt)
+    # Out-of-range first rows are clamped to [0, rows - window] by both versions.
+    row0 = torch.randint(-20, rows + 20, (batch,), generator=g).to(cuda)
+    before = gr.LAUNCHES["gather_windows"]
+    got = gr.gather_windows(flat, row0, window=window, out_cols=out_cols)
+    assert gr.LAUNCHES["gather_windows"] == before + 1
+    want = gr.gather_windows_plain(flat, row0, window=window, out_cols=out_cols)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def _train_block_inputs(seed, b, t, c, fw, dt, dropout, device):
+    rng = np.random.default_rng(seed)
+    f = lambda a, d=dt: torch.from_numpy(np.asarray(a, np.float32)).to(device, d)
+    bound = 1 / np.sqrt(fw * c)
+    masks = [None, None]
+    if dropout:
+        masks = [f((rng.uniform(size=(b, t // fw, c)) < 0.75) / 0.75) for _ in range(2)]
+    return dict(
+        x=f(rng.standard_normal((b, t, c))),
+        wa=f(rng.uniform(-bound, bound, (fw, c, c))),
+        wb=f(rng.uniform(-1, 1, (c, c)) / np.sqrt(c)),
+        bn=[f(rng.uniform(lo, hi, c), torch.float32)
+            for lo, hi in ((0.5, 1.5), (-0.2, 0.2), (0.5, 1.5), (-0.2, 0.2))],
+        masks=masks,
+        shifts=[f(rng.uniform(-0.1, 0.1, c), torch.float32) for _ in range(2)],
+        g=f(rng.standard_normal((b, t // fw, c))))
+
+
+def _block_run(p, fw, center, plain):
+    """Forward and backward of one block; returns out, stats and all gradients."""
+    leaves = [p["x"], p["wa"], p["wb"], *p["bn"]]
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    outs = trb.fused_train_block(*leaves, *p["masks"], *p["shifts"], center=center,
+                                 fw=fw, plain=plain)
+    grads = torch.autograd.grad(outs[0], leaves, p["g"])
+    return [o.detach() for o in outs] + list(grads)
+
+
+TRAIN_BLOCK_CASES = [  # batch, frames, channels, fw, center, dropout
+    (8, 27, 64, 3, 1, True),
+    (7, 15, 64, 5, 4, False),        # causal center, n = 21 rows
+    (5, 9, 1028, 3, 1, True),        # two column passes (C > 1024), ragged tile
+    (1024, 3, 1024, 3, 1, True),     # the last full-width block, n = 1,024
+]
+
+
+@pytest.mark.parametrize("b,t,c,fw,center,dropout", TRAIN_BLOCK_CASES)
+def test_train_block_kernels_match_plain(cuda, b, t, c, fw, center, dropout):
+    """float32: out, both stat pairs and every gradient within 1e-4 of the
+    plain versions (float32 sums in other orders), all seven kernels launched."""
+    p = _train_block_inputs(b * c + fw, b, t, c, fw, torch.float32, dropout, cuda)
+    before = dict(trb.LAUNCHES)
+    got = _block_run(p, fw, center, plain=False)
+    launched = {k: trb.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {**{k: 1 for k in launched}, "relu_mask_bn_sums": 2}
+    want = _block_run(p, fw, center, plain=True)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.shape == w.shape and a.dtype == w.dtype, i
+        _check(a, w, torch.float32)
+
+
+@pytest.mark.parametrize("b,t,c,fw,center,dropout", TRAIN_BLOCK_CASES[:3])
+def test_train_block_bf16_kernels_match_plain(cuda, b, t, c, fw, center, dropout):
+    """bfloat16, each kernel against its plain version on the same inputs (the
+    plain chain's), so a pre-activation that rounds across 0 gates both alike."""
+    p = _train_block_inputs(b * c + fw + 1, b, t, c, fw, torch.bfloat16, dropout, cuda)
+    n = b * (t // fw)
+    x3 = p["x"].reshape(n, fw, c)
+    ma, mb = [None if m is None else m.reshape(n, c) for m in p["masks"]]
+    pairs = []
+    args = (x3, p["wa"], p["shifts"][0])
+    pairs.append((trb.conv_stats(*args, center=center),
+                  trb.conv_stats_plain(*args, center=center)))
+    u = pairs[-1][1][0]
+    stat = torch.stack([p["shifts"][0], torch.rsqrt(p["bn"][0] + 1e-5)])
+    gate = torch.stack([p["shifts"][0], p["bn"][0], p["bn"][1]]).to(torch.bfloat16)
+    args = (u, ma, gate, p["wb"], p["shifts"][1])
+    pairs.append((trb.norm_drop_matmul_stats(*args), trb.norm_drop_matmul_stats_plain(*args)))
+    d, v = pairs[-1][1][:2]
+    args = (v, mb, gate, u)
+    pairs.append((trb.norm_drop_res(*args), trb.norm_drop_res_plain(*args)))
+    g2 = p["g"].reshape(n, c)
+    args = (g2, v, mb, stat, gate)
+    pairs.append((trb.relu_mask_bn_sums(*args), trb.relu_mask_bn_sums_plain(*args)))
+    coef = torch.stack([p["bn"][0], p["bn"][1], p["bn"][3], stat[1], p["shifts"][0]])
+    args = (pairs[-1][1][0], v, coef, p["wb"])
+    pairs.append((trb.dz_matmul_dd(*args), trb.dz_matmul_dd_plain(*args)))
+    args = (d, pairs[-1][1][0])
+    pairs.append(((trb.dw_gemm(*args),), (trb.dw_gemm_plain(*args),)))
+    args = (g2, u, g2, coef, p["wa"])
+    pairs.append((trb.du_dtaps_res(*args, center=center),
+                  trb.du_dtaps_res_plain(*args, center=center)))
+    for got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, w in zip(got, want):
+            assert a.shape == w.shape and a.dtype == w.dtype
+            # float32 sums of bf16 values: one operand rounded one bf16 step
+            # apart moves a sum by that step, so the bf16 bound holds for all.
+            _check(a, w, torch.bfloat16)

@@ -1,8 +1,9 @@
 """Command-line interface.
 
 The flag surface of ``videopose3d_tpu/arguments.py`` (the reference's flags with
-their names, defaults and semantics), minus the JAX- and TPU-specific knobs,
-plus ``--device``.  Only ``--evaluate`` runs in the port so far; the training and
+their names, defaults and semantics), plus ``--device``.  The JAX package's
+TPU knobs are accepted and ignored, so one command line runs in both packages.
+Supervised training and ``--evaluate`` run in the port; the semi-supervised and
 rendering flags are parsed so that published commands parse unchanged.
 """
 
@@ -133,13 +134,40 @@ def parse_args(argv=None):
                         help="bucket eval lengths to powers of two (starting at "
                              "--eval-bucket)")
     parser.add_argument("--seed", default=0, type=int, metavar="N",
-                        help="model init seed")
+                        help="model init and dropout-mask seed")
     parser.add_argument("--serving-engine", default="xla", type=str,
                         choices=["xla", "fused", "int8"],
                         help="pose-model inference engine for evaluation: plain "
                              "float32 torch with TF32 off (metric grade, default), "
                              "or the fused CUDA block kernels at --compute-dtype; "
                              "int8 is not ported yet")
+    parser.add_argument("--train-engine", default="xla", type=str,
+                        choices=["xla", "pallas"],
+                        help="strided train-block engine: 'xla' is the plain torch "
+                             "block, 'pallas' the hand-written CUDA train-block "
+                             "kernels (forward and backward; the plain versions "
+                             "of those kernels on --device cpu)")
+    parser.add_argument("--gather-impl", default="auto", type=str,
+                        choices=["auto", "xla", "pallas"],
+                        help="batch-assembly window copy: 'pallas' is the CUDA "
+                             "window-gather kernel, 'xla' plain indexing, 'auto' "
+                             "(default) the kernel on --device cuda and plain "
+                             "indexing on --device cpu")
+
+    # TPU-only knobs of the JAX package: accepted and ignored here.
+    tpu_only = "TPU-only (JAX package); accepted and ignored by videopose3d_torch"
+    parser.add_argument("--no-mesh", action="store_true", help=tpu_only)
+    parser.add_argument("--rng-impl", default="rbg", type=str,
+                        choices=["rbg", "threefry2x32"], help=tpu_only)
+    parser.add_argument("--checkpoint-format", default="pickle", type=str,
+                        choices=("pickle", "orbax"), metavar="FMT", help=tpu_only)
+    parser.add_argument("--remat", action="store_true", help=tpu_only)
+    parser.add_argument("--no-scan-epoch", dest="scan_epoch", action="store_false",
+                        help=tpu_only)
+    parser.add_argument("--eval-devices", default=0, type=int, metavar="N",
+                        help=tpu_only)
+    parser.add_argument("--scan-chunk", default=0, type=int, metavar="STEPS",
+                        help=tpu_only)
 
     parser.set_defaults(bone_length_term=True)
     parser.set_defaults(data_augmentation=True)

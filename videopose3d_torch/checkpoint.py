@@ -1,11 +1,14 @@
-"""Checkpoint loading: the JAX CLI's pickle files and reference torch ``.bin``
-files.
+"""Checkpoints: loading the JAX CLI's pickle files and reference torch ``.bin``
+files, and saving the reference ``.bin`` payload.
 
 Both formats carry the reference payload (``epoch``, ``lr``, ``model_pos``,
 ``model_traj``, ...) with ``model_pos`` already a reference-layout state dict.
 The JAX CLI's pickles may also hold its optimizer state as optax objects; the
 port has no JAX, so every class outside numpy and the standard containers
 unpickles as an opaque placeholder.  Directory (orbax) checkpoints are not read.
+The port saves with ``torch.save`` (what the reference writes, and what the JAX
+CLI reads); its ``optimizer`` is a ``torch.optim`` state dict, which resumes
+training in the port and which the JAX CLI drops.
 """
 
 from __future__ import annotations
@@ -76,5 +79,27 @@ def load_any_checkpoint(path: str) -> Dict[str, Any]:
     for key in ("model_pos", "model_traj"):
         if out.get(key) is not None:
             out[key] = {k: np.asarray(v) for k, v in out[key].items()}
-    out["optimizer"] = None  # torch optimizer state is not carried over
+    if not _is_torch_optimizer_state(out.get("optimizer")):
+        out["optimizer"] = None
     return out
+
+
+def _is_torch_optimizer_state(state) -> bool:
+    """Whether ``state`` is a ``torch.optim.Optimizer.state_dict()``."""
+    return isinstance(state, dict) and {"state", "param_groups"} <= set(state)
+
+
+def model_state_dict(model) -> Dict[str, Any]:
+    """The model's weights and BatchNorm statistics under the reference keys, on
+    the CPU (BatchNorm's ``num_batches_tracked`` counters are left out)."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    """Write ``payload`` with ``torch.save`` via a temporary file, so a crash
+    never leaves a half-written checkpoint under ``path``."""
+    import torch
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)

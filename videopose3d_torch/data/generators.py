@@ -1,14 +1,213 @@
-"""Whole-video evaluation batches.
+"""Training and evaluation batches.
 
-Counterpart of the host-side ``UnchunkedBatcher`` of
-``videopose3d_tpu/data/generators.py``, in numpy.
+Counterpart of ``videopose3d_tpu/data/generators.py``:
+
+* ``FlatSequenceDataset`` concatenates every training video into one
+  margin-padded flat stream (with a pre-flipped copy for augmentation) that is
+  uploaded to the device once (``to_device``), the 2D keypoints as
+  ``(rows, J*F)``.
+* ``ChunkedPairSampler`` (host, numpy) enumerates and shuffles the reference's
+  ``(seq, start, end, flip)`` chunk pairs with the same ``RandomState`` stream and
+  emits one ``(B, 4)`` int32 descriptor array per step, the final partial batch
+  padded with copies of its first row and a valid-row count.
+* ``assemble_chunked_batch_contiguous`` turns descriptors into a batch on the
+  device: the 2D windows through the window-gather kernel
+  (``ops/kernels/gather_rows.py``), the 3D targets by plain indexing.
+* ``UnchunkedBatcher`` yields whole videos for evaluation.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+
+class FlatSequenceDataset:
+    """All videos of a split as flat margin-padded arrays (host numpy).
+
+    Args:
+      poses_2d: list of (N_i, J, F) keypoint arrays.
+      poses_3d: optional list of (N_i, J3, 3) arrays of the same lengths.
+      margins: (left_2d, right_2d, left_3d, right_3d) frames of edge replication
+        baked around every video (:meth:`training_margins`), so each training
+        window is one contiguous run of rows.
+      flip_perms: (kps_flip_perm, joints_flip_perm): append a horizontally
+        flipped copy (x negated, left/right swapped) of each padded stream, so a
+        flip is an offset of ``aug_offset_*`` rows.
+    """
+
+    def __init__(self, poses_2d: Sequence[np.ndarray],
+                 poses_3d: Optional[Sequence[np.ndarray]] = None,
+                 margins: Optional[Tuple[int, int, int, int]] = None,
+                 flip_perms=None):
+        assert poses_3d is None or len(poses_3d) == len(poses_2d)
+        self.margins = None if margins is None else tuple(int(m) for m in margins)
+        self.flat_2d_padded = self.flat_3d_padded = None
+        self.base_2d = self.base_3d = None
+        if margins is not None:
+            l2, r2, l3, r3 = self.margins
+            self.flat_2d_padded, self.base_2d = _pad_concat(poses_2d, l2, r2)
+            if poses_3d is not None:
+                self.flat_3d_padded, self.base_3d = _pad_concat(poses_3d, l3, r3)
+        self.aug_offset_2d = self.aug_offset_3d = 0
+        if flip_perms is not None and self.flat_2d_padded is not None:
+            kps_perm, joints_perm = flip_perms
+            self.aug_offset_2d = self.flat_2d_padded.shape[0]
+            self.flat_2d_padded = _with_flipped(self.flat_2d_padded, kps_perm)
+            if self.flat_3d_padded is not None and joints_perm is not None:
+                self.aug_offset_3d = self.flat_3d_padded.shape[0]
+                self.flat_3d_padded = _with_flipped(self.flat_3d_padded, joints_perm)
+
+    @staticmethod
+    def training_margins(pad: int, causal_shift: int, chunk_length: int):
+        """Margins covering every window the chunk enumeration can request:
+        2D windows span [start - pad - shift, end + pad - shift) with
+        start >= -(chunk-1) and end <= N + (chunk-1)."""
+        c = chunk_length - 1
+        return (pad + causal_shift + c, pad - causal_shift + c, c, c)
+
+    def to_device(self, device) -> "DeviceArrays":
+        """Upload the padded streams once to ``device``, the 2D stream as
+        ``(rows, J*F)`` rows (the model flattens its input anyway)."""
+        if self.flat_2d_padded is None:
+            raise ValueError("to_device needs the margin-padded streams (margins=)")
+        put = lambda a: None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+        return DeviceArrays(
+            flat_2d_padded=put(self.flat_2d_padded.reshape(
+                self.flat_2d_padded.shape[0], -1)),
+            flat_3d_padded=put(self.flat_3d_padded), base_2d=put(self.base_2d),
+            base_3d=put(self.base_3d), aug_offset_2d=self.aug_offset_2d,
+            aug_offset_3d=self.aug_offset_3d, margins=self.margins)
+
+
+def _pad_concat(seqs, left: int, right: int):
+    """Edge-replicate ``left``/``right`` frames around each sequence and
+    concatenate; returns the flat array and each sequence's first real row."""
+    padded, bases, off = [], [], 0
+    for s in seqs:
+        p = np.concatenate([np.repeat(s[:1], left, axis=0), s,
+                            np.repeat(s[-1:], right, axis=0)], axis=0)
+        padded.append(p.astype(np.float32))
+        bases.append(off + left)
+        off += p.shape[0]
+    return np.concatenate(padded, axis=0), np.asarray(bases, np.int32)
+
+
+def _with_flipped(arr, perm):
+    """``arr`` followed by its mirror: joints permuted, x negated."""
+    flipped = arr[:, np.asarray(perm, np.int64)]
+    flipped[..., 0] *= -1
+    return np.concatenate([arr, flipped], axis=0)
+
+
+class DeviceArrays:
+    """The device-resident training streams of a :class:`FlatSequenceDataset`."""
+
+    def __init__(self, flat_2d_padded, flat_3d_padded, base_2d, base_3d,
+                 aug_offset_2d: int = 0, aug_offset_3d: int = 0, margins=None):
+        self.flat_2d_padded = flat_2d_padded
+        self.flat_3d_padded = flat_3d_padded
+        self.base_2d = base_2d
+        self.base_3d = base_3d
+        self.aug_offset_2d = aug_offset_2d
+        self.aug_offset_3d = aug_offset_3d
+        self.margins = margins
+
+
+class ChunkedPairSampler:
+    """Host-side chunk enumerator with the reference ``ChunkedGenerator``'s pairs,
+    shuffle and RNG-state semantics (the JAX package's sampler, in numpy).
+
+    The ``(seq, start_3d, end_3d, flip)`` pairs live in an ``(N, 4)`` int64 array,
+    permuted by ``np.random.RandomState(random_seed)`` once per epoch.  Yields
+    ``(meta, n_valid)`` per step: ``meta`` is a ``(batch_size, 4)`` int32 array
+    whose rows past ``n_valid`` are copies of row 0 and must be masked out.
+    """
+
+    def __init__(self, sequence_lengths: Sequence[int], batch_size: int,
+                 chunk_length: int, *, random_seed: int = 1234, augment: bool = False):
+        pairs = []
+        for i, seq_len in enumerate(sequence_lengths):
+            n_chunks = (seq_len + chunk_length - 1) // chunk_length
+            offset = (n_chunks * chunk_length - seq_len) // 2
+            bounds = np.arange(n_chunks + 1) * chunk_length - offset
+            seq_col = np.full(n_chunks, i, dtype=np.int64)
+            zeros = np.zeros(n_chunks, dtype=np.int64)
+            pairs.append(np.stack([seq_col, bounds[:-1], bounds[1:], zeros], axis=1))
+            if augment:
+                pairs.append(np.stack([seq_col, bounds[:-1], bounds[1:], 1 - zeros],
+                                      axis=1))
+        self.pairs = (np.concatenate(pairs, axis=0) if pairs
+                      else np.zeros((0, 4), dtype=np.int64))
+        self.batch_size = batch_size
+        self.chunk_length = chunk_length
+        self.num_batches = (len(self.pairs) + batch_size - 1) // batch_size
+        self.random = np.random.RandomState(random_seed)
+
+    def num_frames(self) -> int:
+        return self.num_batches * self.batch_size
+
+    def random_state(self):
+        return self.random.get_state()
+
+    def set_random_state(self, state):
+        if isinstance(state, np.random.RandomState):
+            self.random = state
+        else:
+            self.random.set_state(state)
+
+    def next_epoch(self):
+        pairs = self.random.permutation(self.pairs)
+        for b_i in range(self.num_batches):
+            chunks = pairs[b_i * self.batch_size: (b_i + 1) * self.batch_size]
+            n_valid = len(chunks)
+            if n_valid < self.batch_size:
+                filler = np.broadcast_to(chunks[0], (self.batch_size - n_valid, 4))
+                chunks = np.concatenate([chunks, filler], axis=0)
+            yield chunks.astype(np.int32), n_valid
+
+
+def assemble_chunked_batch_contiguous(dev: DeviceArrays, meta, *, pad: int,
+                                      causal_shift: int, chunk_length: int,
+                                      gather_impl: str = "auto"):
+    """A training batch from ``(B, 4)`` descriptors over the margin-padded
+    streams: ``(batch_3d (B, chunk, J3, 3), batch_2d (B, chunk + 2*pad, J*F))``.
+
+    The 2D window of a descriptor starts at row
+    ``base_2d[seq] + start - pad - causal_shift + flip * aug_offset_2d`` and
+    spans ``chunk_length + 2*pad`` rows; the 3D target window starts at
+    ``base_3d[seq] + start + flip * aug_offset_3d`` and spans ``chunk_length``.
+    A flip needs the baked flipped copies (``flip_perms=``).
+
+    ``gather_impl`` copies the 2D windows: "pallas" through the window-gather
+    kernel (``ops/kernels/gather_rows.py``; its plain version on a CPU tensor),
+    "xla" through plain indexing, "auto" the kernel on a CUDA tensor and the
+    plain version on a CPU one.  The 3D targets are always plain indexing.
+    """
+    from videopose3d_torch.ops.kernels.gather_rows import (gather_windows,
+                                                           gather_windows_plain)
+    meta = torch.as_tensor(meta).to(dev.base_2d.device).long()
+    seq, start, flip = meta[:, 0], meta[:, 1], meta[:, 3]
+    if not dev.aug_offset_2d and bool((flip != 0).any()):
+        raise ValueError("flipped chunks need the baked flipped copy "
+                         "(FlatSequenceDataset(..., flip_perms=...))")
+    win_2d = chunk_length + 2 * pad
+    row0_2d = dev.base_2d.long()[seq] + start - pad - causal_shift + flip * dev.aug_offset_2d
+    flat = dev.flat_2d_padded
+    if gather_impl == "auto":
+        gather_impl = "pallas" if flat.device.type == "cuda" else "xla"
+    if gather_impl == "pallas":
+        batch_2d = gather_windows(flat, row0_2d, window=win_2d)
+    elif gather_impl == "xla":
+        batch_2d = gather_windows_plain(flat, row0_2d, window=win_2d)
+    else:
+        raise ValueError(f"unknown gather_impl {gather_impl!r}")
+    row0_3d = dev.base_3d.long()[seq] + start + flip * dev.aug_offset_3d
+    idx = row0_3d[:, None] + torch.arange(chunk_length, device=row0_3d.device)
+    return dev.flat_3d_padded[idx], batch_2d
 
 
 class UnchunkedBatcher:

@@ -2,9 +2,9 @@
 protocols (MPJPE / P-MPJPE / N-MPJPE / MPJVE).
 
 Counterpart of ``videopose3d_tpu/evaluate.py`` (``Evaluator``, ``evaluate``,
-``evaluate_actionwise``); the printed protocol lines have the same format.
-Inference and the TTA merge run on the evaluator's device; the protocols run on
-host numpy.
+``evaluate_actionwise``, ``DeviceEvalSet``); the printed protocol lines have the
+same format.  Inference and the TTA merge run on the evaluator's device; the
+protocols run on host numpy, the per-epoch training losses on the device.
 """
 
 from __future__ import annotations
@@ -77,16 +77,58 @@ class Evaluator:
         return ((pred[0] + flipped) * 0.5)[None]
 
     @torch.no_grad()
+    def infer(self, model: TemporalModel, x):
+        """(rows, T_in, J, C) keypoints on the device -> (rows, T_out, J_out, 3)."""
+        if self.engine == "fused":
+            return forward_dilated_fused(self.model_cfg, model, x)
+        with full_float32():
+            return forward_dilated(model, x)
+
     def predict_async(self, model: TemporalModel, batch_2d, augment: bool):
         """(rows, T_in, J, C) padded keypoints -> (1, T_out, J_out, 3) poses as a
         tensor on the device, not yet synchronised."""
         x = torch.as_tensor(np.asarray(batch_2d, np.float32), device=self.device)
-        if self.engine == "fused":
-            pred = forward_dilated_fused(self.model_cfg, model, x)
-        else:
-            with full_float32():
-                pred = forward_dilated(model, x)
-        return self._tta_merge(pred, augment)
+        return self._tta_merge(self.infer(model, x), augment)
+
+
+class DeviceEvalSet:
+    """Per-epoch evaluation set resident on the device (the JAX package's
+    ``DeviceEvalSet``, supervised losses).
+
+    Every video's padded 2D input and its zero-padded, root-zeroed 3D target are
+    uploaded once; each epoch runs inference and the masked MPJPE per video on the
+    device, accumulates the frame-weighted sum there, and brings only that scalar
+    to the host.  No test-time augmentation.
+    """
+
+    def __init__(self, batcher, *, pad: int, device):
+        self.device = torch.device(device)
+        self._videos = []
+        self.n_frames = 0
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            self.device)
+        for _, batch_3d, batch_2d, n in batcher.next_epoch():
+            t_out = batch_2d.shape[1] - 2 * pad
+            target = np.zeros((1, t_out) + batch_3d.shape[2:], np.float32)
+            target[0, :n] = batch_3d[0]
+            target[:, :, 0] = 0.0
+            self._videos.append((put(batch_2d[:1]), put(target), n))
+            self.n_frames += n
+
+    @torch.no_grad()
+    def loss(self, evaluator: Evaluator, model: TemporalModel) -> float:
+        """Frame-weighted MPJPE over the set (metres), 0.0 for an empty set."""
+        if not self._videos:
+            return 0.0
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for batch_2d, target, n in self._videos:
+            pred = evaluator.infer(model, batch_2d)
+            dist = torch.linalg.vector_norm(pred - target, dim=-1)  # (1, T, J)
+            valid = (torch.arange(dist.shape[1], device=self.device) < n)[None, :, None]
+            frame_mean = (torch.where(valid, dist, 0.0).sum()
+                          / max(n * dist.shape[2], 1))
+            total = total + n * frame_mean
+        return float(total) / self.n_frames
 
 
 def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,

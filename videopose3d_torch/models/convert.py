@@ -66,3 +66,25 @@ def jax_params_from_state_dict(
                       for i in range(n_layers)],
     }
     return params, state
+
+
+def jax_params_from_model(model, optimizer=None):
+    """A ``TemporalModel``'s JAX ``(params, state)`` of numpy arrays; with its
+    ``torch.optim.Adam(amsgrad=True)`` optimizer also the AMSGrad moments
+    ``{"m", "v", "vmax"}`` as params-shaped trees (zeros before the first step),
+    the layout of the JAX package's ``scale_by_torch_amsgrad`` state."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
+    params, state = jax_params_from_state_dict(sd)
+    if optimizer is None:
+        return params, state
+    moments = {}
+    for ours, torch_key in (("m", "exp_avg"), ("v", "exp_avg_sq"),
+                            ("vmax", "max_exp_avg_sq")):
+        tree = dict(sd)
+        for name, p in model.named_parameters():
+            value = optimizer.state.get(p, {}).get(torch_key)
+            tree[name] = (np.zeros(tuple(p.shape), np.float32) if value is None
+                          else value.detach().cpu().numpy())
+        moments[ours] = jax_params_from_state_dict(tree)[0]
+    return params, state, moments

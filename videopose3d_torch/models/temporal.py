@@ -9,6 +9,11 @@ Its ``forward`` is the dilated form: input length T, output length
 
 ``forward_dilated_fused`` is the inference-only form that runs the residual
 blocks through the fused kernels of ``ops/kernels/temporal_block.py``.
+``forward_strided`` is the training form (the reference's
+``TemporalModelOptimized1f``): input length = receptive field, one output frame,
+strided convolutions as reshape + matmul, train-mode BatchNorm and dropout; its
+``pallas`` engine runs the residual blocks through the fused train-block kernels
+of ``ops/kernels/train_block.py``.
 """
 
 from __future__ import annotations
@@ -38,8 +43,12 @@ class TemporalModelConfig:
     channels: int = 1024
     dense: bool = False
     # "float32", "bfloat16", or "mixed" (bf16 matmul operands, f32 activations;
-    # the fused kernels run it as bf16).
+    # the fused inference kernels run it as bf16).
     compute_dtype: str = "float32"
+    # Engine of the strided train blocks: "xla" is the plain torch block, "pallas"
+    # the fused CUDA train-block kernels (the JAX package's names, so one command
+    # line runs in both).
+    train_engine: str = "xla"
 
     def __post_init__(self):
         object.__setattr__(self, "filter_widths", tuple(int(f) for f in self.filter_widths))
@@ -50,11 +59,19 @@ class TemporalModelConfig:
             raise ValueError(f"dropout must be in [0, 1], got {self.dropout}")
         if self.compute_dtype not in ("float32", "bfloat16", "mixed"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.train_engine not in ("xla", "pallas"):
+            raise ValueError(f"unknown train_engine {self.train_engine!r}")
 
     @property
     def matmul_dtype(self) -> torch.dtype:
         """dtype the matmul operands are cast to."""
         return (torch.bfloat16 if self.compute_dtype == "mixed"
+                else _DTYPES[self.compute_dtype])
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        """dtype activations are stored in between matmuls ("mixed": float32)."""
+        return (torch.float32 if self.compute_dtype == "mixed"
                 else _DTYPES[self.compute_dtype])
 
     @property
@@ -75,6 +92,13 @@ class TemporalModelConfig:
         if not self.causal:
             return tuple(0 for _ in self.filter_widths)
         return tuple((fw // 2) * d for fw, d in zip(self.filter_widths, self.dilations))
+
+    @property
+    def causal_shifts_strided(self) -> Tuple[int, ...]:
+        """Per-block shift in post-stride frames (strided form)."""
+        if not self.causal:
+            return tuple(0 for _ in self.filter_widths)
+        return tuple(fw // 2 for fw in self.filter_widths)
 
 
 def receptive_field(config: TemporalModelConfig) -> int:
@@ -241,3 +265,153 @@ def forward_dilated_fused(config: TemporalModelConfig, model: TemporalModel, x):
     i = n_blocks - 1
     x = fused_shrink_block(x, *block(i), w_shrink[0], b_shrink, **geometry(i))
     return _finish_output(cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Training form
+# ---------------------------------------------------------------------------
+
+
+def dropout_mask(rate: float, shape, dtype: torch.dtype, generator):
+    """Pre-scaled inverted-dropout mask (values 0 or 1/keep) drawn from
+    ``generator`` on its device, or None when dropout is off.
+
+    As the JAX package's ``_dropout_mask``: a keep probability that is exactly
+    k/256 (0.75 for the reference's rate 0.25) draws one byte per element, any
+    other 16 bits; the scale uses the realised probability, so the expectation
+    stays exactly 1.  Both train engines take their masks from here, in the same
+    order, so they see identical masks.
+    """
+    if rate == 0.0 or generator is None:
+        return None
+    device = generator.device
+    if rate >= 1.0:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    keep_exact = 1.0 - rate
+    t8 = round(keep_exact * 256)
+    if abs(keep_exact * 256 - t8) < 1e-9 and 0 < t8 < 256:
+        threshold, denom, bits_dtype = int(t8), 256, torch.uint8
+    else:
+        threshold = min(max(int(round(keep_exact * 65536)), 1), 65535)
+        denom, bits_dtype = 65536, torch.int32
+    bits = torch.randint(0, denom, tuple(shape), generator=generator, device=device,
+                         dtype=bits_dtype)
+    return (bits < threshold).to(dtype) * (1.0 / (threshold / denom))
+
+
+def _update_running(bn: nn.BatchNorm1d, mean, var, n: int, momentum: float) -> None:
+    """running = (1 - momentum) * running + momentum * batch statistic, with the
+    unbiased variance; no gradient."""
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        bn.running_mean.copy_((1.0 - momentum) * bn.running_mean + momentum * mean)
+        bn.running_var.copy_((1.0 - momentum) * bn.running_var + momentum * unbiased)
+
+
+def batchnorm_train(x, bn: nn.BatchNorm1d, momentum: float):
+    """Train-mode BatchNorm over (B, T, C) with the JAX package's ``_batchnorm``
+    semantics: shifted one-pass statistics centred on the running mean (float32),
+    the biased variance to normalise, the unbiased one into the running stats
+    (updated in place, per-call ``momentum``), and the affine in x's dtype."""
+    xf = x.float()
+    n = xf.shape[0] * xf.shape[1]
+    shift = bn.running_mean.clone()
+    centered = xf - shift
+    m1 = centered.mean(dim=(0, 1))
+    m2 = centered.square().mean(dim=(0, 1))
+    mean = shift + m1
+    var = torch.clamp(m2 - m1.square(), min=0.0)
+    _update_running(bn, mean.detach(), var.detach(), n, momentum)
+    inv = torch.rsqrt(var + BN_EPS) * bn.weight
+    dt = x.dtype
+    return (x - mean.to(dt)) * inv.to(dt) + bn.bias.to(dt)
+
+
+def _matmul(x, w, mdt, adt):
+    """x @ w with operands rounded to ``mdt``, a float32 sum, the result in ``adt``."""
+    return (x.to(mdt).float() @ w.to(mdt).float()).to(adt)
+
+
+def _drop(y, mask):
+    y = torch.relu(y)
+    return y if mask is None else y * mask
+
+
+def _block_plain(model: TemporalModel, i: int, x, masks, momentum: float):
+    """Residual block i of the strided form in plain torch (the ``xla`` engine):
+    the strided conv is one matmul over the (B, T/fw, fw*C) taps, and the
+    residual is their center tap."""
+    cfg = model.config
+    fw = cfg.filter_widths[i + 1]
+    center = cfg.causal_shifts_strided[i + 1] + fw // 2
+    mdt, adt = cfg.matmul_dtype, cfg.activation_dtype
+    b, t, c = x.shape
+    taps = x.reshape(b, t // fw, fw * c)
+    res = taps[:, :, center * c:(center + 1) * c]
+    wa = model.layers_conv[2 * i].weight.permute(2, 1, 0).reshape(fw * c, c)
+    y = _matmul(taps, wa, mdt, adt)
+    y = _drop(batchnorm_train(y, model.layers_bn[2 * i], momentum), masks[0])
+    y = _matmul(y, model.layers_conv[2 * i + 1].weight[:, :, 0].t(), mdt, adt)
+    y = _drop(batchnorm_train(y, model.layers_bn[2 * i + 1], momentum), masks[1])
+    return res + y
+
+
+def _block_fused(model: TemporalModel, i: int, x, masks, momentum: float):
+    """The same block through the fused train-block kernels (the ``pallas``
+    engine), one homogeneous dtype."""
+    from videopose3d_torch.ops.kernels.train_block import fused_train_block
+    cfg = model.config
+    fw = cfg.filter_widths[i + 1]
+    dt = cfg.matmul_dtype
+    bn_a, bn_b = model.layers_bn[2 * i], model.layers_bn[2 * i + 1]
+    b, t, _ = x.shape
+    out, mean_a, var_a, mean_b, var_b = fused_train_block(
+        x.to(dt), model.layers_conv[2 * i].weight.permute(2, 1, 0).to(dt).contiguous(),
+        model.layers_conv[2 * i + 1].weight[:, :, 0].t().to(dt).contiguous(),
+        bn_a.weight, bn_a.bias, bn_b.weight, bn_b.bias, masks[0], masks[1],
+        bn_a.running_mean, bn_b.running_mean,
+        center=cfg.causal_shifts_strided[i + 1] + fw // 2, fw=fw)
+    n = b * (t // fw)
+    _update_running(bn_a, mean_a, var_a, n, momentum)
+    _update_running(bn_b, mean_b, var_b, n, momentum)
+    return out
+
+
+def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None):
+    """Training forward of the strided form (the reference's
+    ``TemporalModelOptimized1f``, the JAX ``forward_strided`` with ``train=True``).
+
+    Input (B, receptive_field, J_in, F) or (B, receptive_field, J_in*F); output
+    (B, 1, J_out, 3) float32.  BatchNorm uses batch statistics and updates the
+    running statistics in place with ``momentum``; dropout masks are drawn from
+    ``generator`` (None: no dropout), in the same order for either engine.
+    ``model.config.train_engine`` picks the residual blocks' engine; "mixed"
+    compute runs plain, as in the JAX package.
+    """
+    cfg = model.config
+    if cfg.dense:
+        raise ValueError("strided form is incompatible with dense convolutions")
+    mdt, adt = cfg.matmul_dtype, cfg.activation_dtype
+    x = _prep_input(cfg, x)
+    rf = receptive_field(cfg)
+    if x.shape[1] != rf:
+        raise ValueError(f"strided form expects input length == receptive field "
+                         f"({rf}), got {x.shape[1]}")
+    fused = cfg.train_engine == "pallas" and cfg.compute_dtype != "mixed"
+    block = _block_fused if fused else _block_plain
+
+    def masks(shape, count):
+        return [dropout_mask(cfg.dropout, shape, adt, generator) for _ in range(count)]
+
+    k0 = cfg.filter_widths[0]
+    b, t, c_in = x.shape
+    w0 = model.expand_conv.weight.permute(2, 1, 0).reshape(k0 * c_in, cfg.channels)
+    y = _matmul(x.reshape(b, t // k0, k0 * c_in), w0, mdt, adt)
+    y = batchnorm_train(y, model.expand_bn, momentum)
+    x = _drop(y, *masks(y.shape, 1))
+    for i in range(len(cfg.filter_widths) - 1):
+        b, t, c = x.shape
+        x = block(model, i, x, masks((b, t // cfg.filter_widths[i + 1], c), 2), momentum)
+    ws = model.shrink.weight[:, :, 0].t()
+    x = _matmul(x, ws, mdt, adt) + model.shrink.bias.to(adt)
+    return _finish_output(cfg, x.float())

@@ -35,6 +35,22 @@ _I = ctypes.c_int
 _BLOCK_ARGTYPES = ([_I] * 6 + [_P, _I] + [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3
                    + [_P] * 3 + [_P] * 2 + [_I] + [_P] * 2)
 
+# Argument types of the other entry points (the CUDA stream last, where taken).
+_ENTRY_ARGTYPES = {
+    # (flat, rows, cols, esize, row0, batch, window, out_cols, out, stream)
+    "vp3d_gather_rows": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    # csrc/train_block.cu
+    "vp3d_tb_conv_stats": [_I] * 5 + [_P] * 8,
+    "vp3d_tb_norm_drop_matmul_stats": [_I] * 3 + [_P] * 10,
+    "vp3d_tb_norm_drop_res": [_I] * 3 + [_P] * 6,
+    "vp3d_tb_relu_mask_bn_sums": [_I] * 3 + [_P] * 9,
+    "vp3d_tb_dz_matmul_dd": [_I] * 3 + [_P] * 7,
+    "vp3d_tb_du_dtaps_res": [_I] * 5 + [_P] * 8,
+    "vp3d_tb_dw_gemm": [_I] * 3 + [_P] * 4,
+    "vp3d_tb_stats_reduce": [_I] * 2 + [_P] * 5,
+    "vp3d_tb_sum_rows": [_I],
+}
+
 _lib: Optional[ctypes.CDLL] = None
 build_log: str = ""      # ptxas report of the last build (registers, spills)
 build_seconds: float = 0.0
@@ -104,5 +120,11 @@ def load_library() -> ctypes.CDLL:
     lib.vp3d_block_max_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_error_string.argtypes = [_I]
     lib.vp3d_error_string.restype = ctypes.c_char_p
+    for name, argtypes in _ENTRY_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vp3d_tb_smem_bytes.argtypes = [_I]
+    lib.vp3d_tb_smem_bytes.restype = ctypes.c_size_t
     _lib = lib
     return lib

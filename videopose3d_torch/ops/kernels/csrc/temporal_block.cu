@@ -24,43 +24,16 @@
 // reads its input once per tap and writes only its output.
 //
 // Thread mapping: a CUDA block owns TM=16 consecutive output rows of one batch row
-// and all C output columns; each of its 256 threads owns 4 columns (col0 + tid +
-// q*256), strided so that every weight load of a warp is one contiguous 128-byte
-// line, and accumulates a 16x4 register tile.  A operands are read from shared
-// memory as float4 broadcasts; the next 4 weight rows are loaded into registers,
-// unconverted, while the current 4 are used.  Ragged tails are masked: rows past
-// the input are read as zero and rows past T_out are not stored.
+// and all C output columns, through gemm_tile (tile_gemm.cuh).  Ragged tails are
+// masked: rows past the input are read as zero and rows past T_out are not stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int TM = 16;          // output rows per CUDA block
-constexpr int NT = 256;         // threads per CUDA block
-constexpr int CPT = 4;          // output columns per thread per pass
-constexpr int NP = NT * CPT;    // output columns per pass
-constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may opt in to
+using namespace vp3d;
 
 enum Variant { kMid = 0, kExpand = 1, kShrink = 2 };
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as the reference casts
-}
-
-// The value v takes once stored as T, held in float32.
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
 
 struct Args {
   int batch, t_in, t_out, c;
@@ -82,66 +55,6 @@ struct Args {
   int j3;
   void* out;          // (batch, t_out, c) of T, or (batch, t_out, j3) float for kShrink
 };
-
-// Loads 4 weight rows k..k+3 of this thread's columns as stored (type T).  Kept
-// unconverted so the loads of the next rows stay in flight while the current
-// rows are used; a conversion right after the load would wait for it.
-template <typename T>
-__device__ __forceinline__ void load_w(T (&w)[4][CPT], const T* __restrict__ W, int ldw,
-                                       int n, int k_end, int k, const int (&col)[CPT]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      w[kk][q] = (k + kk < k_end && col[q] < n) ? W[(size_t)(k + kk) * ldw + col[q]]
-                                                : from_f<T>(0.f);
-    }
-  }
-}
-
-// acc[r][q] += sum_{k < K} A[r * lda + k] * W[k * ldw + col0 + tid + q * NT].
-// A lives in shared memory, 16-byte aligned, lda % 4 == 0, and holds zeros from K
-// up to the next multiple of 4.  Columns at or past n contribute nothing.
-template <typename T>
-__device__ __forceinline__ void gemm_tile(float (&acc)[TM][CPT], const float* A, int lda,
-                                          int K, const T* __restrict__ W, int ldw, int n,
-                                          int col0) {
-  int col[CPT];
-#pragma unroll
-  for (int q = 0; q < CPT; ++q) col[q] = col0 + threadIdx.x + q * NT;
-  T raw[4][CPT];
-  load_w<T>(raw, W, ldw, n, K, 0, col);
-  for (int k = 0; k < K; k += 4) {
-    float w[4][CPT];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) w[kk][q] = to_f<T>(raw[kk][q]);
-    }
-    if (k + 4 < K) load_w<T>(raw, W, ldw, n, K, k + 4, col);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(A + r * lda + k);
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        float s = acc[r][q];
-        s = fmaf(a.x, w[0][q], s);
-        s = fmaf(a.y, w[1][q], s);
-        s = fmaf(a.z, w[2][q], s);
-        s = fmaf(a.w, w[3][q], s);
-        acc[r][q] = s;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[TM][CPT]) {
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) acc[r][q] = 0.f;
-  }
-}
 
 __host__ __device__ inline int raw_ld(int c_in) { return (c_in + 3) & ~3; }
 __host__ __device__ inline int expand_rows(int span) { return TM + span; }

@@ -1,9 +1,10 @@
-"""End-to-end entry point of the port: data preparation -> model -> checkpoint ->
-action-wise evaluation.
+"""End-to-end entry point of the port: data preparation -> model -> supervised
+training with per-epoch evaluation and checkpoints -> action-wise evaluation.
 
-Counterpart of ``videopose3d_tpu/runner.py`` for ``--evaluate`` (with
-``--by-subject``): the same printed lines and protocol reports.  Training and
-``--render`` are not ported yet and raise.
+Counterpart of ``videopose3d_tpu/runner.py`` for supervised training and
+``--evaluate`` (with ``--by-subject``): the same printed lines, schedules,
+checkpoint payload and protocol reports.  Semi-supervised training (``-sun``),
+``--render`` and ``--export-training-curves`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -15,12 +16,19 @@ import numpy as np
 import torch
 
 from videopose3d_torch.arguments import parse_args
-from videopose3d_torch.checkpoint import load_any_checkpoint
-from videopose3d_torch.data.generators import UnchunkedBatcher
-from videopose3d_torch.evaluate import Evaluator, evaluate_actionwise
+from videopose3d_torch.checkpoint import (load_any_checkpoint, model_state_dict,
+                                          save_checkpoint)
+from videopose3d_torch.data.generators import (ChunkedPairSampler, FlatSequenceDataset,
+                                               UnchunkedBatcher)
+from videopose3d_torch.evaluate import (DeviceEvalSet, Evaluator, evaluate_actionwise,
+                                        full_float32)
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 receptive_field)
 from videopose3d_torch.ops.camera import normalize_screen_coordinates, world_to_camera
+from videopose3d_torch.train import (SupervisedTrainer, TrainLoopConfig,
+                                     bn_momentum_for_epoch, make_optimizer,
+                                     set_learning_rate)
+from videopose3d_torch.utils import deterministic_random
 
 _NOT_PORTED = ("is not ported to videopose3d_torch yet (see ROADMAP.md, Queue 1); "
                "run it with the JAX package (python run.py)")
@@ -114,17 +122,28 @@ def load_2d_detections(args, dataset):
     return detections, keypoints_metadata, kps_left, kps_right
 
 
-def _downsample(seqs_2d, seqs_3d, step: int):
-    """Temporal downsampling by ``step``, in place."""
-    if step > 1:
+def _subsample_sequences(seqs_2d, seqs_3d, step: int, subset: float):
+    """Temporal downsampling by ``step``, in place; with ``subset`` < 1 keep one
+    deterministic contiguous window per sequence instead (seeded by the
+    sequence's length, the reference's reproducible ``--subset`` selection)."""
+    if subset < 1:
+        for i, seq in enumerate(seqs_2d):
+            kept = int(round(len(seq) // step * subset) * step)
+            start = deterministic_random(0, len(seq) - kept + 1, str(len(seq)))
+            window = slice(start, start + kept, step)
+            seqs_2d[i] = seq[window]
+            if seqs_3d is not None:
+                seqs_3d[i] = seqs_3d[i][window]
+    elif step > 1:
         seqs_2d[:] = [s[::step] for s in seqs_2d]
         if seqs_3d is not None:
             seqs_3d[:] = [s[::step] for s in seqs_3d]
 
 
-def fetch(args, dataset, keypoints, subjects, action_filter=None):
+def fetch(args, dataset, keypoints, subjects, action_filter=None, subset=1):
     """Per-(subject, action, camera) sequences: (intrinsics | None,
-    poses_3d | None, poses_2d), one list entry per camera view."""
+    poses_3d | None, poses_2d), one list entry per camera view, downsampled by
+    ``--downsample`` and cut to ``subset``."""
     seqs_2d, seqs_3d, intrinsics = [], [], []
     for subject in subjects:
         for action, kp_cams in keypoints[subject].items():
@@ -147,7 +166,7 @@ def fetch(args, dataset, keypoints, subjects, action_filter=None):
                 seqs_3d.extend(gt_cams)
 
     seqs_3d = seqs_3d or None
-    _downsample(seqs_2d, seqs_3d, args.downsample)
+    _subsample_sequences(seqs_2d, seqs_3d, args.downsample, subset)
     return (intrinsics or None), seqs_3d, seqs_2d
 
 
@@ -181,11 +200,14 @@ def load_model(model: TemporalModel, model_pos) -> None:
 def main(argv=None):
     args = parse_args(argv)
     print(args)
-    if not args.evaluate:
-        raise NotImplementedError(f"training {_NOT_PORTED}; pass --evaluate")
+    if args.subjects_unlabeled:
+        raise NotImplementedError(f"semi-supervised training (-sun) {_NOT_PORTED}")
     if args.render:
         raise NotImplementedError(f"--render {_NOT_PORTED}")
+    if args.export_training_curves:
+        raise NotImplementedError(f"--export-training-curves {_NOT_PORTED}")
     device = resolve_device(args.device)
+    os.makedirs(args.checkpoint, exist_ok=True)
 
     dataset = load_dataset(args)
     prepare_dataset_3d(dataset)
@@ -193,6 +215,7 @@ def main(argv=None):
     joints_left = list(dataset.skeleton().joints_left())
     joints_right = list(dataset.skeleton().joints_right())
 
+    subjects_train = args.subjects_train.split(",")
     subjects_test = args.subjects_test.split(",")
     action_filter = None if args.actions == "*" else args.actions.split(",")
     if action_filter is not None:
@@ -203,11 +226,14 @@ def main(argv=None):
 
     filter_widths = tuple(int(x) for x in args.architecture.split(","))
     num_kps = poses_valid_2d[0].shape[-2]
+    use_strided = (not args.disable_optimizations and not args.dense
+                   and args.stride == 1)
     model_cfg = TemporalModelConfig(
         num_joints_in=num_kps, in_features=poses_valid_2d[0].shape[-1],
         num_joints_out=dataset.skeleton().num_joints(),
         filter_widths=filter_widths, causal=args.causal, dropout=args.dropout,
-        channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype)
+        channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype,
+        train_engine=args.train_engine)
 
     rf = receptive_field(model_cfg)
     print(f"INFO: Receptive field: {rf} frames")
@@ -218,6 +244,7 @@ def main(argv=None):
     else:
         causal_shift = 0
 
+    torch.manual_seed(args.seed)
     model = TemporalModel(model_cfg).to(device)
     print("INFO: Trainable parameter count:",
           sum(p.numel() for p in model.parameters()))
@@ -226,19 +253,30 @@ def main(argv=None):
     joints_perm = _flip_perm_from_lists(
         dataset.skeleton().num_joints(), joints_left, joints_right)
 
-    chk_filename = os.path.join(args.checkpoint, args.evaluate)
-    print("Loading checkpoint", chk_filename)
-    checkpoint = load_any_checkpoint(chk_filename)
-    print("This model was trained for {} epochs".format(checkpoint["epoch"]))
-    load_model(model, checkpoint["model_pos"])
-    model.eval()
+    checkpoint = None
+    if args.resume or args.evaluate:
+        chk_filename = os.path.join(args.checkpoint, args.resume or args.evaluate)
+        print("Loading checkpoint", chk_filename)
+        checkpoint = load_any_checkpoint(chk_filename)
+        print("This model was trained for {} epochs".format(checkpoint["epoch"]))
+        load_model(model, checkpoint["model_pos"])
 
     test_batcher = _eval_batcher(args, pad, causal_shift, kps_perm, joints_perm,
                                  cameras_valid, poses_valid, poses_valid_2d)
     print("INFO: Testing on {} frames".format(test_batcher.num_frames()))
 
-    evaluator = Evaluator(model_cfg, joints_flip_perm=joints_perm,
-                          engine=args.serving_engine, device=device)
+    # Per-epoch evaluation during training stays metric grade; the serving
+    # engine applies to --evaluate runs.
+    engine = args.serving_engine if args.evaluate else "xla"
+    evaluator = Evaluator(model_cfg, joints_flip_perm=joints_perm, engine=engine,
+                          device=device)
+
+    if not args.evaluate:
+        _train(args, dataset, keypoints, subjects_train, action_filter, model,
+               use_strided, kps_perm, joints_perm, pad, causal_shift, evaluator,
+               test_batcher, checkpoint, device)
+
+    model.eval()
     print("Evaluating...")
     start = time.perf_counter()
     n_frames = _final_evaluation(args, dataset, keypoints, subjects_test,
@@ -246,8 +284,118 @@ def main(argv=None):
                                  kps_perm, joints_perm)
     seconds = time.perf_counter() - start
     print(f"INFO: evaluated {n_frames} frames in {seconds:.3f} s "
-          f"({n_frames / seconds:.1f} frames/s, engine {args.serving_engine}, "
-          f"device {device})")
+          f"({n_frames / seconds:.1f} frames/s, engine {engine}, device {device})")
+
+
+def _train(args, dataset, keypoints, subjects_train, action_filter, model,
+           use_strided, kps_perm, joints_perm, pad, causal_shift, evaluator,
+           test_batcher, checkpoint, device):
+    """The supervised training loop: epochs of train steps, the per-epoch
+    evaluation and epoch line, the lr and BatchNorm-momentum schedules, and
+    checkpoints every ``--checkpoint-frequency`` epochs."""
+    cameras_train, poses_train, poses_train_2d = fetch(
+        args, dataset, keypoints, subjects_train, action_filter, subset=args.subset)
+
+    lr = args.learning_rate
+    loop_cfg = TrainLoopConfig(
+        batch_size=args.batch_size // args.stride, chunk_length=args.stride, pad=pad,
+        causal_shift=causal_shift, learning_rate=lr, lr_decay=args.lr_decay,
+        epochs=args.epochs, use_strided=use_strided, gather_impl=args.gather_impl)
+    flip_perms = (kps_perm, joints_perm) if args.data_augmentation else None
+    dev = FlatSequenceDataset(
+        poses_train_2d, poses_train,
+        margins=FlatSequenceDataset.training_margins(pad, causal_shift,
+                                                     loop_cfg.chunk_length),
+        flip_perms=flip_perms).to_device(device)
+    sampler = ChunkedPairSampler(
+        [p.shape[0] for p in poses_train_2d], loop_cfg.batch_size,
+        loop_cfg.chunk_length, augment=args.data_augmentation)
+    train_eval_batcher = _eval_batcher(args, pad, causal_shift, kps_perm, joints_perm,
+                                       cameras_train, poses_train, poses_train_2d)
+    print("INFO: Training on {} frames".format(train_eval_batcher.num_frames()))
+
+    optimizer = make_optimizer(model, lr)
+    trainer = SupervisedTrainer(model, loop_cfg, optimizer)
+    # Dropout masks: one generator on the model's device, seeded from --seed.
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    epoch = 0
+    if args.resume and checkpoint is not None:
+        epoch = int(checkpoint["epoch"])
+        lr = float(checkpoint["lr"])
+        if checkpoint.get("optimizer") is not None:
+            optimizer.load_state_dict(checkpoint["optimizer"])
+            sampler.set_random_state(checkpoint["random_state"])
+        else:
+            print("WARNING: this checkpoint does not contain an optimizer state. "
+                  "The optimizer will be reinitialized.")
+        step_rng = checkpoint.get("step_rng")
+        if isinstance(step_rng, torch.Tensor) and step_rng.dtype == torch.uint8:
+            generator.set_state(step_rng)
+        set_learning_rate(optimizer, lr)
+
+    print("** Note: reported losses are averaged over all frames and test-time "
+          "augmentation is not used here.")
+    print("** The final evaluation will be carried out after the last training "
+          "epoch.")
+
+    eval_sets = None
+    if not args.no_eval:
+        eval_sets = {"test": DeviceEvalSet(test_batcher, pad=pad, device=device),
+                     "train": DeviceEvalSet(train_eval_batcher, pad=pad, device=device)}
+    losses_3d_train, losses_3d_train_eval, losses_3d_valid = [], [], []
+    train_seconds, train_steps, train_frames = 0.0, 0, 0
+
+    while epoch < args.epochs:
+        start_time = time.time()
+        momentum = bn_momentum_for_epoch(loop_cfg, epoch - 1)
+        losses, n_valids = [], []
+        step_start = time.perf_counter()
+        with full_float32():
+            for meta, n_valid in sampler.next_epoch():
+                losses.append(trainer.step(dev, meta, n_valid, momentum, generator))
+                n_valids.append(n_valid)
+        vals = torch.stack(losses).double().cpu().numpy()  # waits for the steps
+        train_seconds += time.perf_counter() - step_start
+        train_steps += len(losses)
+        train_frames += sum(n_valids)
+        weights = np.asarray(n_valids, np.float64)
+        losses_3d_train.append(float(np.sum(vals * weights) / np.sum(weights)))
+
+        if not args.no_eval:
+            losses_3d_valid.append(eval_sets["test"].loss(evaluator, model))
+            losses_3d_train_eval.append(eval_sets["train"].loss(evaluator, model))
+
+        elapsed = (time.time() - start_time) / 60
+        if args.no_eval:
+            print("[%d] time %.2f lr %f 3d_train %f" % (
+                epoch + 1, elapsed, lr, losses_3d_train[-1] * 1000))
+        else:
+            print("[%d] time %.2f lr %f 3d_train %f 3d_eval %f 3d_valid %f" % (
+                epoch + 1, elapsed, lr, losses_3d_train[-1] * 1000,
+                losses_3d_train_eval[-1] * 1000, losses_3d_valid[-1] * 1000))
+
+        lr *= args.lr_decay
+        set_learning_rate(optimizer, lr)
+        epoch += 1
+
+        if epoch % args.checkpoint_frequency == 0:
+            chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.bin")
+            print("Saving checkpoint to", chk_path)
+            save_checkpoint(chk_path, {
+                "epoch": epoch,
+                "lr": lr,
+                "random_state": sampler.random_state(),
+                "optimizer": optimizer.state_dict(),
+                "model_pos": model_state_dict(model),
+                "model_traj": None,
+                # The dropout generator's state: a resume replays the masks.
+                "step_rng": generator.get_state(),
+            })
+
+    print(f"INFO: trained {train_steps} steps in {train_seconds:.3f} s "
+          f"({train_frames / max(train_seconds, 1e-9):.1f} frames/s, engine "
+          f"{args.train_engine}, device {device})")
 
 
 def _final_evaluation(args, dataset, keypoints, subjects_test, action_filter,
@@ -276,7 +424,7 @@ def _final_evaluation(args, dataset, keypoints, subjects_test, action_filter,
                 raise ValueError(f"{subject}/{action}: camera count mismatch")
             seqs_2d.extend(kp_cams)
             seqs_3d.extend(gt_cams)
-        _downsample(seqs_2d, seqs_3d, args.downsample)
+        _subsample_sequences(seqs_2d, seqs_3d, args.downsample, 1)
         return seqs_3d, seqs_2d
 
     def make_batcher(action_pairs):
