@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation and
-supervised training paths at the full width of the README's model, through its
-hand-written CUDA kernels.
+"""Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation,
+int8 serving and supervised training paths at the full width of the README's
+model, through its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -23,6 +23,13 @@ version.  Phase 4 trains the full-width model for one epoch of batch 1,024 with
 ``runner.main`` from the random checkpoint, with the fused train engine twice and
 the plain one once (dropout 0.25, the same seed), and checks the losses, the
 kernel launches, determinism, and that the saved checkpoint evaluates.
+Phase 5 quantizes the full-width model to w8a8 int8 on the card and holds each
+int8 stage kernel (K4: expand + block 0 at d=3, mid blocks at d=9 and d=27, the
+last block + shrink at d=81; in both tap modes, the accshift mode being K8)
+against its plain version at the evaluation path's shapes, times both, checks
+that accshift gives the bits of slice, and holds the int8 forward against the
+float32 model.  Phase 2 then also evaluates with ``--serving-engine int8``
+(twice, then once more with accshift on every block).
 
 Fails (non-zero exit, no result line) when no CUDA device is available or any
 phase fails.  The last line of standard output is the run's JSON summary.
@@ -62,6 +69,24 @@ TIMED_RUNS = 10
 # order may flip the last bit of an output or of an intermediate h / e;
 # 1.6e-2 is four bf16 steps at the largest output.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+
+# int8 stages (K4, K8) vs plain: the int8 streams of the mid blocks are equal bit
+# for bit (exact int32 sums, the same float operations in the same order); the
+# expand + block 0 stream within one step on at most 1e-3 of its elements (the
+# expand dot is summed in float64 by both and rounded once, so its rounding can
+# still differ where the exact sum lies within ~1e-16 of a float32 midpoint, and
+# a moved e shifts block 0's per-row requantization); the shrink's float32 output
+# within TOL[float32] (a float32 sum of 1024 bf16 products in another order).
+INT8_EXPAND_FRAC = 1e-3
+# int8 forward vs the float32 model: mean per-joint error < 0.06 * RMS(f32), the
+# JAX package's bound (tests/test_int8_serving.py).
+INT8_ACCURACY = 0.06
+# int8 --evaluate vs xla float32, per protocol number, relative: the poses move by
+# a few % of their RMS, the frame-averaged protocols far less.
+INT8_AGREE = 0.1
+INT8_SOURCE = "videopose3d_torch/ops/kernels/csrc/temporal_block_int8.cu"
+INT8_TPU = "videopose3d_tpu/ops/pallas/temporal_block_int8.py"
+K8_TPU = "tools/exp_realign.py:101"
 
 # Fused engine vs the plain float32 engine, per protocol number, relative.
 # float32: the same math summed in another order, ~1e-6 relative; bound 1e-4.
@@ -267,8 +292,17 @@ def run_cli(argv):
     return numbers, rate[0], rate[1], out
 
 
+def reset_counts():
+    from videopose3d_torch.ops.kernels import temporal_block as tb
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+    for counts in (tb.LAUNCHES, tq.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
 def phase2(model, tmp):
     from videopose3d_torch.ops.kernels import temporal_block as tb
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
     data = os.path.join(tmp, "data")
     ckpt = os.path.join(tmp, "checkpoint")
     os.makedirs(data)
@@ -287,10 +321,10 @@ def phase2(model, tmp):
         # A first call pays one-time setup (cuDNN's, for xla); the second is
         # the measured and counted run.
         warm, _, _, _ = run_cli(argv)
-        for k in tb.LAUNCHES:
-            tb.LAUNCHES[k] = 0
+        reset_counts()
         numbers, fps, frames, _ = run_cli(argv)
         counts = dict(tb.LAUNCHES)
+        check(not any(tq.LAUNCHES.values()), f"{engine} run launched int8 kernels")
         if engine == "fused":  # no atomics: the kernels are deterministic
             check(numbers == warm, f"fused {dtype}: two runs differ: {warm} vs {numbers}")
         runs[(engine, dtype)] = numbers
@@ -313,7 +347,139 @@ def phase2(model, tmp):
         print(f"phase2 fused {dtype} vs xla float32: worst relative protocol "
               f"difference {worst:.3e} (bound {bound:.0e})")
         check(worst <= bound, f"fused {dtype} disagrees with xla: {worst} > {bound}")
+
+    # int8: quantized on the first video; a warm-up, the measured run, then the
+    # same with the accshift tap mode on every block.
+    argv = base + ["--serving-engine", "int8"]
+    warm, _, _, _ = run_cli(argv)
+    for mode, min_d in (("slice", tq.ACCSHIFT_MIN_DILATION), ("accshift", 0)):
+        saved_min_d = tq.ACCSHIFT_MIN_DILATION
+        tq.ACCSHIFT_MIN_DILATION = min_d
+        try:
+            reset_counts()
+            numbers, fps, frames, _ = run_cli(argv)
+        finally:
+            tq.ACCSHIFT_MIN_DILATION = saved_min_d
+        counts = dict(tq.LAUNCHES)
+        launches[("int8", mode)] = counts
+        print(f"phase2 int8  {mode:8s}: {frames} frames, {fps:.1f} frames/s, "
+              f"kernel launches {counts}")
+        for action, vals in numbers.items():
+            print(f"phase2 int8  {mode:8s} {action:8s} P1 {vals[0]:.6f} "
+                  f"P2 {vals[1]:.6f} P3 {vals[2]:.6f} MPJVE {vals[3]:.6f} mm")
+        ran = {k: v for k, v in counts.items()
+               if k.endswith("_accshift") == (mode == "accshift")}
+        check(all(v > 0 for v in ran.values()) and sum(counts.values()) == sum(ran.values())
+              and not any(tb.LAUNCHES.values()),
+              f"int8 {mode} run did not launch exactly its int8 kernels: {counts}")
+        check(numbers == warm, f"int8 {mode}: differs from the first int8 run: "
+                               f"{warm} vs {numbers}")
+    worst = max(abs(g - r) / abs(r) for a in ref for g, r in zip(warm[a], ref[a]))
+    print(f"phase2 int8 vs xla float32: worst relative protocol difference {worst:.3e} "
+          f"(bound {INT8_AGREE}); the three int8 runs bitwise equal")
+    check(warm.keys() == ref.keys() and worst <= INT8_AGREE,
+          f"int8 disagrees with xla: {worst} > {INT8_AGREE}")
     return launches
+
+
+def phase5(cfg, model, device):
+    """The int8 stage kernels against their plain versions at the evaluation
+    path's shapes, in both tap modes, and the int8 forward against float32."""
+    from videopose3d_torch.evaluate import full_float32
+    from videopose3d_torch.models.temporal import forward_dilated, forward_dilated_int8
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+
+    rng = np.random.default_rng(SEED + 4)
+    x_raw = torch.from_numpy(
+        rng.uniform(-1, 1, (BATCH, FRAMES, JOINTS, 2)).astype(np.float32)).to(device)
+    saved = dict(tq.LAUNCHES)
+    start = time.perf_counter()
+    q = tq.quantize_temporal_model(cfg, model, x_raw)
+    torch.cuda.synchronize()
+    print(f"phase5 quantized the model on {tuple(x_raw.shape)} in "
+          f"{time.perf_counter() - start:.3f} s")
+    k0, c_in, c = q.expand_w.shape
+    t_e = FRAMES - (k0 - 1)
+    flat = x_raw.reshape(BATCH, FRAMES, -1)
+    x_taps = torch.cat([flat[:, j: j + t_e] for j in range(k0)], -1).to(torch.bfloat16)
+    w0 = q.expand_w.reshape(k0 * c_in, c)
+    geo = [dict(dilation=d, causal_shift=0) for d in cfg.dilations[1:]]
+    last = len(ARCH) - 2
+    stages = [
+        ("int8_expand_block", "int8_expand", f"{INT8_TPU}:603", 0,
+         lambda x, m: tq.int8_expand_block(x, w0, q.expand_scale, q.expand_shift,
+                                           q.blocks[0], tap_mode=m, **geo[0]),
+         lambda x, m: tq.int8_expand_block_plain(x, w0, q.expand_scale, q.expand_shift,
+                                                 q.blocks[0], tap_mode=m, **geo[0])),
+        *[("int8_dilated_block", "int8_dilated", f"{INT8_TPU}:492", i,
+           lambda x, m, i=i: tq.int8_dilated_block(x, q.blocks[i], tap_mode=m, **geo[i]),
+           lambda x, m, i=i: tq.int8_dilated_block_plain(x, q.blocks[i], tap_mode=m,
+                                                         **geo[i]))
+          for i in range(1, last)],
+        ("int8_shrink_block", "int8_shrink", f"{INT8_TPU}:669", last,
+         lambda x, m: tq.int8_shrink_block(x, q.blocks[last], q.shrink_w, q.shrink_b,
+                                           tap_mode=m, **geo[last]),
+         lambda x, m: tq.int8_shrink_block_plain(x, q.blocks[last], q.shrink_w,
+                                                 q.shrink_b, tap_mode=m, **geo[last])),
+    ]
+    results = []
+    x = x_taps
+    for name, key, replaces, i, kernel, plain in stages:
+        where = f"d={geo[i]['dilation']}"
+        want = plain(x, "slice")
+        got_slice = None
+        for mode in ("slice", "accshift"):
+            got = kernel(x, mode)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{name} {where} {mode}: {tuple(got.shape)} {got.dtype} vs plain "
+                  f"{tuple(want.shape)} {want.dtype}")
+            if got.dtype == torch.int8:
+                diff = (got.int() - want.int()).abs()
+                err, frac = float(diff.max()), float((diff > 0).float().mean())
+                bound = "bitwise" if key == "int8_dilated" else (
+                    f"<= 1 step on <= {INT8_EXPAND_FRAC:.0e}")
+                check(err == 0 if key == "int8_dilated" else
+                      (err <= 1 and frac <= INT8_EXPAND_FRAC),
+                      f"{name} {where} {mode}: max diff {err} on {frac:.3e} of elements")
+                detail = f"max |diff| {err:.0f} step on {frac:.3e} of elements ({bound})"
+            else:
+                check(bool(torch.isfinite(got).all()), f"{name} {where}: non-finite output")
+                err = float((got - want).abs().max())
+                tol = TOL[torch.float32] * max(1.0, float(want.abs().max()))
+                check(err <= tol, f"{name} {where} {mode}: max abs error {err} > {tol}")
+                detail = f"max_abs_err {err:.3e} (tol {tol:.3e})"
+            if mode == "slice":
+                got_slice = got
+            else:
+                check(torch.equal(got, got_slice),
+                      f"{name} {where}: accshift and slice kernels differ")
+            ms = cuda_ms(lambda: kernel(x, mode))
+            plain_ms = cuda_ms(lambda: plain(x, mode))
+            print(f"phase5 {name:18s} {where:5s} {mode:8s} in {tuple(x.shape)} out "
+                  f"{tuple(got.shape)} {str(got.dtype)[6:]}: {detail}; kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms")
+            k8 = mode == "accshift" and key == "int8_dilated"
+            results.append({"name": f"{name} ({mode}, {where}, C={CHANNELS})",
+                            "key": (mode, key + ("_accshift" if mode == "accshift" else "")),
+                            "route": "cuda", "source": INT8_SOURCE,
+                            "replaces": K8_TPU if k8 else replaces,
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        print(f"phase5 {name:18s} {where:5s} accshift output equals slice bit for bit")
+        x = want  # the next stage sees the same input in both versions
+    with full_float32():
+        want = forward_dilated(model, x_raw)
+    got = forward_dilated_int8(cfg, q, x_raw)
+    torch.cuda.synchronize()
+    per_joint = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
+    rms = float(want.square().mean().sqrt())
+    print(f"phase5 int8 forward vs float32 model on {tuple(x_raw.shape)}: mean per-joint "
+          f"error {per_joint:.5f}, {per_joint / rms:.4f} of RMS {rms:.4f} (bound "
+          f"{INT8_ACCURACY})")
+    check(per_joint < INT8_ACCURACY * rms, f"int8 forward error {per_joint} >= "
+                                           f"{INT8_ACCURACY} * {rms}")
+    tq.LAUNCHES.update(saved)  # comparison launches do not count
+    return results
 
 
 def compare(name, got, want, dt):
@@ -576,6 +742,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; this test runs on a GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     from videopose3d_torch.ops.kernels import build
 
@@ -596,6 +763,7 @@ def main() -> int:
     cfg, model = random_model(device)
     kernel_results = phase1(cfg, model, device)
     train_kernel_results = phase3(device)
+    int8_results = phase5(cfg, model, device)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase2(model, tmp)
         train_launches = phase4(tmp)
@@ -614,6 +782,11 @@ def main() -> int:
     for r in train_kernel_results:
         entries.append({**{k: v for k, v in r.items() if k != "key"},
                         "launches": train_launches[r["key"][1]]})
+    for r in int8_results:
+        mode, key = r["key"]
+        entries.append({**{k: v for k, v in r.items() if k != "key"},
+                        "launches": launches[("int8", mode)][key]})
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,6 +83,27 @@ def test_evaluate_cli_matches_jax(workdir, engine, capsys):
     assert f"engine {engine}, device cpu" in got_out
 
 
+def test_evaluate_int8_cli_matches_jax(workdir, capsys):
+    """--serving-engine int8: both CLIs quantize on the first evaluated video and
+    print protocol lines that agree to relative 1e-4 (measured 3e-8).  Not
+    bitwise: XLA on the CPU contracts the int8 epilogues' ``a * s + b`` into
+    fused multiply-adds where torch rounds twice, and the two calibration
+    forwards sum in other orders; either flips an int8 rounding only at a tie,
+    which moves a few poses and the frame-averaged protocols far less."""
+    jax_runner.main(_args(workdir, "int8", extra=["--rng-impl", "threefry2x32"]))
+    want_out = capsys.readouterr().out
+    runner.main(_args(workdir, "int8", extra=["--device", "cpu"]))
+    got_out = capsys.readouterr().out
+    got, want = protocol_numbers(got_out), protocol_numbers(want_out)
+    assert list(got) == list(want) == ["Walking", "Eating"]
+    for action in want:
+        assert len(got[action]) == 4
+        np.testing.assert_allclose(got[action], want[action], rtol=1e-4, err_msg=action)
+    assert len(average_lines(got_out)) == 4
+    assert re.search(r"^INFO: evaluated \d+ frames in \S+ s \(\S+ frames/s, engine int8, "
+                     r"device cpu\)$", got_out, re.M)
+
+
 def test_torch_bin_checkpoint_evaluates_like_the_pickle(workdir, capsys):
     """A reference torch .bin payload (what pretrained models ship as) loads
     through the torch path and gives the pickle's numbers exactly."""

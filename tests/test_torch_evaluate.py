@@ -95,8 +95,32 @@ def test_evaluate_actionwise_matches_jax(engine, augment, capsys):
 
 
 def test_int8_engine_is_not_ported():
+    """The int8 engine is served by the port: evaluate_actionwise with TTA gives
+    the JAX int8 engine's protocol numbers to relative 1e-4.  Both quantize on
+    the first predicted batch; they are not bitwise, because XLA on the CPU
+    contracts the int8 epilogues' ``a * s + b`` into fused multiply-adds where
+    torch rounds twice, which flips an int8 rounding only at a tie, and the
+    frame-averaged protocols move far less than one flipped pose."""
     kwargs = dict(num_joints_in=17, in_features=2, num_joints_out=17,
-                  filter_widths=(3, 3), channels=8)
-    _, _, _, tcfg, _ = jax_model(kwargs)
-    with pytest.raises(NotImplementedError, match="K4"):
-        Evaluator(tcfg, engine="int8", device=torch.device("cpu"))
+                  filter_widths=(3, 3, 3), channels=32)
+    cfg, params, state, tcfg, model = jax_model(kwargs, seed=6)
+    pad = (receptive_field(cfg) - 1) // 2
+    seqs = _sequences(seed=2)
+    all_actions = {a: [(a, i) for i in range(len(v))] for a, v in seqs.items()}
+
+    def batcher_factory(cls):
+        def make(pairs):
+            return cls(None, [seqs[a][i][0] for a, i in pairs],
+                       [seqs[a][i][1] for a, i in pairs], pad=pad, augment=True,
+                       kps_flip_perm=KPS_PERM, joints_flip_perm=JOINTS_PERM, bucket=16)
+        return make
+
+    want = jax_evaluate_actionwise(
+        JaxEvaluator(cfg, joints_flip_perm=JOINTS_PERM, engine="int8"), params, state,
+        all_actions, batcher_factory(JaxBatcher), verbose=False)
+    evaluator = Evaluator(tcfg, joints_flip_perm=JOINTS_PERM, engine="int8",
+                          device=torch.device("cpu"))
+    got = evaluate_actionwise(evaluator, model, all_actions,
+                              batcher_factory(UnchunkedBatcher), verbose=False)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert evaluator._q is not None

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the fused
-evaluation blocks (K3), the window gather (K1) and the train block with its
-backward (K2).
+evaluation blocks (K3), the window gather (K1), the train block with its
+backward (K2) and the int8 serving stages (K4, with the accshift tap mode K8).
 
 Needs a CUDA device (marker ``gpu``; skipped elsewhere).  Imports no JAX, so it
 also runs on a machine without it:
@@ -11,6 +11,11 @@ Tolerance, max |kernel - plain| <= tol * max(1, max |plain|): float32 1e-4
 (float32 sums in other orders, TF32 off); bfloat16 1.6e-2 (four bf16 steps:
 the outputs and intermediates are rounded to bf16, and another summation order
 may flip their last bit).  The gather is pure data movement: bitwise equal.
+int8 stages: the mid blocks' int8 streams bitwise; expand + block 0 within one
+step on at most 1e-3 of its elements (its float64-summed dot may round apart
+where the exact sum lies at a float32 midpoint, and a moved e shifts block 0's
+per-row requantization); the shrink's float32 output at the float32 bound; the
+accshift mode bitwise equal to slice.
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import torch
 
 from videopose3d_torch.ops.kernels import gather_rows as gr
 from videopose3d_torch.ops.kernels import temporal_block as tb
+from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
 from videopose3d_torch.ops.kernels import train_block as trb
 
 pytestmark = pytest.mark.gpu
@@ -270,3 +276,125 @@ def test_train_block_bf16_kernels_match_plain(cuda, b, t, c, fw, center, dropout
             # float32 sums of bf16 values: one operand rounded one bf16 step
             # apart moves a sum by that step, so the bf16 bound holds for all.
             _check(a, w, torch.bfloat16)
+
+
+def _int8_model(c, fw, causal, frames, device, seed=0):
+    """A random model (random BatchNorm statistics), quantized on the card."""
+    from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
+                                                    receptive_field)
+    torch.manual_seed(seed)
+    cfg = TemporalModelConfig(num_joints_in=17, in_features=2, num_joints_out=17,
+                              filter_widths=fw, causal=causal, channels=c)
+    model = TemporalModel(cfg)
+    for bn in [model.expand_bn, *model.layers_bn]:
+        bn.running_var.uniform_(0.5, 2.0)
+        bn.bias.data.uniform_(-0.2, 0.2)
+    model = model.to(device).eval()
+    x = torch.rand(2, receptive_field(cfg) + frames, 17, 2, device=device) * 2 - 1
+    q = tq.quantize_temporal_model(cfg, model, x)
+    return cfg, model, q, x
+
+
+def _int8_stages(cfg, q, x):
+    """(name, key, kernel(x, mode), plain(x, mode)) per stage, each fed the plain
+    output of the stage before (expand first, from the pre-tapped keypoints)."""
+    k0, c_in, c = q.expand_w.shape
+    flat = x.reshape(x.shape[0], x.shape[1], -1)
+    t_e = flat.shape[1] - (k0 - 1)
+    taps = torch.cat([flat[:, j: j + t_e] for j in range(k0)], -1).to(torch.bfloat16)
+    w0 = q.expand_w.reshape(k0 * c_in, c)
+    n = len(q.blocks)
+    geo = [dict(dilation=d, causal_shift=s)
+           for d, s in zip(cfg.dilations[1:], cfg.causal_shifts_dilated[1:])]
+    stages = [("expand", "int8_expand", taps,
+               lambda v, m: tq.int8_expand_block(v, w0, q.expand_scale, q.expand_shift,
+                                                 q.blocks[0], tap_mode=m, **geo[0]),
+               lambda v, m: tq.int8_expand_block_plain(v, w0, q.expand_scale,
+                                                       q.expand_shift, q.blocks[0],
+                                                       tap_mode=m, **geo[0]))]
+    for i in range(1, n - 1):
+        stages.append((f"mid {i}", "int8_dilated", None,
+                       lambda v, m, i=i: tq.int8_dilated_block(v, q.blocks[i], tap_mode=m,
+                                                               **geo[i]),
+                       lambda v, m, i=i: tq.int8_dilated_block_plain(v, q.blocks[i],
+                                                                     tap_mode=m, **geo[i])))
+    stages.append(("shrink", "int8_shrink", None,
+                   lambda v, m: tq.int8_shrink_block(v, q.blocks[-1], q.shrink_w,
+                                                     q.shrink_b, tap_mode=m, **geo[-1]),
+                   lambda v, m: tq.int8_shrink_block_plain(v, q.blocks[-1], q.shrink_w,
+                                                           q.shrink_b, tap_mode=m,
+                                                           **geo[-1])))
+    return stages
+
+
+INT8_CASES = [  # channels, filter widths, causal, frames past the receptive field
+    (64, (3, 3, 3), False, 45),
+    (64, (3, 3, 3, 3), True, 19),     # ragged: 20 output rows, causal offsets
+    (80, (5, 5, 5), False, 10),       # 5 taps, a channel count below a full warp pass
+    (1040, (3, 3, 3), False, 30),     # two column passes (C > 1024)
+    (1024, (3, 3, 3, 3, 3), False, 200),
+]
+
+
+@pytest.mark.parametrize("c,fw,causal,frames", INT8_CASES)
+def test_int8_stage_kernels_match_plain(cuda, c, fw, causal, frames):
+    cfg, _, q, x = _int8_model(c, fw, causal, frames, cuda, seed=c + len(fw))
+    v = None
+    for name, key, first, kernel, plain in _int8_stages(cfg, q, x):
+        v = first if first is not None else v
+        want = plain(v, "slice")
+        got = {}
+        for mode in ("slice", "accshift"):
+            counter = key + ("_accshift" if mode == "accshift" else "")
+            before = tq.LAUNCHES[counter]
+            got[mode] = kernel(v, mode)
+            assert tq.LAUNCHES[counter] == before + 1
+            torch.cuda.synchronize()
+            assert got[mode].shape == want.shape and got[mode].dtype == want.dtype, name
+        assert torch.equal(got["accshift"], got["slice"]), name
+        if key == "int8_shrink":
+            _check(got["slice"], want, torch.float32)
+        else:
+            diff = (got["slice"].int() - want.int()).abs()
+            if key == "int8_dilated":
+                assert int(diff.max()) == 0, name
+            else:
+                assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+        v = want
+
+
+def test_int8_forward_matches_plain_stages_and_f32(cuda):
+    """The whole int8 forward on the card: the plain stage chain's poses within
+    the shrink bound, and within 0.06 * RMS of the float32 model."""
+    from videopose3d_torch.evaluate import full_float32
+    from videopose3d_torch.models.temporal import forward_dilated, forward_dilated_int8
+    cfg, model, q, x = _int8_model(128, (3, 3, 3, 3), False, 60, cuda)
+    before = dict(tq.LAUNCHES)
+    got = forward_dilated_int8(cfg, q, x)
+    launched = {k: tq.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"int8_expand": 1, "int8_dilated": 1, "int8_shrink": 1,
+                        "int8_expand_accshift": 0, "int8_dilated_accshift": 0,
+                        "int8_shrink_accshift": 0}
+    v = None
+    for _, _, first, _, plain in _int8_stages(cfg, q, x):
+        v = plain(first if first is not None else v, "slice")
+    _check(got, v.reshape(got.shape), torch.float32)
+    with full_float32():
+        want = forward_dilated(model, x)
+    per_joint = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
+    assert per_joint < 0.06 * float(want.square().mean().sqrt())
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    cfg, _, q, _ = _int8_model(64, (3, 3, 3), False, 10, cuda)
+    xs = torch.zeros(2, 40, 64, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tq.int8_dilated_block(xs.float(), q.blocks[0], dilation=3)
+    with pytest.raises(ValueError, match="aligned"):
+        tq.int8_dilated_block(torch.zeros(2 * 40 * 64 + 1, dtype=torch.int8,
+                                          device=cuda)[1:].view(2, 40, 64),
+                              q.blocks[0], dilation=3)
+    _, _, q24, _ = _int8_model(24, (3, 3, 3), False, 10, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tq.int8_dilated_block(torch.zeros(2, 40, 24, dtype=torch.int8, device=cuda),
+                              q24.blocks[0], dilation=3)

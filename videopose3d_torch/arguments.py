@@ -139,8 +139,9 @@ def parse_args(argv=None):
                         choices=["xla", "fused", "int8"],
                         help="pose-model inference engine for evaluation: plain "
                              "float32 torch with TF32 off (metric grade, default), "
-                             "or the fused CUDA block kernels at --compute-dtype; "
-                             "int8 is not ported yet")
+                             "the fused CUDA block kernels at --compute-dtype, or "
+                             "the w8a8 int8 CUDA kernels (bulk serving, mm-level "
+                             "accuracy; calibrated on the first evaluated video)")
     parser.add_argument("--train-engine", default="xla", type=str,
                         choices=["xla", "pallas"],
                         help="strided train-block engine: 'xla' is the plain torch "

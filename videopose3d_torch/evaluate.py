@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
-                                                forward_dilated, forward_dilated_fused)
+                                                forward_dilated, forward_dilated_fused,
+                                                forward_dilated_int8)
 from videopose3d_torch.ops.losses import (mean_velocity_error, mpjpe_np, n_mpjpe_np,
                                           p_mpjpe)
 
@@ -45,17 +47,17 @@ class Evaluator:
       * ``"xla"`` (default) — metric grade: the plain torch model in float32
         with TF32 off, whatever the configured compute dtype.
       * ``"fused"`` — the fused CUDA block kernels at the model's compute dtype.
-      * ``"int8"`` — not ported yet (ROADMAP kernel K4).
+      * ``"int8"`` — the w8a8 int8 stage kernels, for bulk serving (mm-level
+        accuracy, not metric grade).  The model is quantized on the first
+        predicted batch, or on :meth:`set_calibration` data, and requantized
+        whenever a parameter or buffer of the model is replaced or written in
+        place (``load_state_dict``, an optimizer step).
     """
 
     def __init__(self, model_cfg: TemporalModelConfig,
                  joints_flip_perm: Optional[np.ndarray] = None,
                  engine: str = "xla", device: torch.device = torch.device("cuda")):
-        if engine == "int8":
-            raise NotImplementedError(
-                "the int8 serving engine is not ported to videopose3d_torch yet "
-                "(ROADMAP kernel K4, ops/pallas/temporal_block_int8.py)")
-        if engine not in ("xla", "fused"):
+        if engine not in ("xla", "fused", "int8"):
             raise ValueError(f"unknown engine {engine!r}")
         if engine == "xla" and model_cfg.compute_dtype != "float32":
             model_cfg = dataclasses.replace(model_cfg, compute_dtype="float32")
@@ -65,6 +67,40 @@ class Evaluator:
         self.joints_flip_perm = (None if joints_flip_perm is None else
                                  torch.as_tensor(np.asarray(joints_flip_perm),
                                                  dtype=torch.long, device=self.device))
+        self._calibration = None
+        self.reset_quantization()
+
+    def reset_quantization(self):
+        """Drop the quantized model; the next int8 inference quantizes anew."""
+        self._q = None
+        self._q_key = None
+        self._q_tensors = None
+
+    def set_calibration(self, batch_2d) -> None:
+        """Calibrate the int8 scales on this (B, T, J, C) batch, or on a list of
+        batches (ragged B and T) flattened to one time axis so the ranges cover
+        several clips, instead of on the first predicted batch."""
+        if isinstance(batch_2d, (list, tuple)):
+            flat = [np.asarray(b, np.float32).reshape((1, -1) + np.asarray(b).shape[-2:])
+                    for b in batch_2d]
+            batch_2d = np.concatenate(flat, axis=1)
+        self._calibration = torch.as_tensor(np.asarray(batch_2d, np.float32))
+        self.reset_quantization()
+
+    def quantized(self, model: TemporalModel, x):
+        """The cached int8 model of ``model``, (re)quantized on the calibration
+        data or on ``x`` when the model's tensors changed.  The key is every
+        parameter's and buffer's identity and version counter (in-place writes
+        bump it); the tensors are held so that their ids stay unique."""
+        from videopose3d_torch.ops.kernels.temporal_block_int8 import (
+            quantize_temporal_model)
+        tensors = list(itertools.chain(model.parameters(), model.buffers()))
+        key = tuple((id(t), t._version) for t in tensors)
+        if self._q is None or self._q_key != key:
+            calib = x if self._calibration is None else self._calibration.to(self.device)
+            self._q = quantize_temporal_model(self.model_cfg, model, calib)
+            self._q_key, self._q_tensors = key, tensors
+        return self._q
 
     def _tta_merge(self, pred, augment: bool):
         if not augment:
@@ -81,6 +117,8 @@ class Evaluator:
         """(rows, T_in, J, C) keypoints on the device -> (rows, T_out, J_out, 3)."""
         if self.engine == "fused":
             return forward_dilated_fused(self.model_cfg, model, x)
+        if self.engine == "int8":
+            return forward_dilated_int8(self.model_cfg, self.quantized(model, x), x)
         with full_float32():
             return forward_dilated(model, x)
 

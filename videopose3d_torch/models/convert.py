@@ -68,6 +68,31 @@ def jax_params_from_state_dict(
     return params, state
 
 
+def q_from_jax(q, device="cpu"):
+    """The JAX package's int8 serving pytree (``quantize_temporal_model``'s
+    output, leaves as numpy) -> the port's ``QuantizedModel`` on ``device``,
+    dp4a packing included, so both packages can serve one quantized model."""
+    import torch
+    from videopose3d_torch.ops.kernels.temporal_block_int8 import (Int8Block,
+                                                                    QuantizedModel)
+
+    def t(v, dtype=None):
+        v = np.asarray(v)
+        if v.dtype.name == "bfloat16":  # ml_dtypes: carry the bits through float32
+            v, dtype = v.astype(np.float32), torch.bfloat16
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device, dtype)
+
+    blocks = [Int8Block(t(b["wq_a"]), t(b["wq_b"]),
+                        *(t(b[k], torch.float32) for k in ("A1", "B1", "A2", "B2", "R")))
+              for b in q["blocks"]]
+    return QuantizedModel(
+        expand_w=t(q["expand_w"], torch.bfloat16),
+        expand_scale=t(q["expand_scale"], torch.float32),
+        expand_shift=t(q["expand_shift"], torch.float32), blocks=blocks,
+        shrink_w=t(q["shrink_w"], torch.bfloat16),
+        shrink_b=t(q["shrink_b"], torch.float32))
+
+
 def jax_params_from_model(model, optimizer=None):
     """A ``TemporalModel``'s JAX ``(params, state)`` of numpy arrays; with its
     ``torch.optim.Adam(amsgrad=True)`` optimizer also the AMSGrad moments

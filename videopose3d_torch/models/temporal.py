@@ -8,7 +8,9 @@ Its ``forward`` is the dilated form: input length T, output length
 ``T - receptive_field + 1``.
 
 ``forward_dilated_fused`` is the inference-only form that runs the residual
-blocks through the fused kernels of ``ops/kernels/temporal_block.py``.
+blocks through the fused kernels of ``ops/kernels/temporal_block.py``, and
+``forward_dilated_int8`` the w8a8 int8 serving form through those of
+``ops/kernels/temporal_block_int8.py``.
 ``forward_strided`` is the training form (the reference's
 ``TemporalModelOptimized1f``): input length = receptive field, one output frame,
 strided convolutions as reshape + matmul, train-mode BatchNorm and dropout; its
@@ -19,7 +21,7 @@ of ``ops/kernels/train_block.py``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -265,6 +267,55 @@ def forward_dilated_fused(config: TemporalModelConfig, model: TemporalModel, x):
     i = n_blocks - 1
     x = fused_shrink_block(x, *block(i), w_shrink[0], b_shrink, **geometry(i))
     return _finish_output(cfg, x)
+
+
+@torch.no_grad()
+def forward_dilated_int8(config: TemporalModelConfig, q, x, *,
+                         accshift_min_d: Optional[int] = None):
+    """w8a8 int8 inference through the int8 stage kernels of
+    ``ops/kernels/temporal_block_int8.py``: expand + block 0, the mid blocks,
+    the last block + shrink.
+
+    Args:
+      q: the ``QuantizedModel`` of ``quantize_temporal_model`` (or ``q_from_jax``).
+      x: (B, T, J_in, F) or (B, T, J_in*F) keypoints, T >= receptive field.
+      accshift_min_d: blocks whose dilation is at least this run the accshift
+        tap mode (bit-identical; 0 forces it everywhere); None takes
+        ``temporal_block_int8.ACCSHIFT_MIN_DILATION`` (accshift off).
+
+    Returns (B, T - receptive_field + 1, J_out, 3) float32 poses.
+    """
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+
+    if accshift_min_d is None:
+        accshift_min_d = tq.ACCSHIFT_MIN_DILATION
+    cfg = config
+    n_blocks = len(cfg.filter_widths) - 1
+    if n_blocks < 2:
+        raise ValueError("int8 path expects at least 2 residual blocks")
+    x = _prep_input(cfg, x)
+    rf = receptive_field(cfg)
+    if x.shape[1] < rf:
+        raise ValueError(
+            f"input has {x.shape[1]} frames but the model's receptive field is {rf}; "
+            "pad the sequence (UnchunkedBatcher does this) before int8 serving")
+    # Pre-tap the raw input: the expand conv becomes one K = k0*J_in*F product.
+    k0, c_in, c = q.expand_w.shape
+    t_e = x.shape[1] - (k0 - 1)
+    x = torch.cat([x[:, j: j + t_e] for j in range(k0)], dim=-1).to(torch.bfloat16)
+
+    def geometry(i):
+        d = cfg.dilations[i + 1]
+        return dict(dilation=d, causal_shift=cfg.causal_shifts_dilated[i + 1],
+                    tap_mode="accshift" if d >= accshift_min_d else "slice")
+
+    stream = tq.int8_expand_block(x, q.expand_w.reshape(k0 * c_in, c), q.expand_scale,
+                                  q.expand_shift, q.blocks[0], **geometry(0))
+    for i in range(1, n_blocks - 1):
+        stream = tq.int8_dilated_block(stream, q.blocks[i], **geometry(i))
+    i = n_blocks - 1
+    out = tq.int8_shrink_block(stream, q.blocks[i], q.shrink_w, q.shrink_b, **geometry(i))
+    return _finish_output(cfg, out)
 
 
 # ---------------------------------------------------------------------------

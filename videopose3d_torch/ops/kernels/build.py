@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with a
-plain C interface, loaded with ``ctypes``.  The build happens at first use, into
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``.  The build happens at first use, into
 ``build/torch_kernels/`` at the root of the checkout, under a name keyed by a
 hash of the sources and flags, so an edited source is rebuilt and an unchanged
 one is not.  Nothing here runs at import time: a machine without ``nvcc`` or a
@@ -24,7 +25,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,11 @@ _ENTRY_ARGTYPES = {
     "vp3d_tb_dw_gemm": [_I] * 3 + [_P] * 4,
     "vp3d_tb_stats_reduce": [_I] * 2 + [_P] * 5,
     "vp3d_tb_sum_rows": [_I],
+    # csrc/temporal_block_int8.cu: (variant, accshift, batch, t_in, t_out, channels,
+    #   x, k_in, w0, s0, b0, wa, a1, b1, n_taps, dilation, res_offset, wb, a2, b2, r,
+    #   ws, bs, j3, out, stream)
+    "vp3d_int8_block": [_I] * 6 + [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I]
+                       + [_P] * 2,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -80,27 +86,35 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvp3d_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(commands):
+    """Runs the commands in parallel; raises with the output of the first that
+    fails, else returns their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in commands]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, text in zip(commands, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def _build(out: Path) -> None:
     global build_log, build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    # Build under a temporary name and rename, so concurrent builds never load
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+    nvcc = _nvcc()
     start = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+    # Objects in a temporary directory, the library under a temporary name and
+    # renamed, so concurrent builds never load a half-written library.
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+        cu = [s for s in sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp_dir, s.stem + ".o") for s in cu]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                        for s, o in zip(cu, objs)])
+        tmp = os.path.join(tmp_dir, out.name)
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     build_seconds = time.perf_counter() - start
-    build_log = proc.stdout + proc.stderr
+    build_log = log
 
 
 def load_library() -> ctypes.CDLL:
@@ -126,5 +140,7 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.vp3d_tb_smem_bytes.argtypes = [_I]
     lib.vp3d_tb_smem_bytes.restype = ctypes.c_size_t
+    lib.vp3d_i8_smem_bytes.argtypes = [_I] * 5
+    lib.vp3d_i8_smem_bytes.restype = ctypes.c_size_t
     _lib = lib
     return lib

@@ -121,7 +121,7 @@ def fused_shrink_block_plain(x, w_taps, bn1_scale, bn1_shift, w2, bn2_scale,
 # ---------------------------------------------------------------------------
 
 
-def _check(name, t, device, dtype, shape):
+def _check(name, t, device, dtype, shape, align: int = 1):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -130,6 +130,8 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _ptr(t):
