@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation,
-int8 serving and supervised training paths at the full width of the README's
-model, through its hand-written CUDA kernels.
+int8 serving, supervised training and streaming serving paths at the full width
+of the README's model, through its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,21 @@ last block + shrink at d=81; in both tap modes, the accshift mode being K8)
 against its plain version at the evaluation path's shapes, times both, checks
 that accshift gives the bits of slice, and holds the int8 forward against the
 float32 model.  Phase 2 then also evaluates with ``--serving-engine int8``
-(twice, then once more with accshift on every block).
+(twice, then once more with accshift on every block).  Phase 6 (streaming) holds,
+on the causal full-width model quantized on the card and B = 1,024 streams, the
+ring push (K7) bitwise, the fused streaming step per frame (K5) and at 8 frames
+per step (K6), int8 with every ring bitwise at every step over a run in which
+every ring wraps and bf16 per step from one shared state, and K6 against K5;
+then it writes a synthetic custom archive of 256 videos of 500 frames and a
+causal checkpoint and runs ``videopose3d_torch.streaming.main`` with every
+engine, checking the streams against the offline causal model and each other,
+and profiles one int8_fused run.
+
+Each kernel's line in the final summary carries its time, its plain version's,
+its bound (the larger of the bytes it must move over the card's memory rate and
+its operations over the card's peak rate for their type, from NVIDIA's H100 SXM
+data sheet) and, where one PyTorch call computes the same function, that call's
+time.
 
 Fails (non-zero exit, no result line) when no CUDA device is available or any
 phase fails.  The last line of standard output is the run's JSON summary.
@@ -38,6 +52,7 @@ phase fails.  The last line of standard output is the run's JSON summary.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -137,6 +152,33 @@ TRAIN_SUBSET = "0.5"
 FIRST_STEP_AGREE = 1e-4
 
 
+# Peaks of an H100 SXM (NVIDIA's data sheet, dense, at 700 W): the bound of a kernel
+# is the larger of its bytes over the memory rate and the sum, over the types its
+# operations run in, of operations over that type's peak.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+
+# Phase 6, streaming: B = 1,024 streams for the kernel checks, k = 8 frames per
+# step for K6; the CLI serves 256 videos of 500 frames (past the 243-frame
+# receptive field, so every ring wraps).
+STREAM_B = 1024
+STREAM_K = 8
+STREAM_VIDEOS, STREAM_FRAMES = 256, 500
+STREAM_SOURCE = "videopose3d_torch/ops/kernels/csrc/streaming_fused.cu"
+STREAM_TPU = "videopose3d_tpu/ops/pallas/streaming_fused.py"
+STREAM_KERNELS = {  # launch counter -> the TPU kernel it replaces
+    "stream_int8": f"{STREAM_TPU}:201", "stream_bf16": f"{STREAM_TPU}:911",
+    "stream_int8_multi": f"{STREAM_TPU}:520", "stream_bf16_multi": f"{STREAM_TPU}:760",
+    "ring_push": "videopose3d_tpu/streaming.py:76"}
+# int8 streaming poses, kernel vs plain and int8_fused vs int8: the int8 streams are
+# equal bit for bit, and the shrink sums 1,024 bf16 products in float32 in another
+# order (~1e-7 relative); 1e-4 of max(1, max |plain|) as TOL[float32].
+STREAM_POSE_TOL = 1e-4
+# int8 vs float32 streaming: mean per-joint error < 0.1 * RMS of the float32 poses,
+# the JAX package's bound (tests/test_e2e_streaming.py).
+INT8_STREAM_ACCURACY = 0.1
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -169,13 +211,39 @@ def cuda_ms(fn, runs=TIMED_RUNS):
     return statistics.median(times)
 
 
-def random_model(device):
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def roofline(ops, n_bytes):
+    """(bound_ms, bound_by) of a function doing ``ops`` ((type, count) pairs) and
+    moving ``n_bytes``: the larger of the two times on an H100 SXM."""
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def graph_ms(fn, reps=100):
+    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in a CUDA
+    graph and replayed between CUDA events, for work too small to time one call
+    at a time (there the events would measure the host's enqueue)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay) / reps
+
+
+def random_model(device, causal=False):
     """The full-width model with random weights and BN statistics, from SEED."""
     from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
     torch.manual_seed(SEED)
     cfg = TemporalModelConfig(num_joints_in=JOINTS, in_features=2,
                               num_joints_out=JOINTS, filter_widths=ARCH,
-                              channels=CHANNELS)
+                              channels=CHANNELS, causal=causal)
     model = TemporalModel(cfg)
     rng = np.random.default_rng(SEED)
     for bn in [model.expand_bn, *model.layers_bn]:
@@ -211,21 +279,21 @@ def phase1(cfg, model, device):
         ws = _channels_last(model.shrink, dt)[0]
         bs = model.shrink.bias.detach().float()
         stages = [
-            ("fused_expand_block", "d=3",
+            ("fused_expand_block", "d=3", (w0, s0, b0, *blk[0]),
              lambda x: tb.fused_expand_block(x, w0, s0, b0, *blk[0], **geo[0]),
              lambda x: tb.fused_expand_block_plain(x, w0, s0, b0, *blk[0], **geo[0])),
-            ("fused_dilated_block", "d=9",
+            ("fused_dilated_block", "d=9", blk[1],
              lambda x: tb.fused_dilated_block(x, *blk[1], **geo[1]),
              lambda x: tb.fused_dilated_block_plain(x, *blk[1], **geo[1])),
-            ("fused_dilated_block", "d=27",
+            ("fused_dilated_block", "d=27", blk[2],
              lambda x: tb.fused_dilated_block(x, *blk[2], **geo[2]),
              lambda x: tb.fused_dilated_block_plain(x, *blk[2], **geo[2])),
-            ("fused_shrink_block", "d=81",
+            ("fused_shrink_block", "d=81", (*blk[3], ws, bs),
              lambda x: tb.fused_shrink_block(x, *blk[3], ws, bs, **geo[3]),
              lambda x: tb.fused_shrink_block_plain(x, *blk[3], ws, bs, **geo[3])),
         ]
         x = x_raw
-        for name, where, kernel, plain in stages:
+        for name, where, weights, kernel, plain in stages:
             got = kernel(x)
             want = plain(x)
             torch.cuda.synchronize()
@@ -242,8 +310,18 @@ def phase1(cfg, model, device):
                   f"out {tuple(got.shape)}: max_abs_err {err:.3e} (tol {tol:.3e}, "
                   f"max|plain| {scale:.3f}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             check(err <= tol, f"{name} {where} {dt}: max abs error {err} > {tol}")
+            # Per output row: 3 dilated taps and the 1x1 product, C x C each; the
+            # expand's 3 taps of 34 -> C over its rows; the shrink's C -> 51.
+            t_out = got.shape[1]
+            ops = 2 * BATCH * t_out * 4 * CHANNELS ** 2
+            if name == "fused_expand_block":
+                ops += 2 * BATCH * (x.shape[1] - 2) * 3 * x.shape[2] * CHANNELS
+            if name == "fused_shrink_block":
+                ops += 2 * BATCH * t_out * CHANNELS * got.shape[2]
+            bound_ms, bound_by = roofline([(str(dt)[6:], ops)], nbytes(x, got, *weights))
             results.append({"name": name, "where": where, "dtype": dt,
-                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
             x = want  # the next stage sees the same input in both versions
     tb.LAUNCHES.update(saved)  # comparison launches do not count
     return results
@@ -293,9 +371,10 @@ def run_cli(argv):
 
 
 def reset_counts():
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
     from videopose3d_torch.ops.kernels import temporal_block as tb
     from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
-    for counts in (tb.LAUNCHES, tq.LAUNCHES):
+    for counts in (tb.LAUNCHES, tq.LAUNCHES, sf.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -460,11 +539,25 @@ def phase5(cfg, model, device):
                   f"{tuple(got.shape)} {str(got.dtype)[6:]}: {detail}; kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms")
             k8 = mode == "accshift" and key == "int8_dilated"
+            # int8 products: 3 taps and the 1x1, C x C per output row; the expand's
+            # bf16 dot over its rows and the shrink's bf16 C -> 51.
+            blk = q.blocks[i]
+            t_out = got.shape[1]
+            ops = [("int8", 2 * BATCH * t_out * 4 * c * c)]
+            weights = [blk.pa, blk.pb, blk.A1, blk.B1, blk.A2, blk.B2, blk.R]
+            if key == "int8_expand":
+                ops.append(("bfloat16", 2 * BATCH * x.shape[1] * x.shape[2] * c))
+                weights += [w0, q.expand_scale, q.expand_shift]
+            if key == "int8_shrink":
+                ops.append(("bfloat16", 2 * BATCH * t_out * c * got.shape[2]))
+                weights += [q.shrink_w, q.shrink_b]
+            bound_ms, bound_by = roofline(ops, nbytes(x, got, *weights))
             results.append({"name": f"{name} ({mode}, {where}, C={CHANNELS})",
                             "key": (mode, key + ("_accshift" if mode == "accshift" else "")),
                             "route": "cuda", "source": INT8_SOURCE,
                             "replaces": K8_TPU if k8 else replaces,
-                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         print(f"phase5 {name:18s} {where:5s} accshift output equals slice bit for bit")
         x = want  # the next stage sees the same input in both versions
     with full_float32():
@@ -577,14 +670,22 @@ def phase3(device):
     check(torch.equal(got, want), "gather_windows: kernel and plain version differ")
     ms = cuda_ms(lambda: gr.gather_windows(flat, row0, window=GATHER["window"]))
     plain_ms = cuda_ms(lambda: gr.gather_windows_plain(flat, row0, window=GATHER["window"]))
+    # The library call: one advanced-indexing gather of the same rows (the window
+    # starts are in range, so the clamp of the kernel's contract is the identity).
+    rows = row0[:, None] + torch.arange(GATHER["window"], device=device)
+    check(torch.equal(flat[rows], want), "gather_windows: the indexing gather differs")
+    library_ms = cuda_ms(lambda: flat[rows])
     gbps = 2 * got.numel() * 4 / (ms * 1e-3) / 1e9
+    bound_ms, bound_by = roofline([], 2 * nbytes(got) + nbytes(row0))
     print(f"phase3 gather_windows float32 {GATHER}: bitwise equal; kernel {ms:.4f} ms "
-          f"({gbps:.0f} GB/s moved), plain {plain_ms:.4f} ms")
+          f"({gbps:.0f} GB/s moved), plain {plain_ms:.4f} ms, indexing gather "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     results.append({"name": f"gather_windows (float32, B={GATHER['batch']}, "
                             f"window={GATHER['window']}, C={GATHER['cols']})",
                     "key": ("gather", "gather_windows"), "route": "cuda",
                     "source": GATHER_SOURCE, "replaces": GATHER_REPLACES,
-                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
 
     flops = {key: f for key, _, f in TRAIN_KERNELS}
     replaces = {key: r for key, r, _ in TRAIN_KERNELS}
@@ -603,14 +704,25 @@ def phase3(device):
                           for i, (a, w) in enumerate(zip(got, want)))
                 ms = cuda_ms(lambda: kernel(*args, **kwargs))
                 plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
+                library_ms = None
+                if key == "dw_gemm" and dt == torch.float32:
+                    # dWb = d^T dz in one float32 matmul (TF32 off).
+                    library_ms = cuda_ms(lambda: torch.matmul(args[0].t(), args[1]))
+                bound_ms, bound_by = roofline(
+                    [(dname, flops[key] * n * CHANNELS ** 2)],
+                    nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got))
                 tflops = (f"{flops[key] * n * CHANNELS ** 2 / (ms * 1e-3) / 1e12:.1f} "
                           "TFLOP/s" if flops[key] else "elementwise")
+                lib = "" if library_ms is None else f", torch.matmul {library_ms:.3f} ms"
                 print(f"phase3 {key:22s} {dname:8s} n={n:6d}: max_abs_err {err:.3e}; "
-                      f"kernel {ms:.3f} ms ({tflops}), plain {plain_ms:.3f} ms")
+                      f"kernel {ms:.3f} ms ({tflops}), plain {plain_ms:.3f} ms{lib}, "
+                      f"bound {bound_ms:.3f} ms ({bound_by})")
                 results.append({"name": f"{key} ({dname}, n={n}, C={CHANNELS})",
                                 "key": ("train", key), "route": "cuda",
                                 "source": TRAIN_SOURCE, "replaces": replaces[key],
-                                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "library_ms": library_ms})
             if dt == torch.float32:
                 # The whole block, forward and backward, as the train step runs
                 # it: outputs and statistics per tensor at TOL, gradients by
@@ -726,6 +838,344 @@ def phase4(tmp):
     return runs["pallas again"][1]
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: streaming serving (K5, K6, K7)
+# ---------------------------------------------------------------------------
+
+
+def _clone_state(ss):
+    return {"bufs": [r.clone() for r in ss["bufs"]], "ptr": list(ss["ptr"])}
+
+
+def stream_cost(int8, widths, lags, b, c, k, j3, doubled):
+    """(ops, bytes) of one fused streaming step: per block (width + 1) C x C
+    products per row and the shrink's C -> J3; the rows each tap reads from its
+    ring (min(lag, k) frames: the rest are the step's own frames), the pushes (both
+    copies of a doubled ring), the block 0 input, the weights and the poses."""
+    act = 1 if int8 else 2
+    mac = sum(kw + 1 for kw in widths) * c * c * k * b
+    ops = [("int8" if int8 else "bfloat16", 2 * mac), ("bfloat16", 2 * k * b * c * j3)]
+    taps = sum(min(lag, k) for block in lags for lag in block) * b * c * act
+    pushes = len(widths) * k * b * c * act * (2 if doubled else 1)
+    weights = sum((kw + 1) * c * c * act + (5 if int8 else 4) * c * 4 for kw in widths)
+    x_bytes = k * b * c * (1 if int8 else 4)
+    return ops, taps + pushes + weights + c * j3 * 2 + j3 * 4 + x_bytes + k * b * j3 * 4
+
+
+def phase6_kernels(cfg, model, q, device):
+    """K7, K5 and K6 against their plain versions at B = 1,024 streams, through
+    every ring's wrap, and their times."""
+    from videopose3d_torch import streaming as st
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    saved = dict(sf.LAUNCHES)
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=device) * 2 - 1
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    prepared = st.prepare_bf16_fused(bcfg, model)
+    b, c, k = STREAM_B, CHANNELS, STREAM_K
+    j3 = q.shrink_w.shape[1]
+    widths = cfg.filter_widths[1:]
+    caps = st._buffer_capacities(cfg)
+    first = rand(b, JOINTS, 2)
+    results = {}
+
+    def record(key, where, err, ms, plain_ms, bound, library_ms=None):
+        bound_ms, bound_by = bound
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        print(f"phase6 {key:18s} {where}: max_abs_err {err:.3e}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})")
+        results[key] = {"name": f"{key} ({where})", "route": "cuda", "source": STREAM_SOURCE,
+                        "replaces": STREAM_KERNELS[key], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms}
+
+    # K7: one (B, C) bf16 row into the largest block ring, bitwise.
+    ring = rand(caps[-1], b, c).to(torch.bfloat16)
+    row = rand(b, c).to(torch.bfloat16)
+    slot = caps[-1] // 2
+    got = sf.ring_push(ring.clone(), slot, row)
+    want = sf.ring_push_plain(ring.clone(), slot, row)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "ring_push: kernel and plain version differ")
+    del got, want
+    index = torch.tensor([slot], device=device)
+    host_ms = cuda_ms(lambda: sf.ring_push(ring, slot, row))
+    record("ring_push", f"bf16 ring {tuple(ring.shape)}, bitwise, CUDA-graph timed", 0.0,
+           graph_ms(lambda: sf.ring_push(ring, slot, row)),
+           graph_ms(lambda: sf.ring_push_plain(ring, slot, row)),
+           roofline([], 2 * nbytes(row)),
+           graph_ms(lambda: ring.index_copy_(0, index, row[None])))
+    print(f"phase6 ring_push one call between CUDA events (host enqueue included): "
+          f"{host_ms:.4f} ms")
+    del ring
+
+    def pose_err(got, want, tol, what):
+        err = float((got - want).abs().max())
+        bound = tol * max(1.0, float(want.abs().max()))
+        check(bool(torch.isfinite(got).all()) and err <= bound,
+              f"{what}: pose error {err} > {bound}")
+        return err
+
+    # K5 and K6, int8: every ring bitwise at every step, poses at STREAM_POSE_TOL,
+    # over max(cap) + 3 frames (per frame) or max(cap) + 3k frames (k per step).
+    for key, multi in (("stream_int8", False), ("stream_int8_multi", True)):
+        kk = k if multi else 1
+        a = (st.init_stream_state_int8_multi(cfg, q, first, kk) if multi
+             else st.init_stream_state_int8(cfg, q, first))
+        p = _clone_state(a)
+        scaps = [r.shape[0] // (2 if multi else 1) for r in a["bufs"]]
+        steps = (max(scaps) + 3 * kk) // kk
+        err = 0.0
+        for t in range(steps):
+            x = rand(b, kk, JOINTS, 2) if multi else rand(b, JOINTS, 2)
+            fused = st.stream_step_int8_multi_fused if multi else st.stream_step_int8_fused
+            plain = st.stream_step_int8_multi if multi else st.stream_step_int8
+            got, a = fused(cfg, q, a, x)
+            want, p = plain(cfg, q, p, x)
+            check(all(torch.equal(r, s) for r, s in zip(a["bufs"], p["bufs"])),
+                  f"{key}: an int8 ring differs from the plain version's at step {t}")
+            err = max(err, pose_err(got, want, STREAM_POSE_TOL, f"{key} step {t}"))
+        eq = torch.randint(0, 128, (kk, b, c), generator=g, device=device, dtype=torch.int8)
+        idx, lags = st._slots(cfg, a["ptr"], scaps, multi=multi)
+        if multi:
+            run = lambda f, s: f(q, s["bufs"][1:], eq, idx, widths=widths, lags=lags,
+                                 caps=scaps[1:], k=kk)
+            kern, plain_fn = sf.fused_blocks_step_multi, sf.fused_blocks_step_multi_plain
+        else:
+            run = lambda f, s: f(q, s["bufs"][1:], eq[0], idx, widths=widths)
+            kern, plain_fn = sf.fused_blocks_step, sf.fused_blocks_step_plain
+        record(key, f"int8, B={b}, C={c}, k={kk}, {steps} steps, rings bitwise", err,
+               cuda_ms(lambda: run(kern, a)), cuda_ms(lambda: run(plain_fn, p)),
+               roofline(*stream_cost(True, widths, lags, b, c, kk, j3, multi)))
+        del a, p
+
+    # K5 and K6, bf16: each step from the plain version's state, poses and rings at
+    # TOL[bfloat16] (one bf16 step: the rings hold bf16 values summed in float32 in
+    # another order).
+    for key, multi in (("stream_bf16", False), ("stream_bf16_multi", True)):
+        kk = k if multi else 1
+        p = (st.init_stream_state_multi(bcfg, model, first, kk) if multi
+             else st.init_stream_state(bcfg, model, first))
+        scaps = [r.shape[0] // (2 if multi else 1) for r in p["bufs"]]
+        steps = (max(scaps) + 3 * kk) // kk
+        err = 0.0
+        for t in range(steps):
+            x = rand(b, kk, JOINTS, 2) if multi else rand(b, JOINTS, 2)
+            fused = st.stream_step_bf16_multi_fused if multi else st.stream_step_bf16_fused
+            plain = st.stream_step_multi if multi else st.stream_step
+            got, a = fused(bcfg, prepared, _clone_state(p), x)
+            want, p = plain(bcfg, prepared, p, x)
+            err = max(err, pose_err(got, want, TOL[torch.bfloat16], f"{key} step {t}"))
+            for i, (r, s) in enumerate(zip(a["bufs"], p["bufs"])):
+                compare(f"{key} step {t} ring {i}", r, s, torch.bfloat16)
+            del a
+        a0 = rand(kk, b, c).clamp_min(0)
+        idx, lags = st._slots(bcfg, p["ptr"], scaps, multi=multi)
+        a = _clone_state(p)
+        if multi:
+            run = lambda f, s: f(prepared, s["bufs"][1:], a0, idx, widths=widths, lags=lags,
+                                 caps=scaps[1:], k=kk)
+            kern, plain_fn = (sf.fused_blocks_step_bf16_multi,
+                              sf.fused_blocks_step_bf16_multi_plain)
+        else:
+            run = lambda f, s: f(prepared, s["bufs"][1:], a0[0], idx, widths=widths)
+            kern, plain_fn = sf.fused_blocks_step_bf16, sf.fused_blocks_step_bf16_plain
+        record(key, f"bf16, B={b}, C={c}, k={kk}, {steps} steps from a shared state", err,
+               cuda_ms(lambda: run(kern, a)), cuda_ms(lambda: run(plain_fn, p)),
+               roofline(*stream_cost(False, widths, lags, b, c, kk, j3, multi)))
+        del a, p
+
+    # K6 against K5 over the same 64 frames: equal int8 history, poses at the bound.
+    one = st.init_stream_state_int8(cfg, q, first)
+    multi = st.init_stream_state_int8_multi(cfg, q, first, k)
+    frames = rand(b, 64, JOINTS, 2)
+    per_frame = []
+    for t in range(64):
+        pose, one = st.stream_step_int8_fused(cfg, q, one, frames[:, t])
+        per_frame.append(pose)
+    stepped = []
+    for t in range(0, 64, k):
+        pose, multi = st.stream_step_int8_multi_fused(cfg, q, multi, frames[:, t:t + k])
+        stepped.append(pose)
+    err = pose_err(torch.cat(stepped, 1), torch.stack(per_frame, 1), STREAM_POSE_TOL,
+                   "K6 vs K5")
+    for i, (r1, rk, cap) in enumerate(zip(one["bufs"], multi["bufs"], caps)):
+        p1, pk, cap_k = one["ptr"][i], multi["ptr"][i], rk.shape[0] // 2
+        lag = torch.arange(1, cap + 1, device=device)
+        check(torch.equal(r1[(p1 - lag) % cap], rk[(pk - lag) % cap_k]),
+              f"K6 vs K5: ring {i} holds another history")
+    print(f"phase6 K6 (k={k}) vs K5 over 64 frames of {b} streams: int8 ring histories "
+          f"equal, pose error {err:.3e}")
+    sf.LAUNCHES.update(saved)  # comparison launches do not count
+    return results
+
+
+def write_custom_archive(root, name):
+    """A synthetic custom-dataset archive (the format of data_2d_custom_<k>.npz):
+    STREAM_VIDEOS videos of STREAM_FRAMES frames of 17 COCO keypoints in pixels of
+    1920 x 1080 frames, each a random walk around its own centre, from SEED."""
+    rng = np.random.default_rng(SEED + 7)
+    n, t = STREAM_VIDEOS, STREAM_FRAMES
+    centre = rng.uniform([400, 200], [1500, 900], (n, 1, 1, 2))
+    pose = rng.normal(0, 80, (n, 1, JOINTS, 2))
+    walk = np.cumsum(rng.normal(0, 3, (n, t, JOINTS, 2)), axis=1)
+    kps = (centre + pose + walk).astype(np.float32)
+    videos = [f"video_{i:03d}.mp4" for i in range(n)]
+    metadata = {"layout_name": "coco", "num_joints": JOINTS,
+                "keypoints_symmetry": [[1, 3, 5, 7, 9, 11, 13, 15],
+                                       [2, 4, 6, 8, 10, 12, 14, 16]],
+                "video_metadata": {v: {"w": 1920, "h": 1080} for v in videos}}
+    np.savez(os.path.join(root, f"data_2d_custom_{name}.npz"),
+             positions_2d={v: {"custom": [kps[i]]} for i, v in enumerate(videos)},
+             metadata=metadata)
+    return videos
+
+
+_STREAMED = re.compile(r"^INFO: streamed (\d+) frames in (\S+) s \((\S+) poses/s")
+
+
+def stream_cli(argv):
+    """streaming.main in-process; returns (poses per video, poses/s, output)."""
+    from videopose3d_torch import streaming as st
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        st.main(argv)
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    rate = next((m for m in map(_STREAMED.match, out.splitlines()) if m), None)
+    check(rate is not None, f"no streamed line in the output:\n{out}")
+    out_path = argv[argv.index("--output") + 1]
+    with np.load(out_path) as data:
+        poses = {v: data[v] for v in data.files}
+    check(all(np.isfinite(p).all() and p.shape == (STREAM_FRAMES, JOINTS, 3)
+              for p in poses.values()), "streamed poses: non-finite or misshapen")
+    return poses, float(rate.group(3)), out
+
+
+# Engine, compute dtype, frames per step, the kernel the run must launch.
+STREAM_RUNS = (("bf16", "float32", 1, None), ("bf16", "bfloat16", 1, None),
+               ("bf16_fused", "bfloat16", 1, "stream_bf16"), ("int8", "float32", 1, None),
+               ("int8_fused", "float32", 1, "stream_int8"),
+               ("bf16_fused", "bfloat16", STREAM_K, "stream_bf16_multi"),
+               ("int8_fused", "float32", STREAM_K, "stream_int8_multi"))
+
+
+def _stack(poses, videos):
+    return np.stack([poses[v] for v in videos])
+
+
+def phase6_cli(cfg, model, device, tmp):
+    """The streaming CLI with every engine on the synthetic archive; returns the
+    launches of each kernel in the run that drives it."""
+    from videopose3d_torch import streaming as st
+    from videopose3d_torch.evaluate import full_float32
+    from videopose3d_torch.models.temporal import forward_dilated, receptive_field
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    data = os.path.join(tmp, "stream_data")
+    os.makedirs(data)
+    videos = write_custom_archive(data, "synthetic")
+    ckpt = os.path.join(tmp, "causal_full_width.bin")
+    torch.save({"epoch": 0, "lr": 0.001, "model_traj": None, "optimizer": None,
+                "model_pos": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+               ckpt)
+    base = ["-k", "synthetic", "--data-dir", data, "--checkpoint", ckpt,
+            "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS), "--device", str(device)]
+    argv = lambda engine, dt, k, out: base + ["--engine", engine, "--compute-dtype", dt,
+                                              "--frames-per-step", str(k), "--output",
+                                              os.path.join(tmp, out)]
+    # A first call on a few videos pays one-time setup (cuBLAS handles, the
+    # allocator's pools) outside the measured runs.
+    stream_cli(argv("bf16", "float32", 1, "warm.npz") + ["--videos", ",".join(videos[:8])])
+    runs, launches = {}, {}
+    for engine, dt, k, key in STREAM_RUNS:
+        reset_counts()
+        poses, rate, _ = stream_cli(argv(engine, dt, k, f"{engine}_{dt}_{k}.npz"))
+        counts = dict(sf.LAUNCHES)
+        check(all(v == 0 for name, v in counts.items() if name != key)
+              and (key is None or counts[key] > 0),
+              f"{engine} {dt} k={k}: launched {counts}, expected only {key}")
+        if key is not None:
+            launches[key] = counts[key]
+        runs[(engine, dt, k)] = _stack(poses, videos)
+        print(f"phase6 streaming CLI --engine {engine:10s} --compute-dtype {dt:8s} "
+              f"--frames-per-step {k}: {STREAM_VIDEOS * STREAM_FRAMES} poses, "
+              f"{rate:.0f} poses/s end-to-end; launches {counts}")
+
+    # K7 on the main path: the per-layer bf16 engine with its block rings written by
+    # the ring-push kernel, through the lifter and stream_archive.
+    _, streams = st._load_wild_streams(data, "synthetic")
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    reset_counts()
+    start = time.perf_counter()
+    dma = np.stack(st.stream_archive(bcfg, st.StreamingCausalLifter(
+        bcfg, model, engine="bf16", ring_impl="dma", device=device), streams))
+    seconds = time.perf_counter() - start
+    launches["ring_push"] = sf.LAUNCHES["ring_push"]
+    check(launches["ring_push"] > 0 and np.array_equal(dma, runs[("bf16", "bfloat16", 1)]),
+          "the ring-push (dma) stream differs from the plain-write stream or did not launch")
+    print(f"phase6 lifter bf16 (bfloat16) with ring_impl='dma': "
+          f"{STREAM_VIDEOS * STREAM_FRAMES / seconds:.0f} poses/s, bitwise equal to the "
+          f"CLI's bf16 stream; ring_push launches {launches['ring_push']}")
+
+    # The float32 stream against the offline causal model over each edge-padded video.
+    pad = receptive_field(cfg) - 1
+    x = torch.from_numpy(np.stack(streams)).to(device)
+    x = torch.cat([x[:, :1].expand(-1, pad, -1, -1), x], dim=1)
+    with full_float32():
+        offline = forward_dilated(model, x).cpu().numpy()
+    f32 = runs[("bf16", "float32", 1)]
+    checks = [
+        # float32 sums of the same products in another order (~1e-6 relative).
+        ("float32 stream vs offline causal forward_dilated", f32, offline, 1e-4),
+        ("int8_fused vs int8", runs[("int8_fused", "float32", 1)],
+         runs[("int8", "float32", 1)], STREAM_POSE_TOL),
+        # bf16 rings: a float32 sum in another order may round a ring value one bf16
+        # step apart, and that value feeds later frames; each such step moves a pose
+        # by ~2^-8 of a weighted activation.
+        ("bf16_fused vs bf16 (bfloat16)", runs[("bf16_fused", "bfloat16", 1)],
+         runs[("bf16", "bfloat16", 1)], TOL[torch.bfloat16]),
+        (f"bf16_fused k={STREAM_K} vs k=1", runs[("bf16_fused", "bfloat16", STREAM_K)],
+         runs[("bf16_fused", "bfloat16", 1)], TOL[torch.bfloat16]),
+        (f"int8_fused k={STREAM_K} vs k=1", runs[("int8_fused", "float32", STREAM_K)],
+         runs[("int8_fused", "float32", 1)], STREAM_POSE_TOL),
+    ]
+    for what, got, want, tol in checks:
+        err = float(np.abs(got - want).max())
+        bound = tol * max(1.0, float(np.abs(want).max()))
+        print(f"phase6 {what}: max abs difference {err:.3e} (bound {bound:.3e})")
+        check(err <= bound, f"{what}: {err} > {bound}")
+    int8 = runs[("int8", "float32", 1)]
+    per_joint = float(np.linalg.norm(int8 - f32, axis=-1).mean())
+    rms = float(np.sqrt((f32 ** 2).mean()))
+    print(f"phase6 int8 vs float32 stream: mean per-joint error {per_joint:.5f}, "
+          f"{per_joint / rms:.4f} of RMS {rms:.4f} (bound {INT8_STREAM_ACCURACY})")
+    check(per_joint < INT8_STREAM_ACCURACY * rms, "int8 stream too far from float32")
+
+    # Where the time goes: one profiled int8_fused run (not counted).
+    from torch.profiler import ProfilerActivity, profile
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, rate, _ = stream_cli(argv("int8_fused", "float32", 1, "profiled.npz"))
+    wall = time.perf_counter() - start
+    window = STREAM_VIDEOS * STREAM_FRAMES / rate
+    device_us = {}
+    for avg in prof.key_averages():
+        us = getattr(avg, "self_device_time_total", getattr(avg, "self_cuda_time_total", 0))
+        if us > 0:
+            device_us[avg.key] = device_us.get(avg.key, 0) + us
+    total = sum(device_us.values())
+    kernel = sum(us for name, us in device_us.items() if "stream_int8_kernel" in name)
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    print(f"phase6 profile of one int8_fused CLI run: wall {wall:.3f} s, streaming "
+          f"window {window:.3f} s, device time {total / 1e6:.3f} s, busy "
+          f"{100 * total / 1e6 / wall:.1f} % of the wall and ~{100 * total / 1e6 / window:.1f} "
+          f"% of the window, the K5 kernel {100 * kernel / max(total, 1):.1f} % of device "
+          f"time ({kernel / 1e3 / STREAM_FRAMES:.3f} ms per launch at B={STREAM_VIDEOS})")
+    for name, us in top:
+        print(f"phase6 profile   {us / 1e3:9.3f} ms  {name[:90]}")
+    return launches
+
+
 def protocol_lines(out):
     numbers, action = {}, None
     for line in out.splitlines():
@@ -764,9 +1214,18 @@ def main() -> int:
     kernel_results = phase1(cfg, model, device)
     train_kernel_results = phase3(device)
     int8_results = phase5(cfg, model, device)
+    # Phase 6 serves the causal model, quantized on the card.
+    from videopose3d_torch.models.temporal import receptive_field
+    from videopose3d_torch.ops.kernels.temporal_block_int8 import quantize_temporal_model
+    scfg, smodel = random_model(device, causal=True)
+    calib = torch.rand(2, receptive_field(scfg) + 256, JOINTS, 2,
+                       generator=torch.Generator().manual_seed(SEED + 5)).to(device) * 2 - 1
+    stream_results = phase6_kernels(scfg, smodel, quantize_temporal_model(scfg, smodel, calib),
+                                    device)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase2(model, tmp)
         train_launches = phase4(tmp)
+        stream_launches = phase6_cli(scfg, smodel, device, tmp)
 
     keys = {name: (key, replaces) for name, key, replaces in KERNELS}
     dtypes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -778,7 +1237,8 @@ def main() -> int:
             "name": f"{r['name']} ({dname}, {r['where']}, C={CHANNELS})",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[("fused", dname)][key],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]})
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
     for r in train_kernel_results:
         entries.append({**{k: v for k, v in r.items() if k != "key"},
                         "launches": train_launches[r["key"][1]]})
@@ -786,6 +1246,9 @@ def main() -> int:
         mode, key = r["key"]
         entries.append({**{k: v for k, v in r.items() if k != "key"},
                         "launches": launches[("int8", mode)][key]})
+    for key, r in stream_results.items():
+        entries.append({**r, "launches": stream_launches[key]})
+    check(all(e["launches"] > 0 for e in entries), "a kernel of the main path never launched")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -224,6 +224,9 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "videopose3d_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for module in ("streaming.py", "ops/kernels/streaming_fused.py", "datasets/custom.py",
+                   "ops/kernels/temporal_block_int8.py", "models/convert.py"):
+        assert REPO / "videopose3d_torch" / module in files, module
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the fused
 evaluation blocks (K3), the window gather (K1), the train block with its
-backward (K2) and the int8 serving stages (K4, with the accshift tap mode K8).
+backward (K2), the int8 serving stages (K4, with the accshift tap mode K8), and
+the streaming step (K5 per frame, K6 k frames; int8 and bf16) with the ring
+push (K7).
 
 Needs a CUDA device (marker ``gpu``; skipped elsewhere).  Imports no JAX, so it
 also runs on a machine without it:
@@ -15,7 +17,9 @@ int8 stages: the mid blocks' int8 streams bitwise; expand + block 0 within one
 step on at most 1e-3 of its elements (its float64-summed dot may round apart
 where the exact sum lies at a float32 midpoint, and a moved e shifts block 0's
 per-row requantization); the shrink's float32 output at the float32 bound; the
-accshift mode bitwise equal to slice.
+accshift mode bitwise equal to slice.  Streaming: int8 rings bitwise at every
+step and poses at the float32 bound (the shrink's float32 sums); bf16 each step
+from one shared state at the bf16 bound; the ring push bitwise.
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from videopose3d_torch.ops.kernels import gather_rows as gr
+from videopose3d_torch.ops.kernels import streaming_fused as sf
 from videopose3d_torch.ops.kernels import temporal_block as tb
 from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
 from videopose3d_torch.ops.kernels import train_block as trb
@@ -398,3 +403,144 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 16"):
         tq.int8_dilated_block(torch.zeros(2, 40, 24, dtype=torch.int8, device=cuda),
                               q24.blocks[0], dilation=3)
+
+
+def _stream_setup(c, fw, b, device, seed=0):
+    """A random causal model quantized on the card, its bf16 fused weights, and
+    seeded first frames."""
+    from videopose3d_torch.models.temporal import receptive_field
+    from videopose3d_torch.streaming import prepare_stream_weights
+    cfg, model, q, _ = _int8_model(c, fw, True, 20, device, seed=seed)
+    import dataclasses
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    weights = prepare_stream_weights(bcfg, model)
+    g = torch.Generator().manual_seed(seed)
+    first = torch.randn(b, 17, 2, generator=g).to(device)
+    frames = torch.randn(b, max(receptive_field(cfg), 40), 17, 2, generator=g).to(device)
+    return cfg, bcfg, model, q, weights, first, frames
+
+
+def _clone(ss):
+    return {"bufs": [r.clone() for r in ss["bufs"]], "ptr": list(ss["ptr"])}
+
+
+STREAM_CASES = [  # channels, filter widths, streams, frames per step
+    (64, (3, 3, 3), 5, 1),
+    (64, (3, 3, 3), 5, 4),      # lag 3 < 4: taps read the step's own frames
+    (128, (3, 5, 5), 17, 1),    # 5 taps; 17 streams: a ragged tile of 16
+    (64, (3, 3, 3, 3), 3, 8),   # lags 6 and 3 < 8
+    (1040, (3, 3, 3), 2, 2),    # two column passes (C > 1024)
+]
+
+
+@pytest.mark.parametrize("c,fw,b,k", STREAM_CASES)
+def test_stream_int8_kernel_matches_plain(cuda, c, fw, b, k):
+    """The fused int8 engine (K5 / K6) against the per-layer plain engine from
+    one state through ring wraps: rings bitwise at every step."""
+    from videopose3d_torch import streaming as st
+    cfg, _, _, q, _, first, frames = _stream_setup(c, fw, b, cuda)
+    if k == 1:
+        fused, plain, key = st.stream_step_int8_fused, st.stream_step_int8, "stream_int8"
+        a = st.init_stream_state_int8(cfg, q, first)
+    else:
+        fused, plain = st.stream_step_int8_multi_fused, st.stream_step_int8_multi
+        key = "stream_int8_multi"
+        a = st.init_stream_state_int8_multi(cfg, q, first, k)
+    p = _clone(a)
+    for t in range(0, frames.shape[1] - k + 1, k):
+        x = frames[:, t] if k == 1 else frames[:, t:t + k]
+        before = sf.LAUNCHES[key]
+        got, a = fused(cfg, q, a, x)
+        assert sf.LAUNCHES[key] == before + 1
+        want, p = plain(cfg, q, p, x)
+        _check(got, want, torch.float32)
+        assert a["ptr"] == p["ptr"]
+        for i, (ra, rp) in enumerate(zip(a["bufs"], p["bufs"])):
+            assert torch.equal(ra, rp), (t, i)
+
+
+@pytest.mark.parametrize("c,fw,b,k", STREAM_CASES)
+def test_stream_bf16_kernel_matches_plain(cuda, c, fw, b, k):
+    """The fused bf16 engine (K5 / K6), each step from the plain engine's state:
+    poses and the pushed ring rows at the bf16 bound."""
+    from videopose3d_torch import streaming as st
+    _, bcfg, model, _, w, first, frames = _stream_setup(c, fw, b, cuda, seed=1)
+    if k == 1:
+        fused, plain, key = st.stream_step_bf16_fused, st.stream_step, "stream_bf16"
+        p = st.init_stream_state(bcfg, model, first)
+    else:
+        fused, plain = st.stream_step_bf16_multi_fused, st.stream_step_multi
+        key = "stream_bf16_multi"
+        p = st.init_stream_state_multi(bcfg, model, first, k)
+    for t in range(0, frames.shape[1] - k + 1, k):
+        x = frames[:, t] if k == 1 else frames[:, t:t + k]
+        before = sf.LAUNCHES[key]
+        got, a = fused(bcfg, w, _clone(p), x)
+        assert sf.LAUNCHES[key] == before + 1
+        want, p = plain(bcfg, w, p, x)
+        _check(got, want, torch.bfloat16)
+        for ra, rp in zip(a["bufs"], p["bufs"]):
+            _check(ra, rp, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.int8])
+def test_ring_push_kernel_matches_plain(cuda, dt):
+    g = torch.Generator().manual_seed(3)
+    buf = (torch.randn(19, 33, 64, generator=g) * 50).to(cuda, dt)
+    row = (torch.randn(33, 64, generator=g) * 50).to(cuda, dt)
+    for slot in (0, 7, 18):
+        want = sf.ring_push_plain(buf.clone(), slot, row)
+        before = sf.LAUNCHES["ring_push"]
+        got = sf.ring_push(buf.clone(), slot, row)
+        assert sf.LAUNCHES["ring_push"] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from videopose3d_torch import streaming as st
+    cfg, _, _, q, _, first, frames = _stream_setup(64, (3, 3, 3), 2, cuda)
+    ss = st.init_stream_state_int8_multi(cfg, q, first, 2)
+    eq = torch.zeros(2, 2, 64, dtype=torch.int8, device=cuda)
+    rings = ss["bufs"][1:]
+    kw = dict(widths=(3, 3), lags=[[6, 3], [18, 9]], caps=[rings[0].shape[0] // 2,
+                                                           rings[1].shape[0] // 2], k=2)
+    with pytest.raises(ValueError, match="dtype"):
+        sf.fused_blocks_step_multi(q, rings, eq.float(), [0] * 6, **kw)
+    with pytest.raises(ValueError, match="out of range"):
+        sf.fused_blocks_step_multi(q, rings, eq, [0, 0, 0, 0, 0, 10 ** 6], **kw)
+    with pytest.raises(ValueError, match="1 to 16 frames"):
+        sf.fused_blocks_step_multi(q, rings, torch.zeros(17, 2, 64, dtype=torch.int8,
+                                                         device=cuda), [0] * 6,
+                                   **{**kw, "k": 17})
+    with pytest.raises(ValueError, match="16-byte"):
+        sf.ring_push(torch.zeros(3, 1, 3, device=cuda), 0, torch.zeros(1, 3, device=cuda))
+
+
+def test_streaming_lifter_engines_on_card(cuda):
+    """The lifter on the card: int8_fused within the float32 bound of int8 (equal
+    int8 streams, the shrink's float32 sums in another order), bf16_fused within
+    the bf16 bound of bf16, float32 within the float32 bound of the offline
+    causal model, and the dma ring write equal to the plain write."""
+    import dataclasses
+    from videopose3d_torch import streaming as st
+    from videopose3d_torch.evaluate import full_float32
+    from videopose3d_torch.models.temporal import forward_dilated, receptive_field
+    cfg, bcfg, model, q, _, _, frames = _stream_setup(64, (3, 3, 3), 4, cuda, seed=2)
+    seq = frames.cpu().numpy()
+    streams = [seq[i] for i in range(seq.shape[0])]
+    run = lambda c, **kw: np.stack(st.stream_archive(
+        c, st.StreamingCausalLifter(c, model, device=cuda, **kw), streams))
+    int8 = run(cfg, engine="int8", quantized=q)
+    _check(torch.from_numpy(run(cfg, engine="int8_fused", quantized=q)),
+           torch.from_numpy(int8), torch.float32)
+    bf16 = run(bcfg, engine="bf16")
+    assert np.array_equal(run(bcfg, engine="bf16", ring_impl="dma"), bf16)
+    _check(torch.from_numpy(run(bcfg, engine="bf16_fused")), torch.from_numpy(bf16),
+           torch.bfloat16)
+    pad = receptive_field(cfg) - 1
+    padded = torch.cat([frames[:, :1].expand(-1, pad, -1, -1), frames], dim=1)
+    with full_float32():
+        want = forward_dilated(model, padded)
+    f32 = run(dataclasses.replace(cfg, compute_dtype="float32"))
+    _check(torch.from_numpy(f32).to(cuda), want, torch.float32)

@@ -73,3 +73,76 @@ def protocol_numbers(text):
 def average_lines(text):
     """The four printed action-wise average lines."""
     return [line for line in text.splitlines() if "action-wise average" in line]
+
+
+# ---------------------------------------------------------------------------
+# Streaming: tolerances and comparisons shared by tests/test_torch_streaming*.py
+# ---------------------------------------------------------------------------
+
+# Port vs JAX, max |got - want| <= tol * max(1, max |want|) per tensor.  float32:
+# the same float32 products summed in another order (~1e-7 measured).  bfloat16:
+# one bf16 step (2^-8 relative) at the largest value, where another summation
+# order moves a float32 sum across a bf16 rounding point.
+STREAM_TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
+# int8 streams: XLA on the CPU contracts the epilogues' ``a * s + b`` into one
+# fused multiply-add where torch rounds twice, which flips a rounding of the int8
+# stream only at a tie: at most one step on at most 1e-3 of the elements; the
+# poses within 1e-3 * max(1, max |JAX|).
+INT8_STREAM_FRAC = 1e-3
+INT8_POSE_TOL = 1e-3
+
+
+def stream_models(fw, channels, compute_dtype="float32", seed=0):
+    """A causal JAX model and the port's copy: (cfg, params, state, tcfg, model)."""
+    return jax_model(dict(num_joints_in=17, in_features=2, num_joints_out=17,
+                          filter_widths=fw, causal=True, channels=channels,
+                          compute_dtype=compute_dtype), seed=seed)
+
+
+def quantized_pair(cfg, params, state, seed=0):
+    """The JAX int8 pytree calibrated on seeded frames, and the port's copy."""
+    import jax
+    import jax.numpy as jnp
+    from videopose3d_tpu.models.temporal import receptive_field
+    from videopose3d_tpu.ops.pallas.temporal_block_int8 import quantize_temporal_model
+    from videopose3d_torch.models.convert import q_from_jax
+    rng = np.random.default_rng(seed + 50)
+    calib = rng.standard_normal((1, receptive_field(cfg) + 64, 17, 2)).astype(np.float32)
+    q = quantize_temporal_model(cfg, params, state, jnp.asarray(calib))
+    return q, q_from_jax(jax.tree_util.tree_map(np.asarray, q))
+
+
+def to_jax_state(stream_state, like):
+    """The port's stream state as a JAX one, the rings in ``like``'s dtypes."""
+    import jax.numpy as jnp
+    from videopose3d_torch.models.convert import stream_state_to_jax
+    ss = stream_state_to_jax(stream_state)
+    return {"bufs": [jnp.asarray(b, r.dtype) for b, r in zip(ss["bufs"], like["bufs"])],
+            "ptr": jnp.asarray(ss["ptr"])}
+
+
+def assert_close(got, want, tol, what=""):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    assert err <= tol * max(1.0, float(np.abs(want).max())), (what, err)
+
+
+def assert_int8_agree(got, want, what=""):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype == np.int8, what
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= INT8_STREAM_FRAC, (
+        what, diff.max(), (diff > 0).mean())
+
+
+def assert_states_agree(port_state, jax_state):
+    """Rings at their dtype's tolerance, positions equal."""
+    assert list(port_state["ptr"]) == [int(p) for p in np.asarray(jax_state["ptr"])]
+    for i, (p, j) in enumerate(zip(port_state["bufs"], jax_state["bufs"])):
+        p = p.cpu()
+        if p.dtype == torch.int8:
+            assert_int8_agree(p.numpy(), np.asarray(j), f"ring {i}")
+        else:
+            tol = STREAM_TOL["float32" if p.dtype == torch.float32 else "bfloat16"]
+            assert_close(p.float().numpy(), np.asarray(j, np.float32), tol, f"ring {i}")

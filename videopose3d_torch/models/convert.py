@@ -68,6 +68,34 @@ def jax_params_from_state_dict(
     return params, state
 
 
+def _tensor(v, device, dtype=None):
+    """A numpy leaf of the JAX package as a torch tensor of its own memory (the
+    port writes rings in place); a bfloat16 leaf (ml_dtypes) carries its bits
+    through float32."""
+    import torch
+    v = np.array(v)
+    if v.dtype.name == "bfloat16":
+        v, dtype = v.astype(np.float32), torch.bfloat16
+    return torch.from_numpy(v).to(device, dtype)
+
+
+def stream_state_from_jax(stream_state, device="cpu"):
+    """A JAX streaming state (``init_stream_state*``'s pytree, leaves as numpy)
+    -> the port's: the rings as tensors on ``device``, ``ptr`` as host ints."""
+    return {"bufs": [_tensor(b, device) for b in stream_state["bufs"]],
+            "ptr": [int(p) for p in np.asarray(stream_state["ptr"])]}
+
+
+def stream_state_to_jax(stream_state):
+    """The inverse of :func:`stream_state_from_jax`, leaves as numpy: bfloat16
+    rings come back as float32 holding their exact values (cast them to the JAX
+    state's dtype), ``ptr`` as an int32 array."""
+    import torch
+    return {"bufs": [(b.float() if b.dtype == torch.bfloat16 else b).cpu().numpy()
+                     for b in stream_state["bufs"]],
+            "ptr": np.asarray(stream_state["ptr"], np.int32)}
+
+
 def q_from_jax(q, device="cpu"):
     """The JAX package's int8 serving pytree (``quantize_temporal_model``'s
     output, leaves as numpy) -> the port's ``QuantizedModel`` on ``device``,
@@ -77,10 +105,7 @@ def q_from_jax(q, device="cpu"):
                                                                     QuantizedModel)
 
     def t(v, dtype=None):
-        v = np.asarray(v)
-        if v.dtype.name == "bfloat16":  # ml_dtypes: carry the bits through float32
-            v, dtype = v.astype(np.float32), torch.bfloat16
-        return torch.from_numpy(np.ascontiguousarray(v)).to(device, dtype)
+        return _tensor(v, device, dtype)
 
     blocks = [Int8Block(t(b["wq_a"]), t(b["wq_b"]),
                         *(t(b[k], torch.float32) for k in ("A1", "B1", "A2", "B2", "R")))

@@ -55,6 +55,12 @@ _ENTRY_ARGTYPES = {
     #   ws, bs, j3, out, stream)
     "vp3d_int8_block": [_I] * 6 + [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I]
                        + [_P] * 2,
+    # csrc/streaming_fused.cu: (act_type, n_blocks, batch, channels, k, doubled, x, ws,
+    #   bs, j3, out, ptrs (host void*[]), ints (host int[]), stream)
+    "vp3d_stream_step": [_I] * 6 + [_P] * 3 + [_I, _P, ctypes.POINTER(_P),
+                                               ctypes.POINTER(_I), _P],
+    # (ring, row, offset_bytes, n_bytes, stream)
+    "vp3d_ring_push": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -142,5 +148,10 @@ def load_library() -> ctypes.CDLL:
     lib.vp3d_tb_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_i8_smem_bytes.argtypes = [_I] * 5
     lib.vp3d_i8_smem_bytes.restype = ctypes.c_size_t
+    lib.vp3d_stream_smem_bytes.argtypes = [_I] * 2
+    lib.vp3d_stream_smem_bytes.restype = ctypes.c_size_t
+    for name in ("vp3d_stream_max_blocks", "vp3d_stream_max_taps"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     _lib = lib
     return lib

@@ -50,9 +50,7 @@
 // 16-byte broadcasts.  Ragged tails are masked: rows past the input are zero and rows
 // past T_out are not stored.
 
-#include <stdint.h>
-
-#include "tile_gemm.cuh"
+#include "int8_gemm.cuh"
 
 namespace {
 
@@ -61,9 +59,6 @@ using namespace vp3d;
 enum Variant { kMid = 0, kExpand = 1, kShrink = 2 };
 
 constexpr int kSlack = 32;                          // accshift window alignment
-constexpr float kQmax = 127.0f;
-constexpr float kInvQmax = static_cast<float>(1.0 / 127.0);  // torch's f32(1.0 / QMAX)
-constexpr int kWarps = NT / 32;
 
 struct Args {
   int batch, t_in, t_out, c;
@@ -122,65 +117,6 @@ __host__ __device__ inline Smem smem_layout(int variant, bool acc, int c, int k_
   o += sizeof(float) * (size_t)(3 + kWarps) * TM;
   s.total = o;
   return s;
-}
-
-__device__ __forceinline__ void zero_i(int (&acc)[TM][CPT]) {
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) acc[r][q] = 0;
-  }
-}
-
-// Loads 4 packed weight groups g..g+3 of this thread's columns (16 int8 of K).
-__device__ __forceinline__ void load_wp(int (&w)[4][CPT], const int* __restrict__ W, int n,
-                                        int g, const int (&col)[CPT]) {
-#pragma unroll
-  for (int gg = 0; gg < 4; ++gg) {
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      w[gg][q] = col[q] < n ? __ldg(W + (size_t)(g + gg) * n + col[q]) : 0;
-    }
-  }
-}
-
-// acc[r][q] += sum_{k < K} A[r * lda + k] * Wk[col0 + tid + q*NT], exact in int32.
-// A: TM rows of int8 in shared memory, 16-byte aligned, lda % 16 == 0, K % 16 == 0.
-// W: dp4a-packed (K/4, n) int32.  Columns at or past n contribute nothing.
-__device__ __forceinline__ void gemm_i8(int (&acc)[TM][CPT], const int8_t* A, int lda,
-                                        int K, const int* __restrict__ W, int n,
-                                        int col0) {
-  int col[CPT];
-#pragma unroll
-  for (int q = 0; q < CPT; ++q) col[q] = col0 + threadIdx.x + q * NT;
-  int w[4][CPT];
-  load_wp(w, W, n, 0, col);
-  for (int k = 0; k < K; k += 16) {
-    int cur[4][CPT];
-#pragma unroll
-    for (int gg = 0; gg < 4; ++gg) {
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) cur[gg][q] = w[gg][q];
-    }
-    if (k + 16 < K) load_wp(w, W, n, (k + 16) / 4, col);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int4 a = *reinterpret_cast<const int4*>(A + r * lda + k);
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        int s = acc[r][q];
-        s = __dp4a(a.x, cur[0][q], s);
-        s = __dp4a(a.y, cur[1][q], s);
-        s = __dp4a(a.z, cur[2][q], s);
-        s = __dp4a(a.w, cur[3][q], s);
-        acc[r][q] = s;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ int8_t to_stream(float v) {
-  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(v), 0.f), kQmax)));
 }
 
 // Copies rows [t, t + n) of the (t_in, c) int8 stream into dst (zeros past t_in).
@@ -342,29 +278,7 @@ __global__ void __launch_bounds__(NT, 1) int8_block_kernel(const Args p) {
     }
   }
 
-  // Row maxima over all C columns: warp shuffles, then across the warps.
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    float v = rmax[r];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
-    if (lane == 0) red_s[warp * TM + r] = v;
-  }
-  __syncthreads();
-  if (tid < TM) {
-    float m = red_s[tid];
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_s[w * TM + tid]);
-    m = fmaxf(m, 1.f);
-    inv_s[tid] = __fdiv_rn(kQmax, m);
-    rs_s[tid] = __fmul_rn(m, kInvQmax);
-  }
-  __syncthreads();
-  for (int i = tid; i < TM * c; i += NT) {
-    hq_s[i] = static_cast<int8_t>(static_cast<int>(rintf(__fmul_rn(real_s[i], inv_s[i / c]))));
-  }
-  __syncthreads();
+  requantize_rows(rmax, real_s, hq_s, inv_s, rs_s, red_s, c);
 
   // 1x1 product of hq, y, the residual, and the stage output.
   for (int col0 = 0; col0 < c; col0 += NP) {

@@ -1,0 +1,341 @@
+"""The fused streaming step: every residual block and the shrink for one frame
+(K5) or k frames (K6) of B streams in one kernel, the in-place ring push (K7),
+and their plain PyTorch versions.
+
+Counterpart of ``videopose3d_tpu/ops/pallas/streaming_fused.py`` and of
+``_ring_push_dma`` in ``videopose3d_tpu/streaming.py``.  The plain versions follow
+the JAX kernels' math row by row, not their TPU scheduling (row chunks, skewed
+pipelines, VMEM budgets, timing experiments): those are bit-identical there.
+
+Rings are time-major ``(cap, B, C)`` tensors, or ``(2 * cap, B, C)`` doubled rings
+for k frames per step.  They are updated **in place** (the JAX package donates
+them) and returned.  ``idx`` holds, per residual block, ``[write_slot,
+tap_slot, ...]`` with the older taps oldest first, blocks concatenated, as host
+ints: the kernel takes them by value.  Tap j's slot is the ring row of the first
+frame's tap; with k frames, frame f's tap is row ``slot + f`` after the push.
+
+Dispatch: tensors on the CPU take the ``*_plain`` version; CUDA tensors launch
+the kernel (``csrc/streaming_fused.cu``) or raise.  ``LAUNCHES`` counts kernel
+launches per kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence
+
+import torch
+
+from videopose3d_torch.ops.kernels.temporal_block import _check, _load, _ptr
+from videopose3d_torch.ops.kernels.temporal_block_int8 import QMAX, _i8mm, _rdiv, _to_stream
+
+LAUNCHES = {"stream_int8": 0, "stream_bf16": 0, "stream_int8_multi": 0,
+            "stream_bf16_multi": 0, "ring_push": 0}
+
+_ACT_TYPE = {"int8": 0, "bf16": 1}
+
+
+def pack_vec_rows(rows):
+    """Stack per-channel epilogue vectors into one (8, C) float32 tensor, zero
+    rows after them (the JAX package's operand layout)."""
+    v = torch.stack([torch.as_tensor(r, dtype=torch.float32).reshape(-1) for r in rows])
+    return torch.nn.functional.pad(v, (0, 0, 0, 8 - v.shape[0])).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def ring_push_plain(buf, slot: int, row):
+    """Write ``row`` (B, C) into ``buf`` (cap, B, C) at ``slot``, in place."""
+    buf[slot].copy_(row)
+    return buf
+
+
+def _push(ring, write: int, x, cap: int, doubled: bool):
+    """Write the (k, B, C) block x at ``write`` (and ``write + cap``), in place."""
+    k = x.shape[0]
+    ring[write: write + k] = x
+    if doubled:
+        ring[write + cap: write + cap + k] = x
+
+
+def _split(idx: Sequence[int], widths):
+    """Per block (write_slot, [tap slots]) from the flat index list."""
+    out, off = [], 0
+    for w in widths:
+        out.append((int(idx[off]), [int(t) for t in idx[off + 1: off + w]]))
+        off += w
+    return out
+
+
+def block_step_i8(blk, tap_rows, newest_q, *, last: bool):
+    """One w8a8 residual block on (rows, C) int8 tap rows, oldest first, the newest
+    (the block's input ``newest_q``) last: the int8 output stream, or for the last
+    block its float32 output.  The operations of ``temporal_block_int8._block_body``
+    in its order; each tap is contracted against its own weight slice (int32 sums
+    commute)."""
+    acc = _i8mm(tap_rows[0], blk.wq_a[0])
+    for j in range(1, len(tap_rows)):
+        acc = acc + _i8mm(tap_rows[j], blk.wq_a[j])
+    real = torch.relu(acc.float() * blk.A1 + blk.B1)
+    rowmax = torch.clamp_min(real.amax(dim=-1, keepdim=True), 1.0)
+    hq = torch.round(real * _rdiv(QMAX, rowmax)).to(torch.int8)
+    y = torch.relu(_i8mm(hq, blk.wq_b).float() * (rowmax * (1.0 / QMAX)) * blk.A2 + blk.B2)
+    out = newest_q.float() * blk.R + y
+    return out if last else _to_stream(out)
+
+
+def blocks_int8_plain(q, rings, eq, idx, widths, caps, doubled: bool):
+    """Every int8 residual block and the shrink on (k, B, C) int8 ``eq``; pushes
+    each block's input, then reads its taps as (k, B, C) slabs of the ring.
+    Returns (k*B, J3) float32 poses, frame-major."""
+    k, b, c = eq.shape
+    act = eq.reshape(k * b, c)
+    out = None
+    for i, (write, taps) in enumerate(_split(idx, widths)):
+        _push(rings[i], write, act.reshape(k, b, c), caps[i] if doubled else 0, doubled)
+        rows = [rings[i][t: t + k].reshape(k * b, c) for t in taps] + [act]
+        last = i == len(widths) - 1
+        result = block_step_i8(q.blocks[i], rows, act, last=last)
+        if last:
+            out = result
+        else:
+            act = result
+    return out.to(torch.bfloat16).float() @ q.shrink_w.float() + q.shrink_b
+
+
+def blocks_float_plain(w, rings, a0, idx, widths, caps, doubled: bool, dt, push=None):
+    """Every residual block and the shrink on the (k, B, C) float32 activation
+    ``a0`` at activation dtype ``dt`` (the rings hold ``act`` cast to ``dt``; a
+    product of ``dt`` values is summed in float32).  ``push(ring, write, x)``
+    replaces the plain ring write for single rings (K7).  Returns (k*B, J3)
+    float32 poses, frame-major."""
+    k, b, c = a0.shape
+    act = a0.reshape(k * b, c).float()
+    for i, (write, taps) in enumerate(_split(idx, widths)):
+        act_c = act.to(dt)
+        if push is None:
+            _push(rings[i], write, act_c.reshape(k, b, c), caps[i] if doubled else 0,
+                  doubled)
+        else:
+            push(rings[i], write, act_c)
+        w1, w2, vecs = w["w1"][i], w["w2"][i], w["vecs"][i]
+        rows = [rings[i][t: t + k].reshape(k * b, c) for t in taps] + [act_c]
+        h = rows[0].float() @ w1[0].float()
+        for j in range(1, len(rows)):
+            h = h + rows[j].float() @ w1[j].float()
+        h = torch.relu(h * vecs[0] + vecs[1]).to(dt)
+        z = h.float() @ w2.float()
+        act = act + torch.relu(z * vecs[2] + vecs[3])
+    return act.to(dt).float() @ w["shrink_w"].float() + w["shrink_b"]
+
+
+def fused_blocks_step_plain(q, rings, eq, idx, *, widths):
+    """Plain version of :func:`fused_blocks_step`."""
+    poses = blocks_int8_plain(q, rings, eq[None], idx, widths, None, doubled=False)
+    return poses, rings
+
+
+def fused_blocks_step_multi_plain(q, rings, eq, idx, *, widths, lags, caps, k):
+    """Plain version of :func:`fused_blocks_step_multi` (``lags`` is the kernel's:
+    the plain push-then-read needs no lags)."""
+    return blocks_int8_plain(q, rings, eq, idx, widths, caps, doubled=True), rings
+
+
+def fused_blocks_step_bf16_plain(weights, rings, a0, idx, *, widths):
+    """Plain version of :func:`fused_blocks_step_bf16`."""
+    poses = blocks_float_plain(weights, rings, a0[None], idx, widths, None, False,
+                               torch.bfloat16)
+    return poses, rings
+
+
+def fused_blocks_step_bf16_multi_plain(weights, rings, a0, idx, *, widths, lags, caps, k):
+    """Plain version of :func:`fused_blocks_step_bf16_multi`."""
+    poses = blocks_float_plain(weights, rings, a0, idx, widths, caps, True, torch.bfloat16)
+    return poses, rings
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs):
+    """Check every operand against the kernel's contract and launch the step.
+    ``blocks`` holds per residual block (wa, wb, [epilogue vectors])."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the {kind} kernel runs on CUDA tensors, got {dev}")
+    lib = _load()
+    n = len(widths)
+    max_blocks, max_taps = lib.vp3d_stream_max_blocks(), lib.vp3d_stream_max_taps()
+    kk, b, c = x.shape
+    if kk != k:
+        raise ValueError(f"the input holds {kk} frames, the step {k}")
+    if c % 16:
+        raise ValueError(f"channels must be a multiple of 16, got {c}")
+    if not 1 <= k <= 16:
+        raise ValueError(f"the {kind} kernel takes 1 to 16 frames per step, got {k}")
+    if not 1 <= n <= max_blocks or len(rings) != n or len(blocks) != n:
+        raise ValueError(f"the {kind} kernel takes 1 to {max_blocks} residual blocks "
+                         f"with one ring each, got {n} widths and {len(rings)} rings")
+    if any(not 1 <= w <= max_taps + 1 for w in widths):
+        raise ValueError(f"filter widths {tuple(widths)}: the kernel takes at most "
+                         f"{max_taps + 1} taps")
+    if len(idx) != sum(widths):
+        raise ValueError(f"idx holds {len(idx)} slots, the widths {sum(widths)}")
+    int8 = kind.startswith("stream_int8")
+    act_type = _ACT_TYPE["int8" if int8 else "bf16"]
+    _check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c))
+    ring_dt = torch.int8 if int8 else torch.bfloat16
+    j3 = ws.shape[1]
+    _check("shrink_w", ws, dev, torch.bfloat16, (c, j3))
+    _check("shrink_b", bs, dev, torch.float32, (j3,))
+    ptrs: List[int] = []
+    ints: List[int] = []
+    for i, ((write, taps), (wa, wb, vecs)) in enumerate(zip(_split(idx, widths), blocks)):
+        kw = widths[i]
+        cap = caps[i] if doubled else rings[i].shape[0]
+        _check(f"ring {i}", rings[i], dev, ring_dt, ((2 if doubled else 1) * cap, b, c))
+        if int8:
+            _check(f"packed wq_a {i}", wa, dev, torch.int32, (kw, c // 4, c))
+            _check(f"packed wq_b {i}", wb, dev, torch.int32, (c // 4, c))
+        else:
+            _check(f"w1 {i}", wa, dev, torch.bfloat16, (kw, c, c))
+            _check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c))
+        for v, vec in enumerate(vecs):
+            _check(f"epilogue vector {v} of block {i}", vec, dev, torch.float32, (c,))
+        # Slots: a push of k rows at `write` and every tap's k rows must lie in the ring.
+        if not 0 <= write <= cap - k or any(not 0 <= t <= (2 if doubled else 1) * cap - k
+                                            for t in taps):
+            raise ValueError(f"ring {i} (cap {cap}): slots {write}, {taps} out of range "
+                             f"for {k} frame(s)")
+        lag = list(lags[i]) if lags is not None else [k] * (kw - 1)
+        ptrs += [wa.data_ptr(), wb.data_ptr(), *(v.data_ptr() for v in vecs),
+                 *([None] * (5 - len(vecs))), rings[i].data_ptr()]
+        ints += ([kw, cap, write] + lag + [0] * (max_taps - len(lag))
+                 + taps + [0] * (max_taps - len(taps)))
+    smem = lib.vp3d_stream_smem_bytes(act_type, c)
+    if smem > lib.vp3d_block_max_smem_bytes():
+        raise ValueError(f"the {kind} kernel needs {smem} bytes of shared memory at "
+                         f"{c} channels; at most {lib.vp3d_block_max_smem_bytes()} "
+                         "are available")
+    out = torch.empty((k * b, j3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.vp3d_stream_step(
+            act_type, n, b, c, k, int(doubled), _ptr(x), _ptr(ws), _ptr(bs), j3, _ptr(out),
+            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+            ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError(f"the {kind} kernel failed to launch: "
+                           f"{lib.vp3d_error_string(code).decode()} ({code})")
+    LAUNCHES[kind] += 1
+    return out, rings
+
+
+def _int8_blocks(q, n):
+    return [(blk.pa, blk.pb, [blk.A1, blk.B1, blk.A2, blk.B2, blk.R])
+            for blk in q.blocks[:n]]
+
+
+def _bf16_blocks(weights, n):
+    return [(weights["w1"][i], weights["w2"][i], list(weights["vecs"][i][:4]))
+            for i in range(n)]
+
+
+def fused_blocks_step(q, rings, eq, idx, *, widths):
+    """Every int8 residual block and the shrink on one frame, in one kernel (K5).
+
+    Args:
+      q: the ``QuantizedModel`` of ``quantize_temporal_model``.
+      rings: per-block int8 rings (cap_i, B, C), updated in place.
+      eq: (B, C) int8 expand stream of this frame (block 0's newest tap).
+      idx: per block ``[write_slot, tap_slot, ...]``, host ints.
+      widths: per-block filter widths.
+
+    Returns ((B, J3) float32 poses, rings).
+    """
+    if eq.device.type == "cpu":
+        return fused_blocks_step_plain(q, rings, eq, idx, widths=widths)
+    return _launch("stream_int8", eq[None], _int8_blocks(q, len(widths)), rings, idx,
+                   widths, None, None, 1, False, q.shrink_w, q.shrink_b)
+
+
+def fused_blocks_step_multi(q, rings, eq, idx, *, widths, lags, caps, k):
+    """:func:`fused_blocks_step` on k frames per launch (K6).
+
+    Args:
+      rings: per-block int8 doubled rings (2*cap_i, B, C), updated in place.
+      eq: (k, B, C) int8 expand stream of this step's frames.
+      idx: per block ``[write_slot, tap_start, ...]`` (``write_slot`` k-aligned).
+      lags: per block the older taps' lags ``(width-1-j) * dilation``.
+      caps: per-block ring capacities (one copy).
+
+    Returns ((k*B, J3) float32 poses, frame-major, rings).
+    """
+    if eq.device.type == "cpu":
+        return fused_blocks_step_multi_plain(q, rings, eq, idx, widths=widths, lags=lags,
+                                             caps=caps, k=k)
+    return _launch("stream_int8_multi", eq, _int8_blocks(q, len(widths)), rings, idx,
+                   widths, lags, caps, k, True, q.shrink_w, q.shrink_b)
+
+
+def fused_blocks_step_bf16(weights, rings, a0, idx, *, widths):
+    """The bf16 counterpart of :func:`fused_blocks_step` (K5): an f32 residual
+    carry, bf16 rings.
+
+    Args:
+      weights: from ``streaming.prepare_bf16_fused``: per block ``w1`` (k, C, C)
+        and ``w2`` (C, C) bf16, ``vecs`` (8, C) f32 rows [s1, t1, s2, t2]; and
+        ``shrink_w`` (C, J3) bf16, ``shrink_b`` (J3,) f32.
+      rings: per-block bf16 rings (cap_i, B, C), updated in place.
+      a0: (B, C) float32 expand activation of this frame.
+    """
+    if a0.device.type == "cpu":
+        return fused_blocks_step_bf16_plain(weights, rings, a0, idx, widths=widths)
+    return _launch("stream_bf16", a0[None], _bf16_blocks(weights, len(widths)), rings,
+                   idx, widths, None, None, 1, False, weights["shrink_w"],
+                   weights["shrink_b"])
+
+
+def fused_blocks_step_bf16_multi(weights, rings, a0, idx, *, widths, lags, caps, k):
+    """The bf16 counterpart of :func:`fused_blocks_step_multi` (K6): ``a0`` is the
+    (k, B, C) float32 expand activation, ``rings`` bf16 doubled rings."""
+    if a0.device.type == "cpu":
+        return fused_blocks_step_bf16_multi_plain(weights, rings, a0, idx, widths=widths,
+                                                  lags=lags, caps=caps, k=k)
+    return _launch("stream_bf16_multi", a0, _bf16_blocks(weights, len(widths)), rings,
+                   idx, widths, lags, caps, k, True, weights["shrink_w"],
+                   weights["shrink_b"])
+
+
+def ring_push(buf, slot: int, row):
+    """Write ``row`` (B, C) into the (cap, B, C) ring ``buf`` at host int ``slot``,
+    in place (K7): one copy kernel, the rest of the ring untouched."""
+    if buf.device.type == "cpu":
+        return ring_push_plain(buf, slot, row)
+    dev = buf.device
+    if buf.ndim != 3:
+        raise ValueError(f"ring must be (cap, B, C), got {tuple(buf.shape)}")
+    cap, b, c = buf.shape
+    _check("row", row, dev, buf.dtype, (b, c), align=16)
+    _check("ring", buf, dev, buf.dtype, (cap, b, c), align=16)
+    if not 0 <= slot < cap:
+        raise ValueError(f"slot {slot} out of range for a ring of {cap}")
+    n_bytes = row.numel() * row.element_size()
+    if n_bytes % 16:
+        raise ValueError(f"the ring_push kernel copies 16-byte words; a row of {b} x {c} "
+                         f"{buf.dtype} is {n_bytes} bytes")
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.vp3d_ring_push(_ptr(buf), _ptr(row), slot * n_bytes, n_bytes,
+                                  ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError(f"the ring_push kernel failed to launch: "
+                           f"{lib.vp3d_error_string(code).decode()} ({code})")
+    LAUNCHES["ring_push"] += 1
+    return buf
