@@ -15,14 +15,17 @@ checkpoint (-arc 3,3,3,3,3, 1024 channels) and runs
 bfloat16 and with the plain float32 engine (each after a warm-up call), checking
 the protocol numbers and that every kernel launched.  Phase 3 holds the training
 kernels against their plain versions at the training path's shapes: the window
-gather (K1) at 1,024 windows of 243 rows, bitwise, and each forward and backward
-kernel of the train block (K2) at the four residual blocks' shapes (n = 27,648 /
-9,216 / 3,072 / 1,024 rows of 1,024 channels) in float32 and bfloat16, plus the
-whole block with its backward in float32; it times each kernel and plain
-version.  Phase 4 trains the full-width model for one epoch of batch 1,024 with
-``runner.main`` from the random checkpoint, with the fused train engine twice and
-the plain one once (dropout 0.25, the same seed), and checks the losses, the
-kernel launches, determinism, and that the saved checkpoint evaluates.
+gather (K1) at 1,024 windows of 243 rows from a 300,000- and a 3,000,000-row
+stream, bitwise, and each forward and backward kernel of the train block (K2) at
+the four residual blocks' shapes (n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024
+channels) in float32 and bfloat16, plus the whole block with its backward in
+float32; it times each kernel and plain version (K1 and dw_gemm also from CUDA-graph
+replay, beside one PyTorch call).  Phase 4 trains the full-width model for one
+epoch of batch 1,024 with ``runner.main`` from the random checkpoint, with the
+fused train engine twice and the plain one once (dropout 0.25, the same seed), and
+checks the losses, the kernel launches, determinism, and that the saved checkpoint
+evaluates; one more epoch per engine is profiled (device time per kernel and the
+card's busy share over eight warm steps).
 Phase 5 quantizes the full-width model to w8a8 int8 on the card and holds each
 int8 stage kernel (K4: expand + block 0 at d=3, mid blocks at d=9 and d=27, the
 last block + shrink at d=81; in both tap modes, the accshift mode being K8)
@@ -118,8 +121,11 @@ KERNELS = (
 SOURCE = "videopose3d_torch/ops/kernels/csrc/temporal_block.cu"
 
 # The training path.  K1 at the full-width batch: 1,024 windows of the receptive
-# field's 243 rows of 17 x 2 keypoints.
-GATHER = dict(batch=1024, window=243, cols=34, rows=300_000)
+# field's 243 rows of 17 x 2 keypoints, from a 300,000-row stream (40.8 MB, held
+# in the 50 MB L2) and a 3,000,000-row one (408 MB, as a real Human3.6M epoch's
+# ~3.1 M rows with their flipped copies, read from HBM).
+GATHER = dict(batch=1024, window=243, cols=34)
+GATHER_ROWS = (300_000, 3_000_000)
 GATHER_SOURCE = "videopose3d_torch/ops/kernels/csrc/gather_rows.cu"
 GATHER_REPLACES = "videopose3d_tpu/ops/pallas/gather_rows.py:103"
 # K2 per residual block of the strided model at batch 1,024: input frames T
@@ -150,6 +156,9 @@ TRAIN_SUBSET = "0.5"
 # First-step loss of the fused train engine vs the plain one (same weights, same
 # dropout masks, TF32 off): float32 sums in other orders, ~1e-6 relative.
 FIRST_STEP_AGREE = 1e-4
+# Steps [8, 16) of the epoch's 24 are profiled, once per train engine: warm, and
+# clear of the epoch's first and last batches.
+PROFILE_STEPS = (8, 16)
 
 
 # Peaks of an H100 SXM (NVIDIA's data sheet, dense, at 700 W): the bound of a kernel
@@ -661,31 +670,45 @@ def phase3(device):
     results = []
 
     gen = torch.Generator().manual_seed(SEED + 3)
-    flat = torch.randn(GATHER["rows"], GATHER["cols"], generator=gen).to(device)
-    row0 = torch.randint(0, GATHER["rows"] - GATHER["window"] + 1, (GATHER["batch"],),
-                         generator=gen).to(device)
-    got = gr.gather_windows(flat, row0, window=GATHER["window"])
-    want = gr.gather_windows_plain(flat, row0, window=GATHER["window"])
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "gather_windows: kernel and plain version differ")
-    ms = cuda_ms(lambda: gr.gather_windows(flat, row0, window=GATHER["window"]))
-    plain_ms = cuda_ms(lambda: gr.gather_windows_plain(flat, row0, window=GATHER["window"]))
-    # The library call: one advanced-indexing gather of the same rows (the window
-    # starts are in range, so the clamp of the kernel's contract is the identity).
-    rows = row0[:, None] + torch.arange(GATHER["window"], device=device)
-    check(torch.equal(flat[rows], want), "gather_windows: the indexing gather differs")
-    library_ms = cuda_ms(lambda: flat[rows])
-    gbps = 2 * got.numel() * 4 / (ms * 1e-3) / 1e9
-    bound_ms, bound_by = roofline([], 2 * nbytes(got) + nbytes(row0))
-    print(f"phase3 gather_windows float32 {GATHER}: bitwise equal; kernel {ms:.4f} ms "
-          f"({gbps:.0f} GB/s moved), plain {plain_ms:.4f} ms, indexing gather "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    results.append({"name": f"gather_windows (float32, B={GATHER['batch']}, "
-                            f"window={GATHER['window']}, C={GATHER['cols']})",
-                    "key": ("gather", "gather_windows"), "route": "cuda",
-                    "source": GATHER_SOURCE, "replaces": GATHER_REPLACES,
-                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+    window = GATHER["window"]
+    for n_rows in GATHER_ROWS:
+        flat = torch.randn(n_rows, GATHER["cols"], device=device,
+                           generator=torch.Generator(device).manual_seed(SEED + n_rows))
+        row0 = torch.randint(0, n_rows - window + 1, (GATHER["batch"],),
+                             generator=gen).to(device)
+        got = gr.gather_windows(flat, row0, window=window)
+        want = gr.gather_windows_plain(flat, row0, window=window)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"gather_windows rows={n_rows}: kernel and plain version differ")
+        # The library call: one advanced-indexing gather of the same rows (the
+        # window starts are in range, so the clamp of the kernel's contract is the
+        # identity).
+        rows = row0[:, None] + torch.arange(window, device=device)
+        check(torch.equal(flat[rows], want), "gather_windows: the indexing gather differs")
+        fns = (lambda: gr.gather_windows(flat, row0, window=window),
+               lambda: gr.gather_windows_plain(flat, row0, window=window),
+               lambda: flat[rows])
+        # Device time from CUDA-graph replay (a call's host enqueue, ~0.05 ms, is
+        # longer than the copy); one call between CUDA events beside it.
+        ms, plain_ms, library_ms = (graph_ms(fn) for fn in fns)
+        one_call = [cuda_ms(fn) for fn in fns]
+        gbps = 2 * got.numel() * 4 / (ms * 1e-3) / 1e9
+        bound_ms, bound_by = roofline([], 2 * nbytes(got) + nbytes(row0))
+        print(f"phase3 gather_windows float32 {GATHER} rows={n_rows}: bitwise equal; "
+              f"graph-replayed kernel {ms:.4f} ms ({gbps:.0f} GB/s moved), plain "
+              f"{plain_ms:.4f} ms, indexing gather {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); one call with its enqueue: kernel "
+              f"{one_call[0]:.4f} ms, plain {one_call[1]:.4f} ms, indexing gather "
+              f"{one_call[2]:.4f} ms")
+        results.append({"name": f"gather_windows (float32, B={GATHER['batch']}, "
+                                f"window={window}, C={GATHER['cols']}, rows={n_rows})",
+                        "key": ("gather", "gather_windows"), "route": "cuda",
+                        "source": GATHER_SOURCE, "replaces": GATHER_REPLACES,
+                        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
+        del flat, got, want, rows
 
     flops = {key: f for key, _, f in TRAIN_KERNELS}
     replaces = {key: r for key, r, _ in TRAIN_KERNELS}
@@ -717,6 +740,23 @@ def phase3(device):
                 print(f"phase3 {key:22s} {dname:8s} n={n:6d}: max_abs_err {err:.3e}; "
                       f"kernel {ms:.3f} ms ({tflops}), plain {plain_ms:.3f} ms{lib}, "
                       f"bound {bound_ms:.3f} ms ({bound_by})")
+                if key == "dw_gemm":
+                    # Device time from CUDA-graph replay: at the smaller n the
+                    # wrapper's host enqueue is a good part of one call's time.
+                    again = kernel(*args)
+                    torch.cuda.synchronize()
+                    check(torch.equal(again, got[0]), f"dw_gemm {dname} n={n}: two launches "
+                                                      "differ")
+                    ms, plain_ms = (graph_ms(lambda f=f: f(*args), reps=20)
+                                    for f in (kernel, plain))
+                    if library_ms is not None:
+                        library_ms = graph_ms(lambda: torch.matmul(args[0].t(), args[1]),
+                                              reps=20)
+                    lib = "" if library_ms is None else f", torch.matmul {library_ms:.4f} ms"
+                    print(f"phase3 {key:22s} {dname:8s} n={n:6d}: bitwise-equal repeat; "
+                          f"graph-replayed kernel {ms:.4f} ms "
+                          f"({flops[key] * n * CHANNELS ** 2 / (ms * 1e-3) / 1e12:.1f} "
+                          f"TFLOP/s), plain {plain_ms:.4f} ms{lib}")
                 results.append({"name": f"{key} ({dname}, n={n}, C={CHANNELS})",
                                 "key": ("train", key), "route": "cuda",
                                 "source": TRAIN_SOURCE, "replaces": replaces[key],
@@ -749,9 +789,12 @@ _EPOCH = re.compile(r"^\[1\] time \S+ lr \S+ 3d_train (\S+) 3d_eval (\S+) 3d_val
 _TRAINED = re.compile(r"^INFO: trained (\d+) steps in (\S+) s \((\S+) frames/s")
 
 
-def train_cli(argv):
+def train_cli(argv, profiled=None):
     """runner.main training in-process; returns (per-step losses, epoch line
-    numbers, (steps, seconds, frames/s), final protocol numbers, launches)."""
+    numbers, (steps, seconds, frames/s), final protocol numbers, launches).
+    ``profiled``: a dict that receives a torch.profiler trace of steps
+    PROFILE_STEPS and their wall time."""
+    from torch.profiler import ProfilerActivity, profile
     from videopose3d_torch import runner, train
     from videopose3d_torch.ops.kernels import gather_rows as gr
     from videopose3d_torch.ops.kernels import train_block as trb
@@ -759,8 +802,19 @@ def train_cli(argv):
     step = train.SupervisedTrainer.step
 
     def recording_step(self, *args, **kwargs):
+        first, stop = PROFILE_STEPS
+        if profiled is not None and len(losses) == first:
+            torch.cuda.synchronize()
+            profiled["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA])
+            profiled["prof"].start()
+            profiled["start"] = time.perf_counter()
         loss = step(self, *args, **kwargs)
         losses.append(loss)
+        if profiled is not None and len(losses) == stop:
+            torch.cuda.synchronize()
+            profiled["wall"] = time.perf_counter() - profiled["start"]
+            profiled["prof"].stop()
         return loss
 
     for counts in (gr.LAUNCHES, trb.LAUNCHES):
@@ -791,8 +845,9 @@ def phase4(tmp):
     """One full-width training epoch per engine through runner.main."""
     data = os.path.join(tmp, "data")
     init = os.path.join(tmp, "checkpoint", "random_full_width.bin")
-    runs = {}
-    for name, engine in (("pallas", "pallas"), ("xla", "xla"), ("pallas again", "pallas")):
+    runs, profiles = {}, {}
+    for name, engine in (("pallas", "pallas"), ("xla", "xla"), ("pallas again", "pallas"),
+                         ("pallas profiled", "pallas"), ("xla profiled", "xla")):
         ckpt = os.path.join(tmp, "train_" + name.replace(" ", "_"))
         os.makedirs(ckpt)
         shutil.copy(init, ckpt)
@@ -802,12 +857,34 @@ def phase4(tmp):
                 "--data-dir", data, "-c", ckpt, "-r", "random_full_width.bin",
                 "--checkpoint-frequency", "1", "--device", "cuda",
                 "--train-engine", engine]
-        losses, numbers, (steps, seconds, fps), out, launches = train_cli(argv)
+        profiled = {} if name.endswith("profiled") else None
+        losses, numbers, (steps, seconds, fps), out, launches = train_cli(argv, profiled)
+        if profiled is not None:
+            profiles[engine] = profiled
+            continue
         runs[name] = (losses, launches, ckpt, out)
         print(f"phase4 train {name:12s}: {steps} steps of batch 1024 in {seconds:.3f} s, "
               f"{seconds / steps * 1e3:.2f} ms/step, {fps:.1f} training frames/s; "
               f"first-step loss {float(losses[0]):.6f}, epoch 3d_train/3d_eval/3d_valid "
               f"{numbers[0]:.4f}/{numbers[1]:.4f}/{numbers[2]:.4f} mm; launches {launches}")
+    # Where the time of a train step goes: device time per kernel over the
+    # profiled steps, per step, and the card's busy share of their wall time.
+    # Only the device-side events count: an aten op's row repeats its kernels'.
+    from torch.autograd import DeviceType
+    n_steps = PROFILE_STEPS[1] - PROFILE_STEPS[0]
+    for engine, profiled in profiles.items():
+        device_us = {}
+        for avg in profiled["prof"].key_averages():
+            if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+                device_us[avg.key] = device_us.get(avg.key, 0) + avg.self_device_time_total
+        check(device_us, f"the {engine} profile holds no device time")
+        total_ms = sum(device_us.values()) / 1e3 / n_steps
+        wall_ms = profiled["wall"] * 1e3 / n_steps
+        print(f"phase4 profile {engine}: steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1}, "
+              f"{wall_ms:.3f} ms/step wall, {total_ms:.3f} ms/step device time, busy "
+              f"{100 * total_ms / wall_ms:.1f} %")
+        for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"phase4 profile {engine}   {us / 1e3 / n_steps:8.3f} ms/step  {key[:90]}")
     first_p, first_x = float(runs["pallas"][0][0]), float(runs["xla"][0][0])
     rel = abs(first_p - first_x) / abs(first_x)
     print(f"phase4 first-step loss pallas {first_p!r} vs xla {first_x!r}: relative "

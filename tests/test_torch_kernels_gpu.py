@@ -191,6 +191,63 @@ def test_gather_kernel_matches_plain(cuda, dt, rows, cols, window, batch, out_co
     assert got.shape == want.shape and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,window,out_cols", [
+    (4096, 34, 243, None),         # the training batch's rows: 136 bytes in float32
+    (4096, 33, 243, None),         # odd row width: every even phase in bfloat16
+    (4096, 34, 1, None),           # one-row windows: head and tail only
+    (4096, 34, 27, 17),            # a column prefix
+    (3_000_000, 34, 243, None),    # a stream past the 50 MB L2, as a real epoch's
+])
+def test_gather_kernel_at_every_16_byte_phase(cuda, dt, rows, cols, window, out_cols):
+    """Window starts of both parities at even and odd batch indices: a float32
+    window of 34 columns then starts at 0 or 8 (mod 16) in the stream and in the
+    output in all four pairs, and the copy is bitwise equal at each."""
+    flat = torch.randn(rows, cols, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(rows + cols)).to(dt)
+    rng = np.random.default_rng(window)
+    starts = rng.integers(0, rows - window, 64)
+    row0 = starts - starts % 2 + np.tile([0, 1, 1, 0], 16)
+    row0 = torch.from_numpy(row0.astype(np.int32)).to(cuda)
+    before = gr.LAUNCHES["gather_windows"]
+    got = gr.gather_windows(flat, row0, window=window, out_cols=out_cols)
+    assert gr.LAUNCHES["gather_windows"] == before + 1
+    want = gr.gather_windows_plain(flat, row0, window=window, out_cols=out_cols)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+    if dt == torch.float32 and cols == 34 and out_cols is None:
+        row_bytes, span = cols * 4, window * cols * 4
+        phases = {((flat.data_ptr() + r * row_bytes) % 16, (got.data_ptr() + b * span) % 16)
+                  for b, r in enumerate(row0.tolist())}
+        assert phases == {(0, 0), (0, 8), (8, 0), (8, 8)}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [68, 1024, 1028])
+@pytest.mark.parametrize("n", [1, 31, 33, 1024, 27_648])
+def test_dw_gemm_kernel_matches_plain(cuda, dt, n, c):
+    """dWb = a^T b over n rows (one or several row slices, ragged slabs and
+    output tiles): within tolerance of the plain version, one launch counted
+    per call, and two launches bitwise equal (the slices are added in a fixed
+    order, without atomics)."""
+    gen = torch.Generator(cuda).manual_seed(n * c)
+    a = torch.randn(n, c, device=cuda, generator=gen).to(dt)
+    b = torch.randn(n, c, device=cuda, generator=gen).to(dt)
+    before = trb.LAUNCHES["dw_gemm"]
+    got = trb.dw_gemm(a, b)
+    assert trb.LAUNCHES["dw_gemm"] == before + 1
+    again = trb.dw_gemm(a, b)
+    assert trb.LAUNCHES["dw_gemm"] == before + 2
+    _check(got, trb.dw_gemm_plain(a, b), dt)
+    assert torch.equal(got, again)
+
+
+def test_dw_gemm_refuses_misaligned_rows(cuda):
+    flat = torch.randn(33 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        trb.dw_gemm(flat[1:].view(33, 64), torch.randn(33, 64, device=cuda))
+
+
 def _train_block_inputs(seed, b, t, c, fw, dt, dropout, device):
     rng = np.random.default_rng(seed)
     f = lambda a, d=dt: torch.from_numpy(np.asarray(a, np.float32)).to(device, d)

@@ -107,6 +107,25 @@ def test_train_block_matches_jax(b, t, c, fw, center, dropout):
                                    err_msg=f"gradient {i}")
 
 
+@pytest.mark.parametrize("c", [68, 1024, 1028])
+@pytest.mark.parametrize("n", [1, 31, 1024, 27_648])
+def test_dw_gemm_plan_tiles_the_rows(n, c):
+    """dw_gemm's split over the rows: in-order slices that tile [0, n) exactly,
+    all but the last of one whole number of slabs, and no more CUDA blocks than
+    one wave of the card holds (132 SMs)."""
+    plan = trb.dw_gemm_plan(n, c, sms=132)
+    assert len(plan) >= 1 and plan[0][0] == 0 and plan[-1][1] == n
+    assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
+    rows = plan[0][1]
+    assert all(stop - start == rows for start, stop in plan[:-1])
+    assert 0 < plan[-1][1] - plan[-1][0] <= rows
+    assert len(plan) == 1 or rows % trb.DW_ROWS == 0
+    tiles = (-(-c // trb.DW_TILE)) ** 2
+    assert len(plan) * tiles <= max(tiles, trb.DW_BLOCKS_PER_SM * 132)
+    if (n, c) == (27_648, 1024):  # the first residual block: 4 x 64 CUDA blocks
+        assert plan == [(0, 6912), (6912, 13824), (13824, 20736), (20736, 27648)]
+
+
 def test_bf16_fused_engine_matches_plain_bf16_engine():
     """compute_dtype bfloat16: the fused engine's plain bodies against the plain
     bf16 block, whole model, same weights and dropout masks."""

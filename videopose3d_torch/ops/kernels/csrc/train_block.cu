@@ -29,16 +29,30 @@
 //
 // What bounds it on this card: the products, 2 * n * C^2 * (fw + 1) FLOP forward and
 // 2 * n * C^2 * (fw + 2) in these kernels backward, on CUDA-core FP32 FMAs (67 TFLOP/s
-// peak) in this first version; tensor cores (wgmma) and TMA pipelining are later
-// work.  Row-tile kernels stream the C x C weights from L2 once per 16-row tile (8
-// FLOP per weight byte) and keep the tile's A operand in shared memory.
+// peak); tensor cores (wgmma) are later work.  Row-tile kernels stream the C x C
+// weights from L2 once per 16-row tile (8 FLOP per weight byte) and keep the tile's A
+// operand in shared memory.
+//
+// dw_gemm (dWb = d^T dz over the n rows) is a plain SGEMM with both operands
+// row-major in the summed dimension, so no transpose is needed: a CUDA block of 256
+// threads owns a 128 x 128 tile of dWb, each thread an 8 x 8 register tile (four
+// FMAs per shared-memory float), and 32-row slabs of both operands flow through a
+// 3-stage ring of shared memory filled by 16-byte cp.async copies, so the copies of
+// slab s + 2 overlap the FMAs of slab s.  Two CUDA blocks (96 KB of shared memory
+// and 128 registers a thread each) share an SM.  At C = 1,024 there are only 64
+// tiles for 132 SMs, so the rows are split into slices (split-K, planned by the
+// Python wrapper: 4 slices, 256 CUDA blocks, one wave); each slice writes a float32
+// partial and dw_reduce adds the partials in slice order.  bf16 operands are staged
+// as they are and widened when read from shared memory.
 //
 // The TPU grid runs in order, so the Pallas bodies carry the BatchNorm sums and dWb
 // in VMEM scratch across grid steps.  CUDA blocks run in parallel, so each row tile
 // writes its per-channel partial sums to an (n_tiles, C) buffer that stats_reduce
-// adds up in tile order, and dw_gemm gives each CUDA block one 64 x 64 tile of dWb
-// that it accumulates over all n rows.  No float atomics: two runs give bitwise-equal
-// results.  Partial row tiles are masked, so any n is taken.
+// adds up in tile order, and dWb's row slices are added up in slice order.  No
+// float atomics: two runs give bitwise-equal results.  Partial row tiles, slabs and
+// output tiles are masked, so any n and any C % 4 == 0 are taken.
+
+#include <stdint.h>
 
 #include <algorithm>
 
@@ -48,9 +62,12 @@ namespace {
 
 using namespace vp3d;
 
-constexpr int SUM_ROWS = 64;  // rows per CUDA block of relu_mask_bn_sums
-constexpr int WT = 64;        // dw_gemm output tile (WT x WT)
-constexpr int WK = 32;        // dw_gemm rows staged per step
+constexpr int SUM_ROWS = 64;   // rows per CUDA block of relu_mask_bn_sums
+constexpr int DW_TILE = 128;   // dw_gemm output tile (DW_TILE x DW_TILE)
+constexpr int DW_ROWS = 32;    // dw_gemm rows per shared-memory slab
+constexpr int DW_STAGES = 3;   // slabs in the ring
+constexpr int DW_RT = 8;       // dw_gemm register tile per thread (DW_RT x DW_RT)
+constexpr int DW_THREADS = (DW_TILE / DW_RT) * (DW_TILE / DW_RT);
 
 // (a - b) * c + e in T, rounded after every operation, without contraction.
 template <typename T>
@@ -312,47 +329,187 @@ __global__ void __launch_bounds__(NT, 1) du_dtaps_res_kernel(
   }
 }
 
-// dw = a^T @ b over n rows, float32: one WT x WT output tile per CUDA block, each
-// thread a 4 x 4 register tile, WK rows of both operands staged per step.
+// 4 elements (16 bytes of float32, 8 of bf16) from global to shared memory without
+// passing through registers; zeros where !valid (no global read then).
 template <typename T>
-__global__ void __launch_bounds__(NT) dw_gemm_kernel(const T* __restrict__ a,
-                                                     const T* __restrict__ b, int n, int c,
-                                                     float* __restrict__ dw) {
-  __shared__ __align__(16) float a_s[WK][WT];
-  __shared__ __align__(16) float b_s[WK][WT];
-  const int i0 = blockIdx.y * WT, j0 = blockIdx.x * WT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int r0 = 0; r0 < n; r0 += WK) {
-    for (int e = threadIdx.x; e < WK * WT; e += NT) {
-      const int rr = e / WT, cc = e % WT, r = r0 + rr;
-      a_s[rr][cc] = (r < n && i0 + cc < c) ? to_f<T>(a[(size_t)r * c + i0 + cc]) : 0.f;
-      b_s[rr][cc] = (r < n && j0 + cc < c) ? to_f<T>(b[(size_t)r * c + j0 + cc]) : 0.f;
+__device__ __forceinline__ void cp_async4(T* smem, const T* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 * (int)sizeof(T) : 0;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copy of rows [r0, min(r0 + DW_ROWS, r_end)) of a's columns i0.. and b's
+// columns j0.. (DW_TILE each) into one slab of the ring; rows and columns outside
+// are zero-filled.  Each warp copies whole 512-byte (float32) row segments.
+template <typename T>
+__device__ __forceinline__ void dw_load_slab(T* a_s, T* b_s, const T* __restrict__ a,
+                                             const T* __restrict__ b, int c, int r0,
+                                             int r_end, int i0, int j0) {
+  constexpr int PER_ROW = DW_TILE / 4;
+#pragma unroll
+  for (int q = 0; q < DW_ROWS * PER_ROW / DW_THREADS; ++q) {
+    const int e = threadIdx.x + q * DW_THREADS;
+    const int rr = e / PER_ROW, cc = (e % PER_ROW) * 4, r = r0 + rr;
+    const bool a_ok = r < r_end && i0 + cc < c, b_ok = r < r_end && j0 + cc < c;
+    const size_t row = r < r_end ? (size_t)r * c : 0;
+    cp_async4(a_s + rr * DW_TILE + cc, a + (a_ok ? row + i0 + cc : 0), a_ok);
+    cp_async4(b_s + rr * DW_TILE + cc, b + (b_ok ? row + j0 + cc : 0), b_ok);
+  }
+}
+
+// 8 values of one staged row as float32: elements base + 0..3 and base + 64 + 0..3,
+// read as 16-byte (float32) or 8-byte (bf16) vectors.
+template <typename T>
+__device__ __forceinline__ void dw_frag(float (&f)[DW_RT], const T* row, int base) {
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const T* p = row + base + g * (DW_TILE / 2);
+    if constexpr (sizeof(T) == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      f[4 * g] = v.x;
+      f[4 * g + 1] = v.y;
+      f[4 * g + 2] = v.z;
+      f[4 * g + 3] = v.w;
+    } else {  // bf16 is the top half of a float32: widening is a shift, exact
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      f[4 * g] = __uint_as_float(v.x << 16);
+      f[4 * g + 1] = __uint_as_float(v.x & 0xffff0000u);
+      f[4 * g + 2] = __uint_as_float(v.y << 16);
+      f[4 * g + 3] = __uint_as_float(v.y & 0xffff0000u);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < WK; ++rr) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[rr][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_s[rr][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+  }
+}
+
+// out[blockIdx.z] = a[rows]^T @ b[rows], float32, over the rows of slice blockIdx.z:
+// [z * slice_rows, min(n, (z + 1) * slice_rows)).  One DW_TILE x DW_TILE output tile
+// per CUDA block of DW_THREADS; thread (ty, tx) owns rows ty * 4 + {0, 64} + 0..3 and
+// columns tx * 4 + {0, 64} + 0..3, and a warp the 4 x 8 threads
+// ty = 4 (warp / 2) + lane / 8, tx = 8 (warp % 2) + lane % 8, so that each fragment
+// read of a warp is one 64-byte (a) or 128-byte (b) line of shared memory.
+template <typename T>
+__global__ void __launch_bounds__(DW_THREADS, 2) dw_gemm_kernel(
+    const T* __restrict__ a, const T* __restrict__ b, int n, int c, int slice_rows,
+    float* __restrict__ out) {
+  constexpr int SLAB = DW_ROWS * DW_TILE;
+  extern __shared__ float4 smem4[];
+  T* a_s = reinterpret_cast<T*>(smem4);  // [DW_STAGES][DW_ROWS][DW_TILE]
+  T* b_s = a_s + DW_STAGES * SLAB;
+  const int i0 = blockIdx.y * DW_TILE, j0 = blockIdx.x * DW_TILE;
+  const int r_begin = blockIdx.z * slice_rows;
+  const int r_end = min(n, r_begin + slice_rows);
+  const int slabs = (r_end - r_begin + DW_ROWS - 1) / DW_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = (warp / 2) * 4 + lane / 8, tx = (warp % 2) * 8 + lane % 8;
+  float acc[DW_RT][DW_RT];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
+  for (int p = 0; p < DW_RT; ++p) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(ar[p], br[q], acc[p][q]);
+    for (int q = 0; q < DW_RT; ++q) acc[p][q] = 0.f;
+  }
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < slabs) {
+      dw_load_slab(a_s + s * SLAB, b_s + s * SLAB, a, b, c, r_begin + s * DW_ROWS, r_end,
+                   i0, j0);
+    }
+    cp_async_commit();
+  }
+  for (int t = 0; t < slabs; ++t) {
+    cp_async_wait<DW_STAGES - 2>();  // this thread's copies of slab t have landed
+    __syncthreads();                 // everyone's have, and slab t - 1 is consumed
+    const int next = t + DW_STAGES - 1;
+    if (next < slabs) {
+      const int st = next % DW_STAGES;
+      dw_load_slab(a_s + st * SLAB, b_s + st * SLAB, a, b, c, r_begin + next * DW_ROWS,
+                   r_end, i0, j0);
+    }
+    cp_async_commit();
+    const T* as = a_s + (t % DW_STAGES) * SLAB;
+    const T* bs = b_s + (t % DW_STAGES) * SLAB;
+#pragma unroll
+    for (int k = 0; k < DW_ROWS; ++k) {
+      float af[DW_RT], bf[DW_RT];
+      dw_frag(af, as + k * DW_TILE, ty * 4);
+      dw_frag(bf, bs + k * DW_TILE, tx * 4);
+      // Row p of the register tile left to right, row p + 1 right to left: each FMA
+      // shares an operand with the one before (the register reuse cache).
+#pragma unroll
+      for (int p = 0; p < DW_RT; ++p) {
+#pragma unroll
+        for (int x = 0; x < DW_RT; ++x) {
+          const int q = p % 2 ? DW_RT - 1 - x : x;
+          acc[p][q] = fmaf(af[p], bf[q], acc[p][q]);
+        }
       }
     }
-    __syncthreads();
   }
+  out += (size_t)blockIdx.z * c * c;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int i = i0 + ty * 4 + p;
+  for (int p = 0; p < DW_RT; ++p) {
+    const int i = i0 + ty * 4 + (p / 4) * (DW_TILE / 2) + p % 4;
+    if (i >= c) continue;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = j0 + tx * 4 + q;
-      if (i < c && j < c) dw[(size_t)i * c + j] = acc[p][q];
+    for (int g = 0; g < 2; ++g) {
+      const int j = j0 + tx * 4 + g * (DW_TILE / 2);
+      if (j < c) {  // c % 4 == 0: a 4-column group is wholly in or out
+        *reinterpret_cast<float4*>(out + (size_t)i * c + j) =
+            make_float4(acc[p][4 * g], acc[p][4 * g + 1], acc[p][4 * g + 2],
+                        acc[p][4 * g + 3]);
+      }
     }
   }
+}
+
+// dw[k] = sum over slices s, in order, of part[s][k]: (slices, c * c) -> (c * c).
+__global__ void __launch_bounds__(NT) dw_reduce_kernel(const float4* __restrict__ part,
+                                                       int slices, size_t n4,
+                                                       float4* __restrict__ dw) {
+  for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * NT) {
+    float4 s = part[i];
+    for (int p = 1; p < slices; ++p) {
+      const float4 v = part[p * n4 + i];
+      s = make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y), __fadd_rn(s.z, v.z),
+                      __fadd_rn(s.w, v.w));
+    }
+    dw[i] = s;
+  }
+}
+
+template <typename T>
+cudaError_t launch_dw_gemm(int n, int c, int slices, int slice_rows, const void* a,
+                           const void* b, void* part, void* dw, cudaStream_t s) {
+  const int tiles = (c + DW_TILE - 1) / DW_TILE;
+  const size_t smem = 2 * sizeof(T) * DW_STAGES * DW_ROWS * DW_TILE;
+  float* target = static_cast<float*>(slices == 1 ? dw : part);
+  // Two CUDA blocks of 96 KB (float32) share an SM only with the whole carveout.
+  cudaError_t err = cudaFuncSetAttribute(dw_gemm_kernel<T>,
+                                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  err = launch_with_smem(dw_gemm_kernel<T>, dim3(tiles, tiles, slices), dim3(DW_THREADS),
+                         smem, s, static_cast<const T*>(a), static_cast<const T*>(b), n, c,
+                         slice_rows, target);
+  if (err != cudaSuccess || slices == 1) return err;
+  const size_t n4 = (size_t)c * c / 4;
+  const dim3 grid((unsigned)std::min<size_t>((n4 + NT - 1) / NT, 132 * 8));
+  return launch_with_smem(dw_reduce_kernel, grid, dim3(NT), 0, s,
+                          static_cast<const float4*>(part), slices, n4,
+                          static_cast<float4*>(dw));
 }
 
 // out[k] = sum over parts in order of part[p * c + k], for two buffers at once.
@@ -513,19 +670,26 @@ int vp3d_tb_du_dtaps_res(int dtype, int n, int c, int fw, int center, const void
   return cudaErrorInvalidValue;
 }
 
-int vp3d_tb_dw_gemm(int dtype, int n, int c, const void* a, const void* b, void* dw,
-                    void* stream) {
-  if (bad_shape(n, c)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((c + WT - 1) / WT, (c + WT - 1) / WT);
-  if (dtype == 0) {
-    return launch_with_smem(dw_gemm_kernel<float>, grid, dim3(NT), 0, s, cp<float>(a),
-                            cp<float>(b), n, c, mp<float>(dw));
+// dw (c, c) = a^T @ b over n rows, split into `slices` row slices of slice_rows rows
+// (the last one ragged): with one slice the kernel writes dw itself; otherwise each
+// slice writes its (c, c) partial into part (slices, c, c) and a second launch adds
+// them up in slice order.  a and b must be 16-byte (float32) or 8-byte (bf16)
+// aligned; every slice must hold at least one row.
+int vp3d_tb_dw_gemm(int dtype, int n, int c, int slices, int slice_rows, const void* a,
+                    const void* b, void* part, void* dw, void* stream) {
+  if (bad_shape(n, c) || slices <= 0 || slice_rows <= 0 ||
+      (long long)(slices - 1) * slice_rows >= n || (long long)slices * slice_rows < n ||
+      slices > 65535 || (slices > 1 && part == nullptr)) {
+    return cudaErrorInvalidValue;
   }
+  const size_t align = dtype == 0 ? 16 : 8;
+  if (reinterpret_cast<uintptr_t>(a) % align || reinterpret_cast<uintptr_t>(b) % align) {
+    return cudaErrorMisalignedAddress;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dw_gemm<float>(n, c, slices, slice_rows, a, b, part, dw, s);
   if (dtype == 1) {
-    using B = __nv_bfloat16;
-    return launch_with_smem(dw_gemm_kernel<B>, grid, dim3(NT), 0, s, cp<B>(a), cp<B>(b), n,
-                            c, mp<float>(dw));
+    return launch_dw_gemm<__nv_bfloat16>(n, c, slices, slice_rows, a, b, part, dw, s);
   }
   return cudaErrorInvalidValue;
 }

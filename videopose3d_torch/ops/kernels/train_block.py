@@ -283,16 +283,43 @@ def dz_matmul_dd(gz, z, coef, wb):
     return dz, dd
 
 
+# dw_gemm's geometry (csrc/train_block.cu): DW_TILE x DW_TILE output tiles per CUDA
+# block, row slabs of DW_ROWS, and DW_BLOCKS_PER_SM CUDA blocks resident per SM.
+DW_TILE, DW_ROWS, DW_BLOCKS_PER_SM = 128, 32, 2
+
+
+def dw_gemm_plan(n: int, c: int, sms: int = 132):
+    """The row slices of dw_gemm's split over n: ``[(start, stop), ...]`` in
+    order, each a whole number of DW_ROWS slabs but the last, together [0, n).
+
+    C = 1,024 has only 64 output tiles for the card's ``sms`` SMs, so the rows
+    are split into as many slices as one wave of resident CUDA blocks holds
+    (``DW_BLOCKS_PER_SM * sms // tiles``, 4 at C = 1,024 on 132 SMs), and never
+    more slices than slabs."""
+    slabs = -(-n // DW_ROWS)
+    tiles = (-(-c // DW_TILE)) ** 2
+    want = max(1, min(slabs, DW_BLOCKS_PER_SM * sms // tiles))
+    rows = -(-slabs // want) * DW_ROWS
+    return [(s, min(n, s + rows)) for s in range(0, n, rows)]
+
+
 def dw_gemm(a, b):
-    """Kernel of :func:`dw_gemm_plain`."""
+    """Kernel of :func:`dw_gemm_plain`: one launch of the tiled GEMM over the
+    :func:`dw_gemm_plan` slices and, with more than one slice, one of their
+    in-order sum."""
     if a.device.type == "cpu":
         return dw_gemm_plain(a, b)
     dt = a.dtype
     n, c = a.shape
     _validate(a, c)
-    _check_all(a.device, dt, a=(a, None, (n, c)), b=(b, None, (n, c)))
+    for name, t in (("a", a), ("b", b)):  # whole 4-element cp.async copies
+        _check(name, t, a.device, dt, (n, c), align=4 * a.element_size())
+    plan = dw_gemm_plan(n, c, torch.cuda.get_device_properties(a.device).multi_processor_count)
     dw = torch.empty((c, c), dtype=torch.float32, device=a.device)
-    _call("dw_gemm", "vp3d_tb_dw_gemm", _DTYPE_CODE[dt], n, c, a, b, dw)
+    part = (None if len(plan) == 1 else
+            torch.empty((len(plan), c, c), dtype=torch.float32, device=a.device))
+    _call("dw_gemm", "vp3d_tb_dw_gemm", _DTYPE_CODE[dt], n, c, len(plan), plan[0][1], a, b,
+          part, dw)
     return dw
 
 
