@@ -19,13 +19,15 @@ gather (K1) at 1,024 windows of 243 rows from a 300,000- and a 3,000,000-row
 stream, bitwise, and each forward and backward kernel of the train block (K2) at
 the four residual blocks' shapes (n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024
 channels) in float32 and bfloat16, plus the whole block with its backward in
-float32; it times each kernel and plain version (K1 and dw_gemm also from CUDA-graph
-replay, beside one PyTorch call).  Phase 4 trains the full-width model for one
-epoch of batch 1,024 with ``runner.main`` from the random checkpoint, with the
-fused train engine twice and the plain one once (dropout 0.25, the same seed), and
-checks the losses, the kernel launches, determinism, and that the saved checkpoint
-evaluates; one more epoch per engine is profiled (device time per kernel and the
-card's busy share over eight warm steps).
+float32; it times each kernel and plain version (K1, dw_gemm, conv_stats and
+du_dtaps_res also from CUDA-graph replay, with a bitwise repeat of each K2 one),
+and beside each K2 GEMM kernel one float32 torch.matmul of its product.  Phase 4
+trains the full-width model for one epoch of batch 1,024 with ``runner.main``
+from the random checkpoint, with the fused train engine twice and the plain one
+once (dropout 0.25, the same seed), and checks the losses, the kernel launches,
+determinism, and that the saved checkpoint evaluates; one more epoch per engine
+is profiled (device time per kernel and the card's busy share over eight warm
+steps).
 Phase 5 quantizes the full-width model to w8a8 int8 on the card and holds each
 int8 stage kernel (K4: expand + block 0 at d=3, mid blocks at d=9 and d=27, the
 last block + shrink at d=81; in both tap modes, the accshift mode being K8)
@@ -651,6 +653,30 @@ def train_block_stages(p):
     ]
 
 
+# K2 kernels timed from CUDA-graph replay as well, and checked for a bitwise repeat.
+GRAPH_TIMED = ("conv_stats", "dw_gemm", "du_dtaps_res")
+
+
+def library_call(key, args):
+    """One float32 torch.matmul (TF32 off) computing a K2 GEMM kernel's product
+    alone, on the kernel's inputs, or None for the elementwise kernels."""
+    if key == "conv_stats":
+        x3, wa = args[0], args[1]
+        a, b = x3.reshape(x3.shape[0], -1), wa.reshape(-1, wa.shape[-1])
+    elif key == "du_dtaps_res":  # du has ga's shape; Wa^T laid out as the kernel's
+        wa = args[4]
+        a, b = args[0], wa.permute(2, 0, 1).reshape(wa.shape[-1], -1).contiguous()
+    elif key == "norm_drop_matmul_stats":  # d has u's shape
+        a, b = args[0], args[3]
+    elif key == "dz_matmul_dd":  # dz has gz's shape
+        a, b = args[0], args[3].t()
+    elif key == "dw_gemm":
+        a, b = args[0].t(), args[1]
+    else:
+        return None
+    return lambda: torch.matmul(a, b)
+
+
 def whole_train_block(p, plain):
     """The block's forward and backward in float32: out, stats, all gradients."""
     from videopose3d_torch.ops.kernels import train_block as trb
@@ -727,10 +753,8 @@ def phase3(device):
                           for i, (a, w) in enumerate(zip(got, want)))
                 ms = cuda_ms(lambda: kernel(*args, **kwargs))
                 plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
-                library_ms = None
-                if key == "dw_gemm" and dt == torch.float32:
-                    # dWb = d^T dz in one float32 matmul (TF32 off).
-                    library_ms = cuda_ms(lambda: torch.matmul(args[0].t(), args[1]))
+                library = library_call(key, args) if dt == torch.float32 else None
+                library_ms = None if library is None else cuda_ms(library)
                 bound_ms, bound_by = roofline(
                     [(dname, flops[key] * n * CHANNELS ** 2)],
                     nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got))
@@ -740,18 +764,18 @@ def phase3(device):
                 print(f"phase3 {key:22s} {dname:8s} n={n:6d}: max_abs_err {err:.3e}; "
                       f"kernel {ms:.3f} ms ({tflops}), plain {plain_ms:.3f} ms{lib}, "
                       f"bound {bound_ms:.3f} ms ({bound_by})")
-                if key == "dw_gemm":
+                if key in GRAPH_TIMED:
                     # Device time from CUDA-graph replay: at the smaller n the
                     # wrapper's host enqueue is a good part of one call's time.
-                    again = kernel(*args)
+                    again = kernel(*args, **kwargs)
                     torch.cuda.synchronize()
-                    check(torch.equal(again, got[0]), f"dw_gemm {dname} n={n}: two launches "
-                                                      "differ")
-                    ms, plain_ms = (graph_ms(lambda f=f: f(*args), reps=20)
+                    again = again if isinstance(again, tuple) else (again,)
+                    check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                          f"{key} {dname} n={n}: two launches differ")
+                    ms, plain_ms = (graph_ms(lambda f=f: f(*args, **kwargs), reps=20)
                                     for f in (kernel, plain))
-                    if library_ms is not None:
-                        library_ms = graph_ms(lambda: torch.matmul(args[0].t(), args[1]),
-                                              reps=20)
+                    if library is not None:
+                        library_ms = graph_ms(library, reps=20)
                     lib = "" if library_ms is None else f", torch.matmul {library_ms:.4f} ms"
                     print(f"phase3 {key:22s} {dname:8s} n={n:6d}: bitwise-equal repeat; "
                           f"graph-replayed kernel {ms:.4f} ms "

@@ -126,6 +126,44 @@ def test_torch_bin_checkpoint_evaluates_like_the_pickle(workdir, capsys):
     assert strip(got) == strip(want)
 
 
+def test_resume_from_a_jax_checkpoint_with_optax_state(workdir, capsys):
+    """-r of a JAX CLI pickle whose optimizer is optax state (opaque without JAX):
+    training goes on from its epoch with a fresh optimizer and sampler RNG, as
+    the JAX CLI goes on from the port's torch optimizer state."""
+    ckpt = workdir / "ckpt_resume"
+    ckpt.mkdir()
+    shutil.copy(workdir / "ckpt" / "epoch_3.bin", ckpt / "epoch_3.bin")
+    runner.main(["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
+                 "-b", "64", "-e", "4", "-str", "S9", "-ste", "S11", "--data-dir",
+                 str(workdir / "data"), "-c", str(ckpt), "-r", "epoch_3.bin",
+                 "--eval-bucket", "16", "--checkpoint-frequency", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "This model was trained for 3 epochs" in out
+    assert ("WARNING: this checkpoint does not contain an optimizer state. The optimizer "
+            "will be reinitialized.") in out
+    assert [e[:2] for e in _epoch_lines(out)] == [(4, "0.000850")]
+    assert (ckpt / "epoch_4.bin").exists()
+
+
+@pytest.mark.parametrize("c,engine,limit", [
+    (1030, ["--train-engine", "pallas"], "multiple of 4"),
+    (3636, ["--train-engine", "pallas"], "at most 3632 channels"),
+    (1030, ["--evaluate", "epoch_3.bin", "--serving-engine", "fused"], "multiple of 4"),
+    (3636, ["--evaluate", "epoch_3.bin", "--serving-engine", "fused"], "shared memory"),
+])
+def test_unsupported_kernel_widths_are_refused_before_loading(tmp_path, c, engine, limit):
+    """With --device cuda, a -ch the hand-written kernels cannot take ends the
+    run before any data loads (the data directory does not even exist), with a
+    message that names the limit and the xla engine."""
+    argv = ["-k", "gt", "-arc", "3,3,3", "-ch", str(c), "--data-dir",
+            str(tmp_path / "missing"), "-c", str(tmp_path / "ckpt"), "--device", "cuda",
+            *engine]
+    with pytest.raises(SystemExit, match=limit) as refused:
+        runner.main(argv)
+    assert "engine xla" in str(refused.value)
+    assert not (tmp_path / "ckpt").exists()
+
+
 def test_device_cuda_raises_without_a_card(workdir):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -248,6 +248,112 @@ def test_dw_gemm_refuses_misaligned_rows(cuda):
         trb.dw_gemm(flat[1:].view(33, 64), torch.randn(33, 64, device=cuda))
 
 
+TAP_CENTERS = [(1, 0), (3, 0), (3, 1), (3, 2)]  # filter width, residual tap
+
+
+def _tap_inputs(n, c, fw, dt, dropout, device):
+    """Seeded inputs of conv_stats and du_dtaps_res; with dropout a quarter of
+    the activations are zero, as behind a dropout mask."""
+    gen = torch.Generator(device).manual_seed(n * 7 + c * 3 + fw)
+    f = lambda *shape, scale=1.0: (torch.randn(*shape, device=device, generator=gen)
+                                   * scale).to(dt)
+    keep = lambda t: (t * (torch.rand(t.shape, device=device, generator=gen) < 0.75).to(dt)
+                      if dropout else t)
+    coef = torch.stack([torch.rand(c, device=device, generator=gen) + 0.5,
+                        torch.randn(c, device=device, generator=gen) * 0.1,
+                        torch.randn(c, device=device, generator=gen) * 0.1,
+                        torch.rand(c, device=device, generator=gen) + 0.5,
+                        torch.randn(c, device=device, generator=gen) * 0.1])
+    return dict(x3=keep(f(n, fw, c)), wa=f(fw, c, c, scale=1 / np.sqrt(fw * c)),
+                shift=torch.randn(c, device=device, generator=gen) * 0.1,
+                ga=keep(f(n, c)), u=f(n, c), g=f(n, c, scale=1e-3), coef=coef)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fw,center", TAP_CENTERS)
+@pytest.mark.parametrize("c", [68, 1024, 1028])
+@pytest.mark.parametrize("n", [1, 31, 129, 1024, 27_648])
+def test_conv_stats_kernel_matches_plain(cuda, n, c, fw, center, dt, dropout):
+    """The tap GEMM u = x3 @ Wa with its residual tap and BatchNorm partial sums
+    (ragged row and column tiles, slabs and summed-dimension slices): within
+    tolerance of the plain version, one launch counted per call, and two
+    launches bitwise equal (tiles and slices summed in a fixed order)."""
+    p = _tap_inputs(n, c, fw, dt, dropout, cuda)
+    args = (p["x3"], p["wa"], p["shift"])
+    before = trb.LAUNCHES["conv_stats"]
+    got = trb.conv_stats(*args, center=center)
+    again = trb.conv_stats(*args, center=center)
+    assert trb.LAUNCHES["conv_stats"] == before + 2
+    want = trb.conv_stats_plain(*args, center=center)
+    for a, w in zip(got, want):
+        _check(a, w, dt)
+    assert torch.equal(got[1], want[1])  # the residual tap is a copy
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fw,center", TAP_CENTERS)
+@pytest.mark.parametrize("c", [68, 1024, 1028])
+@pytest.mark.parametrize("n", [1, 31, 129, 1024, 27_648])
+def test_du_dtaps_res_kernel_matches_plain(cuda, n, c, fw, center, dt, dropout):
+    """du = the BatchNorm input gradient, then the tap GEMM dx3 = du @ Wa^T with
+    the residual cotangent added to the center tap: within tolerance of the
+    plain version, one launch counted per call, two launches bitwise equal."""
+    p = _tap_inputs(n, c, fw, dt, dropout, cuda)
+    args = (p["ga"], p["u"], p["g"], p["coef"], p["wa"])
+    before = trb.LAUNCHES["du_dtaps_res"]
+    got = trb.du_dtaps_res(*args, center=center)
+    again = trb.du_dtaps_res(*args, center=center)
+    assert trb.LAUNCHES["du_dtaps_res"] == before + 2
+    want = trb.du_dtaps_res_plain(*args, center=center)
+    for a, w in zip(got, want):
+        _check(a, w, dt)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_tap_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x3 = torch.randn(16, 3, 64, device=cuda)
+    wa = torch.randn(3, 64, 64, device=cuda)
+    flat = torch.randn(16 * 3 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        trb.conv_stats(flat[1:].view(16, 3, 64), wa, torch.zeros(64, device=cuda), center=1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        trb.conv_stats(torch.randn(16, 3, 6, device=cuda),
+                       torch.randn(3, 6, 6, device=cuda), torch.zeros(6, device=cuda),
+                       center=1)
+    with pytest.raises(ValueError, match="center tap"):
+        trb.conv_stats(x3, wa, torch.zeros(64, device=cuda), center=3)
+    # 3,636 channels pass the tap GEMMs (no 16 x C tile), not the row-tile kernels.
+    c = 3636
+    assert trb.channel_limit_error(c) is not None
+    p = _tap_inputs(4, c, 1, torch.float32, False, cuda)
+    args = (p["ga"], p["u"], p["g"], p["coef"], p["wa"])
+    got = trb.du_dtaps_res(*args, center=0)
+    for a, w in zip(got, trb.du_dtaps_res_plain(*args, center=0)):
+        _check(a, w, torch.float32)
+    u = p["u"]
+    with pytest.raises(ValueError, match="3632 channels"):
+        trb.dz_matmul_dd(u, u, torch.ones(5, c, device=cuda),
+                         torch.randn(c, c, device=cuda))
+
+
+def test_width_mirrors_equal_the_kernels_own(cuda):
+    """channel_limit_error's pure-Python shared-memory formulas equal the ones the
+    CUDA sources report."""
+    from videopose3d_torch.ops.kernels.build import load_library
+    lib = load_library()
+    assert trb.SMEM_OPT_IN == tb.SMEM_OPT_IN == lib.vp3d_block_max_smem_bytes()
+    for c in (4, 68, 1024, 1028, 3632, 3636):
+        assert trb.tile_smem_bytes(c) == lib.vp3d_tb_smem_bytes(c)
+        for kind, c_in, k0, span in (("dilated", 0, 0, 0), ("shrink", 0, 0, 0),
+                                     ("expand", 34, 3, 6), ("expand", 33, 5, 40),
+                                     ("expand", 34, 3, 162)):
+            assert (tb.block_smem_bytes(kind, c, c_in, k0, span)
+                    == lib.vp3d_block_smem_bytes(tb._VARIANT[kind], c, c_in, k0, span))
+
+
 def _train_block_inputs(seed, b, t, c, fw, dt, dropout, device):
     rng = np.random.default_rng(seed)
     f = lambda a, d=dt: torch.from_numpy(np.asarray(a, np.float32)).to(device, d)

@@ -157,3 +157,18 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
                                 meta(s1), meta(b1), meta(w2), meta(s2), meta(b2),
                                 dilation=1)
     assert ttb.LAUNCHES == before
+
+
+@pytest.mark.parametrize("c,limit", [(1024, None), (1496, None), (1030, "multiple of 4"),
+                                     (1500, "expand kernel"), (3636, "dilated kernel")])
+def test_channel_limit_error_names_the_limit(c, limit):
+    """The fused evaluation kernels' width limits at -arc 3,3,3,3,3 (17 x 2
+    keypoint columns, an expand block of 3 taps, a first block reaching 6 frames),
+    known without the card from the kernels' shared-memory formulas."""
+    err = ttb.channel_limit_error(c, c_in=34, k0=3, span=6)
+    if limit is None:
+        assert err is None
+        assert ttb.block_smem_bytes("expand", c, 34, 3, 6) <= ttb.SMEM_OPT_IN
+    else:
+        assert limit in err and "--serving-engine xla" in err
+    assert (ttb.channel_limit_error(c) is None) == (c % 4 == 0 and 32 * 4 * c <= 232_448)

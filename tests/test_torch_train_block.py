@@ -126,6 +126,42 @@ def test_dw_gemm_plan_tiles_the_rows(n, c):
         assert plan == [(0, 6912), (6912, 13824), (13824, 20736), (20736, 27648)]
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (1, 204, 68), (31, 204, 68), (129, 3084, 1028), (1024, 3072, 1024),
+    (3072, 3072, 1024), (9216, 3072, 1024), (27_648, 3072, 1024),  # conv_stats
+    (1024, 1024, 3072), (27_648, 1024, 3072), (129, 68, 204),      # du_dtaps_res
+])
+def test_tap_gemm_plan_slices_the_summed_dimension(m, k, n):
+    """The tap GEMMs' split over their summed dimension: in-order slices that
+    tile [0, k) exactly, all but the last of one whole number of slabs, at most
+    TAP_MAX_SLICES of them; the training step's shapes split as the slice
+    sweeps on the card found fastest (132 SMs)."""
+    plan = trb.tap_gemm_plan(m, k, n, sms=132)
+    assert len(plan) >= 1 and plan[0][0] == 0 and plan[-1][1] == k
+    assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
+    rows = plan[0][1]
+    assert all(stop - start == rows for start, stop in plan[:-1])
+    assert 0 < plan[-1][1] - plan[-1][0] <= rows
+    assert len(plan) == 1 or rows % trb.DW_ROWS == 0
+    assert len(plan) <= trb.TAP_MAX_SLICES
+    want = {(1024, 3072, 1024): 2, (3072, 3072, 1024): 2, (9216, 3072, 1024): 2,
+            (27_648, 3072, 1024): 1, (1024, 1024, 3072): 2, (27_648, 1024, 3072): 1}
+    if (m, k, n) in want:
+        assert len(plan) == want[(m, k, n)]
+
+
+@pytest.mark.parametrize("c,limit", [(1024, None), (3632, None), (1030, "multiple of 4"),
+                                     (3636, "at most 3632 channels")])
+def test_channel_limit_error_names_the_limit(c, limit):
+    """The train-block kernels' width limits, known without the card: 16-byte
+    rows, and a 16 x C float32 tile in 232,448 bytes of shared memory."""
+    err = trb.channel_limit_error(c)
+    if limit is None:
+        assert err is None and trb.tile_smem_bytes(c) <= trb.SMEM_OPT_IN
+    else:
+        assert limit in err and "--train-engine xla" in err
+
+
 def test_bf16_fused_engine_matches_plain_bf16_engine():
     """compute_dtype bfloat16: the fused engine's plain bodies against the plain
     bf16 block, whole model, same weights and dropout masks."""

@@ -8,7 +8,9 @@ port has no JAX, so every class outside numpy and the standard containers
 unpickles as an opaque placeholder.  Directory (orbax) checkpoints are not read.
 The port saves with ``torch.save`` (what the reference writes, and what the JAX
 CLI reads); its ``optimizer`` is a ``torch.optim`` state dict, which resumes
-training in the port and which the JAX CLI drops.
+training in the port and which the JAX CLI drops.  The port likewise resumes a
+JAX CLI checkpoint's optax state with a fresh optimizer
+(:func:`is_torch_optimizer_state` tells the two apart).
 """
 
 from __future__ import annotations
@@ -79,12 +81,12 @@ def load_any_checkpoint(path: str) -> Dict[str, Any]:
     for key in ("model_pos", "model_traj"):
         if out.get(key) is not None:
             out[key] = {k: np.asarray(v) for k, v in out[key].items()}
-    if not _is_torch_optimizer_state(out.get("optimizer")):
+    if not is_torch_optimizer_state(out.get("optimizer")):
         out["optimizer"] = None
     return out
 
 
-def _is_torch_optimizer_state(state) -> bool:
+def is_torch_optimizer_state(state) -> bool:
     """Whether ``state`` is a ``torch.optim.Optimizer.state_dict()``."""
     return isinstance(state, dict) and {"state", "param_groups"} <= set(state)
 

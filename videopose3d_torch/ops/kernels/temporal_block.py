@@ -121,6 +121,44 @@ def fused_shrink_block_plain(x, w_taps, bn1_scale, bn1_shift, w2, bn2_scale,
 # ---------------------------------------------------------------------------
 
 
+# The kernels' geometry (csrc/tile_gemm.cuh, csrc/temporal_block.cu): TM output rows
+# per CUDA block, float32 tiles in shared memory, of which a block may opt in to
+# SMEM_OPT_IN bytes.
+TM, SMEM_OPT_IN = 16, 232_448
+
+
+def block_smem_bytes(kind: str, c: int, c_in: int = 0, k0: int = 0, span: int = 0) -> int:
+    """Shared memory of the ``kind`` kernel at c channels (``vp3d_block_smem_bytes``):
+    the expand kernel holds its raw window (c_in columns padded to 4, k0 taps),
+    the expanded rows the block reaches (``span`` = (k - 1) * d) and h; the mid
+    and shrink kernels a staged tile and h."""
+    if kind == "expand":
+        rows = TM + span
+        raw_rows = -(-rows // TM) * TM + k0 - 1
+        return 4 * (raw_rows * ((c_in + 3) & ~3) + rows * c + TM * c)
+    return 4 * 2 * TM * c
+
+
+def channel_limit_error(c: int, *, c_in: int = 0, k0: int = 0, span: int = 0):
+    """Why the fused evaluation kernels cannot run at ``c`` channels, or None: rows
+    are read in 16-byte words (C % 4 == 0), and each kernel's tiles must fit in
+    shared memory: the mid and shrink blocks', and with ``k0`` taps the expand
+    block's over ``c_in`` input columns and the first block's reach ``span``."""
+    engine = "the fused evaluation kernels (--serving-engine fused on CUDA)"
+    if c % 4:
+        return (f"{c} channels: {engine} take a multiple of 4 channels; use "
+                "--serving-engine xla")
+    kinds = [("dilated", 0, 0, 0)] + ([("expand", c_in, k0, span)] if k0 else [])
+    for kind, ci, k, reach in kinds:
+        smem = block_smem_bytes(kind, c, ci, k, reach)
+        if smem > SMEM_OPT_IN:
+            where = f" (the first block reaches {reach} frames)" if k else ""
+            return (f"{c} channels: {engine}: the {kind} kernel needs {smem} bytes of "
+                    f"shared memory{where}; at most {SMEM_OPT_IN} are available; use "
+                    "--serving-engine xla")
+    return None
+
+
 def _check(name, t, device, dtype, shape, align: int = 1):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -149,11 +187,14 @@ def _launch(kind, x, *, t_out, channels, w0=None, s0=None, b0=None, w_taps,
     dev = x.device
     batch, t_in, x_cols = x.shape
     c, n_taps, k0 = channels, w_taps.shape[0], 0
-    if c % 4:
-        raise ValueError(f"channels must be a multiple of 4, got {c}")
-    _check("x", x, dev, dt, (batch, t_in, x_cols))
     if w0 is not None:
         k0 = w0.shape[0]
+    span = (n_taps - 1) * dilation
+    err = channel_limit_error(c, c_in=x_cols, k0=k0, span=span)
+    if err:
+        raise ValueError(err)
+    _check("x", x, dev, dt, (batch, t_in, x_cols))
+    if w0 is not None:
         _check("w0", w0, dev, dt, (k0, x_cols, c))
         _check("bn0_scale", s0, dev, torch.float32, (c,))
         _check("bn0_shift", b0, dev, torch.float32, (c,))
@@ -171,12 +212,6 @@ def _launch(kind, x, *, t_out, channels, w0=None, s0=None, b0=None, w_taps,
         _check("b_shrink", bs, dev, torch.float32, (j3,))
     lib = _load()
     variant = _VARIANT[kind]
-    span = (n_taps - 1) * dilation
-    smem = lib.vp3d_block_smem_bytes(variant, c, x_cols, k0, span)
-    if smem > lib.vp3d_block_max_smem_bytes():
-        raise ValueError(f"the {kind} kernel needs {smem} bytes of shared memory at "
-                         f"{c} channels and reach {span}; at most "
-                         f"{lib.vp3d_block_max_smem_bytes()} are available")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.vp3d_temporal_block(

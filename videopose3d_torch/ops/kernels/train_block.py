@@ -36,6 +36,7 @@ kernel launches per kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -159,20 +160,42 @@ def _call(key, fn_name, *args):
         LAUNCHES[key] += 1
 
 
-def _validate(t, c: int):
-    """Device, dtype and width limits every train-block kernel shares."""
+# The row-tile kernels' geometry (csrc/tile_gemm.cuh): TM rows of C float32 values
+# per CUDA block in shared memory, of which a block may opt in to SMEM_OPT_IN bytes.
+TM, SMEM_OPT_IN = 16, 232_448
+
+
+def tile_smem_bytes(c: int) -> int:
+    """Shared memory of the row-tile kernels at c channels (``vp3d_tb_smem_bytes``)."""
+    return 4 * TM * c
+
+
+def channel_limit_error(c: int):
+    """Why the train-block kernels cannot run at ``c`` channels, or None: rows are
+    copied in 16-byte words (C % 4 == 0), and norm_drop_matmul_stats and
+    dz_matmul_dd hold a TM x C float32 tile in shared memory."""
+    if c % 4:
+        return (f"{c} channels: the train-block kernels (--train-engine pallas on CUDA) "
+                "take a multiple of 4 channels; use --train-engine xla")
+    if tile_smem_bytes(c) > SMEM_OPT_IN:
+        return (f"{c} channels: the train-block kernels (--train-engine pallas on CUDA) "
+                f"hold a {TM} x C float32 tile in at most {SMEM_OPT_IN} bytes of shared "
+                f"memory, so at most {SMEM_OPT_IN // tile_smem_bytes(1)} channels; use "
+                "--train-engine xla")
+    return None
+
+
+def _validate(t, c: int, *, row_tile: bool = True):
+    """Device, dtype and width limits of the train-block kernels; ``row_tile``:
+    the kernel holds a TM x C tile in shared memory."""
     if t.device.type != "cuda":
         raise ValueError(f"the train-block kernels run on CUDA tensors, got {t.device}")
     if t.dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported dtype {t.dtype}: the kernels take float32 or "
                          "bfloat16")
-    if c % 4:
-        raise ValueError(f"channels must be a multiple of 4, got {c}")
-    lib = _lib()
-    smem, most = lib.vp3d_tb_smem_bytes(c), lib.vp3d_block_max_smem_bytes()
-    if smem > most:
-        raise ValueError(f"{c} channels need {smem} bytes of shared memory; at most "
-                         f"{most} are available")
+    err = channel_limit_error(c)
+    if err and (row_tile or c % 4):
+        raise ValueError(err)
 
 
 def _check_all(device, dt, **operands):
@@ -191,26 +214,32 @@ def _reduce(part, c: int):
 
 
 def _partials(kind: int, n: int, c: int, device):
+    """(2, n_tiles, C) float32 per-tile partial sums; kind as ``vp3d_tb_sum_rows``."""
     rows = _lib().vp3d_tb_sum_rows(kind)
     return torch.empty((2, -(-n // rows), c), dtype=torch.float32, device=device)
 
 
 def conv_stats(x3, wa, shift, *, center: int):
-    """Kernel of :func:`conv_stats_plain` (Pallas ``_conv_stats_kernel``)."""
+    """Kernel of :func:`conv_stats_plain` (Pallas ``_conv_stats_kernel``): the tap
+    GEMM ``x3 (n, fw C) @ wa (fw C, C)`` over the :func:`tap_gemm_plan` slices of
+    its summed dimension, then the partial sums' in-order reduction."""
     if x3.device.type == "cpu":
         return conv_stats_plain(x3, wa, shift, center=center)
     n, fw, c = x3.shape
     dt = x3.dtype
-    _validate(x3, c)
-    _check_all(x3.device, dt, x3=(x3, None, (n, fw, c)), wa=(wa, None, (fw, c, c)),
-               shift=(shift, torch.float32, (c,)))
+    _validate(x3, c, row_tile=False)
+    align = 4 * x3.element_size()  # whole 4-element rows of 16 (8) bytes
+    _check("x3", x3, x3.device, dt, (n, fw, c), align=align)
+    _check("wa", wa, x3.device, dt, (fw, c, c), align=align)
+    _check("shift", shift, x3.device, torch.float32, (c,))
     if not 0 <= center < fw:
         raise ValueError(f"center tap {center} out of range for {fw} taps")
+    plan = tap_gemm_plan(n, fw * c, c, _sms(x3.device))
     u = torch.empty((n, c), dtype=dt, device=x3.device)
     res = torch.empty_like(u)
-    part = _partials(0, n, c, x3.device)
-    _call("conv_stats", "vp3d_tb_conv_stats", _DTYPE_CODE[dt], n, c, fw, center, x3, wa,
-          shift, u, res, part[0], part[1])
+    part = _partials(2, n, c, x3.device)
+    _call("conv_stats", "vp3d_tb_conv_stats", _DTYPE_CODE[dt], n, c, fw, center, len(plan),
+          plan[0][1], x3, wa, shift, u, res, part[0], part[1], _split_scratch(plan, n, c, u))
     s = _reduce(part, c)
     return u, res, s[0], s[1]
 
@@ -283,8 +312,9 @@ def dz_matmul_dd(gz, z, coef, wb):
     return dz, dd
 
 
-# dw_gemm's geometry (csrc/train_block.cu): DW_TILE x DW_TILE output tiles per CUDA
-# block, row slabs of DW_ROWS, and DW_BLOCKS_PER_SM CUDA blocks resident per SM.
+# The 128 x 128-tile SGEMMs' geometry (csrc/sgemm_tile.cuh): DW_TILE x DW_TILE output
+# tiles per CUDA block, slabs of DW_ROWS rows of the summed dimension, and
+# DW_BLOCKS_PER_SM CUDA blocks resident per SM.
 DW_TILE, DW_ROWS, DW_BLOCKS_PER_SM = 128, 32, 2
 
 
@@ -303,6 +333,56 @@ def dw_gemm_plan(n: int, c: int, sms: int = 132):
     return [(s, min(n, s + rows)) for s in range(0, n, rows)]
 
 
+# tap_gemm_plan's cost model of a tap GEMM on the card: each SM works through its
+# share of the CUDA blocks at TAP_SM_FLOPS (45 TFLOP/s over 132 SMs, the kernel's
+# rate at full size); a split adds its float32 partials' write and read-back at
+# SPLIT_BYTES_PER_S and a second launch.  Fitted to the slice sweeps of both
+# kernels at n = 1,024 to 27,648 on an H100 (PERF.md, section 6).
+TAP_SM_FLOPS = 45e12 / 132
+SPLIT_BYTES_PER_S, SPLIT_LAUNCH_S = 3e12, 1e-5
+TAP_MAX_SLICES = 8
+
+
+@functools.lru_cache(maxsize=None)
+def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132):
+    """The slices ``((start, stop), ...)`` of the summed dimension of a tap GEMM
+    (m x k) @ (k x n), the products of conv_stats and du_dtaps_res: in order,
+    each a whole number of DW_ROWS slabs but the last, together [0, k).
+
+    The count (at most TAP_MAX_SLICES, the smallest of equals) is the one the
+    cost model above puts first: ceil(blocks / sms) blocks of the slice's work
+    per SM, plus the split's partials.  Shorter blocks even out the SMs' shares
+    where the tiles leave a ragged last round; at C = 1,024 on 132 SMs
+    conv_stats splits in 2 at n <= 9,216 and du_dtaps_res at n = 1,024."""
+    tiles = -(-m // DW_TILE) * -(-n // DW_TILE)
+    slabs = -(-k // DW_ROWS)
+
+    def plan(s):
+        rows = -(-slabs // s) * DW_ROWS
+        return tuple((a, min(k, a + rows)) for a in range(0, k, rows))
+
+    def cost(s):
+        slices = plan(s)
+        block = 2 * DW_TILE ** 2 * slices[0][1] / TAP_SM_FLOPS
+        t = -(-tiles * len(slices) // sms) * block
+        if len(slices) > 1:
+            t += len(slices) * m * n * 8 / SPLIT_BYTES_PER_S + SPLIT_LAUNCH_S
+        return t
+
+    return plan(min(range(1, min(slabs, TAP_MAX_SLICES) + 1), key=lambda s: (cost(s), s)))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_scratch(plan, m: int, n: int, like):
+    """The float32 (slices, m, n) products of a split tap GEMM, or None."""
+    if len(plan) == 1:
+        return None
+    return torch.empty((len(plan), m, n), dtype=torch.float32, device=like.device)
+
+
 def dw_gemm(a, b):
     """Kernel of :func:`dw_gemm_plain`: one launch of the tiled GEMM over the
     :func:`dw_gemm_plan` slices and, with more than one slice, one of their
@@ -314,7 +394,7 @@ def dw_gemm(a, b):
     _validate(a, c)
     for name, t in (("a", a), ("b", b)):  # whole 4-element cp.async copies
         _check(name, t, a.device, dt, (n, c), align=4 * a.element_size())
-    plan = dw_gemm_plan(n, c, torch.cuda.get_device_properties(a.device).multi_processor_count)
+    plan = dw_gemm_plan(n, c, _sms(a.device))
     dw = torch.empty((c, c), dtype=torch.float32, device=a.device)
     part = (None if len(plan) == 1 else
             torch.empty((len(plan), c, c), dtype=torch.float32, device=a.device))
@@ -324,22 +404,27 @@ def dw_gemm(a, b):
 
 
 def du_dtaps_res(ga, u, g, coef, wa, *, center: int):
-    """Kernel of :func:`du_dtaps_res_plain`."""
+    """Kernel of :func:`du_dtaps_res_plain`: an elementwise launch for du, then
+    the tap GEMM ``du (n, C) @ Wt (C, fw C)`` with ``Wt[o, j C + i] = wa[j][i, o]``
+    over the :func:`tap_gemm_plan` slices, g added to the center tap."""
     if ga.device.type == "cpu":
         return du_dtaps_res_plain(ga, u, g, coef, wa, center=center)
     dt = ga.dtype
     n, c = ga.shape
-    _validate(ga, c)
+    _validate(ga, c, row_tile=False)
     fw = wa.shape[0]
     _check_all(ga.device, dt, ga=(ga, None, (n, c)), u=(u, None, (n, c)),
                g=(g, None, (n, c)), coef=(coef, torch.float32, (5, c)),
                wa=(wa, None, (fw, c, c)))
     if not 0 <= center < fw:
         raise ValueError(f"center tap {center} out of range for {fw} taps")
+    plan = tap_gemm_plan(n, c, fw * c, _sms(ga.device))
     du = torch.empty_like(ga)
     dx3 = torch.empty((n, fw, c), dtype=dt, device=ga.device)
-    _call("du_dtaps_res", "vp3d_tb_du_dtaps_res", _DTYPE_CODE[dt], n, c, fw, center, ga,
-          u, g, coef, wa.transpose(1, 2).contiguous(), du, dx3)
+    _call("du_dtaps_res", "vp3d_tb_du_dtaps_res", _DTYPE_CODE[dt], n, c, fw, center,
+          len(plan), plan[0][1], ga, u, g, coef,
+          wa.permute(2, 0, 1).reshape(c, fw * c).contiguous(),
+          du, dx3, _split_scratch(plan, n, fw * c, ga))
     return du, dx3
 
 

@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from videopose3d_torch.arguments import parse_args
-from videopose3d_torch.checkpoint import (load_any_checkpoint, model_state_dict,
-                                          save_checkpoint)
+from videopose3d_torch.checkpoint import (is_torch_optimizer_state, load_any_checkpoint,
+                                          model_state_dict, save_checkpoint)
 from videopose3d_torch.data.generators import (ChunkedPairSampler, FlatSequenceDataset,
                                                UnchunkedBatcher)
 from videopose3d_torch.evaluate import (DeviceEvalSet, Evaluator, evaluate_actionwise,
@@ -32,6 +32,31 @@ from videopose3d_torch.utils import deterministic_random
 
 _NOT_PORTED = ("is not ported to videopose3d_torch yet (see ROADMAP.md, Queue 1); "
                "run it with the JAX package (python run.py)")
+
+
+# The fused evaluation kernels' expand block reads the 2D keypoints of the one
+# dataset the port loads, Human3.6M: 17 joints of (x, y).
+_H36M_INPUT_COLUMNS = 17 * 2
+
+
+def kernel_width_error(args):
+    """Why the hand-written kernels this run would launch cannot take its
+    ``--channels``, or None; known from the arguments alone, before any data
+    loads.  Only CUDA runs launch kernels: ``--train-engine pallas`` training
+    runs the train-block kernels, ``--evaluate`` with ``--serving-engine fused``
+    the fused evaluation blocks."""
+    if torch.device(args.device).type != "cuda":
+        return None
+    c = args.channels
+    if not args.evaluate and args.train_engine == "pallas":
+        from videopose3d_torch.ops.kernels import train_block
+        return train_block.channel_limit_error(c)
+    widths = [int(x) for x in args.architecture.split(",")]
+    if args.evaluate and args.serving_engine == "fused" and len(widths) > 1:
+        from videopose3d_torch.ops.kernels import temporal_block
+        return temporal_block.channel_limit_error(
+            c, c_in=_H36M_INPUT_COLUMNS, k0=widths[0], span=(widths[1] - 1) * widths[0])
+    return None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -206,6 +231,9 @@ def main(argv=None):
         raise NotImplementedError(f"--render {_NOT_PORTED}")
     if args.export_training_curves:
         raise NotImplementedError(f"--export-training-curves {_NOT_PORTED}")
+    refused = kernel_width_error(args)
+    if refused:
+        raise SystemExit(f"error: {refused}")
     device = resolve_device(args.device)
     os.makedirs(args.checkpoint, exist_ok=True)
 
@@ -323,7 +351,9 @@ def _train(args, dataset, keypoints, subjects_train, action_filter, model,
     if args.resume and checkpoint is not None:
         epoch = int(checkpoint["epoch"])
         lr = float(checkpoint["lr"])
-        if checkpoint.get("optimizer") is not None:
+        # A JAX CLI checkpoint's optax state (opaque here) restarts the optimizer
+        # and the sampler's RNG, as the JAX CLI does with the port's torch state.
+        if is_torch_optimizer_state(checkpoint.get("optimizer")):
             optimizer.load_state_dict(checkpoint["optimizer"])
             sampler.set_random_state(checkpoint["random_state"])
         else:
