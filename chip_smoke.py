@@ -19,8 +19,8 @@ gather (K1) at 1,024 windows of 243 rows from a 300,000- and a 3,000,000-row
 stream, bitwise, and each forward and backward kernel of the train block (K2) at
 the four residual blocks' shapes (n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024
 channels) in float32 and bfloat16, plus the whole block with its backward in
-float32; it times each kernel and plain version (K1, dw_gemm, conv_stats and
-du_dtaps_res also from CUDA-graph replay, with a bitwise repeat of each K2 one),
+float32; it times each kernel and plain version (K1 and the five K2 GEMM kernels
+also from CUDA-graph replay, with a bitwise repeat of each K2 one),
 and beside each K2 GEMM kernel one float32 torch.matmul of its product.  Phase 4
 trains the full-width model for one epoch of batch 1,024 with ``runner.main``
 from the random checkpoint, with the fused train engine twice and the plain one
@@ -654,7 +654,8 @@ def train_block_stages(p):
 
 
 # K2 kernels timed from CUDA-graph replay as well, and checked for a bitwise repeat.
-GRAPH_TIMED = ("conv_stats", "dw_gemm", "du_dtaps_res")
+GRAPH_TIMED = ("conv_stats", "norm_drop_matmul_stats", "dz_matmul_dd", "dw_gemm",
+               "du_dtaps_res")
 
 
 def library_call(key, args):
@@ -817,8 +818,10 @@ def train_cli(argv, profiled=None):
     """runner.main training in-process; returns (per-step losses, epoch line
     numbers, (steps, seconds, frames/s), final protocol numbers, launches).
     ``profiled``: a dict that receives a torch.profiler trace of steps
-    PROFILE_STEPS and their wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    PROFILE_STEPS and their wall time; each K2 wrapper call then runs inside a
+    ``K2 <key>`` profiler range, so that the trace splits the device time of
+    kernels the wrappers share (the tap GEMM) by wrapper."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     from videopose3d_torch import runner, train
     from videopose3d_torch.ops.kernels import gather_rows as gr
     from videopose3d_torch.ops.kernels import train_block as trb
@@ -841,16 +844,26 @@ def train_cli(argv, profiled=None):
             profiled["prof"].stop()
         return loss
 
+    def annotated(key, fn):
+        def run(*args, **kwargs):
+            with record_function(f"K2 {key}"):
+                return fn(*args, **kwargs)
+        return run
+
     for counts in (gr.LAUNCHES, trb.LAUNCHES):
         for k in counts:
             counts[k] = 0
     buf = io.StringIO()
+    wrappers = dict(trb._KERNELS)
     train.SupervisedTrainer.step = recording_step
+    if profiled is not None:
+        trb._KERNELS.update({k: annotated(k, fn) for k, fn in wrappers.items()})
     try:
         with contextlib.redirect_stdout(buf):
             runner.main(argv)
     finally:
         train.SupervisedTrainer.step = step
+        trb._KERNELS.update(wrappers)
     torch.cuda.synchronize()
     launches = {**gr.LAUNCHES, **trb.LAUNCHES}
     out = buf.getvalue()
@@ -897,9 +910,13 @@ def phase4(tmp):
     from torch.autograd import DeviceType
     n_steps = PROFILE_STEPS[1] - PROFILE_STEPS[0]
     for engine, profiled in profiles.items():
-        device_us = {}
+        device_us, ranges = {}, []
         for avg in profiled["prof"].key_averages():
-            if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+            if avg.device_type != DeviceType.CUDA or avg.self_device_time_total <= 0:
+                continue
+            if avg.key.startswith("K2 "):  # a wrapper's range on the device timeline
+                ranges.append(avg)
+            else:
                 device_us[avg.key] = device_us.get(avg.key, 0) + avg.self_device_time_total
         check(device_us, f"the {engine} profile holds no device time")
         total_ms = sum(device_us.values()) / 1e3 / n_steps
@@ -909,6 +926,10 @@ def phase4(tmp):
               f"{100 * total_ms / wall_ms:.1f} %")
         for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:10]:
             print(f"phase4 profile {engine}   {us / 1e3 / n_steps:8.3f} ms/step  {key[:90]}")
+        # Each K2 wrapper's span on the device: the kernels it launched.
+        for avg in sorted(ranges, key=lambda a: -a.self_device_time_total):
+            print(f"phase4 profile {engine}   {avg.self_device_time_total / 1e3 / n_steps:8.3f} "
+                  f"ms/step  {avg.key} ({avg.count // n_steps} calls/step)")
     first_p, first_x = float(runs["pallas"][0][0]), float(runs["xla"][0][0])
     rel = abs(first_p - first_x) / abs(first_x)
     print(f"phase4 first-step loss pallas {first_p!r} vs xla {first_x!r}: relative "
@@ -1306,7 +1327,7 @@ def main() -> int:
           f"built for {build.ARCH} in {time.perf_counter() - start:.1f} s "
           f"(nvcc {build.build_seconds:.1f} s): {build.library_path().name}")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "smem")):
             print("phase0 ptxas:", line.strip())
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B timing of the port's training kernels on one NVIDIA GPU: the window
-gather (K1) and the train block's GEMMs (K2: the weight gradient ``dw_gemm`` and
-the three-tap ``conv_stats`` and ``du_dtaps_res``) of this checkout against those
+gather (K1) and the train block's GEMMs (K2: the weight gradient ``dw_gemm``,
+the three-tap ``conv_stats`` and ``du_dtaps_res`` and the one-tap
+``norm_drop_matmul_stats`` and ``dz_matmul_dd``) of this checkout against those
 of another checkout (for example the parent commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists), in turns other, this,
 this, other:
@@ -17,8 +18,16 @@ tap 1).  Each is timed as the median device time of CUDA-graph replays
 (``graph``) and as one call between CUDA events, its host enqueue included
 (``call``); ``torch.matmul`` (TF32 off) of each K2 product and the indexing
 gather ``flat[rows]`` are timed in every turn as yardsticks.  ``dw_gemm``'s
-outputs must be bitwise equal in every turn (a SHA-256 of their bytes).  The
-last line of standard output is a JSON object with every turn's times.
+outputs must be bitwise equal in every turn (a SHA-256 of their bytes).  Each
+turn also reports its build's ``-Xptxas -v`` lines of the tap GEMM kernels
+(registers, spills).  The last line of standard output is a JSON object with
+every turn's times.
+
+    python3 kernel_ab.py --sweep
+
+times the four tap GEMM kernels of this checkout at those n with the summed
+dimension forced into 1, 2, 3, 4 and 8 slices (graph replay), beside the count
+``tap_gemm_plan`` picks, to check its cost model.
 """
 
 from __future__ import annotations
@@ -38,10 +47,15 @@ CHANNELS = 1024
 RUNS = 10
 
 
-def worker(root: str) -> dict:
-    """Times the kernels of the checkout at ``root``; returns {case: ms}."""
+SWEEP_SLICES = (1, 2, 3, 4, 8)
+
+
+def worker(root: str, sweep: bool = False) -> dict:
+    """Times the kernels of the checkout at ``root``; returns {case: ms}.  With
+    ``sweep``, the tap GEMM kernels at each forced slice count instead."""
     sys.path.insert(0, root)
     import torch
+    from videopose3d_torch.ops.kernels import build
     from videopose3d_torch.ops.kernels import gather_rows as gr
     from videopose3d_torch.ops.kernels import train_block as trb
 
@@ -72,6 +86,8 @@ def worker(root: str) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
     out = {}
+    if sweep:
+        return sweep_tap_gemms(torch, trb, dev, gen, graph_ms)
     for rows in GATHER_ROWS:
         flat = torch.randn(rows, COLS, device=dev, generator=gen)
         row0 = torch.randint(0, rows - WINDOW + 1, (BATCH,), device=dev, generator=gen)
@@ -90,9 +106,12 @@ def worker(root: str) -> dict:
     shift = torch.randn(CHANNELS, device=dev, generator=gen) * 0.1
     coef = torch.rand(5, CHANNELS, device=dev, generator=gen) + 0.5
     wt = wa.permute(2, 0, 1).reshape(CHANNELS, 3 * CHANNELS).contiguous()
+    wb = wa[0].contiguous()
+    mask, gate = one_tap_operands(torch, dev, gen)
     digest = hashlib.sha256()
     for n in DW_ROWS:
         an, bn, xn = a[:n].contiguous(), b[:n].contiguous(), x3[:n].contiguous()
+        mn = mask[:n].contiguous()
         cases = {
             "dw_gemm": (lambda: trb.dw_gemm(an, bn), lambda: torch.matmul(an.t(), bn),
                         lambda: trb.dw_gemm_plain(an, bn)),
@@ -104,6 +123,14 @@ def worker(root: str) -> dict:
                 lambda: trb.du_dtaps_res(an, bn, an, coef, wa, center=1),
                 lambda: torch.matmul(an, wt),
                 lambda: trb.du_dtaps_res_plain(an, bn, an, coef, wa, center=1)),
+            "norm_drop_matmul_stats": (
+                lambda: trb.norm_drop_matmul_stats(an, mn, gate, wb, shift),
+                lambda: torch.matmul(an, wb),
+                lambda: trb.norm_drop_matmul_stats_plain(an, mn, gate, wb, shift)),
+            "dz_matmul_dd": (
+                lambda: trb.dz_matmul_dd(an, bn, coef, wb),
+                lambda: torch.matmul(an, wb.t()),
+                lambda: trb.dz_matmul_dd_plain(an, bn, coef, wb)),
         }
         for name, (kernel, library, plain) in cases.items():
             got, want = kernel(), plain()
@@ -119,35 +146,116 @@ def worker(root: str) -> dict:
                 out[f"{label} n={n} graph"] = graph_ms(fn)
                 out[f"{label} n={n} call"] = call_ms(fn)
     out["dw_gemm sha256"] = digest.hexdigest()
+    out["ptxas"] = ptxas_report(build.build_log, "tap_gemm")
+    return out
+
+
+def ptxas_report(log: str, name: str) -> list:
+    """The ``-Xptxas -v`` lines of the kernels whose symbol holds ``name``:
+    registers, stack frame and spills."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "entry function" in line:
+            keep = name in line
+        if keep:
+            lines.append(line.strip())
+    return lines
+
+
+def one_tap_operands(torch, dev, gen):
+    """A (27,648, C) dropout mask at rate 0.25 and the (3, C) BatchNorm gate
+    constants [mean, inv, bias] of norm_drop_matmul_stats."""
+    mask = (torch.rand(DW_ROWS[0], CHANNELS, device=dev, generator=gen) < 0.75) / 0.75
+    gate = torch.stack([torch.randn(CHANNELS, device=dev, generator=gen) * 0.1,
+                        torch.rand(CHANNELS, device=dev, generator=gen) + 0.5,
+                        torch.randn(CHANNELS, device=dev, generator=gen) * 0.2])
+    return mask, gate
+
+
+def sweep_tap_gemms(torch, trb, dev, gen, graph_ms) -> dict:
+    """Graph time of each tap GEMM kernel at each n with its summed dimension
+    forced into each of SWEEP_SLICES slices (``tap_gemm_plan`` replaced), and
+    the count ``tap_gemm_plan`` picks ("plan")."""
+    picked = trb.tap_gemm_plan
+    n_max = DW_ROWS[0]
+    a = torch.randn(n_max, CHANNELS, device=dev, generator=gen)
+    x3 = torch.randn(n_max, 3, CHANNELS, device=dev, generator=gen)
+    wa = torch.randn(3, CHANNELS, CHANNELS, device=dev, generator=gen) / (3 * CHANNELS) ** 0.5
+    wb = wa[0].contiguous()
+    shift = torch.randn(CHANNELS, device=dev, generator=gen) * 0.1
+    coef = torch.rand(5, CHANNELS, device=dev, generator=gen) + 0.5
+    mask, gate = one_tap_operands(torch, dev, gen)
+    out = {}
+    for n in DW_ROWS:
+        an, xn, mn = a[:n].contiguous(), x3[:n].contiguous(), mask[:n].contiguous()
+        kernels = {
+            "conv_stats": (lambda: trb.conv_stats(xn, wa, shift, center=1),
+                           (n, 3 * CHANNELS, CHANNELS)),
+            "du_dtaps_res": (lambda: trb.du_dtaps_res(an, an, an, coef, wa, center=1),
+                             (n, CHANNELS, 3 * CHANNELS)),
+            "norm_drop_matmul_stats": (
+                lambda: trb.norm_drop_matmul_stats(an, mn, gate, wb, shift),
+                (n, CHANNELS, CHANNELS)),
+            "dz_matmul_dd": (lambda: trb.dz_matmul_dd(an, an, coef, wb),
+                             (n, CHANNELS, CHANNELS)),
+        }
+        for name, (kernel, shape) in kernels.items():
+            out[f"{name} n={n} plan"] = len(picked(*shape))
+            k = shape[1]
+            slabs = -(-k // trb.DW_ROWS)
+            for want in SWEEP_SLICES:
+                rows = -(-slabs // want) * trb.DW_ROWS
+                plan = tuple((s, min(k, s + rows)) for s in range(0, k, rows))
+                trb.tap_gemm_plan = lambda *_, plan=plan: plan
+                try:
+                    out[f"{name} n={n} slices={len(plan)} graph"] = graph_ms(kernel)
+                finally:
+                    trb.tap_gemm_plan = picked
     return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--other", help="root of the other checkout")
+    parser.add_argument("--sweep", action="store_true",
+                        help="time this checkout's tap GEMMs at forced slice counts")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        print(json.dumps(worker(os.path.abspath(args.worker))))
+        print(json.dumps(worker(os.path.abspath(args.worker), args.sweep)))
         return 0
+    if not args.sweep and not args.other:
+        parser.error("--other or --sweep is required")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
         return 1
     this = os.path.dirname(os.path.abspath(__file__))
-    other = os.path.abspath(args.other)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
+    if args.sweep:
+        sweep = worker(this, sweep=True)
+        for case, value in sweep.items():
+            print(f"{case:52s} {value:9.4f}" if isinstance(value, float)
+                  else f"{case:52s} {value:9d}")
+        print(json.dumps({"device": smi, "sweep": sweep}))
+        return 0
+    other = os.path.abspath(args.other)
     turns = []
     for label, root in (("other", other), ("this", this), ("this", this), ("other", other)):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--other", other,
-                              "--worker", root], capture_output=True, text=True, cwd=root)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+                             capture_output=True, text=True, cwd=root)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
             return 1
         turns.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
+    for label, t in turns[:2]:
+        for line in t["ptxas"]:
+            print(f"{label} ptxas: {line}")
+    for _, t in turns:
+        t.pop("ptxas")
     digests = {t.pop("dw_gemm sha256") for _, t in turns}
     print(f"dw_gemm outputs bitwise equal in every turn: {len(digests) == 1}")
     print(f"{'case':40s} " + " ".join(f"{label:>9s}" for label, _ in turns))

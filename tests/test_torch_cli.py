@@ -21,6 +21,7 @@ from videopose3d_tpu import runner as jax_runner
 from videopose3d_tpu.checkpoint import save_checkpoint
 from videopose3d_tpu.models.convert import params_to_torch_state_dict
 from videopose3d_torch import runner
+from videopose3d_torch.arguments import parse_args
 from videopose3d_torch.checkpoint import (OpaqueObject, load_any_checkpoint,
                                           model_state_dict)
 from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
@@ -146,8 +147,8 @@ def test_resume_from_a_jax_checkpoint_with_optax_state(workdir, capsys):
 
 
 @pytest.mark.parametrize("c,engine,limit", [
-    (1030, ["--train-engine", "pallas"], "multiple of 4"),
-    (3636, ["--train-engine", "pallas"], "at most 3632 channels"),
+    (1030, ["--evaluate", "epoch_3.bin", "--serving-engine", "int8"], "multiple of 16"),
+    (1952, ["--evaluate", "epoch_3.bin", "--serving-engine", "int8"], "shared memory"),
     (1030, ["--evaluate", "epoch_3.bin", "--serving-engine", "fused"], "multiple of 4"),
     (3636, ["--evaluate", "epoch_3.bin", "--serving-engine", "fused"], "shared memory"),
 ])
@@ -162,6 +163,36 @@ def test_unsupported_kernel_widths_are_refused_before_loading(tmp_path, c, engin
         runner.main(argv)
     assert "engine xla" in str(refused.value)
     assert not (tmp_path / "ckpt").exists()
+
+
+@pytest.mark.parametrize("c", [30, 1030, 3636])
+def test_train_engine_pallas_takes_any_width(c):
+    """The train block pads C % 4 != 0 and its tap GEMMs have no shared-memory
+    ceiling: --train-engine pallas on CUDA refuses no width, as the JAX CLI."""
+    args = parse_args(["-k", "gt", "-arc", "3,3,3", "-ch", str(c), "--device", "cuda",
+                       "--train-engine", "pallas"])
+    assert runner.kernel_width_error(args) is None
+
+
+@pytest.mark.parametrize("engine,c,extra,limit", [
+    ("int8_fused", 1030, [], "multiple of 16"),
+    ("bf16_fused", 1216, ["--compute-dtype", "bfloat16"], "shared memory"),
+    ("int8_fused", 1024, ["--frames-per-step", "17"], "1 to 16 frames"),
+])
+def test_streaming_fused_widths_are_refused_before_loading(tmp_path, engine, c, extra,
+                                                           limit):
+    """python -m videopose3d_torch.streaming with a fused engine on CUDA: a -ch or
+    --frames-per-step the fused step kernel cannot take ends the run before the
+    archive or the checkpoint is read (neither exists), naming the limit and the
+    per-layer engine."""
+    from videopose3d_torch import streaming
+    argv = ["-k", "myvideos", "--data-dir", str(tmp_path / "missing"), "--checkpoint",
+            str(tmp_path / "missing.bin"), "-arc", "3,3,3", "-ch", str(c), "--engine",
+            engine, "--output", str(tmp_path / "out.npz"), "--device", "cuda", *extra]
+    with pytest.raises(SystemExit, match=limit) as refused:
+        streaming.main(argv)
+    assert f"--engine {engine.replace('_fused', '')}" in str(refused.value)
+    assert not (tmp_path / "out.npz").exists()
 
 
 def test_device_cuda_raises_without_a_card(workdir):

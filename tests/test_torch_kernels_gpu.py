@@ -325,33 +325,113 @@ def test_tap_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                        center=1)
     with pytest.raises(ValueError, match="center tap"):
         trb.conv_stats(x3, wa, torch.zeros(64, device=cuda), center=3)
-    # 3,636 channels pass the tap GEMMs (no 16 x C tile), not the row-tile kernels.
+    # 3,636 channels run: every train-block kernel is a tap GEMM or elementwise,
+    # with nothing per channel in shared memory.
     c = 3636
-    assert trb.channel_limit_error(c) is not None
+    assert trb.channel_limit_error(c) is None
     p = _tap_inputs(4, c, 1, torch.float32, False, cuda)
     args = (p["ga"], p["u"], p["g"], p["coef"], p["wa"])
     got = trb.du_dtaps_res(*args, center=0)
     for a, w in zip(got, trb.du_dtaps_res_plain(*args, center=0)):
         _check(a, w, torch.float32)
-    u = p["u"]
-    with pytest.raises(ValueError, match="3632 channels"):
-        trb.dz_matmul_dd(u, u, torch.ones(5, c, device=cuda),
-                         torch.randn(c, c, device=cuda))
+    args = (p["ga"], p["u"], p["coef"], p["wa"][0])
+    for a, w in zip(trb.dz_matmul_dd(*args), trb.dz_matmul_dd_plain(*args)):
+        _check(a, w, torch.float32)
 
 
 def test_width_mirrors_equal_the_kernels_own(cuda):
-    """channel_limit_error's pure-Python shared-memory formulas equal the ones the
-    CUDA sources report."""
+    """The pure-Python shared-memory formulas and limits that refuse a width
+    before any data loads equal the ones the CUDA sources report: the fused
+    evaluation blocks (K3), the int8 stages (K4, K8) and the streaming step
+    (K5, K6)."""
     from videopose3d_torch.ops.kernels.build import load_library
     lib = load_library()
-    assert trb.SMEM_OPT_IN == tb.SMEM_OPT_IN == lib.vp3d_block_max_smem_bytes()
-    for c in (4, 68, 1024, 1028, 3632, 3636):
-        assert trb.tile_smem_bytes(c) == lib.vp3d_tb_smem_bytes(c)
+    assert tb.SMEM_OPT_IN == lib.vp3d_block_max_smem_bytes()
+    assert (sf.MAX_BLOCKS, sf.MAX_TAPS) == (lib.vp3d_stream_max_blocks(),
+                                            lib.vp3d_stream_max_taps())
+    for c in (4, 16, 68, 1024, 1028, 2064, 3632, 3636):
         for kind, c_in, k0, span in (("dilated", 0, 0, 0), ("shrink", 0, 0, 0),
                                      ("expand", 34, 3, 6), ("expand", 33, 5, 40),
                                      ("expand", 34, 3, 162)):
             assert (tb.block_smem_bytes(kind, c, c_in, k0, span)
                     == lib.vp3d_block_smem_bytes(tb._VARIANT[kind], c, c_in, k0, span))
+        for kind, k_in, span in (("int8_expand", 102, 6), ("int8_expand", 99, 40),
+                                 ("int8_dilated", 0, 18), ("int8_shrink", 0, 162)):
+            for accshift in (False, True):
+                assert (tq.stage_smem_bytes(kind, c, k_in=k_in, span=span, accshift=accshift)
+                        == lib.vp3d_i8_smem_bytes(tq._VARIANT[kind], int(accshift), c, k_in,
+                                                  span))
+        for int8 in (True, False):
+            assert sf.step_smem_bytes(int8, c) == lib.vp3d_stream_smem_bytes(int(not int8), c)
+
+
+def _one_tap_inputs(n, c, dt, dropout, device):
+    """Seeded inputs of norm_drop_matmul_stats and dz_matmul_dd: activations, a
+    dropout mask (or None), BatchNorm constants and the (C, C) weights."""
+    gen = torch.Generator(device).manual_seed(n * 5 + c)
+    f = lambda *shape, scale=1.0: (torch.randn(*shape, device=device, generator=gen)
+                                   * scale).to(dt)
+    mask = ((torch.rand(n, c, device=device, generator=gen) < 0.75) / 0.75).to(dt)
+    gate = torch.stack([torch.randn(c, device=device, generator=gen) * 0.1,
+                        torch.rand(c, device=device, generator=gen) + 0.5,
+                        torch.randn(c, device=device, generator=gen) * 0.2]).to(dt)
+    coef = torch.stack([torch.rand(c, device=device, generator=gen) + 0.5,
+                        torch.randn(c, device=device, generator=gen) * 0.1,
+                        torch.randn(c, device=device, generator=gen) * 0.1,
+                        torch.rand(c, device=device, generator=gen) + 0.5,
+                        torch.randn(c, device=device, generator=gen) * 0.1])
+    return dict(u=f(n, c), mask=mask if dropout else None, gate=gate, coef=coef,
+                wb=f(c, c, scale=1 / np.sqrt(c)), g=f(n, c),
+                shift=torch.randn(c, device=device, generator=gen) * 0.1)
+
+
+ONE_TAP_C = [68, 1024, 1028, 3636]
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", ONE_TAP_C)
+@pytest.mark.parametrize("n", [1, 31, 129, 1024, 27_648])
+def test_norm_drop_matmul_stats_kernel_matches_plain(cuda, n, c, dt, dropout):
+    """d = mask * relu(bn(u)), then the one-tap GEMM v = d @ Wb with conv_stats's
+    BatchNorm partial sums (ragged row and column tiles, slabs and summed-dimension
+    slices): within tolerance of the plain version, one launch counted per call,
+    and two launches bitwise equal."""
+    p = _one_tap_inputs(n, c, dt, dropout, cuda)
+    args = (p["u"], p["mask"], p["gate"], p["wb"], p["shift"])
+    before = trb.LAUNCHES["norm_drop_matmul_stats"]
+    got = trb.norm_drop_matmul_stats(*args)
+    assert trb.LAUNCHES["norm_drop_matmul_stats"] == before + 1
+    again = trb.norm_drop_matmul_stats(*args)
+    assert trb.LAUNCHES["norm_drop_matmul_stats"] == before + 2
+    want = trb.norm_drop_matmul_stats_plain(*args)
+    for a, w in zip(got, want):
+        _check(a, w, dt)
+    assert torch.equal(got[0], want[0])  # d: the same operations in T
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", ONE_TAP_C)
+@pytest.mark.parametrize("n", [1, 31, 129, 1024, 27_648])
+def test_dz_matmul_dd_kernel_matches_plain(cuda, n, c, dt, dropout):
+    """dz = the BatchNorm input gradient of gz (a quarter of it zero with
+    dropout, as behind the gate's mask), then the one-tap GEMM dd = dz @ Wb^T:
+    within tolerance of the plain version, one launch counted per call, and two
+    launches bitwise equal."""
+    p = _one_tap_inputs(n, c, dt, dropout, cuda)
+    gz = p["g"] if p["mask"] is None else p["g"] * p["mask"]
+    args = (gz, p["u"], p["coef"], p["wb"])
+    before = trb.LAUNCHES["dz_matmul_dd"]
+    got = trb.dz_matmul_dd(*args)
+    assert trb.LAUNCHES["dz_matmul_dd"] == before + 1
+    again = trb.dz_matmul_dd(*args)
+    assert trb.LAUNCHES["dz_matmul_dd"] == before + 2
+    want = trb.dz_matmul_dd_plain(*args)
+    for a, w in zip(got, want):
+        _check(a, w, dt)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _train_block_inputs(seed, b, t, c, fw, dt, dropout, device):
@@ -387,6 +467,7 @@ TRAIN_BLOCK_CASES = [  # batch, frames, channels, fw, center, dropout
     (7, 15, 64, 5, 4, False),        # causal center, n = 21 rows
     (5, 9, 1028, 3, 1, True),        # two column passes (C > 1024), ragged tile
     (1024, 3, 1024, 3, 1, True),     # the last full-width block, n = 1,024
+    (8, 9, 30, 3, 1, True),          # C % 4 != 0: padded to 32 zero channels
 ]
 
 
@@ -444,6 +525,55 @@ def test_train_block_bf16_kernels_match_plain(cuda, b, t, c, fw, center, dropout
             # float32 sums of bf16 values: one operand rounded one bf16 step
             # apart moves a sum by that step, so the bf16 bound holds for all.
             _check(a, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("c", [30, 3636])
+def test_pallas_train_engine_trains_at_any_width(cuda, c):
+    """--train-engine pallas at widths the kernels once refused: 30 channels (not
+    a multiple of 4, padded) and 3,636 (past the old 16 x C shared-memory tile).
+    One training step of a two-block model on the card through the train-block
+    kernels gives the loss of the plain xla engine (same weights and dropout
+    masks) to 1e-4 relative and its gradients to 1e-2 relative norm (ReLU gates
+    that flip between summation orders; chip_smoke.py's GRAD_NORM_TOL), and an
+    SGD step on them lowers the loss."""
+    import dataclasses
+
+    from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
+                                                    forward_strided, receptive_field)
+    cfg = TemporalModelConfig(num_joints_in=17, in_features=2, num_joints_out=17,
+                              filter_widths=(3, 3), dropout=0.25, channels=c)
+    torch.manual_seed(3)
+    base = TemporalModel(cfg)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (16, receptive_field(cfg), 17, 2)).astype(np.float32)).to(cuda)
+    target = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (16, 1, 17, 3)).astype(np.float32)).to(cuda)
+    results = {}
+    for engine in ("xla", "pallas"):
+        model = TemporalModel(dataclasses.replace(cfg, train_engine=engine)).to(cuda)
+        model.load_state_dict(base.state_dict())
+        before = dict(trb.LAUNCHES)
+        losses = []
+        for _ in range(2):
+            model.zero_grad()
+            pred = forward_strided(model, x, momentum=0.1,
+                                   generator=torch.Generator(cuda).manual_seed(11))
+            loss = ((pred - target) ** 2).mean()
+            loss.backward()
+            losses.append(float(loss.detach()))
+            if len(losses) == 1:
+                grads = [p.grad.double().clone() for p in model.parameters()]
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p -= 0.01 * p.grad
+        launched = {k: trb.LAUNCHES[k] - before[k] for k in before}
+        assert all(launched.values()) == (engine == "pallas"), launched
+        assert losses[1] < losses[0]
+        results[engine] = (losses[0], grads)
+    (loss_x, grads_x), (loss_p, grads_p) = results["xla"], results["pallas"]
+    assert abs(loss_p - loss_x) <= 1e-4 * abs(loss_x)
+    for a, b in zip(grads_p, grads_x):
+        assert float((a - b).norm()) <= 1e-2 * max(float(b.norm()), 1e-12)
 
 
 def _int8_model(c, fw, causal, frames, device, seed=0):

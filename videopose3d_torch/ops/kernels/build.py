@@ -42,10 +42,10 @@ _ENTRY_ARGTYPES = {
     "vp3d_gather_rows": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
     # csrc/train_block.cu
     "vp3d_tb_conv_stats": [_I] * 7 + [_P] * 9,
-    "vp3d_tb_norm_drop_matmul_stats": [_I] * 3 + [_P] * 10,
+    "vp3d_tb_norm_drop_matmul_stats": [_I] * 5 + [_P] * 11,
     "vp3d_tb_norm_drop_res": [_I] * 3 + [_P] * 6,
     "vp3d_tb_relu_mask_bn_sums": [_I] * 3 + [_P] * 9,
-    "vp3d_tb_dz_matmul_dd": [_I] * 3 + [_P] * 7,
+    "vp3d_tb_dz_matmul_dd": [_I] * 5 + [_P] * 8,
     "vp3d_tb_du_dtaps_res": [_I] * 7 + [_P] * 9,
     "vp3d_tb_dw_gemm": [_I] * 5 + [_P] * 5,
     "vp3d_tb_stats_reduce": [_I] * 2 + [_P] * 5,
@@ -144,8 +144,6 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.vp3d_tb_smem_bytes.argtypes = [_I]
-    lib.vp3d_tb_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_i8_smem_bytes.argtypes = [_I] * 5
     lib.vp3d_i8_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_stream_smem_bytes.argtypes = [_I] * 2

@@ -1,5 +1,6 @@
 // The 128 x 128-tile CUDA-core SGEMM pieces the train-block GEMMs share
-// (dw_gemm, and the three-tap conv_stats and du_dtaps_res products).
+// (dw_gemm, and the tap GEMMs of conv_stats, norm_drop_matmul_stats, dz_matmul_dd
+// and du_dtaps_res).
 //
 // A CUDA block of GT_THREADS = 256 threads owns a GT x GT (128 x 128) output tile;
 // thread (ty, tx) owns rows ty * 4 + {0, 64} + 0..3 and columns tx * 4 + {0, 64} +

@@ -1,5 +1,5 @@
-// Shared pieces of the port's CUDA kernels: dtype conversion at the points the
-// TPU kernels cast, and the CUDA-core row-tile GEMM the block kernels are built on.
+// The CUDA-core row-tile GEMM the evaluation and streaming block kernels (K3, K5,
+// K6) are built on.
 //
 // gemm_tile: a CUDA block of NT=256 threads owns TM=16 rows of A (float32, in
 // shared memory) and up to NP=1024 output columns per pass; each thread owns CPT=4
@@ -10,34 +10,13 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "common.cuh"
 
 namespace vp3d {
 
 constexpr int TM = 16;            // rows of A per CUDA block
-constexpr int NT = 256;           // threads per CUDA block
 constexpr int CPT = 4;            // output columns per thread per pass
 constexpr int NP = NT * CPT;      // output columns per pass
-constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may opt in to
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as the reference casts
-}
-
-// The value v takes once stored as T, held in float32.
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
 
 // Loads 4 weight rows k..k+3 of this thread's columns as stored (type T).  Kept
 // unconverted so the loads of the next rows stay in flight while the current
@@ -97,19 +76,6 @@ __device__ __forceinline__ void zero(float (&acc)[TM][CPT]) {
 #pragma unroll
     for (int q = 0; q < CPT; ++q) acc[r][q] = 0.f;
   }
-}
-
-// Opts the kernel in to `smem` bytes of dynamic shared memory and launches it.
-template <typename Kernel, typename... Args>
-cudaError_t launch_with_smem(Kernel kern, dim3 grid, dim3 block, size_t smem,
-                             cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kern<<<grid, block, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace vp3d

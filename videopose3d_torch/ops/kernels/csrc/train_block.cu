@@ -17,7 +17,7 @@
 // with train-mode BatchNorm: the biased batch statistics come from per-channel sums
 // of (u - shift) and (u - shift)^2 taken in the GEMM epilogues.  Its backward runs
 // the ReLU/dropout gate with the BatchNorm sums (relu_mask_bn_sums), the BatchNorm
-// input gradient fused with the next product (dz_matmul_dd, du_dtaps_res), and dWb
+// input gradient and the next product (dz_matmul_dd, du_dtaps_res), and dWb
 // as its own GEMM; dWa stays a plain matmul outside, as in the JAX package.
 //
 // Numerics: values are cast to the activation type T (float or bf16) at exactly the
@@ -29,35 +29,37 @@
 //
 // What bounds it on this card: the products, 2 * n * C^2 * (fw + 1) FLOP forward and
 // 2 * n * C^2 * (fw + 2) in these kernels backward, on CUDA-core FP32 FMAs (67 TFLOP/s
-// peak); tensor cores (wgmma) are later work.  The one-tap row-tile kernels
-// (norm_drop_matmul_stats, dz_matmul_dd) stream the C x C weights from L2 once per
-// 16-row tile (8 FLOP per weight byte) and keep the tile's A operand in shared memory.
+// peak); tensor cores (wgmma) are later work.
 //
-// The GEMMs with the most work are 128 x 128-tile SGEMMs on sgemm_tile.cuh: a CUDA
-// block of 256 threads owns a 128 x 128 output tile, each thread an 8 x 8 register
-// tile (four FMAs per shared-memory float, ~32 FLOP per byte staged), 32-deep slabs
-// of the summed dimension flow through rings of shared memory, and two CUDA blocks
-// share an SM.
+// Every product is a 128 x 128-tile SGEMM on sgemm_tile.cuh: a CUDA block of 256
+// threads owns a 128 x 128 output tile, each thread an 8 x 8 register tile (four
+// FMAs per shared-memory float, ~32 FLOP per byte staged), 32-deep slabs of the
+// summed dimension flow through rings of shared memory, and two CUDA blocks share
+// an SM.
 // - dw_gemm (dWb = d^T dz over the n rows): both operands are row-major in the
 //   summed dimension, so both go to shared memory by 16-byte cp.async as they are,
 //   in a 3-stage ring.  At C = 1,024 there are only 64 tiles for 132 SMs, so the
 //   rows are split into slices (split-K, planned by the Python wrapper: 4 slices,
 //   256 CUDA blocks, one wave); each slice writes a float32 partial and dw_reduce
 //   adds the partials in slice order.
-// - conv_stats (u = x3 (n, fw C) @ Wa (fw C, C)) and du_dtaps_res (dx3 (n, fw C) =
-//   du (n, C) @ Wa^T (C, fw C)) are tap GEMMs (tap_gemm_kernel): B goes through the
-//   same cp.async ring, but A is row-major in the summed dimension, so each thread
-//   reads a 4 x 4 block of its next slab into registers by 16-byte loads while the
-//   current one is used, then stores it transposed by four vector stores
-//   (XOR-swizzled by 4-row group, no bank conflicts) into a 2-stage ring.  The
-//   epilogues are fused: the cast to T, conv_stats's BatchNorm partial sums per
-//   128-row tile and its residual tap (written by column tile 0 from the A values
-//   it stages), du_dtaps_res's residual cotangent added to the center tap in T.  du
-//   itself is a first, elementwise launch (bn_grad_kernel).  Where shorter blocks
-//   even out the SMs' shares of a ragged last round of tiles (conv_stats at
-//   n <= 9,216, du_dtaps_res at n = 1,024), the summed dimension is split (planned
-//   by the wrapper) and tap_gemm_reduce adds the slices in order before the
-//   epilogue.
+// - The other four products are tap GEMMs (tap_gemm_kernel): conv_stats (u = x3
+//   (n, fw C) @ Wa (fw C, C)), du_dtaps_res (dx3 (n, fw C) = du (n, C) @ Wa^T (C, fw
+//   C)) and the one-tap norm_drop_matmul_stats (v = d @ Wb) and dz_matmul_dd (dd =
+//   dz @ Wb^T).  B goes through the same cp.async ring, but A is row-major in the
+//   summed dimension, so each thread reads a 4 x 4 block of its next slab into
+//   registers by 16-byte loads while the current one is used, then stores it
+//   transposed by four vector stores (XOR-swizzled by 4-row group, no bank
+//   conflicts) into a 2-stage ring.  The epilogues are fused: the cast to T, the
+//   BatchNorm partial sums per 128-row tile (conv_stats, norm_drop_matmul_stats),
+//   conv_stats's residual tap (written by column tile 0 from the A values it
+//   stages), du_dtaps_res's residual cotangent added to the center tap in T.  The
+//   one-tap kernels' and du_dtaps_res's A operands (d, dz, du) are outputs too, so
+//   a first, elementwise launch writes them (norm_drop_kernel, bn_grad_kernel) and
+//   the GEMM reads them back: one more read of n x C, ~0.03 ms at n = 27,648.
+//   Where shorter blocks even out the SMs' shares of a ragged last round of tiles
+//   (at C = 1,024: 64 tiles at n = 1,024, 192 at n = 3,072), the summed dimension
+//   is split (planned by the wrapper) and tap_gemm_reduce adds the slices in order
+//   before the epilogue.
 // bf16 operands are staged as they are and widened when read from shared memory.
 //
 // The TPU grid runs in order, so the Pallas bodies carry the BatchNorm sums and dWb
@@ -65,17 +67,17 @@
 // writes its per-channel partial sums to an (n_tiles, C) buffer that stats_reduce
 // adds up in tile order, and the split products' slices are added up in slice
 // order.  No float atomics: two runs give bitwise-equal results.  Partial row
-// tiles, slabs and output tiles are masked, so any n and any C % 4 == 0 are taken;
-// the row-tile kernels also need their 16 x C float32 tile in shared memory
-// (C <= 3,632).
+// tiles, slabs and output tiles are masked, and nothing is held per channel in
+// shared memory, so any n and any C % 4 == 0 are taken (the Python block pads
+// other widths with zero channels).
 
 #include <stdint.h>
 
 #include <algorithm>
 #include <initializer_list>
 
+#include "common.cuh"
 #include "sgemm_tile.cuh"
-#include "tile_gemm.cuh"
 
 namespace {
 
@@ -97,76 +99,11 @@ __device__ __forceinline__ float mask_at(const T* mask, size_t i) {
   return mask == nullptr ? 1.f : to_f<T>(mask[i]);
 }
 
-// Per-channel sums of this thread's columns over the valid rows of its tile.
-__device__ __forceinline__ void write_partials(const float (&val)[TM][CPT], int rows,
-                                               int c, int col0, const float* shift,
-                                               float* part1, float* part2) {
-#pragma unroll
-  for (int q = 0; q < CPT; ++q) {
-    const int col = col0 + threadIdx.x + q * NT;
-    if (col >= c) continue;
-    const float sh = shift[col];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      if (r < rows) {
-        const float y = __fsub_rn(val[r][q], sh);
-        s1 = __fadd_rn(s1, y);
-        s2 = __fadd_rn(s2, __fmul_rn(y, y));
-      }
-    }
-    part1[(size_t)blockIdx.x * c + col] = s1;
-    part2[(size_t)blockIdx.x * c + col] = s2;
-  }
-}
-
-// d = mask * relu(bn(u)) in T (stored); v = d @ Wb cast to T; partial sums of
-// (v - shift) and its square.  gate rows: [mean, inv, bias] in T.
+// out = res + mask * relu(bn(v)), all in T; without res (null), out = mask *
+// relu(bn(v)): norm_drop_res, and the first pass of norm_drop_matmul_stats (d).
+// gate rows: [mean, inv, bias] in T.
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) norm_drop_matmul_stats_kernel(
-    const T* __restrict__ u, const T* __restrict__ mask, const T* __restrict__ gate,
-    const T* __restrict__ wb, const float* __restrict__ shift, int n, int c,
-    T* __restrict__ d, T* __restrict__ v, float* __restrict__ part1,
-    float* __restrict__ part2) {
-  extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);
-  const int i0 = blockIdx.x * TM;
-  const int rows = min(TM, n - i0);
-  for (int r = 0; r < TM; ++r) {
-    for (int k = threadIdx.x; k < c; k += NT) {
-      float val = 0.f;
-      if (r < rows) {
-        const size_t i = (size_t)(i0 + r) * c + k;
-        const float y = affine<T>(to_f<T>(u[i]), to_f<T>(gate[k]), to_f<T>(gate[c + k]),
-                                  to_f<T>(gate[2 * c + k]));
-        val = round_to<T>(__fmul_rn(fmaxf(y, 0.f), mask_at(mask, i)));
-        d[i] = from_f<T>(val);
-      }
-      a_s[r * c + k] = val;
-    }
-  }
-  __syncthreads();
-  float acc[TM][CPT];
-  for (int col0 = 0; col0 < c; col0 += NP) {
-    zero(acc);
-    gemm_tile<T>(acc, a_s, c, c, wb, c, c, col0);
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int col = col0 + threadIdx.x + q * NT;
-      if (col >= c) continue;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        acc[r][q] = round_to<T>(acc[r][q]);
-        if (r < rows) v[(size_t)(i0 + r) * c + col] = from_f<T>(acc[r][q]);
-      }
-    }
-    write_partials(acc, rows, c, col0, shift, part1, part2);
-  }
-}
-
-// out = res + mask * relu(bn(v)), all in T.
-template <typename T>
-__global__ void __launch_bounds__(NT) norm_drop_res_kernel(
+__global__ void __launch_bounds__(NT) norm_drop_kernel(
     const T* __restrict__ v, const T* __restrict__ mask, const T* __restrict__ gate,
     const T* __restrict__ res, size_t total, int c, T* __restrict__ out) {
   for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < total;
@@ -175,8 +112,14 @@ __global__ void __launch_bounds__(NT) norm_drop_res_kernel(
     const float y = affine<T>(to_f<T>(v[i]), to_f<T>(gate[k]), to_f<T>(gate[c + k]),
                               to_f<T>(gate[2 * c + k]));
     const float e = round_to<T>(__fmul_rn(fmaxf(y, 0.f), mask_at(mask, i)));
-    out[i] = from_f<T>(__fadd_rn(to_f<T>(res[i]), e));
+    out[i] = from_f<T>(res == nullptr ? e : __fadd_rn(to_f<T>(res[i]), e));
   }
+}
+
+// Grid of the elementwise kernels over `total` values: 16 waves of NT-thread
+// blocks on 132 SMs at most, each thread striding over the rest.
+dim3 elementwise_grid(size_t total) {
+  return dim3((unsigned)std::min<size_t>((total + NT - 1) / NT, 132 * 16));
 }
 
 // gz = g * mask * [bn(z) > 0] (gate replayed in T), stored in T; partial sums of
@@ -218,45 +161,8 @@ __device__ __forceinline__ float bn_input_grad(float gzf, float zf, const float*
   return round_to<T>(__fmul_rn(coef[k], t));
 }
 
-// dz (stored, for dWb) and dd = dz @ Wb^T cast to T; wbt is Wb transposed.
-template <typename T>
-__global__ void __launch_bounds__(NT, 1) dz_matmul_dd_kernel(
-    const T* __restrict__ gz, const T* __restrict__ z, const float* __restrict__ coef,
-    const T* __restrict__ wbt, int n, int c, T* __restrict__ dz, T* __restrict__ dd) {
-  extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);
-  const int i0 = blockIdx.x * TM;
-  const int rows = min(TM, n - i0);
-  for (int r = 0; r < TM; ++r) {
-    for (int k = threadIdx.x; k < c; k += NT) {
-      float val = 0.f;
-      if (r < rows) {
-        const size_t i = (size_t)(i0 + r) * c + k;
-        val = bn_input_grad<T>(to_f<T>(gz[i]), to_f<T>(z[i]), coef, c, k);
-        dz[i] = from_f<T>(val);
-      }
-      a_s[r * c + k] = val;
-    }
-  }
-  __syncthreads();
-  float acc[TM][CPT];
-  for (int col0 = 0; col0 < c; col0 += NP) {
-    zero(acc);
-    gemm_tile<T>(acc, a_s, c, c, wbt, c, c, col0);
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int col = col0 + threadIdx.x + q * NT;
-      if (col >= c) continue;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        if (r < rows) dd[(size_t)(i0 + r) * c + col] = from_f<T>(acc[r][q]);
-      }
-    }
-  }
-}
-
 // du = the BatchNorm input gradient of ga, cast to T: the first pass of
-// du_dtaps_res, whose product then runs as a tap GEMM.
+// du_dtaps_res and dz_matmul_dd, whose products then run as tap GEMMs.
 template <typename T>
 __global__ void __launch_bounds__(NT) bn_grad_kernel(
     const T* __restrict__ ga, const T* __restrict__ u, const float* __restrict__ coef,
@@ -268,10 +174,11 @@ __global__ void __launch_bounds__(NT) bn_grad_kernel(
   }
 }
 
-// A tap GEMM: out (m x n) = A (m x k) @ B (k x n), all row-major, with the epilogue
-// of conv_stats (shift set: per-column partial sums; res set: A's columns
-// [res_k0, res_k0 + res_n) copied out as they are staged) or of du_dtaps_res (g
-// set: g added in T to columns [g_col0, g_col0 + g_n)).  With part set, each
+// A tap GEMM: out (m x n) = A (m x k) @ B (k x n), all row-major, cast to T, with
+// the epilogue of conv_stats (shift set: per-column partial sums, as
+// norm_drop_matmul_stats's; res set: A's columns [res_k0, res_k0 + res_n) copied out
+// as they are staged) or of du_dtaps_res (g set: g added in T to columns [g_col0,
+// g_col0 + g_n)); dz_matmul_dd's has none of these.  With part set, each
 // blockIdx.z slice of k_slice summed rows writes its float32 product there and
 // tap_gemm_reduce adds the slices in order and runs the epilogue.
 template <typename T>
@@ -695,13 +602,7 @@ __global__ void __launch_bounds__(NT) stats_reduce_kernel(const float* __restric
   out2[k] = s2;
 }
 
-size_t tile_smem(int c) { return sizeof(float) * (size_t)TM * c; }
-
-dim3 row_tiles(int n) { return dim3((n + TM - 1) / TM); }
-
-bool bad_shape(int n, int c) {
-  return n <= 0 || c <= 0 || c % 4 != 0 || tile_smem(c) > kMaxSmem;
-}
+bool bad_shape(int n, int c) { return n <= 0 || c <= 0 || c % 4 != 0; }
 
 template <typename T> const T* cp(const void* p) { return static_cast<const T*>(p); }
 template <typename T> T* mp(void* p) { return static_cast<T*>(p); }
@@ -725,19 +626,28 @@ bool misaligned(int dtype, std::initializer_list<const void*> ptrs) {
   return false;
 }
 
+// The tap GEMM out (m, n) = a (m, k) @ b (k, n) in `slices` slices of k_slice summed
+// rows (part: their float32 products when slices > 1), without an epilogue's extras.
+template <typename T>
+TapGemm<T> tap_gemm_of(const void* a, const void* b, int m, int k, int n, int slices,
+                       int k_slice, void* part, void* out) {
+  TapGemm<T> p{};
+  p.a = cp<T>(a);
+  p.b = cp<T>(b);
+  p.m = m;
+  p.k = k;
+  p.n = n;
+  p.k_slice = k_slice;
+  p.part = slices > 1 ? mp<float>(part) : nullptr;
+  p.out = mp<T>(out);
+  return p;
+}
+
 template <typename T>
 cudaError_t conv_stats_t(int n, int c, int fw, int center, int slices, int k_slice,
                          const void* x3, const void* wa, const void* shift, void* u,
                          void* res, void* part1, void* part2, void* part, cudaStream_t s) {
-  TapGemm<T> p{};
-  p.a = cp<T>(x3);
-  p.b = cp<T>(wa);
-  p.m = n;
-  p.k = fw * c;
-  p.n = c;
-  p.k_slice = k_slice;
-  p.part = slices > 1 ? mp<float>(part) : nullptr;
-  p.out = mp<T>(u);
+  TapGemm<T> p = tap_gemm_of<T>(x3, wa, n, fw * c, c, slices, k_slice, part, u);
   p.shift = cp<float>(shift);
   p.part1 = mp<float>(part1);
   p.part2 = mp<float>(part2);
@@ -748,23 +658,45 @@ cudaError_t conv_stats_t(int n, int c, int fw, int center, int slices, int k_sli
 }
 
 template <typename T>
+cudaError_t norm_drop_matmul_stats_t(int n, int c, int slices, int k_slice, const void* u,
+                                     const void* mask, const void* gate, const void* wb,
+                                     const void* shift, void* d, void* v, void* part1,
+                                     void* part2, void* part, cudaStream_t s) {
+  const size_t total = (size_t)n * c;
+  cudaError_t err = launch_with_smem(norm_drop_kernel<T>, elementwise_grid(total), dim3(NT),
+                                     0, s, cp<T>(u), cp<T>(mask), cp<T>(gate),
+                                     static_cast<const T*>(nullptr), total, c, mp<T>(d));
+  if (err != cudaSuccess) return err;
+  TapGemm<T> p = tap_gemm_of<T>(d, wb, n, c, c, slices, k_slice, part, v);
+  p.shift = cp<float>(shift);
+  p.part1 = mp<float>(part1);
+  p.part2 = mp<float>(part2);
+  return launch_tap_gemm(p, slices, s);
+}
+
+template <typename T>
+cudaError_t dz_matmul_dd_t(int n, int c, int slices, int k_slice, const void* gz,
+                           const void* z, const void* coef, const void* wbt, void* dz,
+                           void* dd, void* part, cudaStream_t s) {
+  const size_t total = (size_t)n * c;
+  cudaError_t err = launch_with_smem(bn_grad_kernel<T>, elementwise_grid(total), dim3(NT), 0,
+                                     s, cp<T>(gz), cp<T>(z), cp<float>(coef), total, c,
+                                     mp<T>(dz));
+  if (err != cudaSuccess) return err;
+  return launch_tap_gemm(tap_gemm_of<T>(dz, wbt, n, c, c, slices, k_slice, part, dd), slices,
+                         s);
+}
+
+template <typename T>
 cudaError_t du_dtaps_res_t(int n, int c, int fw, int center, int slices, int k_slice,
                            const void* ga, const void* u, const void* g, const void* coef,
                            const void* wt, void* du, void* dx3, void* part, cudaStream_t s) {
   const size_t total = (size_t)n * c;
-  const dim3 grid((unsigned)std::min<size_t>((total + NT - 1) / NT, 132 * 16));
-  cudaError_t err = launch_with_smem(bn_grad_kernel<T>, grid, dim3(NT), 0, s, cp<T>(ga),
-                                     cp<T>(u), cp<float>(coef), total, c, mp<T>(du));
+  cudaError_t err = launch_with_smem(bn_grad_kernel<T>, elementwise_grid(total), dim3(NT), 0,
+                                     s, cp<T>(ga), cp<T>(u), cp<float>(coef), total, c,
+                                     mp<T>(du));
   if (err != cudaSuccess) return err;
-  TapGemm<T> p{};
-  p.a = mp<T>(du);
-  p.b = cp<T>(wt);
-  p.m = n;
-  p.k = c;
-  p.n = fw * c;
-  p.k_slice = k_slice;
-  p.part = slices > 1 ? mp<float>(part) : nullptr;
-  p.out = mp<T>(dx3);
+  TapGemm<T> p = tap_gemm_of<T>(du, wt, n, c, fw * c, slices, k_slice, part, dx3);
   p.g = cp<T>(g);
   p.g_col0 = center * c;
   p.g_n = c;
@@ -805,43 +737,43 @@ int vp3d_tb_conv_stats(int dtype, int n, int c, int fw, int center, int slices, 
   return cudaErrorInvalidValue;
 }
 
-int vp3d_tb_norm_drop_matmul_stats(int dtype, int n, int c, const void* u, const void* mask,
-                                   const void* gate, const void* wb, const void* shift,
-                                   void* d, void* v, void* part1, void* part2,
-                                   void* stream) {
-  if (bad_shape(n, c)) return cudaErrorInvalidValue;
+// d (n, c) = mask * relu(bn(u)) in T (one launch), then v (n, c) = d @ wb (c, c) cast
+// to T with the per 128-row tile partial sums of (v - shift) and its square into
+// part1 / part2 ((n + 127) / 128, c) (a second launch, split as conv_stats's).  gate
+// rows: [mean, inv, bias] in T.  wb 16-byte (float32) or 8-byte (bf16) aligned.
+int vp3d_tb_norm_drop_matmul_stats(int dtype, int n, int c, int slices, int k_slice,
+                                   const void* u, const void* mask, const void* gate,
+                                   const void* wb, const void* shift, void* d, void* v,
+                                   void* part1, void* part2, void* part, void* stream) {
+  if (bad_tap_gemm(n, c, c, slices, k_slice, part)) return cudaErrorInvalidValue;
+  if (misaligned(dtype, {wb, d, v, part})) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_with_smem(norm_drop_matmul_stats_kernel<float>, row_tiles(n), dim3(NT),
-                            tile_smem(c), s, cp<float>(u), cp<float>(mask), cp<float>(gate),
-                            cp<float>(wb), cp<float>(shift), n, c, mp<float>(d),
-                            mp<float>(v), mp<float>(part1), mp<float>(part2));
+    return norm_drop_matmul_stats_t<float>(n, c, slices, k_slice, u, mask, gate, wb, shift,
+                                           d, v, part1, part2, part, s);
   }
   if (dtype == 1) {
-    using B = __nv_bfloat16;
-    return launch_with_smem(norm_drop_matmul_stats_kernel<B>, row_tiles(n), dim3(NT),
-                            tile_smem(c), s, cp<B>(u), cp<B>(mask), cp<B>(gate), cp<B>(wb),
-                            cp<float>(shift), n, c, mp<B>(d), mp<B>(v), mp<float>(part1),
-                            mp<float>(part2));
+    return norm_drop_matmul_stats_t<__nv_bfloat16>(n, c, slices, k_slice, u, mask, gate, wb,
+                                                   shift, d, v, part1, part2, part, s);
   }
   return cudaErrorInvalidValue;
 }
 
 int vp3d_tb_norm_drop_res(int dtype, int n, int c, const void* v, const void* mask,
                           const void* gate, const void* res, void* out, void* stream) {
-  if (bad_shape(n, c)) return cudaErrorInvalidValue;
+  if (bad_shape(n, c) || res == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t total = (size_t)n * c;
-  const dim3 grid((unsigned)std::min<size_t>((total + NT - 1) / NT, 132 * 16));
+  const dim3 grid = elementwise_grid(total);
   if (dtype == 0) {
-    return launch_with_smem(norm_drop_res_kernel<float>, grid, dim3(NT), 0, s, cp<float>(v),
+    return launch_with_smem(norm_drop_kernel<float>, grid, dim3(NT), 0, s, cp<float>(v),
                             cp<float>(mask), cp<float>(gate), cp<float>(res), total, c,
                             mp<float>(out));
   }
   if (dtype == 1) {
     using B = __nv_bfloat16;
-    return launch_with_smem(norm_drop_res_kernel<B>, grid, dim3(NT), 0, s, cp<B>(v),
-                            cp<B>(mask), cp<B>(gate), cp<B>(res), total, c, mp<B>(out));
+    return launch_with_smem(norm_drop_kernel<B>, grid, dim3(NT), 0, s, cp<B>(v), cp<B>(mask),
+                            cp<B>(gate), cp<B>(res), total, c, mp<B>(out));
   }
   return cudaErrorInvalidValue;
 }
@@ -867,21 +799,21 @@ int vp3d_tb_relu_mask_bn_sums(int dtype, int n, int c, const void* g, const void
   return cudaErrorInvalidValue;
 }
 
-int vp3d_tb_dz_matmul_dd(int dtype, int n, int c, const void* gz, const void* z,
-                         const void* coef, const void* wbt, void* dz, void* dd,
-                         void* stream) {
-  if (bad_shape(n, c)) return cudaErrorInvalidValue;
+// dz (n, c) = the BatchNorm input gradient of gz, cast to T (one launch), then dd
+// (n, c) = dz @ wbt (c, c) cast to T (a second launch, split as conv_stats's); wbt is
+// Wb transposed, 16-byte (float32) or 8-byte (bf16) aligned.
+int vp3d_tb_dz_matmul_dd(int dtype, int n, int c, int slices, int k_slice, const void* gz,
+                         const void* z, const void* coef, const void* wbt, void* dz, void* dd,
+                         void* part, void* stream) {
+  if (bad_tap_gemm(n, c, c, slices, k_slice, part)) return cudaErrorInvalidValue;
+  if (misaligned(dtype, {wbt, dz, dd, part})) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_with_smem(dz_matmul_dd_kernel<float>, row_tiles(n), dim3(NT),
-                            tile_smem(c), s, cp<float>(gz), cp<float>(z), cp<float>(coef),
-                            cp<float>(wbt), n, c, mp<float>(dz), mp<float>(dd));
+    return dz_matmul_dd_t<float>(n, c, slices, k_slice, gz, z, coef, wbt, dz, dd, part, s);
   }
   if (dtype == 1) {
-    using B = __nv_bfloat16;
-    return launch_with_smem(dz_matmul_dd_kernel<B>, row_tiles(n), dim3(NT), tile_smem(c),
-                            s, cp<B>(gz), cp<B>(z), cp<float>(coef), cp<B>(wbt), n, c,
-                            mp<B>(dz), mp<B>(dd));
+    return dz_matmul_dd_t<__nv_bfloat16>(n, c, slices, k_slice, gz, z, coef, wbt, dz, dd,
+                                         part, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -942,11 +874,8 @@ int vp3d_tb_stats_reduce(int n_parts, int c, const void* part1, const void* part
                           cp<float>(part2), n_parts, c, mp<float>(out1), mp<float>(out2));
 }
 
-// Rows per partial-sum tile: kind 0 for the row-tile GEMM kernels, 1 for
-// relu_mask_bn_sums, 2 for the tap GEMM (conv_stats).
-int vp3d_tb_sum_rows(int kind) { return kind == 0 ? TM : kind == 1 ? SUM_ROWS : GT; }
-
-// Dynamic shared memory of the row-tile kernels at c channels.
-size_t vp3d_tb_smem_bytes(int c) { return tile_smem(c); }
+// Rows per partial-sum tile: kind 0 for the tap GEMMs (conv_stats,
+// norm_drop_matmul_stats), 1 for relu_mask_bn_sums.
+int vp3d_tb_sum_rows(int kind) { return kind == 0 ? GT : SUM_ROWS; }
 
 }  // extern "C"

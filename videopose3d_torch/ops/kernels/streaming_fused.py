@@ -26,7 +26,7 @@ from typing import List, Sequence
 
 import torch
 
-from videopose3d_torch.ops.kernels.temporal_block import _check, _load, _ptr
+from videopose3d_torch.ops.kernels.temporal_block import SMEM_OPT_IN, _check, _load, _ptr
 from videopose3d_torch.ops.kernels.temporal_block_int8 import QMAX, _i8mm, _rdiv, _to_stream
 
 LAUNCHES = {"stream_int8": 0, "stream_bf16": 0, "stream_int8_multi": 0,
@@ -162,31 +162,63 @@ def fused_blocks_step_bf16_multi_plain(weights, rings, a0, idx, *, widths, lags,
 # ---------------------------------------------------------------------------
 
 
+# The step kernel's geometry (csrc/streaming_fused.cu, csrc/int8_gemm.cuh): TM rows
+# per CUDA block, WARPS warps, at most MAX_BLOCKS residual blocks of MAX_TAPS older
+# taps each, and 1 to TM frames per step.
+TM, WARPS, MAX_BLOCKS, MAX_TAPS = 16, 8, 8, 8
+
+
+def step_smem_bytes(int8: bool, c: int) -> int:
+    """Shared memory of one CUDA block of the step at c channels
+    (``vp3d_stream_smem_bytes``): int8, the block input and staged tap rows
+    (int8), real (float32), hq (int8), the row scales and per-warp maxima; bf16,
+    the float32 carry, staged tap rows and h."""
+    if int8:
+        return 7 * TM * c + 4 * (3 + WARPS) * TM
+    return 3 * 4 * TM * c
+
+
+def step_limit_error(engine: str, c: int, widths, k: int):
+    """Why the fused streaming step (K5, K6 at k > 1) cannot serve ``engine``
+    (``int8_fused`` or ``bf16_fused``) at ``c`` channels, residual blocks of
+    filter ``widths`` and ``k`` frames per step, or None; known without the card."""
+    per_layer = engine.replace("_fused", "")
+    what = f"the fused streaming kernel (--engine {engine} on CUDA)"
+    use = f"; use --engine {per_layer}"
+    if c % 16:
+        return f"{c} channels: {what} takes a multiple of 16 channels{use}"
+    if not 1 <= k <= TM:
+        return f"--frames-per-step {k}: {what} takes 1 to {TM} frames per step{use}"
+    if not 1 <= len(widths) <= MAX_BLOCKS or any(not 1 <= w <= MAX_TAPS + 1
+                                                 for w in widths):
+        return (f"residual blocks of filter widths {tuple(widths)}: {what} takes 1 to "
+                f"{MAX_BLOCKS} blocks of at most {MAX_TAPS + 1} taps{use}")
+    smem = step_smem_bytes(engine == "int8_fused", c)
+    if smem > SMEM_OPT_IN:
+        return (f"{c} channels: {what} needs {smem} bytes of shared memory; at most "
+                f"{SMEM_OPT_IN} are available{use}")
+    return None
+
+
 def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs):
     """Check every operand against the kernel's contract and launch the step.
     ``blocks`` holds per residual block (wa, wb, [epilogue vectors])."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the {kind} kernel runs on CUDA tensors, got {dev}")
-    lib = _load()
     n = len(widths)
-    max_blocks, max_taps = lib.vp3d_stream_max_blocks(), lib.vp3d_stream_max_taps()
     kk, b, c = x.shape
     if kk != k:
         raise ValueError(f"the input holds {kk} frames, the step {k}")
-    if c % 16:
-        raise ValueError(f"channels must be a multiple of 16, got {c}")
-    if not 1 <= k <= 16:
-        raise ValueError(f"the {kind} kernel takes 1 to 16 frames per step, got {k}")
-    if not 1 <= n <= max_blocks or len(rings) != n or len(blocks) != n:
-        raise ValueError(f"the {kind} kernel takes 1 to {max_blocks} residual blocks "
-                         f"with one ring each, got {n} widths and {len(rings)} rings")
-    if any(not 1 <= w <= max_taps + 1 for w in widths):
-        raise ValueError(f"filter widths {tuple(widths)}: the kernel takes at most "
-                         f"{max_taps + 1} taps")
+    int8 = kind.startswith("stream_int8")
+    err = step_limit_error("int8_fused" if int8 else "bf16_fused", c, widths, k)
+    if err:
+        raise ValueError(err)
+    if len(rings) != n or len(blocks) != n:
+        raise ValueError(f"the {kind} kernel takes one ring per residual block, got "
+                         f"{n} widths and {len(rings)} rings")
     if len(idx) != sum(widths):
         raise ValueError(f"idx holds {len(idx)} slots, the widths {sum(widths)}")
-    int8 = kind.startswith("stream_int8")
     act_type = _ACT_TYPE["int8" if int8 else "bf16"]
     _check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c))
     ring_dt = torch.int8 if int8 else torch.bfloat16
@@ -215,13 +247,9 @@ def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs)
         lag = list(lags[i]) if lags is not None else [k] * (kw - 1)
         ptrs += [wa.data_ptr(), wb.data_ptr(), *(v.data_ptr() for v in vecs),
                  *([None] * (5 - len(vecs))), rings[i].data_ptr()]
-        ints += ([kw, cap, write] + lag + [0] * (max_taps - len(lag))
-                 + taps + [0] * (max_taps - len(taps)))
-    smem = lib.vp3d_stream_smem_bytes(act_type, c)
-    if smem > lib.vp3d_block_max_smem_bytes():
-        raise ValueError(f"the {kind} kernel needs {smem} bytes of shared memory at "
-                         f"{c} channels; at most {lib.vp3d_block_max_smem_bytes()} "
-                         "are available")
+        ints += ([kw, cap, write] + lag + [0] * (MAX_TAPS - len(lag))
+                 + taps + [0] * (MAX_TAPS - len(taps)))
+    lib = _load()
     out = torch.empty((k * b, j3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

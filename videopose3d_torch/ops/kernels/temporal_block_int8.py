@@ -51,7 +51,8 @@ from typing import Dict, List, Optional
 import torch
 
 from videopose3d_torch.models.temporal import _channels_last, _fold, receptive_field
-from videopose3d_torch.ops.kernels.temporal_block import _check, _geometry, _load, _ptr
+from videopose3d_torch.ops.kernels.temporal_block import (SMEM_OPT_IN, _check, _geometry,
+                                                          _load, _ptr)
 
 QMAX = 127.0
 # Blocks whose dilation is at least this run the accshift tap mode: the default
@@ -371,6 +372,55 @@ def int8_shrink_block_plain(x, blk: Int8Block, w_shrink, b_shrink, *, dilation: 
 # ---------------------------------------------------------------------------
 
 
+# The stage kernels' geometry (csrc/temporal_block_int8.cu, csrc/int8_gemm.cuh): TM
+# output rows per CUDA block, WARPS warps, SLACK rows of accshift window slack.
+TM, WARPS, SLACK = 16, 8, ACCSHIFT_ALIGN
+
+
+def stage_smem_bytes(kind: str, c: int, *, k_in: int = 0, span: int = 0,
+                     accshift: bool = False) -> int:
+    """Shared memory of one CUDA block of the ``kind`` stage at c channels
+    (``vp3d_i8_smem_bytes``): the expand's raw input rows (float32, k_in columns
+    padded to 4) and e (int8) over every row its taps (reach ``span``) and
+    residual read, or the other stages' staged tap rows; then real (float32), hq
+    (int8), the row scales and the per-warp row maxima."""
+    a16 = lambda b: (b + 15) & ~15
+    slack = SLACK if accshift else 0
+    if kind == "int8_expand":
+        rows = -(-(TM + span + slack) // TM) * TM
+        staged = a16(4 * rows * ((k_in + 3) & ~3)) + a16(rows * c)
+    else:
+        staged = a16((TM + slack) * c)
+    return staged + 4 * TM * c + a16(TM * c) + 4 * (3 + WARPS) * TM
+
+
+def channel_limit_error(c: int, widths, *, c_in: int,
+                        accshift_min_d: int = ACCSHIFT_MIN_DILATION):
+    """Why the int8 stage kernels (``--serving-engine int8`` on CUDA) cannot serve
+    the model of filter ``widths`` at ``c`` channels over ``c_in`` keypoint
+    columns, or None; known without the card.  The kernels take a multiple of 16
+    channels, and each stage's CUDA block must fit in shared memory: the expand
+    (pre-tapped input of ``widths[0] * c_in`` columns) with block 0, the mid
+    blocks, and the last block with the shrink, at the tap mode
+    ``forward_dilated_int8`` gives each."""
+    engine = "the int8 stage kernels (--serving-engine int8 on CUDA)"
+    if c % 16:
+        return (f"{c} channels: {engine} take a multiple of 16 channels; use "
+                "--serving-engine xla")
+    n_blocks, d = len(widths) - 1, 1
+    for i in range(n_blocks):
+        d *= widths[i]
+        kind = ("int8_expand" if i == 0 else "int8_shrink" if i == n_blocks - 1
+                else "int8_dilated")
+        smem = stage_smem_bytes(kind, c, k_in=widths[0] * c_in if i == 0 else 0,
+                                span=(widths[i + 1] - 1) * d, accshift=d >= accshift_min_d)
+        if smem > SMEM_OPT_IN:
+            return (f"{c} channels: {engine}: the {kind} kernel of block {i} needs "
+                    f"{smem} bytes of shared memory; at most {SMEM_OPT_IN} are "
+                    "available; use --serving-engine xla")
+    return None
+
+
 def _launch(kind, x, blk: Int8Block, *, t_out, dilation, res_offset, tap_mode,
             w0=None, s0=None, b0=None, ws=None, bs=None, out):
     """Check every operand against the kernel's contract and launch it."""
@@ -398,15 +448,15 @@ def _launch(kind, x, blk: Int8Block, *, t_out, dilation, res_offset, tap_mode,
         j3 = ws.shape[1]
         _check("w_shrink", ws, dev, torch.bfloat16, (c, j3))
         _check("b_shrink", bs, dev, torch.float32, (j3,))
-    lib = _load()
     variant, accshift = _VARIANT[kind], int(tap_mode == "accshift")
     span = (n_taps - 1) * dilation
     k_in = x_cols if w0 is not None else 0
-    smem = lib.vp3d_i8_smem_bytes(variant, accshift, c, k_in, span)
-    if smem > lib.vp3d_block_max_smem_bytes():
+    smem = stage_smem_bytes(kind, c, k_in=k_in, span=span, accshift=bool(accshift))
+    if smem > SMEM_OPT_IN:
         raise ValueError(f"the {kind} kernel needs {smem} bytes of shared memory at "
-                         f"{c} channels and reach {span}; at most "
-                         f"{lib.vp3d_block_max_smem_bytes()} are available")
+                         f"{c} channels and reach {span}; at most {SMEM_OPT_IN} are "
+                         "available")
+    lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.vp3d_int8_block(

@@ -39,6 +39,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from videopose3d_torch.models.temporal import BN_EPS
 from videopose3d_torch.ops.kernels.temporal_block import _check
@@ -160,42 +161,28 @@ def _call(key, fn_name, *args):
         LAUNCHES[key] += 1
 
 
-# The row-tile kernels' geometry (csrc/tile_gemm.cuh): TM rows of C float32 values
-# per CUDA block in shared memory, of which a block may opt in to SMEM_OPT_IN bytes.
-TM, SMEM_OPT_IN = 16, 232_448
-
-
-def tile_smem_bytes(c: int) -> int:
-    """Shared memory of the row-tile kernels at c channels (``vp3d_tb_smem_bytes``)."""
-    return 4 * TM * c
-
-
 def channel_limit_error(c: int):
-    """Why the train-block kernels cannot run at ``c`` channels, or None: rows are
-    copied in 16-byte words (C % 4 == 0), and norm_drop_matmul_stats and
-    dz_matmul_dd hold a TM x C float32 tile in shared memory."""
-    if c % 4:
-        return (f"{c} channels: the train-block kernels (--train-engine pallas on CUDA) "
-                "take a multiple of 4 channels; use --train-engine xla")
-    if tile_smem_bytes(c) > SMEM_OPT_IN:
-        return (f"{c} channels: the train-block kernels (--train-engine pallas on CUDA) "
-                f"hold a {TM} x C float32 tile in at most {SMEM_OPT_IN} bytes of shared "
-                f"memory, so at most {SMEM_OPT_IN // tile_smem_bytes(1)} channels; use "
-                "--train-engine xla")
+    """Why the train block (``--train-engine pallas`` on CUDA) cannot run at ``c``
+    channels, or None: it takes any width, as the JAX package's.  The kernels
+    copy rows in 16-byte words (C % 4 == 0) and hold nothing per channel in
+    shared memory; :func:`fused_train_block` pads other widths with zero
+    channels."""
+    if c < 1:
+        return f"{c} channels: the train block needs at least one channel"
     return None
 
 
-def _validate(t, c: int, *, row_tile: bool = True):
-    """Device, dtype and width limits of the train-block kernels; ``row_tile``:
-    the kernel holds a TM x C tile in shared memory."""
+def _validate(t, c: int):
+    """Device, dtype and width limits of the train-block kernels: whole 16-byte
+    rows (C % 4 == 0)."""
     if t.device.type != "cuda":
         raise ValueError(f"the train-block kernels run on CUDA tensors, got {t.device}")
     if t.dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported dtype {t.dtype}: the kernels take float32 or "
                          "bfloat16")
-    err = channel_limit_error(c)
-    if err and (row_tile or c % 4):
-        raise ValueError(err)
+    if c % 4:
+        raise ValueError(f"{c} channels: the train-block kernels take a multiple of 4 "
+                         "channels (fused_train_block pads other widths)")
 
 
 def _check_all(device, dt, **operands):
@@ -214,7 +201,8 @@ def _reduce(part, c: int):
 
 
 def _partials(kind: int, n: int, c: int, device):
-    """(2, n_tiles, C) float32 per-tile partial sums; kind as ``vp3d_tb_sum_rows``."""
+    """(2, n_tiles, C) float32 per-tile partial sums; kind as ``vp3d_tb_sum_rows``
+    (0: the tap GEMMs' 128-row tiles, 1: relu_mask_bn_sums's)."""
     rows = _lib().vp3d_tb_sum_rows(kind)
     return torch.empty((2, -(-n // rows), c), dtype=torch.float32, device=device)
 
@@ -227,7 +215,7 @@ def conv_stats(x3, wa, shift, *, center: int):
         return conv_stats_plain(x3, wa, shift, center=center)
     n, fw, c = x3.shape
     dt = x3.dtype
-    _validate(x3, c, row_tile=False)
+    _validate(x3, c)
     align = 4 * x3.element_size()  # whole 4-element rows of 16 (8) bytes
     _check("x3", x3, x3.device, dt, (n, fw, c), align=align)
     _check("wa", wa, x3.device, dt, (fw, c, c), align=align)
@@ -237,7 +225,7 @@ def conv_stats(x3, wa, shift, *, center: int):
     plan = tap_gemm_plan(n, fw * c, c, _sms(x3.device))
     u = torch.empty((n, c), dtype=dt, device=x3.device)
     res = torch.empty_like(u)
-    part = _partials(2, n, c, x3.device)
+    part = _partials(0, n, c, x3.device)
     _call("conv_stats", "vp3d_tb_conv_stats", _DTYPE_CODE[dt], n, c, fw, center, len(plan),
           plan[0][1], x3, wa, shift, u, res, part[0], part[1], _split_scratch(plan, n, c, u))
     s = _reduce(part, c)
@@ -245,20 +233,26 @@ def conv_stats(x3, wa, shift, *, center: int):
 
 
 def norm_drop_matmul_stats(u, mask, gate, wb, shift):
-    """Kernel of :func:`norm_drop_matmul_stats_plain`."""
+    """Kernel of :func:`norm_drop_matmul_stats_plain` (Pallas
+    ``_norm_drop_matmul_stats_kernel``): an elementwise launch for d, then the
+    one-tap GEMM ``d (n, C) @ wb (C, C)`` over the :func:`tap_gemm_plan` slices
+    of its summed dimension with conv_stats's epilogue, then the partial sums'
+    in-order reduction."""
     if u.device.type == "cpu":
         return norm_drop_matmul_stats_plain(u, mask, gate, wb, shift)
     dt = u.dtype
     n, c = u.shape
     _validate(u, c)
     _check_all(u.device, dt, u=(u, None, (n, c)), mask=(mask, None, (n, c)),
-               gate=(gate, None, (3, c)), wb=(wb, None, (c, c)),
-               shift=(shift, torch.float32, (c,)))
+               gate=(gate, None, (3, c)), shift=(shift, torch.float32, (c,)))
+    _check("wb", wb, u.device, dt, (c, c), align=4 * u.element_size())
+    plan = tap_gemm_plan(n, c, c, _sms(u.device))
     d = torch.empty_like(u)
     v = torch.empty_like(u)
     part = _partials(0, n, c, u.device)
     _call("norm_drop_matmul_stats", "vp3d_tb_norm_drop_matmul_stats", _DTYPE_CODE[dt], n,
-          c, u, mask, gate, wb, shift, d, v, part[0], part[1])
+          c, len(plan), plan[0][1], u, mask, gate, wb, shift, d, v, part[0], part[1],
+          _split_scratch(plan, n, c, u))
     s = _reduce(part, c)
     return d, v, s[0], s[1]
 
@@ -297,7 +291,10 @@ def relu_mask_bn_sums(g, z, mask, stat, gate):
 
 
 def dz_matmul_dd(gz, z, coef, wb):
-    """Kernel of :func:`dz_matmul_dd_plain`."""
+    """Kernel of :func:`dz_matmul_dd_plain` (the dd half of Pallas
+    ``_dz_matmul_dw_kernel``; dWb is :func:`dw_gemm`): an elementwise launch for
+    dz, then the one-tap GEMM ``dz (n, C) @ Wb^T (C, C)`` over the
+    :func:`tap_gemm_plan` slices."""
     if gz.device.type == "cpu":
         return dz_matmul_dd_plain(gz, z, coef, wb)
     dt = gz.dtype
@@ -305,10 +302,12 @@ def dz_matmul_dd(gz, z, coef, wb):
     _validate(gz, c)
     _check_all(gz.device, dt, gz=(gz, None, (n, c)), z=(z, None, (n, c)),
                coef=(coef, torch.float32, (5, c)), wb=(wb, None, (c, c)))
+    plan = tap_gemm_plan(n, c, c, _sms(gz.device))
     dz = torch.empty_like(gz)
     dd = torch.empty_like(gz)
-    _call("dz_matmul_dd", "vp3d_tb_dz_matmul_dd", _DTYPE_CODE[dt], n, c, gz, z, coef,
-          wb.t().contiguous(), dz, dd)
+    _call("dz_matmul_dd", "vp3d_tb_dz_matmul_dd", _DTYPE_CODE[dt], n, c, len(plan),
+          plan[0][1], gz, z, coef, wb.t().contiguous(), dz, dd,
+          _split_scratch(plan, n, c, gz))
     return dz, dd
 
 
@@ -346,8 +345,9 @@ TAP_MAX_SLICES = 8
 @functools.lru_cache(maxsize=None)
 def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132):
     """The slices ``((start, stop), ...)`` of the summed dimension of a tap GEMM
-    (m x k) @ (k x n), the products of conv_stats and du_dtaps_res: in order,
-    each a whole number of DW_ROWS slabs but the last, together [0, k).
+    (m x k) @ (k x n), the products of conv_stats, norm_drop_matmul_stats,
+    dz_matmul_dd and du_dtaps_res: in order, each a whole number of DW_ROWS
+    slabs but the last, together [0, k).
 
     The count (at most TAP_MAX_SLICES, the smallest of equals) is the one the
     cost model above puts first: ceil(blocks / sms) blocks of the slice's work
@@ -411,7 +411,7 @@ def du_dtaps_res(ga, u, g, coef, wa, *, center: int):
         return du_dtaps_res_plain(ga, u, g, coef, wa, center=center)
     dt = ga.dtype
     n, c = ga.shape
-    _validate(ga, c, row_tile=False)
+    _validate(ga, c)
     fw = wa.shape[0]
     _check_all(ga.device, dt, ga=(ga, None, (n, c)), u=(u, None, (n, c)),
                g=(g, None, (n, c)), coef=(coef, torch.float32, (5, c)),
@@ -533,6 +533,21 @@ class FusedTrainBlock(torch.autograd.Function):
 
 def fused_train_block(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a, shift_b, *,
                       center: int, fw: int, plain: bool = False):
-    """:class:`FusedTrainBlock` applied: (out, mean_a, var_a, mean_b, var_b)."""
-    return FusedTrainBlock.apply(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a,
-                                 shift_b, center, fw, plain)
+    """:class:`FusedTrainBlock` applied: (out, mean_a, var_a, mean_b, var_b).
+
+    Any C: where C % 4 != 0 the channel axis is zero-padded to the kernels' next
+    multiple of 4 on every device (so the CPU runs this route too), with
+    BatchNorm scale 1 and bias 0 on the padded channels.  Those stay exactly 0
+    through the block (zero weights, zero statistics), add exact zeros to every
+    sum, and are cut from the outputs, so their gradients are dropped."""
+    c = x.shape[-1]
+    pad = -c % 4
+    if not pad:
+        return FusedTrainBlock.apply(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a,
+                                     shift_b, center, fw, plain)
+    last = lambda t, value=0.0: None if t is None else F.pad(t, (0, pad), value=value)
+    outs = FusedTrainBlock.apply(
+        last(x), F.pad(wa, (0, pad, 0, pad)), F.pad(wb, (0, pad, 0, pad)), last(sa, 1.0),
+        last(ba), last(sb, 1.0), last(bb), last(mask_a), last(mask_b), last(shift_a),
+        last(shift_b), center, fw, plain)
+    return tuple(t[..., :c] for t in outs)

@@ -43,8 +43,9 @@ def kernel_width_error(args):
     """Why the hand-written kernels this run would launch cannot take its
     ``--channels``, or None; known from the arguments alone, before any data
     loads.  Only CUDA runs launch kernels: ``--train-engine pallas`` training
-    runs the train-block kernels, ``--evaluate`` with ``--serving-engine fused``
-    the fused evaluation blocks."""
+    runs the train-block kernels (any width), ``--evaluate`` with
+    ``--serving-engine fused`` the fused evaluation blocks and with ``int8`` the
+    int8 stage kernels."""
     if torch.device(args.device).type != "cuda":
         return None
     c = args.channels
@@ -56,6 +57,9 @@ def kernel_width_error(args):
         from videopose3d_torch.ops.kernels import temporal_block
         return temporal_block.channel_limit_error(
             c, c_in=_H36M_INPUT_COLUMNS, k0=widths[0], span=(widths[1] - 1) * widths[0])
+    if args.evaluate and args.serving_engine == "int8":
+        from videopose3d_torch.ops.kernels import temporal_block_int8
+        return temporal_block_int8.channel_limit_error(c, widths, c_in=_H36M_INPUT_COLUMNS)
     return None
 
 

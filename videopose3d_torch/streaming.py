@@ -725,6 +725,14 @@ def main(argv=None):
         ap.error("--calibration-clips must be >= 1")
     if args.engine == "bf16_fused" and args.compute_dtype != "bfloat16":
         ap.error("--engine bf16_fused requires --compute-dtype bfloat16")
+    filter_widths = tuple(int(x) for x in args.architecture.split(","))
+    if args.engine.endswith("_fused") and torch.device(args.device).type == "cuda":
+        # The fused step's limits, known before any data loads.
+        from videopose3d_torch.ops.kernels.streaming_fused import step_limit_error
+        refused = step_limit_error(args.engine, args.channels, filter_widths[1:],
+                                   args.frames_per_step)
+        if refused:
+            raise SystemExit(f"error: {refused}")
     device = resolve_device(args.device)
 
     videos, streams = _load_wild_streams(args.data_dir, args.keypoints)
@@ -737,7 +745,6 @@ def main(argv=None):
         videos = wanted
 
     checkpoint = load_any_checkpoint(args.checkpoint)
-    filter_widths = tuple(int(x) for x in args.architecture.split(","))
     config = TemporalModelConfig(
         num_joints_in=streams[0].shape[-2], in_features=streams[0].shape[-1],
         num_joints_out=17, filter_widths=filter_widths, causal=True,
