@@ -38,11 +38,14 @@ float32 model.  Phase 2 then also evaluates with ``--serving-engine int8``
 on the causal full-width model quantized on the card and B = 1,024 streams, the
 ring push (K7) bitwise, the fused streaming step per frame (K5) and at 8 frames
 per step (K6), int8 with every ring bitwise at every step over a run in which
-every ring wraps and bf16 per step from one shared state, and K6 against K5;
-then it writes a synthetic custom archive of 256 videos of 500 frames and a
-causal checkpoint and runs ``videopose3d_torch.streaming.main`` with every
-engine, checking the streams against the offline causal model and each other,
-and profiles one int8_fused run.
+every ring wraps and bf16 per step from one shared state (two launches from one
+state bitwise equal; timed by CUDA-graph replay beside one call, with the plan,
+the kernel's ptxas line and a cuBLAS bf16 chain of the step's products as a
+yardstick), and K6 against K5; then it writes a synthetic custom archive of 256
+videos of 500 frames and a causal checkpoint and runs
+``videopose3d_torch.streaming.main`` with every engine, checking the streams
+against the offline causal model and each other, and profiles one int8_fused and
+one bf16_fused run.
 
 Each kernel's line in the final summary carries its time, its plain version's,
 its bound (the larger of the bytes it must move over the card's memory rate and
@@ -176,6 +179,7 @@ STREAM_B = 1024
 STREAM_K = 8
 STREAM_VIDEOS, STREAM_FRAMES = 256, 500
 STREAM_SOURCE = "videopose3d_torch/ops/kernels/csrc/streaming_fused.cu"
+STREAM_BF16_SOURCE = "videopose3d_torch/ops/kernels/csrc/stream_bf16.cu"
 STREAM_TPU = "videopose3d_tpu/ops/pallas/streaming_fused.py"
 STREAM_KERNELS = {  # launch counter -> the TPU kernel it replaces
     "stream_int8": f"{STREAM_TPU}:201", "stream_bf16": f"{STREAM_TPU}:911",
@@ -984,6 +988,56 @@ def stream_cost(int8, widths, lags, b, c, k, j3, doubled):
     return ops, taps + pushes + weights + c * j3 * 2 + j3 * 4 + x_bytes + k * b * j3 * 4
 
 
+def ptxas_lines(log, name):
+    """The ``-Xptxas -v`` lines (entry, registers, spills) of the kernels whose
+    symbol holds ``name``."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "entry function" in line:
+            keep = name in line
+        if keep and any(w in line for w in ("entry function", "registers", "spill")):
+            out.append(line.strip())
+    return out
+
+
+def sass_count(lib_path, name, op):
+    """How many SASS instructions ``op`` (e.g. HMMA, the tensor-core mma) the
+    kernels of the built library whose symbol holds ``name`` have
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    exe = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True, timeout=600).stdout
+    count, keep, word = 0, False, re.compile(rf"\b{op}\b")
+    for line in out.splitlines():
+        if "Function :" in line:
+            keep = name in line
+        elif keep and word.search(line):
+            count += 1
+    return count
+
+
+def bf16_chain_ms(prepared, rows):
+    """Graph time of the bf16 step's products as cuBLAS bf16 tensor-core matmuls
+    on ``rows`` rows: per residual block (rows, width * C) @ (width * C, C) and
+    (rows, C) @ (C, C), then the shrink.  A yardstick of the step's tensor-core
+    work (no epilogues, rings or exchange); the port never calls it."""
+    g = torch.Generator(device=prepared["shrink_w"].device).manual_seed(SEED + 8)
+    w1 = [w.reshape(-1, w.shape[-1]) for w in prepared["w1"]]
+    taps = torch.randn(rows, max(w.shape[0] for w in w1), generator=g,
+                       device=g.device).to(torch.bfloat16)
+    h = torch.randn(rows, w1[0].shape[1], generator=g, device=g.device).to(torch.bfloat16)
+
+    def chain():
+        for wa, wb in zip(w1, prepared["w2"]):
+            torch.matmul(taps[:, :wa.shape[0]], wa)
+            torch.matmul(h, wb)
+        torch.matmul(h, prepared["shrink_w"])
+    return graph_ms(chain, reps=20)
+
+
 def phase6_kernels(cfg, model, q, device):
     """K7, K5 and K6 against their plain versions at B = 1,024 streams, through
     every ring's wrap, and their times."""
@@ -999,6 +1053,7 @@ def phase6_kernels(cfg, model, q, device):
     widths = cfg.filter_widths[1:]
     caps = st._buffer_capacities(cfg)
     first = rand(b, JOINTS, 2)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     results = {}
 
     def record(key, where, err, ms, plain_ms, bound, library_ms=None):
@@ -1006,7 +1061,8 @@ def phase6_kernels(cfg, model, q, device):
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"phase6 {key:18s} {where}: max_abs_err {err:.3e}; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})")
-        results[key] = {"name": f"{key} ({where})", "route": "cuda", "source": STREAM_SOURCE,
+        source = STREAM_BF16_SOURCE if key.startswith("stream_bf16") else STREAM_SOURCE
+        results[key] = {"name": f"{key} ({where})", "route": "cuda", "source": source,
                         "replaces": STREAM_KERNELS[key], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms}
@@ -1102,10 +1158,34 @@ def phase6_kernels(cfg, model, q, device):
         else:
             run = lambda f, s: f(prepared, s["bufs"][1:], a0[0], idx, widths=widths)
             kern, plain_fn = sf.fused_blocks_step_bf16, sf.fused_blocks_step_bf16_plain
-        record(key, f"bf16, B={b}, C={c}, k={kk}, {steps} steps from a shared state", err,
-               cuda_ms(lambda: run(kern, a)), cuda_ms(lambda: run(plain_fn, p)),
+        # Two launches from one state give equal bits (no atomics; the cluster's
+        # column slices meet in a fixed order).
+        twice = [run(kern, _clone_state(p))[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(*twice), f"{key}: two launches from one state differ")
+        del twice
+        # Device time by CUDA-graph replay (one call's host enqueue, ~0.1 ms of
+        # checks and ctypes, is as long as the kernel); one call printed beside it.
+        ms, plain_ms = graph_ms(lambda: run(kern, a), reps=20), graph_ms(
+            lambda: run(plain_fn, p), reps=20)
+        record(key, f"bf16, B={b}, C={c}, k={kk}, {steps} steps from a shared state, "
+               "repeat bitwise, CUDA-graph timed", err, ms, plain_ms,
                roofline(*stream_cost(False, widths, lags, b, c, kk, j3, multi)))
+        print(f"phase6 {key} one call between CUDA events (host enqueue included): "
+              f"kernel {cuda_ms(lambda: run(kern, a)):.4f} ms, plain "
+              f"{cuda_ms(lambda: run(plain_fn, p)):.4f} ms; plan (rows, column slices) "
+              f"{sf.kernel_bf16_plan(b, kk, c, sms)}; cuBLAS bf16 chain of the step's "
+              f"products (yardstick, not a port path) {bf16_chain_ms(prepared, kk * b):.4f} "
+              "ms graph")
         del a, p
+
+    from videopose3d_torch.ops.kernels import build
+    for line in ptxas_lines(build.build_log, "stream_bf16_kernel"):
+        print(f"phase6 stream_bf16_kernel ptxas: {line}")
+    hmma = sass_count(build.library_path(), "stream_bf16_kernel", "HMMA")
+    print(f"phase6 stream_bf16_kernel SASS (cuobjdump -sass): "
+          f"{'no cuobjdump' if hmma is None else f'{hmma} HMMA instructions'}")
+    check(hmma != 0, "stream_bf16_kernel has no tensor-core (HMMA) instruction")
 
     # K6 against K5 over the same 64 frames: equal int8 history, poses at the bound.
     one = st.init_stream_state_int8(cfg, q, first)
@@ -1208,10 +1288,12 @@ def phase6_cli(cfg, model, device, tmp):
     # A first call on a few videos pays one-time setup (cuBLAS handles, the
     # allocator's pools) outside the measured runs.
     stream_cli(argv("bf16", "float32", 1, "warm.npz") + ["--videos", ",".join(videos[:8])])
-    runs, launches = {}, {}
+    runs, launches, rates_k1 = {}, {}, {}
     for engine, dt, k, key in STREAM_RUNS:
         reset_counts()
         poses, rate, _ = stream_cli(argv(engine, dt, k, f"{engine}_{dt}_{k}.npz"))
+        if k == 1:
+            rates_k1[(engine, dt)] = rate
         counts = dict(sf.LAUNCHES)
         check(all(v == 0 for name, v in counts.items() if name != key)
               and (key is None or counts[key] > 0),
@@ -1273,28 +1355,36 @@ def phase6_cli(cfg, model, device, tmp):
           f"{per_joint / rms:.4f} of RMS {rms:.4f} (bound {INT8_STREAM_ACCURACY})")
     check(per_joint < INT8_STREAM_ACCURACY * rms, "int8 stream too far from float32")
 
-    # Where the time goes: one profiled int8_fused run (not counted).
+    print(f"phase6 streaming CLI at k=1: bf16_fused {rates_k1[('bf16_fused', 'bfloat16')]:.0f} "
+          f"poses/s against the per-layer bf16 (bfloat16) engine's "
+          f"{rates_k1[('bf16', 'bfloat16')]:.0f} in the same run")
+
+    # Where the time goes: one profiled run of each fused engine at k = 1 (not
+    # counted).
     from torch.profiler import ProfilerActivity, profile
-    start = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, rate, _ = stream_cli(argv("int8_fused", "float32", 1, "profiled.npz"))
-    wall = time.perf_counter() - start
-    window = STREAM_VIDEOS * STREAM_FRAMES / rate
-    device_us = {}
-    for avg in prof.key_averages():
-        us = getattr(avg, "self_device_time_total", getattr(avg, "self_cuda_time_total", 0))
-        if us > 0:
-            device_us[avg.key] = device_us.get(avg.key, 0) + us
-    total = sum(device_us.values())
-    kernel = sum(us for name, us in device_us.items() if "stream_int8_kernel" in name)
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
-    print(f"phase6 profile of one int8_fused CLI run: wall {wall:.3f} s, streaming "
-          f"window {window:.3f} s, device time {total / 1e6:.3f} s, busy "
-          f"{100 * total / 1e6 / wall:.1f} % of the wall and ~{100 * total / 1e6 / window:.1f} "
-          f"% of the window, the K5 kernel {100 * kernel / max(total, 1):.1f} % of device "
-          f"time ({kernel / 1e3 / STREAM_FRAMES:.3f} ms per launch at B={STREAM_VIDEOS})")
-    for name, us in top:
-        print(f"phase6 profile   {us / 1e3:9.3f} ms  {name[:90]}")
+    for engine, dt, kernel_name in (("int8_fused", "float32", "stream_int8_kernel"),
+                                    ("bf16_fused", "bfloat16", "stream_bf16_kernel")):
+        start = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, rate, _ = stream_cli(argv(engine, dt, 1, "profiled.npz"))
+        wall = time.perf_counter() - start
+        window = STREAM_VIDEOS * STREAM_FRAMES / rate
+        device_us = {}
+        for avg in prof.key_averages():
+            us = getattr(avg, "self_device_time_total", getattr(avg, "self_cuda_time_total", 0))
+            if us > 0:
+                device_us[avg.key] = device_us.get(avg.key, 0) + us
+        total = sum(device_us.values())
+        kernel = sum(us for name, us in device_us.items() if kernel_name in name)
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+        print(f"phase6 profile of one {engine} CLI run: wall {wall:.3f} s, streaming "
+              f"window {window:.3f} s, device time {total / 1e6:.3f} s, busy "
+              f"{100 * total / 1e6 / wall:.1f} % of the wall and "
+              f"~{100 * total / 1e6 / window:.1f} % of the window, the K5 kernel "
+              f"{100 * kernel / max(total, 1):.1f} % of device time "
+              f"({kernel / 1e3 / STREAM_FRAMES:.4f} ms per launch at B={STREAM_VIDEOS})")
+        for name, us in top:
+            print(f"phase6 profile   {us / 1e3:9.3f} ms  {name[:90]}")
     return launches
 
 

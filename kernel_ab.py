@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's training kernels on one NVIDIA GPU: the window
-gather (K1) and the train block's GEMMs (K2: the weight gradient ``dw_gemm``,
-the three-tap ``conv_stats`` and ``du_dtaps_res`` and the one-tap
-``norm_drop_matmul_stats`` and ``dz_matmul_dd``) of this checkout against those
-of another checkout (for example the parent commit, unpacked with ``git
-archive`` into a directory that ``.gitignore`` lists), in turns other, this,
-this, other:
+"""A/B timing of the port's GEMM kernels on one NVIDIA GPU: the fused bf16
+streaming step (K5 at k = 1, K6 at k = 8), the window gather (K1) and the train
+block's GEMMs (K2: the weight gradient ``dw_gemm``, the three-tap
+``conv_stats`` and ``du_dtaps_res`` and the one-tap ``norm_drop_matmul_stats``
+and ``dz_matmul_dd``) of this checkout against those of another checkout (for
+example the parent commit, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists), in turns other, this, this, other:
 
     python3 kernel_ab.py --other build/parent
 
 Each turn runs in its own process with that checkout's ``videopose3d_torch``
-first on ``sys.path``, so each builds and loads its own kernels.  Shapes are
-those of ``chip_smoke.py`` phase 3 in float32: K1 gathers 1,024 windows of 243
+first on ``sys.path``, so each builds and loads its own kernels.  The bf16 step
+runs chip_smoke.py phase 6's causal model (four residual blocks of width 3, C =
+1,024, seeded weights and rings) at B = 256 and 1,024 streams, k = 1 and 8,
+checked once against its plain version.  The other shapes are those of
+``chip_smoke.py`` phase 3 in float32: K1 gathers 1,024 windows of 243
 rows of 34 columns from a 300,000- and a 3,000,000-row stream; the K2 kernels run
 at n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024 channels (3 taps, residual
 tap 1).  Each is timed as the median device time of CUDA-graph replays
@@ -27,7 +30,13 @@ every turn's times.
 
 times the four tap GEMM kernels of this checkout at those n with the summed
 dimension forced into 1, 2, 3, 4 and 8 slices (graph replay), beside the count
-``tap_gemm_plan`` picks, to check its cost model.
+``tap_gemm_plan`` picks, to check its cost model;
+
+    python3 kernel_ab.py --sweep stream_bf16
+
+times the bf16 streaming step at those B and k with every plan (rows per CUDA
+block, column slices per cluster) forced, beside the plan ``stream_bf16_plan``
+picks, and prints how many clusters of each plan the card runs at once.
 """
 
 from __future__ import annotations
@@ -49,14 +58,23 @@ RUNS = 10
 
 SWEEP_SLICES = (1, 2, 3, 4, 8)
 
+# The fused bf16 streaming step (K5 at k = 1, K6 at k = 8) of chip_smoke.py phase
+# 6's causal model: four residual blocks of width 3 at dilations 3, 9, 27, 81.
+STREAM_WIDTHS, STREAM_DILATIONS, STREAM_J3 = (3, 3, 3, 3), (3, 9, 27, 81), 51
+STREAM_CASES = ((256, 1), (1024, 1), (256, 8), (1024, 8))
+# Poses against the plain version: one bf16 step apart (chip_smoke.py TOL).
+STREAM_TOL = 1.6e-2
 
-def worker(root: str, sweep: bool = False) -> dict:
+
+def worker(root: str, sweep: str = "") -> dict:
     """Times the kernels of the checkout at ``root``; returns {case: ms}.  With
-    ``sweep``, the tap GEMM kernels at each forced slice count instead."""
+    ``sweep``, the tap GEMM kernels at each forced slice count ("tap_gemm") or
+    the bf16 streaming step at each forced plan ("stream_bf16") instead."""
     sys.path.insert(0, root)
     import torch
     from videopose3d_torch.ops.kernels import build
     from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
     from videopose3d_torch.ops.kernels import train_block as trb
 
     def call_ms(fn):
@@ -86,8 +104,15 @@ def worker(root: str, sweep: bool = False) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
     out = {}
-    if sweep:
+    if sweep == "tap_gemm":
         return sweep_tap_gemms(torch, trb, dev, gen, graph_ms)
+    if sweep == "stream_bf16":
+        return sweep_stream_bf16(torch, sf, dev, gen, graph_ms)
+    for b, k in STREAM_CASES:
+        step = stream_bf16_step(torch, sf, dev, gen, b, k)
+        out[f"stream_bf16 B={b} k={k} graph"] = graph_ms(step, reps=10)
+        out[f"stream_bf16 B={b} k={k} call"] = call_ms(step)
+        del step
     for rows in GATHER_ROWS:
         flat = torch.randn(rows, COLS, device=dev, generator=gen)
         row0 = torch.randint(0, rows - WINDOW + 1, (BATCH,), device=dev, generator=gen)
@@ -172,6 +197,78 @@ def one_tap_operands(torch, dev, gen):
     return mask, gate
 
 
+def stream_bf16_step(torch, sf, dev, gen, b, k):
+    """One fused bf16 streaming step at B = ``b`` streams of ``k`` frames, C =
+    1,024, on seeded weights and rings (doubled at k > 1), checked once against
+    its plain version; returns the call.  Repeated calls push the same rows, so
+    they are the same step."""
+    c = CHANNELS
+    bf = lambda *shape, scale=1.0: (torch.randn(shape, device=dev, generator=gen)
+                                   * scale).to(torch.bfloat16)
+    weights = {
+        "w1": [bf(w, c, c, scale=(w * c) ** -0.5) for w in STREAM_WIDTHS],
+        "w2": [bf(c, c, scale=c ** -0.5) for _ in STREAM_WIDTHS],
+        "vecs": [torch.stack([torch.rand(c, device=dev, generator=gen) + 0.5,
+                              torch.randn(c, device=dev, generator=gen) * 0.1] * 2)
+                 for _ in STREAM_WIDTHS],
+        "shrink_w": bf(c, STREAM_J3, scale=c ** -0.5),
+        "shrink_b": torch.randn(STREAM_J3, device=dev, generator=gen) * 0.1,
+    }
+    lags = [[(w - 1 - j) * d for j in range(w - 1)]
+            for w, d in zip(STREAM_WIDTHS, STREAM_DILATIONS)]
+    caps = [max(block) + 1 for block in lags]
+    if k > 1:
+        caps = [(-(-(cap - 1) // k) + 1) * k for cap in caps]
+    rings = [bf((2 if k > 1 else 1) * cap, b, c) for cap in caps]
+    idx = []
+    for cap, block in zip(caps, lags):
+        write = cap - k
+        idx += [write] + [(write - lag) % cap for lag in block]
+    a0 = torch.rand(k, b, c, device=dev, generator=gen)
+    if k == 1:
+        run = lambda fn, r: fn(weights, r, a0[0], idx, widths=STREAM_WIDTHS)
+        kern, plain = sf.fused_blocks_step_bf16, sf.fused_blocks_step_bf16_plain
+    else:
+        run = lambda fn, r: fn(weights, r, a0, idx, widths=STREAM_WIDTHS, lags=lags,
+                               caps=caps, k=k)
+        kern, plain = sf.fused_blocks_step_bf16_multi, sf.fused_blocks_step_bf16_multi_plain
+    want = run(plain, [r.clone() for r in rings])[0]
+    got = run(kern, rings)[0]
+    err = float((got - want).abs().max())
+    if not err <= STREAM_TOL * max(1.0, float(want.abs().max())):
+        raise RuntimeError(f"stream_bf16 B={b} k={k} differs from its plain version "
+                           f"by {err}")
+    return lambda: run(kern, rings)
+
+
+def sweep_stream_bf16(torch, sf, dev, gen, graph_ms) -> dict:
+    """Graph time of the bf16 streaming step at each of STREAM_CASES with every
+    plan (rows per CUDA block, column slices per cluster) the kernel takes forced,
+    the plan ``stream_bf16_plan`` picks, and how many clusters of each plan the
+    card runs at once."""
+    lib = sf._load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = [(rows, slices) for rows in sf.BF16_ROWS for slices in (1, 2, 4, 8)]
+    out = {f"clusters rows={rows} slices={slices}":
+           lib.vp3d_stream_bf16_max_clusters(rows, slices, CHANNELS)
+           for rows, slices in plans}
+    for b, k in STREAM_CASES:
+        step = stream_bf16_step(torch, sf, dev, gen, b, k)
+        out[f"stream_bf16 B={b} k={k} plan"] = "x".join(
+            map(str, sf.kernel_bf16_plan(b, k, CHANNELS, sms)))
+        for rows, slices in plans:
+            if not sf._bf16_plan_valid(rows, slices, k, CHANNELS):
+                continue
+            lib.vp3d_stream_bf16_force(rows, slices)
+            try:
+                out[f"stream_bf16 B={b} k={k} rows={rows} slices={slices} graph"] = (
+                    graph_ms(step, reps=10))
+            finally:
+                lib.vp3d_stream_bf16_force(0, 0)
+        del step
+    return out
+
+
 def sweep_tap_gemms(torch, trb, dev, gen, graph_ms) -> dict:
     """Graph time of each tap GEMM kernel at each n with its summed dimension
     forced into each of SWEEP_SLICES slices (``tap_gemm_plan`` replaced), and
@@ -217,12 +314,14 @@ def sweep_tap_gemms(torch, trb, dev, gen, graph_ms) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", help="root of the other checkout")
-    parser.add_argument("--sweep", action="store_true",
-                        help="time this checkout's tap GEMMs at forced slice counts")
+    parser.add_argument("--sweep", nargs="?", const="tap_gemm",
+                        choices=("tap_gemm", "stream_bf16"),
+                        help="time this checkout's tap GEMMs at forced slice counts "
+                             "(default) or its bf16 streaming step at forced plans")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        print(json.dumps(worker(os.path.abspath(args.worker), args.sweep)))
+        print(json.dumps(worker(os.path.abspath(args.worker), args.sweep or "")))
         return 0
     if not args.sweep and not args.other:
         parser.error("--other or --sweep is required")
@@ -236,10 +335,10 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
     if args.sweep:
-        sweep = worker(this, sweep=True)
+        sweep = worker(this, sweep=args.sweep)
         for case, value in sweep.items():
             print(f"{case:52s} {value:9.4f}" if isinstance(value, float)
-                  else f"{case:52s} {value:9d}")
+                  else f"{case:52s} {value:>9}")
         print(json.dumps({"device": smi, "sweep": sweep}))
         return 0
     other = os.path.abspath(args.other)

@@ -176,7 +176,9 @@ def test_train_engine_pallas_takes_any_width(c):
 
 @pytest.mark.parametrize("engine,c,extra,limit", [
     ("int8_fused", 1030, [], "multiple of 16"),
-    ("bf16_fused", 1216, ["--compute-dtype", "bfloat16"], "shared memory"),
+    ("bf16_fused", 1024, ["--compute-dtype", "bfloat16", "--frames-per-step", "17"],
+     "1 to 16 frames"),
+    ("bf16_fused", 19016, ["--compute-dtype", "bfloat16"], "at most 19008 channels"),
     ("int8_fused", 1024, ["--frames-per-step", "17"], "1 to 16 frames"),
 ])
 def test_streaming_fused_widths_are_refused_before_loading(tmp_path, engine, c, extra,
@@ -193,6 +195,44 @@ def test_streaming_fused_widths_are_refused_before_loading(tmp_path, engine, c, 
         streaming.main(argv)
     assert f"--engine {engine.replace('_fused', '')}" in str(refused.value)
     assert not (tmp_path / "out.npz").exists()
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("c", [30, 1000, 1216, 2048, 4096])
+def test_streaming_bf16_fused_takes_any_width(c, k):
+    """The tensor-core bf16 step takes any C up to its ceiling (zero-filled K and
+    N tails, element-wise staging where rows are not 16-byte aligned), as JAX's
+    full-width kernels do; the int8 step still takes multiples of 16 only."""
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    assert sf.step_limit_error("bf16_fused", c, (3, 3, 3, 3), k) is None
+    if c % 16:
+        assert "multiple of 16" in sf.step_limit_error("int8_fused", c, (3, 3, 3, 3), k)
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (256, 1), (1024, 1), (256, 8), (1024, 8), (5, 16)])
+def test_streaming_bf16_plan_fills_the_card_within_shared_memory(b, k):
+    """stream_bf16_plan: for every C up to the ceiling a plan whose shared memory
+    fits the opt-in limit, rows a multiple of 16 and >= k, and a power-of-two
+    cluster that leaves each block a column; at B = 1,024, k = 1 at least half
+    the card's SMs busy from C = 512 on, and at the full width 13 clusters of 8
+    CUDA blocks of 80 rows: one wave (a cluster of 8 fits in 120 of 132 SMs)."""
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    from videopose3d_torch.ops.kernels.temporal_block import SMEM_OPT_IN
+    top = sf.BF16_MAX_CHANNELS
+    assert top >= 4096
+    assert sf.step_smem_bytes(False, top) <= SMEM_OPT_IN < sf.step_smem_bytes(False, top + 1)
+    assert sf.stream_bf16_plan(b, k, top + 1) is None
+    assert "at most" in sf.step_limit_error("bf16_fused", top + 1, (3, 3), k)
+    for c in sorted({1, 8, 9, 30, 64, 512, 1000, 1024, 1216, 2048, 4096, top,
+                     *range(7, top, 997)}):
+        rows, slices = sf.stream_bf16_plan(b, k, c)
+        assert sf.bf16_smem_bytes(rows, slices, c) <= SMEM_OPT_IN, c
+        assert rows % 16 == 0 and rows >= k and slices in (1, 2, 4, 8)
+        assert (slices - 1) * sf._slice_cols(c, slices) < c
+        if (b, k) == (1024, 1) and c >= 512:
+            assert -(-b // rows) * slices >= 64, c
+    if (b, k) == (1024, 1):
+        assert sf.stream_bf16_plan(b, k, 1024) == (80, 8)
 
 
 def test_device_cuda_raises_without_a_card(workdir):

@@ -365,6 +365,26 @@ def test_width_mirrors_equal_the_kernels_own(cuda):
             assert sf.step_smem_bytes(int8, c) == lib.vp3d_stream_smem_bytes(int(not int8), c)
 
 
+def test_bf16_plan_mirror_equals_the_kernels_own(cuda):
+    """The bf16 step's plan (rows per CUDA block, column slices per cluster) and
+    its shared memory, pure Python, equal csrc/stream_bf16.cu's over a grid of
+    widths, stream counts and frames per step, on this card's SM count and 132."""
+    from videopose3d_torch.ops.kernels.build import load_library
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for c in (1, 8, 30, 64, 200, 1024, 1216, 2048, 2360, 4096, 9000, sf.BF16_MAX_CHANNELS,
+              sf.BF16_MAX_CHANNELS + 1):
+        for rows in sf.BF16_ROWS:
+            for slices in (1, 2, 4, 8):
+                assert (sf.bf16_smem_bytes(rows, slices, c)
+                        == lib.vp3d_stream_bf16_smem(rows, slices, c))
+        for b in (1, 2, 5, 17, 256, 1000, 1024, 4096):
+            for k in (1, 2, 3, 8, 16):
+                for n_sms in {sms, 132}:
+                    want = sf.stream_bf16_plan(b, k, c, n_sms)
+                    assert sf.kernel_bf16_plan(b, k, c, n_sms) == want, (b, k, c, n_sms)
+
+
 def _one_tap_inputs(n, c, dt, dropout, device):
     """Seeded inputs of norm_drop_matmul_stats and dz_matmul_dd: activations, a
     dropout mask (or None), BatchNorm constants and the (C, C) weights."""
@@ -752,12 +772,47 @@ def test_stream_int8_kernel_matches_plain(cuda, c, fw, b, k):
             assert torch.equal(ra, rp), (t, i)
 
 
-@pytest.mark.parametrize("c,fw,b,k", STREAM_CASES)
+def _bf16_stream_setup(c, fw, b, device, seed):
+    """A random causal bfloat16 model on the card (random BatchNorm statistics),
+    its fused-engine weights and seeded first frames and frames."""
+    from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
+                                                    receptive_field)
+    from videopose3d_torch.streaming import prepare_bf16_fused
+    torch.manual_seed(seed)
+    cfg = TemporalModelConfig(num_joints_in=17, in_features=2, num_joints_out=17,
+                              filter_widths=fw, causal=True, channels=c,
+                              compute_dtype="bfloat16")
+    model = TemporalModel(cfg)
+    for bn in [model.expand_bn, *model.layers_bn]:
+        bn.running_var.uniform_(0.5, 2.0)
+        bn.bias.data.uniform_(-0.2, 0.2)
+    model = model.to(device).eval()
+    g = torch.Generator().manual_seed(seed)
+    first = torch.randn(b, 17, 2, generator=g).to(device)
+    frames = torch.randn(b, max(receptive_field(cfg), 40), 17, 2, generator=g).to(device)
+    return cfg, model, prepare_bf16_fused(cfg, model), first, frames
+
+
+# The bf16 kernel takes any C (rows of C % 8 != 0 channels, not 16-byte aligned,
+# load element by element), up to sf.BF16_MAX_CHANNELS, and blocks of 1 to 9 taps.
+BF16_STREAM_CASES = STREAM_CASES + [
+    (30, (3, 3, 3), 5, 1),          # C % 8 != 0, ragged K and N tiles
+    (30, (3, 3, 3), 3, 4),
+    (64, (3, 9, 3), 5, 1),          # a 9-tap block beside a 3-tap one
+    (40, (3, 5, 3), 6, 3),
+    (1216, (3, 3, 3), 4, 1),        # past the CUDA-core kernel's 1,200 ceiling
+    (2048, (3, 3, 3), 3, 8),
+    (4096, (3, 3), 2, 1),
+    (1024, (3, 3, 3, 3, 3), 1024, 1),   # the full-width model at B = 1,024
+]
+
+
+@pytest.mark.parametrize("c,fw,b,k", BF16_STREAM_CASES)
 def test_stream_bf16_kernel_matches_plain(cuda, c, fw, b, k):
     """The fused bf16 engine (K5 / K6), each step from the plain engine's state:
     poses and the pushed ring rows at the bf16 bound."""
     from videopose3d_torch import streaming as st
-    _, bcfg, model, _, w, first, frames = _stream_setup(c, fw, b, cuda, seed=1)
+    bcfg, model, w, first, frames = _bf16_stream_setup(c, fw, b, cuda, seed=1)
     if k == 1:
         fused, plain, key = st.stream_step_bf16_fused, st.stream_step, "stream_bf16"
         p = st.init_stream_state(bcfg, model, first)
@@ -774,6 +829,27 @@ def test_stream_bf16_kernel_matches_plain(cuda, c, fw, b, k):
         _check(got, want, torch.bfloat16)
         for ra, rp in zip(a["bufs"], p["bufs"]):
             _check(ra, rp, torch.bfloat16)
+
+
+@pytest.mark.parametrize("c,fw,b,k", [(64, (3, 3, 3), 5, 1), (1216, (3, 3, 3), 33, 8),
+                                      (30, (3, 3, 3), 7, 3)])
+def test_stream_bf16_kernel_repeats_bitwise(cuda, c, fw, b, k):
+    """Two launches of the bf16 step from one cloned state give equal poses and
+    rings: the column slices of a cluster meet through buffers in a fixed order,
+    with no atomics."""
+    from videopose3d_torch import streaming as st
+    bcfg, model, w, first, frames = _bf16_stream_setup(c, fw, b, cuda, seed=3)
+    if k == 1:
+        step, x = st.stream_step_bf16_fused, frames[:, 0]
+        p = st.init_stream_state(bcfg, model, first)
+    else:
+        step, x = st.stream_step_bf16_multi_fused, frames[:, :k]
+        p = st.init_stream_state_multi(bcfg, model, first, k)
+    got = [step(bcfg, w, _clone(p), x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][0], got[1][0])
+    for ra, rb in zip(got[0][1]["bufs"], got[1][1]["bufs"]):
+        assert torch.equal(ra, rb)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.int8])

@@ -61,6 +61,8 @@ _ENTRY_ARGTYPES = {
                                                ctypes.POINTER(_I), _P],
     # (ring, row, offset_bytes, n_bytes, stream)
     "vp3d_ring_push": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # csrc/stream_bf16.cu: (batch, k, channels, sms, &rows, &slices)
+    "vp3d_stream_bf16_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -148,6 +150,12 @@ def load_library() -> ctypes.CDLL:
     lib.vp3d_i8_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_stream_smem_bytes.argtypes = [_I] * 2
     lib.vp3d_stream_smem_bytes.restype = ctypes.c_size_t
+    lib.vp3d_stream_bf16_smem.argtypes = [_I] * 3
+    lib.vp3d_stream_bf16_smem.restype = ctypes.c_size_t
+    lib.vp3d_stream_bf16_force.argtypes = [_I] * 2
+    lib.vp3d_stream_bf16_force.restype = None
+    lib.vp3d_stream_bf16_max_clusters.argtypes = [_I] * 3
+    lib.vp3d_stream_bf16_max_clusters.restype = ctypes.c_int
     for name in ("vp3d_stream_max_blocks", "vp3d_stream_max_taps"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int

@@ -2,28 +2,25 @@
 // and the shrink projection for one frame (K5) or k frames (K6) of B independent
 // streams in one launch, reading the older taps from per-block ring buffers and
 // pushing each block's input into its ring in place; and the in-place ring push (K7).
+// This file holds the int8 step kernel, the ring push and the entry points; the bf16
+// step kernel is in stream_bf16.cu.
 //
 // Replaces the Pallas TPU kernels of videopose3d_tpu/ops/pallas/streaming_fused.py
 // and videopose3d_tpu/streaming.py:
 //   stream_int8_kernel -> fused_blocks_step (_fused_blocks_kernel, launched by _fused_call)
 //       at k = 1, fused_blocks_step_multi (_fused_blocks_multi_kernel) at k > 1
-//   stream_bf16_kernel -> fused_blocks_step_bf16 (_fused_blocks_bf16_kernel) at k = 1,
-//       fused_blocks_step_bf16_multi (_fused_blocks_bf16_multi_kernel) at k > 1
 //   ring_push_kernel   -> streaming.py _ring_push_dma (_ring_push_dma_kernel)
-// Each step kernel takes the frame count k and whether the rings are doubled as
+// The step kernels take the frame count k and whether the rings are doubled as
 // arguments: k = 1 with single rings is K5, k > 1 with doubled rings is K6.
 //
-// One residual block on the rows of one CUDA block, x its input (B, C) per frame:
-//   int8: the w8a8 block of temporal_block_int8.cu (K4) with the taps read from ring
-//         slots instead of dilated offsets: exact int32 dp4a sums, real = relu(acc*A1+B1),
-//         per-row requantization of h, y = relu(float(hq @ Wb) * (m/127) * A2 + B2),
-//         v = float(x) * R + y; clip(rint(v), 0, 127) feeds the next block, and the last
-//         block's f32 v, cast to bf16, is projected by the bf16 shrink.  Every float step
-//         is one IEEE operation with one rounding, in the plain version's order, so the
-//         int8 rings equal the plain version's bit for bit.
-//   bf16: an f32 residual carry act; the rings hold bf16(act);
-//         h = bf16(relu(sum_j tap_j @ W1_j * s1 + t1)), act += relu(h @ W2 * s2 + t2),
-//         products of bf16 values summed in f32; the shrink projects bf16(act).
+// One int8 residual block on the rows of one CUDA block, x its input (B, C) per frame:
+// the w8a8 block of temporal_block_int8.cu (K4) with the taps read from ring slots
+// instead of dilated offsets: exact int32 dp4a sums, real = relu(acc*A1+B1), per-row
+// requantization of h, y = relu(float(hq @ Wb) * (m/127) * A2 + B2), v = float(x) * R
+// + y; clip(rint(v), 0, 127) feeds the next block, and the last block's f32 v, cast
+// to bf16, is projected by the bf16 shrink.  Every float step is one IEEE operation
+// with one rounding, in the plain version's order, so the int8 rings equal the plain
+// version's bit for bit.
 // Tap j of a block reads lag L_j = (width-1-j) * dilation frames back; the newest tap
 // (L = 0) is x itself.  The ring positions come from the host every step, by value
 // in the launch's argument struct: `write` (k-aligned with doubled rings) and per tap
@@ -43,40 +40,19 @@
 // pushes need no ordering against the reads.
 //
 // What bounds it on this card: per frame and stream 2 * (width + 1) * C^2 operations
-// per block, on the CUDA cores (dp4a for int8, FP32 FMA for bf16) in this first
-// version; tensor cores (int8 / bf16 mma, 1,979 / 989 dense T(FL)OP/s on an H100 SXM)
-// are later work.  The weights (16 MB at C = 1024, -arc 3,3,3,3,3) stay in the 50 MB L2
-// and are streamed once per CUDA block.  Known limit: at k = 1 and B = 1,024 the grid is
-// only 64 CUDA blocks for 132 SMs, and a CUDA block's shared memory (int8 ~113 KB, bf16
-// 192 KB at C = 1024) admits one block per SM; K6 at k = 8 runs 512.
+// per block, on the CUDA cores (dp4a) in this first version; int8 mma (1,979 dense
+// TOP/s on an H100 SXM) is later work.  The weights (8 MB at C = 1024, -arc
+// 3,3,3,3,3) stay in the 50 MB L2 and are streamed once per CUDA block.  Known limit:
+// at k = 1 and B = 1,024 the grid is only 64 CUDA blocks for 132 SMs, and a CUDA
+// block's shared memory (~113 KB at C = 1024) admits one block per SM; K6 at k = 8
+// runs 512.
 
 #include "int8_gemm.cuh"
+#include "stream_step.cuh"
 
 namespace {
 
 using namespace vp3d;
-
-constexpr int kMaxBlocks = 8;  // residual blocks
-constexpr int kMaxTaps = 8;    // older taps per block (filter width <= 9)
-
-struct BlockArgs {
-  const void* wa;     // int8: (width, c/4, c) dp4a-packed int32; bf16: (width, c, c)
-  const void* wb;     // int8: (c/4, c) packed; bf16: (c, c)
-  const float* v[5];  // int8: A1, B1, A2, B2, R; bf16: s1, t1, s2, t2
-  void* ring;         // (cap, batch, c), or (2 * cap, batch, c) when doubled
-  int width, cap, write;
-  int lag[kMaxTaps];  // older taps, oldest first
-  int slot[kMaxTaps];
-};
-
-struct StepArgs {
-  int n_blocks, batch, c, k, doubled, j3;
-  const void* x;      // block 0's input, (k, batch, c): int8 e, or f32 a0
-  const __nv_bfloat16* ws;  // (c, j3)
-  const float* bs;    // (j3,)
-  float* out;         // (k * batch, j3), frame-major
-  BlockArgs blk[kMaxBlocks];
-};
 
 template <typename T> struct Layout;
 // int8: act (int8 input of the current block) | tap (staged tap rows, int8) |
@@ -91,14 +67,6 @@ template <> struct Layout<int8_t> {
     return red(c) + sizeof(float) * (3 + kWarps) * TM;
   }
 };
-// bf16: act (f32 carry) | tap (staged tap rows as f32) | h (f32), TM x c floats each.
-template <> struct Layout<__nv_bfloat16> {
-  static __host__ __device__ size_t act(int) { return 0; }
-  static __host__ __device__ size_t tap(int c) { return sizeof(float) * (size_t)TM * c; }
-  static __host__ __device__ size_t h(int c) { return 2 * sizeof(float) * (size_t)TM * c; }
-  static __host__ __device__ size_t total(int c) { return 3 * sizeof(float) * (size_t)TM * c; }
-};
-
 // Row r of this CUDA block: frame f, stream b; false for a row past the batch or the
 // k * (TM / k) rows in use.
 struct Row {
@@ -274,121 +242,6 @@ __global__ void __launch_bounds__(NT, 1) stream_int8_kernel(const StepArgs p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16
-// ---------------------------------------------------------------------------
-
-// 8 bf16 of row r's rounded carry, as one 16-byte vector.
-__device__ __forceinline__ int4 bf16_vec(const float* act, int v) {
-  const float4 a = reinterpret_cast<const float4*>(act)[2 * v];
-  const float4 b = reinterpret_cast<const float4*>(act)[2 * v + 1];
-  __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
-                         __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
-  return *reinterpret_cast<int4*>(h);
-}
-
-__global__ void __launch_bounds__(NT, 1) stream_bf16_kernel(const StepArgs p) {
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  using L = Layout<__nv_bfloat16>;
-  const int c = p.c;
-  const int tid = threadIdx.x;
-  float* act_s = reinterpret_cast<float*>(smem + L::act(c));
-  float* tap_s = reinterpret_cast<float*>(smem + L::tap(c));
-  float* h_s = reinterpret_cast<float*>(smem + L::h(c));
-
-  // Block 0's input: the f32 expand activation a0 of this block's rows.
-  const float* x = static_cast<const float*>(p.x);
-  for (int i = tid; i < TM * c; i += NT) {
-    const int r = i / c;
-    const Row w = row_of(r, p.k, p.batch);
-    act_s[i] = w.valid ? x[((size_t)w.f * p.batch + w.b) * c + (i - r * c)] : 0.f;
-  }
-  __syncthreads();
-
-  float acc[TM][CPT];
-  for (int bi = 0; bi < p.n_blocks; ++bi) {
-    const BlockArgs& bk = p.blk[bi];
-    push_rows<__nv_bfloat16>(p, bk,
-                             [&](int r, int v) { return bf16_vec(act_s + (size_t)r * c, v); });
-    for (int col0 = 0; col0 < c; col0 += NP) {
-      zero(acc);
-      for (int j = 0; j < bk.width; ++j) {
-        const int lag = j < bk.width - 1 ? bk.lag[j] : 0;
-        __syncthreads();  // every thread is done with the previous tap's rows
-        for (int i = tid; i < TM * c; i += NT) {
-          const int r = i / c;
-          const int col = i - r * c;
-          const Row w = row_of(r, p.k, p.batch);
-          float val = 0.f;
-          if (w.valid) {
-            val = w.f >= lag
-                      ? round_to<__nv_bfloat16>(act_s[(size_t)(r - lag * (TM / p.k)) * c + col])
-                      : __bfloat162float(tap_row<__nv_bfloat16>(p, bk, j, w)[col]);
-          }
-          tap_s[i] = val;
-        }
-        __syncthreads();
-        gemm_tile<__nv_bfloat16>(acc, tap_s, c, c,
-                                 static_cast<const __nv_bfloat16*>(bk.wa) + (size_t)j * c * c,
-                                 c, c, col0);
-      }
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int col = col0 + tid + q * NT;
-        if (col >= c) continue;
-        const float s = bk.v[0][col];
-        const float sh = bk.v[1][col];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          h_s[r * c + col] =
-              round_to<__nv_bfloat16>(fmaxf(__fadd_rn(__fmul_rn(acc[r][q], s), sh), 0.f));
-        }
-      }
-    }
-    __syncthreads();
-    // 1x1 product of h and the residual update of the carry (own columns only).
-    for (int col0 = 0; col0 < c; col0 += NP) {
-      zero(acc);
-      gemm_tile<__nv_bfloat16>(acc, h_s, c, c, static_cast<const __nv_bfloat16*>(bk.wb), c, c,
-                               col0);
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int col = col0 + tid + q * NT;
-        if (col >= c) continue;
-        const float s = bk.v[2][col];
-        const float sh = bk.v[3][col];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          act_s[r * c + col] = __fadd_rn(act_s[r * c + col],
-                                         fmaxf(__fadd_rn(__fmul_rn(acc[r][q], s), sh), 0.f));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Shrink: bf16(act) @ Ws + bs, float32, frame-major poses.
-  for (int i = tid; i < TM * c; i += NT) h_s[i] = round_to<__nv_bfloat16>(act_s[i]);
-  __syncthreads();
-  for (int o = tid; o < TM * p.j3; o += NT) {
-    const int r = o / p.j3;
-    const int col = o - r * p.j3;
-    const Row w = row_of(r, p.k, p.batch);
-    if (!w.valid) continue;
-    const float* a = h_s + (size_t)r * c;
-    float s = 0.f;
-    for (int kk = 0; kk < c; kk += 4) {
-      const float4 av = *reinterpret_cast<const float4*>(a + kk);
-      s = fmaf(av.x, __bfloat162float(p.ws[(size_t)kk * p.j3 + col]), s);
-      s = fmaf(av.y, __bfloat162float(p.ws[(size_t)(kk + 1) * p.j3 + col]), s);
-      s = fmaf(av.z, __bfloat162float(p.ws[(size_t)(kk + 2) * p.j3 + col]), s);
-      s = fmaf(av.w, __bfloat162float(p.ws[(size_t)(kk + 3) * p.j3 + col]), s);
-    }
-    p.out[((size_t)w.f * p.batch + w.b) * p.j3 + col] = s + p.bs[col];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K7: one (B, C) row into a (cap, B, C) ring, one thread per 16 bytes.  Bound by
 // bytes: the row is read once and written once.
 // ---------------------------------------------------------------------------
@@ -400,14 +253,15 @@ __global__ void ring_push_kernel(int4* __restrict__ dst, const int4* __restrict_
 }
 
 size_t smem_bytes(int act_type, int c) {
-  return act_type == 0 ? Layout<int8_t>::total(c) : Layout<__nv_bfloat16>::total(c);
+  return act_type == 0 ? Layout<int8_t>::total(c) : stream_bf16_min_smem(c);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one CUDA block of the step; act_type 0 = int8, 1 = bf16.
+// Dynamic shared memory of one CUDA block of the step; act_type 0 = int8, 1 = bf16
+// (its smallest plan: c channels fit if this does).
 size_t vp3d_stream_smem_bytes(int act_type, int channels) {
   return smem_bytes(act_type, channels);
 }
@@ -416,8 +270,9 @@ int vp3d_stream_max_blocks() { return kMaxBlocks; }
 int vp3d_stream_max_taps() { return kMaxTaps; }
 
 // Launches one fused streaming step on `stream`.  Per residual block, `ptrs` holds 8
-// device pointers (wa, wb, the 5 epilogue vectors (4 for bf16, then null), ring) and
-// `ints` 3 + 2 * kMaxTaps values (width, cap, write, lag[kMaxTaps], slot[kMaxTaps]),
+// device pointers (wa, wb, the 5 epilogue vectors, ring); bf16 takes 4 vectors and
+// in block 0's fifth slot its (2, k * batch, c) bf16 exchange buffer.  `ints` holds
+// 3 + 2 * kMaxTaps values (width, cap, write, lag[kMaxTaps], slot[kMaxTaps]),
 // both host arrays.  Returns cudaGetLastError() after the launch (0 on success).
 // Shapes are checked by the Python wrapper; this only refuses what would make the
 // launch itself invalid.
@@ -425,7 +280,7 @@ int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
                      int doubled, const void* x, const void* ws, const void* bs, int j3,
                      void* out, const void* const* ptrs, const int* ints, void* stream) {
   if (n_blocks < 1 || n_blocks > kMaxBlocks || batch <= 0 || channels <= 0 ||
-      channels % 16 != 0 || k < 1 || k > TM || j3 <= 0) {
+      (act_type == 0 && channels % 16 != 0) || k < 1 || k > kMaxFrames || j3 <= 0) {
     return cudaErrorInvalidValue;
   }
   StepArgs p{};
@@ -457,14 +312,17 @@ int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
       bk.slot[j] = ii[3 + kMaxTaps + j];
     }
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act_type == 1) {
+    p.xbuf = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[6]));
+    return launch_stream_bf16(p, s);
+  }
+  if (act_type != 0) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(act_type, channels);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int sb = TM / k;
   const dim3 grid((batch + sb - 1) / sb);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (act_type == 0) return launch_with_smem(stream_int8_kernel, grid, dim3(NT), smem, s, p);
-  if (act_type == 1) return launch_with_smem(stream_bf16_kernel, grid, dim3(NT), smem, s, p);
-  return cudaErrorInvalidValue;
+  return launch_with_smem(stream_int8_kernel, grid, dim3(NT), smem, s, p);
 }
 
 // Copies n_bytes (a multiple of 16) from `row` to `ring` + offset_bytes, both 16-byte

@@ -1,5 +1,5 @@
-// The CUDA-core row-tile GEMM the evaluation and streaming block kernels (K3, K5,
-// K6) are built on.
+// The CUDA-core row-tile GEMM the evaluation block kernels (K3) are built on; its
+// TM and CPT also shape the int8 kernels' dp4a tiles (int8_gemm.cuh).
 //
 // gemm_tile: a CUDA block of NT=256 threads owns TM=16 rows of A (float32, in
 // shared memory) and up to NP=1024 output columns per pass; each thread owns CPT=4

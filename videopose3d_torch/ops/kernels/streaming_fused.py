@@ -15,8 +15,9 @@ ints: the kernel takes them by value.  Tap j's slot is the ring row of the first
 frame's tap; with k frames, frame f's tap is row ``slot + f`` after the push.
 
 Dispatch: tensors on the CPU take the ``*_plain`` version; CUDA tensors launch
-the kernel (``csrc/streaming_fused.cu``) or raise.  ``LAUNCHES`` counts kernel
-launches per kernel.
+the kernel (``csrc/streaming_fused.cu``: int8 and the ring push;
+``csrc/stream_bf16.cu``: bf16 on the tensor cores) or raise.  ``LAUNCHES`` counts
+kernel launches per kernel.
 """
 
 from __future__ import annotations
@@ -162,20 +163,108 @@ def fused_blocks_step_bf16_multi_plain(weights, rings, a0, idx, *, widths, lags,
 # ---------------------------------------------------------------------------
 
 
-# The step kernel's geometry (csrc/streaming_fused.cu, csrc/int8_gemm.cuh): TM rows
-# per CUDA block, WARPS warps, at most MAX_BLOCKS residual blocks of MAX_TAPS older
-# taps each, and 1 to TM frames per step.
+# The step kernels' geometry (csrc/stream_step.cuh, csrc/streaming_fused.cu,
+# csrc/int8_gemm.cuh): the int8 kernel's TM rows per CUDA block and WARPS warps; at
+# most MAX_BLOCKS residual blocks of MAX_TAPS older taps each, 1 to TM frames per step.
 TM, WARPS, MAX_BLOCKS, MAX_TAPS = 16, 8, 8, 8
+
+# The bf16 kernel's (csrc/stream_bf16.cu): rows per CUDA block, output columns per
+# pass, K-tile depth and stages of each warp group's cp.async ring, warp groups per
+# CUDA block, the shared-memory ints (row offsets and 16 tap slots), and the most
+# column slices per cluster.
+BF16_ROWS = tuple(range(16, 81, 16))
+BF16_NP, BF16_BK, BF16_STAGES, BF16_GROUPS = 128, 32, 4, 2
+BF16_SLOT_INTS, BF16_MAX_SLICES = 16, 8
+
+
+def _slice_cols(c: int, n: int) -> int:
+    """Columns each block of an n-block cluster owns: ceil(c / n) rounded up to 8."""
+    return (-(-c // n) + 7) // 8 * 8
+
+
+def bf16_smem_bytes(rows: int, slices: int, c: int) -> int:
+    """Shared memory of one CUDA block of the bf16 step at plan (rows, slices)
+    (``vp3d_stream_bf16_smem``): the float32 carry slice, the row offsets and tap
+    slots, and each warp group's cp.async ring of A (rows x 32) and B (32 x 128)
+    tiles, each row padded by 8 bf16."""
+    ring = BF16_GROUPS * BF16_STAGES * (rows * (BF16_BK + 8) + BF16_BK * (BF16_NP + 8)) * 2
+    return rows * _slice_cols(c, slices) * 4 + (rows + BF16_SLOT_INTS) * 4 + ring
+
+
+def _max_slices(c: int) -> int:
+    """The most column slices (a power of two up to BF16_MAX_SLICES) that leave
+    every block of the cluster at least one of the c columns."""
+    best, n = 1, 2
+    while n <= BF16_MAX_SLICES:
+        if (n - 1) * _slice_cols(c, n) < c:
+            best = n
+        n *= 2
+    return best
 
 
 def step_smem_bytes(int8: bool, c: int) -> int:
     """Shared memory of one CUDA block of the step at c channels
     (``vp3d_stream_smem_bytes``): int8, the block input and staged tap rows
     (int8), real (float32), hq (int8), the row scales and per-warp maxima; bf16,
-    the float32 carry, staged tap rows and h."""
+    its smallest plan (16 rows, the most column slices): c fits if this does."""
     if int8:
         return 7 * TM * c + 4 * (3 + WARPS) * TM
-    return 3 * 4 * TM * c
+    return bf16_smem_bytes(16, _max_slices(c), c)
+
+
+def _bf16_max_channels() -> int:
+    """The widest C the bf16 step takes: its smallest plan's carry slice (16 x
+    C / 8 floats) and fixed shared memory within SMEM_OPT_IN."""
+    fixed = bf16_smem_bytes(16, BF16_MAX_SLICES, 0)
+    return (SMEM_OPT_IN - fixed) // (16 * 4) // 8 * 8 * BF16_MAX_SLICES
+
+
+BF16_MAX_CHANNELS = _bf16_max_channels()
+
+
+def _bf16_plan_valid(rows: int, slices: int, k: int, c: int) -> bool:
+    return (rows >= k and slices <= _max_slices(c)
+            and bf16_smem_bytes(rows, slices, c) <= SMEM_OPT_IN)
+
+
+def _bf16_plan_cost(rows: int, slices: int, b: int, k: int, c: int, sms: int) -> int:
+    """One C x C product's cost at plan (rows, slices): each block's K tiles per
+    128-column pass, weighted by the rows of A and B they load, times the waves of
+    clusters (one CUDA block per SM; a cluster of 4 or 8 fits in 120 of an H100's
+    132 SMs) plus the blocks' share of the SMs (the L2 they share slows each block
+    as more SMs load at once); in units of K-tile rows / sms."""
+    tiles = -(-b // (rows // k))
+    nc = _slice_cols(c, slices)
+    passes = -(-nc // BF16_NP)
+    usable = sms * 120 // 132 if slices >= 4 else sms
+    per_wave = max(1, usable // slices)
+    per_block = passes * -(-c // BF16_BK) * (rows + BF16_BK)
+    return per_block * (-(-tiles // per_wave) * sms + tiles * slices)
+
+
+def stream_bf16_plan(b: int, k: int, c: int, sms: int = 132):
+    """The bf16 step's plan for ``b`` streams of ``k`` frames at ``c`` channels on
+    ``sms`` SMs (``vp3d_stream_bf16_plan``): (rows per CUDA block, column slices
+    per cluster), the cheapest valid one under the cost model, fewest rows then
+    fewest slices among equals; None past BF16_MAX_CHANNELS."""
+    best = None
+    for rows in BF16_ROWS:
+        n = 1
+        while n <= BF16_MAX_SLICES:
+            if _bf16_plan_valid(rows, n, k, c):
+                cost = _bf16_plan_cost(rows, n, b, k, c, sms)
+                if best is None or cost < best[0]:
+                    best = (cost, rows, n)
+            n *= 2
+    return None if best is None else best[1:]
+
+
+def kernel_bf16_plan(b: int, k: int, c: int, sms: int):
+    """The plan ``csrc/stream_bf16.cu`` launches with (``vp3d_stream_bf16_plan``),
+    or None; :func:`stream_bf16_plan` mirrors it without the card."""
+    rows, slices = ctypes.c_int(), ctypes.c_int()
+    _load().vp3d_stream_bf16_plan(b, k, c, sms, ctypes.byref(rows), ctypes.byref(slices))
+    return (rows.value, slices.value) if rows.value else None
 
 
 def step_limit_error(engine: str, c: int, widths, k: int):
@@ -185,7 +274,8 @@ def step_limit_error(engine: str, c: int, widths, k: int):
     per_layer = engine.replace("_fused", "")
     what = f"the fused streaming kernel (--engine {engine} on CUDA)"
     use = f"; use --engine {per_layer}"
-    if c % 16:
+    int8 = engine == "int8_fused"
+    if int8 and c % 16:
         return f"{c} channels: {what} takes a multiple of 16 channels{use}"
     if not 1 <= k <= TM:
         return f"--frames-per-step {k}: {what} takes 1 to {TM} frames per step{use}"
@@ -193,7 +283,10 @@ def step_limit_error(engine: str, c: int, widths, k: int):
                                                  for w in widths):
         return (f"residual blocks of filter widths {tuple(widths)}: {what} takes 1 to "
                 f"{MAX_BLOCKS} blocks of at most {MAX_TAPS + 1} taps{use}")
-    smem = step_smem_bytes(engine == "int8_fused", c)
+    if not int8 and c > BF16_MAX_CHANNELS:
+        return (f"{c} channels: {what} takes at most {BF16_MAX_CHANNELS} channels "
+                f"(its float32 carry slice in shared memory){use}")
+    smem = step_smem_bytes(int8, c)
     if smem > SMEM_OPT_IN:
         return (f"{c} channels: {what} needs {smem} bytes of shared memory; at most "
                 f"{SMEM_OPT_IN} are available{use}")
@@ -220,23 +313,26 @@ def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs)
     if len(idx) != sum(widths):
         raise ValueError(f"idx holds {len(idx)} slots, the widths {sum(widths)}")
     act_type = _ACT_TYPE["int8" if int8 else "bf16"]
-    _check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c))
+    # The bf16 kernel reads rows of C % 8 == 0 channels as 16-byte words.
+    align = 1 if int8 else 16
+    _check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c), align=align)
     ring_dt = torch.int8 if int8 else torch.bfloat16
     j3 = ws.shape[1]
-    _check("shrink_w", ws, dev, torch.bfloat16, (c, j3))
+    _check("shrink_w", ws, dev, torch.bfloat16, (c, j3), align=align)
     _check("shrink_b", bs, dev, torch.float32, (j3,))
     ptrs: List[int] = []
     ints: List[int] = []
     for i, ((write, taps), (wa, wb, vecs)) in enumerate(zip(_split(idx, widths), blocks)):
         kw = widths[i]
         cap = caps[i] if doubled else rings[i].shape[0]
-        _check(f"ring {i}", rings[i], dev, ring_dt, ((2 if doubled else 1) * cap, b, c))
+        _check(f"ring {i}", rings[i], dev, ring_dt, ((2 if doubled else 1) * cap, b, c),
+               align=align)
         if int8:
             _check(f"packed wq_a {i}", wa, dev, torch.int32, (kw, c // 4, c))
             _check(f"packed wq_b {i}", wb, dev, torch.int32, (c // 4, c))
         else:
-            _check(f"w1 {i}", wa, dev, torch.bfloat16, (kw, c, c))
-            _check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c))
+            _check(f"w1 {i}", wa, dev, torch.bfloat16, (kw, c, c), align=align)
+            _check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c), align=align)
         for v, vec in enumerate(vecs):
             _check(f"epilogue vector {v} of block {i}", vec, dev, torch.float32, (c,))
         # Slots: a push of k rows at `write` and every tap's k rows must lie in the ring.
@@ -249,6 +345,11 @@ def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs)
                  *([None] * (5 - len(vecs))), rings[i].data_ptr()]
         ints += ([kw, cap, write] + lag + [0] * (MAX_TAPS - len(lag))
                  + taps + [0] * (MAX_TAPS - len(taps)))
+    if not int8:
+        # Block 0's fifth vector slot: the (2, k*B, C) exchange buffer of h and of
+        # the last block's bf16(act) between a cluster's column slices.
+        xbuf = torch.empty((2, k * b, c), dtype=torch.bfloat16, device=dev)
+        ptrs[6] = xbuf.data_ptr()
     lib = _load()
     out = torch.empty((k * b, j3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
