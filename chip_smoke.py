@@ -38,12 +38,13 @@ float32 model.  Phase 2 then also evaluates with ``--serving-engine int8``
 on the causal full-width model quantized on the card and B = 1,024 streams, the
 ring push (K7) bitwise, the fused streaming step per frame (K5) and at 8 frames
 per step (K6), int8 with every ring bitwise at every step over a run in which
-every ring wraps and bf16 per step from one shared state (two launches from one
-state bitwise equal; timed by CUDA-graph replay beside one call, with the plan,
-the kernel's ptxas line and a cuBLAS bf16 chain of the step's products as a
-yardstick), and K6 against K5; then it writes a synthetic custom archive of 256
-videos of 500 frames and a causal checkpoint and runs
-``videopose3d_torch.streaming.main`` with every engine, checking the streams
+every ring wraps (also at 1,000 channels, rows not 16-byte aligned) and bf16 per
+step from one shared state; for both, two launches from one state bitwise equal,
+timed by CUDA-graph replay beside one call, with the plan, the kernel's ptxas
+lines, its tensor-core SASS count and a cuBLAS chain of the step's products
+(torch._int_mm for int8) as a yardstick; and K6 against K5; then it writes a
+synthetic custom archive of 256 videos of 500 frames and a causal checkpoint and
+runs ``videopose3d_torch.streaming.main`` with every engine, checking the streams
 against the offline causal model and each other, and profiles one int8_fused and
 one bf16_fused run.
 
@@ -179,7 +180,11 @@ STREAM_B = 1024
 STREAM_K = 8
 STREAM_VIDEOS, STREAM_FRAMES = 256, 500
 STREAM_SOURCE = "videopose3d_torch/ops/kernels/csrc/streaming_fused.cu"
-STREAM_BF16_SOURCE = "videopose3d_torch/ops/kernels/csrc/stream_bf16.cu"
+STREAM_SOURCES = {"stream_int8": "videopose3d_torch/ops/kernels/csrc/stream_int8.cu",
+                  "stream_bf16": "videopose3d_torch/ops/kernels/csrc/stream_bf16.cu"}
+# The int8 step at a width whose rows are not 16-byte aligned (element-by-element
+# loads, K and N tails), rings bitwise at every step, on the CLI's 256 streams.
+STREAM_ODD_CHANNELS, STREAM_ODD_B = 1000, 256
 STREAM_TPU = "videopose3d_tpu/ops/pallas/streaming_fused.py"
 STREAM_KERNELS = {  # launch counter -> the TPU kernel it replaces
     "stream_int8": f"{STREAM_TPU}:201", "stream_bf16": f"{STREAM_TPU}:911",
@@ -252,13 +257,14 @@ def graph_ms(fn, reps=100):
     return cuda_ms(graph.replay) / reps
 
 
-def random_model(device, causal=False):
-    """The full-width model with random weights and BN statistics, from SEED."""
+def random_model(device, causal=False, channels=CHANNELS):
+    """The full-width model (or ``channels`` wide) with random weights and BN
+    statistics, from SEED."""
     from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
     torch.manual_seed(SEED)
     cfg = TemporalModelConfig(num_joints_in=JOINTS, in_features=2,
                               num_joints_out=JOINTS, filter_widths=ARCH,
-                              channels=CHANNELS, causal=causal)
+                              channels=channels, causal=causal)
     model = TemporalModel(cfg)
     rng = np.random.default_rng(SEED)
     for bn in [model.expand_bn, *model.layers_bn]:
@@ -1019,6 +1025,32 @@ def sass_count(lib_path, name, op):
     return count
 
 
+def int8_chain_ms(q, rows):
+    """Graph time of the int8 step's products as cuBLASLt int8 matmuls
+    (``torch._int_mm``, int32 sums) on ``rows`` rows: per residual block (rows,
+    width * C) @ (width * C, C) and (rows, C) @ (C, C), then the bf16 shrink.  A
+    yardstick of the step's tensor-core work (no epilogues, requantization, rings
+    or exchange); the port never calls it.  A string where this torch build's
+    ``_int_mm`` refuses the shapes."""
+    g = torch.Generator(device=q.shrink_w.device).manual_seed(SEED + 9)
+    wa = [b.wq_a.reshape(-1, b.wq_a.shape[-1]) for b in q.blocks]
+    taps = [torch.randint(0, 128, (rows, w.shape[0]), generator=g, device=g.device,
+                          dtype=torch.int8) for w in wa]
+    h = taps[0][:, :wa[0].shape[1]].contiguous()
+    hb = h.to(torch.bfloat16)
+
+    def chain():
+        for t, w, blk in zip(taps, wa, q.blocks):
+            torch._int_mm(t, w)
+            torch._int_mm(h, blk.wq_b)
+        torch.matmul(hb, q.shrink_w)
+    try:
+        chain()
+    except RuntimeError as err:
+        return f"not measured (torch._int_mm: {err})"
+    return f"{graph_ms(chain, reps=20):.4f} ms graph"
+
+
 def bf16_chain_ms(prepared, rows):
     """Graph time of the bf16 step's products as cuBLAS bf16 tensor-core matmuls
     on ``rows`` rows: per residual block (rows, width * C) @ (width * C, C) and
@@ -1042,8 +1074,10 @@ def phase6_kernels(cfg, model, q, device):
     """K7, K5 and K6 against their plain versions at B = 1,024 streams, through
     every ring's wrap, and their times."""
     from videopose3d_torch import streaming as st
+    from videopose3d_torch.ops.kernels import build
     from videopose3d_torch.ops.kernels import streaming_fused as sf
     saved = dict(sf.LAUNCHES)
+    fq = st.prepare_int8_fused(q)
     g = torch.Generator(device=device).manual_seed(SEED + 6)
     rand = lambda *shape: torch.rand(shape, generator=g, device=device) * 2 - 1
     bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
@@ -1061,7 +1095,7 @@ def phase6_kernels(cfg, model, q, device):
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"phase6 {key:18s} {where}: max_abs_err {err:.3e}; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})")
-        source = STREAM_BF16_SOURCE if key.startswith("stream_bf16") else STREAM_SOURCE
+        source = STREAM_SOURCES.get(key.replace("_multi", ""), STREAM_SOURCE)
         results[key] = {"name": f"{key} ({where})", "route": "cuda", "source": source,
                         "replaces": STREAM_KERNELS[key], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1094,38 +1128,87 @@ def phase6_kernels(cfg, model, q, device):
               f"{what}: pose error {err} > {bound}")
         return err
 
-    # K5 and K6, int8: every ring bitwise at every step, poses at STREAM_POSE_TOL,
-    # over max(cap) + 3 frames (per frame) or max(cap) + 3k frames (k per step).
-    for key, multi in (("stream_int8", False), ("stream_int8_multi", True)):
-        kk = k if multi else 1
-        a = (st.init_stream_state_int8_multi(cfg, q, first, kk) if multi
-             else st.init_stream_state_int8(cfg, q, first))
+    def int8_rings_bitwise(key, scfg, sw, first_frames, kk):
+        """Steps the fused int8 engine (on the prepared weights ``sw``) and the
+        per-layer plain one (on ``sw.q``) from one state
+        over max(cap) + 3 frames (per frame) or max(cap) + 3k frames (k per step):
+        every ring bitwise at every step, poses at STREAM_POSE_TOL.  Returns (the
+        plain state, the ring capacities, the steps, the largest pose error)."""
+        multi = kk > 1
+        a = (st.init_stream_state_int8_multi(scfg, sw.q, first_frames, kk) if multi
+             else st.init_stream_state_int8(scfg, sw.q, first_frames))
         p = _clone_state(a)
         scaps = [r.shape[0] // (2 if multi else 1) for r in a["bufs"]]
         steps = (max(scaps) + 3 * kk) // kk
         err = 0.0
+        n = first_frames.shape[0]
         for t in range(steps):
-            x = rand(b, kk, JOINTS, 2) if multi else rand(b, JOINTS, 2)
+            x = rand(n, kk, JOINTS, 2) if multi else rand(n, JOINTS, 2)
             fused = st.stream_step_int8_multi_fused if multi else st.stream_step_int8_fused
             plain = st.stream_step_int8_multi if multi else st.stream_step_int8
-            got, a = fused(cfg, q, a, x)
-            want, p = plain(cfg, q, p, x)
+            got, a = fused(scfg, sw, a, x)
+            want, p = plain(scfg, sw.q, p, x)
             check(all(torch.equal(r, s) for r, s in zip(a["bufs"], p["bufs"])),
                   f"{key}: an int8 ring differs from the plain version's at step {t}")
             err = max(err, pose_err(got, want, STREAM_POSE_TOL, f"{key} step {t}"))
+        return p, scaps, steps, err
+
+    # K5 and K6, int8: every ring bitwise at every step; then from one state two
+    # launches bitwise equal, timed by CUDA-graph replay beside one call, with the
+    # plan and a cuBLASLt int8 chain of the step's products as a yardstick.
+    for key, multi in (("stream_int8", False), ("stream_int8_multi", True)):
+        kk = k if multi else 1
+        p, scaps, steps, err = int8_rings_bitwise(key, cfg, fq, first, kk)
         eq = torch.randint(0, 128, (kk, b, c), generator=g, device=device, dtype=torch.int8)
-        idx, lags = st._slots(cfg, a["ptr"], scaps, multi=multi)
+        idx, lags = st._slots(cfg, p["ptr"], scaps, multi=multi)
+        a = _clone_state(p)
         if multi:
-            run = lambda f, s: f(q, s["bufs"][1:], eq, idx, widths=widths, lags=lags,
+            run = lambda f, s: f(fq, s["bufs"][1:], eq, idx, widths=widths, lags=lags,
                                  caps=scaps[1:], k=kk)
             kern, plain_fn = sf.fused_blocks_step_multi, sf.fused_blocks_step_multi_plain
         else:
-            run = lambda f, s: f(q, s["bufs"][1:], eq[0], idx, widths=widths)
+            run = lambda f, s: f(fq, s["bufs"][1:], eq[0], idx, widths=widths)
             kern, plain_fn = sf.fused_blocks_step, sf.fused_blocks_step_plain
-        record(key, f"int8, B={b}, C={c}, k={kk}, {steps} steps, rings bitwise", err,
-               cuda_ms(lambda: run(kern, a)), cuda_ms(lambda: run(plain_fn, p)),
+        # Two launches from one state give equal poses and rings (no atomics; the
+        # cluster's slices meet in a fixed order).
+        twice = [(run(kern, s)[0], s) for s in (_clone_state(p), _clone_state(p))]
+        torch.cuda.synchronize()
+        check(torch.equal(twice[0][0], twice[1][0])
+              and all(torch.equal(r, s) for r, s in zip(twice[0][1]["bufs"],
+                                                         twice[1][1]["bufs"])),
+              f"{key}: two launches from one state differ")
+        del twice
+        ms, plain_ms = graph_ms(lambda: run(kern, a), reps=20), graph_ms(
+            lambda: run(plain_fn, p), reps=20)
+        record(key, f"int8, B={b}, C={c}, k={kk}, {steps} steps, rings bitwise, repeat "
+               "bitwise, CUDA-graph timed", err, ms, plain_ms,
                roofline(*stream_cost(True, widths, lags, b, c, kk, j3, multi)))
+        print(f"phase6 {key} one call between CUDA events (host enqueue included): "
+              f"kernel {cuda_ms(lambda: run(kern, a)):.4f} ms, plain "
+              f"{cuda_ms(lambda: run(plain_fn, p)):.4f} ms; plan (rows, column slices) "
+              f"{sf.kernel_plan('int8', b, kk, c, sms)}; cuBLASLt int8 chain of the step's "
+              f"products (torch._int_mm; yardstick, not a port path) "
+              f"{int8_chain_ms(q, kk * b)}")
         del a, p
+
+    # The int8 step at C % 16 != 0: every ring bitwise through every wrap.
+    ocfg, omodel = random_model(device, causal=True, channels=STREAM_ODD_CHANNELS)
+    from videopose3d_torch.models.temporal import receptive_field
+    from videopose3d_torch.ops.kernels.temporal_block_int8 import quantize_temporal_model
+    calib = rand(2, receptive_field(ocfg) + 64, JOINTS, 2)
+    oq = st.prepare_int8_fused(quantize_temporal_model(ocfg, omodel, calib))
+    _, _, steps, err = int8_rings_bitwise("stream_int8 (odd width)", ocfg, oq,
+                                          rand(STREAM_ODD_B, JOINTS, 2), 1)
+    print(f"phase6 stream_int8 at C={STREAM_ODD_CHANNELS} (rows not 16-byte aligned), "
+          f"B={STREAM_ODD_B}, {steps} steps: every ring bitwise, pose error {err:.3e}; plan "
+          f"{sf.kernel_plan('int8', STREAM_ODD_B, 1, STREAM_ODD_CHANNELS, sms)}")
+    del ocfg, omodel, oq
+    for line in ptxas_lines(build.build_log, "stream_int8_kernel"):
+        print(f"phase6 stream_int8_kernel ptxas: {line}")
+    imma = sass_count(build.library_path(), "stream_int8_kernel", "IMMA")
+    print(f"phase6 stream_int8_kernel SASS (cuobjdump -sass): "
+          f"{'no cuobjdump' if imma is None else f'{imma} IMMA instructions'}")
+    check(imma != 0, "stream_int8_kernel has no int8 tensor-core (IMMA) instruction")
 
     # K5 and K6, bf16: each step from the plain version's state, poses and rings at
     # TOL[bfloat16] (one bf16 step: the rings hold bf16 values summed in float32 in
@@ -1174,12 +1257,11 @@ def phase6_kernels(cfg, model, q, device):
         print(f"phase6 {key} one call between CUDA events (host enqueue included): "
               f"kernel {cuda_ms(lambda: run(kern, a)):.4f} ms, plain "
               f"{cuda_ms(lambda: run(plain_fn, p)):.4f} ms; plan (rows, column slices) "
-              f"{sf.kernel_bf16_plan(b, kk, c, sms)}; cuBLAS bf16 chain of the step's "
+              f"{sf.kernel_plan('bf16', b, kk, c, sms)}; cuBLAS bf16 chain of the step's "
               f"products (yardstick, not a port path) {bf16_chain_ms(prepared, kk * b):.4f} "
               "ms graph")
         del a, p
 
-    from videopose3d_torch.ops.kernels import build
     for line in ptxas_lines(build.build_log, "stream_bf16_kernel"):
         print(f"phase6 stream_bf16_kernel ptxas: {line}")
     hmma = sass_count(build.library_path(), "stream_bf16_kernel", "HMMA")
@@ -1193,11 +1275,11 @@ def phase6_kernels(cfg, model, q, device):
     frames = rand(b, 64, JOINTS, 2)
     per_frame = []
     for t in range(64):
-        pose, one = st.stream_step_int8_fused(cfg, q, one, frames[:, t])
+        pose, one = st.stream_step_int8_fused(cfg, fq, one, frames[:, t])
         per_frame.append(pose)
     stepped = []
     for t in range(0, 64, k):
-        pose, multi = st.stream_step_int8_multi_fused(cfg, q, multi, frames[:, t:t + k])
+        pose, multi = st.stream_step_int8_multi_fused(cfg, fq, multi, frames[:, t:t + k])
         stepped.append(pose)
     err = pose_err(torch.cat(stepped, 1), torch.stack(per_frame, 1), STREAM_POSE_TOL,
                    "K6 vs K5")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's GEMM kernels on one NVIDIA GPU: the fused bf16
-streaming step (K5 at k = 1, K6 at k = 8), the window gather (K1) and the train
+"""A/B timing of the port's GEMM kernels on one NVIDIA GPU: the fused int8 and
+bf16 streaming steps (K5 at k = 1, K6 at k = 8), the window gather (K1) and the train
 block's GEMMs (K2: the weight gradient ``dw_gemm``, the three-tap
 ``conv_stats`` and ``du_dtaps_res`` and the one-tap ``norm_drop_matmul_stats``
 and ``dz_matmul_dd``) of this checkout against those of another checkout (for
@@ -10,10 +10,10 @@ example the parent commit, unpacked with ``git archive`` into a directory that
     python3 kernel_ab.py --other build/parent
 
 Each turn runs in its own process with that checkout's ``videopose3d_torch``
-first on ``sys.path``, so each builds and loads its own kernels.  The bf16 step
-runs chip_smoke.py phase 6's causal model (four residual blocks of width 3, C =
-1,024, seeded weights and rings) at B = 256 and 1,024 streams, k = 1 and 8,
-checked once against its plain version.  The other shapes are those of
+first on ``sys.path``, so each builds and loads its own kernels.  The two steps
+run chip_smoke.py phase 6's causal model (four residual blocks of width 3, C =
+1,024, seeded weights and rings) at B = 256 and 1,024 streams, k = 1 and 8, each
+checked once against its plain version (int8: every ring bitwise).  The other shapes are those of
 ``chip_smoke.py`` phase 3 in float32: K1 gathers 1,024 windows of 243
 rows of 34 columns from a 300,000- and a 3,000,000-row stream; the K2 kernels run
 at n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024 channels (3 taps, residual
@@ -36,7 +36,8 @@ dimension forced into 1, 2, 3, 4 and 8 slices (graph replay), beside the count
 
 times the bf16 streaming step at those B and k with every plan (rows per CUDA
 block, column slices per cluster) forced, beside the plan ``stream_bf16_plan``
-picks, and prints how many clusters of each plan the card runs at once.
+picks, and prints how many clusters of each plan the card runs at once;
+``--sweep stream_int8`` does the same for the int8 step and ``stream_int8_plan``.
 """
 
 from __future__ import annotations
@@ -58,18 +59,19 @@ RUNS = 10
 
 SWEEP_SLICES = (1, 2, 3, 4, 8)
 
-# The fused bf16 streaming step (K5 at k = 1, K6 at k = 8) of chip_smoke.py phase
-# 6's causal model: four residual blocks of width 3 at dilations 3, 9, 27, 81.
+# The fused streaming steps (K5 at k = 1, K6 at k = 8) of chip_smoke.py phase 6's
+# causal model: four residual blocks of width 3 at dilations 3, 9, 27, 81.
 STREAM_WIDTHS, STREAM_DILATIONS, STREAM_J3 = (3, 3, 3, 3), (3, 9, 27, 81), 51
 STREAM_CASES = ((256, 1), (1024, 1), (256, 8), (1024, 8))
-# Poses against the plain version: one bf16 step apart (chip_smoke.py TOL).
-STREAM_TOL = 1.6e-2
+# Poses against the plain version: one bf16 step apart (chip_smoke.py TOL); int8,
+# the shrink's float32 sums in another order (chip_smoke.py STREAM_POSE_TOL).
+STREAM_TOL = {"bf16": 1.6e-2, "int8": 1e-4}
 
 
 def worker(root: str, sweep: str = "") -> dict:
     """Times the kernels of the checkout at ``root``; returns {case: ms}.  With
     ``sweep``, the tap GEMM kernels at each forced slice count ("tap_gemm") or
-    the bf16 streaming step at each forced plan ("stream_bf16") instead."""
+    a streaming step at each forced plan ("stream_bf16", "stream_int8") instead."""
     sys.path.insert(0, root)
     import torch
     from videopose3d_torch.ops.kernels import build
@@ -106,13 +108,14 @@ def worker(root: str, sweep: str = "") -> dict:
     out = {}
     if sweep == "tap_gemm":
         return sweep_tap_gemms(torch, trb, dev, gen, graph_ms)
-    if sweep == "stream_bf16":
-        return sweep_stream_bf16(torch, sf, dev, gen, graph_ms)
-    for b, k in STREAM_CASES:
-        step = stream_bf16_step(torch, sf, dev, gen, b, k)
-        out[f"stream_bf16 B={b} k={k} graph"] = graph_ms(step, reps=10)
-        out[f"stream_bf16 B={b} k={k} call"] = call_ms(step)
-        del step
+    if sweep in ("stream_bf16", "stream_int8"):
+        return sweep_stream(torch, sf, dev, gen, graph_ms, sweep[7:])
+    for kind, make in (("int8", stream_int8_step), ("bf16", stream_bf16_step)):
+        for b, k in STREAM_CASES:
+            step = make(torch, sf, dev, gen, b, k)
+            out[f"stream_{kind} B={b} k={k} graph"] = graph_ms(step, reps=10)
+            out[f"stream_{kind} B={b} k={k} call"] = call_ms(step)
+            del step
     for rows in GATHER_ROWS:
         flat = torch.randn(rows, COLS, device=dev, generator=gen)
         row0 = torch.randint(0, rows - WINDOW + 1, (BATCH,), device=dev, generator=gen)
@@ -214,16 +217,8 @@ def stream_bf16_step(torch, sf, dev, gen, b, k):
         "shrink_w": bf(c, STREAM_J3, scale=c ** -0.5),
         "shrink_b": torch.randn(STREAM_J3, device=dev, generator=gen) * 0.1,
     }
-    lags = [[(w - 1 - j) * d for j in range(w - 1)]
-            for w, d in zip(STREAM_WIDTHS, STREAM_DILATIONS)]
-    caps = [max(block) + 1 for block in lags]
-    if k > 1:
-        caps = [(-(-(cap - 1) // k) + 1) * k for cap in caps]
+    lags, caps, idx = _stream_geometry(b, k)
     rings = [bf((2 if k > 1 else 1) * cap, b, c) for cap in caps]
-    idx = []
-    for cap, block in zip(caps, lags):
-        write = cap - k
-        idx += [write] + [(write - lag) % cap for lag in block]
     a0 = torch.rand(k, b, c, device=dev, generator=gen)
     if k == 1:
         run = lambda fn, r: fn(weights, r, a0[0], idx, widths=STREAM_WIDTHS)
@@ -232,39 +227,100 @@ def stream_bf16_step(torch, sf, dev, gen, b, k):
         run = lambda fn, r: fn(weights, r, a0, idx, widths=STREAM_WIDTHS, lags=lags,
                                caps=caps, k=k)
         kern, plain = sf.fused_blocks_step_bf16_multi, sf.fused_blocks_step_bf16_multi_plain
-    want = run(plain, [r.clone() for r in rings])[0]
+    return _checked(torch, "bf16", b, k, run, kern, plain, rings)
+
+
+def _stream_geometry(b, k):
+    """Per block the older taps' lags, the ring capacities (k-aligned at k > 1)
+    and the slots of a step that writes each ring's last k rows."""
+    lags = [[(w - 1 - j) * d for j in range(w - 1)]
+            for w, d in zip(STREAM_WIDTHS, STREAM_DILATIONS)]
+    caps = [max(block) + 1 for block in lags]
+    if k > 1:
+        caps = [(-(-(cap - 1) // k) + 1) * k for cap in caps]
+    idx = []
+    for cap, block in zip(caps, lags):
+        write = cap - k
+        idx += [write] + [(write - lag) % cap for lag in block]
+    return lags, caps, idx
+
+
+def _checked(torch, kind, b, k, run, kern, plain, rings):
+    """Runs the step once against its plain version from cloned rings (int8: the
+    rings bitwise) and returns the kernel's call on ``rings``."""
+    want_rings = [r.clone() for r in rings]
+    want = run(plain, want_rings)[0]
     got = run(kern, rings)[0]
     err = float((got - want).abs().max())
-    if not err <= STREAM_TOL * max(1.0, float(want.abs().max())):
-        raise RuntimeError(f"stream_bf16 B={b} k={k} differs from its plain version "
+    if not err <= STREAM_TOL[kind] * max(1.0, float(want.abs().max())):
+        raise RuntimeError(f"stream_{kind} B={b} k={k} differs from its plain version "
                            f"by {err}")
+    if kind == "int8" and not all(torch.equal(r, w) for r, w in zip(rings, want_rings)):
+        raise RuntimeError(f"stream_int8 B={b} k={k}: a ring differs from the plain "
+                           "version's")
     return lambda: run(kern, rings)
 
 
-def sweep_stream_bf16(torch, sf, dev, gen, graph_ms) -> dict:
-    """Graph time of the bf16 streaming step at each of STREAM_CASES with every
-    plan (rows per CUDA block, column slices per cluster) the kernel takes forced,
-    the plan ``stream_bf16_plan`` picks, and how many clusters of each plan the
-    card runs at once."""
+def stream_int8_step(torch, sf, dev, gen, b, k):
+    """One fused int8 streaming step at B = ``b`` streams of ``k`` frames, C = 1,024,
+    on seeded int8 weights, epilogue vectors and rings (doubled at k > 1), checked
+    once against its plain version; returns the call.  Works on checkouts with
+    and without the step's own weights object (``Int8StepWeights``)."""
+    from videopose3d_torch.ops.kernels.temporal_block_int8 import Int8Block, QuantizedModel
+    c = CHANNELS
+    i8 = lambda *shape, lo=-127: torch.randint(lo, 128, shape, device=dev, generator=gen,
+                                                dtype=torch.int8)
+    vec = lambda scale, shift: ((torch.rand(c, device=dev, generator=gen) + 0.5) * scale
+                                + shift * torch.randn(c, device=dev, generator=gen))
+    blocks = [Int8Block(i8(w, c, c), i8(c, c), vec(1 / (127 * (w * c) ** 0.5), 0),
+                        vec(0, 0.5), vec(1 / (127 * c ** 0.5), 0), vec(0, 0.5),
+                        vec(0.5, 0)) for w in STREAM_WIDTHS]
+    shrink_w = (torch.randn(c, STREAM_J3, device=dev, generator=gen) * c ** -0.5).to(
+        torch.bfloat16)
+    q = QuantizedModel(None, None, None, blocks, shrink_w,
+                       torch.randn(STREAM_J3, device=dev, generator=gen) * 0.1)
+    if hasattr(sf, "Int8StepWeights"):
+        q = sf.Int8StepWeights.of(q)
+    lags, caps, idx = _stream_geometry(b, k)
+    rings = [i8((2 if k > 1 else 1) * cap, b, c, lo=0) for cap in caps]
+    eq = i8(k, b, c, lo=0)
+    if k == 1:
+        run = lambda fn, r: fn(q, r, eq[0], idx, widths=STREAM_WIDTHS)
+        kern, plain = sf.fused_blocks_step, sf.fused_blocks_step_plain
+    else:
+        run = lambda fn, r: fn(q, r, eq, idx, widths=STREAM_WIDTHS, lags=lags, caps=caps,
+                               k=k)
+        kern, plain = sf.fused_blocks_step_multi, sf.fused_blocks_step_multi_plain
+    return _checked(torch, "int8", b, k, run, kern, plain, rings)
+
+
+def sweep_stream(torch, sf, dev, gen, graph_ms, kind) -> dict:
+    """Graph time of the ``kind`` ("bf16" or "int8") streaming step at each of
+    STREAM_CASES with every plan (rows per CUDA block, column slices per cluster)
+    the kernel takes forced, the plan its ``stream_<kind>_plan`` picks, and how
+    many clusters of each plan the card runs at once."""
     lib = sf._load()
+    force = getattr(lib, f"vp3d_stream_{kind}_force")
+    smem = getattr(sf, f"{kind}_smem_bytes")
+    make = stream_int8_step if kind == "int8" else stream_bf16_step
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plans = [(rows, slices) for rows in sf.BF16_ROWS for slices in (1, 2, 4, 8)]
+    plans = [(rows, slices) for rows in sf.TC_ROWS for slices in (1, 2, 4, 8)]
     out = {f"clusters rows={rows} slices={slices}":
-           lib.vp3d_stream_bf16_max_clusters(rows, slices, CHANNELS)
+           getattr(lib, f"vp3d_stream_{kind}_max_clusters")(rows, slices, CHANNELS)
            for rows, slices in plans}
     for b, k in STREAM_CASES:
-        step = stream_bf16_step(torch, sf, dev, gen, b, k)
-        out[f"stream_bf16 B={b} k={k} plan"] = "x".join(
-            map(str, sf.kernel_bf16_plan(b, k, CHANNELS, sms)))
+        step = make(torch, sf, dev, gen, b, k)
+        out[f"stream_{kind} B={b} k={k} plan"] = "x".join(
+            map(str, sf.kernel_plan(kind, b, k, CHANNELS, sms)))
         for rows, slices in plans:
-            if not sf._bf16_plan_valid(rows, slices, k, CHANNELS):
+            if not sf._plan_valid(smem, rows, slices, k, CHANNELS):
                 continue
-            lib.vp3d_stream_bf16_force(rows, slices)
+            force(rows, slices)
             try:
-                out[f"stream_bf16 B={b} k={k} rows={rows} slices={slices} graph"] = (
+                out[f"stream_{kind} B={b} k={k} rows={rows} slices={slices} graph"] = (
                     graph_ms(step, reps=10))
             finally:
-                lib.vp3d_stream_bf16_force(0, 0)
+                force(0, 0)
         del step
     return out
 
@@ -315,9 +371,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", help="root of the other checkout")
     parser.add_argument("--sweep", nargs="?", const="tap_gemm",
-                        choices=("tap_gemm", "stream_bf16"),
+                        choices=("tap_gemm", "stream_bf16", "stream_int8"),
                         help="time this checkout's tap GEMMs at forced slice counts "
-                             "(default) or its bf16 streaming step at forced plans")
+                             "(default) or a streaming step at forced plans")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:

@@ -175,7 +175,7 @@ def test_train_engine_pallas_takes_any_width(c):
 
 
 @pytest.mark.parametrize("engine,c,extra,limit", [
-    ("int8_fused", 1030, [], "multiple of 16"),
+    ("int8_fused", 15169, [], "at most 15168 channels"),
     ("bf16_fused", 1024, ["--compute-dtype", "bfloat16", "--frames-per-step", "17"],
      "1 to 16 frames"),
     ("bf16_fused", 19016, ["--compute-dtype", "bfloat16"], "at most 19008 channels"),
@@ -200,13 +200,12 @@ def test_streaming_fused_widths_are_refused_before_loading(tmp_path, engine, c, 
 @pytest.mark.parametrize("k", [1, 8])
 @pytest.mark.parametrize("c", [30, 1000, 1216, 2048, 4096])
 def test_streaming_bf16_fused_takes_any_width(c, k):
-    """The tensor-core bf16 step takes any C up to its ceiling (zero-filled K and
-    N tails, element-wise staging where rows are not 16-byte aligned), as JAX's
-    full-width kernels do; the int8 step still takes multiples of 16 only."""
+    """Both tensor-core steps, bf16 and int8, take any C up to their ceilings
+    (zero-filled K and N tails, element-wise staging where rows are not 16-byte
+    aligned), as JAX's full-width kernels do."""
     from videopose3d_torch.ops.kernels import streaming_fused as sf
-    assert sf.step_limit_error("bf16_fused", c, (3, 3, 3, 3), k) is None
-    if c % 16:
-        assert "multiple of 16" in sf.step_limit_error("int8_fused", c, (3, 3, 3, 3), k)
+    for engine in ("bf16_fused", "int8_fused"):
+        assert sf.step_limit_error(engine, c, (3, 3, 3, 3), k) is None, engine
 
 
 @pytest.mark.parametrize("b,k", [(1, 1), (256, 1), (1024, 1), (256, 8), (1024, 8), (5, 16)])
@@ -233,6 +232,76 @@ def test_streaming_bf16_plan_fills_the_card_within_shared_memory(b, k):
             assert -(-b // rows) * slices >= 64, c
     if (b, k) == (1024, 1):
         assert sf.stream_bf16_plan(b, k, 1024) == (80, 8)
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (256, 1), (1024, 1), (256, 8), (1024, 8), (5, 16)])
+def test_streaming_int8_plan_fills_the_card_within_shared_memory(b, k):
+    """stream_int8_plan: for every C up to the ceiling (at least 8,192) a plan
+    whose shared memory fits the opt-in limit, rows a multiple of 16 and >= k, and
+    a power-of-two cluster that leaves each block a column; at B = 1,024, k = 1 at
+    least half the card's SMs busy from C = 512 on, and at the full width 13
+    clusters of 8 CUDA blocks of 80 rows, as the bf16 step."""
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    from videopose3d_torch.ops.kernels.temporal_block import SMEM_OPT_IN
+    top = sf.INT8_MAX_CHANNELS
+    assert top >= 8192
+    assert sf.step_smem_bytes(True, top) <= SMEM_OPT_IN < sf.step_smem_bytes(True, top + 1)
+    assert sf.stream_int8_plan(b, k, top + 1) is None
+    assert "at most" in sf.step_limit_error("int8_fused", top + 1, (3, 3), k)
+    for c in sorted({1, 8, 9, 30, 64, 512, 1000, 1024, 2080, 4096, 8192, top,
+                     *range(7, top, 997)}):
+        rows, slices = sf.stream_int8_plan(b, k, c)
+        assert sf.int8_smem_bytes(rows, slices, c) <= SMEM_OPT_IN, c
+        assert rows % 16 == 0 and rows >= k and slices in (1, 2, 4, 8)
+        assert (slices - 1) * sf._slice_cols(c, slices) < c
+        if (b, k) == (1024, 1) and c >= 512:
+            assert -(-b // rows) * slices >= 64, c
+    if (b, k) == (1024, 1):
+        assert sf.stream_int8_plan(b, k, 1024) == (80, 8)
+
+
+@pytest.mark.parametrize("b,k,plan", [(256, 1, (32, 8)), (1024, 1, (80, 8)),
+                                      (256, 8, (80, 4)), (1024, 8, (48, 2))])
+def test_streaming_int8_plan_picks_the_swept_plan(b, k, plan):
+    """stream_int8_plan at C = 1,024 (-arc 3,3,3,3,3), B = 256 and 1,024, k = 1
+    and 8 picks the fastest plan of two kernel_ab.py --sweep stream_int8 runs on an
+    H100, or one within 1.3 % of it (at B = 256, k = 8 in one run).  Without the
+    cluster's meeting cost it picked 80 x 8 at B = 1,024, k = 8, 8.6 % and 11 %
+    behind 48 x 2."""
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    assert sf.stream_int8_plan(b, k, 1024) == plan
+
+
+@pytest.mark.parametrize("c", [30, 40])
+def test_int8_step_packing_round_trips(c):
+    """pack_int8_step: (ceil32(K) / 4, ceil8(N)) int32 whose bytes unpack to the
+    int8 weights, with zero K and N tails; prepare_int8_fused packs every block's
+    taps and 1x1 weights beside the model, which it leaves as it was."""
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    from videopose3d_torch.ops.kernels.temporal_block_int8 import Int8Block, QuantizedModel
+    from videopose3d_torch.streaming import prepare_int8_fused
+    rng = np.random.default_rng(c)
+    i8 = lambda *shape: torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+    f32 = lambda: torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+    blocks = [Int8Block(i8(3, c, c), i8(c, c), f32(), f32(), f32(), f32(), f32())
+              for _ in range(2)]
+    q = QuantizedModel(i8(3, 34, c).to(torch.bfloat16), f32(), f32(), blocks,
+                       i8(c, 51).to(torch.bfloat16), f32()[:51])
+    kp, np_ = -(-c // 32) * 32, -(-c // 8) * 8
+
+    def unpack(p):
+        assert p.dtype == torch.int32 and p.shape == (kp // 4, np_)
+        return p.contiguous().view(torch.int8).reshape(kp // 4, np_, 4).permute(
+            0, 2, 1).reshape(kp, np_)
+
+    prepared = prepare_int8_fused(q)
+    assert prepared.q is q and len(prepared.packs) == len(blocks)
+    for blk, (wa, wb) in zip(q.blocks, prepared.packs):
+        for w, p in [*zip(blk.wq_a, wa), (blk.wq_b, wb)]:
+            full = unpack(p)
+            assert torch.equal(full[:c, :c], w)
+            assert not full[c:].any() and not full[:, c:].any()
+    assert torch.equal(sf.pack_int8_step(blocks[0].wq_b), prepared.packs[0][1])
 
 
 def test_device_cuda_raises_without_a_card(workdir):

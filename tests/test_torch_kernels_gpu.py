@@ -349,7 +349,8 @@ def test_width_mirrors_equal_the_kernels_own(cuda):
     assert tb.SMEM_OPT_IN == lib.vp3d_block_max_smem_bytes()
     assert (sf.MAX_BLOCKS, sf.MAX_TAPS) == (lib.vp3d_stream_max_blocks(),
                                             lib.vp3d_stream_max_taps())
-    for c in (4, 16, 68, 1024, 1028, 2064, 3632, 3636):
+    for c in (4, 16, 68, 1024, 1028, 2064, 3632, 3636, sf.INT8_MAX_CHANNELS,
+              sf.INT8_MAX_CHANNELS + 1):
         for kind, c_in, k0, span in (("dilated", 0, 0, 0), ("shrink", 0, 0, 0),
                                      ("expand", 34, 3, 6), ("expand", 33, 5, 40),
                                      ("expand", 34, 3, 162)):
@@ -365,6 +366,26 @@ def test_width_mirrors_equal_the_kernels_own(cuda):
             assert sf.step_smem_bytes(int8, c) == lib.vp3d_stream_smem_bytes(int(not int8), c)
 
 
+def test_int8_plan_mirror_equals_the_kernels_own(cuda):
+    """The int8 step's plan and shared memory, pure Python, equal
+    csrc/stream_int8.cu's over a grid of widths (past its ceiling too), stream
+    counts and frames per step, on this card's SM count and 132."""
+    from videopose3d_torch.ops.kernels.build import load_library
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for c in (1, 8, 30, 64, 200, 1000, 1024, 2080, 4096, 8192, sf.INT8_MAX_CHANNELS,
+              sf.INT8_MAX_CHANNELS + 1):
+        for rows in sf.TC_ROWS:
+            for slices in (1, 2, 4, 8):
+                assert (sf.int8_smem_bytes(rows, slices, c)
+                        == lib.vp3d_stream_int8_smem(rows, slices, c))
+        for b in (1, 2, 5, 17, 256, 1000, 1024, 4096):
+            for k in (1, 2, 3, 8, 16):
+                for n_sms in {sms, 132}:
+                    want = sf.stream_int8_plan(b, k, c, n_sms)
+                    assert sf.kernel_plan("int8", b, k, c, n_sms) == want, (b, k, c, n_sms)
+
+
 def test_bf16_plan_mirror_equals_the_kernels_own(cuda):
     """The bf16 step's plan (rows per CUDA block, column slices per cluster) and
     its shared memory, pure Python, equal csrc/stream_bf16.cu's over a grid of
@@ -374,7 +395,7 @@ def test_bf16_plan_mirror_equals_the_kernels_own(cuda):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for c in (1, 8, 30, 64, 200, 1024, 1216, 2048, 2360, 4096, 9000, sf.BF16_MAX_CHANNELS,
               sf.BF16_MAX_CHANNELS + 1):
-        for rows in sf.BF16_ROWS:
+        for rows in sf.TC_ROWS:
             for slices in (1, 2, 4, 8):
                 assert (sf.bf16_smem_bytes(rows, slices, c)
                         == lib.vp3d_stream_bf16_smem(rows, slices, c))
@@ -382,7 +403,7 @@ def test_bf16_plan_mirror_equals_the_kernels_own(cuda):
             for k in (1, 2, 3, 8, 16):
                 for n_sms in {sms, 132}:
                     want = sf.stream_bf16_plan(b, k, c, n_sms)
-                    assert sf.kernel_bf16_plan(b, k, c, n_sms) == want, (b, k, c, n_sms)
+                    assert sf.kernel_plan("bf16", b, k, c, n_sms) == want, (b, k, c, n_sms)
 
 
 def _one_tap_inputs(n, c, dt, dropout, device):
@@ -745,8 +766,20 @@ STREAM_CASES = [  # channels, filter widths, streams, frames per step
     (1040, (3, 3, 3), 2, 2),    # two column passes (C > 1024)
 ]
 
+# The int8 kernel takes any C up to sf.INT8_MAX_CHANNELS (rows of C % 16 != 0
+# bytes, not 16-byte aligned, load element by element; K and N tails zero-filled).
+INT8_STREAM_CASES = STREAM_CASES + [
+    (30, (3, 3, 3), 5, 1),          # C % 16 != 0, ragged K and N tiles
+    (30, (3, 3, 3), 3, 4),
+    (1000, (3, 3, 3), 7, 1),        # C % 16 == 8: element-by-element rows
+    (2080, (3, 3, 3), 3, 8),        # past the CUDA-core kernel's 2,064 ceiling
+    (4096, (3, 3, 3), 2, 1),
+    (1024, (3, 3, 3, 3, 3), 1024, 1),   # the full-width model at B = 1,024
+    (1024, (3, 3, 3, 3, 3), 1024, 8),
+]
 
-@pytest.mark.parametrize("c,fw,b,k", STREAM_CASES)
+
+@pytest.mark.parametrize("c,fw,b,k", INT8_STREAM_CASES)
 def test_stream_int8_kernel_matches_plain(cuda, c, fw, b, k):
     """The fused int8 engine (K5 / K6) against the per-layer plain engine from
     one state through ring wraps: rings bitwise at every step."""
@@ -759,11 +792,12 @@ def test_stream_int8_kernel_matches_plain(cuda, c, fw, b, k):
         fused, plain = st.stream_step_int8_multi_fused, st.stream_step_int8_multi
         key = "stream_int8_multi"
         a = st.init_stream_state_int8_multi(cfg, q, first, k)
+    w = st.prepare_int8_fused(q)
     p = _clone(a)
     for t in range(0, frames.shape[1] - k + 1, k):
         x = frames[:, t] if k == 1 else frames[:, t:t + k]
         before = sf.LAUNCHES[key]
-        got, a = fused(cfg, q, a, x)
+        got, a = fused(cfg, w, a, x)
         assert sf.LAUNCHES[key] == before + 1
         want, p = plain(cfg, q, p, x)
         _check(got, want, torch.float32)
@@ -852,6 +886,28 @@ def test_stream_bf16_kernel_repeats_bitwise(cuda, c, fw, b, k):
         assert torch.equal(ra, rb)
 
 
+@pytest.mark.parametrize("c,fw,b,k", [(64, (3, 3, 3), 5, 1), (1000, (3, 3, 3), 33, 8),
+                                      (30, (3, 3, 3), 7, 3)])
+def test_stream_int8_kernel_repeats_bitwise(cuda, c, fw, b, k):
+    """Two launches of the int8 step from one cloned state give equal poses and
+    rings: the cluster's slices meet through buffers and shared memory in a fixed
+    order, with no atomics."""
+    from videopose3d_torch import streaming as st
+    cfg, _, _, q, _, first, frames = _stream_setup(c, fw, b, cuda, seed=3)
+    if k == 1:
+        step, x = st.stream_step_int8_fused, frames[:, 0]
+        p = st.init_stream_state_int8(cfg, q, first)
+    else:
+        step, x = st.stream_step_int8_multi_fused, frames[:, :k]
+        p = st.init_stream_state_int8_multi(cfg, q, first, k)
+    w = st.prepare_int8_fused(q)
+    got = [step(cfg, w, _clone(p), x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][0], got[1][0])
+    for ra, rb in zip(got[0][1]["bufs"], got[1][1]["bufs"]):
+        assert torch.equal(ra, rb)
+
+
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.int8])
 def test_ring_push_kernel_matches_plain(cuda, dt):
     g = torch.Generator().manual_seed(3)
@@ -870,16 +926,17 @@ def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from videopose3d_torch import streaming as st
     cfg, _, _, q, _, first, frames = _stream_setup(64, (3, 3, 3), 2, cuda)
     ss = st.init_stream_state_int8_multi(cfg, q, first, 2)
+    w = st.prepare_int8_fused(q)
     eq = torch.zeros(2, 2, 64, dtype=torch.int8, device=cuda)
     rings = ss["bufs"][1:]
     kw = dict(widths=(3, 3), lags=[[6, 3], [18, 9]], caps=[rings[0].shape[0] // 2,
                                                            rings[1].shape[0] // 2], k=2)
     with pytest.raises(ValueError, match="dtype"):
-        sf.fused_blocks_step_multi(q, rings, eq.float(), [0] * 6, **kw)
+        sf.fused_blocks_step_multi(w, rings, eq.float(), [0] * 6, **kw)
     with pytest.raises(ValueError, match="out of range"):
-        sf.fused_blocks_step_multi(q, rings, eq, [0, 0, 0, 0, 0, 10 ** 6], **kw)
+        sf.fused_blocks_step_multi(w, rings, eq, [0, 0, 0, 0, 0, 10 ** 6], **kw)
     with pytest.raises(ValueError, match="1 to 16 frames"):
-        sf.fused_blocks_step_multi(q, rings, torch.zeros(17, 2, 64, dtype=torch.int8,
+        sf.fused_blocks_step_multi(w, rings, torch.zeros(17, 2, 64, dtype=torch.int8,
                                                          device=cuda), [0] * 6,
                                    **{**kw, "k": 17})
     with pytest.raises(ValueError, match="16-byte"):

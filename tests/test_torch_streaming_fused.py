@@ -55,16 +55,19 @@ def _run(cfg, k, j_fused, p_fused, p_layer, jss, pss, b, tol, seed):
     assert_states_agree(pss, jss)
 
 
-@pytest.mark.parametrize("fw,ch,b", [((3, 3, 3), 32, 3), ((3, 5, 5), 16, 2)])
+@pytest.mark.parametrize("fw,ch,b", [((3, 3, 3), 32, 3), ((3, 5, 5), 16, 2),
+                                     ((3, 3, 3), 30, 3)])
 def test_fused_int8_step_matches_jax(fw, ch, b):
-    """K5 int8: stream_step_int8_fused against the JAX fused kernel."""
+    """K5 int8: stream_step_int8_fused against the JAX fused kernel, also at a
+    width that is not a multiple of 16 (the kernel takes any C)."""
     cfg, params, state, tcfg, _ = stream_models(fw, ch)
     q, tq = quantized_pair(cfg, params, state, seed=1)
+    tprep = ts.prepare_int8_fused(tq)
     first = _frames(np.random.default_rng(0), b, 1)
     jss = js.init_stream_state_int8(cfg, q, jnp.asarray(first))
     pss = ts.init_stream_state_int8(tcfg, tq, torch.from_numpy(first))
     _run(cfg, 1, lambda s, f: js.stream_step_int8_fused(cfg, q, s, f),
-         lambda s, f: ts.stream_step_int8_fused(tcfg, tq, s, f),
+         lambda s, f: ts.stream_step_int8_fused(tcfg, tprep, s, f),
           lambda s, f: ts.stream_step_int8(tcfg, tq, s, f),
          jss, pss, b, INT8_POSE_TOL, seed=1)
 
@@ -90,11 +93,12 @@ def test_fused_int8_multi_step_matches_jax(k, b):
     reach into the step's own frames."""
     cfg, params, state, tcfg, _ = stream_models((3, 3, 3), 32, seed=3)
     q, tq = quantized_pair(cfg, params, state, seed=3)
+    tprep = ts.prepare_int8_fused(tq)
     first = _frames(np.random.default_rng(0), b, 1)
     jss = js.init_stream_state_int8_multi(cfg, q, jnp.asarray(first), k)
     pss = ts.init_stream_state_int8_multi(tcfg, tq, torch.from_numpy(first), k)
     _run(cfg, k, lambda s, f: js.stream_step_int8_multi_fused(cfg, q, s, f),
-         lambda s, f: ts.stream_step_int8_multi_fused(tcfg, tq, s, f),
+         lambda s, f: ts.stream_step_int8_multi_fused(tcfg, tprep, s, f),
           lambda s, f: ts.stream_step_int8_multi(tcfg, tq, s, f),
          jss, pss, b, INT8_POSE_TOL, seed=3)
 
@@ -121,6 +125,7 @@ def test_multi_step_equals_per_frame_step():
     ring is read at its own positions."""
     cfg, params, state, tcfg, _ = stream_models((3, 3, 3), 32, seed=5)
     _, tq = quantized_pair(cfg, params, state, seed=5)
+    tprep = ts.prepare_int8_fused(tq)
     rng = np.random.default_rng(5)
     b, k = 3, 8
     first = torch.from_numpy(_frames(rng, b, 1))
@@ -129,11 +134,11 @@ def test_multi_step_equals_per_frame_step():
     frames = torch.from_numpy(rng.standard_normal((b, 64, 17, 2)).astype(np.float32))
     per_frame = []
     for t in range(64):
-        p, one = ts.stream_step_int8_fused(tcfg, tq, one, frames[:, t])
+        p, one = ts.stream_step_int8_fused(tcfg, tprep, one, frames[:, t])
         per_frame.append(p)
     stepped = []
     for t in range(0, 64, k):
-        p, multi = ts.stream_step_int8_multi_fused(tcfg, tq, multi, frames[:, t:t + k])
+        p, multi = ts.stream_step_int8_multi_fused(tcfg, tprep, multi, frames[:, t:t + k])
         stepped.append(p)
     assert_close(torch.cat(stepped, 1), torch.stack(per_frame, 1), 1e-5)
     caps = ts._buffer_capacities(tcfg)
@@ -155,7 +160,8 @@ def test_plain_steps_update_the_rings_in_place():
     eq = torch.full((2, 16), 5, dtype=torch.int8)
     idx, _ = ts._slots(tcfg, [0, 4, 10], ts._buffer_capacities(tcfg), multi=False)
     assert idx == [4, 5, 1, 10, 11, 1]   # [write, lag 2d, lag d] per block
-    poses, out = sf.fused_blocks_step(tq, rings, eq, idx, widths=(3, 3))
+    poses, out = sf.fused_blocks_step(ts.prepare_int8_fused(tq), rings, eq, idx,
+                                      widths=(3, 3))
     assert poses.shape == (2, 51) and [r.data_ptr() for r in out] == ids
     assert torch.equal(rings[0][4], eq)
     assert sf.LAUNCHES == {k: 0 for k in sf.LAUNCHES}   # the CPU launches no kernel

@@ -56,13 +56,15 @@ _ENTRY_ARGTYPES = {
     "vp3d_int8_block": [_I] * 6 + [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I]
                        + [_P] * 2,
     # csrc/streaming_fused.cu: (act_type, n_blocks, batch, channels, k, doubled, x, ws,
-    #   bs, j3, out, ptrs (host void*[]), ints (host int[]), stream)
-    "vp3d_stream_step": [_I] * 6 + [_P] * 3 + [_I, _P, ctypes.POINTER(_P),
+    #   bs, j3, out, xbuf, ptrs (host void*[]), ints (host int[]), stream)
+    "vp3d_stream_step": [_I] * 6 + [_P] * 3 + [_I, _P, _P, ctypes.POINTER(_P),
                                                ctypes.POINTER(_I), _P],
     # (ring, row, offset_bytes, n_bytes, stream)
     "vp3d_ring_push": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
-    # csrc/stream_bf16.cu: (batch, k, channels, sms, &rows, &slices)
+    # csrc/stream_bf16.cu, csrc/stream_int8.cu: (batch, k, channels, sms, &rows,
+    #   &slices)
     "vp3d_stream_bf16_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
+    "vp3d_stream_int8_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -150,12 +152,13 @@ def load_library() -> ctypes.CDLL:
     lib.vp3d_i8_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_stream_smem_bytes.argtypes = [_I] * 2
     lib.vp3d_stream_smem_bytes.restype = ctypes.c_size_t
-    lib.vp3d_stream_bf16_smem.argtypes = [_I] * 3
-    lib.vp3d_stream_bf16_smem.restype = ctypes.c_size_t
-    lib.vp3d_stream_bf16_force.argtypes = [_I] * 2
-    lib.vp3d_stream_bf16_force.restype = None
-    lib.vp3d_stream_bf16_max_clusters.argtypes = [_I] * 3
-    lib.vp3d_stream_bf16_max_clusters.restype = ctypes.c_int
+    for kind in ("bf16", "int8"):
+        getattr(lib, f"vp3d_stream_{kind}_smem").argtypes = [_I] * 3
+        getattr(lib, f"vp3d_stream_{kind}_smem").restype = ctypes.c_size_t
+        getattr(lib, f"vp3d_stream_{kind}_force").argtypes = [_I] * 2
+        getattr(lib, f"vp3d_stream_{kind}_force").restype = None
+        getattr(lib, f"vp3d_stream_{kind}_max_clusters").argtypes = [_I] * 3
+        getattr(lib, f"vp3d_stream_{kind}_max_clusters").restype = ctypes.c_int
     for name in ("vp3d_stream_max_blocks", "vp3d_stream_max_taps"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int

@@ -1,6 +1,7 @@
-// Shared pieces of the w8a8 int8 kernels (temporal_block_int8.cu, streaming_fused.cu):
-// the dp4a row-tile GEMM with exact int32 sums, and the per-row dynamic
-// requantization of h in the IEEE operation order of the plain PyTorch versions.
+// Shared pieces of the w8a8 int8 kernels: the dp4a row-tile GEMM with exact int32
+// sums and the per-row dynamic requantization of h in the IEEE operation order of
+// the plain PyTorch versions (temporal_block_int8.cu), and the int8 stream's
+// rounding and scale constants (also stream_int8.cu).
 //
 // gemm_i8: a CUDA block of NT=256 threads owns TM=16 rows of int8 A (in shared
 // memory) and up to NP=1024 output columns per pass; each thread owns CPT=4 columns

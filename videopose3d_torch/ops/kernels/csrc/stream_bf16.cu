@@ -47,166 +47,121 @@
 // element by element; K and N tails are zero-filled.  One CUDA block per SM (512
 // threads of at most 128 registers), so a cluster of 8 fits in 120 of an H100's 132
 // SMs: the plan (M, n) keeps a step's clusters to one wave where it can (M = 80 at
-// B = 1,024: 13 clusters) by a cost model, plan_cost, mirrored in streaming_fused.py.
+// B = 1,024: 13 clusters) by stream_tc.cuh's cost model, plan_cost, mirrored in
+// streaming_fused.py.
 
-#include <cooperative_groups.h>
-#include <stdint.h>
-
-#include <algorithm>
-
-#include "common.cuh"
 #include "stream_step.cuh"
-
-namespace cg = cooperative_groups;
+#include "stream_tc.cuh"
 
 namespace vp3d {
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kNP = 128;       // output columns per pass
-constexpr int kBK = 32;        // summed-dimension columns per K tile
-constexpr int kStages = 4;     // cp.async ring depth
-constexpr int kLdA = kBK + 8;  // padded stage rows: 80 and 272 bytes, so the 8 rows
-constexpr int kLdB = kNP + 8;  // of an ldmatrix hit distinct banks
-constexpr int kMaxSlices = 8;  // cluster size (portable)
-constexpr int kMaxRows = 80;   // rows per CUDA block (more spill at 128 registers)
-constexpr int kSlotInts = 16;  // the taps' ring slots in shared memory; the last is 0
-// Warp groups of NT threads per CUDA block: each sums a contiguous half of every
-// product's K tiles through its own cp.async ring, and the halves are added in a
-// fixed order, so an SM keeps 16 warps in flight.
-constexpr int kGroups = 2;
-constexpr int kThreads = kGroups * NT;
+constexpr int kBK = 32;  // summed-dimension columns per K tile
 
 int g_force_rows = 0, g_force_slices = 0;  // kernel_ab.py --sweep: a forced plan
-
-__host__ __device__ constexpr int round8(int v) { return (v + 7) / 8 * 8; }
-
-// Columns a block of an n-block cluster owns (the last may own fewer).
-__host__ __device__ inline int slice_cols(int c, int n) { return round8((c + n - 1) / n); }
-
-__host__ __device__ constexpr int stage_elems(int m) { return m * kLdA + kBK * kLdB; }
 
 // Shared memory of one CUDA block: the float32 carry slice (M x nc), the row offsets
 // and tap slots, each warp group's cp.async ring.
 size_t smem_bytes(int m, int n, int c) {
-  return (size_t)m * slice_cols(c, n) * sizeof(float) + (size_t)(m + kSlotInts) * sizeof(int) +
-         (size_t)kGroups * kStages * stage_elems(m) * sizeof(bf16);
+  return (size_t)m * slice_cols(c, n) * sizeof(float) +
+         (size_t)(m + kTcSlotInts) * sizeof(int) + rings_bytes(m);
 }
 
-// The most column slices (a power of two up to kMaxSlices) that leave every block
-// of the cluster at least one column.
-int max_slices(int c) {
-  int best = 1;
-  for (int n = 2; n <= kMaxSlices; n *= 2) {
-    if ((n - 1) * slice_cols(c, n) < c) best = n;
-  }
-  return best;
-}
+bool plan_valid(int m, int n, int k, int c) { return plan_fits(m, n, k, c, smem_bytes(m, n, c)); }
 
-bool plan_valid(int m, int n, int k, int c) {
-  return m % 16 == 0 && m >= 16 && m <= kMaxRows && m >= k && n >= 1 &&
-         n <= max_slices(c) && (n & (n - 1)) == 0 && smem_bytes(m, n, c) <= kMaxSmem;
-}
-
-// Cost of one C x C product of the step at plan (m, n): each block's K tiles (per
-// 128-column pass) weighted by the rows of A and B they load, times the waves of
-// clusters (one CUDA block per SM; a cluster of 4 or 8 fits in 120 of an H100's
-// 132 SMs, by its GPCs) plus the blocks' share of the SMs (the L2 they share slows
-// each block as more SMs load at once).  In units of K-tile rows / sms.
-long long plan_cost(int m, int n, int batch, int k, int c, int sms) {
-  const long long tiles = (batch + m / k - 1) / (m / k);
-  const long long nc = slice_cols(c, n);
-  const long long passes = (nc + kNP - 1) / kNP;
-  const long long usable = n >= 4 ? (long long)sms * 120 / 132 : sms;
-  const long long per_wave = std::max(1LL, usable / n);
-  const long long waves = (tiles + per_wave - 1) / per_wave;
-  const long long per_block = passes * ((c + kBK - 1) / kBK) * (m + kBK);
-  return per_block * (waves * sms + tiles * n);
-}
-
-// The cheapest valid plan (fewest rows, then fewest slices, among equals); rows 0
-// when none fits (c past the ceiling).
 void plan(int batch, int k, int c, int sms, int* rows, int* slices) {
-  *rows = 0;
-  *slices = 0;
-  long long best = -1;
-  for (int m = 16; m <= kMaxRows; m += 16) {
-    for (int n = 1; n <= kMaxSlices; n *= 2) {
-      if (!plan_valid(m, n, k, c)) continue;
-      const long long cost = plan_cost(m, n, batch, k, c, sms);
-      if (best < 0 || cost < best) {
-        best = cost;
-        *rows = m;
-        *slices = n;
-      }
-    }
-  }
+  plan_step(batch, k, c, sms, kBK, 0, smem_bytes, rows, slices);
 }
 
+// The K-tile machinery below is this kernel's own, not stream_tc.cuh's generic
+// Geo / Loader / gemm_pass over the operand kind: compiled through those, this step
+// ran 1.5-5 % slower in the same call and spilled once (kernel_ab.py on an H100).
+//
 // Warp layout of an M-row tile and the K tile's copy: warps_m x warps_n warps, each
 // MT m16 tiles by NT8 n8 tiles of a 128-column pass; each thread copies A_ITERS
 // 16-byte chunks of the A tile and B_ITERS of the B tile per stage.
 // warps_m is 2 where that leaves each warp at least two m16 tiles, else 1.
 template <int M, int BK>
-struct Geo {
+struct Bf16Geo {
   static constexpr int WARPS_M = M % 32 == 0 && M >= 64 ? 2 : 1;
   static constexpr int WARPS_N = (NT / 32) / WARPS_M;
   static constexpr int MT = M / (16 * WARPS_M);
-  static constexpr int NT8 = kNP / (8 * WARPS_N);
+  static constexpr int NT8 = kTcNP / (8 * WARPS_N);
   static constexpr int WM = MT * 16;
   static constexpr int WN = NT8 * 8;
-  static constexpr int LDA = BK + 8;   // padded rows: the 8 rows of an ldmatrix hit
-  static constexpr int LDB = kNP + 8;  // distinct banks
+  static constexpr int LDA = BK + 8;     // padded rows: the 8 rows of an ldmatrix hit
+  static constexpr int LDB = kTcNP + 8;  // distinct banks
   static constexpr int STAGE = M * LDA + BK * LDB;  // bf16 elements per stage
   static constexpr int A_CPR = BK / 8;              // 16-byte chunks per A row
   static constexpr int A_ITERS = (M * A_CPR + NT - 1) / NT;
-  static constexpr int B_ITERS = BK * (kNP / 8) / NT;
+  static constexpr int B_ITERS = BK * (kTcNP / 8) / NT;
   static_assert(WARPS_M * WARPS_N * 32 == NT && NT8 % 2 == 0, "warp layout");
   static_assert(BK % 16 == 0 && B_ITERS >= 1 && NT % A_CPR == 0, "K tile");
+  static_assert(STAGE * sizeof(bf16) == stage_bytes(M), "stage layout");
 };
 
-// The A and B operands of one product, summed over `terms` (the taps):
-// A_t row (frame f, stream b) at a + ((slot[t] + f) * batch + b) * lda, B_t the
-// (k, ldb) row-major matrix at b + t * b_step; B columns at or past n_end read as 0.
-struct Operand {
-  const bf16* a;
-  const bf16* b;
-  size_t b_step;
-  const int* slot;  // in shared memory, one per term
-  int terms, k, lda, ldb, n_end;
-  bool vec_a, vec_b;
+using Op = Operand<Bf16Mma>;
+
+// One thread's share of a product's K-tile copies: its A chunks' row addresses for
+// the current term (null past the batch) and its B chunk column, stepped K tile by
+// K tile and term by term.
+template <int M, int BK>
+struct Bf16Loader {
+  using G = Bf16Geo<M, BK>;
+  const bf16* a_row[G::A_ITERS];
+  const bf16* b_col;
+  int a_c, b_c, b_valid, term, k0;
+
+  __device__ __forceinline__ void set_term(const Op& op, const int* row_off, int batch, int n0) {
+#pragma unroll
+    for (int i = 0; i < G::A_ITERS; ++i) {
+      const int r = threadIdx.x % NT / G::A_CPR + i * (NT / G::A_CPR);
+      const int ro = r < M ? row_off[r] : -1;
+      a_row[i] = ro >= 0 ? op.a + ((size_t)op.slot[term] * batch + ro) * op.lda + a_c : nullptr;
+    }
+    b_col = op.b + (size_t)term * op.b_step + n0 + b_c;
+  }
+
+  // Starts at K tile q0 of the product (tap q0 / kt_n).
+  __device__ __forceinline__ void start(const Op& op, const int* row_off, int batch, int n0,
+                                        int q0) {
+    const int kt_n = (op.k + BK - 1) / BK;
+    a_c = (threadIdx.x % G::A_CPR) * 8;
+    b_c = (threadIdx.x % (kTcNP / 8)) * 8;
+    b_valid = op.n_end - (n0 + b_c);
+    term = q0 / kt_n;
+    k0 = (q0 - term * kt_n) * BK;
+    if (term < op.terms) set_term(op, row_off, batch, n0);
+  }
+
+  // Starts the copy of the next K tile into `stage` and steps to the one after.
+  __device__ __forceinline__ void load(bf16* stage, const Op& op, const int* row_off, int batch,
+                                       int n0) {
+    bf16* as = stage;
+    bf16* bs = stage + M * G::LDA;
+    const int va = op.k - (k0 + a_c);
+#pragma unroll
+    for (int i = 0; i < G::A_ITERS; ++i) {
+      const int r = threadIdx.x % NT / G::A_CPR + i * (NT / G::A_CPR);
+      if (M * G::A_CPR % NT == 0 || r < M) {
+        load16(as + r * G::LDA + a_c, a_row[i] ? a_row[i] + k0 : op.a, op.vec_a,
+               a_row[i] ? va : 0, op.a);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G::B_ITERS; ++i) {
+      const int rr = threadIdx.x % NT / (kTcNP / 8) + i * (NT / (kTcNP / 8));
+      const int kk = k0 + rr;
+      load16(bs + rr * G::LDB + b_c, b_col + (size_t)kk * op.ldb, op.vec_b,
+             kk < op.k ? b_valid : 0, op.b);
+    }
+    k0 += BK;
+    if (k0 >= op.k) {
+      k0 = 0;
+      if (++term < op.terms) set_term(op, row_off, batch, n0);
+    }
+  }
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
 
 // d += a @ b on one m16n8k16 tile, bf16 operands, float32 sums.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -218,89 +173,11 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Eight bf16 from global memory into shared memory: one 16-byte cp.async, or, for
-// rows that are not 16-byte aligned, element by element (through L2, as cp.async.cg).
-// Element i is zero where !(i < valid_n); `src` is read only where valid.
-__device__ __forceinline__ void load8(bf16* dst, const bf16* src, bool vec, int valid_n,
-                                      const bf16* any) {
-  const int n = max(0, min(8, valid_n));
-  if (vec) {
-    cp_async16(dst, n > 0 ? src : any, 2 * n);
-    return;
-  }
-  uint16_t* d = reinterpret_cast<uint16_t*>(dst);
-  const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) d[i] = i < n ? __ldcg(s + i) : uint16_t(0);
-}
-
-// One thread's share of a product's K-tile copies: its A chunks' row addresses for
-// the current term (null past the batch) and its B chunk column, stepped K tile by
-// K tile and term by term.
+// acc += the stage's A (M x BK) @ B (BK x kTcNP), this warp's tile.
 template <int M, int BK>
-struct Loader {
-  using G = Geo<M, BK>;
-  const bf16* a_row[G::A_ITERS];
-  const bf16* b_col;
-  int a_c, b_c, b_valid, term, k0;
-
-  __device__ __forceinline__ void set_term(const Operand& op, const int* row_off, int batch,
-                                           int n0) {
-#pragma unroll
-    for (int i = 0; i < G::A_ITERS; ++i) {
-      const int r = threadIdx.x % NT / G::A_CPR + i * (NT / G::A_CPR);
-      const int ro = r < M ? row_off[r] : -1;
-      a_row[i] = ro >= 0 ? op.a + ((size_t)op.slot[term] * batch + ro) * op.lda + a_c : nullptr;
-    }
-    b_col = op.b + (size_t)term * op.b_step + n0 + b_c;
-  }
-
-  // Starts at K tile q0 of the product (tap q0 / kt_n).
-  __device__ __forceinline__ void start(const Operand& op, const int* row_off, int batch,
-                                        int n0, int q0) {
-    const int kt_n = (op.k + BK - 1) / BK;
-    a_c = (threadIdx.x % G::A_CPR) * 8;
-    b_c = (threadIdx.x % (kNP / 8)) * 8;
-    b_valid = op.n_end - (n0 + b_c);
-    term = q0 / kt_n;
-    k0 = (q0 - term * kt_n) * BK;
-    if (term < op.terms) set_term(op, row_off, batch, n0);
-  }
-
-  // Starts the copy of the next K tile into `stage` and steps to the one after.
-  __device__ __forceinline__ void load(bf16* stage, const Operand& op, const int* row_off,
-                                       int batch, int n0) {
-    bf16* as = stage;
-    bf16* bs = stage + M * G::LDA;
-    const int va = op.k - (k0 + a_c);
-#pragma unroll
-    for (int i = 0; i < G::A_ITERS; ++i) {
-      const int r = threadIdx.x % NT / G::A_CPR + i * (NT / G::A_CPR);
-      if (M * G::A_CPR % NT == 0 || r < M) {
-        load8(as + r * G::LDA + a_c, a_row[i] ? a_row[i] + k0 : op.a, op.vec_a,
-              a_row[i] ? va : 0, op.a);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < G::B_ITERS; ++i) {
-      const int rr = threadIdx.x % NT / (kNP / 8) + i * (NT / (kNP / 8));
-      const int kk = k0 + rr;
-      load8(bs + rr * G::LDB + b_c, b_col + (size_t)kk * op.ldb, op.vec_b,
-            kk < op.k ? b_valid : 0, op.b);
-    }
-    k0 += BK;
-    if (k0 >= op.k) {
-      k0 = 0;
-      if (++term < op.terms) set_term(op, row_off, batch, n0);
-    }
-  }
-};
-
-// acc += the stage's A (M x BK) @ B (BK x kNP), this warp's tile.
-template <int M, int BK>
-__device__ __forceinline__ void mma_stage(float (&acc)[Geo<M, BK>::MT][Geo<M, BK>::NT8][4],
-                                          const bf16* stage) {
-  using G = Geo<M, BK>;
+__device__ __forceinline__ void bf16_mma_stage(
+    float (&acc)[Bf16Geo<M, BK>::MT][Bf16Geo<M, BK>::NT8][4], const bf16* stage) {
+  using G = Bf16Geo<M, BK>;
   const bf16* as = stage;
   const bf16* bs = stage + M * G::LDA;
   const int warp = threadIdx.x % NT >> 5;
@@ -332,20 +209,14 @@ __device__ __forceinline__ void mma_stage(float (&acc)[Geo<M, BK>::MT][Geo<M, BK
   }
 }
 
-// Barrier of warp group `group` alone (named barrier 1 + group).
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "n"(NT) : "memory");
-}
-
 // acc = the sum over the product's K tiles [q0, q1) (tap-major) of A @ B for output
-// columns [n0, n0 + kNP), through warp group `group`'s ST-deep cp.async ring at
+// columns [n0, n0 + kTcNP), through warp group `group`'s ST-deep cp.async ring at
 // `stages`.
 template <int M, int BK, int ST>
-__device__ __forceinline__ void gemm_pass(float (&acc)[Geo<M, BK>::MT][Geo<M, BK>::NT8][4],
-                                          const Operand& op, int n0, bf16* stages,
-                                          const int* row_off, int batch, int q0, int q1,
-                                          int group) {
-  using G = Geo<M, BK>;
+__device__ __forceinline__ void bf16_gemm_pass(
+    float (&acc)[Bf16Geo<M, BK>::MT][Bf16Geo<M, BK>::NT8][4], const Op& op, int n0,
+    bf16* stages, const int* row_off, int batch, int q0, int q1, int group) {
+  using G = Bf16Geo<M, BK>;
 #pragma unroll
   for (int mt = 0; mt < G::MT; ++mt) {
 #pragma unroll
@@ -355,7 +226,7 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[Geo<M, BK>::MT][Geo<M, BK
     }
   }
   const int q_n = q1 - q0;
-  Loader<M, BK> ld;
+  Bf16Loader<M, BK> ld;
   ld.start(op, row_off, batch, n0, q0);
 #pragma unroll
   for (int s = 0; s < ST - 1; ++s) {
@@ -369,73 +240,11 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[Geo<M, BK>::MT][Geo<M, BK
     if (q + ST - 1 < q_n) ld.load(stages + load_at * G::STAGE, op, row_off, batch, n0);
     cp_async_commit();
     load_at = load_at + 1 == ST ? 0 : load_at + 1;
-    mma_stage<M, BK>(acc, stages + use_at * G::STAGE);
+    bf16_mma_stage<M, BK>(acc, stages + use_at * G::STAGE);
     use_at = use_at + 1 == ST ? 0 : use_at + 1;
   }
   cp_async_wait<0>();
   group_sync(group);  // the ring is free
-}
-
-// Adds warp group 1's sums into group 0's accumulators through `red` (one float per
-// accumulator and thread; group 1's ring, free after its pass): group 0's K tiles
-// first, then group 1's, the same order in every launch.
-template <int M, int BK>
-__device__ __forceinline__ void combine(float (&acc)[Geo<M, BK>::MT][Geo<M, BK>::NT8][4],
-                                        float* red, int group) {
-  using G = Geo<M, BK>;
-  const int gt = threadIdx.x % NT;
-  if (group == 1) {
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < G::NT8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) red[((mt * G::NT8 + nt) * 4 + i) * NT + gt] = acc[mt][nt][i];
-      }
-    }
-  }
-  __syncthreads();
-  if (group == 0) {
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < G::NT8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += red[((mt * G::NT8 + nt) * 4 + i) * NT + gt];
-      }
-    }
-  }
-  __syncthreads();  // red is group 1's ring again
-}
-
-// Calls fn(row, col, value) for each of this thread's accumulators whose pass
-// column col (relative to the pass start) lies below `cols`.
-template <int M, int BK, typename Fn>
-__device__ __forceinline__ void for_each_acc(
-    const float (&acc)[Geo<M, BK>::MT][Geo<M, BK>::NT8][4], int cols, Fn fn) {
-  using G = Geo<M, BK>;
-  const int warp = threadIdx.x % NT >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / G::WARPS_N;
-  const int wn = warp - wm * G::WARPS_N;
-#pragma unroll
-  for (int mt = 0; mt < G::MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < G::NT8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * G::WM + mt * 16 + (lane >> 2) + (i >> 1) * 8;
-        const int col = wn * G::WN + nt * 8 + 2 * (lane & 3) + (i & 1);
-        if (col < cols) fn(r, col, acc[mt][nt][i]);
-      }
-    }
-  }
-}
-
-// Global writes of the cluster's blocks before it, visible to all of them after it.
-__device__ __forceinline__ void cluster_barrier() {
-  __threadfence();
-  cg::this_cluster().sync();
 }
 
 // Eight floats of the carry, rounded to bf16, as one 16-byte word.
@@ -454,7 +263,7 @@ __device__ __forceinline__ void store_act(bf16* dst, size_t copy, const float* a
                                           int col0, int c, bool vec) {
   if (vec) {  // c % 8 == 0: own and col0 are multiples of 8
     const int cpr = nc / 8;
-    for (int i = threadIdx.x; i < rows * cpr; i += kThreads) {
+    for (int i = threadIdx.x; i < rows * cpr; i += kTcThreads) {
       const int r = i / cpr;
       const int cl = (i - r * cpr) * 8;
       const int ro = row_off[r];
@@ -466,7 +275,7 @@ __device__ __forceinline__ void store_act(bf16* dst, size_t copy, const float* a
     }
     return;
   }
-  for (int i = threadIdx.x; i < rows * nc; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * nc; i += kTcThreads) {
     const int r = i / nc;
     const int cl = i - r * nc;
     const int ro = row_off[r];
@@ -479,9 +288,9 @@ __device__ __forceinline__ void store_act(bf16* dst, size_t copy, const float* a
 }
 
 template <int M>
-__global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs p) {
-  constexpr int BK = kBK, ST = kStages;
-  using G = Geo<M, BK>;
+__global__ void __launch_bounds__(kTcThreads, 1) stream_bf16_kernel(const StepArgs p) {
+  constexpr int BK = kBK, ST = kTcStages;
+  using G = Bf16Geo<M, BK>;
   const int group = threadIdx.x / NT;
   extern __shared__ float4 smem4[];
   const int n = p.slices;
@@ -495,24 +304,17 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs
   float* act_s = reinterpret_cast<float*>(smem4);  // M x nc, the float32 carry slice
   int* row_off = reinterpret_cast<int*>(act_s + (size_t)M * nc);
   int* slot_s = row_off + M;
-  const int* zero_slot = slot_s + kSlotInts - 1;
-  bf16* stages = reinterpret_cast<bf16*>(slot_s + kSlotInts) + group * ST * G::STAGE;
-  float* red = reinterpret_cast<float*>(reinterpret_cast<bf16*>(slot_s + kSlotInts) +
+  const int* zero_slot = slot_s + kTcSlotInts - 1;
+  bf16* stages = reinterpret_cast<bf16*>(slot_s + kTcSlotInts) + group * ST * G::STAGE;
+  float* red = reinterpret_cast<float*>(reinterpret_cast<bf16*>(slot_s + kTcSlotInts) +
                                         ST * G::STAGE);
-  bf16* hbuf = p.xbuf;          // h of the current block
-  bf16* abuf = p.xbuf + plane;  // the last block's bf16(act), for the shrink
+  bf16* hbuf = static_cast<bf16*>(p.xbuf);  // h of the current block
+  bf16* abuf = hbuf + plane;                // the last block's bf16(act), for the shrink
 
-  // Row r of the tile: frame f = r / sb of stream tile * sb + r % sb.
-  const int sb = M / p.k;
-  for (int r = threadIdx.x; r < M; r += kThreads) {
-    const int f = r / sb;
-    const int b = tile * sb + r - f * sb;
-    row_off[r] = f < p.k && b < p.batch ? f * p.batch + b : -1;
-  }
-  if (threadIdx.x == 0) slot_s[kSlotInts - 1] = 0;
+  tile_rows(row_off, slot_s, M, p.k, p.batch, tile);
   __syncthreads();
   const float* x = static_cast<const float*>(p.x);
-  for (int i = threadIdx.x; i < M * nc; i += kThreads) {
+  for (int i = threadIdx.x; i < M * nc; i += kTcThreads) {
     const int r = i / nc;
     const int cl = i - r * nc;
     const int ro = row_off[r];
@@ -523,12 +325,12 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs
   const bool vec = c % 8 == 0;
   float acc[G::MT][G::NT8][4];
   // acc = this pass's sums, whole in warp group 0: each group sums half the K tiles.
-  auto sums = [&](const Operand& op, int n0) {
+  auto sums = [&](const Op& op, int n0) {
     const int q_n = op.terms * ((op.k + BK - 1) / BK);
     const int half = (q_n + 1) / 2;
-    gemm_pass<M, BK, ST>(acc, op, n0, stages, row_off, p.batch, group ? half : 0,
-                         group ? q_n : half, group);
-    combine<M, BK>(acc, red, group);
+    bf16_gemm_pass<M, BK, ST>(acc, op, n0, stages, row_off, p.batch, group ? half : 0,
+                              group ? q_n : half, group);
+    combine<G>(acc, red, group);
   };
   for (int bi = 0; bi < p.n_blocks; ++bi) {
     const BlockArgs& bk = p.blk[bi];
@@ -541,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs
     if (t <= kMaxTaps) slot_s[t] = t + 1 < bk.width ? bk.slot[t] : bk.write;
     cluster_barrier();  // every slice of this block's input is in the ring
 
-    Operand op;
+    Op op;
     op.a = ring;
     op.b = static_cast<const bf16*>(bk.wa);
     op.b_step = (size_t)c * c;
@@ -555,10 +357,10 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs
     op.slot = slot_s;
     const float* s1 = bk.v[0];
     const float* t1 = bk.v[1];
-    for (int pass = 0; pass < own; pass += kNP) {
+    for (int pass = 0; pass < own; pass += kTcNP) {
       sums(op, col0 + pass);
       if (group) continue;
-      for_each_acc<M, BK>(acc, own - pass, [&](int r, int col, float v) {
+      for_each_acc<G>(acc, own - pass, [&](int r, int col, float v) {
         const int ro = row_off[r];
         const int gc = col0 + pass + col;
         if (ro >= 0) {
@@ -575,10 +377,10 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs
     op.slot = zero_slot;
     const float* s2 = bk.v[2];
     const float* t2 = bk.v[3];
-    for (int pass = 0; pass < own; pass += kNP) {
+    for (int pass = 0; pass < own; pass += kTcNP) {
       sums(op, col0 + pass);
       if (group) continue;
-      for_each_acc<M, BK>(acc, own - pass, [&](int r, int col, float v) {
+      for_each_acc<G>(acc, own - pass, [&](int r, int col, float v) {
         const int cl = pass + col;
         const int gc = col0 + cl;
         float& a = act_s[r * nc + cl];
@@ -595,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs
   const int ncj = slice_cols(p.j3, n);
   const int j0 = rank * ncj;
   const int jown = min(ncj, p.j3 - j0);
-  Operand op;
+  Op op;
   op.a = abuf;
   op.b = p.ws;
   op.b_step = 0;
@@ -607,10 +409,10 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bf16_kernel(const StepArgs
   op.vec_a = vec;
   op.vec_b = p.j3 % 8 == 0;
   op.slot = zero_slot;
-  for (int pass = 0; pass < jown; pass += kNP) {
+  for (int pass = 0; pass < jown; pass += kTcNP) {
     sums(op, j0 + pass);
     if (group) continue;
-    for_each_acc<M, BK>(acc, jown - pass, [&](int r, int col, float v) {
+    for_each_acc<G>(acc, jown - pass, [&](int r, int col, float v) {
       const int ro = row_off[r];
       const int jc = j0 + pass + col;
       if (ro >= 0) p.out[(size_t)ro * p.j3 + jc] = __fadd_rn(v, p.bs[jc]);
@@ -630,36 +432,6 @@ Kern kernel_for(int rows) {
   }
 }
 
-void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, unsigned blocks,
-                   int slices, size_t smem, cudaStream_t stream) {
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = slices;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  *cfg = {};
-  cfg->gridDim = dim3(blocks);
-  cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = stream;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
-int device_sms() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) {
-    int sms = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        sms <= 0) {
-      return 132;
-    }
-    cached[dev] = sms;
-  }
-  return cached[dev];
-}
-
 }  // namespace
 
 size_t stream_bf16_min_smem(int c) { return smem_bytes(16, max_slices(c), c); }
@@ -670,19 +442,8 @@ cudaError_t launch_stream_bf16(StepArgs& p, cudaStream_t stream) {
   if (rows == 0) plan(p.batch, p.k, p.c, device_sms(), &rows, &slices);
   if (!plan_valid(rows, slices, p.k, p.c)) return cudaErrorInvalidValue;
   p.slices = slices;
-  const size_t smem = smem_bytes(rows, slices, p.c);
-  const Kern kern = kernel_for(rows);
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int sb = rows / p.k;
-  const unsigned tiles = (p.batch + sb - 1) / sb;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  launch_config(&cfg, attr, tiles * slices, slices, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, kern, p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_plan(kernel_for(rows), rows, slices, smem_bytes(rows, slices, p.c), p.batch,
+                     p.k, p, stream);
 }
 
 }  // namespace vp3d
@@ -714,18 +475,8 @@ void vp3d_stream_bf16_force(int rows, int slices) {
 // plan_cost's 120 usable SMs for clusters of 4 and 8 (kernel_ab.py --sweep).
 int vp3d_stream_bf16_max_clusters(int rows, int slices, int channels) {
   if (!vp3d::plan_valid(rows, slices, 1, channels)) return -1;
-  const size_t smem = vp3d::smem_bytes(rows, slices, channels);
-  const vp3d::Kern kern = vp3d::kernel_for(rows);
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-      cudaSuccess) {
-    return -1;
-  }
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  vp3d::launch_config(&cfg, attr, 64 * slices, slices, smem, nullptr);
-  int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) != cudaSuccess) return -1;
-  return clusters;
+  return vp3d::max_active_clusters(vp3d::kernel_for(rows), slices,
+                                   vp3d::smem_bytes(rows, slices, channels));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // The fused streaming step's launch arguments, shared by the int8 step kernel
-// (streaming_fused.cu) and the bf16 step kernel (stream_bf16.cu).  Both are
-// launched through vp3d_stream_step (streaming_fused.cu).
+// (stream_int8.cu) and the bf16 step kernel (stream_bf16.cu).  Both are launched
+// through vp3d_stream_step (streaming_fused.cu).
 
 #pragma once
 
@@ -15,13 +15,12 @@ constexpr int kMaxTaps = 8;     // older taps per block (filter width <= 9)
 constexpr int kMaxFrames = 16;  // frames per step
 
 struct BlockArgs {
-  const void* wa;     // int8: (width, c/4, c) dp4a-packed int32; bf16: (width, c, c)
-  const void* wb;     // int8: (c/4, c) packed; bf16: (c, c)
+  const void* wa;     // int8: (width, kp/4, np) packed int32; bf16: (width, c, c)
+  const void* wb;     // int8: (kp/4, np) packed; bf16: (c, c)
   const float* v[5];  // int8: A1, B1, A2, B2, R; bf16: s1, t1, s2, t2
   void* ring;         // (cap, batch, c), or (2 * cap, batch, c) when doubled
   int width, cap, write;
-  int lag[kMaxTaps];  // older taps, oldest first
-  int slot[kMaxTaps];
+  int slot[kMaxTaps];  // older taps' first ring rows, oldest first
 };
 
 struct StepArgs {
@@ -31,17 +30,25 @@ struct StepArgs {
   const float* bs;    // (j3,)
   float* out;         // (k * batch, j3), frame-major
   BlockArgs blk[kMaxBlocks];
-  // bf16 only: the (2, k * batch, c) exchange buffer (h, then the last bf16(act)),
-  // and the launch's column slices per cluster (its rows per CUDA block are the
-  // kernel's template argument).
-  __nv_bfloat16* xbuf;
+  // The exchange buffer of the cluster's column slices: bf16, (2, k * batch, c) bf16
+  // (h, then the last bf16(act)); int8, (k * batch, c) bf16 (the last bf16(v)), then
+  // (k * batch, c) int8 (hq).  And the launch's column slices per cluster (its rows
+  // per CUDA block are the kernel's template argument).
+  void* xbuf;
   int slices;
 };
 
-// The bf16 step (stream_bf16.cu): launches it with its plan, or the forced one.
+// int8 weights packed for the m16n8k32 B fragment (streaming_fused.pack_int8_step):
+// (kp / 4, np) int32 with K zero-padded to a multiple of 32 and N to one of 8.
+__host__ __device__ constexpr int packed_k(int c) { return (c + 31) / 32 * 32; }
+__host__ __device__ constexpr int packed_n(int c) { return (c + 7) / 8 * 8; }
+
+// The bf16 and int8 steps: each launches with its plan, or the forced one.
 cudaError_t launch_stream_bf16(StepArgs& p, cudaStream_t stream);
-// Dynamic shared memory of the bf16 step's smallest plan at c channels: c fits if
+cudaError_t launch_stream_int8(StepArgs& p, cudaStream_t stream);
+// Dynamic shared memory of each step's smallest plan at c channels: c fits if
 // this does.
 size_t stream_bf16_min_smem(int c);
+size_t stream_int8_min_smem(int c);
 
 }  // namespace vp3d

@@ -15,14 +15,15 @@ ints: the kernel takes them by value.  Tap j's slot is the ring row of the first
 frame's tap; with k frames, frame f's tap is row ``slot + f`` after the push.
 
 Dispatch: tensors on the CPU take the ``*_plain`` version; CUDA tensors launch
-the kernel (``csrc/streaming_fused.cu``: int8 and the ring push;
-``csrc/stream_bf16.cu``: bf16 on the tensor cores) or raise.  ``LAUNCHES`` counts
-kernel launches per kernel.
+the kernel (``csrc/stream_int8.cu`` and ``csrc/stream_bf16.cu``: the steps on the
+tensor cores, through ``csrc/streaming_fused.cu``; the ring push there) or raise.
+``LAUNCHES`` counts kernel launches per kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import List, Sequence
 
 import torch
@@ -133,16 +134,16 @@ def blocks_float_plain(w, rings, a0, idx, widths, caps, doubled: bool, dt, push=
     return act.to(dt).float() @ w["shrink_w"].float() + w["shrink_b"]
 
 
-def fused_blocks_step_plain(q, rings, eq, idx, *, widths):
+def fused_blocks_step_plain(w, rings, eq, idx, *, widths):
     """Plain version of :func:`fused_blocks_step`."""
-    poses = blocks_int8_plain(q, rings, eq[None], idx, widths, None, doubled=False)
+    poses = blocks_int8_plain(w.q, rings, eq[None], idx, widths, None, doubled=False)
     return poses, rings
 
 
-def fused_blocks_step_multi_plain(q, rings, eq, idx, *, widths, lags, caps, k):
-    """Plain version of :func:`fused_blocks_step_multi` (``lags`` is the kernel's:
-    the plain push-then-read needs no lags)."""
-    return blocks_int8_plain(q, rings, eq, idx, widths, caps, doubled=True), rings
+def fused_blocks_step_multi_plain(w, rings, eq, idx, *, widths, lags, caps, k):
+    """Plain version of :func:`fused_blocks_step_multi` (``lags``, of the JAX
+    signature, is not needed: the push-then-read reads every tap from the ring)."""
+    return blocks_int8_plain(w.q, rings, eq, idx, widths, caps, doubled=True), rings
 
 
 def fused_blocks_step_bf16_plain(weights, rings, a0, idx, *, widths):
@@ -163,18 +164,21 @@ def fused_blocks_step_bf16_multi_plain(weights, rings, a0, idx, *, widths, lags,
 # ---------------------------------------------------------------------------
 
 
-# The step kernels' geometry (csrc/stream_step.cuh, csrc/streaming_fused.cu,
-# csrc/int8_gemm.cuh): the int8 kernel's TM rows per CUDA block and WARPS warps; at
-# most MAX_BLOCKS residual blocks of MAX_TAPS older taps each, 1 to TM frames per step.
-TM, WARPS, MAX_BLOCKS, MAX_TAPS = 16, 8, 8, 8
+# The step kernels' limits (csrc/stream_step.cuh): at most MAX_BLOCKS residual
+# blocks of MAX_TAPS older taps each, 1 to MAX_FRAMES frames per step.
+MAX_BLOCKS, MAX_TAPS, MAX_FRAMES = 8, 8, 16
 
-# The bf16 kernel's (csrc/stream_bf16.cu): rows per CUDA block, output columns per
-# pass, K-tile depth and stages of each warp group's cp.async ring, warp groups per
-# CUDA block, the shared-memory ints (row offsets and 16 tap slots), and the most
-# column slices per cluster.
-BF16_ROWS = tuple(range(16, 81, 16))
-BF16_NP, BF16_BK, BF16_STAGES, BF16_GROUPS = 128, 32, 4, 2
-BF16_SLOT_INTS, BF16_MAX_SLICES = 16, 8
+# The tensor-core geometry of both step kernels (csrc/stream_bf16.cu, and
+# csrc/stream_tc.cuh for the int8 step): rows per CUDA block, output columns per
+# pass, bytes of one K-tile stage of a warp group's cp.async ring (A: rows x 80
+# bytes; B: 8,704 bytes) and the ring's depth, warp groups per CUDA block, the
+# shared-memory ints (row offsets and 16 tap slots), and the most column slices per
+# cluster; the K-tile depth in elements of each kind, and the int8 step's cost of
+# its cluster's meetings (``kMeet``, csrc/stream_int8.cu).
+TC_ROWS = tuple(range(16, 81, 16))
+TC_NP, TC_STAGES, TC_GROUPS, TC_SLOT_INTS, TC_MAX_SLICES = 128, 4, 2, 16, 8
+BF16_BK, INT8_BK = 32, 64
+INT8_MEET = 352
 
 
 def _slice_cols(c: int, n: int) -> int:
@@ -182,20 +186,32 @@ def _slice_cols(c: int, n: int) -> int:
     return (-(-c // n) + 7) // 8 * 8
 
 
+def _rings_bytes(rows: int) -> int:
+    """Both warp groups' cp.async rings of K-tile stages."""
+    return TC_GROUPS * TC_STAGES * (rows * 80 + 8704)
+
+
 def bf16_smem_bytes(rows: int, slices: int, c: int) -> int:
     """Shared memory of one CUDA block of the bf16 step at plan (rows, slices)
     (``vp3d_stream_bf16_smem``): the float32 carry slice, the row offsets and tap
-    slots, and each warp group's cp.async ring of A (rows x 32) and B (32 x 128)
-    tiles, each row padded by 8 bf16."""
-    ring = BF16_GROUPS * BF16_STAGES * (rows * (BF16_BK + 8) + BF16_BK * (BF16_NP + 8)) * 2
-    return rows * _slice_cols(c, slices) * 4 + (rows + BF16_SLOT_INTS) * 4 + ring
+    slots, and the warp groups' rings."""
+    return rows * _slice_cols(c, slices) * 4 + (rows + TC_SLOT_INTS) * 4 + _rings_bytes(rows)
+
+
+def int8_smem_bytes(rows: int, slices: int, c: int) -> int:
+    """Shared memory of one CUDA block of the int8 step at plan (rows, slices)
+    (``vp3d_stream_int8_smem``): the float32 real slice and the int8 carry slice,
+    three float32 row vectors (maxima, 127 / m, m / 127), the row offsets and tap
+    slots, and the warp groups' rings."""
+    return (rows * _slice_cols(c, slices) * 5 + (4 * rows + TC_SLOT_INTS) * 4
+            + _rings_bytes(rows))
 
 
 def _max_slices(c: int) -> int:
-    """The most column slices (a power of two up to BF16_MAX_SLICES) that leave
+    """The most column slices (a power of two up to TC_MAX_SLICES) that leave
     every block of the cluster at least one of the c columns."""
     best, n = 1, 2
-    while n <= BF16_MAX_SLICES:
+    while n <= TC_MAX_SLICES:
         if (n - 1) * _slice_cols(c, n) < c:
             best = n
         n *= 2
@@ -203,67 +219,84 @@ def _max_slices(c: int) -> int:
 
 
 def step_smem_bytes(int8: bool, c: int) -> int:
-    """Shared memory of one CUDA block of the step at c channels
-    (``vp3d_stream_smem_bytes``): int8, the block input and staged tap rows
-    (int8), real (float32), hq (int8), the row scales and per-warp maxima; bf16,
-    its smallest plan (16 rows, the most column slices): c fits if this does."""
-    if int8:
-        return 7 * TM * c + 4 * (3 + WARPS) * TM
-    return bf16_smem_bytes(16, _max_slices(c), c)
+    """Shared memory of one CUDA block of the step's smallest plan (16 rows, the
+    most column slices) at c channels (``vp3d_stream_smem_bytes``): c fits if this
+    does."""
+    return (int8_smem_bytes if int8 else bf16_smem_bytes)(16, _max_slices(c), c)
 
 
-def _bf16_max_channels() -> int:
-    """The widest C the bf16 step takes: its smallest plan's carry slice (16 x
-    C / 8 floats) and fixed shared memory within SMEM_OPT_IN."""
-    fixed = bf16_smem_bytes(16, BF16_MAX_SLICES, 0)
-    return (SMEM_OPT_IN - fixed) // (16 * 4) // 8 * 8 * BF16_MAX_SLICES
+def _max_channels(smem) -> int:
+    """The widest C a step takes: its smallest plan's slices (16 rows x C / 8
+    columns; ``smem(16, 8, 64) - smem(16, 8, 0)`` bytes per 8 columns of a slice)
+    and fixed shared memory within SMEM_OPT_IN."""
+    fixed = smem(16, TC_MAX_SLICES, 0)
+    per8 = smem(16, TC_MAX_SLICES, 8 * TC_MAX_SLICES) - fixed
+    return (SMEM_OPT_IN - fixed) // per8 * 8 * TC_MAX_SLICES
 
 
-BF16_MAX_CHANNELS = _bf16_max_channels()
+BF16_MAX_CHANNELS = _max_channels(bf16_smem_bytes)
+INT8_MAX_CHANNELS = _max_channels(int8_smem_bytes)
 
 
-def _bf16_plan_valid(rows: int, slices: int, k: int, c: int) -> bool:
-    return (rows >= k and slices <= _max_slices(c)
-            and bf16_smem_bytes(rows, slices, c) <= SMEM_OPT_IN)
+def _plan_valid(smem, rows: int, slices: int, k: int, c: int) -> bool:
+    """Whether plan (rows, slices) takes k frames and c channels within the
+    shared memory ``smem(rows, slices, c)``."""
+    return rows >= k and slices <= _max_slices(c) and smem(rows, slices, c) <= SMEM_OPT_IN
 
 
-def _bf16_plan_cost(rows: int, slices: int, b: int, k: int, c: int, sms: int) -> int:
-    """One C x C product's cost at plan (rows, slices): each block's K tiles per
-    128-column pass, weighted by the rows of A and B they load, times the waves of
-    clusters (one CUDA block per SM; a cluster of 4 or 8 fits in 120 of an H100's
-    132 SMs) plus the blocks' share of the SMs (the L2 they share slows each block
-    as more SMs load at once); in units of K-tile rows / sms."""
+def _plan_cost(rows: int, slices: int, b: int, k: int, c: int, sms: int, bk: int,
+               meet: int) -> int:
+    """One C x C product's cost at plan (rows, slices), K tiles ``bk`` deep: each
+    block's K tiles per 128-column pass, weighted by the rows of A and B they load,
+    plus ``meet`` K-tile rows per doubling of the cluster (the int8 step's cluster
+    meets within a residual block, each meeting waiting for its slowest block),
+    times the waves of clusters (one CUDA block per SM; a cluster of 4 or 8 fits in
+    120 of an H100's 132 SMs) plus the blocks' share of the SMs (the L2 they share
+    slows each block as more SMs load at once); in units of K-tile rows / sms."""
     tiles = -(-b // (rows // k))
-    nc = _slice_cols(c, slices)
-    passes = -(-nc // BF16_NP)
+    passes = -(-_slice_cols(c, slices) // TC_NP)
     usable = sms * 120 // 132 if slices >= 4 else sms
     per_wave = max(1, usable // slices)
-    per_block = passes * -(-c // BF16_BK) * (rows + BF16_BK)
+    per_block = passes * -(-c // bk) * (rows + 32) + meet * slices.bit_length()
     return per_block * (-(-tiles // per_wave) * sms + tiles * slices)
 
 
-def stream_bf16_plan(b: int, k: int, c: int, sms: int = 132):
-    """The bf16 step's plan for ``b`` streams of ``k`` frames at ``c`` channels on
-    ``sms`` SMs (``vp3d_stream_bf16_plan``): (rows per CUDA block, column slices
-    per cluster), the cheapest valid one under the cost model, fewest rows then
-    fewest slices among equals; None past BF16_MAX_CHANNELS."""
+def _plan(smem, bk: int, meet: int, b: int, k: int, c: int, sms: int):
+    """The cheapest valid plan (rows, slices) under the cost model, fewest rows
+    then fewest slices among equals; None when no plan fits."""
     best = None
-    for rows in BF16_ROWS:
+    for rows in TC_ROWS:
         n = 1
-        while n <= BF16_MAX_SLICES:
-            if _bf16_plan_valid(rows, n, k, c):
-                cost = _bf16_plan_cost(rows, n, b, k, c, sms)
+        while n <= TC_MAX_SLICES:
+            if _plan_valid(smem, rows, n, k, c):
+                cost = _plan_cost(rows, n, b, k, c, sms, bk, meet)
                 if best is None or cost < best[0]:
                     best = (cost, rows, n)
             n *= 2
     return None if best is None else best[1:]
 
 
-def kernel_bf16_plan(b: int, k: int, c: int, sms: int):
-    """The plan ``csrc/stream_bf16.cu`` launches with (``vp3d_stream_bf16_plan``),
-    or None; :func:`stream_bf16_plan` mirrors it without the card."""
+def stream_bf16_plan(b: int, k: int, c: int, sms: int = 132):
+    """The bf16 step's plan for ``b`` streams of ``k`` frames at ``c`` channels on
+    ``sms`` SMs (``vp3d_stream_bf16_plan``): (rows per CUDA block, column slices
+    per cluster); None past BF16_MAX_CHANNELS."""
+    return _plan(bf16_smem_bytes, BF16_BK, 0, b, k, c, sms)
+
+
+def stream_int8_plan(b: int, k: int, c: int, sms: int = 132):
+    """The int8 step's plan (``vp3d_stream_int8_plan``), as :func:`stream_bf16_plan`
+    over its own shared memory, 64-deep K tiles and the cost of its cluster's
+    meetings; None past INT8_MAX_CHANNELS."""
+    return _plan(int8_smem_bytes, INT8_BK, INT8_MEET, b, k, c, sms)
+
+
+def kernel_plan(kind: str, b: int, k: int, c: int, sms: int):
+    """The plan ``csrc/stream_<kind>.cu`` (``kind`` "bf16" or "int8") launches
+    with (``vp3d_stream_<kind>_plan``), or None; :func:`stream_bf16_plan` and
+    :func:`stream_int8_plan` mirror it without the card."""
     rows, slices = ctypes.c_int(), ctypes.c_int()
-    _load().vp3d_stream_bf16_plan(b, k, c, sms, ctypes.byref(rows), ctypes.byref(slices))
+    getattr(_load(), f"vp3d_stream_{kind}_plan")(b, k, c, sms, ctypes.byref(rows),
+                                                 ctypes.byref(slices))
     return (rows.value, slices.value) if rows.value else None
 
 
@@ -274,26 +307,50 @@ def step_limit_error(engine: str, c: int, widths, k: int):
     per_layer = engine.replace("_fused", "")
     what = f"the fused streaming kernel (--engine {engine} on CUDA)"
     use = f"; use --engine {per_layer}"
-    int8 = engine == "int8_fused"
-    if int8 and c % 16:
-        return f"{c} channels: {what} takes a multiple of 16 channels{use}"
-    if not 1 <= k <= TM:
-        return f"--frames-per-step {k}: {what} takes 1 to {TM} frames per step{use}"
+    if not 1 <= k <= MAX_FRAMES:
+        return f"--frames-per-step {k}: {what} takes 1 to {MAX_FRAMES} frames per step{use}"
     if not 1 <= len(widths) <= MAX_BLOCKS or any(not 1 <= w <= MAX_TAPS + 1
                                                  for w in widths):
         return (f"residual blocks of filter widths {tuple(widths)}: {what} takes 1 to "
                 f"{MAX_BLOCKS} blocks of at most {MAX_TAPS + 1} taps{use}")
-    if not int8 and c > BF16_MAX_CHANNELS:
+    if engine == "int8_fused" and c > INT8_MAX_CHANNELS:
+        return (f"{c} channels: {what} takes at most {INT8_MAX_CHANNELS} channels "
+                f"(its float32 and int8 slices in shared memory){use}")
+    if engine != "int8_fused" and c > BF16_MAX_CHANNELS:
         return (f"{c} channels: {what} takes at most {BF16_MAX_CHANNELS} channels "
                 f"(its float32 carry slice in shared memory){use}")
-    smem = step_smem_bytes(int8, c)
-    if smem > SMEM_OPT_IN:
-        return (f"{c} channels: {what} needs {smem} bytes of shared memory; at most "
-                f"{SMEM_OPT_IN} are available{use}")
     return None
 
 
-def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs):
+def pack_int8_step(w):
+    """(K, N) int8 -> (ceil32(K) / 4, ceil8(N)) int32 whose bytes (g, n) are
+    ``w[4g : 4g+4, n]``, zero past K and N: the int8 step's weight layout (an
+    m16n8k32 B fragment register holds 4 consecutive K values of one column)."""
+    k, n = w.shape
+    kp, np_ = -(-k // 32) * 32, -(-n // 8) * 8
+    padded = torch.zeros((kp, np_), dtype=torch.int8, device=w.device)
+    padded[:k, :n] = w
+    return padded.reshape(kp // 4, 4, np_).permute(0, 2, 1).contiguous().view(
+        torch.int32).reshape(kp // 4, np_)
+
+
+@dataclasses.dataclass
+class Int8StepWeights:
+    """The fused int8 step's weights: the ``QuantizedModel`` ``q`` (its expand, and
+    its blocks and shrink for the plain version) and ``packs``, per residual block
+    (wq_a packed per tap, wq_b packed) by :func:`pack_int8_step`, the kernel's."""
+
+    q: object
+    packs: list = dataclasses.field(repr=False)
+
+    @classmethod
+    def of(cls, q):
+        """``q``'s weights for the step, packed once."""
+        return cls(q, [(torch.stack([pack_int8_step(w) for w in blk.wq_a]),
+                        pack_int8_step(blk.wq_b)) for blk in q.blocks])
+
+
+def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs):
     """Check every operand against the kernel's contract and launch the step.
     ``blocks`` holds per residual block (wa, wb, [epilogue vectors])."""
     dev = x.device
@@ -312,27 +369,26 @@ def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs)
                          f"{n} widths and {len(rings)} rings")
     if len(idx) != sum(widths):
         raise ValueError(f"idx holds {len(idx)} slots, the widths {sum(widths)}")
-    act_type = _ACT_TYPE["int8" if int8 else "bf16"]
-    # The bf16 kernel reads rows of C % 8 == 0 channels as 16-byte words.
-    align = 1 if int8 else 16
-    _check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c), align=align)
+    # The kernels read aligned rows of the rings, x and the shrink as 16-byte words.
+    _check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c), align=16)
     ring_dt = torch.int8 if int8 else torch.bfloat16
     j3 = ws.shape[1]
-    _check("shrink_w", ws, dev, torch.bfloat16, (c, j3), align=align)
+    _check("shrink_w", ws, dev, torch.bfloat16, (c, j3), align=16)
     _check("shrink_b", bs, dev, torch.float32, (j3,))
+    kp, np_ = -(-c // 32) * 32, -(-c // 8) * 8
     ptrs: List[int] = []
     ints: List[int] = []
     for i, ((write, taps), (wa, wb, vecs)) in enumerate(zip(_split(idx, widths), blocks)):
         kw = widths[i]
         cap = caps[i] if doubled else rings[i].shape[0]
         _check(f"ring {i}", rings[i], dev, ring_dt, ((2 if doubled else 1) * cap, b, c),
-               align=align)
+               align=16)
         if int8:
-            _check(f"packed wq_a {i}", wa, dev, torch.int32, (kw, c // 4, c))
-            _check(f"packed wq_b {i}", wb, dev, torch.int32, (c // 4, c))
+            _check(f"packed wq_a {i}", wa, dev, torch.int32, (kw, kp // 4, np_), align=16)
+            _check(f"packed wq_b {i}", wb, dev, torch.int32, (kp // 4, np_), align=16)
         else:
-            _check(f"w1 {i}", wa, dev, torch.bfloat16, (kw, c, c), align=align)
-            _check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c), align=align)
+            _check(f"w1 {i}", wa, dev, torch.bfloat16, (kw, c, c), align=16)
+            _check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c), align=16)
         for v, vec in enumerate(vecs):
             _check(f"epilogue vector {v} of block {i}", vec, dev, torch.float32, (c,))
         # Slots: a push of k rows at `write` and every tap's k rows must lie in the ring.
@@ -340,22 +396,19 @@ def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs)
                                             for t in taps):
             raise ValueError(f"ring {i} (cap {cap}): slots {write}, {taps} out of range "
                              f"for {k} frame(s)")
-        lag = list(lags[i]) if lags is not None else [k] * (kw - 1)
         ptrs += [wa.data_ptr(), wb.data_ptr(), *(v.data_ptr() for v in vecs),
                  *([None] * (5 - len(vecs))), rings[i].data_ptr()]
-        ints += ([kw, cap, write] + lag + [0] * (MAX_TAPS - len(lag))
-                 + taps + [0] * (MAX_TAPS - len(taps)))
-    if not int8:
-        # Block 0's fifth vector slot: the (2, k*B, C) exchange buffer of h and of
-        # the last block's bf16(act) between a cluster's column slices.
-        xbuf = torch.empty((2, k * b, c), dtype=torch.bfloat16, device=dev)
-        ptrs[6] = xbuf.data_ptr()
+        ints += [kw, cap, write] + taps + [0] * (MAX_TAPS - len(taps))
+    # The exchange buffer between a cluster's column slices (csrc/stream_step.cuh):
+    # bf16, h and the last block's bf16(act); int8, the last block's bf16(v), then hq.
+    xbuf = torch.empty(k * b * c * (3 if int8 else 4), dtype=torch.int8, device=dev)
     lib = _load()
     out = torch.empty((k * b, j3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.vp3d_stream_step(
-            act_type, n, b, c, k, int(doubled), _ptr(x), _ptr(ws), _ptr(bs), j3, _ptr(out),
+            _ACT_TYPE["int8" if int8 else "bf16"], n, b, c, k, int(doubled), _ptr(x),
+            _ptr(ws), _ptr(bs), j3, _ptr(out), _ptr(xbuf),
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
             ctypes.c_void_p(stream))
     if code != 0:
@@ -365,9 +418,9 @@ def _launch(kind, x, blocks, rings, idx, widths, lags, caps, k, doubled, ws, bs)
     return out, rings
 
 
-def _int8_blocks(q, n):
-    return [(blk.pa, blk.pb, [blk.A1, blk.B1, blk.A2, blk.B2, blk.R])
-            for blk in q.blocks[:n]]
+def _int8_blocks(w, n):
+    return [(wa, wb, [blk.A1, blk.B1, blk.A2, blk.B2, blk.R])
+            for (wa, wb), blk in zip(w.packs[:n], w.q.blocks[:n])]
 
 
 def _bf16_blocks(weights, n):
@@ -375,11 +428,12 @@ def _bf16_blocks(weights, n):
             for i in range(n)]
 
 
-def fused_blocks_step(q, rings, eq, idx, *, widths):
+def fused_blocks_step(w, rings, eq, idx, *, widths):
     """Every int8 residual block and the shrink on one frame, in one kernel (K5).
 
     Args:
-      q: the ``QuantizedModel`` of ``quantize_temporal_model``.
+      w: the :class:`Int8StepWeights` of a ``QuantizedModel``
+        (``streaming.prepare_int8_fused``).
       rings: per-block int8 rings (cap_i, B, C), updated in place.
       eq: (B, C) int8 expand stream of this frame (block 0's newest tap).
       idx: per block ``[write_slot, tap_slot, ...]``, host ints.
@@ -388,28 +442,30 @@ def fused_blocks_step(q, rings, eq, idx, *, widths):
     Returns ((B, J3) float32 poses, rings).
     """
     if eq.device.type == "cpu":
-        return fused_blocks_step_plain(q, rings, eq, idx, widths=widths)
-    return _launch("stream_int8", eq[None], _int8_blocks(q, len(widths)), rings, idx,
-                   widths, None, None, 1, False, q.shrink_w, q.shrink_b)
+        return fused_blocks_step_plain(w, rings, eq, idx, widths=widths)
+    return _launch("stream_int8", eq[None], _int8_blocks(w, len(widths)), rings, idx,
+                   widths, None, 1, False, w.q.shrink_w, w.q.shrink_b)
 
 
-def fused_blocks_step_multi(q, rings, eq, idx, *, widths, lags, caps, k):
+def fused_blocks_step_multi(w, rings, eq, idx, *, widths, lags, caps, k):
     """:func:`fused_blocks_step` on k frames per launch (K6).
 
     Args:
       rings: per-block int8 doubled rings (2*cap_i, B, C), updated in place.
       eq: (k, B, C) int8 expand stream of this step's frames.
       idx: per block ``[write_slot, tap_start, ...]`` (``write_slot`` k-aligned).
-      lags: per block the older taps' lags ``(width-1-j) * dilation``.
+      lags: per block the older taps' lags ``(width-1-j) * dilation`` (the JAX
+        signature's; the kernel reads every tap, the step's own frames included,
+        from the ring after its push, as the plain version).
       caps: per-block ring capacities (one copy).
 
     Returns ((k*B, J3) float32 poses, frame-major, rings).
     """
     if eq.device.type == "cpu":
-        return fused_blocks_step_multi_plain(q, rings, eq, idx, widths=widths, lags=lags,
+        return fused_blocks_step_multi_plain(w, rings, eq, idx, widths=widths, lags=lags,
                                              caps=caps, k=k)
-    return _launch("stream_int8_multi", eq, _int8_blocks(q, len(widths)), rings, idx,
-                   widths, lags, caps, k, True, q.shrink_w, q.shrink_b)
+    return _launch("stream_int8_multi", eq, _int8_blocks(w, len(widths)), rings, idx,
+                   widths, caps, k, True, w.q.shrink_w, w.q.shrink_b)
 
 
 def fused_blocks_step_bf16(weights, rings, a0, idx, *, widths):
@@ -426,7 +482,7 @@ def fused_blocks_step_bf16(weights, rings, a0, idx, *, widths):
     if a0.device.type == "cpu":
         return fused_blocks_step_bf16_plain(weights, rings, a0, idx, widths=widths)
     return _launch("stream_bf16", a0[None], _bf16_blocks(weights, len(widths)), rings,
-                   idx, widths, None, None, 1, False, weights["shrink_w"],
+                   idx, widths, None, 1, False, weights["shrink_w"],
                    weights["shrink_b"])
 
 
@@ -437,7 +493,7 @@ def fused_blocks_step_bf16_multi(weights, rings, a0, idx, *, widths, lags, caps,
         return fused_blocks_step_bf16_multi_plain(weights, rings, a0, idx, widths=widths,
                                                   lags=lags, caps=caps, k=k)
     return _launch("stream_bf16_multi", a0, _bf16_blocks(weights, len(widths)), rings,
-                   idx, widths, lags, caps, k, True, weights["shrink_w"],
+                   idx, widths, caps, k, True, weights["shrink_w"],
                    weights["shrink_b"])
 
 

@@ -187,6 +187,13 @@ def prepare_bf16_fused(config: TemporalModelConfig, model: TemporalModel):
     return prepare_stream_weights(config, model)
 
 
+def prepare_int8_fused(q: QuantizedModel) -> sf.Int8StepWeights:
+    """The fused int8 engine's weights: ``q`` and its blocks' weights packed for
+    the step kernel (``streaming_fused.pack_int8_step``: K padded to 32, N to 8, so
+    any C runs), built once per weight set."""
+    return sf.Int8StepWeights.of(q)
+
+
 def _expand_float(w, taps, dt):
     """Expand conv + BatchNorm + ReLU on (rows, k0*C_in) taps: float32 (rows, C)."""
     act = taps.to(dt).float() @ w["expand_w"].float()
@@ -396,14 +403,16 @@ def stream_step_int8(config: TemporalModelConfig, q: QuantizedModel, stream_stat
 
 
 @torch.no_grad()
-def stream_step_int8_fused(config: TemporalModelConfig, q: QuantizedModel, stream_state,
-                           frame):
-    """Advance all streams one frame with the fused int8 kernel (K5); same state
-    and bits as :func:`stream_step_int8`."""
+def stream_step_int8_fused(config: TemporalModelConfig, prepared: sf.Int8StepWeights,
+                           stream_state, frame):
+    """Advance all streams one frame with the fused int8 kernel (K5) on the
+    weights of :func:`prepare_int8_fused`; same state and bits as
+    :func:`stream_step_int8`."""
     bufs, ptr, caps, taps = _per_frame(config, stream_state, frame, torch.bfloat16)
-    eq = _expand_step_i8(q, taps)
+    eq = _expand_step_i8(prepared.q, taps)
     idx, _ = _slots(config, ptr, caps, multi=False)
-    flat, _ = sf.fused_blocks_step(q, bufs[1:], eq, idx, widths=config.filter_widths[1:])
+    flat, _ = sf.fused_blocks_step(prepared, bufs[1:], eq, idx,
+                                   widths=config.filter_widths[1:])
     return _poses(config, flat, eq.shape[0], None), {"bufs": bufs,
                                                     "ptr": _advance_ptrs(ptr, caps)}
 
@@ -457,14 +466,15 @@ def stream_step_int8_multi(config: TemporalModelConfig, q: QuantizedModel, strea
 
 
 @torch.no_grad()
-def stream_step_int8_multi_fused(config: TemporalModelConfig, q: QuantizedModel,
-                                 stream_state, frames):
-    """Advance all streams by k frames with the fused int8 kernel (K6)."""
+def stream_step_int8_multi_fused(config: TemporalModelConfig,
+                                 prepared: sf.Int8StepWeights, stream_state, frames):
+    """Advance all streams by k frames with the fused int8 kernel (K6) on the
+    weights of :func:`prepare_int8_fused`."""
     bufs, ptr, caps, k, taps = _multi(config, stream_state, frames, torch.bfloat16)
-    eq = _expand_step_i8(q, taps)
+    eq = _expand_step_i8(prepared.q, taps)
     b = eq.shape[0] // k
     idx, lags = _slots(config, ptr, caps, multi=True)
-    flat, _ = sf.fused_blocks_step_multi(q, bufs[1:], eq.reshape(k, b, -1), idx,
+    flat, _ = sf.fused_blocks_step_multi(prepared, bufs[1:], eq.reshape(k, b, -1), idx,
                                          widths=config.filter_widths[1:], lags=lags,
                                          caps=caps[1:], k=k)
     return _poses(config, flat, b, k), {"bufs": bufs, "ptr": _advance_ptrs(ptr, caps, k)}
@@ -543,9 +553,11 @@ class StreamingCausalLifter:
         self.device = torch.device("cuda" if device is None else device)
         self.model = None if model is None else _model_on(model, self.device)
         self.quantized = None if quantized is None else _q_on(quantized, self.device)
-        self._weights = None
+        self._weights = self.quantized
         if engine in ("bf16", "bf16_fused"):
             self._weights = prepare_stream_weights(config, self.model)
+        elif engine == "int8_fused":
+            self._weights = prepare_int8_fused(self.quantized)
         self._stream_state = None
 
     def _frames(self, frames):
@@ -582,9 +594,8 @@ class StreamingCausalLifter:
             step = stream_step_multi
         else:
             step = lambda c, w, s, f: stream_step(c, w, s, f, _ring_impl=self.ring_impl)
-        weights = self.quantized if self.engine.startswith("int8") else self._weights
         with full_float32():
-            out, self._stream_state = step(self.config, weights, self._stream_state, x)
+            out, self._stream_state = step(self.config, self._weights, self._stream_state, x)
         return out
 
 
