@@ -8,12 +8,16 @@ of the README's model, through its hand-written CUDA kernels.
 Phase 0 builds the kernels from ``videopose3d_torch/ops/kernels/csrc`` with nvcc
 for sm_90a.  Phase 1 holds each evaluation kernel (K3) against its plain PyTorch
 version at the shapes the evaluation path gives it (B=2 TTA rows, a 2,000-frame
-video plus 242 padding frames, 1024 channels), in float32 and bfloat16, and times
-both.  Phase 2 writes synthetic Human3.6M archives and a random full-width
+video plus 242 padding frames, 1024 channels), in float32 and bfloat16, checks two
+launches bitwise equal, times both by CUDA-graph replay beside one call, with the
+stage's slice plan and a cuBLAS chain of its products as a yardstick, holds every
+stage at 30, 1,000, 2,048 and 3,636 channels against its plain version too, and
+prints the K3 kernels' ptxas lines and the bf16 kernel's HMMA count.  Phase 2 writes synthetic Human3.6M archives and a random full-width
 checkpoint (-arc 3,3,3,3,3, 1024 channels) and runs
 ``videopose3d_torch.runner.main --evaluate`` with the fused engine in float32 and
 bfloat16 and with the plain float32 engine (each after a warm-up call), checking
-the protocol numbers and that every kernel launched.  Phase 3 holds the training
+the protocol numbers and that every kernel launched, and profiles one more fused
+run per dtype (device time, busy share, the K3 kernels' share).  Phase 3 holds the training
 kernels against their plain versions at the training path's shapes: the window
 gather (K1) at 1,024 windows of 243 rows from a 300,000- and a 3,000,000-row
 stream, bitwise, and each forward and backward kernel of the train block (K2) at
@@ -125,6 +129,11 @@ KERNELS = (
     ("fused_shrink_block", "shrink", "videopose3d_tpu/ops/pallas/temporal_block.py:414"),
 )
 SOURCE = "videopose3d_torch/ops/kernels/csrc/temporal_block.cu"
+# K3 at other widths (phase 1): off the 16-byte word (30; 3,636 in bf16), past the
+# shared-memory ceilings of a design that holds rows per channel (2,048, 3,636) and
+# a width of rows not 64-byte aligned (1,000), over a shorter video.
+K3_WIDTHS = (30, 1000, 2048, 3636)
+K3_WIDTH_FRAMES = 400
 
 # The training path.  K1 at the full-width batch: 1,024 windows of the receptive
 # field's 243 rows of 17 x 2 keypoints, from a 300,000-row stream (40.8 MB, held
@@ -231,6 +240,19 @@ def cuda_ms(fn, runs=TIMED_RUNS):
     return statistics.median(times)
 
 
+def host_enqueue_ms(fn, calls=50):
+    """The host's time to enqueue one call of ``fn`` in ms (no synchronisation
+    between calls): the wrapper's checks, allocations and launches."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e3
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -276,14 +298,91 @@ def random_model(device, causal=False, channels=CHANNELS):
     return cfg, model.to(device).eval()
 
 
+def k3_chain_ms(dt, gemms, device):
+    """Graph time of a stage's products as cuBLAS matmuls (float32 with TF32 off, or
+    bf16 on the tensor cores) on operands of their shapes ((m, k, n) each): a
+    yardstick of the stage's GEMM work (no epilogues, no taps read in place); the
+    port never calls it."""
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    ops = [(torch.randn(m, k, generator=g, device=device).to(dt),
+            torch.randn(k, n, generator=g, device=device).to(dt)) for m, k, n in gemms]
+    return graph_ms(lambda: [torch.matmul(a, b) for a, b in ops], reps=20)
+
+
+def k3_padded(tb, key, dt, v, w0, s0, b0, blk, ws, bs):
+    """A stage's kernel input and operands at whole 16-byte words of ``dt``, padded
+    as forward_dilated_fused pads them (channels, keypoint columns, the shrink's
+    outputs), and the width its output is cut back to."""
+    c = blk[0].shape[-1]
+    cp = tb.whole_words(c, dt)
+    blk = tb.padded_block(cp, *blk)
+    if key == "expand":
+        ci = tb.whole_words(v.shape[-1], dt)
+        return tb.pad(v.to(dt), ci), (tb.pad(w0, ci, cp), tb.pad(s0, cp), tb.pad(b0, cp),
+                                      *blk), c
+    if key == "shrink":
+        jp = tb.whole_words(bs.shape[0], dt)
+        return tb.pad(v, cp), (*blk, tb.pad(ws, cp, jp), tb.pad(bs, jp)), bs.shape[0]
+    return tb.pad(v, cp), blk, c
+
+
+def k3_width_check(device):
+    """Every stage at K3_WIDTHS channels (K3_WIDTH_FRAMES frames) in both dtypes,
+    on seeded random weights padded as the fused forward pads them, against its
+    plain version on the unpadded ones; two launches bitwise equal."""
+    from videopose3d_torch.ops.kernels import temporal_block as tb
+    for c in K3_WIDTHS:
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=device).manual_seed(SEED + c)
+            u = lambda *shape, s=1.0: (torch.rand(shape, generator=g, device=device) * 2
+                                       - 1) * s
+            bn = lambda: (u(c, s=0.5) + 1.0, u(c, s=0.2))
+            bound = 1 / math.sqrt(3 * c)
+            w0 = u(3, 2 * JOINTS, c, s=1 / math.sqrt(6 * JOINTS)).to(dt)
+            blk = (u(3, c, c, s=bound).to(dt), *bn(), u(c, c, s=bound).to(dt), *bn())
+            ws, bs = u(c, 3 * JOINTS, s=1 / math.sqrt(c)).to(dt), u(3 * JOINTS, s=0.1)
+            s0, b0 = bn()
+            stages = [
+                ("expand", tb.fused_expand_block, lambda v: tb.fused_expand_block_plain(
+                    v, w0, s0, b0, *blk, dilation=3), dict(dilation=3)),
+                ("dilated", tb.fused_dilated_block, lambda v: tb.fused_dilated_block_plain(
+                    v, *blk, dilation=9), dict(dilation=9)),
+                ("shrink", tb.fused_shrink_block, lambda v: tb.fused_shrink_block_plain(
+                    v, *blk, ws, bs, dilation=27), dict(dilation=27))]
+            v, worst = u(BATCH, K3_WIDTH_FRAMES, 2 * JOINTS), 0.0
+            for key, kernel, plain, geo in stages:
+                xk, ops, width = k3_padded(tb, key, dt, v, w0, s0, b0, blk, ws, bs)
+                got, again, want = kernel(xk, *ops, **geo), kernel(xk, *ops, **geo), plain(v)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"{key} C={c} {dt}: two launches differ")
+                check(not got[..., width:].any(), f"{key} C={c} {dt}: a padded channel "
+                                                  "is not 0")
+                got = got[..., :width]
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"{key} C={c} {dt}: {tuple(got.shape)} vs plain {tuple(want.shape)}")
+                err = float((got.float() - want.float()).abs().max())
+                rel = err / max(1.0, float(want.float().abs().max()))
+                check(rel <= TOL[dt], f"{key} C={c} {dt}: error {rel:.3e} of the scale "
+                                      f"> {TOL[dt]}")
+                worst = max(worst, rel)
+                v = want
+            print(f"phase1 widths C={c:5d} {str(dt):15s} expand, mid, shrink at "
+                  f"{K3_WIDTH_FRAMES} frames: worst error {worst:.3e} of max(1, max|plain|) "
+                  f"(tol {TOL[dt]}); two launches bitwise equal; padded channels 0")
+
+
 def phase1(cfg, model, device):
-    """Each kernel against its plain version at the evaluation path's shapes."""
-    from videopose3d_torch.models.temporal import _channels_last, _fold
+    """Each K3 stage against its plain version at the evaluation path's shapes,
+    timed by CUDA-graph replay beside one call, with its plan and a cuBLAS chain of
+    its products; every stage at other widths; the kernels' ptxas lines."""
+    from videopose3d_torch.models.temporal import _channels_last, _fold, _fused_operands
+    from videopose3d_torch.ops.kernels import build
     from videopose3d_torch.ops.kernels import temporal_block as tb
 
     rng = np.random.default_rng(SEED + 1)
     x_raw = torch.from_numpy(
         rng.uniform(-1, 1, (BATCH, FRAMES, JOINTS * 2)).astype(np.float32)).to(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     results = []
     saved = dict(tb.LAUNCHES)
     for dt in (torch.float32, torch.bfloat16):
@@ -293,31 +392,40 @@ def phase1(cfg, model, device):
             return (_channels_last(model.layers_conv[2 * i], dt), s1, b1,
                     _channels_last(model.layers_conv[2 * i + 1], dt)[0], s2, b2)
 
+        # The kernels run on the operands the fused forward runs (padded to whole
+        # 16-byte words: 34 keypoint columns to 36 / 40, 51 outputs to 52 / 56), the
+        # plain versions on the model's own.
+        c_in, expand, padded, shrink = _fused_operands(model, dt)
         blk = [block(i) for i in range(len(ARCH) - 1)]
         geo = [dict(dilation=cfg.dilations[i + 1], causal_shift=0) for i in range(len(blk))]
         s0, b0 = _fold(model.expand_bn)
         w0 = _channels_last(model.expand_conv, dt)
         ws = _channels_last(model.shrink, dt)[0]
         bs = model.shrink.bias.detach().float()
+        j3 = bs.shape[0]
         stages = [
-            ("fused_expand_block", "d=3", (w0, s0, b0, *blk[0]),
-             lambda x: tb.fused_expand_block(x, w0, s0, b0, *blk[0], **geo[0]),
+            ("fused_expand_block", "expand", "d=3", (*expand, *padded[0]),
+             lambda x: tb.fused_expand_block(x, *expand, *padded[0], **geo[0]),
              lambda x: tb.fused_expand_block_plain(x, w0, s0, b0, *blk[0], **geo[0])),
-            ("fused_dilated_block", "d=9", blk[1],
-             lambda x: tb.fused_dilated_block(x, *blk[1], **geo[1]),
+            ("fused_dilated_block", "dilated", "d=9", padded[1],
+             lambda x: tb.fused_dilated_block(x, *padded[1], **geo[1]),
              lambda x: tb.fused_dilated_block_plain(x, *blk[1], **geo[1])),
-            ("fused_dilated_block", "d=27", blk[2],
-             lambda x: tb.fused_dilated_block(x, *blk[2], **geo[2]),
+            ("fused_dilated_block", "dilated", "d=27", padded[2],
+             lambda x: tb.fused_dilated_block(x, *padded[2], **geo[2]),
              lambda x: tb.fused_dilated_block_plain(x, *blk[2], **geo[2])),
-            ("fused_shrink_block", "d=81", (*blk[3], ws, bs),
-             lambda x: tb.fused_shrink_block(x, *blk[3], ws, bs, **geo[3]),
+            ("fused_shrink_block", "shrink", "d=81", (*padded[3], *shrink),
+             lambda x: tb.fused_shrink_block(x, *padded[3], *shrink, **geo[3]),
              lambda x: tb.fused_shrink_block_plain(x, *blk[3], ws, bs, **geo[3])),
         ]
         x = x_raw
-        for name, where, weights, kernel, plain in stages:
-            got = kernel(x)
+        for name, key, where, weights, kernel, plain in stages:
+            xk = tb.pad(x.to(dt), c_in) if key == "expand" else x
+            got = kernel(xk)
+            again = kernel(xk)
             want = plain(x)
             torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{name} {where} {dt}: two launches differ")
+            got = got[..., :j3] if key == "shrink" else got
             check(got.shape == want.shape and got.dtype == want.dtype,
                   f"{name} {where} {dt}: {tuple(got.shape)} {got.dtype} vs plain "
                   f"{tuple(want.shape)} {want.dtype}")
@@ -325,25 +433,49 @@ def phase1(cfg, model, device):
             err = float((got.float() - want.float()).abs().max())
             scale = max(1.0, float(want.float().abs().max()))
             tol = TOL[dt] * scale
-            ms = cuda_ms(lambda: kernel(x))
-            plain_ms = cuda_ms(lambda: plain(x))
-            print(f"phase1 {name:20s} {where:5s} {str(dt):15s} in {tuple(x.shape)} "
-                  f"out {tuple(got.shape)}: max_abs_err {err:.3e} (tol {tol:.3e}, "
-                  f"max|plain| {scale:.3f}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             check(err <= tol, f"{name} {where} {dt}: max abs error {err} > {tol}")
+            ms = graph_ms(lambda: kernel(xk), reps=20)
+            plain_ms = graph_ms(lambda: plain(x), reps=5)
+            call_ms, plain_call_ms = cuda_ms(lambda: kernel(xk)), cuda_ms(lambda: plain(x))
+            host_ms = host_enqueue_ms(lambda: kernel(xk))
+            t_out = got.shape[1]
+            gemms = tb.k3_gemms(key, BATCH, x.shape[1], t_out, CHANNELS, k0=ARCH[0],
+                                x_cols=xk.shape[2], j3=shrink[1].shape[0])
+            plan = [len(tb.k3_plan(*gemm, sms, dt)) for gemm in gemms]
+            library_ms = k3_chain_ms(dt, tb.k3_gemms(
+                key, BATCH, x.shape[1], t_out, CHANNELS, k0=ARCH[0], x_cols=x.shape[2],
+                j3=j3), device)
             # Per output row: 3 dilated taps and the 1x1 product, C x C each; the
             # expand's 3 taps of 34 -> C over its rows; the shrink's C -> 51.
-            t_out = got.shape[1]
             ops = 2 * BATCH * t_out * 4 * CHANNELS ** 2
             if name == "fused_expand_block":
                 ops += 2 * BATCH * (x.shape[1] - 2) * 3 * x.shape[2] * CHANNELS
             if name == "fused_shrink_block":
                 ops += 2 * BATCH * t_out * CHANNELS * got.shape[2]
             bound_ms, bound_by = roofline([(str(dt)[6:], ops)], nbytes(x, got, *weights))
+            print(f"phase1 {name:20s} {where:5s} {str(dt):15s} in {tuple(x.shape)} "
+                  f"out {tuple(got.shape)}: max_abs_err {err:.3e} (tol {tol:.3e}, "
+                  f"max|plain| {scale:.3f}); two launches bitwise equal; graph: kernel "
+                  f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                  f"cuBLAS chain of its products {library_ms:.4f} ms (yardstick, not a "
+                  f"port path), bound {bound_ms:.4f} ms ({bound_by}); one call: kernel "
+                  f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; host enqueue "
+                  f"{host_ms:.4f} ms per call; GEMMs (m, k, n) "
+                  f"{gemms}, slices {plan}")
+            # No single PyTorch call computes a stage: the chain is printed above.
             results.append({"name": name, "where": where, "dtype": dt,
                             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": None})
             x = want  # the next stage sees the same input in both versions
+    k3_width_check(device)
+    for kernel in ("k3_sgemm_kernel", "k3_mma_kernel", "k3_reduce_kernel"):
+        for line in ptxas_lines(build.build_log, kernel):
+            print(f"phase1 {kernel} ptxas: {line}")
+    hmma = sass_count(build.library_path(), "k3_mma_kernel", "HMMA")
+    print(f"phase1 k3_mma_kernel SASS (cuobjdump -sass): "
+          f"{'no cuobjdump' if hmma is None else f'{hmma} HMMA instructions'}")
+    check(hmma != 0, "k3_mma_kernel has no bf16 tensor-core (HMMA) instruction")
     tb.LAUNCHES.update(saved)  # comparison launches do not count
     return results
 
@@ -479,7 +611,43 @@ def phase2(model, tmp):
           f"(bound {INT8_AGREE}); the three int8 runs bitwise equal")
     check(warm.keys() == ref.keys() and worst <= INT8_AGREE,
           f"int8 disagrees with xla: {worst} > {INT8_AGREE}")
+    # Where the evaluation's time goes: one profiled fused run per dtype (not
+    # counted): device time, the card's busy share of the evaluation window (the
+    # runner's "evaluated N frames in S s"), K3's share.  The profiler is started
+    # once before, so that its start-up falls outside the windows.
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    for dtype in ("float32", "bfloat16"):
+        argv = base + ["--serving-engine", "fused", "--compute-dtype", dtype]
+        start = time.perf_counter()
+        with profile(activities=activities) as prof:
+            _, rate, frames, _ = run_cli(argv)
+        wall, window = time.perf_counter() - start, frames / rate
+        device_us = device_times(prof)
+        check(device_us, f"the fused {dtype} evaluation profile holds no device time")
+        total = sum(device_us.values())
+        k3 = sum(us for name, us in device_us.items() if "k3_" in name)
+        print(f"phase2 profile of one fused {dtype} --evaluate: wall {wall:.3f} s, "
+              f"evaluation window {window:.3f} s, device time {total / 1e3:.3f} ms, busy "
+              f"{100 * total / 1e6 / window:.1f} % of the window, the K3 kernels "
+              f"{k3 / 1e3:.3f} ms ({100 * k3 / total:.1f} % of device time)")
+        for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"phase2 profile   {us / 1e3:9.3f} ms  {name[:90]}")
     return launches
+
+
+def device_times(prof):
+    """Device time in us per kernel (or copy) name of a torch.profiler run: only the
+    device-side events, since an aten op's row repeats its kernels' time."""
+    from torch.autograd import DeviceType
+    device_us = {}
+    for avg in prof.key_averages():
+        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+            device_us[avg.key] = device_us.get(avg.key, 0) + avg.self_device_time_total
+    return device_us
 
 
 def phase5(cfg, model, device):
@@ -1451,11 +1619,8 @@ def phase6_cli(cfg, model, device, tmp):
             _, rate, _ = stream_cli(argv(engine, dt, 1, "profiled.npz"))
         wall = time.perf_counter() - start
         window = STREAM_VIDEOS * STREAM_FRAMES / rate
-        device_us = {}
-        for avg in prof.key_averages():
-            us = getattr(avg, "self_device_time_total", getattr(avg, "self_cuda_time_total", 0))
-            if us > 0:
-                device_us[avg.key] = device_us.get(avg.key, 0) + us
+        device_us = device_times(prof)
+        check(device_us, f"the {engine} profile holds no device time")
         total = sum(device_us.values())
         kernel = sum(us for name, us in device_us.items() if kernel_name in name)
         top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's GEMM kernels on one NVIDIA GPU: the fused int8 and
+"""A/B timing of the port's GEMM kernels on one NVIDIA GPU: the fused evaluation
+blocks (K3, float32 and bf16, its four stages), the fused int8 and
 bf16 streaming steps (K5 at k = 1, K6 at k = 8), the window gather (K1) and the train
 block's GEMMs (K2: the weight gradient ``dw_gemm``, the three-tap
 ``conv_stats`` and ``du_dtaps_res`` and the one-tap ``norm_drop_matmul_stats``
@@ -7,19 +8,23 @@ and ``dz_matmul_dd``) of this checkout against those of another checkout (for
 example the parent commit, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists), in turns other, this, this, other:
 
-    python3 kernel_ab.py --other build/parent
+    python3 kernel_ab.py --other build/parent [--kernels k3]
 
-Each turn runs in its own process with that checkout's ``videopose3d_torch``
+(``--kernels k3``: K3 alone.)  Each turn runs in its own process with that checkout's ``videopose3d_torch``
 first on ``sys.path``, so each builds and loads its own kernels.  The two steps
 run chip_smoke.py phase 6's causal model (four residual blocks of width 3, C =
 1,024, seeded weights and rings) at B = 256 and 1,024 streams, k = 1 and 8, each
-checked once against its plain version (int8: every ring bitwise).  The other shapes are those of
+checked once against its plain version (int8: every ring bitwise).  K3 runs
+chip_smoke.py phase 1's shapes (B = 2, 2,242 frames, C = 1,024, the expand stage at
+d = 3, mid at 9 and 27, shrink at 81) on seeded weights, each stage checked against
+its plain version.  The other shapes are those of
 ``chip_smoke.py`` phase 3 in float32: K1 gathers 1,024 windows of 243
 rows of 34 columns from a 300,000- and a 3,000,000-row stream; the K2 kernels run
 at n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024 channels (3 taps, residual
 tap 1).  Each is timed as the median device time of CUDA-graph replays
 (``graph``) and as one call between CUDA events, its host enqueue included
-(``call``); ``torch.matmul`` (TF32 off) of each K2 product and the indexing
+(``call``), K3 also by the host's time to enqueue one call (``host``);
+``torch.matmul`` (TF32 off) of each K2 product and the indexing
 gather ``flat[rows]`` are timed in every turn as yardsticks.  ``dw_gemm``'s
 outputs must be bitwise equal in every turn (a SHA-256 of their bytes).  Each
 turn also reports its build's ``-Xptxas -v`` lines of the tap GEMM kernels
@@ -37,7 +42,9 @@ dimension forced into 1, 2, 3, 4 and 8 slices (graph replay), beside the count
 times the bf16 streaming step at those B and k with every plan (rows per CUDA
 block, column slices per cluster) forced, beside the plan ``stream_bf16_plan``
 picks, and prints how many clusters of each plan the card runs at once;
-``--sweep stream_int8`` does the same for the int8 step and ``stream_int8_plan``.
+``--sweep stream_int8`` does the same for the int8 step and ``stream_int8_plan``;
+``--sweep k3`` times each K3 stage with every GEMM of its chain forced into 1, 2, 3,
+4, 6 and 8 slices beside the slices ``k3_plan`` picks, timed too.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 GATHER_ROWS = (300_000, 3_000_000)
 BATCH, WINDOW, COLS = 1024, 243, 34
@@ -67,16 +75,25 @@ STREAM_CASES = ((256, 1), (1024, 1), (256, 8), (1024, 8))
 # the shrink's float32 sums in another order (chip_smoke.py STREAM_POSE_TOL).
 STREAM_TOL = {"bf16": 1.6e-2, "int8": 1e-4}
 
+# K3 at chip_smoke.py phase 1's shapes, and its tolerance against the plain version
+# (chip_smoke.py TOL).
+K3_BATCH, K3_FRAMES, K3_DILATIONS, K3_J3 = 2, 2242, (3, 9, 27, 81), 51
+K3_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+K3_SWEEP_SLICES = (1, 2, 3, 4, 6, 8)
 
-def worker(root: str, sweep: str = "") -> dict:
-    """Times the kernels of the checkout at ``root``; returns {case: ms}.  With
-    ``sweep``, the tap GEMM kernels at each forced slice count ("tap_gemm") or
-    a streaming step at each forced plan ("stream_bf16", "stream_int8") instead."""
+
+def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
+    """Times the kernels of the checkout at ``root`` (``kernels`` "k3": K3
+    alone); returns {case: ms}.  With ``sweep``, the tap GEMM kernels at each
+    forced slice count ("tap_gemm"), a streaming step at each forced plan
+    ("stream_bf16", "stream_int8") or K3 at each forced slice count ("k3")
+    instead."""
     sys.path.insert(0, root)
     import torch
     from videopose3d_torch.ops.kernels import build
     from videopose3d_torch.ops.kernels import gather_rows as gr
     from videopose3d_torch.ops.kernels import streaming_fused as sf
+    from videopose3d_torch.ops.kernels import temporal_block as tb
     from videopose3d_torch.ops.kernels import train_block as trb
 
     def call_ms(fn):
@@ -102,6 +119,17 @@ def worker(root: str, sweep: str = "") -> dict:
                 fn()
         return call_ms(graph.replay) / reps
 
+    def host_ms(fn, calls=50):
+        """The host's time to enqueue one call (no synchronisation inside)."""
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        seconds = time.perf_counter() - start
+        torch.cuda.synchronize()
+        return seconds / calls * 1e3
+
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
@@ -110,6 +138,22 @@ def worker(root: str, sweep: str = "") -> dict:
         return sweep_tap_gemms(torch, trb, dev, gen, graph_ms)
     if sweep in ("stream_bf16", "stream_int8"):
         return sweep_stream(torch, sf, dev, gen, graph_ms, sweep[7:])
+    if sweep == "k3":
+        return sweep_k3(torch, tb, dev, gen, graph_ms)
+    for dt in (torch.float32, torch.bfloat16):
+        for label, v, vk, kernel, plain, width in k3_stages(torch, tb, dev, gen, dt):
+            want, got = plain(v), kernel(vk)[..., :width]
+            tol = K3_TOL[str(dt)[6:]] * max(1.0, float(want.float().abs().max()))
+            if float((got.float() - want.float()).abs().max()) > tol:
+                raise RuntimeError(f"{root}: K3 {label} {dt} differs from its plain version")
+            out[f"K3 {str(dt)[6:]} {label} graph"] = graph_ms(lambda: kernel(vk))
+            out[f"K3 {str(dt)[6:]} {label} call"] = call_ms(lambda: kernel(vk))
+            out[f"K3 {str(dt)[6:]} {label} host"] = host_ms(lambda: kernel(vk))
+            out[f"K3 {str(dt)[6:]} {label} plain graph"] = graph_ms(lambda: plain(v), reps=5)
+    out["ptxas"] = ptxas_report(build.build_log, "k3_") + ptxas_report(
+        build.build_log, "temporal_block_kernel")
+    if kernels == "k3":
+        return out
     for kind, make in (("int8", stream_int8_step), ("bf16", stream_bf16_step)):
         for b, k in STREAM_CASES:
             step = make(torch, sf, dev, gen, b, k)
@@ -174,7 +218,91 @@ def worker(root: str, sweep: str = "") -> dict:
                 out[f"{label} n={n} graph"] = graph_ms(fn)
                 out[f"{label} n={n} call"] = call_ms(fn)
     out["dw_gemm sha256"] = digest.hexdigest()
-    out["ptxas"] = ptxas_report(build.build_log, "tap_gemm")
+    out["ptxas"] += ptxas_report(build.build_log, "tap_gemm")
+    return out
+
+
+def k3_stages(torch, tb, dev, gen, dt):
+    """(label, plain input, kernel input, kernel(v), plain(v), width) of K3's four
+    stages in ``dt`` on seeded weights at K3_BATCH x K3_FRAMES, each fed the plain
+    output of the stage before.  The kernels take whole 16-byte words, so their
+    keypoint columns (34) and the shrink's outputs (51) are zero-padded here as the
+    fused forward pads them (36 / 52 in float32, 40 / 56 in bf16); ``width`` is
+    what their output is cut back to."""
+    c = CHANNELS
+    word = 16 // dt.itemsize
+    whole = lambda n: -(-n // word) * word
+    pad = torch.nn.functional.pad
+    u = lambda *shape, s=1.0: (torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * s
+    bn = lambda: (u(c, s=0.5) + 1.0, u(c, s=0.2))
+    w0, (s0, b0) = u(3, COLS, c, s=(3 * COLS) ** -0.5).to(dt), bn()
+    ws, bs = u(c, K3_J3, s=c ** -0.5).to(dt), u(K3_J3, s=0.1)
+    w0p = pad(w0, (0, 0, 0, whole(COLS) - COLS))
+    wsp, bsp = pad(ws, (0, whole(K3_J3) - K3_J3)), pad(bs, (0, whole(K3_J3) - K3_J3))
+    v, stages = u(K3_BATCH, K3_FRAMES, COLS), []
+    for i, d in enumerate(K3_DILATIONS):
+        blk = (u(3, c, c, s=(3 * c) ** -0.5).to(dt), *bn(), u(c, c, s=c ** -0.5).to(dt),
+               *bn())
+        vk, width = v, c
+        if i == 0:
+            label = "expand"
+            vk = pad(v.to(dt), (0, whole(COLS) - COLS))
+            kernel = lambda x, blk=blk, d=d: tb.fused_expand_block(x, w0p, s0, b0, *blk,
+                                                                   dilation=d)
+            plain = lambda x, blk=blk, d=d: tb.fused_expand_block_plain(
+                x, w0, s0, b0, *blk, dilation=d)
+        elif i == len(K3_DILATIONS) - 1:
+            label, width = "shrink", K3_J3
+            kernel = lambda x, blk=blk, d=d: tb.fused_shrink_block(x, *blk, wsp, bsp,
+                                                                   dilation=d)
+            plain = lambda x, blk=blk, d=d: tb.fused_shrink_block_plain(x, *blk, ws, bs,
+                                                                        dilation=d)
+        else:
+            label = "mid"
+            kernel = lambda x, blk=blk, d=d: tb.fused_dilated_block(x, *blk, dilation=d)
+            plain = lambda x, blk=blk, d=d: tb.fused_dilated_block_plain(x, *blk,
+                                                                         dilation=d)
+        stages.append((f"{label} d={d}", v, vk, kernel, plain, width))
+        v = plain(v)
+    return stages
+
+
+def sweep_k3(torch, tb, dev, gen, graph_ms) -> dict:
+    """Graph time of each K3 stage with every GEMM of its chain forced into each of
+    K3_SWEEP_SLICES slices (at most its 32-row slabs), and the slices ``k3_plan``
+    picks for each GEMM ("plan") with the stage's time at them."""
+    picked = tb.k3_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def forced(want):
+        def plan(m, k, n, *_):
+            slabs = -(-k // 32)
+            rows = -(-slabs // min(slabs, want)) * 32
+            return tuple((a, min(k, a + rows)) for a in range(0, k, rows))
+        return plan
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        for label, _, vk, kernel, _, _ in k3_stages(torch, tb, dev, gen, dt):
+            shape = kernel(vk).shape
+            gemms = tb.k3_gemms(label.split()[0].replace("mid", "dilated"), K3_BATCH,
+                                vk.shape[1], shape[1], CHANNELS, k0=3,
+                                x_cols=vk.shape[2], j3=shape[2])
+            out[f"K3 {name} {label} plan"] = "/".join(
+                str(len(picked(*g, sms, dt))) for g in gemms)
+            out[f"K3 {name} {label} plan graph"] = graph_ms(lambda: kernel(vk))
+            for want in K3_SWEEP_SLICES:
+                # The launch takes each GEMM's rows per slice from k3_plan, once per
+                # shape: swap the plan and forget the shapes' layouts.
+                tb.k3_plan = forced(want)
+                tb._layout.cache_clear()
+                try:
+                    out[f"K3 {name} {label} slices={want} graph"] = graph_ms(
+                        lambda: kernel(vk))
+                finally:
+                    tb.k3_plan = picked
+                    tb._layout.cache_clear()
     return out
 
 
@@ -371,13 +499,17 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", help="root of the other checkout")
     parser.add_argument("--sweep", nargs="?", const="tap_gemm",
-                        choices=("tap_gemm", "stream_bf16", "stream_int8"),
+                        choices=("tap_gemm", "stream_bf16", "stream_int8", "k3"),
                         help="time this checkout's tap GEMMs at forced slice counts "
-                             "(default) or a streaming step at forced plans")
+                             "(default), a streaming step at forced plans or K3 at "
+                             "forced slice counts")
+    parser.add_argument("--kernels", choices=("all", "k3"), default="all",
+                        help="the kernels of the A/B (k3: K3 alone)")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        print(json.dumps(worker(os.path.abspath(args.worker), args.sweep or "")))
+        print(json.dumps(worker(os.path.abspath(args.worker), args.sweep or "",
+                                args.kernels)))
         return 0
     if not args.sweep and not args.other:
         parser.error("--other or --sweep is required")
@@ -400,7 +532,8 @@ def main() -> int:
     other = os.path.abspath(args.other)
     turns = []
     for label, root in (("other", other), ("this", this), ("this", this), ("other", other)):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                              "--kernels", args.kernels],
                              capture_output=True, text=True, cwd=root)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
@@ -411,7 +544,7 @@ def main() -> int:
             print(f"{label} ptxas: {line}")
     for _, t in turns:
         t.pop("ptxas")
-    digests = {t.pop("dw_gemm sha256") for _, t in turns}
+    digests = {t.pop("dw_gemm sha256", None) for _, t in turns}
     print(f"dw_gemm outputs bitwise equal in every turn: {len(digests) == 1}")
     print(f"{'case':40s} " + " ".join(f"{label:>9s}" for label, _ in turns))
     for case in turns[0][1]:

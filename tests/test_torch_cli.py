@@ -147,10 +147,7 @@ def test_resume_from_a_jax_checkpoint_with_optax_state(workdir, capsys):
 
 
 @pytest.mark.parametrize("c,engine,limit", [
-    (1030, ["--evaluate", "epoch_3.bin", "--serving-engine", "int8"], "multiple of 16"),
     (1952, ["--evaluate", "epoch_3.bin", "--serving-engine", "int8"], "shared memory"),
-    (1030, ["--evaluate", "epoch_3.bin", "--serving-engine", "fused"], "multiple of 4"),
-    (3636, ["--evaluate", "epoch_3.bin", "--serving-engine", "fused"], "shared memory"),
 ])
 def test_unsupported_kernel_widths_are_refused_before_loading(tmp_path, c, engine, limit):
     """With --device cuda, a -ch the hand-written kernels cannot take ends the
@@ -163,6 +160,26 @@ def test_unsupported_kernel_widths_are_refused_before_loading(tmp_path, c, engin
         runner.main(argv)
     assert "engine xla" in str(refused.value)
     assert not (tmp_path / "ckpt").exists()
+
+
+@pytest.mark.parametrize("c", [30, 1030, 3636])
+def test_fused_serving_engine_takes_any_width(c):
+    """The fused evaluation blocks hold nothing per channel in shared memory and
+    pad widths that are not whole 16-byte words: --evaluate --serving-engine
+    fused on CUDA refuses no width, as the JAX CLI."""
+    args = parse_args(["-k", "gt", "-arc", "3,3,3", "-ch", str(c), "--device", "cuda",
+                       "--evaluate", "epoch_3.bin", "--serving-engine", "fused"])
+    assert runner.kernel_width_error(args) is None
+
+
+@pytest.mark.parametrize("c", [30, 1030])
+def test_int8_serving_engine_pads_any_width_below_the_ceiling(c):
+    """The int8 forward pads a width that is not a multiple of 16 with zero
+    channels: --serving-engine int8 on CUDA takes it (1,952 and up stay refused
+    by the stage kernels' shared memory)."""
+    args = parse_args(["-k", "gt", "-arc", "3,3,3", "-ch", str(c), "--device", "cuda",
+                       "--evaluate", "epoch_3.bin", "--serving-engine", "int8"])
+    assert runner.kernel_width_error(args) is None
 
 
 @pytest.mark.parametrize("c", [30, 1030, 3636])

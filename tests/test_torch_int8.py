@@ -172,6 +172,35 @@ def test_forward_int8_matches_jax(fw, channels, causal):
         _assert_poses_agree(got.numpy(), want)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_int8_at_30_channels_matches_jax(causal):
+    """30 channels are not a multiple of the stage kernels' 16: the int8 forward
+    runs the model zero-padded to 32 channels (on every device) and agrees with
+    JAX's int8 path on the unpadded model."""
+    cfg, params, state, tcfg, _, calib, x = _setup((3, 3, 3), 30, causal, seed=8)
+    qj, q = _jax_q(cfg, params, state, calib)
+    want = np.asarray(jq.forward_dilated_int8(cfg, qj, jnp.asarray(x), interpret=True,
+                                              t_tile=32))
+    got = forward_dilated_int8(tcfg, q, torch.from_numpy(x))
+    _assert_poses_agree(got.numpy(), want)
+    assert q.padded.blocks[0].wq_a.shape == (3, 32, 32)
+    assert tq.channel_padded(q) is q.padded
+
+
+def test_padded_forward_is_bitwise_the_unpadded_one():
+    """Zero channels appended to a 32-channel model (to 48) leave every int32 sum,
+    row maximum and pose as they were: the forward gives the same bits, in both
+    tap modes."""
+    cfg, params, state, tcfg, model, calib, x = _setup((3, 3, 3, 3), 32, False, seed=9)
+    q = tq.quantize_temporal_model(tcfg, model, torch.from_numpy(calib))
+    padded = tq.pad_channels(q, 48)
+    assert padded.blocks[1].pb.shape == (12, 48) and padded.shrink_w.shape == (48, 51)
+    xt = torch.from_numpy(x)
+    for min_d in (10 ** 9, 0):
+        assert torch.equal(forward_dilated_int8(tcfg, padded, xt, accshift_min_d=min_d),
+                           forward_dilated_int8(tcfg, q, xt, accshift_min_d=min_d))
+
+
 @pytest.mark.parametrize("fw,channels,causal", CONFIGS)
 def test_accshift_is_bitwise_slice(fw, channels, causal):
     """Each plain stage and the whole forward give the same bits in both tap

@@ -69,6 +69,24 @@ def _check(got, want, dt):
     assert err <= TOL[dt] * max(1.0, float(want.float().abs().max())), err
 
 
+def _padded(kind, dt, x, p):
+    """A stage's kernel operands at whole 16-byte words of ``dt``, padded as
+    forward_dilated_fused pads them (channels, keypoint columns, the shrink's
+    outputs), and the width its output is cut back to."""
+    c = p["w2"].shape[0]
+    cp = tb.whole_words(c, dt)
+    blk = tb.padded_block(cp, p["w_taps"], *p["bn1"], p["w2"], *p["bn2"])
+    if kind == "expand":
+        ci = tb.whole_words(x.shape[-1], dt)
+        return (tb.pad(x.to(dt), ci), tb.pad(p["w0"], ci, cp), tb.pad(p["bn0"][0], cp),
+                tb.pad(p["bn0"][1], cp), *blk), c
+    if kind == "shrink":
+        j3 = p["ws"].shape[1]
+        jp = tb.whole_words(j3, dt)
+        return (tb.pad(x, cp), *blk, tb.pad(p["ws"], cp, jp), tb.pad(p["bs"], jp)), j3
+    return (tb.pad(x, cp), *blk), c
+
+
 CASES = [  # channels, dilation, frames, causal shift
     (64, 1, 40, 0),
     (64, 3, 70, 3),       # causal
@@ -85,8 +103,9 @@ def test_dilated_block_kernel_matches_plain(cuda, dt, c, d, t, shift):
     p = _inputs(c + d, c, dt, cuda)
     x = torch.randn(2, t, c, generator=torch.Generator().manual_seed(1)).to(cuda, dt)
     args = (x, p["w_taps"], *p["bn1"], p["w2"], *p["bn2"])
+    padded, width = _padded("dilated", dt, x, p)
     before = tb.LAUNCHES["dilated"]
-    got = tb.fused_dilated_block(*args, dilation=d, causal_shift=shift)
+    got = tb.fused_dilated_block(*padded, dilation=d, causal_shift=shift)[..., :width]
     assert tb.LAUNCHES["dilated"] == before + 1
     _check(got, tb.fused_dilated_block_plain(*args, dilation=d, causal_shift=shift), dt)
 
@@ -97,14 +116,9 @@ def test_expand_block_kernel_matches_plain(cuda, dt, c, d, t, shift):
     p = _inputs(c + d + 1, c, dt, cuda)
     x = torch.rand(2, t + 2, 34, generator=torch.Generator().manual_seed(2)).to(cuda) * 2 - 1
     args = (x, p["w0"], *p["bn0"], p["w_taps"], *p["bn1"], p["w2"], *p["bn2"])
-    if (c * (16 + 2 * d) + 16 * c) * 4 > 227 * 1024:
-        # The expand window (16 + 2d rows of C floats) and h must fit in
-        # shared memory; beyond that the wrapper refuses before launching.
-        with pytest.raises(ValueError, match="shared memory"):
-            tb.fused_expand_block(*args, dilation=d, causal_shift=shift)
-        return
+    padded, width = _padded("expand", dt, x, p)
     before = tb.LAUNCHES["expand"]
-    got = tb.fused_expand_block(*args, dilation=d, causal_shift=shift)
+    got = tb.fused_expand_block(*padded, dilation=d, causal_shift=shift)[..., :width]
     assert tb.LAUNCHES["expand"] == before + 1
     _check(got, tb.fused_expand_block_plain(*args, dilation=d, causal_shift=shift), dt)
 
@@ -115,8 +129,9 @@ def test_shrink_block_kernel_matches_plain(cuda, dt, c, d, t, shift):
     p = _inputs(c + d + 2, c, dt, cuda)
     x = torch.randn(2, t, c, generator=torch.Generator().manual_seed(3)).to(cuda, dt)
     args = (x, p["w_taps"], *p["bn1"], p["w2"], *p["bn2"], p["ws"], p["bs"])
+    padded, width = _padded("shrink", dt, x, p)
     before = tb.LAUNCHES["shrink"]
-    got = tb.fused_shrink_block(*args, dilation=d, causal_shift=shift)
+    got = tb.fused_shrink_block(*padded, dilation=d, causal_shift=shift)[..., :width]
     assert tb.LAUNCHES["shrink"] == before + 1
     _check(got, tb.fused_shrink_block_plain(*args, dilation=d, causal_shift=shift), dt)
 
@@ -130,27 +145,75 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         tb.fused_dilated_block(x, p["w_taps"], p["bn1"][0].double(), p["bn1"][1],
                                p["w2"], *p["bn2"], dilation=1)
+    # The kernel copies whole 16-byte words of a row: 6 channels, 34 keypoint
+    # columns and 51 shrink outputs are refused (forward_dilated_fused pads them).
+    six = (torch.randn(1, 20, 6, device=cuda), torch.randn(3, 6, 6, device=cuda),
+           *[torch.ones(6, device=cuda)] * 2, torch.randn(6, 6, device=cuda),
+           *[torch.ones(6, device=cuda)] * 2)
     with pytest.raises(ValueError, match="multiple of 4"):
-        tb.fused_dilated_block(torch.randn(1, 20, 6, device=cuda),
-                               torch.randn(3, 6, 6, device=cuda),
-                               *[torch.ones(6, device=cuda)] * 2,
-                               torch.randn(6, 6, device=cuda),
-                               *[torch.ones(6, device=cuda)] * 2, dilation=1)
+        tb.fused_dilated_block(*six, dilation=1)
+    with pytest.raises(ValueError, match="input columns"):
+        tb.fused_expand_block(torch.randn(2, 40, 34, device=cuda),
+                              torch.randn(3, 34, 64, device=cuda), *p["bn0"], p["w_taps"],
+                              *p["bn1"], p["w2"], *p["bn2"], dilation=1)
+    blk = (p["w_taps"], *p["bn1"], p["w2"], *p["bn2"])
+    with pytest.raises(ValueError, match="output columns"):
+        tb.fused_shrink_block(x, *blk, p["ws"], p["bs"], dilation=1)
+    # The projection's width is the bias's: a w_shrink of other columns is refused.
+    for cols in (48, 56):
+        with pytest.raises(ValueError, match="w_shrink has shape"):
+            tb.fused_shrink_block(x, *blk, torch.randn(64, cols, device=cuda),
+                                  torch.zeros(52, device=cuda), dilation=1)
+
+
+WIDTHS = [  # channels, frames: any width, as the JAX package's
+    (30, 300), (1000, 400), (2048, 300), (3636, 250)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,t", WIDTHS)
+def test_stage_kernels_at_any_width(cuda, dt, c, t):
+    """Every stage at widths off the 16-byte word (30; 3,636 in bf16), wider than
+    a per-channel shared-memory tile could hold (2,048, 3,636) and at 1,000,
+    against its plain version; two launches bitwise equal."""
+    p = _inputs(c + 7, c, dt, cuda)
+    gen = torch.Generator().manual_seed(c)
+    raw = (torch.rand(2, t + 2, 34, generator=gen) * 2 - 1).to(cuda)
+    x = torch.randn(2, t, c, generator=gen).to(cuda, dt)
+    blk = (p["w_taps"], *p["bn1"], p["w2"], *p["bn2"])
+    stages = [
+        ("expand", raw, (raw, p["w0"], *p["bn0"], *blk), dict(dilation=3),
+         tb.fused_expand_block, tb.fused_expand_block_plain),
+        ("dilated", x, (x, *blk), dict(dilation=9), tb.fused_dilated_block,
+         tb.fused_dilated_block_plain),
+        ("shrink", x, (x, *blk, p["ws"], p["bs"]), dict(dilation=27, causal_shift=27),
+         tb.fused_shrink_block, tb.fused_shrink_block_plain)]
+    for key, v, args, geo, kernel, plain in stages:
+        padded, width = _padded(key, dt, v, p)
+        before = tb.LAUNCHES[key]
+        got = kernel(*padded, **geo)
+        again = kernel(*padded, **geo)
+        assert tb.LAUNCHES[key] == before + 2
+        assert not got[..., width:].any(), key
+        _check(got[..., :width], plain(*args, **geo), dt)
+        assert torch.equal(got, again), key
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("fw,causal", [
     ((3,), False), ((3, 3), True), ((3, 3, 3), False), ((3, 3, 3, 3), True),
     ((3, 3, 3, 3, 3), False)])
-def test_fused_forward_matches_plain_forward(cuda, dt, fw, causal):
-    """The whole fused forward on the card (0-, 1- and multi-block stacks)
-    against the plain float32 model on the same weights."""
+@pytest.mark.parametrize("channels", [64, 30])
+def test_fused_forward_matches_plain_forward(cuda, dt, fw, causal, channels):
+    """The whole fused forward on the card (0-, 1- and multi-block stacks; 30
+    channels run padded to 32) against the plain float32 model on the same
+    weights."""
     from videopose3d_torch.models.temporal import (
         TemporalModel, TemporalModelConfig, forward_dilated, forward_dilated_fused,
         receptive_field)
     torch.manual_seed(0)
     cfg = TemporalModelConfig(num_joints_in=17, in_features=2, num_joints_out=17,
-                              filter_widths=fw, causal=causal, channels=64,
+                              filter_widths=fw, causal=causal, channels=channels,
                               compute_dtype=dt)
     model = TemporalModel(cfg).to(cuda).eval()
     x = torch.rand(2, receptive_field(cfg) + 45, 17, 2, device=cuda) * 2 - 1
@@ -341,9 +404,8 @@ def test_tap_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_width_mirrors_equal_the_kernels_own(cuda):
     """The pure-Python shared-memory formulas and limits that refuse a width
-    before any data loads equal the ones the CUDA sources report: the fused
-    evaluation blocks (K3), the int8 stages (K4, K8) and the streaming step
-    (K5, K6)."""
+    before any data loads equal the ones the CUDA sources report: the opt-in
+    ceiling, the int8 stages (K4, K8) and the streaming step (K5, K6)."""
     from videopose3d_torch.ops.kernels.build import load_library
     lib = load_library()
     assert tb.SMEM_OPT_IN == lib.vp3d_block_max_smem_bytes()
@@ -351,11 +413,6 @@ def test_width_mirrors_equal_the_kernels_own(cuda):
                                             lib.vp3d_stream_max_taps())
     for c in (4, 16, 68, 1024, 1028, 2064, 3632, 3636, sf.INT8_MAX_CHANNELS,
               sf.INT8_MAX_CHANNELS + 1):
-        for kind, c_in, k0, span in (("dilated", 0, 0, 0), ("shrink", 0, 0, 0),
-                                     ("expand", 34, 3, 6), ("expand", 33, 5, 40),
-                                     ("expand", 34, 3, 162)):
-            assert (tb.block_smem_bytes(kind, c, c_in, k0, span)
-                    == lib.vp3d_block_smem_bytes(tb._VARIANT[kind], c, c_in, k0, span))
         for kind, k_in, span in (("int8_expand", 102, 6), ("int8_expand", 99, 40),
                                  ("int8_dilated", 0, 18), ("int8_shrink", 0, 162)):
             for accshift in (False, True):
@@ -722,6 +779,20 @@ def test_int8_forward_matches_plain_stages_and_f32(cuda):
         want = forward_dilated(model, x)
     per_joint = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
     assert per_joint < 0.06 * float(want.square().mean().sqrt())
+
+
+@pytest.mark.parametrize("c", [30, 1030])
+def test_int8_forward_at_any_width(cuda, c):
+    """A width off the stage kernels' multiple of 16 runs as the zero-padded model
+    (32, 1,040 channels): the forward on the card against the plain stage chain
+    of that model."""
+    from videopose3d_torch.models.temporal import forward_dilated_int8
+    cfg, _, q, x = _int8_model(c, (3, 3, 3), False, 30, cuda, seed=c)
+    got = forward_dilated_int8(cfg, q, x)
+    v = None
+    for _, _, first, _, plain in _int8_stages(cfg, tq.channel_padded(q), x):
+        v = plain(first if first is not None else v, "slice")
+    _check(got, v.reshape(got.shape), torch.float32)
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -83,6 +83,7 @@ def test_forward_dilated_matches_jax(fw, causal, dense):
     ((3, 3, 3, 3), False, 32),
     ((3, 3, 3, 3, 3), False, 32),
     ((3, 3, 3, 3, 3), True, 32),
+    ((3, 3, 3, 3), True, 30),          # padded to 32 channels, 34 -> 36 columns, 51 -> 52
 ])
 def test_forward_dilated_fused_matches_jax(fw, causal, channels):
     cfg, params, state, tcfg, model = jax_model(_kwargs(fw, causal, channels))
@@ -96,6 +97,24 @@ def test_forward_dilated_fused_matches_jax(fw, causal, channels):
     np.testing.assert_allclose(got.numpy(),
                                forward_dilated(model, torch.from_numpy(x)).numpy(),
                                atol=ATOL)
+
+
+def test_fused_operands_are_made_once_per_model_state():
+    """The fused forward's padded operands are made once for a model and dtype,
+    and made anew after an in-place update of any of its tensors."""
+    from videopose3d_torch.models.temporal import _fused_operands
+    cfg, _, _, tcfg, model = jax_model(_kwargs((3, 3, 3), channels=30))
+    first = _fused_operands(model, torch.float32)
+    assert _fused_operands(model, torch.float32) is first
+    assert first[2][0][0].shape == (3, 32, 32) and first[3][0].shape == (32, 52)
+    x = torch.from_numpy(_input(cfg, 5, seed=3))
+    before = forward_dilated_fused(tcfg, model, x)
+    with torch.no_grad():
+        model.shrink.bias.add_(1.0)
+    again = _fused_operands(model, torch.float32)
+    assert again is not first
+    torch.testing.assert_close(forward_dilated_fused(tcfg, model, x), before + 1.0)
+    assert _fused_operands(model, torch.bfloat16)[2][0][0].shape == (3, 32, 32)
 
 
 def test_forward_dilated_fused_rejects_dense():

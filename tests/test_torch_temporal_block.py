@@ -12,6 +12,7 @@ import torch
 
 from videopose3d_tpu.ops.pallas import temporal_block as jtb
 from videopose3d_torch.ops.kernels import temporal_block as ttb
+from videopose3d_torch.ops.kernels import train_block as trb
 
 ATOL = 5e-5
 
@@ -159,16 +160,97 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     assert ttb.LAUNCHES == before
 
 
-@pytest.mark.parametrize("c,limit", [(1024, None), (1496, None), (1030, "multiple of 4"),
-                                     (1500, "expand kernel"), (3636, "dilated kernel")])
+@pytest.mark.parametrize("c,limit", [(1024, None), (1496, None), (1030, None),
+                                     (1500, None), (3636, None)])
 def test_channel_limit_error_names_the_limit(c, limit):
-    """The fused evaluation kernels' width limits at -arc 3,3,3,3,3 (17 x 2
-    keypoint columns, an expand block of 3 taps, a first block reaching 6 frames),
-    known without the card from the kernels' shared-memory formulas."""
-    err = ttb.channel_limit_error(c, c_in=34, k0=3, span=6)
-    if limit is None:
-        assert err is None
-        assert ttb.block_smem_bytes("expand", c, 34, 3, 6) <= ttb.SMEM_OPT_IN
-    else:
-        assert limit in err and "--serving-engine xla" in err
-    assert (ttb.channel_limit_error(c) is None) == (c % 4 == 0 and 32 * 4 * c <= 232_448)
+    """The fused evaluation kernels take any width, as the JAX package's:
+    nothing is held per channel in shared memory, and the fused forward pads
+    widths that are not whole 16-byte words."""
+    assert ttb.channel_limit_error(c) is limit
+    assert "at least one channel" in ttb.channel_limit_error(0)
+
+
+@pytest.mark.parametrize("dt,c,c_pad", [("float32", 30, 32), ("bfloat16", 30, 32),
+                                        ("float32", 36, 36), ("bfloat16", 36, 40)])
+def test_padded_widths_match_pallas(dt, c, c_pad):
+    """At a width that is not a whole 16-byte word of the dtype, the fused forward
+    pads the operands with zeros (``pad``, ``padded_block``): the channels, the
+    expand block's 34 keypoint columns (to 36 in float32, 40 in bf16) and the
+    shrink's 51 outputs (52, 56).  The three blocks on the padded operands, cut
+    back to C (51), agree with the JAX package's on the unpadded ones (bf16: one
+    bf16 step of the output scale), and the padded channels come out exactly 0."""
+    tdt = getattr(torch, dt)
+    assert ttb.whole_words(c, tdt) == c_pad
+    ci, j3 = ttb.whole_words(34, tdt), ttb.whole_words(51, tdt)
+    assert (ci, j3) == ((36, 52) if dt == "float32" else (40, 56))
+    rng = np.random.default_rng(c + len(dt))
+    jdt = getattr(jnp, dt)
+    w0 = (rng.standard_normal((3, 34, c)) * 0.1).astype(np.float32)
+    s0, b0 = _fold_both(_bn(rng, c))
+    w1, w2, bn1, bn2 = _block_inputs(rng, c)
+    s1, b1 = _fold_both(bn1)
+    s2, b2 = _fold_both(bn2)
+    ws = (rng.standard_normal((1, c, 51)) * 0.1).astype(np.float32)
+    bs = rng.uniform(-0.1, 0.1, 51).astype(np.float32)
+    raw = rng.uniform(-1, 1, (2, 60, 34)).astype(np.float32)
+    x = (rng.standard_normal((2, 50, c)) * 0.5).astype(np.float32)
+    j, t = (lambda a: jnp.asarray(a, jdt)), (lambda a: _t(a).to(tdt))
+    blk = ttb.padded_block(c_pad, t(w1), _t(s1), _t(b1), t(w2), _t(s2), _t(b2))
+    xp = ttb.pad(t(x), c_pad)
+    cases = [
+        (jtb.fused_expand_block(j(raw), j(w0), s0, b0, j(w1), s1, b1, j(w2), s2, b2,
+                                dilation=3, t_tile=16, interpret=True),
+         ttb.fused_expand_block(ttb.pad(t(raw), ci), ttb.pad(t(w0), ci, c_pad),
+                                ttb.pad(_t(s0), c_pad), ttb.pad(_t(b0), c_pad), *blk,
+                                dilation=3), c),
+        (jtb.fused_dilated_block(j(x), j(w1), s1, b1, j(w2), s2, b2, dilation=9,
+                                 t_tile=16, interpret=True),
+         ttb.fused_dilated_block(xp, *blk, dilation=9), c),
+        (jtb.fused_shrink_block(j(x), j(w1), s1, b1, j(w2), s2, b2, j(ws), bs, dilation=3,
+                                causal_shift=3, t_tile=16, interpret=True),
+         ttb.fused_shrink_block(xp, *blk, ttb.pad(t(ws)[0], c_pad, j3), ttb.pad(_t(bs), j3),
+                                dilation=3, causal_shift=3), 51),
+    ]
+    for want, got, width in cases:
+        want = np.asarray(want).astype(np.float32)
+        assert tuple(got.shape) == want.shape[:-1] + (got.shape[-1],)
+        assert not got[..., width:].any()
+        tol = ATOL if dt == "float32" else 2 ** -8 * np.abs(want).max()
+        np.testing.assert_allclose(got[..., :width].float().numpy(), want, atol=tol)
+
+
+@pytest.mark.parametrize("m,k,n", [(4468, 3072, 1024), (4468, 1024, 1024), (4480, 108, 1024),
+                                   (3996, 1024, 52), (100, 3072, 1024), (1, 96, 32),
+                                   (70_000, 3 * 3636, 3636), (2 * 2070, 3 * 30, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_k3_plan_slices_cover_the_summed_dimension(m, k, n, dtype, sms):
+    """The stage GEMMs' slice plan: slices in order, each a whole number of 32-row
+    slabs but the last, together [0, k), at most 8; the grid of 128 x 128 tiles
+    covers M x N with every tile starting inside it; a grid whose tiles one wave of
+    resident CUDA blocks (2 per SM) holds stays in one wave."""
+    plan = ttb.k3_plan(m, k, n, sms, dtype)
+    assert plan[0][0] == 0 and plan[-1][1] == k and 1 <= len(plan) <= trb.TAP_MAX_SLICES
+    for (a, b), (c, _) in zip(plan, plan[1:]):
+        assert b == c and (b - a) % trb.DW_ROWS == 0
+    rows, cols = -(-m // trb.DW_TILE), -(-n // trb.DW_TILE)
+    assert (rows - 1) * trb.DW_TILE < m <= rows * trb.DW_TILE
+    assert (cols - 1) * trb.DW_TILE < n <= cols * trb.DW_TILE
+    if rows * cols <= trb.DW_BLOCKS_PER_SM * sms:
+        assert rows * cols * len(plan) <= trb.DW_BLOCKS_PER_SM * sms
+
+
+def test_k3_plan_at_the_evaluation_shapes():
+    """At B = 2, T = 2,242, C = 1,024 on 132 SMs (the expand stage: 4,468 rows)
+    the tap GEMM's 280 tiles, which spill past one wave of 264 resident blocks,
+    split in 6 in float32 and in 2 in bf16, the float32 1x1 in 4; the shrink
+    stage's 256 tiles stay in one wave, unsplit, and its projection's one column
+    of tiles splits in 4."""
+    gemms = ttb.k3_gemms("expand", 2, 2242, 2234, 1024, x_cols=36, k0=3)
+    assert gemms == [(4480, 108, 1024), (4468, 3072, 1024), (4468, 1024, 1024)]
+    assert [len(ttb.k3_plan(*g)) for g in gemms] == [1, 6, 4]
+    assert [len(ttb.k3_plan(*g, 132, torch.bfloat16)) for g in gemms] == [1, 2, 1]
+    shrink = ttb.k3_gemms("shrink", 2, 2162, 2000, 1024, j3=52)
+    assert shrink == [(4000, 3072, 1024), (4000, 1024, 1024), (4000, 1024, 52)]
+    assert [len(ttb.k3_plan(*g)) for g in shrink] == [1, 1, 4]
+    assert len(ttb.k3_plan(4000, 1024, 56, 132, torch.bfloat16)) == 4

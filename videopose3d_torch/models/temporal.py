@@ -21,6 +21,8 @@ of ``ops/kernels/train_block.py``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -213,6 +215,45 @@ def _fold(bn: nn.BatchNorm1d):
                           bn.running_var, bn.eps)
 
 
+# forward_dilated_fused's operands of each live model: (key, operands).
+_FUSED_OPERANDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _fused_operands(model: "TemporalModel", dt):
+    """The fused blocks' operands of ``model`` in ``dt``, BatchNorm folded, every
+    width padded to a whole 16-byte word of ``dt`` with zeros
+    (``temporal_block.pad`` / ``padded_block``): the channels, the expand's
+    keypoint columns and the shrink's outputs.  Returns ``(c_in, expand, blocks,
+    shrink)``: the padded keypoint columns, (w0, s0, b0), each block's (w_taps,
+    s1, b1, w2, s2, b2) and (w_shrink, b_shrink).  Made once for each dtype and
+    state of the model's tensors (identity, version counter and storage, so an
+    in-place update or a move to another device remakes them), and kept while the
+    model lives."""
+    from videopose3d_torch.ops.kernels import temporal_block as tb
+
+    tensors = list(itertools.chain(model.parameters(), model.buffers()))
+    key = (dt, tuple((id(t), t._version, t.data_ptr()) for t in tensors))
+    hit = _FUSED_OPERANDS.get(model)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    c = model.expand_conv.weight.shape[0]
+    cp = tb.whole_words(c, dt)
+    ci = tb.whole_words(model.expand_conv.weight.shape[1], dt)
+    s0, b0 = _fold(model.expand_bn)
+    expand = (tb.pad(_channels_last(model.expand_conv, dt), ci, cp), tb.pad(s0, cp),
+              tb.pad(b0, cp))
+    convs, bns = model.layers_conv, model.layers_bn
+    blocks = [tb.padded_block(cp, _channels_last(convs[2 * i], dt), *_fold(bns[2 * i]),
+                              _channels_last(convs[2 * i + 1], dt)[0], *_fold(bns[2 * i + 1]))
+              for i in range(len(convs) // 2)]
+    ws = _channels_last(model.shrink, dt)[0]
+    j3 = tb.whole_words(ws.shape[1], dt)
+    shrink = (tb.pad(ws, cp, j3), tb.pad(model.shrink.bias.detach().float(), j3))
+    ops = (ci, expand, blocks, shrink)
+    _FUSED_OPERANDS[model] = (key, ops)
+    return ops
+
+
 @torch.no_grad()
 def forward_dilated_fused(config: TemporalModelConfig, model: TemporalModel, x):
     """Inference-only dilated forward through the fused block kernels.
@@ -223,9 +264,14 @@ def forward_dilated_fused(config: TemporalModelConfig, model: TemporalModel, x):
     Runs at ``config.matmul_dtype`` ("mixed" runs as bf16); ``config`` is the
     model's architecture with the compute dtype to serve at.  Equal to
     :func:`forward_dilated` up to that dtype.
+
+    Any width, on every device: the blocks run on the model's operands padded to
+    whole 16-byte words (``_fused_operands``, made once per model state) and the
+    keypoints padded to as many columns; the padded channels stay 0 from block to
+    block, and only the poses are cut back to J_out * 3.
     """
     from videopose3d_torch.ops.kernels.temporal_block import (
-        fused_dilated_block, fused_expand_block, fused_shrink_block)
+        fused_dilated_block, fused_expand_block, fused_shrink_block, pad)
 
     cfg = config
     if cfg.dense:
@@ -233,40 +279,32 @@ def forward_dilated_fused(config: TemporalModelConfig, model: TemporalModel, x):
     dt = cfg.matmul_dtype
     x = _prep_input(cfg, x)
     n_blocks = len(cfg.filter_widths) - 1
-    convs, bns = model.layers_conv, model.layers_bn
-    s0, b0 = _fold(model.expand_bn)
-    w_shrink = _channels_last(model.shrink, dt)
-    b_shrink = model.shrink.bias.detach().float()
+    j3 = model.shrink.weight.shape[0]
 
     def shrink_plain(h):
-        out = _conv_matmul(h, w_shrink, dt) + b_shrink.to(dt)
+        w_shrink = _channels_last(model.shrink, dt)
+        out = _conv_matmul(h, w_shrink, dt) + model.shrink.bias.detach().float().to(dt)
         return _finish_output(cfg, out.float())
 
     if n_blocks == 0:
         # Expand + shrink only: no residual block to fuse.
+        s0, b0 = _fold(model.expand_bn)
         e = _conv_matmul(x, _channels_last(model.expand_conv, dt), dt)
         return shrink_plain(torch.relu(e * s0.to(dt) + b0.to(dt)))
-
-    def block(i):
-        s1, b1 = _fold(bns[2 * i])
-        s2, b2 = _fold(bns[2 * i + 1])
-        return (_channels_last(convs[2 * i], dt), s1, b1,
-                _channels_last(convs[2 * i + 1], dt)[0], s2, b2)
 
     def geometry(i):
         return dict(dilation=cfg.dilations[i + 1],
                     causal_shift=cfg.causal_shifts_dilated[i + 1])
 
-    x = fused_expand_block(x, _channels_last(model.expand_conv, dt), s0, b0,
-                           *block(0), **geometry(0))
+    c_in, expand, blocks, shrink = _fused_operands(model, dt)
+    x = fused_expand_block(pad(x.to(dt), c_in), *expand, *blocks[0], **geometry(0))
     if n_blocks == 1:
         # The single block fuses its expand side; the shrink runs plain.
-        return shrink_plain(x)
+        return shrink_plain(x[..., :model.expand_conv.weight.shape[0]])
     for i in range(1, n_blocks - 1):
-        x = fused_dilated_block(x, *block(i), **geometry(i))
-    i = n_blocks - 1
-    x = fused_shrink_block(x, *block(i), w_shrink[0], b_shrink, **geometry(i))
-    return _finish_output(cfg, x)
+        x = fused_dilated_block(x, *blocks[i], **geometry(i))
+    x = fused_shrink_block(x, *blocks[-1], *shrink, **geometry(n_blocks - 1))
+    return _finish_output(cfg, x[..., :j3])
 
 
 @torch.no_grad()
@@ -275,6 +313,10 @@ def forward_dilated_int8(config: TemporalModelConfig, q, x, *,
     """w8a8 int8 inference through the int8 stage kernels of
     ``ops/kernels/temporal_block_int8.py``: expand + block 0, the mid blocks,
     the last block + shrink.
+
+    Any width: a model whose channels are not a multiple of the kernels' 16 runs
+    as its zero-padded form (``temporal_block_int8.channel_padded``, on every
+    device), which gives the same poses bit for bit.
 
     Args:
       q: the ``QuantizedModel`` of ``quantize_temporal_model`` (or ``q_from_jax``).
@@ -293,6 +335,7 @@ def forward_dilated_int8(config: TemporalModelConfig, q, x, *,
     n_blocks = len(cfg.filter_widths) - 1
     if n_blocks < 2:
         raise ValueError("int8 path expects at least 2 residual blocks")
+    q = tq.channel_padded(q)
     x = _prep_input(cfg, x)
     rf = receptive_field(cfg)
     if x.shape[1] < rf:

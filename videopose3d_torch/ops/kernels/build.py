@@ -32,9 +32,10 @@ _I = ctypes.c_int
 
 # vp3d_temporal_block(variant, dtype, batch, t_in, t_out, channels, x, x_cols,
 #   w0, s0, b0, k0, w_taps, s1, b1, n_taps, dilation, res_offset, w2, s2, b2,
-#   ws, bs, j3, out, stream)
+#   ws, bs, j3, e, h, y, part, part_floats, k_slices (host int[]), out, stream)
 _BLOCK_ARGTYPES = ([_I] * 6 + [_P, _I] + [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3
-                   + [_P] * 3 + [_P] * 2 + [_I] + [_P] * 2)
+                   + [_P] * 3 + [_P] * 2 + [_I] + [_P] * 4 + [ctypes.c_longlong]
+                   + [ctypes.POINTER(_I)] + [_P] * 2)
 
 # Argument types of the other entry points (the CUDA stream last, where taken).
 _ENTRY_ARGTYPES = {
@@ -138,8 +139,6 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.vp3d_temporal_block.argtypes = _BLOCK_ARGTYPES
     lib.vp3d_temporal_block.restype = ctypes.c_int
-    lib.vp3d_block_smem_bytes.argtypes = [_I] * 5
-    lib.vp3d_block_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_block_max_smem_bytes.argtypes = []
     lib.vp3d_block_max_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_error_string.argtypes = [_I]

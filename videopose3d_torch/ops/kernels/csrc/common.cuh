@@ -1,6 +1,6 @@
 // Pieces every kernel of the port shares: dtype conversion at the points the TPU
-// kernels cast, the block size of the row-tile and elementwise kernels, and the
-// launch with dynamic shared memory.
+// kernels cast, the block size of the row-tile and elementwise kernels, the
+// cp.async group fences, and the launch with dynamic shared memory.
 
 #pragma once
 
@@ -28,6 +28,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // The value v takes once stored as T, held in float32.
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Opts the kernel in to `smem` bytes of dynamic shared memory and launches it.

@@ -13,274 +13,507 @@
 // to (B, T_out, j3) in float32.  act() is the cast to the activation type T (float or
 // bf16) at exactly the points where the TPU kernel casts; every sum is float32.
 //
-// What bounds it on this card: four C x C GEMMs per block (3 taps + 1x1), 8*C*C FLOP
-// per output row, all on CUDA-core FP32 FMAs (67 TFLOP/s peak on an H100 SXM) in this
-// first version; tensor cores (wgmma) and TMA pipelining are left for later work.
-// The weights (16 MB at C=1024 in float32) stay in the 50 MB L2 and are streamed
-// once per 16-row tile, 8 FLOP per weight byte loaded, so L2 bandwidth is the other
-// limit.  The design keeps every intermediate out of device memory, as the TPU kernel
-// keeps them in VMEM: the staged input rows, h, and (kExpand) e, (kShrink) the block
-// output live in shared memory as float32 (values already rounded to T), so a block
-// reads its input once per tap and writes only its output.
-//
-// Thread mapping: a CUDA block owns TM=16 consecutive output rows of one batch row
-// and all C output columns, through gemm_tile (tile_gemm.cuh).  Ragged tails are
-// masked: rows past the input are read as zero and rows past T_out are not stored.
+// What bounds it on this card: the products, 8 * C^2 FLOP per output row (3 taps +
+// the 1x1), on the CUDA cores' FP32 FMAs (67 TFLOP/s) in float32 and on the bf16
+// tensor cores (989 TFLOP/s) in bf16.  vp3d_temporal_block, one host call per stage,
+// enqueues the stage as a chain of tile GEMMs over M = B * T_out rows, each of
+// 128 x 128 output tiles, so a stage reads its weights once per 128-row tile:
+//   (kExpand) e = act(relu(raw window @ W0 * s0 + b0)), K = k0 * c_in;
+//   h = act(relu(taps @ W_taps * s1 + b1)), K = n_taps * C;
+//   out = act(res + relu(h @ W2 * s2 + b2)), the residual row read in the epilogue;
+//   (kShrink) y = out @ Ws + bs in float32, one column tile.
+// e, h and kShrink's block output go through device memory in T (h: 9 MB in bf16 at
+// B = 2, T_out = 2,234, C = 1,024, within the 50 MB L2).  Row i of a GEMM is frame
+// t = i % T_out of batch row b = i / T_out, and its tap j reads input row t + j * d
+// of batch row b in place: the taps are never materialised.
+// - float32 (k3_sgemm_kernel): the train block's tap GEMM main loop, tile_gemm_loop
+//   of sgemm_tile.cuh, on the 128 x 128 CUDA-core tile with this row map: A read by
+//   rows into registers and stored transposed and XOR-swizzled, B through a 3-stage
+//   cp.async ring, an FMA chain in k order (no TF32), two CUDA blocks per SM.
+// - bf16 (k3_mma_kernel): mma.sync m16n8k16 with float32 sums on stream_tc.cuh's
+//   instruction wrappers and stage layout, 8 warps of 64 x 32 over a 128 x 128 tile,
+//   both operands staged by 16-byte cp.async into padded tiles of a 4-stage ring and
+//   read by ldmatrix, two CUDA blocks per SM.
+// Where the tiles leave a ragged last wave, the summed dimension is split into slices
+// of the rows the caller plans for each GEMM (temporal_block.k3_plan); each slice
+// writes its float32 product (sgemm_tile.cuh's tile_store_part) and
+// k3_reduce_kernel adds the slices in slice order before the epilogue.  No float atomics: two
+// launches give bitwise-equal results.  Rows are copied in 16-byte words (C, the
+// raw columns and the projection's width: multiples of 4 in float32, of 8 in bf16;
+// the model pads other widths with zero channels once); K and N tails read as zero
+// and rows past M are neither read nor stored.  Nothing is held per channel in
+// shared memory, so any width runs.
 
-#include "tile_gemm.cuh"
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "common.cuh"
+#include "sgemm_tile.cuh"
+#include "stream_tc.cuh"
 
 namespace {
 
 using namespace vp3d;
 
 enum Variant { kMid = 0, kExpand = 1, kShrink = 2 };
+enum Epilogue { kBnRelu = 0, kResidual = 1, kProject = 2 };
 
-struct Args {
-  int batch, t_in, t_out, c;
-  const void* x;      // (batch, t_in, x_cols): raw keypoints for kExpand, else (.., c)
-  int x_cols;
-  const void* w0;     // kExpand: (k0, x_cols, c)
-  const float* s0;
-  const float* b0;
-  int k0;
-  const void* w_taps; // (n_taps, c, c)
-  const float* s1;
-  const float* b1;
-  int n_taps, dilation, res_offset;
-  const void* w2;     // (c, c)
-  const float* s2;
-  const float* b2;
-  const void* ws;     // kShrink: (c, j3)
-  const float* bs;
-  int j3;
-  void* out;          // (batch, t_out, c) of T, or (batch, t_out, j3) float for kShrink
+// One GEMM of a stage's chain: out (m x n) = A (m x k) @ W (k x n), then the epilogue.
+template <typename T>
+struct K3Gemm {
+  // A row i = (b, t) reads tap j at a + (b * a_rows + t + j * dil) * lda, kc values
+  // per tap (k = taps * kc).
+  const T* a;
+  int lda, kc, dil, a_rows;
+  const T* w;  // (k, n) row-major
+  int m, t_out, k, n, k_slice;
+  float* part;  // (slices, m, n) float32 products of a split, or null
+  int epi;
+  const float* scale;  // kProject: the bias
+  const float* shift;
+  const T* res;  // kResidual: row (b, t + res_off) of res, n wide, res_rows per batch row
+  int res_rows, res_off;
+  void* out;  // (m, n) of T, or float for kProject
 };
 
-__host__ __device__ inline int raw_ld(int c_in) { return (c_in + 3) & ~3; }
-__host__ __device__ inline int expand_rows(int span) { return TM + span; }
-__host__ __device__ inline int raw_rows(int span, int k0) {
-  return (expand_rows(span) + TM - 1) / TM * TM + k0 - 1;
+// Row b * a_rows + t of A's input for GEMM row i, or -1 past m.
+template <typename T>
+__device__ __forceinline__ int a_row(const K3Gemm<T>& p, int i) {
+  if (i >= p.m) return -1;
+  const int b = i / p.t_out;
+  return b * p.a_rows + i - b * p.t_out;
 }
 
-size_t smem_bytes(int variant, int c, int c_in, int k0, int span) {
-  if (variant == kExpand) {
-    return sizeof(float) * ((size_t)raw_rows(span, k0) * raw_ld(c_in) +
-                            (size_t)expand_rows(span) * c + (size_t)TM * c);
+// Where a summed-dimension column lies: tap j, column kin of the tap's kc.
+struct TapPos {
+  int j, kin;
+  __device__ __forceinline__ void start(int kk, int kc) {
+    j = kk / kc;
+    kin = kk - j * kc;
   }
-  return sizeof(float) * 2 * (size_t)TM * c;
+  __device__ __forceinline__ void step(int by, int kc) {
+    kin += by;
+    while (kin >= kc) {
+      kin -= kc;
+      ++j;
+    }
+  }
+};
+
+// Sets the kernel's dynamic shared memory and the whole carveout (two CUDA blocks of
+// 75-82 KB share an SM only with it), once per device (one instance per kernel).
+template <typename Kern>
+cudaError_t configure(Kern kern, size_t smem) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev >= 0 && dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
+  return err;
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(NT, 1) temporal_block_kernel(const Args p) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TM;
-  const int c = p.c;
-  const int tid = threadIdx.x;
-  const int span = (p.n_taps - 1) * p.dilation;
-  const T* x = static_cast<const T*>(p.x) + (size_t)b * p.t_in * p.x_cols;
-  const T* w_taps = static_cast<const T*>(p.w_taps);
-  const T* w2 = static_cast<const T*>(p.w2);
-
-  float* a_s = smem;  // staged input rows of one tap; later the block output (kShrink)
-  float* h_s;
-  float* e_s = nullptr;
-  float acc[TM][CPT];
-
-  if constexpr (V == kExpand) {
-    // Expand conv over the raw window, rows t0 .. t0 + TM + span - 1 of its output.
-    const int c_in = p.x_cols;
-    const int ldr = raw_ld(c_in);
-    const int re = expand_rows(span);
-    const int rr = raw_rows(span, p.k0);
-    float* raw_s = smem;
-    e_s = raw_s + rr * ldr;
-    h_s = e_s + re * c;
-    for (int i = tid; i < rr * ldr; i += NT) {
-      const int r = i / ldr;
-      const int k = i - r * ldr;
-      const int t = t0 + r;
-      raw_s[i] = (k < c_in && t < p.t_in) ? to_f<T>(x[(size_t)t * c_in + k]) : 0.f;
-    }
-    __syncthreads();
-    const T* w0 = static_cast<const T*>(p.w0);
-    for (int r0 = 0; r0 < re; r0 += TM) {
-      for (int col0 = 0; col0 < c; col0 += NP) {
-        zero(acc);
-        for (int j = 0; j < p.k0; ++j) {
-          gemm_tile<T>(acc, raw_s + (r0 + j) * ldr, ldr, c_in,
-                       w0 + (size_t)j * c_in * c, c, c, col0);
-        }
+// The epilogue of N consecutive columns col.. of row i (i < m, col < n, n % N == 0).
+template <typename T, int N>
+__device__ __forceinline__ void k3_store(const K3Gemm<T>& p, int i, int col,
+                                         const float (&v)[N]) {
+  if (p.epi == kProject) {
+    float* o = static_cast<float*>(p.out) + (size_t)i * p.n + col;
 #pragma unroll
-        for (int q = 0; q < CPT; ++q) {
-          const int col = col0 + tid + q * NT;
-          if (col >= c) continue;
-          const float s = p.s0[col];
-          const float sh = p.b0[col];
+    for (int e = 0; e < N; ++e) o[e] = __fadd_rn(v[e], p.scale[col + e]);
+    return;
+  }
+  float y[N];
 #pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            if (r0 + r < re) {
-              e_s[(r0 + r) * c + col] = round_to<T>(fmaxf(acc[r][q] * s + sh, 0.f));
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
+  for (int e = 0; e < N; ++e) {
+    y[e] = fmaxf(__fadd_rn(__fmul_rn(v[e], p.scale[col + e]), p.shift[col + e]), 0.f);
+  }
+  if (p.epi == kResidual) {
+    const int b = i / p.t_out;
+    const T* r = p.res + (size_t)(b * p.res_rows + i - b * p.t_out + p.res_off) * p.n + col;
+#pragma unroll
+    for (int e = 0; e < N; ++e) y[e] = __fadd_rn(to_f<T>(r[e]), y[e]);
+  }
+  T* o = static_cast<T*>(p.out) + (size_t)i * p.n + col;
+  if constexpr (N == 4) {
+    store4<T>(o, round_to<T>(y[0]), round_to<T>(y[1]), round_to<T>(y[2]), round_to<T>(y[3]));
   } else {
-    h_s = a_s + TM * c;
+#pragma unroll
+    for (int e = 0; e < N; ++e) o[e] = from_f<T>(y[e]);
   }
+}
 
-  // Dilated conv: n_taps GEMMs accumulated in float32, then BN1 + ReLU -> h.
-  for (int col0 = 0; col0 < c; col0 += NP) {
-    zero(acc);
-    for (int j = 0; j < p.n_taps; ++j) {
-      const float* A;
-      if constexpr (V == kExpand) {
-        A = e_s + j * p.dilation * c;
-      } else {
-        __syncthreads();  // every thread is done with the previous tap's rows
-        for (int r = 0; r < TM; ++r) {
-          const int t = t0 + j * p.dilation + r;
-          for (int k = tid; k < c; k += NT) {
-            a_s[r * c + k] = t < p.t_in ? to_f<T>(x[(size_t)t * c + k]) : 0.f;
-          }
-        }
-        __syncthreads();
-        A = a_s;
-      }
-      gemm_tile<T>(acc, A, c, c, w_taps + (size_t)j * c * c, c, c, col0);
-    }
+// The epilogue of this thread's part of a finished 128 x 128 register tile.
+template <typename T>
+__device__ __forceinline__ void k3_store_tile(const K3Gemm<T>& p, const float (&acc)[GRT][GRT]) {
+  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT, ty = tile_ty(), tx = tile_tx();
 #pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int col = col0 + tid + q * NT;
-      if (col >= c) continue;
-      const float s = p.s1[col];
-      const float sh = p.b1[col];
+  for (int r = 0; r < GRT; ++r) {
+    const int i = i0 + tile_row(ty, r);
 #pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        h_s[r * c + col] = round_to<T>(fmaxf(acc[r][q] * s + sh, 0.f));
-      }
-    }
-  }
-  __syncthreads();
-
-  // 1x1 conv, BN2 + ReLU, residual added in float32, cast to T.
-  T* out = static_cast<T*>(p.out);
-  for (int col0 = 0; col0 < c; col0 += NP) {
-    zero(acc);
-    gemm_tile<T>(acc, h_s, c, c, w2, c, c, col0);
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int col = col0 + tid + q * NT;
-      if (col >= c) continue;
-      const float s = p.s2[col];
-      const float sh = p.b2[col];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int t = t0 + r;
-        float res;
-        if constexpr (V == kExpand) {
-          res = e_s[(p.res_offset + r) * c + col];
-        } else {
-          const int tr = t + p.res_offset;
-          res = tr < p.t_in ? to_f<T>(x[(size_t)tr * c + col]) : 0.f;
-        }
-        const float v = res + fmaxf(acc[r][q] * s + sh, 0.f);
-        if constexpr (V == kShrink) {
-          a_s[r * c + col] = round_to<T>(v);
-        } else if (t < p.t_out) {
-          out[((size_t)b * p.t_out + t) * c + col] = from_f<T>(v);
-        }
-      }
-    }
-  }
-
-  if constexpr (V == kShrink) {
-    // Shrink projection of the block output tile: (TM, c) @ (c, j3) + bias, float32.
-    __syncthreads();
-    const T* ws = static_cast<const T*>(p.ws);
-    float* outf = static_cast<float*>(p.out);
-    const int j3 = p.j3;
-    for (int o = tid; o < TM * j3; o += NT) {
-      const int r = o / j3;
-      const int col = o - r * j3;
-      const int t = t0 + r;
-      if (t >= p.t_out) continue;
-      const float* a = a_s + r * c;
-      float s = 0.f;
-      for (int k = 0; k < c; k += 4) {
-        const float4 av = *reinterpret_cast<const float4*>(a + k);
-        s = fmaf(av.x, to_f<T>(ws[(size_t)k * j3 + col]), s);
-        s = fmaf(av.y, to_f<T>(ws[(size_t)(k + 1) * j3 + col]), s);
-        s = fmaf(av.z, to_f<T>(ws[(size_t)(k + 2) * j3 + col]), s);
-        s = fmaf(av.w, to_f<T>(ws[(size_t)(k + 3) * j3 + col]), s);
-      }
-      outf[((size_t)b * p.t_out + t) * j3 + col] = s + p.bs[col];
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + tile_col(tx, h);
+      if (i >= p.m || j >= p.n) continue;
+      const float v[4] = {acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                          acc[r][4 * h + 3]};
+      k3_store<T, 4>(p, i, j, v);
     }
   }
 }
 
-template <typename T, int V>
-cudaError_t launch(const Args& p, size_t smem, cudaStream_t stream) {
-  auto kern = temporal_block_kernel<T, V>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.t_out + TM - 1) / TM, p.batch);
-  kern<<<grid, NT, smem, stream>>>(p);
+// One 128 x 128 tile of the float32 GEMM (blockIdx.x: column tile, blockIdx.y: row
+// tile) over the summed rows of slice blockIdx.z: sgemm_tile.cuh's tile_gemm_loop,
+// A's 16-byte loads taken from the stage's input row (b, t + j * d) of each tile row.
+__global__ void __launch_bounds__(GT_THREADS, 2) k3_sgemm_kernel(
+    const __grid_constant__ K3Gemm<float> p) {
+  extern __shared__ float4 smem4[];
+  float* a_s = reinterpret_cast<float*>(smem4);  // [A_STAGES][GK][GT]
+  float* b_s = a_s + A_STAGES * TAP_SLAB;        // [B_STAGES][GK][GT]
+  int* rows_s = reinterpret_cast<int*>(b_s + B_STAGES * TAP_SLAB);  // a_row of each tile row
+  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
+  const int k_begin = blockIdx.z * p.k_slice;
+  const int k_end = min(p.k, k_begin + p.k_slice);
+  if (threadIdx.x < GT) rows_s[threadIdx.x] = a_row(p, i0 + threadIdx.x);
+  __syncthreads();
+  // This thread's 4 x 4 block of A: tile rows 4 (threadIdx.x / 8) + r, summed
+  // columns kk .. kk + 3, all in tap kk / kc (kc % 4 == 0).
+  auto a_load = [&](float4(&ra)[4], int k0) {
+    const int kk = k0 + (threadIdx.x % 8) * 4;
+    const int j = kk / p.kc;
+    const float* a = p.a + (size_t)j * p.dil * p.lda + (kk - j * p.kc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rows_s[4 * (threadIdx.x / 8) + r];
+      ra[r] = row >= 0 && kk < k_end
+                  ? __ldg(reinterpret_cast<const float4*>(a + (size_t)row * p.lda))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  float acc[GRT][GRT];
+  tile_gemm_loop(acc, a_s, b_s, p.w, p.n, j0, k_begin, k_end, a_load,
+                 [](float* as, const float4(&ra)[4], int) { a_store_slab(as, ra); });
+  if (p.part != nullptr) {
+    tile_store_part(acc, p.part, p.m, p.n, i0, j0);
+  } else {
+    k3_store_tile(p, acc);
+  }
+}
+
+// The bf16 tile: stream_tc.cuh's stage of 128 A rows x 32 K values (80-byte padded
+// rows) and 32 B rows x 128 columns (136-element padded rows), read by ldmatrix.
+using MmaGeo = Geo<Bf16Mma, GT>;
+
+// One 128 x 128 tile of the bf16 GEMM over the summed rows of slice blockIdx.z on
+// mma.sync: both operands by cp.async through a kTcStages-deep ring.
+__global__ void __launch_bounds__(NT, 2) k3_mma_kernel(const __grid_constant__ K3Gemm<bf16> p) {
+  using G = MmaGeo;
+  constexpr int ST = kTcStages;
+  extern __shared__ float4 smem4[];
+  char* stages = reinterpret_cast<char*>(smem4);
+  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
+  const int k_begin = blockIdx.z * p.k_slice;
+  const int k_end = min(p.k, k_begin + p.k_slice);
+  const int q_n = (k_end - k_begin + G::BK - 1) / G::BK;
+  // This thread's 16-byte copies of a stage: A rows ar and ar + 64, chunk ac of the
+  // 32 K values; B rows br and br + 16, chunk bc of the 128 columns.
+  const int ac = threadIdx.x % 4, ar = threadIdx.x / 4;
+  const int bc = threadIdx.x % 16, br = threadIdx.x / 16;
+  const int rows[2] = {a_row(p, i0 + ar), a_row(p, i0 + ar + 64)};
+  const int col = j0 + bc * 8;
+  int kk = k_begin + ac * 8, kb = k_begin;
+  TapPos pos;
+  pos.start(kk, p.kc);
+  auto load = [&](char* stage) {
+    bf16* as = reinterpret_cast<bf16*>(stage);
+    bf16* bs = reinterpret_cast<bf16*>(stage + G::A_BYTES);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const bool ok = rows[u] >= 0 && kk < k_end;
+      const bf16* src =
+          ok ? p.a + ((size_t)rows[u] + (size_t)pos.j * p.dil) * p.lda + pos.kin : p.a;
+      cp_async16(as + (ar + 64 * u) * G::LDA + ac * 8, src, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = kb + br + 16 * u;
+      const bool ok = col < p.n && r < k_end;
+      cp_async16(bs + (br + 16 * u) * G::LDB + bc * 8, ok ? p.w + (size_t)r * p.n + col : p.w,
+                 ok ? 16 : 0);
+    }
+    kk += G::BK;
+    kb += G::BK;
+    pos.step(G::BK, p.kc);
+  };
+  float acc[G::MT][G::NT8][4];
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < G::NT8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < q_n) load(stages + s * G::STAGE);
+    cp_async_commit();
+  }
+  int load_at = ST - 1, use_at = 0;
+  for (int q = 0; q < q_n; ++q) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // stage q landed; every warp is done with stage q - 1
+    if (q + ST - 1 < q_n) load(stages + load_at * G::STAGE);
+    cp_async_commit();
+    load_at = load_at + 1 == ST ? 0 : load_at + 1;
+    Bf16Mma::mma_stage<G>(acc, stages + use_at * G::STAGE);
+    use_at = use_at + 1 == ST ? 0 : use_at + 1;
+  }
+  cp_async_wait<0>();
+  // The m16n8 accumulator layout: acc[mt][nt][2 hh + e] is row lane / 4 + 8 hh of
+  // m16 tile mt, column 2 (lane % 4) + e of n8 tile nt.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / G::WARPS_N, wn = warp - wm * G::WARPS_N;
+  float* part = p.part == nullptr ? nullptr : p.part + (size_t)blockIdx.z * p.m * p.n;
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < G::NT8; ++nt) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + wm * G::WM + mt * 16 + (lane >> 2) + hh * 8;
+        const int j = j0 + wn * G::WN + nt * 8 + 2 * (lane & 3);
+        if (i >= p.m || j >= p.n) continue;
+        const float v[2] = {acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]};
+        if (part != nullptr) {
+          *reinterpret_cast<float2*>(part + (size_t)i * p.n + j) = make_float2(v[0], v[1]);
+        } else {
+          k3_store<bf16, 2>(p, i, j, v);
+        }
+      }
+    }
+  }
+}
+
+// The split form's second launch: each thread adds the slices' float32 products of
+// 4 consecutive columns in slice order, then runs the epilogue.  Row by row, not by
+// 128 x 128 tiles as the train block's reduce (whose column sums need the tile):
+// 38 registers, a full SM of threads, and no tail wave of tiles (4 % faster per
+// split stage than a tile-shaped reduce on an H100, kernel_ab.py).
+template <typename T>
+__global__ void __launch_bounds__(NT) k3_reduce_kernel(const __grid_constant__ K3Gemm<T> p,
+                                                       int slices) {
+  const int groups_per_row = p.n / 4;
+  const size_t groups = (size_t)p.m * groups_per_row, stride = (size_t)p.m * p.n;
+  for (size_t g = (size_t)blockIdx.x * NT + threadIdx.x; g < groups;
+       g += (size_t)gridDim.x * NT) {
+    const int i = (int)(g / groups_per_row);
+    const int col = (int)(g - (size_t)i * groups_per_row) * 4;
+    const float* src = p.part + (size_t)i * p.n + col;
+    float4 s = *reinterpret_cast<const float4*>(src);
+    for (int z = 1; z < slices; ++z) {
+      const float4 v = *reinterpret_cast<const float4*>(src + z * stride);
+      s = make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y), __fadd_rn(s.z, v.z),
+                      __fadd_rn(s.w, v.w));
+    }
+    const float v[4] = {s.x, s.y, s.z, s.w};
+    k3_store<T, 4>(p, i, col, v);
+  }
+}
+
+// One GEMM of the chain, in slices of g.k_slice summed rows.
+template <typename T>
+cudaError_t launch_gemm(K3Gemm<T> g, float* part, long long part_floats, cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (g.k_slice <= 0 || (g.k_slice < g.k && g.k_slice % GK != 0)) return cudaErrorInvalidValue;
+  const int slices = (g.k + g.k_slice - 1) / g.k_slice;
+  g.part = nullptr;
+  if (slices > 1) {
+    if (part == nullptr || (long long)slices * g.m * g.n > part_floats) {
+      return cudaErrorInvalidValue;
+    }
+    g.part = part;
+  }
+  const dim3 grid((g.n + GT - 1) / GT, (g.m + GT - 1) / GT, slices);
+  if constexpr (kBf16) {
+    const size_t smem = (size_t)kTcStages * MmaGeo::STAGE;
+    cudaError_t err = configure(k3_mma_kernel, smem);
+    if (err != cudaSuccess) return err;
+    k3_mma_kernel<<<grid, NT, smem, s>>>(g);
+  } else {
+    const size_t smem = sizeof(float) * (A_STAGES + B_STAGES) * TAP_SLAB + sizeof(int) * GT;
+    cudaError_t err = configure(k3_sgemm_kernel, smem);
+    if (err != cudaSuccess) return err;
+    k3_sgemm_kernel<<<grid, GT_THREADS, smem, s>>>(g);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  const size_t groups = (size_t)g.m * (g.n / 4);
+  const unsigned blocks =
+      (unsigned)std::min<size_t>((groups + NT - 1) / NT, 16 * (size_t)device_sms());
+  k3_reduce_kernel<T><<<blocks, NT, 0, s>>>(g, slices);
   return cudaGetLastError();
 }
 
+struct Stage {
+  int variant, batch, t_in, t_out, c;
+  const void* x;  // (batch, t_in, x_cols): raw keypoints for kExpand, else (.., c)
+  int x_cols;
+  const void* w0;  // kExpand: (k0, x_cols, c)
+  const float* s0;
+  const float* b0;
+  int k0;
+  const void* w_taps;  // (n_taps, c, c)
+  const float* s1;
+  const float* b1;
+  int n_taps, dilation, res_offset;
+  const void* w2;  // (c, c)
+  const float* s2;
+  const float* b2;
+  const void* ws;  // kShrink: (c, j3)
+  const float* bs;
+  int j3;
+  void* e;  // kExpand: (batch, t_in - k0 + 1, c) of T
+  void* h;  // (batch, t_out, c) of T
+  void* y;  // kShrink: (batch, t_out, c) of T, the block output
+  float* part;
+  long long part_floats;
+  const int* k_slices;  // summed rows per slice of each GEMM of the chain, in order
+  void* out;  // (batch, t_out, c) of T, or (batch, t_out, j3) float for kShrink
+};
+
+// The stage's chain of GEMMs on `stream`.
 template <typename T>
-cudaError_t dispatch(int variant, const Args& p, size_t smem, cudaStream_t stream) {
-  switch (variant) {
-    case kMid: return launch<T, kMid>(p, smem, stream);
-    case kExpand: return launch<T, kExpand>(p, smem, stream);
-    case kShrink: return launch<T, kShrink>(p, smem, stream);
-    default: return cudaErrorInvalidValue;
+cudaError_t run_stage(const Stage& st, cudaStream_t stream) {
+  const int c = st.c;
+  const int* k_slice = st.k_slices;
+  const T* src = static_cast<const T*>(st.x);
+  int src_rows = st.t_in;
+  K3Gemm<T> g{};
+  if (st.variant == kExpand) {
+    // The window of k0 raw rows from row t is k0 * x_cols consecutive values.
+    const int t_e = st.t_in - st.k0 + 1;
+    g = K3Gemm<T>{};
+    g.a = src;
+    g.lda = st.x_cols;
+    g.kc = st.k0 * st.x_cols;
+    g.a_rows = st.t_in;
+    g.w = static_cast<const T*>(st.w0);
+    g.m = st.batch * t_e;
+    g.t_out = t_e;
+    g.k = g.kc;
+    g.n = c;
+    g.epi = kBnRelu;
+    g.scale = st.s0;
+    g.shift = st.b0;
+    g.out = st.e;
+    g.k_slice = *k_slice++;
+    cudaError_t err = launch_gemm(g, st.part, st.part_floats, stream);
+    if (err != cudaSuccess) return err;
+    src = static_cast<const T*>(st.e);
+    src_rows = t_e;
   }
+  const int m = st.batch * st.t_out;
+  g = K3Gemm<T>{};
+  g.a = src;
+  g.lda = c;
+  g.kc = c;
+  g.dil = st.dilation;
+  g.a_rows = src_rows;
+  g.w = static_cast<const T*>(st.w_taps);
+  g.m = m;
+  g.t_out = st.t_out;
+  g.k = st.n_taps * c;
+  g.n = c;
+  g.epi = kBnRelu;
+  g.scale = st.s1;
+  g.shift = st.b1;
+  g.out = st.h;
+  g.k_slice = *k_slice++;
+  cudaError_t err = launch_gemm(g, st.part, st.part_floats, stream);
+  if (err != cudaSuccess) return err;
+  g.a = static_cast<const T*>(st.h);
+  g.dil = 0;
+  g.a_rows = st.t_out;
+  g.w = static_cast<const T*>(st.w2);
+  g.k = c;
+  g.epi = kResidual;
+  g.scale = st.s2;
+  g.shift = st.b2;
+  g.res = src;
+  g.res_rows = src_rows;
+  g.res_off = st.res_offset;
+  g.out = st.variant == kShrink ? st.y : st.out;
+  g.k_slice = *k_slice++;
+  err = launch_gemm(g, st.part, st.part_floats, stream);
+  if (err != cudaSuccess || st.variant != kShrink) return err;
+  g.a = static_cast<const T*>(st.y);
+  g.w = static_cast<const T*>(st.ws);
+  g.n = st.j3;
+  g.epi = kProject;
+  g.scale = st.bs;
+  g.shift = nullptr;
+  g.res = nullptr;
+  g.out = st.out;
+  g.k_slice = *k_slice;
+  return launch_gemm(g, st.part, st.part_floats, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one CUDA block of the variant needs, in bytes.
-size_t vp3d_block_smem_bytes(int variant, int channels, int c_in, int k0, int span) {
-  return smem_bytes(variant, channels, c_in, k0, span);
-}
-
+// The most dynamic shared memory a CUDA block may opt in to, in bytes (SMEM_OPT_IN).
 size_t vp3d_block_max_smem_bytes() { return kMaxSmem; }
 
 const char* vp3d_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches one fused block on `stream`; dtype 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError() after the launch (0 on success).  Shapes are checked by the
-// Python wrapper; this only refuses what would make the launch itself invalid.
+// Enqueues one fused stage on `stream`; dtype 0 = float32, 1 = bfloat16.  k_slices
+// holds the summed rows per slice of each GEMM of the stage's chain, in order (the
+// expand window's, the taps', the 1x1's, the projection's; temporal_block.k3_plan).
+// Returns the first launch error (0 on success).  Shapes and scratch sizes are
+// checked by the Python wrapper; this refuses what would make a launch invalid or
+// read out of bounds: widths that are not whole 16-byte words, geometry that reaches
+// past the input, slices that are not whole slabs, and a split whose products do not
+// fit in `part`.
 int vp3d_temporal_block(int variant, int dtype, int batch, int t_in, int t_out,
                         int channels, const void* x, int x_cols, const void* w0,
                         const void* s0, const void* b0, int k0, const void* w_taps,
                         const void* s1, const void* b1, int n_taps, int dilation,
                         int res_offset, const void* w2, const void* s2, const void* b2,
-                        const void* ws, const void* bs, int j3, void* out, void* stream) {
-  if (batch <= 0 || t_out <= 0 || channels <= 0 || channels % 4 != 0 || batch > 65535) {
+                        const void* ws, const void* bs, int j3, void* e, void* h, void* y,
+                        void* part, long long part_floats, const int* k_slices, void* out,
+                        void* stream) {
+  const int align = dtype == 1 ? 8 : 4;
+  const int src_rows = variant == kExpand ? t_in - k0 + 1 : t_in;
+  const int span = (n_taps - 1) * dilation;
+  if ((dtype != 0 && dtype != 1) || variant < kMid || variant > kShrink || batch <= 0 ||
+      t_out <= 0 || channels <= 0 || channels % align != 0 || n_taps <= 0 || dilation <= 0 ||
+      res_offset < 0 || t_out + span > src_rows || res_offset + t_out > src_rows ||
+      k_slices == nullptr || (long long)(channels + GT - 1) / GT > 65535 ||
+      ((long long)batch * std::max(t_in, t_out) + GT - 1) / GT > 65535) {
     return cudaErrorInvalidValue;
   }
-  const Args p{batch, t_in, t_out, channels, x, x_cols, w0,
-               static_cast<const float*>(s0), static_cast<const float*>(b0), k0, w_taps,
-               static_cast<const float*>(s1), static_cast<const float*>(b1), n_taps,
-               dilation, res_offset, w2, static_cast<const float*>(s2),
-               static_cast<const float*>(b2), ws, static_cast<const float*>(bs), j3, out};
-  const size_t smem = smem_bytes(variant, channels, x_cols, k0, (n_taps - 1) * dilation);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (variant == kExpand && (k0 <= 0 || x_cols <= 0 || x_cols % align != 0 || e == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (variant == kShrink && (j3 <= 0 || j3 % align != 0 || y == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const Stage st{variant, batch, t_in, t_out, channels, x, x_cols, w0,
+                 static_cast<const float*>(s0), static_cast<const float*>(b0), k0, w_taps,
+                 static_cast<const float*>(s1), static_cast<const float*>(b1), n_taps,
+                 dilation, res_offset, w2, static_cast<const float*>(s2),
+                 static_cast<const float*>(b2), ws, static_cast<const float*>(bs), j3, e, h, y,
+                 static_cast<float*>(part), part_floats, k_slices, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(variant, p, smem, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(variant, p, smem, s);
-  return cudaErrorInvalidValue;
+  return dtype == 0 ? run_stage<float>(st, s) : run_stage<bf16>(st, s);
 }
 
 }  // extern "C"

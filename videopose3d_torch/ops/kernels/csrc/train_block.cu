@@ -197,23 +197,6 @@ struct TapGemm {
   int g_col0, g_n;
 };
 
-constexpr int A_STAGES = 2;  // A slabs in shared memory (staged through registers)
-constexpr int B_STAGES = 3;  // B slabs in the cp.async ring
-constexpr int TAP_SLAB = GK * GT;
-
-// 4 consecutive elements of T in one register word group.
-template <typename T> struct Vec4 { using type = float4; };
-template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
-
-// The XOR swizzle of A's slabs: slab row kk keeps 4-row group gi at group
-// gi ^ a_swizzle<T>(kk).  It puts the transposing stores of a_store in distinct
-// banks (float32: 8 lanes of 16 bytes per phase, bf16: 16 of 8 bytes) and keeps a
-// fragment read one 16-byte (8-byte) vector.
-template <typename T>
-__device__ __forceinline__ int a_swizzle(int kk) {
-  return ((kk / 4) % 8) * (sizeof(T) == 4 ? 1 : 2);
-}
-
 // Loads this thread's 4 x 4 block of A's slab [k0, k0 + GK) into registers: rows
 // i0 + 4 (threadIdx.x / 8) + r, columns k0 + (threadIdx.x % 8) * 4 .. + 3, so that
 // 8 lanes read one row's whole slab segment; zeros outside.
@@ -231,51 +214,21 @@ __device__ __forceinline__ void a_load(typename Vec4<T>::type (&ra)[4],
   }
 }
 
-// Stores the block of a_load transposed into the slab as ([GK][GT], K-major): four
-// vector stores, one per slab row, of the block's 4 rows.  Column tile 0 also
-// copies the rows that lie in the residual tap to res.
+// Stores the block of a_load transposed into the slab (a_store_slab).  Column tile
+// 0 also copies the rows that lie in the residual tap to res.
 template <typename T>
 __device__ __forceinline__ void a_store(T* as, const typename Vec4<T>::type (&ra)[4],
                                         const TapGemm<T>& p, int i0, int k0, int k_end,
                                         bool res) {
   using V = typename Vec4<T>::type;
   const int kl = (threadIdx.x % 8) * 4, kc = k0 + kl, gi = threadIdx.x / 8;
-  T* dst = as + kl * GT + (gi ^ a_swizzle<T>(kl)) * 4;
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(ra[0].x, ra[1].x, ra[2].x, ra[3].x);
-    *reinterpret_cast<float4*>(dst + GT) = make_float4(ra[0].y, ra[1].y, ra[2].y, ra[3].y);
-    *reinterpret_cast<float4*>(dst + 2 * GT) =
-        make_float4(ra[0].z, ra[1].z, ra[2].z, ra[3].z);
-    *reinterpret_cast<float4*>(dst + 3 * GT) =
-        make_float4(ra[0].w, ra[1].w, ra[2].w, ra[3].w);
-  } else {  // 0x5410: the low bf16 of each word, 0x7632: the high one
-    *reinterpret_cast<uint2*>(dst) = make_uint2(__byte_perm(ra[0].x, ra[1].x, 0x5410),
-                                                __byte_perm(ra[2].x, ra[3].x, 0x5410));
-    *reinterpret_cast<uint2*>(dst + GT) = make_uint2(__byte_perm(ra[0].x, ra[1].x, 0x7632),
-                                                     __byte_perm(ra[2].x, ra[3].x, 0x7632));
-    *reinterpret_cast<uint2*>(dst + 2 * GT) =
-        make_uint2(__byte_perm(ra[0].y, ra[1].y, 0x5410), __byte_perm(ra[2].y, ra[3].y, 0x5410));
-    *reinterpret_cast<uint2*>(dst + 3 * GT) =
-        make_uint2(__byte_perm(ra[0].y, ra[1].y, 0x7632), __byte_perm(ra[2].y, ra[3].y, 0x7632));
-  }
+  a_store_slab(as, ra);
   if (res && kc < k_end && kc >= p.res_k0 && kc < p.res_k0 + p.res_n) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + 4 * gi + r;
       if (i < p.m) *reinterpret_cast<V*>(p.res + (size_t)i * p.res_n + kc - p.res_k0) = ra[r];
     }
-  }
-}
-
-// 4 values of T from float32 (already rounded to T) at dst: one 16- or 8-byte store.
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float v0, float v1, float v2, float v3) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v0, v1, v2, v3);
-  } else {  // the top halves of the float32 values are their bf16 bits
-    const uint32_t lo = __float_as_uint(v0) >> 16 | (__float_as_uint(v1) & 0xffff0000u);
-    const uint32_t hi = __float_as_uint(v2) >> 16 | (__float_as_uint(v3) & 0xffff0000u);
-    *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
   }
 }
 
@@ -343,10 +296,9 @@ __device__ __forceinline__ void tap_epilogue(const TapGemm<T>& p, float (&acc)[G
 }
 
 // One GT x GT tile of out (blockIdx.x: column tile, blockIdx.y: row tile) over the
-// summed rows of slice blockIdx.z.  B's slabs flow through a B_STAGES-deep
-// cp.async ring as in dw_gemm; A is row-major in the summed dimension, so its next
-// slab is read into registers by 16-byte (8-byte bf16) loads while the current
-// one is used, and stored transposed into an A_STAGES-deep ring.
+// summed rows of slice blockIdx.z: sgemm_tile.cuh's main loop over A's rows as they
+// are (column tile 0 also copies the residual tap's), then the epilogue, or the
+// float32 sums of a split.
 template <typename T>
 __global__ void __launch_bounds__(GT_THREADS, 2) tap_gemm_kernel(
     const __grid_constant__ TapGemm<T> p) {
@@ -357,94 +309,55 @@ __global__ void __launch_bounds__(GT_THREADS, 2) tap_gemm_kernel(
   const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
   const int k_begin = blockIdx.z * p.k_slice;
   const int k_end = min(p.k, k_begin + p.k_slice);
-  const int slabs = (k_end - k_begin + GK - 1) / GK;
   const bool res = p.res != nullptr && blockIdx.x == 0;
-  const int ty = tile_ty(), tx = tile_tx();
   float acc[GRT][GRT];
-  tile_zero(acc);
-  for (int s = 0; s < B_STAGES - 1; ++s) {
-    if (s < slabs) {
-      slab_cp_async(b_s + s * TAP_SLAB, p.b, p.n, k_begin + s * GK, k_end, j0, p.n);
-    }
-    cp_async_commit();
-  }
-  V ra[4];
-  a_load(ra, p, i0, k_begin, k_end);
-  a_store(a_s, ra, p, i0, k_begin, k_end, res);
-  if (slabs > 1) a_load(ra, p, i0, k_begin + GK, k_end);
-  for (int t = 0; t < slabs; ++t) {
-    cp_async_wait<B_STAGES - 2>();  // this thread's copies of B's slab t have landed
-    __syncthreads();                // everyone's, and A's slab t; slab t - 1 is consumed
-    if (t + B_STAGES - 1 < slabs) {
-      const int next = t + B_STAGES - 1;
-      slab_cp_async(b_s + (next % B_STAGES) * TAP_SLAB, p.b, p.n, k_begin + next * GK,
-                    k_end, j0, p.n);
-    }
-    cp_async_commit();
-    if (t + 1 < slabs) {  // A's slab t + 1 into the stage slab t - 1 left
-      a_store(a_s + ((t + 1) % A_STAGES) * TAP_SLAB, ra, p, i0, k_begin + (t + 1) * GK,
-              k_end, res);
-      if (t + 2 < slabs) a_load(ra, p, i0, k_begin + (t + 2) * GK, k_end);
-    }
-    const T* as = a_s + (t % A_STAGES) * TAP_SLAB;
-    const T* bs = b_s + (t % B_STAGES) * TAP_SLAB;
-#pragma unroll
-    for (int k = 0; k < GK; ++k) {
-      float af[GRT], bf[GRT];
-      tile_frag(af, as + k * GT, (ty ^ a_swizzle<T>(k)) * 4);
-      tile_frag(bf, bs + k * GT, tx * 4);
-      tile_fma(acc, af, bf);
-    }
-  }
+  tile_gemm_loop(
+      acc, a_s, b_s, p.b, p.n, j0, k_begin, k_end,
+      [&](V(&ra)[4], int k0) { a_load(ra, p, i0, k0, k_end); },
+      [&](T* as, const V(&ra)[4], int k0) { a_store(as, ra, p, i0, k0, k_end, res); });
   if (p.part != nullptr) {
-    float* part = p.part + (size_t)blockIdx.z * p.m * p.n;
-#pragma unroll
-    for (int r = 0; r < GRT; ++r) {
-      const int i = i0 + tile_row(ty, r);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = j0 + tile_col(tx, h);
-        if (i < p.m && j < p.n) {
-          *reinterpret_cast<float4*>(part + (size_t)i * p.n + j) =
-              make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
-                          acc[r][4 * h + 3]);
-        }
-      }
-    }
+    tile_store_part(acc, p.part, p.m, p.n, i0, j0);
     return;
   }
   __syncthreads();  // the rings are free: the epilogue's sums reuse them
   tap_epilogue(p, acc, reinterpret_cast<float*>(smem4));
 }
 
-// The split form's second launch: the slices' float32 products added in slice
-// order into the same register tile, then the epilogue.
+// The split form's second launch, in a grid of (column tiles, row tiles): the
+// tile's slices of the float32 products added in slice order into the register
+// tile (zeros past m or n), then the epilogue.  Each slice's 16 loads of a thread
+// are issued before its adds, so that they are in flight together.
 template <typename T>
 __global__ void __launch_bounds__(GT_THREADS) tap_gemm_reduce_kernel(
     const __grid_constant__ TapGemm<T> p, int slices) {
   __shared__ float red[2 * (GT / GRT) * GT];
   const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT, ty = tile_ty(), tx = tile_tx();
-  const size_t stride = (size_t)p.m * p.n;
   float acc[GRT][GRT];
   tile_zero(acc);
+  const float* part = p.part;
+  for (int z = 0; z < slices; ++z, part += (size_t)p.m * p.n) {
+    float4 v[GRT][2];
 #pragma unroll
-  for (int r = 0; r < GRT; ++r) {
-    const int i = i0 + tile_row(ty, r);
+    for (int r = 0; r < GRT; ++r) {
+      const int i = i0 + tile_row(ty, r);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + tile_col(tx, h);
-      if (i >= p.m || j >= p.n) continue;
-      const float4* src = reinterpret_cast<const float4*>(p.part + (size_t)i * p.n + j);
-      float4 s = src[0];
-      for (int z = 1; z < slices; ++z) {
-        const float4 v = src[z * stride / 4];
-        s = make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y), __fadd_rn(s.z, v.z),
-                        __fadd_rn(s.w, v.w));
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + tile_col(tx, h);
+        v[r][h] = i < p.m && j < p.n
+                      ? *reinterpret_cast<const float4*>(part + (size_t)i * p.n + j)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      acc[r][4 * h] = s.x;
-      acc[r][4 * h + 1] = s.y;
-      acc[r][4 * h + 2] = s.z;
-      acc[r][4 * h + 3] = s.w;
+    }
+#pragma unroll
+    for (int r = 0; r < GRT; ++r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float x[4] = {v[r][h].x, v[r][h].y, v[r][h].z, v[r][h].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[r][4 * h + e] = z == 0 ? x[e] : __fadd_rn(acc[r][4 * h + e], x[e]);
+        }
+      }
     }
   }
   tap_epilogue(p, acc, red);

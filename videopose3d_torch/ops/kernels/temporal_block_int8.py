@@ -125,6 +125,42 @@ class QuantizedModel:
     blocks: List[Int8Block]
     shrink_w: torch.Tensor      # (C, J_out*3) bfloat16
     shrink_b: torch.Tensor      # (J_out*3,) float32
+    # The model padded to the stage kernels' channel multiple (channel_padded).
+    padded: Optional["QuantizedModel"] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+
+# The stage kernels take a multiple of CHANNEL_MULTIPLE channels (their int8 rows are
+# copied in 16-byte words and their dp4a weights packed in groups of 4 rows).
+CHANNEL_MULTIPLE = 16
+
+
+def pad_channels(q: QuantizedModel, c: int) -> QuantizedModel:
+    """``q`` with ``c - C`` zero channels appended: int8 weights 0, the A/B/R
+    affines and the expand's scale and shift 0, the shrink's rows 0.  A padded
+    channel of e, of every stream and of h is relu(0 * 0 + 0) = 0; it adds exact
+    zeros to every int32 sum, leaves each row maximum (floored at 1) as it was, and
+    contributes 0 to the shrink, so the poses are those of ``q``, bit for bit."""
+    pad = c - q.expand_scale.shape[0]
+    last = lambda t: torch.nn.functional.pad(t, (0, pad))
+    both = lambda t: torch.nn.functional.pad(t, (0, pad, 0, pad))
+    blocks = [Int8Block(both(b.wq_a), both(b.wq_b), *(last(getattr(b, n))
+                                                      for n in ("A1", "B1", "A2", "B2", "R")))
+              for b in q.blocks]
+    return QuantizedModel(last(q.expand_w), last(q.expand_scale), last(q.expand_shift),
+                          blocks, torch.nn.functional.pad(q.shrink_w, (0, 0, 0, pad)),
+                          q.shrink_b)
+
+
+def channel_padded(q: QuantizedModel) -> QuantizedModel:
+    """``q`` at the next multiple of CHANNEL_MULTIPLE channels: ``q`` itself where
+    it is one, else its :func:`pad_channels` form, made once and kept on ``q``."""
+    c = q.expand_scale.shape[0]
+    if c % CHANNEL_MULTIPLE == 0:
+        return q
+    if q.padded is None:
+        q.padded = pad_channels(q, -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE)
+    return q.padded
 
 
 # ---------------------------------------------------------------------------
@@ -398,21 +434,19 @@ def channel_limit_error(c: int, widths, *, c_in: int,
                         accshift_min_d: int = ACCSHIFT_MIN_DILATION):
     """Why the int8 stage kernels (``--serving-engine int8`` on CUDA) cannot serve
     the model of filter ``widths`` at ``c`` channels over ``c_in`` keypoint
-    columns, or None; known without the card.  The kernels take a multiple of 16
-    channels, and each stage's CUDA block must fit in shared memory: the expand
-    (pre-tapped input of ``widths[0] * c_in`` columns) with block 0, the mid
-    blocks, and the last block with the shrink, at the tap mode
-    ``forward_dilated_int8`` gives each."""
+    columns, or None; known without the card.  ``forward_dilated_int8`` pads the
+    model to a multiple of CHANNEL_MULTIPLE channels, and at that width each
+    stage's CUDA block must fit in shared memory: the expand (pre-tapped input of
+    ``widths[0] * c_in`` columns) with block 0, the mid blocks, and the last block
+    with the shrink, at the tap mode ``forward_dilated_int8`` gives each."""
     engine = "the int8 stage kernels (--serving-engine int8 on CUDA)"
-    if c % 16:
-        return (f"{c} channels: {engine} take a multiple of 16 channels; use "
-                "--serving-engine xla")
+    cp = -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE
     n_blocks, d = len(widths) - 1, 1
     for i in range(n_blocks):
         d *= widths[i]
         kind = ("int8_expand" if i == 0 else "int8_shrink" if i == n_blocks - 1
                 else "int8_dilated")
-        smem = stage_smem_bytes(kind, c, k_in=widths[0] * c_in if i == 0 else 0,
+        smem = stage_smem_bytes(kind, cp, k_in=widths[0] * c_in if i == 0 else 0,
                                 span=(widths[i + 1] - 1) * d, accshift=d >= accshift_min_d)
         if smem > SMEM_OPT_IN:
             return (f"{c} channels: {engine}: the {kind} kernel of block {i} needs "
@@ -431,7 +465,8 @@ def _launch(kind, x, blk: Int8Block, *, t_out, dilation, res_offset, tap_mode,
     batch, t_in, x_cols = x.shape
     n_taps, c = blk.wq_a.shape[0], blk.wq_a.shape[-1]
     if c % 16:
-        raise ValueError(f"channels must be a multiple of 16, got {c}")
+        raise ValueError(f"channels must be a multiple of 16, got {c} "
+                         "(forward_dilated_int8 pads other widths)")
     if w0 is not None:
         _check("x", x, dev, torch.bfloat16, (batch, t_in, x_cols))
         _check("w0", w0, dev, torch.bfloat16, (x_cols, c))

@@ -343,7 +343,9 @@ TAP_MAX_SLICES = 8
 
 
 @functools.lru_cache(maxsize=None)
-def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132):
+def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132, *,
+                  sm_flops: float = TAP_SM_FLOPS, launch_s: float = SPLIT_LAUNCH_S,
+                  one_wave: bool = False):
     """The slices ``((start, stop), ...)`` of the summed dimension of a tap GEMM
     (m x k) @ (k x n), the products of conv_stats, norm_drop_matmul_stats,
     dz_matmul_dd and du_dtaps_res: in order, each a whole number of DW_ROWS
@@ -353,7 +355,11 @@ def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132):
     cost model above puts first: ceil(blocks / sms) blocks of the slice's work
     per SM, plus the split's partials.  Shorter blocks even out the SMs' shares
     where the tiles leave a ragged last round; at C = 1,024 on 132 SMs
-    conv_stats splits in 2 at n <= 9,216 and du_dtaps_res at n = 1,024."""
+    conv_stats splits in 2 at n <= 9,216 and du_dtaps_res at n = 1,024.  The
+    evaluation blocks' GEMMs (``temporal_block.k3_plan``) run the same tile at
+    their own rate per SM (``sm_flops``) and cost of a second launch
+    (``launch_s``); with ``one_wave``, tiles that one wave of DW_BLOCKS_PER_SM
+    resident CUDA blocks per SM holds are split no further than it holds."""
     tiles = -(-m // DW_TILE) * -(-n // DW_TILE)
     slabs = -(-k // DW_ROWS)
 
@@ -363,10 +369,12 @@ def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132):
 
     def cost(s):
         slices = plan(s)
-        block = 2 * DW_TILE ** 2 * slices[0][1] / TAP_SM_FLOPS
+        if one_wave and tiles <= DW_BLOCKS_PER_SM * sms < tiles * len(slices):
+            return float("inf")
+        block = 2 * DW_TILE ** 2 * slices[0][1] / sm_flops
         t = -(-tiles * len(slices) // sms) * block
         if len(slices) > 1:
-            t += len(slices) * m * n * 8 / SPLIT_BYTES_PER_S + SPLIT_LAUNCH_S
+            t += len(slices) * m * n * 8 / SPLIT_BYTES_PER_S + launch_s
         return t
 
     return plan(min(range(1, min(slabs, TAP_MAX_SLICES) + 1), key=lambda s: (cost(s), s)))
