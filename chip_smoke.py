@@ -33,14 +33,18 @@ determinism, and that the saved checkpoint evaluates; one more epoch per engine
 is profiled (device time per kernel and the card's busy share over eight warm
 steps).
 Phase 5 quantizes the full-width model to w8a8 int8 on the card and holds each
-int8 stage kernel (K4: expand + block 0 at d=3, mid blocks at d=9 and d=27, the
-last block + shrink at d=81; in both tap modes, the accshift mode being K8)
-against its plain version at the evaluation path's shapes, times both, checks
-that accshift gives the bits of slice, and holds the int8 forward against the
-float32 model.  Phase 2 then also evaluates with ``--serving-engine int8``
+int8 stage kernel chain (K4: expand + block 0 at d=3, mid blocks at d=9 and d=27,
+the last block + shrink at d=81; in both tap modes, the accshift mode being K8)
+against its plain version at the evaluation path's shapes, checks two launches
+bitwise equal and accshift bitwise equal to slice, times both by CUDA-graph replay
+beside one call and a torch._int_mm chain of the stage's products as a yardstick,
+holds every stage at 30, 1,000, 1,952 and 3,636 channels too, holds the int8
+forward against the float32 model, and prints the int8 kernels' ptxas lines and
+the GEMM's IMMA count.  Phase 2 then also evaluates with ``--serving-engine int8``
 (twice, then once more with accshift on every block).  Phase 6 (streaming) holds,
 on the causal full-width model quantized on the card and B = 1,024 streams, the
-ring push (K7) bitwise, the fused streaming step per frame (K5) and at 8 frames
+ring push (K7) bitwise (also rows of 120 and 3,000 bytes, off the 16-byte word, at
+any slot), the fused streaming step per frame (K5) and at 8 frames
 per step (K6), int8 with every ring bitwise at every step over a run in which
 every ring wraps (also at 1,000 channels, rows not 16-byte aligned) and bf16 per
 step from one shared state; for both, two launches from one state bitwise equal,
@@ -113,6 +117,12 @@ INT8_ACCURACY = 0.06
 # a few % of their RMS, the frame-averaged protocols far less.
 INT8_AGREE = 0.1
 INT8_SOURCE = "videopose3d_torch/ops/kernels/csrc/temporal_block_int8.cu"
+# K4 at other widths (phase 5), over a shorter video, each run as the forward runs it
+# (padded to a multiple of 16 channels): 30 (to 32), 1,000 (to 1,008: a ragged last
+# 128-column tile), and 1,952 and 3,636 (to 3,648), past the shared-memory ceiling
+# of the first kernel, which held each stage's rows per channel.
+INT8_WIDTHS = (30, 1000, 1952, 3636)
+INT8_WIDTH_FRAMES = 400
 INT8_TPU = "videopose3d_tpu/ops/pallas/temporal_block_int8.py"
 K8_TPU = "tools/exp_realign.py:101"
 
@@ -195,6 +205,9 @@ STREAM_SOURCES = {"stream_int8": "videopose3d_torch/ops/kernels/csrc/stream_int8
 # loads, K and N tails), rings bitwise at every step, on the CLI's 256 streams.
 STREAM_ODD_CHANNELS, STREAM_ODD_B = 1000, 256
 STREAM_TPU = "videopose3d_tpu/ops/pallas/streaming_fused.py"
+# K7 rows that are not whole 16-byte words: one stream of 30 float32 channels (120
+# bytes) and three of 1,000 int8 channels (3,000 bytes).
+K7_ODD_ROWS = ((torch.float32, 1, 30), (torch.int8, 3, 1000))
 STREAM_KERNELS = {  # launch counter -> the TPU kernel it replaces
     "stream_int8": f"{STREAM_TPU}:201", "stream_bf16": f"{STREAM_TPU}:911",
     "stream_int8_multi": f"{STREAM_TPU}:520", "stream_bf16_multi": f"{STREAM_TPU}:760",
@@ -650,30 +663,18 @@ def device_times(prof):
     return device_us
 
 
-def phase5(cfg, model, device):
-    """The int8 stage kernels against their plain versions at the evaluation
-    path's shapes, in both tap modes, and the int8 forward against float32."""
-    from videopose3d_torch.evaluate import full_float32
-    from videopose3d_torch.models.temporal import forward_dilated, forward_dilated_int8
+def int8_stages(cfg, q, x_raw, geo):
+    """(name, wrapper key, TPU kernel, block, kernel(x, mode), plain(x, mode)) of each
+    int8 stage of ``q`` on (B, T, J, 2) keypoints, and the expand's pre-tapped
+    input."""
     from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
-
-    rng = np.random.default_rng(SEED + 4)
-    x_raw = torch.from_numpy(
-        rng.uniform(-1, 1, (BATCH, FRAMES, JOINTS, 2)).astype(np.float32)).to(device)
-    saved = dict(tq.LAUNCHES)
-    start = time.perf_counter()
-    q = tq.quantize_temporal_model(cfg, model, x_raw)
-    torch.cuda.synchronize()
-    print(f"phase5 quantized the model on {tuple(x_raw.shape)} in "
-          f"{time.perf_counter() - start:.3f} s")
     k0, c_in, c = q.expand_w.shape
-    t_e = FRAMES - (k0 - 1)
-    flat = x_raw.reshape(BATCH, FRAMES, -1)
+    t_e = x_raw.shape[1] - (k0 - 1)
+    flat = x_raw.reshape(x_raw.shape[0], x_raw.shape[1], -1)
     x_taps = torch.cat([flat[:, j: j + t_e] for j in range(k0)], -1).to(torch.bfloat16)
     w0 = q.expand_w.reshape(k0 * c_in, c)
-    geo = [dict(dilation=d, causal_shift=0) for d in cfg.dilations[1:]]
-    last = len(ARCH) - 2
-    stages = [
+    last, j3 = len(q.blocks) - 1, q.shrink_w.shape[1]
+    return [
         ("int8_expand_block", "int8_expand", f"{INT8_TPU}:603", 0,
          lambda x, m: tq.int8_expand_block(x, w0, q.expand_scale, q.expand_shift,
                                            q.blocks[0], tap_mode=m, **geo[0]),
@@ -685,68 +686,180 @@ def phase5(cfg, model, device):
                                                          **geo[i]))
           for i in range(1, last)],
         ("int8_shrink_block", "int8_shrink", f"{INT8_TPU}:669", last,
-         lambda x, m: tq.int8_shrink_block(x, q.blocks[last], q.shrink_w, q.shrink_b,
-                                           tap_mode=m, **geo[last]),
+         lambda x, m: tq.int8_shrink_block(x, q.blocks[last], *tq.shrink_operands(q),
+                                           tap_mode=m, **geo[last])[..., :j3],
          lambda x, m: tq.int8_shrink_block_plain(x, q.blocks[last], q.shrink_w,
                                                  q.shrink_b, tap_mode=m, **geo[last])),
-    ]
+    ], x_taps, w0
+
+
+def int8_agrees(key, got, want):
+    """(error, detail) of an int8 stage's output against its plain version, or a
+    SmokeFailure: mid blocks bitwise, the expand within one step on at most
+    INT8_EXPAND_FRAC of its elements, the shrink within TOL[float32]."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{key}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
+    if got.dtype == torch.int8:
+        diff = (got.int() - want.int()).abs()
+        err, frac = float(diff.max()), float((diff > 0).float().mean())
+        bound = ("bitwise" if key == "int8_dilated"
+                 else f"<= 1 step on <= {INT8_EXPAND_FRAC:.0e}")
+        check(err == 0 if key == "int8_dilated" else (err <= 1 and frac <= INT8_EXPAND_FRAC),
+              f"{key}: max diff {err} on {frac:.3e} of elements")
+        return err, f"max |diff| {err:.0f} step on {frac:.3e} of elements ({bound})"
+    check(bool(torch.isfinite(got).all()), f"{key}: non-finite output")
+    err = float((got - want).abs().max())
+    tol = TOL[torch.float32] * max(1.0, float(want.abs().max()))
+    check(err <= tol, f"{key}: max abs error {err} > {tol}")
+    return err, f"max_abs_err {err:.3e} (tol {tol:.3e})"
+
+
+def int8_chain_yardstick_ms(gemms, device):
+    """Graph time of a stage's products as one PyTorch call each on operands of their
+    shapes ((m, k, n, dtype) each): cuBLASLt int8 (``torch._int_mm``, int32 sums) for
+    the int8 products, a bf16 matmul for the others.  A yardstick of the stage's
+    GEMM work (no epilogues, requantization or taps read in place); the port never
+    calls it.  None where this torch build's ``_int_mm`` refuses the shapes."""
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    ops = []
+    for m, k, n, dt in gemms:
+        if dt == torch.int8:
+            ops.append((torch._int_mm, torch.randint(-127, 128, (m, k), generator=g,
+                                                      device=device, dtype=torch.int8),
+                        torch.randint(-127, 128, (k, n), generator=g, device=device,
+                                      dtype=torch.int8)))
+        else:
+            ops.append((torch.matmul, torch.randn(m, k, generator=g, device=device).to(dt),
+                        torch.randn(k, n, generator=g, device=device).to(dt)))
+    chain = lambda: [fn(a, b) for fn, a, b in ops]
+    try:
+        chain()
+    except RuntimeError as err:
+        print(f"phase5 torch._int_mm chain not measured: {err}")
+        return None
+    return graph_ms(chain, reps=20)
+
+
+def int8_width_check(device):
+    """Every int8 stage at INT8_WIDTHS channels (INT8_WIDTH_FRAMES frames), on a
+    random model quantized on the card and padded as the forward pads it, against
+    its plain version on that model, in both tap modes; accshift bitwise equal to
+    slice and two launches bitwise equal."""
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+    for c in INT8_WIDTHS:
+        cfg, model = random_model(device, channels=c)
+        rng = np.random.default_rng(SEED + c)
+        x_raw = torch.from_numpy(rng.uniform(-1, 1, (BATCH, INT8_WIDTH_FRAMES, JOINTS, 2))
+                                 .astype(np.float32)).to(device)
+        q = tq.channel_padded(tq.quantize_temporal_model(cfg, model, x_raw))
+        geo = [dict(dilation=d, causal_shift=0) for d in cfg.dilations[1:]]
+        stages, x, _ = int8_stages(cfg, q, x_raw, geo)
+        details = []
+        for name, key, _, i, kernel, plain in stages:
+            want = plain(x, "slice")
+            got = {m: kernel(x, m) for m in ("slice", "accshift")}
+            again = kernel(x, "slice")
+            torch.cuda.synchronize()
+            where = f"{name} C={c} d={geo[i]['dilation']}"
+            check(torch.equal(got["accshift"], got["slice"]),
+                  f"{where}: accshift and slice differ")
+            check(torch.equal(again, got["slice"]), f"{where}: two launches differ")
+            _, detail = int8_agrees(key, got["slice"], want)
+            details.append(f"{key[5:]} d={geo[i]['dilation']} {detail}")
+            x = want
+        print(f"phase5 widths C={c:5d} (run at {q.expand_scale.shape[0]}) at "
+              f"{INT8_WIDTH_FRAMES} frames: {'; '.join(details)}; accshift = slice and "
+              "two launches bitwise equal")
+        del model, q
+
+
+def phase5(cfg, model, device):
+    """The int8 stage kernels against their plain versions at the evaluation
+    path's shapes, in both tap modes, timed by CUDA-graph replay beside one call
+    with a torch._int_mm chain of their products; every stage at other widths;
+    the int8 forward against float32; the kernels' ptxas lines and IMMA count."""
+    from videopose3d_torch.evaluate import full_float32
+    from videopose3d_torch.models.temporal import forward_dilated, forward_dilated_int8
+    from videopose3d_torch.ops.kernels import build
+    from videopose3d_torch.ops.kernels import temporal_block as tb
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+
+    rng = np.random.default_rng(SEED + 4)
+    x_raw = torch.from_numpy(
+        rng.uniform(-1, 1, (BATCH, FRAMES, JOINTS, 2)).astype(np.float32)).to(device)
+    saved = dict(tq.LAUNCHES)
+    start = time.perf_counter()
+    q = tq.quantize_temporal_model(cfg, model, x_raw)
+    torch.cuda.synchronize()
+    print(f"phase5 quantized the model on {tuple(x_raw.shape)} in "
+          f"{time.perf_counter() - start:.3f} s")
+    c = q.expand_w.shape[2]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    geo = [dict(dilation=d, causal_shift=0) for d in cfg.dilations[1:]]
+    stages, x, w0 = int8_stages(cfg, q, x_raw, geo)
     results = []
-    x = x_taps
     for name, key, replaces, i, kernel, plain in stages:
         where = f"d={geo[i]['dilation']}"
         want = plain(x, "slice")
         got_slice = None
         for mode in ("slice", "accshift"):
             got = kernel(x, mode)
+            again = kernel(x, mode)
             torch.cuda.synchronize()
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"{name} {where} {mode}: {tuple(got.shape)} {got.dtype} vs plain "
-                  f"{tuple(want.shape)} {want.dtype}")
-            if got.dtype == torch.int8:
-                diff = (got.int() - want.int()).abs()
-                err, frac = float(diff.max()), float((diff > 0).float().mean())
-                bound = "bitwise" if key == "int8_dilated" else (
-                    f"<= 1 step on <= {INT8_EXPAND_FRAC:.0e}")
-                check(err == 0 if key == "int8_dilated" else
-                      (err <= 1 and frac <= INT8_EXPAND_FRAC),
-                      f"{name} {where} {mode}: max diff {err} on {frac:.3e} of elements")
-                detail = f"max |diff| {err:.0f} step on {frac:.3e} of elements ({bound})"
-            else:
-                check(bool(torch.isfinite(got).all()), f"{name} {where}: non-finite output")
-                err = float((got - want).abs().max())
-                tol = TOL[torch.float32] * max(1.0, float(want.abs().max()))
-                check(err <= tol, f"{name} {where} {mode}: max abs error {err} > {tol}")
-                detail = f"max_abs_err {err:.3e} (tol {tol:.3e})"
+            check(torch.equal(got, again), f"{name} {where} {mode}: two launches differ")
+            err, detail = int8_agrees(key, got, want)
             if mode == "slice":
                 got_slice = got
             else:
                 check(torch.equal(got, got_slice),
                       f"{name} {where}: accshift and slice kernels differ")
-            ms = cuda_ms(lambda: kernel(x, mode))
-            plain_ms = cuda_ms(lambda: plain(x, mode))
-            print(f"phase5 {name:18s} {where:5s} {mode:8s} in {tuple(x.shape)} out "
-                  f"{tuple(got.shape)} {str(got.dtype)[6:]}: {detail}; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms")
+            ms = graph_ms(lambda: kernel(x, mode), reps=20)
+            plain_ms = graph_ms(lambda: plain(x, mode), reps=5)
+            call_ms = cuda_ms(lambda: kernel(x, mode))
+            host_ms = host_enqueue_ms(lambda: kernel(x, mode))
+            blk = q.blocks[i]
+            t_out = got.shape[1]
+            j3 = got.shape[2] if key == "int8_shrink" else 0
+            gemms = tq.int8_gemms(key, BATCH, t_out, c, dilation=geo[i]["dilation"],
+                                  accshift=mode == "accshift",
+                                  j3=tb.whole_words(j3, torch.bfloat16))
+            # The accshift taps' GEMM is split at its tap boundaries, the others planned.
+            shifted = len(gemms) - (3 if key == "int8_shrink" else 2)
+            plan = [k // c for _, k, _, _ in gemms[:shifted]] + [
+                len(tq.stage_plan(m, k, n, sms, dt)) for m, k, n, dt in gemms[shifted:]]
+            # The yardstick: the slice mode's products, the expand's dot in bf16.
+            chain = tq.int8_gemms(key, BATCH, t_out, c, j3=j3)
+            if key == "int8_expand":
+                chain.insert(0, (BATCH * x.shape[1], x.shape[2], c, torch.bfloat16))
+            library_ms = int8_chain_yardstick_ms(chain, device)
             k8 = mode == "accshift" and key == "int8_dilated"
             # int8 products: 3 taps and the 1x1, C x C per output row; the expand's
             # bf16 dot over its rows and the shrink's bf16 C -> 51.
-            blk = q.blocks[i]
-            t_out = got.shape[1]
             ops = [("int8", 2 * BATCH * t_out * 4 * c * c)]
             weights = [blk.pa, blk.pb, blk.A1, blk.B1, blk.A2, blk.B2, blk.R]
             if key == "int8_expand":
                 ops.append(("bfloat16", 2 * BATCH * x.shape[1] * x.shape[2] * c))
                 weights += [w0, q.expand_scale, q.expand_shift]
             if key == "int8_shrink":
-                ops.append(("bfloat16", 2 * BATCH * t_out * c * got.shape[2]))
+                ops.append(("bfloat16", 2 * BATCH * t_out * c * j3))
                 weights += [q.shrink_w, q.shrink_b]
             bound_ms, bound_by = roofline(ops, nbytes(x, got, *weights))
+            lib = "not measured" if library_ms is None else f"{library_ms:.4f} ms"
+            print(f"phase5 {name:18s} {where:5s} {mode:8s} in {tuple(x.shape)} out "
+                  f"{tuple(got.shape)} {str(got.dtype)[6:]}: {detail}; two launches "
+                  f"bitwise equal; graph: kernel {ms:.4f} ms "
+                  f"({ops[0][1] / ms / 1e9:.1f} int8 TOP/s), plain {plain_ms:.4f} ms, "
+                  f"torch._int_mm chain of its products {lib} (yardstick, not a port "
+                  f"path), bound {bound_ms:.4f} ms ({bound_by}); one call: kernel "
+                  f"{call_ms:.4f} ms; host enqueue {host_ms:.4f} ms per call; GEMMs "
+                  f"(m, k, n) {[g[:3] for g in gemms]}, slices {plan}")
             results.append({"name": f"{name} ({mode}, {where}, C={CHANNELS})",
                             "key": (mode, key + ("_accshift" if mode == "accshift" else "")),
                             "route": "cuda", "source": INT8_SOURCE,
                             "replaces": K8_TPU if k8 else replaces,
                             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": library_ms})
         print(f"phase5 {name:18s} {where:5s} accshift output equals slice bit for bit")
         x = want  # the next stage sees the same input in both versions
     with full_float32():
@@ -760,6 +873,15 @@ def phase5(cfg, model, device):
           f"{INT8_ACCURACY})")
     check(per_joint < INT8_ACCURACY * rms, f"int8 forward error {per_joint} >= "
                                            f"{INT8_ACCURACY} * {rms}")
+    del q
+    int8_width_check(device)
+    for kernel in ("i8_mma_kernel", "i8_reduce_kernel", "requant_kernel", "expand_kernel"):
+        for line in ptxas_lines(build.build_log, kernel):
+            print(f"phase5 {kernel} ptxas: {line}")
+    imma = sass_count(build.library_path(), "i8_mma_kernel", "IMMA")
+    print(f"phase5 i8_mma_kernel SASS (cuobjdump -sass): "
+          f"{'no cuobjdump' if imma is None else f'{imma} IMMA instructions'}")
+    check(imma != 0, "i8_mma_kernel has no int8 tensor-core (IMMA) instruction")
     tq.LAUNCHES.update(saved)  # comparison launches do not count
     return results
 
@@ -1288,6 +1410,19 @@ def phase6_kernels(cfg, model, q, device):
     print(f"phase6 ring_push one call between CUDA events (host enqueue included): "
           f"{host_ms:.4f} ms")
     del ring
+    # K7 at rows off the 16-byte word (120 and 3,000 bytes): any slot offset, bitwise.
+    for dt, rb, rc in K7_ODD_ROWS:
+        ring = (rand(19, rb, rc) * 100).to(dt)
+        row = (rand(rb, rc) * 100).to(dt)
+        for slot in (0, 7, 18):
+            got = sf.ring_push(ring.clone(), slot, row)
+            want = sf.ring_push_plain(ring.clone(), slot, row)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"ring_push ({rb}, {rc}) {dt} slot {slot}: "
+                                          "kernel and plain version differ")
+        print(f"phase6 ring_push ({rb}, {rc}) {str(dt)[6:]} rows of "
+              f"{nbytes(row)} bytes at slots 0, 7, 18 of 19: bitwise equal to plain")
+    del ring, row
 
     def pose_err(got, want, tol, what):
         err = float((got - want).abs().max())

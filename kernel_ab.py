@@ -8,9 +8,10 @@ and ``dz_matmul_dd``) of this checkout against those of another checkout (for
 example the parent commit, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists), in turns other, this, this, other:
 
-    python3 kernel_ab.py --other build/parent [--kernels k3]
+    python3 kernel_ab.py --other build/parent [--kernels k3 | --kernels int8]
 
-(``--kernels k3``: K3 alone.)  Each turn runs in its own process with that checkout's ``videopose3d_torch``
+(``--kernels k3``: K3 alone; ``--kernels int8``: the int8 evaluation stages, K4
+in both tap modes (the accshift mode is K8), then K3.)  Each turn runs in its own process with that checkout's ``videopose3d_torch``
 first on ``sys.path``, so each builds and loads its own kernels.  The two steps
 run chip_smoke.py phase 6's causal model (four residual blocks of width 3, C =
 1,024, seeded weights and rings) at B = 256 and 1,024 streams, k = 1 and 8, each
@@ -44,7 +45,12 @@ block, column slices per cluster) forced, beside the plan ``stream_bf16_plan``
 picks, and prints how many clusters of each plan the card runs at once;
 ``--sweep stream_int8`` does the same for the int8 step and ``stream_int8_plan``;
 ``--sweep k3`` times each K3 stage with every GEMM of its chain forced into 1, 2, 3,
-4, 6 and 8 slices beside the slices ``k3_plan`` picks, timed too.
+4, 6 and 8 slices beside the slices ``k3_plan`` picks, timed too; ``--sweep int8``
+does the same for each int8 stage in both tap modes and ``int8_plan``.  The int8
+stages run
+chip_smoke.py phase 5's shapes (a random full-width model quantized on the card,
+B = 2, 2,242 frames), each checked against its plain version (mid blocks
+bitwise).
 """
 
 from __future__ import annotations
@@ -84,7 +90,8 @@ K3_SWEEP_SLICES = (1, 2, 3, 4, 6, 8)
 
 def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
     """Times the kernels of the checkout at ``root`` (``kernels`` "k3": K3
-    alone); returns {case: ms}.  With ``sweep``, the tap GEMM kernels at each
+    alone; "int8": the int8 stages, K7 and K3); returns {case: ms}.  With
+    ``sweep``, the tap GEMM kernels at each
     forced slice count ("tap_gemm"), a streaming step at each forced plan
     ("stream_bf16", "stream_int8") or K3 at each forced slice count ("k3")
     instead."""
@@ -140,6 +147,21 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
         return sweep_stream(torch, sf, dev, gen, graph_ms, sweep[7:])
     if sweep == "k3":
         return sweep_k3(torch, tb, dev, gen, graph_ms)
+    if sweep == "int8":
+        return sweep_int8(torch, tb, dev, graph_ms)
+    if kernels == "int8":
+        for label, mode, v, kernel, plain in int8_stages(torch, dev):
+            check_int8(torch, root, label, kernel(v, mode), plain(v, "slice"))
+            out[f"K4 {label} {mode} graph"] = graph_ms(lambda: kernel(v, mode))
+            out[f"K4 {label} {mode} call"] = call_ms(lambda: kernel(v, mode))
+            out[f"K4 {label} {mode} host"] = host_ms(lambda: kernel(v, mode))
+            out[f"K4 {label} {mode} plain graph"] = graph_ms(lambda: plain(v, mode), reps=5)
+        # K7 at chip_smoke.py phase 6's aligned shape: a (1,024, 1,024) bf16 row.
+        ring = torch.randn(163, 1024, 1024, device=dev, generator=gen).to(torch.bfloat16)
+        row = torch.randn(1024, 1024, device=dev, generator=gen).to(torch.bfloat16)
+        out["K7 ring_push (1024, 1024) bf16 graph"] = graph_ms(
+            lambda: sf.ring_push(ring, 81, row), reps=100)
+        del ring, row
     for dt in (torch.float32, torch.bfloat16):
         for label, v, vk, kernel, plain, width in k3_stages(torch, tb, dev, gen, dt):
             want, got = plain(v), kernel(vk)[..., :width]
@@ -152,7 +174,10 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
             out[f"K3 {str(dt)[6:]} {label} plain graph"] = graph_ms(lambda: plain(v), reps=5)
     out["ptxas"] = ptxas_report(build.build_log, "k3_") + ptxas_report(
         build.build_log, "temporal_block_kernel")
-    if kernels == "k3":
+    if kernels == "int8":
+        out["ptxas"] += ptxas_report(build.build_log, "i8_mma_kernel") + ptxas_report(
+            build.build_log, "int8_block_kernel")
+    if kernels in ("k3", "int8"):
         return out
     for kind, make in (("int8", stream_int8_step), ("bf16", stream_bf16_step)):
         for b, k in STREAM_CASES:
@@ -303,6 +328,124 @@ def sweep_k3(torch, tb, dev, gen, graph_ms) -> dict:
                 finally:
                     tb.k3_plan = picked
                     tb._layout.cache_clear()
+    return out
+
+
+def int8_stages(torch, dev):
+    """(label, mode, input, kernel(v, mode), plain(v, mode)) of each int8 stage in
+    both tap modes: a random full-width model (chip_smoke.py phase 5's shapes and
+    seeds) quantized on the card by this checkout, each stage fed the plain output
+    of the stage before."""
+    import numpy as np
+    from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+    torch.manual_seed(0)
+    cfg = TemporalModelConfig(num_joints_in=17, in_features=2, num_joints_out=17,
+                              filter_widths=(3, 3, 3, 3, 3), channels=CHANNELS)
+    model = TemporalModel(cfg)
+    rng = np.random.default_rng(0)
+    for bn in [model.expand_bn, *model.layers_bn]:
+        bn.running_var = torch.from_numpy(rng.uniform(0.5, 2.0, CHANNELS).astype(np.float32))
+        bn.bias.data = torch.from_numpy(rng.uniform(-0.2, 0.2, CHANNELS).astype(np.float32))
+    model = model.to(dev).eval()
+    x_raw = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (K3_BATCH, K3_FRAMES, 17, 2)).astype(np.float32)).to(dev)
+    q = tq.quantize_temporal_model(cfg, model, x_raw)
+    flat = x_raw.reshape(K3_BATCH, K3_FRAMES, -1)
+    t_e = K3_FRAMES - 2
+    v = torch.cat([flat[:, j: j + t_e] for j in range(3)], -1).to(torch.bfloat16)
+    w0 = q.expand_w.reshape(-1, CHANNELS)
+    last, j3 = len(q.blocks) - 1, q.shrink_w.shape[1]
+    # This checkout's shrink takes whole 16-byte words of outputs (shrink_operands);
+    # the dp4a kernel before it took any J.
+    shrink = (tq.shrink_operands(q) if hasattr(tq, "shrink_operands")
+              else (q.shrink_w, q.shrink_b))
+    stages = []
+    for i, d in enumerate(K3_DILATIONS):
+        geo = dict(dilation=d)
+        if i == 0:
+            label = "expand"
+            kernel = lambda x, m, geo=geo: tq.int8_expand_block(
+                x, w0, q.expand_scale, q.expand_shift, q.blocks[0], tap_mode=m, **geo)
+            plain = lambda x, m, geo=geo: tq.int8_expand_block_plain(
+                x, w0, q.expand_scale, q.expand_shift, q.blocks[0], tap_mode=m, **geo)
+        elif i == last:
+            label = "shrink"
+            kernel = lambda x, m, geo=geo: tq.int8_shrink_block(
+                x, q.blocks[last], *shrink, tap_mode=m, **geo)[..., :j3]
+            plain = lambda x, m, geo=geo: tq.int8_shrink_block_plain(
+                x, q.blocks[last], q.shrink_w, q.shrink_b, tap_mode=m, **geo)
+        else:
+            label = "mid"
+            kernel = lambda x, m, i=i, geo=geo: tq.int8_dilated_block(
+                x, q.blocks[i], tap_mode=m, **geo)
+            plain = lambda x, m, i=i, geo=geo: tq.int8_dilated_block_plain(
+                x, q.blocks[i], tap_mode=m, **geo)
+        for mode in ("slice", "accshift"):
+            stages.append((f"{label} d={d}", mode, v, kernel, plain))
+        v = plain(v, "slice")
+    return stages
+
+
+def check_int8(torch, root, label, got, want):
+    """An int8 stage's output against its plain version (chip_smoke.py's bounds): mid
+    blocks bitwise, the expand within one step on <= 1e-3 of its elements, the
+    shrink within 1e-4 of max(1, max |plain|)."""
+    if got.dtype == torch.int8:
+        diff = (got.int() - want.int()).abs()
+        ok = (int(diff.max()) == 0 if label.startswith("mid")
+              else int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3)
+    else:
+        ok = float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    if not ok:
+        raise RuntimeError(f"{root}: int8 {label} differs from its plain version")
+
+
+def sweep_int8(torch, tb, dev, graph_ms) -> dict:
+    """Graph time of each int8 stage (both tap modes) with its tap GEMM forced into
+    1-4 slices and its 1x1 into 1-3 (at most their K tiles; the projection keeps
+    k3_plan's, the accshift taps' GEMM its tap-boundary slices), and the slices
+    ``int8_plan`` picks for the two ("plan") with the stage's time at them."""
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+    picked = tq.int8_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def forced(tap, one):
+        """An int8 plan that splits the tap GEMM in ``tap`` slices and the 1x1 in
+        ``one`` (at most their K tiles)."""
+        def plan(m, k, n, sms):
+            want = tap if calls.pop(0) == "tap" else one
+            slabs = -(-k // tq.INT8_SLAB)
+            rows = -(-slabs // min(slabs, want)) * tq.INT8_SLAB
+            return tuple((a, min(k, a + rows)) for a in range(0, k, rows))
+        return plan
+
+    out = {}
+    for label, mode, v, kernel, _ in int8_stages(torch, dev):
+        shape = kernel(v, mode).shape
+        kind = {"expand": "int8_expand", "mid": "int8_dilated", "shrink": "int8_shrink"}[
+            label.split()[0]]
+        gemms = [g for g in tq.int8_gemms(kind, K3_BATCH, shape[1], CHANNELS,
+                                          dilation=int(label.split("=")[1]),
+                                          accshift=mode == "accshift", j3=56)
+                 if g[3] == torch.int8][-2:]
+        out[f"K4 {label} {mode} plan"] = "/".join(str(len(picked(*g[:3], sms)))
+                                                   for g in gemms)
+        out[f"K4 {label} {mode} plan graph"] = graph_ms(lambda: kernel(v, mode))
+        for tap in K3_SWEEP_SLICES[:4]:
+            for one in K3_SWEEP_SLICES[:3]:
+                # The launch takes its rows per slice from int8_plan, once per
+                # shape, for the tap GEMM and then the 1x1: swap the plan and forget
+                # the shapes' layouts.
+                calls = ["tap", "1x1"]
+                tq.int8_plan = forced(tap, one)
+                tq._layout.cache_clear()
+                try:
+                    out[f"K4 {label} {mode} slices={tap}/{one} graph"] = graph_ms(
+                        lambda: kernel(v, mode))
+                finally:
+                    tq.int8_plan = picked
+                    tq._layout.cache_clear()
     return out
 
 
@@ -499,12 +642,13 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", help="root of the other checkout")
     parser.add_argument("--sweep", nargs="?", const="tap_gemm",
-                        choices=("tap_gemm", "stream_bf16", "stream_int8", "k3"),
+                        choices=("tap_gemm", "stream_bf16", "stream_int8", "k3", "int8"),
                         help="time this checkout's tap GEMMs at forced slice counts "
-                             "(default), a streaming step at forced plans or K3 at "
-                             "forced slice counts")
-    parser.add_argument("--kernels", choices=("all", "k3"), default="all",
-                        help="the kernels of the A/B (k3: K3 alone)")
+                             "(default), a streaming step at forced plans or K3 or the "
+                             "int8 stages at forced slice counts")
+    parser.add_argument("--kernels", choices=("all", "k3", "int8"), default="all",
+                        help="the kernels of the A/B (k3: K3 alone; int8: the int8 "
+                             "stages, then K3)")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:

@@ -146,22 +146,6 @@ def test_resume_from_a_jax_checkpoint_with_optax_state(workdir, capsys):
     assert (ckpt / "epoch_4.bin").exists()
 
 
-@pytest.mark.parametrize("c,engine,limit", [
-    (1952, ["--evaluate", "epoch_3.bin", "--serving-engine", "int8"], "shared memory"),
-])
-def test_unsupported_kernel_widths_are_refused_before_loading(tmp_path, c, engine, limit):
-    """With --device cuda, a -ch the hand-written kernels cannot take ends the
-    run before any data loads (the data directory does not even exist), with a
-    message that names the limit and the xla engine."""
-    argv = ["-k", "gt", "-arc", "3,3,3", "-ch", str(c), "--data-dir",
-            str(tmp_path / "missing"), "-c", str(tmp_path / "ckpt"), "--device", "cuda",
-            *engine]
-    with pytest.raises(SystemExit, match=limit) as refused:
-        runner.main(argv)
-    assert "engine xla" in str(refused.value)
-    assert not (tmp_path / "ckpt").exists()
-
-
 @pytest.mark.parametrize("c", [30, 1030, 3636])
 def test_fused_serving_engine_takes_any_width(c):
     """The fused evaluation blocks hold nothing per channel in shared memory and
@@ -172,11 +156,11 @@ def test_fused_serving_engine_takes_any_width(c):
     assert runner.kernel_width_error(args) is None
 
 
-@pytest.mark.parametrize("c", [30, 1030])
-def test_int8_serving_engine_pads_any_width_below_the_ceiling(c):
-    """The int8 forward pads a width that is not a multiple of 16 with zero
-    channels: --serving-engine int8 on CUDA takes it (1,952 and up stay refused
-    by the stage kernels' shared memory)."""
+@pytest.mark.parametrize("c", [30, 1030, 1952, 3636])
+def test_int8_serving_engine_takes_any_width(c):
+    """The int8 stage kernels hold nothing per channel in shared memory, and the
+    int8 forward pads a width that is not a multiple of 16 with zero channels:
+    --serving-engine int8 on CUDA refuses no width, as the JAX CLI."""
     args = parse_args(["-k", "gt", "-arc", "3,3,3", "-ch", str(c), "--device", "cuda",
                        "--evaluate", "epoch_3.bin", "--serving-engine", "int8"])
     assert runner.kernel_width_error(args) is None
@@ -294,8 +278,8 @@ def test_int8_step_packing_round_trips(c):
     """pack_int8_step: (ceil32(K) / 4, ceil8(N)) int32 whose bytes unpack to the
     int8 weights, with zero K and N tails; prepare_int8_fused packs every block's
     taps and 1x1 weights beside the model, which it leaves as it was."""
-    from videopose3d_torch.ops.kernels import streaming_fused as sf
-    from videopose3d_torch.ops.kernels.temporal_block_int8 import Int8Block, QuantizedModel
+    from videopose3d_torch.ops.kernels.temporal_block_int8 import (Int8Block, QuantizedModel,
+                                                                    pack_int8_step)
     from videopose3d_torch.streaming import prepare_int8_fused
     rng = np.random.default_rng(c)
     i8 = lambda *shape: torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
@@ -318,7 +302,7 @@ def test_int8_step_packing_round_trips(c):
             full = unpack(p)
             assert torch.equal(full[:c, :c], w)
             assert not full[c:].any() and not full[:, c:].any()
-    assert torch.equal(sf.pack_int8_step(blocks[0].wq_b), prepared.packs[0][1])
+    assert torch.equal(pack_int8_step(blocks[0].wq_b), prepared.packs[0][1])
 
 
 def test_device_cuda_raises_without_a_card(workdir):

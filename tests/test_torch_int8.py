@@ -30,6 +30,7 @@ from videopose3d_tpu.ops.pallas import temporal_block_int8 as jq
 from videopose3d_torch.evaluate import Evaluator
 from videopose3d_torch.models.convert import q_from_jax
 from videopose3d_torch.models.temporal import forward_dilated, forward_dilated_int8
+from videopose3d_torch.ops.kernels import temporal_block as ttb
 from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
 
 from torch_port_helpers import jax_model
@@ -194,7 +195,7 @@ def test_padded_forward_is_bitwise_the_unpadded_one():
     cfg, params, state, tcfg, model, calib, x = _setup((3, 3, 3, 3), 32, False, seed=9)
     q = tq.quantize_temporal_model(tcfg, model, torch.from_numpy(calib))
     padded = tq.pad_channels(q, 48)
-    assert padded.blocks[1].pb.shape == (12, 48) and padded.shrink_w.shape == (48, 51)
+    assert padded.blocks[1].pb.shape == (16, 48) and padded.shrink_w.shape == (48, 51)
     xt = torch.from_numpy(x)
     for min_d in (10 ** 9, 0):
         assert torch.equal(forward_dilated_int8(tcfg, padded, xt, accshift_min_d=min_d),
@@ -244,17 +245,65 @@ def test_output_geometry_and_stage_shapes():
                                 dilation=3).shape == (2, 34, 51)
 
 
-def test_dp4a_packing_holds_the_weights_bytes():
-    """pa[j, g, n] / pb[g, n] hold bytes w[4g .. 4g+3, n] in order, the operand
-    layout of the kernels' __dp4a."""
-    _, _, _, tcfg, model, calib, _ = _setup(channels=32)
+@pytest.mark.parametrize("channels", [32, 48])
+def test_int8_block_packs_are_pack_int8_steps(channels):
+    """An Int8Block packs each tap of wq_a and wq_b once with pack_int8_step, the
+    layout of the stage kernels and of the fused streaming step: int32 (g, n) holds
+    w[4g .. 4g+3, n] in order, zero past K (padded to 32); the fused step reuses
+    the same tensors."""
+    from videopose3d_torch.ops.kernels.streaming_fused import Int8StepWeights
+    _, _, _, tcfg, model, calib, _ = _setup(channels=channels)
     q = tq.quantize_temporal_model(tcfg, model, torch.from_numpy(calib))
+    kp = -(-channels // 32) * 32
     for blk in q.blocks:
+        assert torch.equal(blk.pa, torch.stack([tq.pack_int8_step(w) for w in blk.wq_a]))
+        assert torch.equal(blk.pb, tq.pack_int8_step(blk.wq_b))
         for w, packed in [*zip(blk.wq_a, blk.pa), (blk.wq_b, blk.pb)]:
             k, n = w.shape
-            assert packed.dtype == torch.int32 and packed.shape == (k // 4, n)
-            unpacked = packed.contiguous().view(torch.int8).reshape(k // 4, n, 4)
-            assert torch.equal(unpacked.permute(0, 2, 1).reshape(k, n), w)
+            assert packed.dtype == torch.int32 and packed.shape == (kp // 4, n)
+            unpacked = packed.contiguous().view(torch.int8).reshape(kp // 4, n, 4)
+            full = unpacked.permute(0, 2, 1).reshape(kp, n)
+            assert torch.equal(full[:k], w) and not full[k:].any()
+    step = Int8StepWeights.of(q)
+    assert all(wa is blk.pa and wb is blk.pb for (wa, wb), blk in zip(step.packs, q.blocks))
+
+
+def test_shrink_operands_are_padded_once_per_model():
+    """The shrink kernel's (C, J) bf16 weights and (J,) bias, zero-padded to whole
+    16-byte words of output columns (51 -> 56), are made once and kept on the
+    model; a model built after another is freed gets its own, however the
+    allocator and the interpreter reuse the old tensors' memory and ids."""
+    _, _, _, tcfg, model, calib, _ = _setup(channels=32)
+    for seed in (11, 12, 13):
+        q = tq.quantize_temporal_model(tcfg, model, torch.from_numpy(calib))
+        rng = np.random.default_rng(seed)
+        q.shrink_w = torch.from_numpy(
+            rng.standard_normal((32, 51)).astype(np.float32)).to(torch.bfloat16)
+        q.shrink_b = torch.from_numpy(rng.standard_normal(51).astype(np.float32))
+        wp, bp = tq.shrink_operands(q)
+        assert wp.shape == (32, 56) and bp.shape == (56,)
+        assert torch.equal(wp[:, :51], q.shrink_w) and torch.equal(bp[:51], q.shrink_b)
+        assert not wp[:, 51:].any() and not bp[51:].any()
+        assert tq.shrink_operands(q)[0] is wp
+        del q, wp, bp
+
+
+@pytest.mark.parametrize("m,slices", [(4468, 2), (4432, 2), (4324, 2), (4000, 1)])
+def test_int8_plan_at_the_evaluation_shapes(m, slices):
+    """The int8 stages' GEMMs at B = 2, T = 2,242, C = 1,024 on 132 SMs (the expand,
+    the two mid blocks and the shrink: 280 / 280 / 272 / 256 tiles on 264 resident
+    blocks): the tap GEMM (K = 3,072), the 1x1 and the accshift mode's tap GEMM
+    of its aligned taps (K = 1,024) split as kernel_ab.py's int8 sweep on an H100
+    chose (PERF.md): in 2 where the tiles spill past one wave, else not; each
+    slice a whole number of 64-value K tiles.  The bf16 projection keeps K3's."""
+    for k in (3072, 1024):
+        plan = tq.int8_plan(m, k, 1024, 132)
+        assert len(plan) == slices
+        assert plan[0][0] == 0 and plan[-1][1] == k
+        assert all(a % 64 == 0 for a, _ in plan)
+        assert tq.stage_plan(m, k, 1024, 132, torch.int8) == plan
+    assert tq.stage_plan(m, 1024, 56, 132, torch.bfloat16) == ttb.k3_plan(
+        m, 1024, 56, 132, torch.bfloat16)
 
 
 @pytest.mark.parametrize("fw,channels,causal", [((3, 3, 3), 64, False),

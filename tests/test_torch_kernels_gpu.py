@@ -405,7 +405,7 @@ def test_tap_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_width_mirrors_equal_the_kernels_own(cuda):
     """The pure-Python shared-memory formulas and limits that refuse a width
     before any data loads equal the ones the CUDA sources report: the opt-in
-    ceiling, the int8 stages (K4, K8) and the streaming step (K5, K6)."""
+    ceiling and the streaming step (K5, K6)."""
     from videopose3d_torch.ops.kernels.build import load_library
     lib = load_library()
     assert tb.SMEM_OPT_IN == lib.vp3d_block_max_smem_bytes()
@@ -413,12 +413,6 @@ def test_width_mirrors_equal_the_kernels_own(cuda):
                                             lib.vp3d_stream_max_taps())
     for c in (4, 16, 68, 1024, 1028, 2064, 3632, 3636, sf.INT8_MAX_CHANNELS,
               sf.INT8_MAX_CHANNELS + 1):
-        for kind, k_in, span in (("int8_expand", 102, 6), ("int8_expand", 99, 40),
-                                 ("int8_dilated", 0, 18), ("int8_shrink", 0, 162)):
-            for accshift in (False, True):
-                assert (tq.stage_smem_bytes(kind, c, k_in=k_in, span=span, accshift=accshift)
-                        == lib.vp3d_i8_smem_bytes(tq._VARIANT[kind], int(accshift), c, k_in,
-                                                  span))
         for int8 in (True, False):
             assert sf.step_smem_bytes(int8, c) == lib.vp3d_stream_smem_bytes(int(not int8), c)
 
@@ -699,7 +693,7 @@ def _int8_stages(cfg, q, x):
     t_e = flat.shape[1] - (k0 - 1)
     taps = torch.cat([flat[:, j: j + t_e] for j in range(k0)], -1).to(torch.bfloat16)
     w0 = q.expand_w.reshape(k0 * c_in, c)
-    n = len(q.blocks)
+    n, j3 = len(q.blocks), q.shrink_w.shape[1]
     geo = [dict(dilation=d, causal_shift=s)
            for d, s in zip(cfg.dilations[1:], cfg.causal_shifts_dilated[1:])]
     stages = [("expand", "int8_expand", taps,
@@ -715,8 +709,9 @@ def _int8_stages(cfg, q, x):
                        lambda v, m, i=i: tq.int8_dilated_block_plain(v, q.blocks[i],
                                                                      tap_mode=m, **geo[i])))
     stages.append(("shrink", "int8_shrink", None,
-                   lambda v, m: tq.int8_shrink_block(v, q.blocks[-1], q.shrink_w,
-                                                     q.shrink_b, tap_mode=m, **geo[-1]),
+                   lambda v, m: tq.int8_shrink_block(
+                       v, q.blocks[-1], *tq.shrink_operands(q), tap_mode=m,
+                       **geo[-1])[..., :j3],
                    lambda v, m: tq.int8_shrink_block_plain(v, q.blocks[-1], q.shrink_w,
                                                            q.shrink_b, tap_mode=m,
                                                            **geo[-1])))
@@ -727,14 +722,21 @@ INT8_CASES = [  # channels, filter widths, causal, frames past the receptive fie
     (64, (3, 3, 3), False, 45),
     (64, (3, 3, 3, 3), True, 19),     # ragged: 20 output rows, causal offsets
     (80, (5, 5, 5), False, 10),       # 5 taps, a channel count below a full warp pass
-    (1040, (3, 3, 3), False, 30),     # two column passes (C > 1024)
+    (1040, (3, 3, 3), False, 30),     # C % 128 != 0: a ragged last column tile
     (1024, (3, 3, 3, 3, 3), False, 200),
+    (1952, (3, 3, 3), False, 12),     # past the first kernel's shared-memory ceiling
+    (3636, (3, 3, 3), False, 12),     # run padded to 3,648 channels
 ]
 
 
 @pytest.mark.parametrize("c,fw,causal,frames", INT8_CASES)
 def test_int8_stage_kernels_match_plain(cuda, c, fw, causal, frames):
+    """Each stage's chain against its plain version on the model the forward runs
+    (padded to a multiple of 16 channels): mid blocks bitwise, expand within one
+    step on <= 1e-3 of its elements, the shrink within the float32 bound; accshift
+    bitwise equal to slice, and two launches bitwise equal."""
     cfg, _, q, x = _int8_model(c, fw, causal, frames, cuda, seed=c + len(fw))
+    q = tq.channel_padded(q)
     v = None
     for name, key, first, kernel, plain in _int8_stages(cfg, q, x):
         v = first if first is not None else v
@@ -748,6 +750,7 @@ def test_int8_stage_kernels_match_plain(cuda, c, fw, causal, frames):
             torch.cuda.synchronize()
             assert got[mode].shape == want.shape and got[mode].dtype == want.dtype, name
         assert torch.equal(got["accshift"], got["slice"]), name
+        assert torch.equal(kernel(v, "slice"), got["slice"]), name
         if key == "int8_shrink":
             _check(got["slice"], want, torch.float32)
         else:
@@ -781,11 +784,12 @@ def test_int8_forward_matches_plain_stages_and_f32(cuda):
     assert per_joint < 0.06 * float(want.square().mean().sqrt())
 
 
-@pytest.mark.parametrize("c", [30, 1030])
+@pytest.mark.parametrize("c", [30, 1030, 1952])
 def test_int8_forward_at_any_width(cuda, c):
     """A width off the stage kernels' multiple of 16 runs as the zero-padded model
-    (32, 1,040 channels): the forward on the card against the plain stage chain
-    of that model."""
+    (32, 1,040 channels), and 1,952 (refused by the first kernel's shared memory)
+    as it is: the forward on the card against the plain stage chain of that
+    model."""
     from videopose3d_torch.models.temporal import forward_dilated_int8
     cfg, _, q, x = _int8_model(c, (3, 3, 3), False, 30, cuda, seed=c)
     got = forward_dilated_int8(cfg, q, x)
@@ -979,11 +983,16 @@ def test_stream_int8_kernel_repeats_bitwise(cuda, c, fw, b, k):
         assert torch.equal(ra, rb)
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.int8])
-def test_ring_push_kernel_matches_plain(cuda, dt):
+@pytest.mark.parametrize("dt,b,c", [(torch.bfloat16, 33, 64), (torch.float32, 33, 64),
+                                    (torch.int8, 33, 64),
+                                    (torch.float32, 1, 30),    # 120-byte rows
+                                    (torch.int8, 3, 1000)])    # 3,000-byte rows
+def test_ring_push_kernel_matches_plain(cuda, dt, b, c):
+    """K7 bitwise against the plain write at the first, a middle and the last slot,
+    for rows of whole 16-byte words and rows that are not (any slot offset)."""
     g = torch.Generator().manual_seed(3)
-    buf = (torch.randn(19, 33, 64, generator=g) * 50).to(cuda, dt)
-    row = (torch.randn(33, 64, generator=g) * 50).to(cuda, dt)
+    buf = (torch.randn(19, b, c, generator=g) * 50).to(cuda, dt)
+    row = (torch.randn(b, c, generator=g) * 50).to(cuda, dt)
     for slot in (0, 7, 18):
         want = sf.ring_push_plain(buf.clone(), slot, row)
         before = sf.LAUNCHES["ring_push"]
@@ -1010,8 +1019,24 @@ def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sf.fused_blocks_step_multi(w, rings, torch.zeros(17, 2, 64, dtype=torch.int8,
                                                          device=cuda), [0] * 6,
                                    **{**kw, "k": 17})
-    with pytest.raises(ValueError, match="16-byte"):
-        sf.ring_push(torch.zeros(3, 1, 3, device=cuda), 0, torch.zeros(1, 3, device=cuda))
+    with pytest.raises(ValueError, match="out of range"):
+        sf.ring_push(torch.zeros(3, 1, 3, device=cuda), 3, torch.zeros(1, 3, device=cuda))
+
+
+def test_streaming_lifter_dma_at_30_channels(cuda):
+    """One stream at 30 float32 channels: every block-ring row is 120 bytes, off the
+    16-byte word, and ring_impl="dma" (K7) gives the plain write's poses."""
+    import dataclasses
+    from videopose3d_torch import streaming as st
+    cfg, _, model, _, _, _, frames = _stream_setup(30, (3, 3, 3), 1, cuda, seed=4)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    streams = [frames.cpu().numpy()[0]]
+    run = lambda **kw: np.stack(st.stream_archive(
+        f32, st.StreamingCausalLifter(f32, model, device=cuda, **kw), streams))
+    before = sf.LAUNCHES["ring_push"]
+    dma = run(ring_impl="dma")
+    assert sf.LAUNCHES["ring_push"] > before
+    assert np.array_equal(dma, run())
 
 
 def test_streaming_lifter_engines_on_card(cuda):

@@ -126,11 +126,13 @@ def test_state_converts_both_ways():
     assert stream_state_to_jax(port)["ptr"].dtype == np.int32
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
-def test_ring_push_matches_jax_dma(dt):
-    """K7's plain version against the JAX DMA push in interpret mode: bitwise."""
+@pytest.mark.parametrize("dt,b,c", [(torch.bfloat16, 4, 32), (torch.float32, 4, 32),
+                                    (torch.float32, 1, 30), (torch.bfloat16, 3, 5)])
+def test_ring_push_matches_jax_dma(dt, b, c):
+    """K7's plain version against the JAX DMA push in interpret mode: bitwise, for
+    rows of whole 16-byte words and rows that are not (120 and 30 bytes)."""
     rng = np.random.default_rng(5)
-    cap, b, c = 7, 4, 32
+    cap = 7
     buf = rng.standard_normal((cap, b, c)).astype(np.float32)
     row = rng.standard_normal((b, c)).astype(np.float32)
     jdt = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}[dt]

@@ -99,7 +99,8 @@ def stream_state_to_jax(stream_state):
 def q_from_jax(q, device="cpu"):
     """The JAX package's int8 serving pytree (``quantize_temporal_model``'s
     output, leaves as numpy) -> the port's ``QuantizedModel`` on ``device``,
-    dp4a packing included, so both packages can serve one quantized model."""
+    the int8 kernels' weight packing included, so both packages can serve one
+    quantized model."""
     import torch
     from videopose3d_torch.ops.kernels.temporal_block_int8 import (Int8Block,
                                                                     QuantizedModel)

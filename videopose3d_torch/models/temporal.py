@@ -357,7 +357,10 @@ def forward_dilated_int8(config: TemporalModelConfig, q, x, *,
     for i in range(1, n_blocks - 1):
         stream = tq.int8_dilated_block(stream, q.blocks[i], **geometry(i))
     i = n_blocks - 1
-    out = tq.int8_shrink_block(stream, q.blocks[i], q.shrink_w, q.shrink_b, **geometry(i))
+    j3 = q.shrink_w.shape[1]
+    shrink = (tq.shrink_operands(q) if stream.device.type == "cuda"
+              else (q.shrink_w, q.shrink_b))
+    out = tq.int8_shrink_block(stream, q.blocks[i], *shrink, **geometry(i))[..., :j3]
     return _finish_output(cfg, out)
 
 

@@ -53,9 +53,11 @@ _ENTRY_ARGTYPES = {
     "vp3d_tb_sum_rows": [_I],
     # csrc/temporal_block_int8.cu: (variant, accshift, batch, t_in, t_out, channels,
     #   x, k_in, w0, s0, b0, wa, a1, b1, n_taps, dilation, res_offset, wb, a2, b2, r,
-    #   ws, bs, j3, out, stream)
+    #   ws, bs, j3, work (host void*[]), part_ints, fpart_floats, k_slices (host
+    #   int[]), out, stream)
     "vp3d_int8_block": [_I] * 6 + [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I]
-                       + [_P] * 2,
+                       + [ctypes.POINTER(_P), ctypes.c_longlong, ctypes.c_longlong,
+                          ctypes.POINTER(_I), _P, _P],
     # csrc/streaming_fused.cu: (act_type, n_blocks, batch, channels, k, doubled, x, ws,
     #   bs, j3, out, xbuf, ptrs (host void*[]), ints (host int[]), stream)
     "vp3d_stream_step": [_I] * 6 + [_P] * 3 + [_I, _P, _P, ctypes.POINTER(_P),
@@ -147,8 +149,6 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.vp3d_i8_smem_bytes.argtypes = [_I] * 5
-    lib.vp3d_i8_smem_bytes.restype = ctypes.c_size_t
     lib.vp3d_stream_smem_bytes.argtypes = [_I] * 2
     lib.vp3d_stream_smem_bytes.restype = ctypes.c_size_t
     for kind in ("bf16", "int8"):

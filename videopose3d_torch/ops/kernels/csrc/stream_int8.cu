@@ -54,7 +54,7 @@
 // over this kernel's shared memory, with a term for the cluster's meetings (kMeet),
 // mirrored in streaming_fused.py.
 
-#include "int8_gemm.cuh"
+#include "int8_quant.cuh"
 #include "stream_step.cuh"
 #include "stream_tc.cuh"
 

@@ -14,6 +14,8 @@
 // step, by value in the launch's argument struct: `write` (k-aligned with doubled
 // rings) and per tap its first slot `slot` (the ring row of frame 0's tap).
 
+#include <stdint.h>
+
 #include "common.cuh"
 #include "stream_step.cuh"
 
@@ -22,14 +24,37 @@ namespace {
 using namespace vp3d;
 
 // ---------------------------------------------------------------------------
-// K7: one (B, C) row into a (cap, B, C) ring, one thread per 16 bytes.  Bound by
-// bytes: the row is read once and written once.
+// K7: one (B, C) row of n bytes into a (cap, B, C) ring at any byte offset.  Thread
+// w owns the 16-byte-aligned word w of the destination's span.  A row of whole words
+// between 16-byte aligned addresses (WORDS) is one 16-byte copy per thread; else a
+// whole word whose source has the same alignment is one 16-byte copy, and the
+// partial head and tail words and a row whose source is aligned otherwise are
+// copied byte by byte.  The WORDS instance is kept for the aligned rows the rings
+// hold: the general one copies them the same way but took 4 % longer on an H100 at
+// (1,024, 1,024) bf16 (kernel_ab.py, PERF.md).  Bound by bytes: the row is read once
+// and written once.
 // ---------------------------------------------------------------------------
 
-__global__ void ring_push_kernel(int4* __restrict__ dst, const int4* __restrict__ src,
-                                 long long n_vec) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_vec) dst[i] = src[i];
+template <bool WORDS>
+__global__ void ring_push_kernel(char* __restrict__ dst, const char* __restrict__ src,
+                                 long long n) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (WORDS) {
+    if (w * 16 < n) {
+      reinterpret_cast<int4*>(dst)[w] = reinterpret_cast<const int4*>(src)[w];
+    }
+    return;
+  }
+  const long long head = (long long)(reinterpret_cast<uintptr_t>(dst) & 15);
+  const long long lo = w * 16 - head;  // the word's first byte, relative to dst
+  if (lo >= n) return;
+  const bool same = ((reinterpret_cast<uintptr_t>(dst) ^ reinterpret_cast<uintptr_t>(src)) &
+                     15) == 0;
+  if (same && lo >= 0 && lo + 16 <= n) {
+    *reinterpret_cast<int4*>(dst + lo) = *reinterpret_cast<const int4*>(src + lo);
+    return;
+  }
+  for (long long i = lo < 0 ? 0 : lo; i < lo + 16 && i < n; ++i) dst[i] = src[i];
 }
 
 }  // namespace
@@ -91,19 +116,23 @@ int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
   return act_type == 0 ? launch_stream_int8(p, s) : launch_stream_bf16(p, s);
 }
 
-// Copies n_bytes (a multiple of 16) from `row` to `ring` + offset_bytes, both 16-byte
-// aligned, on `stream`.
+// Copies n_bytes from `row` to `ring` + offset_bytes, any sizes and alignments, on
+// `stream`.
 int vp3d_ring_push(void* ring, const void* row, long long offset_bytes, long long n_bytes,
                    void* stream) {
-  if (n_bytes <= 0 || n_bytes % 16 != 0 || offset_bytes % 16 != 0) {
-    return cudaErrorInvalidValue;
-  }
-  const long long n_vec = n_bytes / 16;
+  if (n_bytes <= 0 || offset_bytes < 0) return cudaErrorInvalidValue;
+  char* dst = static_cast<char*>(ring) + offset_bytes;
+  const char* src = static_cast<const char*>(row);
+  const uintptr_t head = reinterpret_cast<uintptr_t>(dst) & 15;
+  const long long words = ((long long)head + n_bytes + 15) / 16;
   const int threads = 256;
-  const long long blocks = (n_vec + threads - 1) / threads;
-  ring_push_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<int4*>(static_cast<char*>(ring) + offset_bytes),
-      static_cast<const int4*>(row), n_vec);
+  const unsigned blocks = (unsigned)((words + threads - 1) / threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0 && n_bytes % 16 == 0) {
+    ring_push_kernel<true><<<blocks, threads, 0, s>>>(dst, src, n_bytes);
+  } else {
+    ring_push_kernel<false><<<blocks, threads, 0, s>>>(dst, src, n_bytes);
+  }
   return cudaGetLastError();
 }
 

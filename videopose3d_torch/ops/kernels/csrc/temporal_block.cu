@@ -30,10 +30,11 @@
 //   of sgemm_tile.cuh, on the 128 x 128 CUDA-core tile with this row map: A read by
 //   rows into registers and stored transposed and XOR-swizzled, B through a 3-stage
 //   cp.async ring, an FMA chain in k order (no TF32), two CUDA blocks per SM.
-// - bf16 (k3_mma_kernel): mma.sync m16n8k16 with float32 sums on stream_tc.cuh's
-//   instruction wrappers and stage layout, 8 warps of 64 x 32 over a 128 x 128 tile,
-//   both operands staged by 16-byte cp.async into padded tiles of a 4-stage ring and
-//   read by ldmatrix, two CUDA blocks per SM.
+// - bf16 (k3_mma_kernel): mma.sync m16n8k16 with float32 sums on tc_tile.cuh's
+//   128 x 128 tile (stream_tc.cuh's instruction wrappers and stage layout, 8 warps of
+//   64 x 32), both operands staged by 16-byte cp.async into padded tiles of a 4-stage
+//   ring and read by ldmatrix, two CUDA blocks per SM; the int8 stages' GEMMs
+//   (temporal_block_int8.cu) run the same tile, and their shrink this projection.
 // Where the tiles leave a ragged last wave, the summed dimension is split into slices
 // of the rows the caller plans for each GEMM (temporal_block.k3_plan); each slice
 // writes its float32 product (sgemm_tile.cuh's tile_store_part) and
@@ -50,7 +51,7 @@
 
 #include "common.cuh"
 #include "sgemm_tile.cuh"
-#include "stream_tc.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -83,39 +84,6 @@ __device__ __forceinline__ int a_row(const K3Gemm<T>& p, int i) {
   if (i >= p.m) return -1;
   const int b = i / p.t_out;
   return b * p.a_rows + i - b * p.t_out;
-}
-
-// Where a summed-dimension column lies: tap j, column kin of the tap's kc.
-struct TapPos {
-  int j, kin;
-  __device__ __forceinline__ void start(int kk, int kc) {
-    j = kk / kc;
-    kin = kk - j * kc;
-  }
-  __device__ __forceinline__ void step(int by, int kc) {
-    kin += by;
-    while (kin >= kc) {
-      kin -= kc;
-      ++j;
-    }
-  }
-};
-
-// Sets the kernel's dynamic shared memory and the whole carveout (two CUDA blocks of
-// 75-82 KB share an SM only with it), once per device (one instance per kernel).
-template <typename Kern>
-cudaError_t configure(Kern kern, size_t smem) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev >= 0 && dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
-  return err;
 }
 
 // The epilogue of N consecutive columns col.. of row i (i < m, col < n, n % N == 0).
@@ -212,7 +180,6 @@ using MmaGeo = Geo<Bf16Mma, GT>;
 // mma.sync: both operands by cp.async through a kTcStages-deep ring.
 __global__ void __launch_bounds__(NT, 2) k3_mma_kernel(const __grid_constant__ K3Gemm<bf16> p) {
   using G = MmaGeo;
-  constexpr int ST = kTcStages;
   extern __shared__ float4 smem4[];
   char* stages = reinterpret_cast<char*>(smem4);
   const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
@@ -250,30 +217,7 @@ __global__ void __launch_bounds__(NT, 2) k3_mma_kernel(const __grid_constant__ K
     pos.step(G::BK, p.kc);
   };
   float acc[G::MT][G::NT8][4];
-#pragma unroll
-  for (int mt = 0; mt < G::MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < G::NT8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < ST - 1; ++s) {
-    if (s < q_n) load(stages + s * G::STAGE);
-    cp_async_commit();
-  }
-  int load_at = ST - 1, use_at = 0;
-  for (int q = 0; q < q_n; ++q) {
-    cp_async_wait<ST - 2>();
-    __syncthreads();  // stage q landed; every warp is done with stage q - 1
-    if (q + ST - 1 < q_n) load(stages + load_at * G::STAGE);
-    cp_async_commit();
-    load_at = load_at + 1 == ST ? 0 : load_at + 1;
-    Bf16Mma::mma_stage<G>(acc, stages + use_at * G::STAGE);
-    use_at = use_at + 1 == ST ? 0 : use_at + 1;
-  }
-  cp_async_wait<0>();
+  tile_mma_loop<Bf16Mma, G>(acc, stages, q_n, load);
   // The m16n8 accumulator layout: acc[mt][nt][2 hh + e] is row lane / 4 + 8 hh of
   // m16 tile mt, column 2 (lane % 4) + e of n8 tile nt.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -341,12 +285,12 @@ cudaError_t launch_gemm(K3Gemm<T> g, float* part, long long part_floats, cudaStr
   const dim3 grid((g.n + GT - 1) / GT, (g.m + GT - 1) / GT, slices);
   if constexpr (kBf16) {
     const size_t smem = (size_t)kTcStages * MmaGeo::STAGE;
-    cudaError_t err = configure(k3_mma_kernel, smem);
+    cudaError_t err = configure<k3_mma_kernel>(smem);
     if (err != cudaSuccess) return err;
     k3_mma_kernel<<<grid, NT, smem, s>>>(g);
   } else {
     const size_t smem = sizeof(float) * (A_STAGES + B_STAGES) * TAP_SLAB + sizeof(int) * GT;
-    cudaError_t err = configure(k3_sgemm_kernel, smem);
+    cudaError_t err = configure<k3_sgemm_kernel>(smem);
     if (err != cudaSuccess) return err;
     k3_sgemm_kernel<<<grid, GT_THREADS, smem, s>>>(g);
   }
@@ -464,6 +408,33 @@ cudaError_t run_stage(const Stage& st, cudaStream_t stream) {
 }
 
 }  // namespace
+
+namespace vp3d {
+
+// The projection GEMM of K3's bf16 chain on its own: out (m, n) = a (m, k) @ w (k, n)
+// + bias, float32 sums, in slices of k_slice summed rows (the int8 shrink's last
+// GEMM, temporal_block_int8.cu).
+cudaError_t k3_project_bf16(const bf16* a, int m, int k, const bf16* w, int n,
+                            const float* bias, int k_slice, float* part,
+                            long long part_floats, float* out, cudaStream_t stream) {
+  K3Gemm<bf16> g{};
+  g.a = a;
+  g.lda = k;
+  g.kc = k;
+  g.a_rows = m;
+  g.w = w;
+  g.m = m;
+  g.t_out = m;
+  g.k = k;
+  g.n = n;
+  g.k_slice = k_slice;
+  g.epi = kProject;
+  g.scale = bias;
+  g.out = out;
+  return launch_gemm(g, part, part_floats, stream);
+}
+
+}  // namespace vp3d
 
 extern "C" {
 

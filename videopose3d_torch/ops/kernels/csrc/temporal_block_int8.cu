@@ -4,11 +4,11 @@
 //   kExpand -> int8_expand_block   (_expand_block_i8_kernel, launched at :603)
 //   kMid    -> int8_dilated_block  (_mid_block_i8_kernel, launched by _mid_block_i8 at :492)
 //   kShrink -> int8_shrink_block   (_shrink_block_i8_kernel, launched at :669)
-// and, as the ACC template parameter of all three, the accshift tap mode of
-// tools/exp_realign.py (_mid_block_psum, launched at :122).
+// and, as the accshift tap mode of all three, tools/exp_realign.py's _mid_block_psum
+// (launched at :122).
 //
 // One stage, for output row t of batch row b (x an int8 stream in 0..127):
-//   acc  = sum_j x[t + j*d] @ Wa_j                     exact int32 (dp4a)
+//   acc  = sum_j x[t + j*d] @ Wa_j                     exact int32
 //   real = relu(float(acc) * A1 + B1)
 //   m    = max(max over all C columns of real, 1)       per-row dynamic requantization
 //   hq   = rint(real * (127 / m))                        int8 in 0..127
@@ -19,376 +19,692 @@
 // kExpand first makes its int8 input from the pre-tapped bf16 keypoints:
 //   e = clip(rint(relu(float(raw @ W0) * s0 + b0)), 0, 127), the dot summed in float64.
 // Every float step is one IEEE operation with one rounding (__fmul_rn / __fadd_rn,
-// which the compiler does not contract into FMAs; IEEE division; rintf rounds half
-// to even, as torch.round), in the order of the plain PyTorch versions, so the int8
+// which the compiler does not contract into FMAs; __fdiv_rn; rintf rounds half to
+// even, as torch.round), in the order of the plain PyTorch versions, so the int8
 // streams equal theirs bit for bit.  The expand dot's bf16 products are exact and
 // their float64 sum is rounded once to float32 by both versions.
 //
-// accshift (ACC): a tap whose row offset j*d within the tile window is not a multiple
-// of 32 is computed over the 32-aligned rows [t0 + (j*d & ~31), + TM + 32) into int32
-// partials, of which rows [j*d & 31, + TM) are added to the tap sum.  Integer sums
-// commute, so both modes give the same bits; on this card a row offset costs no
-// realignment, so accshift only adds work (3x the dot rows of each shifted tap).  The
-// TPU form also converts the residual over the aligned window before slicing it; the
-// convert is elementwise, so both modes read the residual row directly here.
+// What bounds it on this card: the int8 products, 2 * C * C * (k + 1) per output row,
+// on the int8 tensor cores (1,979 dense TOP/s).  vp3d_int8_block, one host call per
+// stage, enqueues the stage as a chain of launches over M = B * T_out rows:
+//   (kExpand) expand_kernel: e once per input row, (B, T_e, C) int8, float64 FMAs on
+//       the CUDA cores over 64 x 64 output tiles;
+//   the tap GEMM: acc on mma.sync m16n8k32 (int8 x int8, int32 sums; tc_tile.cuh's
+//       128 x 128 tile: stream_tc.cuh's I8Mma, a 4-stage cp.async ring, ldmatrix),
+//       its epilogue writing real (float32, 18.3 MB at M = 4,468, C = 1,024, within
+//       the 50 MB L2) and each row's maximum over the tile's 128 columns into a
+//       (ceil(C/128), M) buffer;
+//   requant_kernel: m, 127/m and m * (1/127) once per row, then hq (M, C) int8, a
+//       byte-bound pass (5.5-7.5 us; requantizing in the 1x1's A loads instead, which
+//       read real's 4 bytes per value for each of its column tiles, made the stage
+//       16-25 % slower on an H100: PERF.md);
+//   the 1x1 GEMM hq @ Wb on the same tile, its epilogue y, the residual read in
+//       place, and the int8 stream (kShrink: bf16(v), (M, C));
+//   (kShrink) the projection on K3's bf16 GEMM (temporal_block.cu, k3_project_bf16),
+//       float32 sums plus the bias.
+// Row i of a GEMM is frame t = i % T_out of batch row b = i / T_out, and its tap j
+// reads input row t + j * d of batch row b in place: the taps are never
+// materialised.  Where the tiles leave a ragged last wave, the summed dimension is
+// split into slices of the rows the caller plans (temporal_block_int8.int8_plan's
+// wave count); the slices write int32 partials that i8_reduce_kernel adds, exact in any
+// order, before the epilogue.  Nothing is held per channel in shared memory, so any
+// C runs (a multiple of 16: int8 rows are copied in 16-byte words, and the model
+// pads other widths with zero channels once).
 //
-// What bounds it on this card: 2*C*C*(k+1) int8 multiply-adds per output row on the
-// CUDA cores as __dp4a (4 products per instruction, int32 sums) in this first
-// version.  Tensor cores (mma.sync or wgmma with s8 operands, 1,979 dense int8 TOPS on
-// an H100 SXM) and TMA pipelining are later work.  The weights (3 MB + 1 MB per block
-// at C = 1024, int8) stay in the 50 MB L2 and are streamed once per 16-row tile, one
-// byte per 16 multiply-adds.  As the TPU kernel keeps them in VMEM, every intermediate
-// stays in shared memory: the staged tap rows, real (float32), hq (int8), and e
-// (kExpand) or the bf16-rounded block output (kShrink); a stage reads its input
-// stream once per tap and writes only its output.
-//
-// Thread mapping: a CUDA block owns TM = 16 consecutive output rows of one batch row
-// and all C columns, since the row maximum needs every column of a row before the
-// 1x1 product can start.  Each of the 256 threads owns 4 columns per pass of 1,024
-// (vp3d::CPT); the weights are dp4a-packed (C_in/4, C_out) int32, so a warp's weight
-// load is one 128-byte line, and the tile's int8 rows are read from shared memory as
-// 16-byte broadcasts.  Ragged tails are masked: rows past the input are zero and rows
-// past T_out are not stored.
+// accshift: a tap whose offset j*d is not a multiple of 32 is multiplied over the
+// 32-aligned window of each batch row, rows [j*d & ~31, + T_out + 32) (zeros past
+// the input), into int32 partials: one GEMM over these taps, split at the tap
+// boundaries, each slice's sums kept; the tap GEMM of the aligned taps adds rows
+// [j*d & 31, + T_out) of each before its epilogue.  Integer sums
+// commute, so both modes give the same bits; the extra rows (32 per batch row and
+// shifted tap) are the mode's own cost.  The TPU form also converts the residual
+// over the aligned window before slicing it; the convert is elementwise, so both
+// modes read the residual row directly here.
 
-#include "int8_gemm.cuh"
+#include <stdint.h>
+
+#include <algorithm>
+#include <climits>
+#include <cstring>
+
+#include "common.cuh"
+#include "int8_quant.cuh"
+#include "tc_tile.cuh"
+
+namespace vp3d {
+cudaError_t k3_project_bf16(const bf16* a, int m, int k, const bf16* w, int n,
+                            const float* bias, int k_slice, float* part,
+                            long long part_floats, float* out, cudaStream_t stream);
+}  // namespace vp3d
 
 namespace {
 
 using namespace vp3d;
 
 enum Variant { kMid = 0, kExpand = 1, kShrink = 2 };
+enum Epilogue { kReal = 0, kResidual = 1 };
 
-constexpr int kSlack = 32;                          // accshift window alignment
+constexpr int kAlign = 32;     // accshift window alignment
+constexpr int kMaxTerms = 16;  // taps of one GEMM
 
-struct Args {
-  int batch, t_in, t_out, c;
-  const void* x;           // kExpand: (batch, t_in, k_in) bf16, else (batch, t_in, c) int8
+using IGeo = Geo<I8Mma, kTile>;
+
+// One int8 GEMM of a stage's chain: (m x k) @ (k x n) with exact int32 sums.
+struct I8Gemm {
+  // Row i = (b, u), u = i % rows, reads term s's input row u + a_off[s] of batch row b
+  // at a + (b * a_rows + u + a_off[s]) * lda (zero at or past a_rows), kc int8 per
+  // term; k = terms * kc.
+  const int8_t* a;
+  int lda, kc, a_rows, rows, terms;
+  int a_off[kMaxTerms];
+  int w_tap[kMaxTerms];  // the tap of the packed weights term s multiplies
+  const int* w;          // (taps, w_rows, n) int32, pack_int8_step of each tap
+  int w_rows;
+  int m, k, n, k_slice;
+  int* part;  // int32 (slices, m, n) of a split or of the accshift taps, or null
+  int epi;
+  const float* scale;  // kReal: A1, kResidual: A2
+  const float* shift;  // B1, B2
+  // kReal: adds the accshift taps' partials, n_shift (B, rows + kAlign, n) int32
+  // buffers at `shifted`, row u + shift_off[s]; writes real to out (float32) and
+  // the row maxima of each 128-column tile to rmax (ceil(n / 128), m).
+  const int* shifted;
+  int n_shift;
+  int shift_off[kMaxTerms];
+  float* rmax;
+  // kResidual: y with the row scales rs (m), the residual row (b, u + res_off) of
+  // res (res_rows per batch row, n wide) times r; out int8, or bf16 where `shrink`.
+  const float* rs;
+  const float* r;
+  const int8_t* res;
+  int res_rows, res_off, shrink;
+  void* out;
+};
+
+// N consecutive 4-byte values (N = 2 or 4) as one 8- or 16-byte access; `p` aligned.
+template <int N, typename T>
+__device__ __forceinline__ void load_n(T (&v)[N], const T* p) {
+  static_assert(sizeof(T) == 4 && (N == 2 || N == 4), "4-byte values, 2 or 4");
+  if constexpr (N == 4) {
+    const int4 w = *reinterpret_cast<const int4*>(p);
+    memcpy(v, &w, 16);
+  } else {
+    const int2 w = *reinterpret_cast<const int2*>(p);
+    memcpy(v, &w, 8);
+  }
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void store_n(T* p, const T (&v)[N]) {
+  static_assert(sizeof(T) == 4 && (N == 2 || N == 4), "4-byte values, 2 or 4");
+  if constexpr (N == 4) {
+    int4 w;
+    memcpy(&w, v, 16);
+    *reinterpret_cast<int4*>(p) = w;
+  } else {
+    int2 w;
+    memcpy(&w, v, 8);
+    *reinterpret_cast<int2*>(p) = w;
+  }
+}
+
+// The kReal epilogue of N consecutive columns col.. of row i (i < m, col < n,
+// n % 16 == 0); returns the largest of their real values.
+template <int N>
+__device__ __forceinline__ float real_store(const I8Gemm& p, int i, int col, int (&v)[N]) {
+  const int b = i / p.rows;
+  const int u = i - b * p.rows;
+  for (int s = 0; s < p.n_shift; ++s) {
+    const size_t window_row = ((size_t)s * (p.m / p.rows) + b) * (p.rows + kAlign);
+    int w[N];
+    load_n<N>(w, p.shifted + (window_row + u + p.shift_off[s]) * p.n + col);
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] += w[e];
+  }
+  float a[N], sh[N], x[N];
+  load_n<N>(a, p.scale + col);
+  load_n<N>(sh, p.shift + col);
+  float mx = 0.f;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    x[e] = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(v[e]), a[e]), sh[e]), 0.f);
+    mx = fmaxf(mx, x[e]);
+  }
+  store_n<N>(static_cast<float*>(p.out) + (size_t)i * p.n + col, x);
+  return mx;
+}
+
+// The kResidual epilogue of N consecutive columns col.. of row i.
+template <int N>
+__device__ __forceinline__ void residual_store(const I8Gemm& p, int i, int col,
+                                               const int (&v)[N]) {
+  const int b = i / p.rows;
+  const int u = i - b * p.rows;
+  const float rs = p.rs[i];
+  const int8_t* res = p.res + ((size_t)b * p.res_rows + u + p.res_off) * p.n + col;
+  float a[N], sh[N], r[N], x[N];
+  load_n<N>(a, p.scale + col);
+  load_n<N>(sh, p.shift + col);
+  load_n<N>(r, p.r + col);
+  // The N int8 residual values as one 2- or 4-byte load.
+  int8_t rv[N];
+  if constexpr (N == 4) {
+    *reinterpret_cast<char4*>(rv) = *reinterpret_cast<const char4*>(res);
+  } else {
+    *reinterpret_cast<char2*>(rv) = *reinterpret_cast<const char2*>(res);
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float y =
+        fmaxf(__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v[e]), rs), a[e]), sh[e]), 0.f);
+    x[e] = __fadd_rn(__fmul_rn(static_cast<float>(rv[e]), r[e]), y);
+  }
+  const size_t at = (size_t)i * p.n + col;
+  if (p.shrink) {
+    bf16* o = static_cast<bf16*>(p.out) + at;
+#pragma unroll
+    for (int e = 0; e < N; ++e) o[e] = from_f<bf16>(x[e]);
+  } else {
+    int8_t q[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) q[e] = to_stream(x[e]);
+    int8_t* o = static_cast<int8_t*>(p.out) + at;
+    if constexpr (N == 4) {
+      *reinterpret_cast<char4*>(o) = *reinterpret_cast<const char4*>(q);
+    } else {
+      *reinterpret_cast<char2*>(o) = *reinterpret_cast<const char2*>(q);
+    }
+  }
+}
+
+// One 128 x 128 tile of an int8 GEMM (blockIdx.x: column tile, blockIdx.y: row tile)
+// over the summed columns of slice blockIdx.z, on mma.sync m16n8k32: both operands by
+// 16-byte cp.async through tc_tile.cuh's ring, A rows read in place through the row
+// map, B rows from the packed weights of each column's tap.
+__global__ void __launch_bounds__(NT, 2) i8_mma_kernel(const __grid_constant__ I8Gemm p) {
+  using G = IGeo;
+  extern __shared__ float4 smem4[];
+  char* stages = reinterpret_cast<char*>(smem4);
+  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int k_begin = blockIdx.z * p.k_slice;
+  const int k_end = min(p.k, k_begin + p.k_slice);
+  const int q_n = (k_end - k_begin + G::BK - 1) / G::BK;
+  // This thread's 16-byte copies of a stage: A rows ar and ar + 64, chunk ac (16 int8)
+  // of the 64 K values; packed B rows br and br + 8 (4 K values each), chunk bc (4
+  // columns) of the 128.
+  const int ac = threadIdx.x % 4, ar = threadIdx.x / 4;
+  const int bc = threadIdx.x % 32, br = threadIdx.x / 32;
+  size_t base[2];
+  int u_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + ar + 64 * h;
+    const int b = i / p.rows;
+    u_row[h] = i < p.m ? i - b * p.rows : INT_MAX / 2;  // rows past m read as zero
+    base[h] = (size_t)b * p.a_rows;
+  }
+  const int col = j0 + bc * 4;
+  int kk = k_begin + ac * 16, kb = k_begin + 4 * br;
+  TapPos pa, pb[2];
+  pa.start(kk, p.kc);
+  pb[0].start(kb, p.kc);
+  pb[1].start(kb + 32, p.kc);
+  auto load = [&](char* stage) {
+    int8_t* as = reinterpret_cast<int8_t*>(stage);
+    int* bs = reinterpret_cast<int*>(stage + G::A_BYTES);
+    const int j = min(pa.j, p.terms - 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = u_row[h] + p.a_off[j];
+      const bool ok = kk < k_end && t < p.a_rows;
+      const int8_t* src = ok ? p.a + (base[h] + t) * p.lda + pa.kin : p.a;
+      cp_async16(as + (ar + 64 * h) * G::LDA + ac * 16, src, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool ok = col < p.n && kb + 32 * h < k_end;
+      const int* src =
+          ok ? p.w + ((size_t)p.w_tap[min(pb[h].j, p.terms - 1)] * p.w_rows + pb[h].kin / 4) *
+                         p.n + col
+             : p.w;
+      cp_async16(bs + (br + 8 * h) * G::LDB + bc * 4, src, ok ? 16 : 0);
+    }
+    kk += G::BK;
+    kb += G::BK;
+    pa.step(G::BK, p.kc);
+    pb[0].step(G::BK, p.kc);
+    pb[1].step(G::BK, p.kc);
+  };
+  int acc[G::MT][G::NT8][4];
+  tile_mma_loop<I8Mma, G>(acc, stages, q_n, load);
+  // The m16n8 accumulator layout: acc[mt][nt][2 hh + e] is row lane / 4 + 8 hh of
+  // m16 tile mt, column 2 (lane % 4) + e of n8 tile nt.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / G::WARPS_N, wn = warp - wm * G::WARPS_N;
+  if (p.part != nullptr) {
+    int* part = p.part + (size_t)blockIdx.z * p.m * p.n;
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < G::NT8; ++nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = i0 + wm * G::WM + mt * 16 + (lane >> 2) + hh * 8;
+          const int j = j0 + wn * G::WN + nt * 8 + 2 * (lane & 3);
+          if (i < p.m && j < p.n) {
+            *reinterpret_cast<int2*>(part + (size_t)i * p.n + j) =
+                make_int2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
+          }
+        }
+      }
+    }
+    return;
+  }
+  float rmax[G::MT][2];
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rmax[mt][hh] = 0.f;
+      const int i = i0 + wm * G::WM + mt * 16 + (lane >> 2) + hh * 8;
+#pragma unroll
+      for (int nt = 0; nt < G::NT8; ++nt) {
+        const int j = j0 + wn * G::WN + nt * 8 + 2 * (lane & 3);
+        if (i >= p.m || j >= p.n) continue;
+        int v[2] = {acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]};
+        if (p.epi == kReal) {
+          rmax[mt][hh] = fmaxf(rmax[mt][hh], real_store<2>(p, i, j, v));
+        } else {
+          residual_store<2>(p, i, j, v);
+        }
+      }
+    }
+  }
+  if (p.epi != kReal) return;
+  // Each row's maximum over the tile's columns: the 4 lanes of a row, then the
+  // WARPS_N warps of its 128 columns through shared memory (the ring is free).
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem4);  // [WARPS_N][kTile]
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = rmax[mt][hh];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      if ((lane & 3) == 0) red[wn * kTile + wm * G::WM + mt * 16 + (lane >> 2) + hh * 8] = v;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kTile && i0 + threadIdx.x < p.m) {
+    float v = red[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < G::WARPS_N; ++w) v = fmaxf(v, red[w * kTile + threadIdx.x]);
+    p.rmax[(size_t)blockIdx.x * p.m + i0 + threadIdx.x] = v;
+  }
+}
+
+// The split form's second launch: each warp owns one row's 128-column tile, each lane
+// 4 of its columns; it adds the slices' int32 partials, then runs the epilogue (and,
+// for kReal, writes the tile's row maximum).
+template <int EPI>
+__global__ void __launch_bounds__(NT) i8_reduce_kernel(const __grid_constant__ I8Gemm p,
+                                                       int slices) {
+  const int tiles_n = (p.n + kTile - 1) / kTile;
+  const long long warps = (long long)p.m * tiles_n;
+  const long long stride = (long long)gridDim.x * (NT / 32);
+  const int lane = threadIdx.x & 31;
+  const size_t slice = (size_t)p.m * p.n;
+  for (long long w = (long long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5); w < warps;
+       w += stride) {
+    const int i = (int)(w / tiles_n);
+    const int tile = (int)(w - (long long)i * tiles_n);
+    const int col = tile * kTile + lane * 4;
+    float mx = 0.f;
+    if (col < p.n) {
+      const int* src = p.part + (size_t)i * p.n + col;
+      int4 s = *reinterpret_cast<const int4*>(src);
+      for (int z = 1; z < slices; ++z) {
+        const int4 v = *reinterpret_cast<const int4*>(src + z * slice);
+        s = make_int4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+      }
+      int v[4] = {s.x, s.y, s.z, s.w};
+      if constexpr (EPI == kReal) {
+        mx = real_store<4>(p, i, col, v);
+      } else {
+        residual_store<4>(p, i, col, v);
+      }
+    }
+    if constexpr (EPI == kReal) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) p.rmax[(size_t)tile * p.m + i] = mx;
+    }
+  }
+}
+
+// Per row i: m = max(the row maxima of its column tiles, 1); rs[i] = m * (1/127);
+// hq = rint(real * (127 / m)) as int8 (real >= 0, so 0..127).  One warp per row, 16
+// columns a lane at a time (n % 16 == 0).
+__global__ void __launch_bounds__(NT) requant_kernel(const float* __restrict__ real,
+                                                     const float* __restrict__ rmax, int m,
+                                                     int n, float* __restrict__ rs,
+                                                     int8_t* __restrict__ hq) {
+  const int tiles_n = (n + kTile - 1) / kTile;
+  const int lane = threadIdx.x & 31;
+  for (int i = blockIdx.x * (NT / 32) + (threadIdx.x >> 5); i < m; i += gridDim.x * (NT / 32)) {
+    float mx = 0.f;
+    for (int t = lane; t < tiles_n; t += 32) mx = fmaxf(mx, rmax[(size_t)t * m + i]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    mx = fmaxf(mx, 1.f);
+    const float inv = __fdiv_rn(kQmax, mx);
+    if (lane == 0) rs[i] = __fmul_rn(mx, kInvQmax);
+    const float4* src = reinterpret_cast<const float4*>(real + (size_t)i * n);
+    int4* dst = reinterpret_cast<int4*>(hq + (size_t)i * n);
+    for (int g = lane; g < n / 16; g += 32) {
+      uint32_t words[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = src[4 * g + q];
+        const float f[4] = {v.x, v.y, v.z, v.w};
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          word |= (uint32_t)(uint8_t)(int)rintf(__fmul_rn(f[e], inv)) << (8 * e);
+        }
+        words[q] = word;
+      }
+      dst[g] = make_int4((int)words[0], (int)words[1], (int)words[2], (int)words[3]);
+    }
+  }
+}
+
+// e (rows, c) int8 of the pre-tapped bf16 keypoints raw (rows, k_in) and w0 (k_in, c):
+// clip(rint(relu(float(sum_k raw * w0) * s0 + b0)), 0, 127), the sum in float64 FMAs.
+// A CUDA block owns 64 rows x 64 columns: warp w rows 16 (w % 4) .., columns
+// 32 (w / 4) .., and each lane 4 consecutive rows (4 (lane % 4) ..) by 4 consecutive
+// columns (4 (lane / 4) ..) of its warp's.  The operands are staged as float64 in
+// equal chunks of kek <= kEK summed columns (k_in = 102 of the Human3.6M model: 3 of
+// 34), A transposed, so that per summed column a lane reads its 4 A and 4 W values
+// as four 16-byte words, for 16 FMAs.
+constexpr int kER = 64, kEC = 64, kEK = 40, kLdaT = kER + 2;
+
+__global__ void __launch_bounds__(NT) expand_kernel(const bf16* __restrict__ raw, int rows,
+                                                    int k_in, int kek,
+                                                    const bf16* __restrict__ w0,
+                                                    const float* __restrict__ s0,
+                                                    const float* __restrict__ b0, int c,
+                                                    int8_t* __restrict__ e) {
+  __shared__ __align__(16) double a_t[kEK][kLdaT];  // [k][row]
+  __shared__ __align__(16) double w_s[kEK][kEC];
+  const int r0 = blockIdx.y * kER, c0 = blockIdx.x * kEC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr = 16 * (warp % 4) + 4 * (lane % 4);  // this lane's first row
+  const int tc = 32 * (warp / 4) + 4 * (lane / 4);  // and first column
+  double acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0;
+  }
+  for (int k0 = 0; k0 < k_in; k0 += kek) {
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int x = threadIdx.x; x < kER * kek; x += NT) {
+      const int r = x / kek, k = x - r * kek;
+      a_t[k][r] = r0 + r < rows && k0 + k < k_in
+                      ? (double)__bfloat162float(raw[(size_t)(r0 + r) * k_in + k0 + k])
+                      : 0.0;
+    }
+    for (int x = threadIdx.x; x < kek * kEC; x += NT) {
+      const int k = x / kEC, j = x - k * kEC;
+      w_s[k][j] = k0 + k < k_in && c0 + j < c
+                      ? (double)__bfloat162float(w0[(size_t)(k0 + k) * c + c0 + j])
+                      : 0.0;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int k = 0; k < kek; ++k) {
+      const double2 al = *reinterpret_cast<const double2*>(&a_t[k][tr]);
+      const double2 ah = *reinterpret_cast<const double2*>(&a_t[k][tr + 2]);
+      const double2 wl = *reinterpret_cast<const double2*>(&w_s[k][tc]);
+      const double2 wh = *reinterpret_cast<const double2*>(&w_s[k][tc + 2]);
+      const double a[4] = {al.x, al.y, ah.x, ah.y};
+      const double w[4] = {wl.x, wl.y, wh.x, wh.y};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fma(a[r], w[q], acc[r][q]);
+      }
+    }
+  }
+  const int col = c0 + tc;
+  if (col >= c) return;  // c % 16 == 0: a lane's 4 columns are all in or all out
+  float s[4], sh[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    s[q] = s0[col + q];
+    sh[q] = b0[col + q];
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + tr + r;
+    if (row >= rows) continue;
+    uint32_t word = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float v = __fadd_rn(__fmul_rn(__double2float_rn(acc[r][q]), s[q]), sh[q]);
+      word |= (uint32_t)(uint8_t)to_stream(fmaxf(v, 0.f)) << (8 * q);
+    }
+    *reinterpret_cast<uint32_t*>(e + (size_t)row * c + col) = word;
+  }
+}
+
+// One GEMM of the chain on `stream`, in slices of g.k_slice summed columns; a split's
+// int32 partials go to `part` and i8_reduce_kernel adds them before the epilogue.
+// With g.part set on entry (the accshift taps, one slice each), the GEMM writes each
+// slice's int32 sums there and the tap GEMM's epilogue reads them.
+cudaError_t launch_gemm(I8Gemm g, int* part, long long part_ints, cudaStream_t s) {
+  // A slice ends on a whole 16-byte chunk of A (and packed row of B): the K tile that
+  // crosses its end reads zeros past it.
+  if (g.k_slice <= 0 || (g.k_slice < g.k && g.k_slice % 16 != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  const int slices = (g.k + g.k_slice - 1) / g.k_slice;
+  const bool reduce = slices > 1 && g.part == nullptr;
+  if (reduce) {
+    if (part == nullptr || (long long)slices * g.m * g.n > part_ints) {
+      return cudaErrorInvalidValue;
+    }
+    g.part = part;
+  }
+  const size_t smem = (size_t)kTcStages * IGeo::STAGE;
+  cudaError_t err = configure<i8_mma_kernel>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.n + kTile - 1) / kTile, (g.m + kTile - 1) / kTile, slices);
+  i8_mma_kernel<<<grid, NT, smem, s>>>(g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !reduce) return err;
+  const long long warps = (long long)g.m * ((g.n + kTile - 1) / kTile);
+  const unsigned blocks = (unsigned)std::min<long long>((warps + NT / 32 - 1) / (NT / 32),
+                                                        16LL * device_sms());
+  if (g.epi == kReal) {
+    i8_reduce_kernel<kReal><<<blocks, NT, 0, s>>>(g, slices);
+  } else {
+    i8_reduce_kernel<kResidual><<<blocks, NT, 0, s>>>(g, slices);
+  }
+  return cudaGetLastError();
+}
+
+// Workspace of a stage, in the order of `work` in vp3d_int8_block.
+enum Work { kE = 0, kShifted, kRealBuf, kRmax, kRs, kHq, kPartBuf, kY, kFpart, kWorkParts };
+
+struct Stage {
+  int variant, accshift, batch, t_in, t_out, c;
+  const void* x;  // kExpand: (batch, t_in, k_in) bf16 pre-tapped keypoints, else int8
   int k_in;
-  const __nv_bfloat16* w0; // kExpand: (k_in, c)
+  const bf16* w0;  // kExpand: (k_in, c)
   const float* s0;
   const float* b0;
-  const int* wa;           // (n_taps, c/4, c) dp4a-packed int8
+  const int* wa;  // (n_taps, w_rows, c) packed
   const float* a1;
   const float* b1;
   int n_taps, dilation, res_offset;
-  const int* wb;           // (c/4, c) dp4a-packed int8
+  const int* wb;  // (w_rows, c) packed
   const float* a2;
   const float* b2;
   const float* r;
-  const __nv_bfloat16* ws; // kShrink: (c, j3)
+  const bf16* ws;  // kShrink: (c, j3)
   const float* bs;
   int j3;
-  void* out;               // (batch, t_out, c) int8, or (batch, t_out, j3) float for kShrink
+  void* const* work;
+  long long part_ints, fpart_floats;
+  const int* k_slices;  // the tap GEMM's, the 1x1's, the projection's
+  void* out;
 };
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-__host__ __device__ inline int slack(bool acc) { return acc ? kSlack : 0; }
-// Rows of e kExpand computes: every row a tap or the residual of the tile reads.
-__host__ __device__ inline int expand_rows(int span, bool acc) {
-  return (TM + span + slack(acc) + TM - 1) / TM * TM;
-}
-__host__ __device__ inline int raw_ld(int k_in) { return (k_in + 3) & ~3; }
-
-// Shared memory of one CUDA block, in this order: [raw (float), e (int8) | staged
-// tap rows (int8)], real (float; int32 tap partials in accshift), hq (int8), row
-// scales (3*TM floats) and per-warp row maxima (kWarps*TM floats).
-struct Smem {
-  size_t raw, rows, real, hq, red, total;
-};
-
-__host__ __device__ inline Smem smem_layout(int variant, bool acc, int c, int k_in,
-                                            int span) {
-  Smem s;
-  s.raw = 0;
-  size_t o = 0;
-  if (variant == kExpand) {
-    o = align16(sizeof(float) * (size_t)expand_rows(span, acc) * raw_ld(k_in));
-    s.rows = o;
-    o += align16((size_t)expand_rows(span, acc) * c);
-  } else {
-    s.rows = o;
-    o += align16((size_t)(TM + slack(acc)) * c);
+cudaError_t run_stage(const Stage& st, cudaStream_t stream) {
+  const int c = st.c;
+  const int m = st.batch * st.t_out;
+  const int w_rows = (c + 31) / 32 * 8;
+  const int8_t* src = static_cast<const int8_t*>(st.x);
+  int* part = static_cast<int*>(st.work[kPartBuf]);
+  cudaError_t err;
+  if (st.variant == kExpand) {
+    int8_t* e = static_cast<int8_t*>(st.work[kE]);
+    const int rows = st.batch * st.t_in;
+    const dim3 grid((c + kEC - 1) / kEC, (rows + kER - 1) / kER);
+    const int chunks = (st.k_in + kEK - 1) / kEK;
+    expand_kernel<<<grid, NT, 0, stream>>>(static_cast<const bf16*>(st.x), rows, st.k_in,
+                                           (st.k_in + chunks - 1) / chunks, st.w0, st.s0,
+                                           st.b0, c, e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src = e;
   }
-  s.real = o;
-  o += sizeof(float) * (size_t)TM * c;
-  s.hq = o;
-  o += align16((size_t)TM * c);
-  s.red = o;
-  o += sizeof(float) * (size_t)(3 + kWarps) * TM;
-  s.total = o;
-  return s;
-}
-
-// Copies rows [t, t + n) of the (t_in, c) int8 stream into dst (zeros past t_in).
-__device__ __forceinline__ void stage_rows(int8_t* dst, const int8_t* x, int t, int n,
-                                           int t_in, int c) {
-  const int vec = c / 16;
-  for (int i = threadIdx.x; i < n * vec; i += NT) {
-    const int r = i / vec;
-    const int k = i - r * vec;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (t + r < t_in) v = *reinterpret_cast<const int4*>(x + (size_t)(t + r) * c + k * 16);
-    *reinterpret_cast<int4*>(dst + (size_t)r * c + k * 16) = v;
-  }
-}
-
-template <int V, bool ACC>
-__global__ void __launch_bounds__(NT, 1) int8_block_kernel(const Args p) {
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TM;
-  const int c = p.c;
-  const int tid = threadIdx.x;
-  const int span = (p.n_taps - 1) * p.dilation;
-  const Smem L = smem_layout(V, ACC, c, p.k_in, span);
-  int8_t* rows_s = reinterpret_cast<int8_t*>(smem + L.rows);  // e, or staged tap rows
-  float* real_s = reinterpret_cast<float*>(smem + L.real);
-  int* part_s = reinterpret_cast<int*>(smem + L.real);        // accshift tap partials
-  int8_t* hq_s = reinterpret_cast<int8_t*>(smem + L.hq);
-  float* inv_s = reinterpret_cast<float*>(smem + L.red);       // 127 / m
-  float* rs_s = inv_s + TM;                                    // m * (1/127)
-  float* red_s = rs_s + TM;                                    // kWarps x TM maxima
-  const int8_t* x = nullptr;
-  if constexpr (V != kExpand) {
-    x = static_cast<const int8_t*>(p.x) + (size_t)b * p.t_in * c;
-  }
-
-  if constexpr (V == kExpand) {
-    // e for rows t0 .. t0 + re - 1 from the pre-tapped bf16 keypoints.
-    const int k_in = p.k_in;
-    const int ldr = raw_ld(k_in);
-    const int re = expand_rows(span, ACC);
-    float* raw_s = reinterpret_cast<float*>(smem + L.raw);
-    const __nv_bfloat16* raw =
-        static_cast<const __nv_bfloat16*>(p.x) + (size_t)b * p.t_in * k_in;
-    for (int i = tid; i < re * ldr; i += NT) {
-      const int r = i / ldr;
-      const int k = i - r * ldr;
-      const int t = t0 + r;
-      raw_s[i] = (k < k_in && t < p.t_in) ? __bfloat162float(raw[(size_t)t * k_in + k])
-                                          : 0.f;
-    }
-    __syncthreads();
-    for (int r0 = 0; r0 < re; r0 += TM) {
-      for (int col0 = 0; col0 < c; col0 += NP) {
-        double eacc[TM][CPT];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-#pragma unroll
-          for (int q = 0; q < CPT; ++q) eacc[r][q] = 0.0;
-        }
-        for (int k = 0; k < k_in; ++k) {
-          double w[CPT];
-#pragma unroll
-          for (int q = 0; q < CPT; ++q) {
-            const int col = col0 + tid + q * NT;
-            w[q] = col < c ? (double)__bfloat162float(p.w0[(size_t)k * c + col]) : 0.0;
-          }
-#pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            const double a = raw_s[(r0 + r) * ldr + k];
-#pragma unroll
-            for (int q = 0; q < CPT; ++q) eacc[r][q] = fma(a, w[q], eacc[r][q]);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < CPT; ++q) {
-          const int col = col0 + tid + q * NT;
-          if (col >= c) continue;
-          const float s = p.s0[col];
-          const float sh = p.b0[col];
-#pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            const float v = __fadd_rn(__fmul_rn(__double2float_rn(eacc[r][q]), s), sh);
-            rows_s[(size_t)(r0 + r) * c + col] = to_stream(fmaxf(v, 0.f));
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Dilated taps: exact int32 sums, then real = relu(acc * A1 + B1) and the
-  // per-thread row maxima.
-  float rmax[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) rmax[r] = 0.f;
-  int acc[TM][CPT];
-  for (int col0 = 0; col0 < c; col0 += NP) {
-    zero_i(acc);
-    if constexpr (ACC) {
-      for (int q = 0; q < CPT; ++q) {
-        const int col = col0 + tid + q * NT;
-        if (col < c) {
-          for (int r = 0; r < TM; ++r) part_s[r * c + col] = 0;
-        }
-      }
-    }
-    for (int j = 0; j < p.n_taps; ++j) {
-      const int rel = j * p.dilation;
-      const int off = ACC ? (rel & (kSlack - 1)) : 0;
-      const int base = rel - off;             // first row the tap's dot reads
-      const int n_rows = off ? TM + kSlack : TM;
-      const int8_t* A;
-      if constexpr (V == kExpand) {
-        A = rows_s + (size_t)base * c;
-      } else {
-        __syncthreads();  // every thread is done with the previous tap's rows
-        stage_rows(rows_s, x, t0 + base, n_rows, p.t_in, c);
-        __syncthreads();
-        A = rows_s;
-      }
-      const int* W = p.wa + (size_t)j * (c / 4) * c;
-      if (!off) {
-        gemm_i8(acc, A, c, c, W, c, col0);
-      } else {
-        // accshift: partials over the aligned TM + 32 rows, rows [off, off + TM) kept.
-        for (int r0 = 0; r0 < n_rows; r0 += TM) {
-          int part[TM][CPT];
-          zero_i(part);
-          gemm_i8(part, A + (size_t)r0 * c, c, c, W, c, col0);
-#pragma unroll
-          for (int q = 0; q < CPT; ++q) {
-            const int col = col0 + tid + q * NT;
-            if (col >= c) continue;
-#pragma unroll
-            for (int r = 0; r < TM; ++r) {
-              const int dst = r0 + r - off;
-              if (dst >= 0 && dst < TM) part_s[dst * c + col] += part[r][q];
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int col = col0 + tid + q * NT;
-      if (col >= c) continue;
-      const float s = p.a1[col];
-      const float sh = p.b1[col];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        int a = acc[r][q];
-        if constexpr (ACC) a += part_s[r * c + col];  // this thread's own columns
-        const float v = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(a), s), sh), 0.f);
-        real_s[r * c + col] = v;
-        rmax[r] = fmaxf(rmax[r], v);
-      }
+  // The tap GEMM over the taps at offsets that are multiples of kAlign (all of them
+  // in slice mode); in accshift mode the other taps first run over their aligned
+  // windows, one launch split at the tap boundaries, each slice into its own int32
+  // partials.
+  I8Gemm g{};
+  g.a = src;
+  g.lda = c;
+  g.kc = c;
+  g.a_rows = st.t_in;
+  g.w = st.wa;
+  g.w_rows = w_rows;
+  g.n = c;
+  g.k_slice = c;
+  int* shifted = static_cast<int*>(st.work[kShifted]);
+  I8Gemm tap = g, sg = g;
+  tap.rows = st.t_out;
+  tap.m = m;
+  sg.rows = st.t_out + kAlign;
+  sg.m = st.batch * sg.rows;
+  sg.part = shifted;
+  for (int j = 0; j < st.n_taps; ++j) {
+    const int rel = j * st.dilation;
+    const int off = st.accshift ? rel % kAlign : 0;
+    if (off == 0) {
+      tap.a_off[tap.terms] = rel;
+      tap.w_tap[tap.terms++] = j;
+    } else {
+      sg.a_off[sg.terms] = rel - off;
+      sg.w_tap[sg.terms++] = j;
+      tap.shift_off[tap.n_shift++] = off;
     }
   }
-
-  requantize_rows(rmax, real_s, hq_s, inv_s, rs_s, red_s, c);
-
-  // 1x1 product of hq, y, the residual, and the stage output.
-  for (int col0 = 0; col0 < c; col0 += NP) {
-    zero_i(acc);
-    gemm_i8(acc, hq_s, c, c, p.wb, c, col0);
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int col = col0 + tid + q * NT;
-      if (col >= c) continue;
-      const float a2 = p.a2[col];
-      const float b2 = p.b2[col];
-      const float rr = p.r[col];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int t = t0 + r;
-        const float y = fmaxf(
-            __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[r][q]), rs_s[r]), a2), b2),
-            0.f);
-        float res;
-        if constexpr (V == kExpand) {
-          res = (float)rows_s[(size_t)(p.res_offset + r) * c + col];
-        } else {
-          const int tr = t + p.res_offset;
-          res = tr < p.t_in ? (float)x[(size_t)tr * c + col] : 0.f;
-        }
-        const float v = __fadd_rn(__fmul_rn(res, rr), y);
-        if constexpr (V == kShrink) {
-          real_s[r * c + col] = round_to<__nv_bfloat16>(v);
-        } else if (t < p.t_out) {
-          static_cast<int8_t*>(p.out)[((size_t)b * p.t_out + t) * c + col] = to_stream(v);
-        }
-      }
-    }
+  if (sg.terms > 0) {
+    sg.k = sg.terms * c;
+    err = launch_gemm(sg, nullptr, 0, stream);
+    if (err != cudaSuccess) return err;
   }
-
-  if constexpr (V == kShrink) {
-    // Projection of the bf16-rounded block output: (TM, c) @ (c, j3) + bias, float32.
-    __syncthreads();
-    float* outf = static_cast<float*>(p.out);
-    const int j3 = p.j3;
-    for (int o = tid; o < TM * j3; o += NT) {
-      const int r = o / j3;
-      const int col = o - r * j3;
-      const int t = t0 + r;
-      if (t >= p.t_out) continue;
-      const float* a = real_s + r * c;
-      float s = 0.f;
-      for (int k = 0; k < c; k += 4) {
-        const float4 av = *reinterpret_cast<const float4*>(a + k);
-        s = fmaf(av.x, __bfloat162float(p.ws[(size_t)k * j3 + col]), s);
-        s = fmaf(av.y, __bfloat162float(p.ws[(size_t)(k + 1) * j3 + col]), s);
-        s = fmaf(av.z, __bfloat162float(p.ws[(size_t)(k + 2) * j3 + col]), s);
-        s = fmaf(av.w, __bfloat162float(p.ws[(size_t)(k + 3) * j3 + col]), s);
-      }
-      outf[((size_t)b * p.t_out + t) * j3 + col] = s + p.bs[col];
-    }
-  }
-}
-
-template <int V, bool ACC>
-cudaError_t launch(const Args& p, size_t smem, cudaStream_t stream) {
-  const dim3 grid((p.t_out + TM - 1) / TM, p.batch);
-  return launch_with_smem(int8_block_kernel<V, ACC>, grid, dim3(NT), smem, stream, p);
-}
-
-template <bool ACC>
-cudaError_t dispatch(int variant, const Args& p, size_t smem, cudaStream_t stream) {
-  switch (variant) {
-    case kMid: return launch<kMid, ACC>(p, smem, stream);
-    case kExpand: return launch<kExpand, ACC>(p, smem, stream);
-    case kShrink: return launch<kShrink, ACC>(p, smem, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  float* real = static_cast<float*>(st.work[kRealBuf]);
+  float* rmax = static_cast<float*>(st.work[kRmax]);
+  tap.k = tap.terms * c;
+  tap.k_slice = st.k_slices[0];
+  tap.epi = kReal;
+  tap.scale = st.a1;
+  tap.shift = st.b1;
+  tap.shifted = shifted;
+  tap.rmax = rmax;
+  tap.out = real;
+  err = launch_gemm(tap, part, st.part_ints, stream);
+  if (err != cudaSuccess) return err;
+  float* rs = static_cast<float*>(st.work[kRs]);
+  int8_t* hq = static_cast<int8_t*>(st.work[kHq]);
+  const unsigned rq_blocks = (unsigned)std::min<long long>(
+      ((long long)m + NT / 32 - 1) / (NT / 32), 16LL * device_sms());
+  requant_kernel<<<rq_blocks, NT, 0, stream>>>(real, rmax, m, c, rs, hq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  I8Gemm one = g;
+  one.a = hq;
+  one.a_rows = st.t_out;
+  one.rows = st.t_out;
+  one.m = m;
+  one.terms = 1;
+  one.w = st.wb;
+  one.k = c;
+  one.k_slice = st.k_slices[1];
+  one.epi = kResidual;
+  one.scale = st.a2;
+  one.shift = st.b2;
+  one.rs = rs;
+  one.r = st.r;
+  one.res = src;
+  one.res_rows = st.t_in;
+  one.res_off = st.res_offset;
+  one.shrink = st.variant == kShrink;
+  one.out = st.variant == kShrink ? st.work[kY] : st.out;
+  err = launch_gemm(one, part, st.part_ints, stream);
+  if (err != cudaSuccess || st.variant != kShrink) return err;
+  return k3_project_bf16(static_cast<const bf16*>(st.work[kY]), m, c, st.ws, st.j3, st.bs,
+                         st.k_slices[2], static_cast<float*>(st.work[kFpart]),
+                         st.fpart_floats, static_cast<float*>(st.out), stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one CUDA block of the stage needs, in bytes.
-size_t vp3d_i8_smem_bytes(int variant, int accshift, int channels, int k_in, int span) {
-  return smem_layout(variant, accshift != 0, channels, k_in, span).total;
-}
-
-// Launches one int8 stage on `stream`.  Returns cudaGetLastError() after the launch
-// (0 on success).  Shapes are checked by the Python wrapper; this only refuses what
-// would make the launch itself invalid.
+// Enqueues one int8 stage on `stream`.  `work` is a host array of kWorkParts device
+// pointers (e, the accshift taps' partials, real, the row maxima, the row scales,
+// hq, a split's int32 partials, the shrink's block output and the projection's
+// float32 partials; null where the stage has no such part), `part_ints` and
+// `fpart_floats` the sizes of the two split buffers, and k_slices the summed columns
+// per slice of the tap GEMM, the 1x1 and the projection (temporal_block_int8._layout).
+// Returns the first launch error (0 on success).  Shapes and workspace are checked by
+// the Python wrapper; this refuses what would make a launch invalid or read out of
+// bounds.
 int vp3d_int8_block(int variant, int accshift, int batch, int t_in, int t_out,
                     int channels, const void* x, int k_in, const void* w0, const void* s0,
                     const void* b0, const void* wa, const void* a1, const void* b1,
-                    int n_taps, int dilation, int res_offset, const void* wb,
-                    const void* a2, const void* b2, const void* r, const void* ws,
-                    const void* bs, int j3, void* out, void* stream) {
-  if (batch <= 0 || t_out <= 0 || channels <= 0 || channels % 16 != 0 || batch > 65535 ||
-      (variant == kExpand && k_in <= 0) || (variant == kShrink && j3 <= 0)) {
+                    int n_taps, int dilation,
+                    int res_offset, const void* wb, const void* a2, const void* b2,
+                    const void* r, const void* ws, const void* bs, int j3,
+                    void* const* work, long long part_ints, long long fpart_floats,
+                    const int* k_slices, void* out, void* stream) {
+  const int span = (n_taps - 1) * dilation;
+  if (variant < kMid || variant > kShrink || batch <= 0 || t_out <= 0 || channels <= 0 ||
+      channels % 16 != 0 || n_taps <= 0 || n_taps > kMaxTerms || dilation <= 0 ||
+      res_offset < 0 || t_out + span > t_in || res_offset + t_out > t_in ||
+      work == nullptr || k_slices == nullptr ||
+      (long long)batch * (t_out + kAlign) > (long long)kTile * 65535 ||
+      (variant == kExpand && (k_in <= 0 || work[kE] == nullptr)) ||
+      (variant == kShrink && (j3 <= 0 || j3 % 8 != 0 || work[kY] == nullptr))) {
     return cudaErrorInvalidValue;
   }
-  const Args p{batch, t_in, t_out, channels, x, k_in,
-               static_cast<const __nv_bfloat16*>(w0), static_cast<const float*>(s0),
-               static_cast<const float*>(b0), static_cast<const int*>(wa),
-               static_cast<const float*>(a1), static_cast<const float*>(b1), n_taps,
-               dilation, res_offset, static_cast<const int*>(wb),
-               static_cast<const float*>(a2), static_cast<const float*>(b2),
-               static_cast<const float*>(r), static_cast<const __nv_bfloat16*>(ws),
-               static_cast<const float*>(bs), j3, out};
-  const size_t smem =
-      smem_layout(variant, accshift != 0, channels, k_in, (n_taps - 1) * dilation).total;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return accshift ? dispatch<true>(variant, p, smem, s) : dispatch<false>(variant, p, smem, s);
+  const Stage st{variant, accshift, batch, t_in, t_out, channels, x, k_in,
+                 static_cast<const bf16*>(w0), static_cast<const float*>(s0),
+                 static_cast<const float*>(b0), static_cast<const int*>(wa),
+                 static_cast<const float*>(a1), static_cast<const float*>(b1), n_taps,
+                 dilation, res_offset, static_cast<const int*>(wb),
+                 static_cast<const float*>(a2), static_cast<const float*>(b2),
+                 static_cast<const float*>(r), static_cast<const bf16*>(ws),
+                 static_cast<const float*>(bs), j3, work, part_ints, fpart_floats, k_slices,
+                 out};
+  return run_stage(st, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -322,32 +322,20 @@ def step_limit_error(engine: str, c: int, widths, k: int):
     return None
 
 
-def pack_int8_step(w):
-    """(K, N) int8 -> (ceil32(K) / 4, ceil8(N)) int32 whose bytes (g, n) are
-    ``w[4g : 4g+4, n]``, zero past K and N: the int8 step's weight layout (an
-    m16n8k32 B fragment register holds 4 consecutive K values of one column)."""
-    k, n = w.shape
-    kp, np_ = -(-k // 32) * 32, -(-n // 8) * 8
-    padded = torch.zeros((kp, np_), dtype=torch.int8, device=w.device)
-    padded[:k, :n] = w
-    return padded.reshape(kp // 4, 4, np_).permute(0, 2, 1).contiguous().view(
-        torch.int32).reshape(kp // 4, np_)
-
-
 @dataclasses.dataclass
 class Int8StepWeights:
     """The fused int8 step's weights: the ``QuantizedModel`` ``q`` (its expand, and
     its blocks and shrink for the plain version) and ``packs``, per residual block
-    (wq_a packed per tap, wq_b packed) by :func:`pack_int8_step`, the kernel's."""
+    (wq_a packed per tap, wq_b packed) by ``temporal_block_int8.pack_int8_step``,
+    the kernel's: the packs each ``Int8Block`` made once for the int8 kernels."""
 
     q: object
     packs: list = dataclasses.field(repr=False)
 
     @classmethod
     def of(cls, q):
-        """``q``'s weights for the step, packed once."""
-        return cls(q, [(torch.stack([pack_int8_step(w) for w in blk.wq_a]),
-                        pack_int8_step(blk.wq_b)) for blk in q.blocks])
+        """``q``'s weights for the step: its blocks' packs."""
+        return cls(q, [(blk.pa, blk.pb) for blk in q.blocks])
 
 
 def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs):
@@ -506,14 +494,11 @@ def ring_push(buf, slot: int, row):
     if buf.ndim != 3:
         raise ValueError(f"ring must be (cap, B, C), got {tuple(buf.shape)}")
     cap, b, c = buf.shape
-    _check("row", row, dev, buf.dtype, (b, c), align=16)
-    _check("ring", buf, dev, buf.dtype, (cap, b, c), align=16)
+    _check("row", row, dev, buf.dtype, (b, c))
+    _check("ring", buf, dev, buf.dtype, (cap, b, c))
     if not 0 <= slot < cap:
         raise ValueError(f"slot {slot} out of range for a ring of {cap}")
     n_bytes = row.numel() * row.element_size()
-    if n_bytes % 16:
-        raise ValueError(f"the ring_push kernel copies 16-byte words; a row of {b} x {c} "
-                         f"{buf.dtype} is {n_bytes} bytes")
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -131,8 +131,8 @@ def fused_shrink_block_plain(x, w_taps, bn1_scale, bn1_shift, w2, bn2_scale,
 # ---------------------------------------------------------------------------
 
 
-# The most dynamic shared memory a CUDA block may opt in to (the int8 stages and the
-# streaming step size their tiles against it).
+# The most dynamic shared memory a CUDA block may opt in to (the streaming step
+# sizes its tiles against it).
 SMEM_OPT_IN = 232_448
 
 # k3_plan's rates: a stage GEMM's products per second on one SM, float32 at 45

@@ -34,8 +34,13 @@ and adds the int32 partials from row ``j*d % 32`` on.  Integer sums commute, so
 both modes give equal bits.
 
 Layout at this surface is the JAX package's: channels-last activations and
-``(k, C_in, C_out)`` weights.  The kernels' dp4a weight packing is made once,
+``(k, C_in, C_out)`` weights.  The kernels' weight packing
+(:func:`pack_int8_step`, shared with the fused int8 streaming step) is made once,
 when a :class:`Int8Block` is built.
+
+Any width: nothing is held per channel in shared memory; a CUDA stage takes a
+multiple of 16 channels, and ``models/temporal.forward_dilated_int8`` pads other
+widths with zero channels once (:func:`channel_padded`).
 
 Dispatch: a tensor on the CPU takes the ``*_plain`` version; a CUDA tensor
 launches the kernel (``csrc/temporal_block_int8.cu``) or raises.  ``LAUNCHES``
@@ -46,13 +51,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import torch
 
 from videopose3d_torch.models.temporal import _channels_last, _fold, receptive_field
-from videopose3d_torch.ops.kernels.temporal_block import (SMEM_OPT_IN, _check, _geometry,
-                                                          _load, _ptr)
+from videopose3d_torch.ops.kernels.temporal_block import (_check, _geometry, _load, _ptr,
+                                                          _sms, k3_plan, pad, whole_words)
+from videopose3d_torch.ops.kernels.train_block import (DW_BLOCKS_PER_SM, DW_TILE,
+                                                       TAP_MAX_SLICES)
 
 QMAX = 127.0
 # Blocks whose dilation is at least this run the accshift tap mode: the default
@@ -83,21 +91,24 @@ def _rdiv(b: float, a):
     return torch.full_like(a, b) / a
 
 
-def _pack_dp4a(w):
-    """(K, N) int8 -> (K/4, N) int32 whose bytes are ``w[4g : 4g+4, n]``, the
-    operand order of ``__dp4a``; None when K is not a multiple of 4."""
+def pack_int8_step(w):
+    """(K, N) int8 -> (ceil32(K) / 4, ceil8(N)) int32 whose bytes (g, n) are
+    ``w[4g : 4g+4, n]``, zero past K and N: the int8 kernels' weight layout (an
+    m16n8k32 B fragment register holds 4 consecutive K values of one column), of
+    the stages here and of the fused streaming step."""
     k, n = w.shape
-    if k % 4:
-        return None
-    groups = w.reshape(k // 4, 4, n).permute(0, 2, 1).contiguous()
-    return groups.view(torch.int32).reshape(k // 4, n)
+    kp, np_ = -(-k // 32) * 32, -(-n // 8) * 8
+    padded = torch.zeros((kp, np_), dtype=torch.int8, device=w.device)
+    padded[:k, :n] = w
+    return padded.reshape(kp // 4, 4, np_).permute(0, 2, 1).contiguous().view(
+        torch.int32).reshape(kp // 4, np_)
 
 
 @dataclasses.dataclass
 class Int8Block:
     """One residual block of the int8 model: int8 weights in the JAX layout and
-    the folded f32 epilogue vectors; ``pa``/``pb`` are the dp4a packing of
-    ``wq_a``/``wq_b``."""
+    the folded f32 epilogue vectors; ``pa``/``pb`` are :func:`pack_int8_step` of
+    each tap of ``wq_a`` and of ``wq_b``, made once, the int8 kernels' layout."""
 
     wq_a: torch.Tensor      # (k, C, C) int8
     wq_b: torch.Tensor      # (C, C) int8
@@ -106,13 +117,12 @@ class Int8Block:
     A2: torch.Tensor
     B2: torch.Tensor
     R: torch.Tensor
-    pa: Optional[torch.Tensor] = dataclasses.field(init=False, repr=False)
-    pb: Optional[torch.Tensor] = dataclasses.field(init=False, repr=False)
+    pa: torch.Tensor = dataclasses.field(init=False, repr=False)
+    pb: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        packed = [_pack_dp4a(w) for w in self.wq_a]
-        self.pa = None if packed[0] is None else torch.stack(packed)
-        self.pb = _pack_dp4a(self.wq_b)
+        self.pa = torch.stack([pack_int8_step(w) for w in self.wq_a])
+        self.pb = pack_int8_step(self.wq_b)
 
 
 @dataclasses.dataclass
@@ -128,10 +138,13 @@ class QuantizedModel:
     # The model padded to the stage kernels' channel multiple (channel_padded).
     padded: Optional["QuantizedModel"] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # shrink_w and shrink_b padded to whole 16-byte words of outputs (shrink_operands).
+    shrink_words: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
 
 # The stage kernels take a multiple of CHANNEL_MULTIPLE channels (their int8 rows are
-# copied in 16-byte words and their dp4a weights packed in groups of 4 rows).
+# copied in 16-byte words).
 CHANNEL_MULTIPLE = 16
 
 
@@ -161,6 +174,18 @@ def channel_padded(q: QuantizedModel) -> QuantizedModel:
     if q.padded is None:
         q.padded = pad_channels(q, -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE)
     return q.padded
+
+
+def shrink_operands(q: QuantizedModel):
+    """``q``'s (C, J) shrink weights and (J,) bias zero-padded to J a whole number
+    of 16-byte bf16 words, as the shrink stage's kernel takes them (its projection
+    copies rows in such words): made once and kept on ``q``.  The padded outputs
+    are bias 0 plus 0."""
+    if q.shrink_words is None:
+        c, j3 = q.shrink_w.shape
+        jp = whole_words(j3, torch.bfloat16)
+        q.shrink_words = (pad(q.shrink_w, c, jp).contiguous(), pad(q.shrink_b, jp).contiguous())
+    return q.shrink_words
 
 
 # ---------------------------------------------------------------------------
@@ -408,64 +433,110 @@ def int8_shrink_block_plain(x, blk: Int8Block, w_shrink, b_shrink, *, dilation: 
 # ---------------------------------------------------------------------------
 
 
-# The stage kernels' geometry (csrc/temporal_block_int8.cu, csrc/int8_gemm.cuh): TM
-# output rows per CUDA block, WARPS warps, SLACK rows of accshift window slack.
-TM, WARPS, SLACK = 16, 8, ACCSHIFT_ALIGN
+# The stage's chain (csrc/temporal_block_int8.cu): accshift windows of SLACK rows
+# past T_out per batch row, row maxima per TILE columns.
+SLACK, TILE = ACCSHIFT_ALIGN, 128
+# The workspace parts of a stage, in the order of vp3d_int8_block's ``work``.
+_WORK = ("e", "shifted", "real", "rmax", "rs", "hq", "part", "y", "fpart")
 
 
-def stage_smem_bytes(kind: str, c: int, *, k_in: int = 0, span: int = 0,
-                     accshift: bool = False) -> int:
-    """Shared memory of one CUDA block of the ``kind`` stage at c channels
-    (``vp3d_i8_smem_bytes``): the expand's raw input rows (float32, k_in columns
-    padded to 4) and e (int8) over every row its taps (reach ``span``) and
-    residual read, or the other stages' staged tap rows; then real (float32), hq
-    (int8), the row scales and the per-warp row maxima."""
-    a16 = lambda b: (b + 15) & ~15
-    slack = SLACK if accshift else 0
-    if kind == "int8_expand":
-        rows = -(-(TM + span + slack) // TM) * TM
-        staged = a16(4 * rows * ((k_in + 3) & ~3)) + a16(rows * c)
-    else:
-        staged = a16((TM + slack) * c)
-    return staged + 4 * TM * c + a16(TM * c) + 4 * (3 + WARPS) * TM
+def _shifted_taps(n_taps: int, dilation: int, accshift: bool) -> int:
+    """Taps the accshift mode multiplies over aligned windows of their own."""
+    return sum(1 for j in range(n_taps) if accshift and (j * dilation) % ACCSHIFT_ALIGN)
 
 
-def channel_limit_error(c: int, widths, *, c_in: int,
-                        accshift_min_d: int = ACCSHIFT_MIN_DILATION):
-    """Why the int8 stage kernels (``--serving-engine int8`` on CUDA) cannot serve
-    the model of filter ``widths`` at ``c`` channels over ``c_in`` keypoint
-    columns, or None; known without the card.  ``forward_dilated_int8`` pads the
-    model to a multiple of CHANNEL_MULTIPLE channels, and at that width each
-    stage's CUDA block must fit in shared memory: the expand (pre-tapped input of
-    ``widths[0] * c_in`` columns) with block 0, the mid blocks, and the last block
-    with the shrink, at the tap mode ``forward_dilated_int8`` gives each."""
-    engine = "the int8 stage kernels (--serving-engine int8 on CUDA)"
-    cp = -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE
-    n_blocks, d = len(widths) - 1, 1
-    for i in range(n_blocks):
-        d *= widths[i]
-        kind = ("int8_expand" if i == 0 else "int8_shrink" if i == n_blocks - 1
-                else "int8_dilated")
-        smem = stage_smem_bytes(kind, cp, k_in=widths[0] * c_in if i == 0 else 0,
-                                span=(widths[i + 1] - 1) * d, accshift=d >= accshift_min_d)
-        if smem > SMEM_OPT_IN:
-            return (f"{c} channels: {engine}: the {kind} kernel of block {i} needs "
-                    f"{smem} bytes of shared memory; at most {SMEM_OPT_IN} are "
-                    "available; use --serving-engine xla")
-    return None
+def int8_gemms(kind: str, batch: int, t_out: int, c: int, *, n_taps: int = 3,
+               dilation: int = 1, accshift: bool = False, j3: int = 0):
+    """The (m, k, n, dtype) of each GEMM the ``kind`` stage's chain runs, in order:
+    (accshift) the unaligned taps' over their windows, split at the tap boundaries;
+    the aligned taps', the 1x1's and (shrink) the projection's."""
+    m = batch * t_out
+    shifted = _shifted_taps(n_taps, dilation, accshift)
+    gemms = [(batch * (t_out + SLACK), shifted * c, c, torch.int8)] if shifted else []
+    gemms += [(m, (n_taps - shifted) * c, c, torch.int8), (m, c, c, torch.int8)]
+    if kind == "int8_shrink":
+        gemms.append((m, c, j3, torch.bfloat16))
+    return gemms
+
+
+# Summed columns per K tile of the int8 GEMMs (a slice is a whole number of them).
+INT8_SLAB = 64
+# The int8 GEMMs' cost of one more slice, in waves of resident CUDA blocks of the
+# whole summed dimension: fitted to kernel_ab.py's int8 sweep on an H100 (PERF.md),
+# where 2 slices beat 1 and 3 at both the tap GEMM (K = 3,072) and the 1x1 (1,024)
+# of every stage whose tiles spill past one wave.
+INT8_SPLIT_WAVES = 0.25
+
+
+def int8_plan(m: int, k: int, n: int, sms: int = 132):
+    """The slices ``((start, stop), ...)`` of the summed dimension of an int8 stage
+    GEMM (m x k) @ (k x n) on ``sms`` SMs.  It counts waves: with s slices, the
+    waves of DW_BLOCKS_PER_SM resident 128 x 128 tiles per SM that the tiles'
+    slices take, each 1/s of the summed dimension long, plus INT8_SPLIT_WAVES per
+    slice past the first.  At B = 2, T = 2,242, C = 1,024 on 132 SMs (4,468 /
+    4,432 / 4,324 rows: 280 / 280 / 272 tiles on 264 resident blocks) both the
+    tap GEMM and the 1x1 split in 2; the shrink stage's 256 tiles stay whole."""
+    tiles = -(-m // DW_TILE) * -(-n // DW_TILE)
+    slabs = -(-k // INT8_SLAB)
+
+    def plan(s):
+        rows = -(-slabs // s) * INT8_SLAB
+        return tuple((a, min(k, a + rows)) for a in range(0, k, rows))
+
+    def waves(s):
+        n_slices = len(plan(s))
+        return (-(-tiles * n_slices // (DW_BLOCKS_PER_SM * sms)) / n_slices
+                + INT8_SPLIT_WAVES * (n_slices - 1))
+
+    return plan(min(range(1, min(slabs, TAP_MAX_SLICES) + 1), key=lambda s: (waves(s), s)))
+
+
+def stage_plan(m, k, n, sms, dtype):
+    """A chain GEMM's slices: the int8 GEMMs' :func:`int8_plan`, the bf16
+    projection's ``temporal_block.k3_plan``."""
+    return int8_plan(m, k, n, sms) if dtype == torch.int8 else k3_plan(m, k, n, sms, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(kind, accshift, batch, t_in, t_out, c, n_taps, dilation, j3, sms):
+    """What a stage's launch takes besides its operands, once per shape: the summed
+    columns per slice of the tap GEMM, the 1x1 and the projection (``stage_plan``, as a
+    C int array; the accshift taps' GEMM is split at the tap boundaries), the int32
+    and float32 split partials' sizes, and its workspace: the bytes and each part's
+    offset in them (256-byte aligned; None where the stage has no such part)."""
+    shifted = _shifted_taps(n_taps, dilation, accshift)
+    gemms = int8_gemms(kind, batch, t_out, c, n_taps=n_taps, dilation=dilation,
+                       accshift=accshift, j3=j3)[1 if shifted else 0:]
+    plans = [stage_plan(m, k, n, sms, dt) for m, k, n, dt in gemms]
+    k_slices = (ctypes.c_int * 3)(*[plan[0][1] for plan in plans] + [0] * (3 - len(plans)))
+    split = [len(plan) * m * n if len(plan) > 1 else 0
+             for plan, (m, _, n, _) in zip(plans, gemms)]
+    part_ints, fpart = max(split[:2]), sum(split[2:])
+    m = batch * t_out
+    sizes = {"e": batch * t_in * c if kind == "int8_expand" else 0,
+             "shifted": 4 * shifted * batch * (t_out + SLACK) * c,
+             "real": 4 * m * c, "rmax": 4 * -(-c // TILE) * m, "rs": 4 * m, "hq": m * c,
+             "part": 4 * part_ints, "y": 2 * m * c if kind == "int8_shrink" else 0,
+             "fpart": 4 * fpart}
+    offsets, at = [], 0
+    for name in _WORK:
+        offsets.append(at if sizes[name] else None)
+        at += -(-sizes[name] // 256) * 256
+    return k_slices, part_ints, fpart, tuple(offsets), at
 
 
 def _launch(kind, x, blk: Int8Block, *, t_out, dilation, res_offset, tap_mode,
             w0=None, s0=None, b0=None, ws=None, bs=None, out):
-    """Check every operand against the kernel's contract and launch it."""
+    """Check every operand against the kernels' contract and enqueue the stage's
+    chain."""
     _check_mode(tap_mode)
     if x.device.type != "cuda":
         raise ValueError(f"the {kind} kernel runs on CUDA tensors, got {x.device}")
     dev = x.device
     batch, t_in, x_cols = x.shape
     n_taps, c = blk.wq_a.shape[0], blk.wq_a.shape[-1]
-    if c % 16:
-        raise ValueError(f"channels must be a multiple of 16, got {c} "
+    if c % CHANNEL_MULTIPLE:
+        raise ValueError(f"channels must be a multiple of {CHANNEL_MULTIPLE}, got {c} "
                          "(forward_dilated_int8 pads other widths)")
     if w0 is not None:
         _check("x", x, dev, torch.bfloat16, (batch, t_in, x_cols))
@@ -474,31 +545,37 @@ def _launch(kind, x, blk: Int8Block, *, t_out, dilation, res_offset, tap_mode,
         _check("expand_shift", b0, dev, torch.float32, (c,))
     else:
         _check("x", x, dev, torch.int8, (batch, t_in, c), align=16)
-    _check("packed wq_a", blk.pa, dev, torch.int32, (n_taps, c // 4, c))
-    _check("packed wq_b", blk.pb, dev, torch.int32, (c // 4, c))
+    packed_rows = -(-c // 32) * 8
+    _check("packed wq_a", blk.pa, dev, torch.int32, (n_taps, packed_rows, c), align=16)
+    _check("packed wq_b", blk.pb, dev, torch.int32, (packed_rows, c), align=16)
     for name in ("A1", "B1", "A2", "B2", "R"):
         _check(name, getattr(blk, name), dev, torch.float32, (c,))
     j3 = 0
     if ws is not None:
         j3 = ws.shape[1]
-        _check("w_shrink", ws, dev, torch.bfloat16, (c, j3))
+        if j3 != whole_words(j3, torch.bfloat16):
+            raise ValueError(f"w_shrink must have a whole number of 16-byte bf16 words of "
+                             f"columns, got {j3} (shrink_operands pads a model's)")
+        _check("w_shrink", ws, dev, torch.bfloat16, (c, j3), align=16)
         _check("b_shrink", bs, dev, torch.float32, (j3,))
-    variant, accshift = _VARIANT[kind], int(tap_mode == "accshift")
-    span = (n_taps - 1) * dilation
-    k_in = x_cols if w0 is not None else 0
-    smem = stage_smem_bytes(kind, c, k_in=k_in, span=span, accshift=bool(accshift))
-    if smem > SMEM_OPT_IN:
-        raise ValueError(f"the {kind} kernel needs {smem} bytes of shared memory at "
-                         f"{c} channels and reach {span}; at most {SMEM_OPT_IN} are "
-                         "available")
+        _check("out", out, dev, torch.float32, (batch, t_out, j3))
+    accshift = int(tap_mode == "accshift")
+    sms = _sms(dev.index if dev.index is not None else torch.cuda.current_device())
+    k_slices, part_ints, fpart, offsets, size = _layout(
+        kind, accshift, batch, t_in, t_out, c, n_taps, dilation, j3, sms)
+    work = torch.empty(size, dtype=torch.uint8, device=dev)
+    base = work.data_ptr()
+    ptrs = (ctypes.c_void_p * len(_WORK))(*(None if o is None else base + o
+                                            for o in offsets))
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.vp3d_int8_block(
-            variant, accshift, batch, t_in, t_out, c, _ptr(x), k_in, _ptr(w0), _ptr(s0),
-            _ptr(b0), _ptr(blk.pa), _ptr(blk.A1), _ptr(blk.B1), n_taps, dilation,
-            res_offset, _ptr(blk.pb), _ptr(blk.A2), _ptr(blk.B2), _ptr(blk.R), _ptr(ws),
-            _ptr(bs), j3, _ptr(out), ctypes.c_void_p(stream))
+            _VARIANT[kind], accshift, batch, t_in, t_out, c, _ptr(x),
+            x_cols if w0 is not None else 0, _ptr(w0), _ptr(s0), _ptr(b0), _ptr(blk.pa),
+            _ptr(blk.A1), _ptr(blk.B1), n_taps, dilation, res_offset, _ptr(blk.pb),
+            _ptr(blk.A2), _ptr(blk.B2), _ptr(blk.R), _ptr(ws), _ptr(bs), j3, ptrs,
+            part_ints, fpart, k_slices, _ptr(out), ctypes.c_void_p(stream))
     if code != 0:
         raise RuntimeError(f"the {kind} kernel failed to launch: "
                            f"{lib.vp3d_error_string(code).decode()} ({code})")
@@ -539,13 +616,14 @@ def int8_expand_block(x_taps, w0, scale, shift, blk: Int8Block, *, dilation: int
 
 def int8_shrink_block(x, blk: Int8Block, w_shrink, b_shrink, *, dilation: int,
                       causal_shift: int = 0, tap_mode: str = "slice"):
-    """Last block + shrink: (B, T, C) int8 -> (B, T - (k-1)*d, J_out*3) float32,
-    with (C, J_out*3) bf16 ``w_shrink`` and (J_out*3,) f32 ``b_shrink``."""
+    """Last block + shrink: (B, T, C) int8 -> (B, T - (k-1)*d, J) float32, with
+    (C, J) bf16 ``w_shrink`` and (J,) f32 ``b_shrink``; on CUDA, J a whole number
+    of 16-byte bf16 words (:func:`shrink_operands`)."""
     if x.device.type == "cpu":
         return int8_shrink_block_plain(x, blk, w_shrink, b_shrink, dilation=dilation,
                                        causal_shift=causal_shift, tap_mode=tap_mode)
     b, t, _ = x.shape
     t_out, off = _geometry(t, blk.wq_a.shape[0], dilation, causal_shift)
     out = torch.empty((b, t_out, w_shrink.shape[1]), dtype=torch.float32, device=x.device)
-    return _launch("int8_shrink", x, blk, t_out=t_out, dilation=dilation,
-                   res_offset=off, tap_mode=tap_mode, ws=w_shrink, bs=b_shrink, out=out)
+    return _launch("int8_shrink", x, blk, t_out=t_out, dilation=dilation, res_offset=off,
+                   tap_mode=tap_mode, ws=w_shrink, bs=b_shrink, out=out)

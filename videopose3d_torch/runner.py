@@ -34,18 +34,13 @@ _NOT_PORTED = ("is not ported to videopose3d_torch yet (see ROADMAP.md, Queue 1)
                "run it with the JAX package (python run.py)")
 
 
-# The int8 stage kernels' expand stage reads the 2D keypoints of the one dataset
-# the port loads, Human3.6M: 17 joints of (x, y).
-_H36M_INPUT_COLUMNS = 17 * 2
-
-
 def kernel_width_error(args):
     """Why the hand-written kernels this run would launch cannot take its
     ``--channels``, or None; known from the arguments alone, before any data
     loads.  Only CUDA runs launch kernels: ``--train-engine pallas`` training
     runs the train-block kernels and ``--evaluate`` with ``--serving-engine
-    fused`` the fused evaluation blocks (both any width), with ``int8`` the int8
-    stage kernels."""
+    fused`` the fused evaluation blocks (both any width; ``int8``'s stage kernels
+    take any width too)."""
     if torch.device(args.device).type != "cuda":
         return None
     c = args.channels
@@ -55,10 +50,6 @@ def kernel_width_error(args):
     if args.evaluate and args.serving_engine == "fused":
         from videopose3d_torch.ops.kernels import temporal_block
         return temporal_block.channel_limit_error(c)
-    if args.evaluate and args.serving_engine == "int8":
-        widths = [int(x) for x in args.architecture.split(",")]
-        from videopose3d_torch.ops.kernels import temporal_block_int8
-        return temporal_block_int8.channel_limit_error(c, widths, c_in=_H36M_INPUT_COLUMNS)
     return None
 
 

@@ -189,8 +189,8 @@ def prepare_bf16_fused(config: TemporalModelConfig, model: TemporalModel):
 
 def prepare_int8_fused(q: QuantizedModel) -> sf.Int8StepWeights:
     """The fused int8 engine's weights: ``q`` and its blocks' weights packed for
-    the step kernel (``streaming_fused.pack_int8_step``: K padded to 32, N to 8, so
-    any C runs), built once per weight set."""
+    the step kernel (``temporal_block_int8.pack_int8_step``, made once per block:
+    K padded to 32, N to 8, so any C runs)."""
     return sf.Int8StepWeights.of(q)
 
 
@@ -493,7 +493,7 @@ def _model_on(model: TemporalModel, device) -> TemporalModel:
 
 
 def _q_on(q: QuantizedModel, device) -> QuantizedModel:
-    """``q`` on ``device`` (the dp4a packing is rebuilt there)."""
+    """``q`` on ``device`` (the int8 kernels' weight packing is rebuilt there)."""
     to = lambda t: t.to(device)
     return QuantizedModel(
         expand_w=to(q.expand_w), expand_scale=to(q.expand_scale),
