@@ -23,9 +23,11 @@ gather (K1) at 1,024 windows of 243 rows from a 300,000- and a 3,000,000-row
 stream, bitwise, and each forward and backward kernel of the train block (K2) at
 the four residual blocks' shapes (n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024
 channels) in float32 and bfloat16, plus the whole block with its backward in
-float32; it times each kernel and plain version (K1 and the five K2 GEMM kernels
-also from CUDA-graph replay, with a bitwise repeat of each K2 one),
-and beside each K2 GEMM kernel one float32 torch.matmul of its product.  Phase 4
+float32; it times each kernel and plain version (K1 and every K2 kernel also
+from CUDA-graph replay, with a bitwise repeat of each K2 one), and beside each K2
+GEMM kernel one float32 torch.matmul of its product; it holds relu_mask_bn_sums
+at ragged n and widths (4, 1,028, 3,636 channels) too, and two CUDA-graph replays
+of it bitwise equal.  Phase 4
 trains the full-width model for one epoch of batch 1,024 with ``runner.main``
 from the random checkpoint, with the fused train engine twice and the plain one
 once (dropout 0.25, the same seed), and checks the losses, the kernel launches,
@@ -954,8 +956,12 @@ def train_block_stages(p):
 
 
 # K2 kernels timed from CUDA-graph replay as well, and checked for a bitwise repeat.
-GRAPH_TIMED = ("conv_stats", "norm_drop_matmul_stats", "dz_matmul_dd", "dw_gemm",
-               "du_dtaps_res")
+GRAPH_TIMED = ("conv_stats", "norm_drop_matmul_stats", "norm_drop_res",
+               "relu_mask_bn_sums", "dz_matmul_dd", "dw_gemm", "du_dtaps_res")
+# relu_mask_bn_sums beyond the step's shapes (dropout on, both dtypes): a ragged n
+# (1,000 rows: no whole slice of slots; 27,649: a ragged last slice) at C = 1,024,
+# and ragged column strips, C = 4, 1,028 and 3,636, at n = 3,072.
+RELU_SUMS_CASES = ((1000, 1024), (27_649, 1024), (3072, 4), (3072, 1028), (3072, 3636))
 
 
 def library_call(key, args):
@@ -1078,10 +1084,12 @@ def phase3(device):
                     if library is not None:
                         library_ms = graph_ms(library, reps=20)
                     lib = "" if library_ms is None else f", torch.matmul {library_ms:.4f} ms"
+                    rate = (f"{flops[key] * n * CHANNELS ** 2 / (ms * 1e-3) / 1e12:.1f} "
+                            "TFLOP/s" if flops[key] else
+                            f"{bound_ms / ms * 100:.1f} % of the {bound_by} bound")
                     print(f"phase3 {key:22s} {dname:8s} n={n:6d}: bitwise-equal repeat; "
-                          f"graph-replayed kernel {ms:.4f} ms "
-                          f"({flops[key] * n * CHANNELS ** 2 / (ms * 1e-3) / 1e12:.1f} "
-                          f"TFLOP/s), plain {plain_ms:.4f} ms{lib}")
+                          f"graph-replayed kernel {ms:.4f} ms ({rate}), plain "
+                          f"{plain_ms:.4f} ms{lib}")
                 results.append({"name": f"{key} ({dname}, n={n}, C={CHANNELS})",
                                 "key": ("train", key), "route": "cuda",
                                 "source": TRAIN_SOURCE, "replaces": replaces[key],
@@ -1105,9 +1113,65 @@ def phase3(device):
                 check(all(v <= GRAD_NORM_TOL for v in rel.values()),
                       f"train block n={n}: gradients differ: {rel}")
             del p
+    relu_sums_checks(device)
     gr.LAUNCHES.update(saved[0])  # comparison launches do not count
     trb.LAUNCHES.update(saved[1])
     return results
+
+
+def relu_sums_args(n, c, dt, device):
+    """Seeded (g, z, mask, stat, gate) of relu_mask_bn_sums at (n, c): a dropout
+    mask at rate 0.25 and BatchNorm constants that open about half the gate."""
+    gen = torch.Generator(device).manual_seed(SEED + n + c)
+    rand = lambda *shape: torch.rand(*shape, device=device, generator=gen)
+    randn = lambda *shape: torch.randn(*shape, device=device, generator=gen)
+    mask = ((rand(n, c) < 0.75) / 0.75).to(dt)
+    stat = torch.stack([randn(c) * 0.1, rand(c) + 0.5])
+    gate = torch.stack([randn(c) * 0.1, rand(c) + 0.5, randn(c) * 0.2]).to(dt)
+    return (randn(n, c) * 1e-3).to(dt), randn(n, c).to(dt), mask, stat, gate
+
+
+def relu_sums_checks(device):
+    """relu_mask_bn_sums against its plain version off the step's shapes
+    (RELU_SUMS_CASES), and two CUDA-graph replays of one captured launch bitwise
+    equal to each other and to an eager launch, at the first block's shape."""
+    from videopose3d_torch.ops.kernels import train_block as trb
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).replace("torch.", "")
+        for n, c in RELU_SUMS_CASES:
+            args = relu_sums_args(n, c, dt, device)
+            got, want = trb.relu_mask_bn_sums(*args), trb.relu_mask_bn_sums_plain(*args)
+            again = trb.relu_mask_bn_sums(*args)
+            torch.cuda.synchronize()
+            err = max(compare(f"relu_mask_bn_sums {dname} n={n} C={c} output {i}", a, w,
+                              dt) for i, (a, w) in enumerate(zip(got, want)))
+            check(torch.equal(got[0], want[0]),
+                  f"relu_mask_bn_sums {dname} n={n} C={c}: gz differs from plain")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"relu_mask_bn_sums {dname} n={n} C={c}: two launches differ")
+            print(f"phase3 relu_mask_bn_sums {dname:8s} n={n:6d} C={c:4d} (plan "
+                  f"{len(trb.relu_sums_plan(n, c, args[0].element_size()))} slices): gz "
+                  f"bitwise, max_abs_err {err:.3e}, two launches bitwise")
+    args = relu_sums_args(1024 * TRAIN_BLOCK_FRAMES[0] // 3, CHANNELS, torch.float32, device)
+    eager = trb.relu_mask_bn_sums(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        trb.relu_mask_bn_sums(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trb.relu_mask_bn_sums(*args)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in out])
+    check(all(torch.equal(a, b) and torch.equal(a, e)
+              for a, b, e in zip(*replays, eager)),
+          "relu_mask_bn_sums: two graph replays or the eager launch differ")
+    print(f"phase3 relu_mask_bn_sums float32 n={args[0].shape[0]}: two CUDA-graph "
+          "replays bitwise equal to each other and to an eager launch")
 
 
 _EPOCH = re.compile(r"^\[1\] time \S+ lr \S+ 3d_train (\S+) 3d_eval (\S+) 3d_valid (\S+)$")

@@ -8,10 +8,15 @@ and ``dz_matmul_dd``) of this checkout against those of another checkout (for
 example the parent commit, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists), in turns other, this, this, other:
 
-    python3 kernel_ab.py --other build/parent [--kernels k3 | --kernels int8]
+    python3 kernel_ab.py --other build/parent [--kernels k3 | int8 | k2ew]
 
 (``--kernels k3``: K3 alone; ``--kernels int8``: the int8 evaluation stages, K4
-in both tap modes (the accshift mode is K8), then K3.)  Each turn runs in its own process with that checkout's ``videopose3d_torch``
+in both tap modes (the accshift mode is K8), then K3; ``--kernels k2ew``: the
+train block's two elementwise kernels alone, ``relu_mask_bn_sums`` and
+``norm_drop_res``, at the four n in float32 and bfloat16 with a dropout mask,
+each launched twice and held bitwise equal, gz and the residual output bitwise
+equal to the plain version and across every turn, the sums within tolerance of
+it.)  Each turn runs in its own process with that checkout's ``videopose3d_torch``
 first on ``sys.path``, so each builds and loads its own kernels.  The two steps
 run chip_smoke.py phase 6's causal model (four residual blocks of width 3, C =
 1,024, seeded weights and rings) at B = 256 and 1,024 streams, k = 1 and 8, each
@@ -46,7 +51,10 @@ picks, and prints how many clusters of each plan the card runs at once;
 ``--sweep stream_int8`` does the same for the int8 step and ``stream_int8_plan``;
 ``--sweep k3`` times each K3 stage with every GEMM of its chain forced into 1, 2, 3,
 4, 6 and 8 slices beside the slices ``k3_plan`` picks, timed too; ``--sweep int8``
-does the same for each int8 stage in both tap modes and ``int8_plan``.  The int8
+does the same for each int8 stage in both tap modes and ``int8_plan``; ``--sweep
+k2ew`` times ``relu_mask_bn_sums`` at those n in float32 and bf16 with its
+clusters forced to 1, 2, 4, 8 and 16 CUDA blocks (32 to 512 blocks of 128 threads
+at C = 1,024) beside the size ``relu_sums_plan`` picks.  The int8
 stages run
 chip_smoke.py phase 5's shapes (a random full-width model quantized on the card,
 B = 2, 2,242 frames), each checked against its plain version (mid blocks
@@ -149,6 +157,10 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
         return sweep_k3(torch, tb, dev, gen, graph_ms)
     if sweep == "int8":
         return sweep_int8(torch, tb, dev, graph_ms)
+    if sweep == "k2ew":
+        return sweep_relu_sums(torch, trb, dev, gen, graph_ms)
+    if kernels == "k2ew":
+        return k2_elementwise(torch, trb, build, dev, gen, graph_ms, call_ms)
     if kernels == "int8":
         for label, mode, v, kernel, plain in int8_stages(torch, dev):
             check_int8(torch, root, label, kernel(v, mode), plain(v, "slice"))
@@ -244,6 +256,105 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
                 out[f"{label} n={n} call"] = call_ms(fn)
     out["dw_gemm sha256"] = digest.hexdigest()
     out["ptxas"] += ptxas_report(build.build_log, "tap_gemm")
+    return out
+
+
+# The elementwise kernels' tolerance against their plain versions (chip_smoke.py
+# TOL): their float32 sums in another order.
+K2EW_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+
+
+def k2ew_operands(torch, dev, gen, dt):
+    """Seeded operands of relu_mask_bn_sums and norm_drop_res at the largest n (C
+    = 1,024, a dropout mask at rate 0.25): g, z, res, mask in ``dt``, stat
+    float32, gate in ``dt``."""
+    c, rows = CHANNELS, DW_ROWS[0]
+    randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    rand = lambda *shape: torch.rand(*shape, device=dev, generator=gen)
+    g, z, res = randn(rows, c) * 1e-3, randn(rows, c), randn(rows, c)
+    mask = (rand(rows, c) < 0.75) / 0.75
+    stat = torch.stack([randn(c) * 0.1, rand(c) + 0.5])
+    gate = torch.stack([randn(c) * 0.1, rand(c) + 0.5, randn(c) * 0.2])
+    return [t.to(dt) for t in (g, z, res, mask)] + [stat, gate.to(dt)]
+
+
+def check_elementwise(torch, label, got, want, dt):
+    """The elementwise output (gz, out) bitwise equal to the plain version's, the
+    sums (if any) within K2EW_TOL."""
+    if not torch.equal(got[0], want[0]):
+        raise RuntimeError(f"{label}: its output differs from plain")
+    tol = K2EW_TOL[str(dt)[6:]]
+    for a, w in zip(got[1:], want[1:]):
+        if float((a - w).abs().max()) > tol * max(1.0, float(w.abs().max())):
+            raise RuntimeError(f"{label}: its sums differ from plain")
+
+
+def k2_elementwise(torch, trb, build, dev, gen, graph_ms, call_ms) -> dict:
+    """relu_mask_bn_sums and norm_drop_res at the train step's four n (C =
+    1,024, float32 and bfloat16, seeded operands): graph, one call and the plain
+    version's graph time.  Each kernel is launched twice and must give bitwise
+    equal outputs, and its elementwise output (gz, out) must equal the plain
+    version's bit for bit; SHA-256 digests of those outputs (the same in every
+    checkout) and of the float32 sums (this checkout's summation order) let the
+    caller compare the turns."""
+    digests = {key: hashlib.sha256() for key in ("elementwise", "sums")}
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt)[6:]
+        g, z, res, mask, stat, gate = k2ew_operands(torch, dev, gen, dt)
+        for n in DW_ROWS:
+            gn, zn, rn, mn = (t[:n] for t in (g, z, res, mask))
+            cases = {
+                "relu_mask_bn_sums": (
+                    lambda: trb.relu_mask_bn_sums(gn, zn, mn, stat, gate),
+                    lambda: trb.relu_mask_bn_sums_plain(gn, zn, mn, stat, gate)),
+                "norm_drop_res": (lambda: (trb.norm_drop_res(zn, mn, gate, rn),),
+                                  lambda: (trb.norm_drop_res_plain(zn, mn, gate, rn),)),
+            }
+            for name, (kernel, plain) in cases.items():
+                label = f"{name} {dname} n={n}"
+                got, again = kernel(), kernel()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise RuntimeError(f"{label}: two launches differ")
+                check_elementwise(torch, label, got, plain(), dt)
+                digests["elementwise"].update(
+                    got[0].view(torch.uint8).cpu().numpy().tobytes())
+                for a in got[1:]:
+                    digests["sums"].update(a.cpu().numpy().tobytes())
+                out[f"{label} graph"] = graph_ms(kernel)
+                out[f"{label} call"] = call_ms(kernel)
+                out[f"{label} plain graph"] = graph_ms(plain, reps=5)
+    out.update({f"{key} sha256": d.hexdigest() for key, d in digests.items()})
+    out["ptxas"] = ptxas_report(build.build_log, "relu_mask_bn_sums") + ptxas_report(
+        build.build_log, "norm_drop_kernel")
+    return out
+
+
+def sweep_relu_sums(torch, trb, dev, gen, graph_ms) -> dict:
+    """relu_mask_bn_sums at the four n with its clusters forced to each size
+    (the row slices of relu_sums_plan's shape), each run checked against the
+    plain version; ``plan`` keys hold the size the plan picks."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt)[6:]
+        g, z, _, mask, stat, gate = k2ew_operands(torch, dev, gen, dt)
+        for n in DW_ROWS:
+            args = (g[:n], z[:n], mask[:n], stat, gate)
+            want = trb.relu_mask_bn_sums_plain(*args)
+            out[f"{dname} n={n} plan"] = len(trb.relu_sums_plan(n, CHANNELS,
+                                                                g.element_size()))
+            for k in (1, 2, 4, 8, 16):
+                rows = -(-n // k)
+                gz = torch.empty_like(args[0])
+                sums = torch.empty((2, CHANNELS), dtype=torch.float32, device=dev)
+
+                def run():
+                    trb._call(None, "vp3d_tb_relu_mask_bn_sums", trb._DTYPE_CODE[dt], n,
+                              CHANNELS, k, rows, *args, gz, sums)
+                run()
+                check_elementwise(torch, f"relu_mask_bn_sums {dname} n={n} k={k}",
+                                  (gz, sums[0], sums[1]), want, dt)
+                out[f"{dname} n={n} k={k}"] = graph_ms(run)
     return out
 
 
@@ -642,13 +753,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", help="root of the other checkout")
     parser.add_argument("--sweep", nargs="?", const="tap_gemm",
-                        choices=("tap_gemm", "stream_bf16", "stream_int8", "k3", "int8"),
+                        choices=("tap_gemm", "stream_bf16", "stream_int8", "k3", "int8",
+                                 "k2ew"),
                         help="time this checkout's tap GEMMs at forced slice counts "
-                             "(default), a streaming step at forced plans or K3 or the "
-                             "int8 stages at forced slice counts")
-    parser.add_argument("--kernels", choices=("all", "k3", "int8"), default="all",
+                             "(default), a streaming step at forced plans, K3 or the "
+                             "int8 stages at forced slice counts, or relu_mask_bn_sums "
+                             "at forced cluster sizes")
+    parser.add_argument("--kernels", choices=("all", "k3", "int8", "k2ew"), default="all",
                         help="the kernels of the A/B (k3: K3 alone; int8: the int8 "
-                             "stages, then K3)")
+                             "stages, then K3; k2ew: relu_mask_bn_sums and "
+                             "norm_drop_res)")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
@@ -688,12 +802,20 @@ def main() -> int:
             print(f"{label} ptxas: {line}")
     for _, t in turns:
         t.pop("ptxas")
-    digests = {t.pop("dw_gemm sha256", None) for _, t in turns}
-    print(f"dw_gemm outputs bitwise equal in every turn: {len(digests) == 1}")
+    # Output digests: dw_gemm's (all), the elementwise outputs' and the sums'
+    # (k2ew), the sums in each checkout's own order.
+    bitwise = {}
+    for key in [k for k in turns[0][1] if k.endswith(" sha256")]:
+        found = [(label, t.pop(key)) for label, t in turns]
+        bitwise[key[:-7]] = {
+            "every turn": len({d for _, d in found}) == 1,
+            **{label: len({d for l, d in found if l == label}) == 1
+               for label in ("other", "this")}}
+        print(f"{key[:-7]} outputs bitwise equal: {bitwise[key[:-7]]}")
     print(f"{'case':40s} " + " ".join(f"{label:>9s}" for label, _ in turns))
     for case in turns[0][1]:
         print(f"{case:40s} " + " ".join(f"{t[case]:9.4f}" for _, t in turns))
-    print(json.dumps({"device": smi, "other": other, "dw_gemm_bitwise": len(digests) == 1,
+    print(json.dumps({"device": smi, "other": other, "bitwise": bitwise,
                       "turns": [{"checkout": label, "ms": t} for label, t in turns]}))
     return 0
 

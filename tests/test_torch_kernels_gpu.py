@@ -405,10 +405,13 @@ def test_tap_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_width_mirrors_equal_the_kernels_own(cuda):
     """The pure-Python shared-memory formulas and limits that refuse a width
     before any data loads equal the ones the CUDA sources report: the opt-in
-    ceiling and the streaming step (K5, K6)."""
+    ceiling and the streaming step (K5, K6); and the train block's geometry that
+    sizes its partial sums and relu_mask_bn_sums's plan."""
     from videopose3d_torch.ops.kernels.build import load_library
     lib = load_library()
     assert tb.SMEM_OPT_IN == lib.vp3d_block_max_smem_bytes()
+    assert [lib.vp3d_tb_geometry(i) for i in range(5)] == [
+        trb.DW_TILE, trb.SUM_COLS, trb.SUM_SLOTS, trb.SUM_UNROLL, trb.SUM_MAX_CLUSTER]
     assert (sf.MAX_BLOCKS, sf.MAX_TAPS) == (lib.vp3d_stream_max_blocks(),
                                             lib.vp3d_stream_max_taps())
     for c in (4, 16, 68, 1024, 1028, 2064, 3632, 3636, sf.INT8_MAX_CHANNELS,
@@ -524,6 +527,85 @@ def test_dz_matmul_dd_kernel_matches_plain(cuda, n, c, dt, dropout):
     for a, w in zip(got, want):
         _check(a, w, dt)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _relu_sums_args(n, c, dt, dropout, device):
+    """Seeded (g, z, mask, stat, gate) of relu_mask_bn_sums: stat rows [mean,
+    inv] float32, gate rows [mean, inv, bias] in dt (about half the gate open)."""
+    p = _one_tap_inputs(n, c, dt, dropout, device)
+    gen = torch.Generator(device).manual_seed(n * 7 + c)
+    stat = torch.stack([torch.randn(c, device=device, generator=gen) * 0.1,
+                        torch.rand(c, device=device, generator=gen) + 0.5])
+    return p["g"], p["u"], p["mask"], stat, p["gate"]
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [4, 68, 1024, 1028, 3636])
+@pytest.mark.parametrize("n", [1, 31, 1000, 1024, 3072, 9216, 27_648, 27_649])
+def test_relu_mask_bn_sums_kernel_matches_plain(cuda, n, c, dt, dropout):
+    """The backward's gate with the BatchNorm sums, one clustered launch: gz
+    bitwise equal to the plain version (the same operations in T), both float32
+    sums within tolerance (another summation order), one launch counted per
+    call, and two launches bitwise equal, at ragged n (1,000 and 27,649 rows
+    fill no whole slice of slots), ragged strips (C = 4, 68, 1,028, 3,636) and
+    every cluster size the plan picks (up to 16)."""
+    args = _relu_sums_args(n, c, dt, dropout, cuda)
+    before = trb.LAUNCHES["relu_mask_bn_sums"]
+    got = trb.relu_mask_bn_sums(*args)
+    again = trb.relu_mask_bn_sums(*args)
+    assert trb.LAUNCHES["relu_mask_bn_sums"] == before + 2
+    want = trb.relu_mask_bn_sums_plain(*args)
+    for a, w in zip(got, want):
+        _check(a, w, dt)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_relu_mask_bn_sums_graph_replays_bitwise(cuda):
+    """Captured once in a CUDA graph at the first residual block's shape and
+    replayed twice: both replays bitwise equal to each other and to an eager
+    launch (no state survives a launch)."""
+    args = _relu_sums_args(27_648, 1024, torch.float32, True, cuda)
+    eager = trb.relu_mask_bn_sums(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        trb.relu_mask_bn_sums(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trb.relu_mask_bn_sums(*args)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in out])
+    for a, b, e in zip(*replays, eager):
+        assert torch.equal(a, b) and torch.equal(a, e)
+
+
+def test_relu_mask_bn_sums_refuses_misaligned_rows(cuda):
+    """Rows of whole 16-byte words (float32) or the wrapper raises; stat too.
+    bf16 rows need whole 8-byte words only: 8-byte aligned rows run and agree."""
+    args = list(_relu_sums_args(1024, 1024, torch.bfloat16, True, cuda))
+    flat = torch.zeros(1024 * 1024 + 4, device=cuda, dtype=torch.bfloat16)
+    args[1] = flat[4:].view(1024, 1024).copy_(args[1])
+    got, want = trb.relu_mask_bn_sums(*args), trb.relu_mask_bn_sums_plain(*args)
+    for a, w in zip(got, want):
+        _check(a, w, torch.bfloat16)
+    assert torch.equal(got[0], want[0])
+    g, z, mask, stat, gate = _relu_sums_args(16, 64, torch.float32, True, cuda)
+    flat = torch.randn(16 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        trb.relu_mask_bn_sums(flat[1:].view(16, 64), z, mask, stat, gate)
+    flat = torch.randn(2 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        trb.relu_mask_bn_sums(g, z, mask, flat[1:].view(2, 64), gate)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        trb.relu_mask_bn_sums(g[:, :6].contiguous(), z[:, :6].contiguous(),
+                              mask[:, :6].contiguous(), stat[:, :6].contiguous(),
+                              gate[:, :6].contiguous())
 
 
 def _train_block_inputs(seed, b, t, c, fw, dt, dropout, device):

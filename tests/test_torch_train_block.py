@@ -155,6 +155,42 @@ def test_tap_gemm_plan_slices_the_summed_dimension(m, k, n):
         assert len(plan) == want[(m, k, n)]
 
 
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("c", [4, 68, 1024, 1028, 3636])
+@pytest.mark.parametrize("n", [1, 31, 64, 127, 1000, 1024, 3072, 9216, 27_648, 27_649])
+def test_relu_sums_plan_tiles_the_rows(n, c, esize):
+    """relu_mask_bn_sums's row slices, one CUDA block of each column strip per
+    slice and a cluster per strip: in-order slices of one length but the last
+    that tile [0, n) exactly, at most SUM_MAX_CLUSTER of them, none shorter than
+    SUM_SLOTS rows when there are several, and the cluster doubled wherever the
+    grid kept under SUM_BYTES_IN_FLIGHT of loads in flight and the rows allowed
+    it."""
+    plan = trb.relu_sums_plan(n, c, esize)
+    assert len(plan) >= 1 and plan[0][0] == 0 and plan[-1][1] == n
+    assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
+    rows = plan[0][1]
+    assert all(stop - start == rows for start, stop in plan[:-1])
+    assert 0 < plan[-1][1] - plan[-1][0] <= rows
+    k = len(plan)
+    assert k in (1, 2, 4, 8, 16) and k <= trb.SUM_MAX_CLUSTER
+    assert k == 1 or rows >= trb.SUM_SLOTS
+    in_flight = (-(-c // trb.SUM_COLS) * k * trb.SUM_SLOTS * trb.SUM_UNROLL * 3
+                 * trb.SUM_COLS * esize)
+    assert (k == trb.SUM_MAX_CLUSTER or in_flight >= trb.SUM_BYTES_IN_FLIGHT
+            or n < 2 * k * trb.SUM_SLOTS)
+
+
+@pytest.mark.parametrize("esize,k", [(4, 8), (2, 16)])
+@pytest.mark.parametrize("n", [1024, 3072, 9216, 27_648])
+def test_relu_sums_plan_fills_the_card_at_the_training_shapes(n, esize, k):
+    """At the training step's four block shapes (C = 1,024) the grid covers
+    every SM of an H100 (132): 32 column strips in clusters of 8 (float32, 256
+    CUDA blocks) or 16 (bf16, 512), 6 MiB of loads in flight either way."""
+    plan = trb.relu_sums_plan(n, 1024, esize)
+    assert len(plan) == k
+    assert len(plan) * (1024 // trb.SUM_COLS) >= 132
+
+
 @pytest.mark.parametrize("c,limit", [(1024, None), (3632, None), (1030, None),
                                      (3636, None)])
 def test_channel_limit_error_names_the_limit(c, limit):

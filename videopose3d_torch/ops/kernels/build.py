@@ -45,12 +45,12 @@ _ENTRY_ARGTYPES = {
     "vp3d_tb_conv_stats": [_I] * 7 + [_P] * 9,
     "vp3d_tb_norm_drop_matmul_stats": [_I] * 5 + [_P] * 11,
     "vp3d_tb_norm_drop_res": [_I] * 3 + [_P] * 6,
-    "vp3d_tb_relu_mask_bn_sums": [_I] * 3 + [_P] * 9,
+    "vp3d_tb_relu_mask_bn_sums": [_I] * 5 + [_P] * 8,
     "vp3d_tb_dz_matmul_dd": [_I] * 5 + [_P] * 8,
     "vp3d_tb_du_dtaps_res": [_I] * 7 + [_P] * 9,
     "vp3d_tb_dw_gemm": [_I] * 5 + [_P] * 5,
     "vp3d_tb_stats_reduce": [_I] * 2 + [_P] * 5,
-    "vp3d_tb_sum_rows": [_I],
+    "vp3d_tb_geometry": [_I],
     # csrc/temporal_block_int8.cu: (variant, accshift, batch, t_in, t_out, channels,
     #   x, k_in, w0, s0, b0, wa, a1, b1, n_taps, dilation, res_offset, wb, a2, b2, r,
     #   ws, bs, j3, work (host void*[]), part_ints, fpart_floats, k_slices (host

@@ -68,27 +68,31 @@ __device__ __forceinline__ void slab_cp_async(T* s, const T* __restrict__ g, siz
   }
 }
 
+// 4 consecutive values of T at p (global or shared) as float32 into f[0..3]: one
+// 16-byte (float32) or 8-byte (bf16) load.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float* f) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  } else {  // bf16 is the top half of a float32: widening is a shift, exact
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    f[0] = __uint_as_float(v.x << 16);
+    f[1] = __uint_as_float(v.x & 0xffff0000u);
+    f[2] = __uint_as_float(v.y << 16);
+    f[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+}
+
 // 8 values of one staged row as float32: elements base + 0..3 and base + 64 + 0..3,
 // read as 16-byte (float32) or 8-byte (bf16) vectors.
 template <typename T>
 __device__ __forceinline__ void tile_frag(float (&f)[GRT], const T* row, int base) {
 #pragma unroll
-  for (int g = 0; g < 2; ++g) {
-    const T* p = row + base + g * (GT / 2);
-    if constexpr (sizeof(T) == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p);
-      f[4 * g] = v.x;
-      f[4 * g + 1] = v.y;
-      f[4 * g + 2] = v.z;
-      f[4 * g + 3] = v.w;
-    } else {  // bf16 is the top half of a float32: widening is a shift, exact
-      const uint2 v = *reinterpret_cast<const uint2*>(p);
-      f[4 * g] = __uint_as_float(v.x << 16);
-      f[4 * g + 1] = __uint_as_float(v.x & 0xffff0000u);
-      f[4 * g + 2] = __uint_as_float(v.y << 16);
-      f[4 * g + 3] = __uint_as_float(v.y & 0xffff0000u);
-    }
-  }
+  for (int g = 0; g < 2; ++g) load4(row + base + g * (GT / 2), f + 4 * g);
 }
 
 // acc[p][q] += af[p] * bf[q]: row p of the register tile left to right, row p + 1

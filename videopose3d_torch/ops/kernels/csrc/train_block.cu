@@ -9,7 +9,8 @@
 //   relu_mask_bn_sums      -> _relu_mask_bn_sums_kernel (both BatchNorms)
 //   dz_matmul_dd + dw_gemm -> _dz_matmul_dw_kernel
 //   du_dtaps_res           -> _du_dtaps_res_kernel
-// stats_reduce finishes the cross-tile BatchNorm sums of the kernels that produce them.
+// stats_reduce finishes the cross-tile BatchNorm sums of the GEMM kernels;
+// relu_mask_bn_sums finishes its own inside its launch, over a thread block cluster.
 //
 // The block, over n = B * T/fw rows of fw taps (x3 is the free (n, fw, C) view of x):
 //   u = x3 @ Wa;  d = mask_a * relu(bn_a(u));  v = d @ Wb;
@@ -70,7 +71,24 @@
 // tiles, slabs and output tiles are masked, and nothing is held per channel in
 // shared memory, so any n and any C % 4 == 0 are taken (the Python block pads
 // other widths with zero channels).
+//
+// relu_mask_bn_sums is the backward's elementwise pass: it reads g, z and the mask
+// and writes gz, four n x C tensors, so bytes bound it (0.135 ms at n = 27,648, C =
+// 1,024, float32).  Each thread owns four adjacent columns and moves them as one
+// 16-byte float32 word (8 bytes of bf16) per tensor and row, with RS_UNROLL rows of
+// loads in flight; a CUDA block owns a strip of RS_COLS columns over a slice of the
+// rows, and the slices of one strip are one thread block cluster.  Each block adds
+// its threads' partial sums in slot order in shared memory; after a cluster barrier
+// the cluster's first block reads its peers' sums over distributed shared memory and
+// adds them in rank order.  One launch, no global scratch or counter, no float
+// atomics: any stream, graph replays and two launches give bitwise-equal results.
+// The wrapper sizes the clusters (relu_sums_plan) so that the grid keeps ~6 MiB of
+// loads in flight: at C = 1,024, 8 slices in float32 and 16 in bf16, 256 and 512
+// CUDA blocks of 128 threads at every n of the step.  On an H100 that beat half and
+// twice as much in flight, in both dtypes (kernel_ab.py --sweep k2ew; PERF.md,
+// section 6).
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -82,9 +100,21 @@
 namespace {
 
 using namespace vp3d;
+namespace cg = cooperative_groups;
 
-constexpr int SUM_ROWS = 64;   // rows per CUDA block of relu_mask_bn_sums
 constexpr int DW_STAGES = 3;   // dw_gemm slabs in the ring
+
+// relu_mask_bn_sums's geometry, mirrored in train_block.py (SUM_COLS, SUM_SLOTS,
+// SUM_UNROLL, SUM_MAX_CLUSTER): threads and columns per CUDA block (four per thread),
+// the rows a block reads at once, rows of loads in flight per thread, and the most
+// blocks of a cluster (past 8, the H100's non-portable sizes).
+constexpr int RS_THREADS = 128;
+constexpr int RS_COLS = 32;
+constexpr int RS_LANES = RS_COLS / 4;
+constexpr int RS_SLOTS = RS_THREADS / RS_LANES;
+constexpr int RS_UNROLL = 4;
+constexpr int RS_MAX_CLUSTER = 16;
+static_assert(2 * RS_COLS <= RS_THREADS, "one thread per column sum");
 
 // (a - b) * c + e in T, rounded after every operation, without contraction.
 template <typename T>
@@ -122,33 +152,90 @@ dim3 elementwise_grid(size_t total) {
   return dim3((unsigned)std::min<size_t>((total + NT - 1) / NT, 132 * 16));
 }
 
-// gz = g * mask * [bn(z) > 0] (gate replayed in T), stored in T; partial sums of
-// gz and gz * zhat with zhat = (z - mean) * inv in float32.  stat rows: [mean, inv].
+// gz = g * mask * [bn(z) > 0] (gate replayed in T), stored in T, and the finished
+// float32 sums of gz and gz * zhat, zhat = (z - mean) * inv, into sums (2, c).
+// stat rows: [mean, inv] float32; gate rows: [mean, inv, bias] in T.  Launched in
+// clusters: cluster i owns columns [RS_COLS i, RS_COLS (i + 1)), its block of rank r
+// rows [r rows, min(n, (r + 1) rows)).  Thread (slot, lane) reads columns 4 lane..
+// of rows slot, slot + RS_SLOTS, ... of its block's slice, in order.
 template <typename T>
-__global__ void __launch_bounds__(NT) relu_mask_bn_sums_kernel(
+__global__ void __launch_bounds__(RS_THREADS) relu_mask_bn_sums_kernel(
     const T* __restrict__ g, const T* __restrict__ z, const T* __restrict__ mask,
-    const float* __restrict__ stat, const T* __restrict__ gate, int n, int c,
-    T* __restrict__ gz, float* __restrict__ part1, float* __restrict__ part2) {
-  const int col = blockIdx.x * NT + threadIdx.x;
-  if (col >= c) return;
-  const int i0 = blockIdx.y * SUM_ROWS;
-  const int rows = min(SUM_ROWS, n - i0);
-  const float gm = to_f<T>(gate[col]), gi = to_f<T>(gate[c + col]);
-  const float gb = to_f<T>(gate[2 * c + col]);
-  const float mean = stat[col], inv = stat[c + col];
-  float s1 = 0.f, s2 = 0.f;
-  for (int r = 0; r < rows; ++r) {
-    const size_t i = (size_t)(i0 + r) * c + col;
-    const float zf = to_f<T>(z[i]);
-    const float keep = affine<T>(zf, gm, gi, gb) > 0.f ? 1.f : 0.f;
-    const float gzf = __fmul_rn(__fmul_rn(to_f<T>(g[i]), mask_at(mask, i)), keep);
-    gz[i] = from_f<T>(gzf);
-    const float zhat = __fmul_rn(__fsub_rn(zf, mean), inv);
-    s1 = __fadd_rn(s1, gzf);
-    s2 = __fadd_rn(s2, __fmul_rn(gzf, zhat));
+    const float* __restrict__ stat, const T* __restrict__ gate, int n, int c, int rows,
+    T* __restrict__ gz, float* __restrict__ sums) {
+  __shared__ float4 slot_sums[2][RS_SLOTS][RS_LANES];
+  __shared__ float block_sums[2][RS_COLS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int col0 = (blockIdx.x / k) * RS_COLS;
+  const int lane = threadIdx.x % RS_LANES, slot = threadIdx.x / RS_LANES;
+  const int col = col0 + 4 * lane;
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col < c) {
+    float gm[4], gi[4], gb[4], mean[4], inv[4];
+    load4(gate + col, gm);
+    load4(gate + c + col, gi);
+    load4(gate + 2 * c + col, gb);
+    load4(stat + col, mean);
+    load4(stat + c + col, inv);
+    const int r1 = min(n, (rank + 1) * rows);
+    for (int r = rank * rows + slot; r < r1; r += RS_SLOTS * RS_UNROLL) {
+      float gv[RS_UNROLL][4], zv[RS_UNROLL][4], mv[RS_UNROLL][4];
+#pragma unroll
+      for (int u = 0; u < RS_UNROLL; ++u) {
+        const int row = r + u * RS_SLOTS;
+        if (row < r1) {
+          const size_t i = (size_t)row * c + col;
+          load4(g + i, gv[u]);
+          load4(z + i, zv[u]);
+          if (mask != nullptr) {
+            load4(mask + i, mv[u]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mv[u][j] = 1.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RS_UNROLL; ++u) {
+        const int row = r + u * RS_SLOTS;
+        if (row < r1) {
+          float out[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float keep = affine<T>(zv[u][j], gm[j], gi[j], gb[j]) > 0.f ? 1.f : 0.f;
+            out[j] = __fmul_rn(__fmul_rn(gv[u][j], mv[u][j]), keep);
+            const float zhat = __fmul_rn(__fsub_rn(zv[u][j], mean[j]), inv[j]);
+            s1[j] = __fadd_rn(s1[j], out[j]);
+            s2[j] = __fadd_rn(s2[j], __fmul_rn(out[j], zhat));
+          }
+          store4<T>(gz + (size_t)row * c + col, round_to<T>(out[0]), round_to<T>(out[1]),
+                    round_to<T>(out[2]), round_to<T>(out[3]));
+        }
+      }
+    }
   }
-  part1[(size_t)blockIdx.y * c + col] = s1;
-  part2[(size_t)blockIdx.y * c + col] = s2;
+  slot_sums[0][slot][lane] = make_float4(s1[0], s1[1], s1[2], s1[3]);
+  slot_sums[1][slot][lane] = make_float4(s2[0], s2[1], s2[2], s2[3]);
+  __syncthreads();
+  // The block's sums of each column: its slots in order.
+  const int which = threadIdx.x / RS_COLS, cc = threadIdx.x % RS_COLS;
+  if (which < 2) {
+    const float* part = reinterpret_cast<const float*>(slot_sums[which]);
+    float s = part[cc];
+    for (int q = 1; q < RS_SLOTS; ++q) s = __fadd_rn(s, part[q * RS_COLS + cc]);
+    block_sums[which][cc] = s;
+  }
+  cluster.sync();  // every block's sums readable across the cluster
+  if (rank == 0 && which < 2 && col0 + cc < c) {  // the cluster's: blocks in rank order
+    float s = block_sums[which][cc];
+    for (int q = 1; q < k; ++q) {
+      s = __fadd_rn(s, *cluster.map_shared_rank(&block_sums[which][cc], q));
+    }
+    sums[(size_t)which * c + col0 + cc] = s;
+  }
+  cluster.sync();  // no block leaves while the first still reads its shared memory
 }
 
 // The BatchNorm input gradient dz = c0 * (gz - c1 - zhat * c2), zhat = (z - mean) * inv,
@@ -616,6 +703,36 @@ cudaError_t du_dtaps_res_t(int n, int c, int fw, int center, int slices, int k_s
   return launch_tap_gemm(p, slices, s);
 }
 
+// Launches relu_mask_bn_sums_kernel<T> in clusters of `cluster` blocks.
+template <typename T>
+cudaError_t launch_relu_mask_bn_sums(int n, int c, int cluster, int rows, const void* g,
+                                     const void* z, const void* mask, const void* stat,
+                                     const void* gate, void* gz, void* sums,
+                                     cudaStream_t stream) {
+  auto kern = relu_mask_bn_sums_kernel<T>;
+  if (cluster > 8) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((c + RS_COLS - 1) / RS_COLS) * cluster));
+  cfg.blockDim = dim3(RS_THREADS);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, cp<T>(g), cp<T>(z), cp<T>(mask),
+                                       cp<float>(stat), cp<T>(gate), n, c, rows, mp<T>(gz),
+                                       mp<float>(sums));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -691,23 +808,30 @@ int vp3d_tb_norm_drop_res(int dtype, int n, int c, const void* v, const void* ma
   return cudaErrorInvalidValue;
 }
 
-int vp3d_tb_relu_mask_bn_sums(int dtype, int n, int c, const void* g, const void* z,
-                              const void* mask, const void* stat, const void* gate,
-                              void* gz, void* part1, void* part2, void* stream) {
-  if (bad_shape(n, c)) return cudaErrorInvalidValue;
+// gz (n, c) = g * mask * [bn(z) > 0] in T, and sums (2, c) float32: the sums of gz
+// and of gz * zhat over the rows, in one launch of clusters of `cluster` CUDA blocks
+// (at most 16), each block `rows` rows of the slice, (cluster - 1) * rows < n <=
+// cluster * rows.  Every T operand 16-byte (float32) or 8-byte (bf16) aligned, stat
+// 16-byte aligned.
+int vp3d_tb_relu_mask_bn_sums(int dtype, int n, int c, int cluster, int rows,
+                              const void* g, const void* z, const void* mask,
+                              const void* stat, const void* gate, void* gz, void* sums,
+                              void* stream) {
+  if (bad_shape(n, c) || cluster < 1 || cluster > RS_MAX_CLUSTER || rows < 1 ||
+      (long long)(cluster - 1) * rows >= n || (long long)cluster * rows < n) {
+    return cudaErrorInvalidValue;
+  }
+  if (misaligned(dtype, {g, z, mask, gate, gz}) || misaligned(0, {stat})) {
+    return cudaErrorMisalignedAddress;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((c + NT - 1) / NT, (n + SUM_ROWS - 1) / SUM_ROWS);
   if (dtype == 0) {
-    return launch_with_smem(relu_mask_bn_sums_kernel<float>, grid, dim3(NT), 0, s,
-                            cp<float>(g), cp<float>(z), cp<float>(mask), cp<float>(stat),
-                            cp<float>(gate), n, c, mp<float>(gz), mp<float>(part1),
-                            mp<float>(part2));
+    return launch_relu_mask_bn_sums<float>(n, c, cluster, rows, g, z, mask, stat, gate, gz,
+                                           sums, s);
   }
   if (dtype == 1) {
-    using B = __nv_bfloat16;
-    return launch_with_smem(relu_mask_bn_sums_kernel<B>, grid, dim3(NT), 0, s, cp<B>(g),
-                            cp<B>(z), cp<B>(mask), cp<float>(stat), cp<B>(gate), n, c,
-                            mp<B>(gz), mp<float>(part1), mp<float>(part2));
+    return launch_relu_mask_bn_sums<__nv_bfloat16>(n, c, cluster, rows, g, z, mask, stat,
+                                                   gate, gz, sums, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -787,8 +911,14 @@ int vp3d_tb_stats_reduce(int n_parts, int c, const void* part1, const void* part
                           cp<float>(part2), n_parts, c, mp<float>(out1), mp<float>(out2));
 }
 
-// Rows per partial-sum tile: kind 0 for the tap GEMMs (conv_stats,
-// norm_drop_matmul_stats), 1 for relu_mask_bn_sums.
-int vp3d_tb_sum_rows(int kind) { return kind == 0 ? GT : SUM_ROWS; }
+// The geometry train_block.py mirrors: 0, rows per partial-sum tile of the tap GEMMs
+// (conv_stats, norm_drop_matmul_stats; DW_TILE); then relu_mask_bn_sums's 1, columns
+// per CUDA block (SUM_COLS), 2, rows a block reads at once (SUM_SLOTS), 3, rows of
+// loads in flight per thread (SUM_UNROLL), 4, most blocks per cluster
+// (SUM_MAX_CLUSTER).
+int vp3d_tb_geometry(int what) {
+  const int values[] = {GT, RS_COLS, RS_SLOTS, RS_UNROLL, RS_MAX_CLUSTER};
+  return what >= 0 && what < 5 ? values[what] : -1;
+}
 
 }  // extern "C"

@@ -200,11 +200,10 @@ def _reduce(part, c: int):
     return out
 
 
-def _partials(kind: int, n: int, c: int, device):
-    """(2, n_tiles, C) float32 per-tile partial sums; kind as ``vp3d_tb_sum_rows``
-    (0: the tap GEMMs' 128-row tiles, 1: relu_mask_bn_sums's)."""
-    rows = _lib().vp3d_tb_sum_rows(kind)
-    return torch.empty((2, -(-n // rows), c), dtype=torch.float32, device=device)
+def _partials(n: int, c: int, device):
+    """(2, n_tiles, C) float32 per-tile partial sums of the tap GEMMs' DW_TILE-row
+    tiles."""
+    return torch.empty((2, -(-n // DW_TILE), c), dtype=torch.float32, device=device)
 
 
 def conv_stats(x3, wa, shift, *, center: int):
@@ -225,7 +224,7 @@ def conv_stats(x3, wa, shift, *, center: int):
     plan = tap_gemm_plan(n, fw * c, c, _sms(x3.device))
     u = torch.empty((n, c), dtype=dt, device=x3.device)
     res = torch.empty_like(u)
-    part = _partials(0, n, c, x3.device)
+    part = _partials(n, c, x3.device)
     _call("conv_stats", "vp3d_tb_conv_stats", _DTYPE_CODE[dt], n, c, fw, center, len(plan),
           plan[0][1], x3, wa, shift, u, res, part[0], part[1], _split_scratch(plan, n, c, u))
     s = _reduce(part, c)
@@ -249,7 +248,7 @@ def norm_drop_matmul_stats(u, mask, gate, wb, shift):
     plan = tap_gemm_plan(n, c, c, _sms(u.device))
     d = torch.empty_like(u)
     v = torch.empty_like(u)
-    part = _partials(0, n, c, u.device)
+    part = _partials(n, c, u.device)
     _call("norm_drop_matmul_stats", "vp3d_tb_norm_drop_matmul_stats", _DTYPE_CODE[dt], n,
           c, len(plan), plan[0][1], u, mask, gate, wb, shift, d, v, part[0], part[1],
           _split_scratch(plan, n, c, u))
@@ -272,22 +271,59 @@ def norm_drop_res(v, mask, gate, res):
     return out
 
 
+# relu_mask_bn_sums's geometry (csrc/train_block.cu RS_COLS, RS_SLOTS, RS_UNROLL,
+# RS_MAX_CLUSTER): a CUDA block owns a strip of SUM_COLS columns over a slice of the
+# rows, reads SUM_SLOTS rows at once and keeps SUM_UNROLL of those reads of g, z and
+# the mask in flight; the slices of one strip are one thread block cluster of at
+# most SUM_MAX_CLUSTER blocks (past 8, the H100's non-portable sizes), which adds up
+# their sums.  SUM_BYTES_IN_FLIGHT is what the whole grid should keep in flight:
+# on an H100, half and twice as much ran slower in both dtypes (kernel_ab.py
+# --sweep k2ew, PERF.md section 6).
+SUM_COLS, SUM_SLOTS, SUM_UNROLL, SUM_MAX_CLUSTER = 32, 16, 4, 16
+SUM_BYTES_IN_FLIGHT = 6 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def relu_sums_plan(n: int, c: int, esize: int = 4):
+    """The row slices ``((start, stop), ...)`` of relu_mask_bn_sums's clusters for
+    ``esize``-byte values: in order, all of one length but the last, together
+    [0, n); every column strip runs one CUDA block per slice.
+
+    The slice count (the cluster size) doubles, up to SUM_MAX_CLUSTER, while the
+    grid keeps under SUM_BYTES_IN_FLIGHT of loads in flight and every slice keeps
+    at least SUM_SLOTS rows: at C = 1,024, 8 slices in float32 and 16 in bf16,
+    256 and 512 CUDA blocks at every n of the training step, which covers the
+    132 SMs of an H100."""
+    strips = -(-c // SUM_COLS)
+    block_bytes = SUM_SLOTS * SUM_UNROLL * 3 * SUM_COLS * esize
+    k = 1
+    while (k < SUM_MAX_CLUSTER and strips * k * block_bytes < SUM_BYTES_IN_FLIGHT
+           and n >= 2 * k * SUM_SLOTS):
+        k *= 2
+    rows = -(-n // k)
+    return tuple((a, min(n, a + rows)) for a in range(0, n, rows))
+
+
 def relu_mask_bn_sums(g, z, mask, stat, gate):
-    """Kernel of :func:`relu_mask_bn_sums_plain`."""
+    """Kernel of :func:`relu_mask_bn_sums_plain`: one launch of clusters over the
+    :func:`relu_sums_plan` row slices, which writes gz and the finished sums."""
     if g.device.type == "cpu":
         return relu_mask_bn_sums_plain(g, z, mask, stat, gate)
     dt = g.dtype
     n, c = g.shape
     _validate(g, c)
-    _check_all(g.device, dt, g=(g, None, (n, c)), z=(z, None, (n, c)),
-               mask=(mask, None, (n, c)), stat=(stat, torch.float32, (2, c)),
-               gate=(gate, None, (3, c)))
+    align = 4 * g.element_size()  # whole 4-element words of 16 (8) bytes
+    for name, t, shape in (("g", g, (n, c)), ("z", z, (n, c)), ("mask", mask, (n, c)),
+                           ("gate", gate, (3, c))):
+        if t is not None:
+            _check(name, t, g.device, dt, shape, align=align)
+    _check("stat", stat, g.device, torch.float32, (2, c), align=16)
+    plan = relu_sums_plan(n, c, g.element_size())
     gz = torch.empty_like(g)
-    part = _partials(1, n, c, g.device)
-    _call("relu_mask_bn_sums", "vp3d_tb_relu_mask_bn_sums", _DTYPE_CODE[dt], n, c, g, z,
-          mask, stat, gate, gz, part[0], part[1])
-    s = _reduce(part, c)
-    return gz, s[0], s[1]
+    sums = torch.empty((2, c), dtype=torch.float32, device=g.device)
+    _call("relu_mask_bn_sums", "vp3d_tb_relu_mask_bn_sums", _DTYPE_CODE[dt], n, c,
+          len(plan), plan[0][1], g, z, mask, stat, gate, gz, sums)
+    return gz, sums[0], sums[1]
 
 
 def dz_matmul_dd(gz, z, coef, wb):
