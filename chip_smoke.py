@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation,
-int8 serving, supervised training and streaming serving paths at the full width
-of the README's model, through its hand-written CUDA kernels.
+int8 serving, supervised and semi-supervised training and streaming serving
+paths at the full width of the README's model, through its hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -57,6 +58,23 @@ synthetic custom archive of 256 videos of 500 frames and a causal checkpoint and
 runs ``videopose3d_torch.streaming.main`` with every engine, checking the streams
 against the offline causal model and each other, and profiles one int8_fused and
 one bf16_fused run.
+Phase 7 (semi-supervised training) holds the train block (K2) at the row counts
+that training gives it: the whole block with its backward against the plain
+chain and each kernel against its plain version (a bitwise repeat too) at n =
+64, 128, 384 and 55,296, and every kernel graph-timed at n = 55,296 / 18,432 /
+6,144 / 2,048 (the -arc 3,3,3,3,3 -b 1024 model's blocks on the doubled batch)
+and 384 / 128 (-arc 3,3,3 -b 64); then it trains with ``runner.main ... -sun
+S5`` from phase 2's archives, (a) the README's recipe at full width (-arc 3,3,3
+-b 64 on 10 % of S1) and (b) the main path's model (-arc 3,3,3,3,3 -b 1024), one
+warmup epoch and one full epoch each, with the fused train engine twice and the
+plain one once: finite epoch lines with a positive unlabeled 2D loss after
+warmup, the two fused runs bitwise equal, the first full step's loss against the
+plain engine's, K1 launched once per warmup step and twice per full step; for
+(a) the saved trajectory model loads, the checkpoint evaluates, and -r
+epoch_1.bin prints the uninterrupted run's epoch 2; (b) runs once more under
+torch.profiler (device time per full step by part: K1, the pose model's K2
+wrappers and plain parts, the trajectory model, the optimizer, the projection
+and losses; the busy share).
 
 Each kernel's line in the final summary carries its time, its plain version's,
 its bound (the larger of the bytes it must move over the card's memory rate and
@@ -548,6 +566,8 @@ def reset_counts():
 
 
 def phase2(model, tmp):
+    """Writes the synthetic archives and the random full-width checkpoint the
+    CLI phases share, then runs --evaluate with each engine."""
     from videopose3d_torch.ops.kernels import temporal_block as tb
     from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
     data = os.path.join(tmp, "data")
@@ -654,13 +674,26 @@ def phase2(model, tmp):
     return launches
 
 
+# Ranges that the profiler shows on the device timeline beside the kernels: the
+# wrappers' and parts' own (record_function) and torch's "Optimizer.step#...".
+RANGE_PREFIXES = ("K1 ", "K2 ", "semi ", "Optimizer.")
+
+
+def is_range(event):
+    """Whether a device-side profiler event (or average) is a range, whose time
+    repeats its kernels', rather than a kernel or a copy."""
+    return bool(getattr(event, "is_user_annotation", False)) or event.key.startswith(
+        RANGE_PREFIXES)
+
+
 def device_times(prof):
     """Device time in us per kernel (or copy) name of a torch.profiler run: only the
     device-side events, since an aten op's row repeats its kernels' time."""
     from torch.autograd import DeviceType
     device_us = {}
     for avg in prof.key_averages():
-        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+        if (avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0
+                and not is_range(avg)):
             device_us[avg.key] = device_us.get(avg.key, 0) + avg.self_device_time_total
     return device_us
 
@@ -1280,7 +1313,7 @@ def phase4(tmp):
                 continue
             if avg.key.startswith("K2 "):  # a wrapper's range on the device timeline
                 ranges.append(avg)
-            else:
+            elif not is_range(avg):  # torch's optimizer range repeats its kernels
                 device_us[avg.key] = device_us.get(avg.key, 0) + avg.self_device_time_total
         check(device_us, f"the {engine} profile holds no device time")
         total_ms = sum(device_us.values()) / 1e3 / n_steps
@@ -1298,6 +1331,11 @@ def phase4(tmp):
     rel = abs(first_p - first_x) / abs(first_x)
     print(f"phase4 first-step loss pallas {first_p!r} vs xla {first_x!r}: relative "
           f"difference {rel:.3e} (bound {FIRST_STEP_AGREE:.0e})")
+    # The gap step by step, as phase 7 prints it for its semi-supervised runs.
+    gap = ((runs["pallas"][0].double() - runs["xla"][0].double()).abs()
+           / runs["xla"][0].double().abs()).tolist()
+    print("phase4 loss pallas vs xla, relative gap per step: "
+          + " ".join(f"{g:.1e}" for g in gap))
     check(rel <= FIRST_STEP_AGREE, f"first-step losses differ: {first_p} vs {first_x}")
     for name in ("pallas", "pallas again"):
         launches = runs[name][1]
@@ -1322,6 +1360,473 @@ def phase4(tmp):
     check(evaluated.keys() == trained.keys() and worst <= 1e-5,
           f"reloaded checkpoint evaluates differently: {evaluated} vs {trained}")
     return runs["pallas again"][1]
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: semi-supervised training (K1 on both streams, K2 on the doubled batch)
+# ---------------------------------------------------------------------------
+
+# K2 at the row counts of semi-supervised training (C = 1,024, float32), each n as
+# the (batch, input frames) of its block: -arc 3,3,3 -b 64 gives n = 192 and 64 in
+# warmup and, on the concatenated labeled + unlabeled batch, 384 and 128 after it;
+# -arc 3,3,3,3,3 -b 1024 gives 55,296 / 18,432 / 6,144 / 2,048 after warmup.  At
+# every n the whole block and each kernel are held against the plain versions.
+SEMI_BLOCKS = {64: (64, 3), 128: (128, 3), 192: (64, 9), 384: (128, 9),
+               2048: (2048, 3), 6144: (2048, 9), 18_432: (2048, 27), 55_296: (2048, 81)}
+SEMI_TIMED = (55_296, 18_432, 6144, 2048, 384, 128)  # every K2 kernel graph-timed
+SEMI_LISTED = (55_296, 128)  # the K2 rows of the summary line: (b)'s first block, (a)'s last
+# (a) the README's semi recipe at full width: -arc 3,3,3 -b 64 on 10 % of S1
+# against all of S5 (38 steps of 64 per epoch).  (b) the main path's model:
+# -arc 3,3,3,3,3 -b 1024 on half of S1 (12 steps per epoch).  Both: one warmup
+# epoch, then one full epoch.
+SEMI_RECIPE = dict(arch="3,3,3", batch=64, subset="0.1")
+SEMI_MAIN = dict(arch=",".join(map(str, ARCH)), batch=1024, subset="0.5")
+# Steps [2, 10) of (b)'s full epoch are profiled: warm, on the doubled batch.
+SEMI_PROFILE = (2, 10)
+SEMI_LINE = re.compile(r"^\[(\d+)\] time \S+ (lr \S+ 3d_train .* 2d_valid \S+)$")
+
+
+def semi_block_inputs(n, device):
+    """train_block_inputs for a block of n rows, drawn on the card (n = 55,296
+    is 170 M input elements), from SEED."""
+    b, frames = SEMI_BLOCKS[n]
+    gen = torch.Generator(device).manual_seed(SEED + n)
+    c, fw = CHANNELS, 3
+    rand = lambda *shape: torch.rand(*shape, device=device, generator=gen)
+    uni = lambda lo, hi, *shape: rand(*shape) * (hi - lo) + lo
+    bound = 1 / math.sqrt(fw * c)
+    return dict(
+        x=torch.randn(b, frames, c, device=device, generator=gen),
+        wa=uni(-bound, bound, fw, c, c),
+        wb=uni(-1, 1, c, c) / math.sqrt(c),
+        bn=[uni(lo, hi, c) for lo, hi in ((0.5, 1.5), (-0.2, 0.2), (0.5, 1.5), (-0.2, 0.2))],
+        masks=[(rand(b, frames // fw, c) < 0.75) / 0.75 for _ in range(2)],
+        shifts=[uni(-0.1, 0.1, c) for _ in range(2)],
+        g=torch.randn(b, frames // fw, c, device=device, generator=gen) * 1e-3)
+
+
+def compare_to_scale(name, got, want):
+    """max |got - want| against TOL[float32] * max |want| for one float32 tensor,
+    and for each tap of an (n, taps, C) one: unlike compare's floor of 1, this
+    holds outputs far below 1 in size (the backward kernels' cotangents at
+    |g| ~ 1e-3) to their own scale, so that a zeroed or mis-scaled one fails."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    parts = [(got, want)] + ([(got[:, j], want[:, j]) for j in range(got.shape[1])]
+                             if got.dim() == 3 else [])
+    worst = 0.0
+    for a, w in parts:
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        check(err <= TOL[torch.float32] * scale,
+              f"{name}: max abs error {err} > {TOL[torch.float32]} * max |plain| {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return float((got - want).abs().max()), worst
+
+
+def phase7_kernels(device):
+    """K2 at every row count of semi-supervised training (SEMI_BLOCKS): the whole
+    block and each kernel against the plain versions, each kernel to its
+    outputs' own scale and repeated bitwise; every kernel graph-timed beside its
+    plain version and one float32 torch.matmul of its product (SEMI_TIMED)."""
+    from videopose3d_torch.ops.kernels import train_block as trb
+    saved = dict(trb.LAUNCHES)
+    flops = {key: f for key, _, f in TRAIN_KERNELS}
+    replaces = {key: r for key, r, _ in TRAIN_KERNELS}
+    results = []
+    for n in sorted(SEMI_BLOCKS, reverse=True):
+        p = semi_block_inputs(n, device)
+        got, want = whole_train_block(p, False), whole_train_block(p, True)
+        for nm, a, w in zip(("out", "mean_a", "var_a", "mean_b", "var_b"), got, want):
+            compare(f"semi train block n={n} {nm}", a, w, torch.float32)
+        rel = {nm: float((a.double() - w.double()).norm() / w.double().norm())
+               for nm, a, w in zip(("dx", "dwa", "dwb", "dscale_a", "dbias_a",
+                                    "dscale_b", "dbias_b"), got[5:], want[5:])}
+        print(f"phase7 train block forward+backward float32 n={n:6d}: outputs and "
+              f"stats within tolerance; gradient relative norm errors "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        check(all(v <= GRAD_NORM_TOL for v in rel.values()),
+              f"semi train block n={n}: gradients differ: {rel}")
+        del got, want
+        for key, args, kwargs in train_block_stages(p):
+            kernel, plain = getattr(trb, key), getattr(trb, key + "_plain")
+            got, again = kernel(*args, **kwargs), kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            got, again, want = ((t if isinstance(t, tuple) else (t,))
+                                for t in (got, again, want))
+            errs = [compare_to_scale(f"semi {key} n={n} output {i}", a, w)
+                    for i, (a, w) in enumerate(zip(got, want))]
+            err, scaled = max(e for e, _ in errs), max(r for _, r in errs)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"semi {key} n={n}: two launches differ")
+            del got, again, want
+            checked = (f"max_abs_err {err:.3e} ({scaled:.1e} of max |plain|), "
+                       "bitwise-equal repeat")
+            if n not in SEMI_TIMED:
+                print(f"phase7 {key:22s} float32 n={n:6d}: {checked}")
+                continue
+            reps = 10 if n > 20_000 else 20
+            library = library_call(key, args)
+            ms, plain_ms = (graph_ms(lambda f=f: f(*args, **kwargs), reps=reps)
+                            for f in (kernel, plain))
+            library_ms = None if library is None else graph_ms(library, reps=reps)
+            outs = kernel(*args, **kwargs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            ops = flops[key] * n * CHANNELS ** 2
+            bound_ms, bound_by = roofline(
+                [("float32", ops)],
+                nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *outs))
+            del outs
+            rate = (f"{ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s" if ops else
+                    f"{bound_ms / ms * 100:.1f} % of the {bound_by} bound")
+            lib = "" if library_ms is None else f", torch.matmul {library_ms:.4f} ms"
+            print(f"phase7 {key:22s} float32 n={n:6d}: {checked}; graph-replayed kernel "
+                  f"{ms:.4f} ms ({rate}), plain {plain_ms:.4f} ms{lib}, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+            if n in SEMI_LISTED:
+                results.append({"name": f"{key} (float32, n={n}, C={CHANNELS}, semi)",
+                                "key": ("semi_b" if n > 20_000 else "semi_a", key),
+                                "route": "cuda", "source": TRAIN_SOURCE,
+                                "replaces": replaces[key], "max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": library_ms})
+        del p
+        torch.cuda.empty_cache()
+    trb.LAUNCHES.update(saved)  # comparison launches do not count
+    return results
+
+
+class SemiProfile:
+    """torch.profiler over steps ``[start, stop)`` of a semi-supervised run's full
+    epochs, with profiler ranges around the step's parts, so that its device time
+    splits into K1, the pose model's K2 wrappers, the rest of the pose model,
+    the trajectory model, the optimizer and the batch assembly; what none of
+    them holds is the projection and the losses.  The autograd engine runs the
+    nodes recorded last first, so the backward runs the losses, then the whole
+    trajectory model, then the whole pose model: the trajectory model's range
+    opens at its output's gradient, and at its first weight's gradient gives way
+    to the pose model's, which closes at the pose model's first weight's."""
+
+    DEVICE = "CUDA"  # the profiler's device type of the events split
+
+    def __init__(self, start, stop):
+        self.start, self.stop = start, stop
+        self.prof = None
+        self.wall = None
+        self.open = {}
+
+    def active(self):
+        return self.prof is not None and self.wall is None
+
+    def range_enter(self, name):
+        from torch.profiler import record_function
+        if self.active() and name not in self.open:
+            self.open[name] = record_function(name)
+            self.open[name].__enter__()
+
+    def range_exit(self, name):
+        if name in self.open:
+            self.open.pop(name).__exit__(None, None, None)
+
+    def begin(self):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def end(self, steps):
+        torch.cuda.synchronize()
+        self.wall = (time.perf_counter() - self.t0) / steps
+        self.prof.stop()
+
+    def split(self):
+        """Device ms per step by part, the total and the busy share."""
+        from torch.autograd import DeviceType
+        events = [e for e in self.prof.events()
+                  if e.device_type == getattr(DeviceType, self.DEVICE)]
+        spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+                 if is_range(e)]
+        parts = {}
+        for e in events:
+            if is_range(e):
+                continue
+            t = e.time_range.start
+            inside = {name for name, a, b in spans if a <= t < b}
+            if any(n.startswith("K1 ") for n in inside):
+                part = "K1 gather_windows"
+            elif any(n.startswith("K2 ") for n in inside):
+                part = "K2 wrappers (pose model)"
+            elif any(n.startswith("Optimizer.step") for n in inside):
+                part = "optimizer"
+            elif "semi assemble" in inside:
+                part = "batch assembly (indexing)"
+            elif inside & {"semi traj forward", "semi traj backward"}:
+                part = "trajectory model (plain blocks)"
+            elif inside & {"semi pose forward", "semi pose backward"}:
+                part = "pose model, plain parts"
+            else:
+                part = "projection + losses"
+            parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+        steps = self.stop - self.start
+        parts = {k: v / steps for k, v in parts.items()}
+        total = sum(parts.values())
+        ranges = {}
+        for name, a, b in spans:
+            count, ms = ranges.get(name, (0, 0.0))
+            ranges[name] = (count + 1, ms + (b - a) / 1e3)
+        return parts, total, total / (self.wall * 1e3), ranges
+
+
+def semi_cli(argv, profile=None, epochs=(1, 2)):
+    """A semi-supervised runner.main in-process; returns (per-step (losses, K1
+    launches, warmup) records, the step losses (steps, 4), the epoch lines'
+    numbers by epoch, the full steps' time per step, captured output,
+    launches, K1's first (stream, row0, keywords) per stream in call order:
+    the labeled one, then the unlabeled one).  The full steps' time runs from the end of the first full step
+    to the end of the last, between CUDA events recorded after each step (no
+    synchronisation).  ``profile``: a SemiProfile of the full steps."""
+    from videopose3d_torch import runner, train
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import train_block as trb
+    records, events = [], []
+    step, forward, assemble = (train.SemiSupervisedTrainer.step, train.forward_strided,
+                               train.assemble_chunked_batch_contiguous)
+    gather, wrappers = gr.gather_windows, dict(trb._KERNELS)
+    current, k1_calls = {}, {}
+
+    def with_range(name, fn, *args, **kwargs):
+        from torch.profiler import record_function
+        if profile is None or not profile.active():
+            return fn(*args, **kwargs)
+        with record_function(name):
+            return fn(*args, **kwargs)
+
+    def hook(trainer):
+        """The ends of both models' backward ranges (torch's optimizer marks its
+        own step as ``Optimizer.step#...``)."""
+        def traj_done(grad):
+            profile.range_exit("semi traj backward")
+            profile.range_enter("semi pose backward")
+        trainer.traj_model.expand_conv.weight.register_hook(traj_done)
+        trainer.pos_model.expand_conv.weight.register_hook(
+            lambda grad: profile.range_exit("semi pose backward"))
+
+    def recording_step(self, *args, **kwargs):
+        skip = args[7]
+        full = sum(1 for r in records if not r[2])  # full steps so far
+        if profile is not None and "pos" not in current:
+            hook(self)
+        current["pos"] = self.pos_model
+        if profile is not None and not skip and full == profile.start:
+            profile.begin()
+        k1 = gr.LAUNCHES["gather_windows"]
+        out = step(self, *args, **kwargs)
+        records.append((out, gr.LAUNCHES["gather_windows"] - k1, skip))
+        if not skip:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        if profile is not None and not skip and full + 1 == profile.stop:
+            profile.end(profile.stop - profile.start)
+        return out
+
+    def recorded_gather(flat, row0, **kwargs):
+        k1_calls.setdefault(flat.data_ptr(), (flat, row0.clone(), kwargs))
+        return with_range("K1 gather_windows", gather, flat, row0, **kwargs)
+
+    def annotated_forward(model, x, **kwargs):
+        name = "pose" if model is current.get("pos") else "traj"
+        out = with_range(f"semi {name} forward", forward, model, x, **kwargs)
+        if name == "traj" and profile.active():
+            out.register_hook(lambda grad: profile.range_enter("semi traj backward"))
+        return out
+
+    for counts in (gr.LAUNCHES, trb.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    buf = io.StringIO()
+    train.SemiSupervisedTrainer.step = recording_step
+    gr.gather_windows = recorded_gather
+    if profile is not None:
+        train.forward_strided = annotated_forward
+        train.assemble_chunked_batch_contiguous = (
+            lambda *a, **k: with_range("semi assemble", assemble, *a, **k))
+        trb._KERNELS.update({key: (lambda *a, fn=fn, key=key, **k:
+                                   with_range(f"K2 {key}", fn, *a, **k))
+                             for key, fn in wrappers.items()})
+    try:
+        with contextlib.redirect_stdout(buf):
+            runner.main(argv)
+    finally:
+        train.SemiSupervisedTrainer.step = step
+        train.forward_strided, train.assemble_chunked_batch_contiguous = forward, assemble
+        gr.gather_windows = gather
+        trb._KERNELS.update(wrappers)
+    torch.cuda.synchronize()
+    launches = {**gr.LAUNCHES, **trb.LAUNCHES}
+    out = buf.getvalue()
+    lines = {int(m.group(1)): m.group(2) for m in map(SEMI_LINE.match, out.splitlines())
+             if m}
+    check(tuple(sorted(lines)) == tuple(epochs), f"semi-supervised epoch lines missing:\n{out}")
+    for epoch, line in lines.items():
+        check(all(math.isfinite(float(v)) for v in line.split()[1::2]),
+              f"non-finite numbers in epoch {epoch}: {line}")
+    losses = torch.stack([torch.stack(r[0]) for r in records]).cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite step losses: {losses}")
+    check(len(events) > 1, "fewer than two full steps")
+    step_ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    return records, losses, lines, step_ms, out, launches, list(k1_calls.values())
+
+
+def _semi_argv(tmp, cfg, engine, ckpt, epochs=2, resume=None):
+    argv = ["-k", "gt", "-arc", cfg["arch"], "-ch", str(CHANNELS), "-b", str(cfg["batch"]),
+            "-e", str(epochs), "--warmup", "1", "-drop", "0.25", "--seed", str(SEED),
+            "-str", "S1", "-sun", "S5", "-ste", "S9,S11", "--subset", cfg["subset"],
+            "--data-dir", os.path.join(tmp, "data"), "-c", ckpt,
+            "--checkpoint-frequency", "1", "--device", "cuda", "--train-engine", engine]
+    return argv + (["-r", resume] if resume else [])
+
+
+def phase7(tmp):
+    """Semi-supervised training through runner.main: (a) the README's recipe at
+    full width, (b) the main path's model.  Each: the fused engine twice and the
+    plain one once from the same seed (the runs' first steps against each other,
+    the two fused runs bitwise, K1 on both streams), then both engines resumed
+    from the fused run's warmup checkpoint, so that their first full step starts
+    from the same state (the uninterrupted runs drift apart over the warmup
+    epoch's steps, as float32 sums in other orders do); the resumed fused run
+    prints the uninterrupted one's epoch 2.  (a)'s trajectory model loads and its
+    checkpoint evaluates; (b) runs once more under the profiler.  Returns the
+    launches of (a)'s and (b)'s first pallas runs."""
+    from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import train_block as trb
+    runs = {}
+
+    def k1_bitwise(cell, k1_calls):
+        """K1 against its plain version, bitwise, on the first window gather of
+        each stream of the run: its rows, descriptors and window."""
+        check(len(k1_calls) == 2, f"({cell}) K1 gathered from {len(k1_calls)} streams, not 2")
+        saved = dict(gr.LAUNCHES)
+        for stream, (flat, row0, kwargs) in zip(("labeled", "unlabeled"), k1_calls):
+            got = gr.gather_windows(flat, row0, **kwargs)
+            want = gr.gather_windows_plain(flat, row0, **kwargs)
+            check(torch.equal(got, want), f"({cell}) K1 differs from plain on the {stream} "
+                                          f"stream")
+            print(f"phase7 ({cell}) K1 gather_windows, {stream} stream of "
+                  f"{flat.shape[0]} rows: {tuple(got.shape)} windows bitwise equal to plain")
+        gr.LAUNCHES.update(saved)  # comparison launches do not count
+
+    def run(cell, cfg, name, engine, resume=None, profile=None):
+        ckpt = os.path.join(tmp, f"semi_{cell}_" + name.replace(" ", "_"))
+        os.makedirs(ckpt)
+        if resume:
+            shutil.copy(resume, ckpt)
+            resume = os.path.basename(resume)
+        records, losses, lines, step_ms, out, launches, k1_calls = semi_cli(
+            _semi_argv(tmp, cfg, engine, ckpt, resume=resume), profile,
+            epochs=(2,) if resume else (1, 2))
+        if name == "pallas":
+            k1_bitwise(cell, k1_calls)
+        runs[cell, name] = r = dict(records=records, losses=losses, lines=lines, out=out,
+                                    ckpt=ckpt, launches=launches, profile=profile)
+        r["warm"] = warm = sum(1 for rec in records if rec[2])
+        print(f"phase7 ({cell}) {name:15s} -arc {cfg['arch']} -b {cfg['batch']}: "
+              f"{warm} warmup + {len(records) - warm} full steps, full steps "
+              f"{step_ms:.3f} ms/step; first full step losses (pos, traj, recon, "
+              f"total) {[round(v, 6) for v in losses[warm].tolist()]}; launches "
+              f"{launches}")
+        for epoch, line in sorted(lines.items()):
+            print(f"phase7 ({cell}) {name:15s} [{epoch}] {line}")
+        k1 = [rec[1] for rec in records]
+        check(k1 == [1] * warm + [2] * (len(k1) - warm),
+              f"({cell}) {name}: K1 launches per step are not 1 in warmup and 2 after: {k1}")
+        if engine == "pallas":
+            check(all(v > 0 for v in launches.values()),
+                  f"({cell}) {name} did not launch every training kernel: {launches}")
+        else:
+            check(not any(launches[k] for k in trb.LAUNCHES),
+                  f"({cell}) {name} launched train-block kernels")
+        return r
+
+    def agree(cell, what, got, want):
+        rel = abs(got - want) / abs(want)
+        print(f"phase7 ({cell}) {what} total loss pallas {got!r} vs xla {want!r}: relative "
+              f"difference {rel:.3e}")
+        return rel
+
+    for cell, cfg in (("a", SEMI_RECIPE), ("b", SEMI_MAIN)):
+        pallas = run(cell, cfg, "pallas", "pallas")
+        xla = run(cell, cfg, "xla", "xla")
+        again = run(cell, cfg, "pallas again", "pallas")
+        check(float(pallas["lines"][2].split("2d_train_unsup ")[1].split()[0]) > 0,
+              f"({cell}) 2d_train_unsup is not positive after warmup: {pallas['lines'][2]}")
+        check(again["lines"] == pallas["lines"]
+              and torch.equal(again["losses"], pallas["losses"]),
+              f"({cell}) two pallas runs differ")
+        warm = pallas["warm"]
+        # The uninterrupted runs' gap, step by step: float32 sums in other orders
+        # at step 0, then carried on by the updates.
+        gap = ((pallas["losses"][:, 3].double() - xla["losses"][:, 3].double()).abs()
+               / xla["losses"][:, 3].double().abs()).tolist()
+        for what, steps in (("warmup", gap[:warm]), ("full", gap[warm:])):
+            print(f"phase7 ({cell}) total loss pallas vs xla, relative gap per {what} step: "
+                  + " ".join(f"{g:.1e}" for g in steps))
+        first = agree(cell, "first (warmup) step", float(pallas["losses"][0, 3]),
+                      float(xla["losses"][0, 3]))
+        agree(cell, f"uninterrupted runs' first full step (after {warm} warmup steps)",
+              float(pallas["losses"][warm, 3]), float(xla["losses"][warm, 3]))
+        warmup_ckpt = os.path.join(pallas["ckpt"], "epoch_1.bin")
+        resumed = run(cell, cfg, "pallas resumed", "pallas", resume=warmup_ckpt)
+        resumed_x = run(cell, cfg, "xla resumed", "xla", resume=warmup_ckpt)
+        full = agree(cell, "first full step from the warmup checkpoint",
+                     float(resumed["losses"][0, 3]), float(resumed_x["losses"][0, 3]))
+        print(f"phase7 ({cell}) bounds {FIRST_STEP_AGREE:.0e}; two pallas runs bitwise "
+              f"equal over {len(pallas['records'])} steps; -r epoch_1.bin prints the "
+              f"uninterrupted run's epoch 2: {resumed['lines'][2] == pallas['lines'][2]}")
+        check(first <= FIRST_STEP_AGREE and full <= FIRST_STEP_AGREE,
+              f"({cell}) pallas and xla losses differ: {first:.3e}, {full:.3e}")
+        check(resumed["lines"][2] == pallas["lines"][2],
+              f"({cell}) -r epoch_1.bin epoch 2 differs: {resumed['lines'][2]} vs "
+              f"{pallas['lines'][2]}")
+        if cell == "b":
+            run(cell, cfg, "pallas profiled", "pallas", profile=SemiProfile(*SEMI_PROFILE))
+
+    # (b)'s profile: device time per full step by part.
+    profile = runs["b", "pallas profiled"]["profile"]
+    parts, total, busy, ranges = profile.split()
+    check(total > 0, "the semi-supervised profile holds no device time")
+    print("phase7 (b) profile ranges on the device (count, summed span ms): "
+          + ", ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in sorted(ranges.items())))
+    print(f"phase7 (b) profile: full steps {SEMI_PROFILE[0]}-{SEMI_PROFILE[1] - 1}, "
+          f"{profile.wall * 1e3:.3f} ms/step wall, {total:.3f} ms/step device time, busy "
+          f"{100 * busy:.1f} %")
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"phase7 (b) profile   {ms:8.3f} ms/step  {part}")
+
+    # (a): the checkpoint's trajectory model loads, and the checkpoint evaluates to
+    # the run's final numbers.
+    pallas = runs["a", "pallas"]
+    chk = torch.load(os.path.join(pallas["ckpt"], "epoch_2.bin"), map_location="cpu",
+                     weights_only=False)
+    TemporalModel(TemporalModelConfig(
+        num_joints_in=JOINTS, in_features=2, num_joints_out=1,
+        filter_widths=tuple(int(w) for w in SEMI_RECIPE["arch"].split(",")),
+        channels=CHANNELS)).load_state_dict(chk["model_traj"], strict=True)
+    check(chk["stream_rng_semi"] is not None, "no unlabeled stream state in the checkpoint")
+    evaluated, _, _, _ = run_cli(["-k", "gt", "-arc", SEMI_RECIPE["arch"], "-ch",
+                                  str(CHANNELS), "-str", "S1", "-ste", "S9,S11",
+                                  "--data-dir", os.path.join(tmp, "data"), "-c",
+                                  pallas["ckpt"], "--evaluate", "epoch_2.bin",
+                                  "--device", "cuda"])
+    trained = protocol_lines(pallas["out"])
+    worst = max(abs(g - w) / abs(w) for a in trained for g, w in zip(evaluated[a], trained[a]))
+    print(f"phase7 (a) epoch_2.bin: model_traj loads; --evaluate vs the run's final "
+          f"evaluation: worst relative protocol difference {worst:.3e}")
+    check(evaluated.keys() == trained.keys() and worst <= 1e-5,
+          f"(a) epoch_2.bin evaluates differently: {evaluated} vs {trained}")
+    return runs["a", "pallas"]["launches"], runs["b", "pallas"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1871,6 +2376,7 @@ def main() -> int:
     cfg, model = random_model(device)
     kernel_results = phase1(cfg, model, device)
     train_kernel_results = phase3(device)
+    semi_kernel_results = phase7_kernels(device)
     int8_results = phase5(cfg, model, device)
     # Phase 6 serves the causal model, quantized on the card.
     from videopose3d_torch.models.temporal import receptive_field
@@ -1884,6 +2390,7 @@ def main() -> int:
         launches = phase2(model, tmp)
         train_launches = phase4(tmp)
         stream_launches = phase6_cli(scfg, smodel, device, tmp)
+        semi_launches = phase7(tmp)
 
     keys = {name: (key, replaces) for name, key, replaces in KERNELS}
     dtypes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -1900,6 +2407,10 @@ def main() -> int:
     for r in train_kernel_results:
         entries.append({**{k: v for k, v in r.items() if k != "key"},
                         "launches": train_launches[r["key"][1]]})
+    for r in semi_kernel_results:  # K2 at (b)'s first block and (a)'s last
+        cell, key = r["key"]
+        entries.append({**{k: v for k, v in r.items() if k != "key"},
+                        "launches": semi_launches[cell == "semi_b"][key]})
     for r in int8_results:
         mode, key = r["key"]
         entries.append({**{k: v for k, v in r.items() if k != "key"},

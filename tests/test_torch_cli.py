@@ -3,27 +3,32 @@
 
 ``--evaluate`` of one JAX-CLI checkpoint with the fused and xla serving engines:
 per-action protocol numbers agree to relative 1e-4 (float32 models summed in
-other orders) and the action-wise average lines are equal.  Supervised training
-from one initial checkpoint with dropout 0: the epoch lines and the final
-protocol numbers agree to relative 1e-4, and the JAX CLI evaluates the port's
-checkpoint to the port's own numbers."""
+other orders) and the action-wise average lines are equal.  Supervised and
+semi-supervised (``-sun``) training from one initial checkpoint with dropout 0:
+the epoch lines and the final protocol numbers agree to relative 1e-4, the JAX
+CLI evaluates the port's checkpoint to the port's own numbers, and the
+trajectory model crosses between the packages' checkpoints."""
 
 import ast
 import pathlib
 import re
 import shutil
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from videopose3d_tpu import runner as jax_runner
 from videopose3d_tpu.checkpoint import save_checkpoint
-from videopose3d_tpu.models.convert import params_to_torch_state_dict
+from videopose3d_tpu.models.convert import (params_from_torch_state_dict,
+                                            params_to_torch_state_dict)
+from videopose3d_tpu.models.temporal import TemporalModelConfig as JConfig
 from videopose3d_torch import runner
 from videopose3d_torch.arguments import parse_args
 from videopose3d_torch.checkpoint import (OpaqueObject, load_any_checkpoint,
                                           model_state_dict)
+from videopose3d_torch.models.convert import state_dict_from_jax
 from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
 
 from torch_port_helpers import (average_lines, jax_model, protocol_numbers,
@@ -312,11 +317,9 @@ def test_device_cuda_raises_without_a_card(workdir):
         runner.main(_args(workdir, "fused"))
 
 
-@pytest.mark.parametrize("extra", [["-sun", "S11"], ["--render"]])
+@pytest.mark.parametrize("extra", [["--render"]])
 def test_unported_modes_raise(workdir, extra):
     argv = _args(workdir, "xla", extra=["--device", "cpu", *extra])
-    if "-sun" in extra:  # semi-supervised training
-        argv = [a for a in argv if a not in ("--evaluate", "epoch_3.bin")]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.main(argv)
 
@@ -469,4 +472,113 @@ def test_resume_continues_bit_exactly(train_workdir, capsys):
     assert "WARNING" not in resumed
     assert _epoch_lines(resumed)[0][0] == 2
     assert _epoch_lines(resumed)[0][1:] == _epoch_lines(straight)[1][1:]
+    assert protocol_numbers(resumed) == protocol_numbers(straight)
+
+
+_SEMI_EPOCH = re.compile(r"^\[(\d+)\] time \S+ lr (\S+) 3d_train (\S+) 3d_eval (\S+) "
+                         r"traj_eval (\S+) 3d_valid (\S+) traj_valid (\S+) "
+                         r"2d_train_sup (\S+) 2d_train_unsup (\S+) 2d_valid (\S+)$")
+
+
+def _semi_epoch_lines(out):
+    """[(epoch, lr text, [the nine losses])] from the printed semi-supervised lines."""
+    return [(int(m.group(1)), m.group(2), [float(v) for v in m.groups()[2:]])
+            for m in map(_SEMI_EPOCH.match, out.splitlines()) if m]
+
+
+@pytest.fixture(scope="module")
+def semi_workdir(tmp_path_factory):
+    """Archives with a labeled (S1) and an unlabeled (S5) subject and one random
+    initial checkpoint of both models (``epoch: 0``, no optimizer state), copied
+    into one checkpoint directory per package."""
+    root = tmp_path_factory.mktemp("semi_cli")
+    (root / "data").mkdir()
+    write_h36m_archives(str(root / "data"), subjects=("S1", "S5", "S9", "S11"),
+                        n_frames=60)
+    torch.manual_seed(5)
+    pos = TemporalModel(TemporalModelConfig(17, 2, 17, (3, 3), channels=32))
+    traj = TemporalModel(TemporalModelConfig(17, 2, 1, (3, 3), channels=32))
+    for name in ("jax", "port"):
+        (root / name).mkdir()
+        torch.save({"epoch": 0, "lr": 0.001, "optimizer": None,
+                    "model_pos": model_state_dict(pos),
+                    "model_traj": model_state_dict(traj)}, root / name / "init.bin")
+    return root
+
+
+def _semi_args(root, ckpt, epochs=2, resume="init.bin", dropout="0"):
+    """Two epochs, the first of warmup; half of S1 labeled (8 steps of 64, the
+    last partial) against all of S5 unlabeled (15 batches), so that a checkpoint
+    lands inside the unlabeled stream's permutation."""
+    (root / ckpt).mkdir(exist_ok=True)
+    if not (root / ckpt / "init.bin").exists():
+        shutil.copy(root / "jax" / "init.bin", root / ckpt / "init.bin")
+    return ["-k", "gt", "-arc", "3,3", "-ch", "32", "-b", "64", "-e", str(epochs),
+            "--warmup", "1", "-drop", dropout, "-str", "S1", "-sun", "S5", "--subset",
+            "0.5", "-ste", "S9,S11", "--data-dir", str(root / "data"), "-c",
+            str(root / ckpt), "-r", resume, "--eval-bucket", "16",
+            "--checkpoint-frequency", "1"]
+
+
+def test_semi_training_cli_matches_jax(semi_workdir, capsys):
+    root = semi_workdir
+    jax_runner.main(_semi_args(root, "jax") + ["--rng-impl", "threefry2x32"])
+    want = capsys.readouterr().out
+    runner.main(_semi_args(root, "port") + ["--device", "cpu", "--train-engine", "pallas"])
+    got = capsys.readouterr().out
+
+    for out in (got, want):
+        assert "INFO: Semi-supervision on 480 frames" in out.splitlines()
+    got_epochs, want_epochs = _semi_epoch_lines(got), _semi_epoch_lines(want)
+    assert [e[:2] for e in got_epochs] == [e[:2] for e in want_epochs] == [
+        (1, "0.001000"), (2, "0.000950")]
+    for (_, _, g), (_, _, w) in zip(got_epochs, want_epochs):
+        np.testing.assert_allclose(g, w, rtol=1e-4)
+        assert all(np.isfinite(g)) and g[7] > 0  # 2d_train_unsup
+    assert re.search(r"^INFO: trained 16 steps in \S+ s \(\S+ frames/s, engine pallas, "
+                     r"device cpu\)$", got, re.M)
+    got_p, want_p = protocol_numbers(got), protocol_numbers(want)
+    assert list(got_p) == list(want_p) == ["Walking", "Eating"]
+    for action in want_p:
+        np.testing.assert_allclose(got_p[action], want_p[action], rtol=1e-4)
+
+    # The trajectory model crosses between the packages' checkpoints, and the
+    # unlabeled stream's place in its permutation is saved.
+    tcfg = JConfig(num_joints_in=17, in_features=2, num_joints_out=1, filter_widths=(3, 3),
+                   channels=32)
+    port_chk = load_any_checkpoint(str(root / "port" / "epoch_1.bin"))
+    tparams, tstate = params_from_torch_state_dict(tcfg, port_chk["model_traj"])
+    back = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, tparams),
+                               jax.tree_util.tree_map(np.asarray, tstate))
+    assert back.keys() == port_chk["model_traj"].keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, port_chk["model_traj"][k], err_msg=k)
+    jax_chk = load_any_checkpoint(str(root / "jax" / "epoch_1.bin"))
+    traj = TemporalModel(TemporalModelConfig(17, 2, 1, (3, 3), channels=32))
+    runner.load_model(traj, jax_chk["model_traj"])
+    assert port_chk["stream_idx_semi"] == jax_chk["stream_idx_semi"] == 8
+    for a, b in zip(port_chk["stream_rng_semi"], jax_chk["stream_rng_semi"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_semi_resume_across_warmup_repeats_epoch_two(semi_workdir, capsys):
+    """A warmup epoch, a checkpoint and a resumed full epoch print the epoch-2
+    line and protocol numbers of two epochs in one run, with dropout on: the
+    trajectory model, the optimizer over both models, both samplers (the
+    unlabeled one inside its permutation) and the dropout generator travel in the
+    checkpoint."""
+    root = semi_workdir
+
+    def run(ckpt, epochs, resume):
+        runner.main(_semi_args(root, ckpt, epochs, resume, dropout="0.25")
+                    + ["--device", "cpu"])
+        return capsys.readouterr().out
+
+    straight = run("semi_straight", 2, "init.bin")
+    run("semi_split", 1, "init.bin")
+    resumed = run("semi_split", 2, "epoch_1.bin")
+    assert "This model was trained for 1 epochs" in resumed
+    assert "WARNING" not in resumed
+    assert [e[0] for e in _semi_epoch_lines(resumed)] == [2]
+    assert _semi_epoch_lines(resumed)[0][1:] == _semi_epoch_lines(straight)[1][1:]
     assert protocol_numbers(resumed) == protocol_numbers(straight)

@@ -98,8 +98,9 @@ def test_batch_assembly_matches_jax(augment, pad, causal_shift):
             kps_flip_perm=tuple(perm), joints_flip_perm=tuple(perm),
             aug_offset_2d=jdev.aug_offset_2d, aug_offset_3d=jdev.aug_offset_3d,
             cols_2d=jdev.cols_2d or 0)
-        got_3d, got_2d = tgen.assemble_chunked_batch_contiguous(
+        cam, got_3d, got_2d = tgen.assemble_chunked_batch_contiguous(
             tdev, meta, pad=pad, causal_shift=causal_shift, chunk_length=1)
+        assert cam is None
         want_2d = np.asarray(want_2d).reshape(got_2d.shape)  # (B, win, 17*2)
         np.testing.assert_array_equal(got_2d.numpy(), want_2d)
         np.testing.assert_array_equal(got_3d.numpy(), np.asarray(want_3d))

@@ -642,7 +642,28 @@ TRAIN_BLOCK_CASES = [  # batch, frames, channels, fw, center, dropout
     (5, 9, 1028, 3, 1, True),        # two column passes (C > 1024), ragged tile
     (1024, 3, 1024, 3, 1, True),     # the last full-width block, n = 1,024
     (8, 9, 30, 3, 1, True),          # C % 4 != 0: padded to 32 zero channels
+    # Semi-supervised -arc 3,3,3 -b 64 at full width: the blocks in warmup (n = 192
+    # and 64) and after it on the doubled batch (n = 384 and 128): partial 128-row
+    # tiles and one-slab slices.
+    (64, 9, 1024, 3, 1, True),
+    (64, 3, 1024, 3, 1, True),
+    (128, 9, 1024, 3, 1, True),
+    (128, 3, 1024, 3, 1, True),
 ]
+
+
+@pytest.mark.parametrize("n", [64, 128, 192, 384, 2048, 6144, 18_432, 55_296])
+def test_train_block_plans_tile_the_rows_on_this_card(cuda, n):
+    """At the semi-supervised steps' row counts and this card's SM count, each
+    K2 plan cuts its dimension into in-order slices that tile it exactly."""
+    sms = trb._sms(cuda)
+    plans = [trb.relu_sums_plan(n, 1024, 4), trb.relu_sums_plan(n, 1024, 2),
+             trb.dw_gemm_plan(n, 1024, sms), trb.tap_gemm_plan(n, 3072, 1024, sms),
+             trb.tap_gemm_plan(n, 1024, 3072, sms), trb.tap_gemm_plan(n, 1024, 1024, sms)]
+    for plan, length in zip(plans, (n, n, n, 3072, 1024, 1024)):
+        assert plan[0][0] == 0 and plan[-1][1] == length
+        assert all(a < b for a, b in plan)
+        assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
 
 
 @pytest.mark.parametrize("b,t,c,fw,center,dropout", TRAIN_BLOCK_CASES)

@@ -109,7 +109,7 @@ def test_train_block_matches_jax(b, t, c, fw, center, dropout):
 
 
 @pytest.mark.parametrize("c", [68, 1024, 1028])
-@pytest.mark.parametrize("n", [1, 31, 1024, 27_648])
+@pytest.mark.parametrize("n", [1, 31, 64, 128, 384, 1024, 27_648, 55_296])
 def test_dw_gemm_plan_tiles_the_rows(n, c):
     """dw_gemm's split over the rows: in-order slices that tile [0, n) exactly,
     all but the last of one whole number of slabs, and no more CUDA blocks than
@@ -133,6 +133,11 @@ def test_dw_gemm_plan_tiles_the_rows(n, c):
     (1024, 1024, 3072), (27_648, 1024, 3072), (129, 68, 204),      # du_dtaps_res
     (1024, 1024, 1024), (3072, 1024, 1024), (9216, 1024, 1024),    # the one-tap
     (27_648, 1024, 1024),                                          # GEMMs
+    # semi-supervised training: -arc 3,3,3 -b 64 (n = 64 to 384) and the doubled
+    # batch of -arc 3,3,3,3,3 -b 1024 (n = 55,296)
+    (64, 3072, 1024), (128, 3072, 1024), (384, 3072, 1024), (55_296, 3072, 1024),
+    (64, 1024, 3072), (384, 1024, 3072), (55_296, 1024, 3072),
+    (64, 1024, 1024), (128, 1024, 1024), (384, 1024, 1024), (55_296, 1024, 1024),
 ])
 def test_tap_gemm_plan_slices_the_summed_dimension(m, k, n):
     """The tap GEMMs' split over their summed dimension: in-order slices that
@@ -157,7 +162,8 @@ def test_tap_gemm_plan_slices_the_summed_dimension(m, k, n):
 
 @pytest.mark.parametrize("esize", [4, 2])
 @pytest.mark.parametrize("c", [4, 68, 1024, 1028, 3636])
-@pytest.mark.parametrize("n", [1, 31, 64, 127, 1000, 1024, 3072, 9216, 27_648, 27_649])
+@pytest.mark.parametrize("n", [1, 31, 64, 127, 128, 192, 384, 1000, 1024, 3072, 9216,
+                               27_648, 27_649, 55_296])
 def test_relu_sums_plan_tiles_the_rows(n, c, esize):
     """relu_mask_bn_sums's row slices, one CUDA block of each column strip per
     slice and a cluster per strip: in-order slices of one length but the last
@@ -181,9 +187,10 @@ def test_relu_sums_plan_tiles_the_rows(n, c, esize):
 
 
 @pytest.mark.parametrize("esize,k", [(4, 8), (2, 16)])
-@pytest.mark.parametrize("n", [1024, 3072, 9216, 27_648])
+@pytest.mark.parametrize("n", [1024, 3072, 9216, 27_648, 2048, 6144, 18_432, 55_296])
 def test_relu_sums_plan_fills_the_card_at_the_training_shapes(n, esize, k):
-    """At the training step's four block shapes (C = 1,024) the grid covers
+    """At the training step's four block shapes (C = 1,024), and at the doubled
+    ones of a semi-supervised step after warmup, the grid covers
     every SM of an H100 (132): 32 column strips in clusters of 8 (float32, 256
     CUDA blocks) or 16 (bf16, 512), 6 MiB of loads in flight either way."""
     plan = trb.relu_sums_plan(n, 1024, esize)

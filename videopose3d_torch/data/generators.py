@@ -5,14 +5,16 @@ Counterpart of ``videopose3d_tpu/data/generators.py``:
 * ``FlatSequenceDataset`` concatenates every training video into one
   margin-padded flat stream (with a pre-flipped copy for augmentation) that is
   uploaded to the device once (``to_device``), the 2D keypoints as
-  ``(rows, J*F)``.
+  ``(rows, J*F)``, with the videos' camera intrinsics beside them.
 * ``ChunkedPairSampler`` (host, numpy) enumerates and shuffles the reference's
   ``(seq, start, end, flip)`` chunk pairs with the same ``RandomState`` stream and
   emits one ``(B, 4)`` int32 descriptor array per step, the final partial batch
-  padded with copies of its first row and a valid-row count.
+  padded with copies of its first row and a valid-row count; ``endless`` streams
+  (the semi-supervised unlabeled split) run on across permutations and resume
+  mid-permutation from ``stream_state``.
 * ``assemble_chunked_batch_contiguous`` turns descriptors into a batch on the
   device: the 2D windows through the window-gather kernel
-  (``ops/kernels/gather_rows.py``), the 3D targets by plain indexing.
+  (``ops/kernels/gather_rows.py``), the 3D targets and cameras by plain indexing.
 * ``UnchunkedBatcher`` yields whole videos for evaluation.
 """
 
@@ -29,7 +31,9 @@ class FlatSequenceDataset:
 
     Args:
       poses_2d: list of (N_i, J, F) keypoint arrays.
-      poses_3d: optional list of (N_i, J3, 3) arrays of the same lengths.
+      poses_3d: optional list of (N_i, J3, 3) arrays of the same lengths (None
+        for the unlabeled split of semi-supervised training).
+      cameras: optional list of (9,) intrinsic vectors, one per video.
       margins: (left_2d, right_2d, left_3d, right_3d) frames of edge replication
         baked around every video (:meth:`training_margins`), so each training
         window is one contiguous run of rows.
@@ -40,9 +44,13 @@ class FlatSequenceDataset:
 
     def __init__(self, poses_2d: Sequence[np.ndarray],
                  poses_3d: Optional[Sequence[np.ndarray]] = None,
+                 cameras: Optional[Sequence[np.ndarray]] = None,
                  margins: Optional[Tuple[int, int, int, int]] = None,
                  flip_perms=None):
         assert poses_3d is None or len(poses_3d) == len(poses_2d)
+        assert cameras is None or len(cameras) == len(poses_2d)
+        self.cameras = (None if cameras is None
+                        else np.stack(cameras, axis=0).astype(np.float32))
         self.margins = None if margins is None else tuple(int(m) for m in margins)
         self.flat_2d_padded = self.flat_3d_padded = None
         self.base_2d = self.base_3d = None
@@ -69,8 +77,10 @@ class FlatSequenceDataset:
         return (pad + causal_shift + c, pad - causal_shift + c, c, c)
 
     def to_device(self, device) -> "DeviceArrays":
-        """Upload the padded streams once to ``device``, the 2D stream as
-        ``(rows, J*F)`` rows (the model flattens its input anyway)."""
+        """Upload the padded streams and the (V, 9) intrinsics once to ``device``,
+        the 2D stream as ``(rows, J*F)`` rows (the model flattens its input
+        anyway; ``assemble_chunked_batch_contiguous(joint_axis_2d=True)`` restores
+        the joint axis)."""
         if self.flat_2d_padded is None:
             raise ValueError("to_device needs the margin-padded streams (margins=)")
         put = lambda a: None if a is None else torch.from_numpy(
@@ -80,7 +90,8 @@ class FlatSequenceDataset:
                 self.flat_2d_padded.shape[0], -1)),
             flat_3d_padded=put(self.flat_3d_padded), base_2d=put(self.base_2d),
             base_3d=put(self.base_3d), aug_offset_2d=self.aug_offset_2d,
-            aug_offset_3d=self.aug_offset_3d, margins=self.margins)
+            aug_offset_3d=self.aug_offset_3d, margins=self.margins,
+            cameras=put(self.cameras), kps_shape=self.flat_2d_padded.shape[1:])
 
 
 def _pad_concat(seqs, left: int, right: int):
@@ -107,7 +118,8 @@ class DeviceArrays:
     """The device-resident training streams of a :class:`FlatSequenceDataset`."""
 
     def __init__(self, flat_2d_padded, flat_3d_padded, base_2d, base_3d,
-                 aug_offset_2d: int = 0, aug_offset_3d: int = 0, margins=None):
+                 aug_offset_2d: int = 0, aug_offset_3d: int = 0, margins=None,
+                 cameras=None, kps_shape=None):
         self.flat_2d_padded = flat_2d_padded
         self.flat_3d_padded = flat_3d_padded
         self.base_2d = base_2d
@@ -115,6 +127,8 @@ class DeviceArrays:
         self.aug_offset_2d = aug_offset_2d
         self.aug_offset_3d = aug_offset_3d
         self.margins = margins
+        self.cameras = cameras      # (V, 9) float32 intrinsics, or None
+        self.kps_shape = kps_shape  # (J, F) of a row of the 2D stream
 
 
 class ChunkedPairSampler:
@@ -122,13 +136,15 @@ class ChunkedPairSampler:
     shuffle and RNG-state semantics (the JAX package's sampler, in numpy).
 
     The ``(seq, start_3d, end_3d, flip)`` pairs live in an ``(N, 4)`` int64 array,
-    permuted by ``np.random.RandomState(random_seed)`` once per epoch.  Yields
-    ``(meta, n_valid)`` per step: ``meta`` is a ``(batch_size, 4)`` int32 array
-    whose rows past ``n_valid`` are copies of row 0 and must be masked out.
+    permuted by ``np.random.RandomState(random_seed)`` once per permutation.
+    Yields ``(meta, n_valid)`` per step: ``meta`` is a ``(batch_size, 4)`` int32
+    array whose rows past ``n_valid`` are copies of row 0 and must be masked out.  An ``endless`` sampler's ``next_epoch`` never ends:
+    it draws a new permutation whenever one is used up.
     """
 
     def __init__(self, sequence_lengths: Sequence[int], batch_size: int,
-                 chunk_length: int, *, random_seed: int = 1234, augment: bool = False):
+                 chunk_length: int, *, random_seed: int = 1234,
+                 augment: bool = False, endless: bool = False):
         pairs = []
         for i, seq_len in enumerate(sequence_lengths):
             n_chunks = (seq_len + chunk_length - 1) // chunk_length
@@ -146,6 +162,9 @@ class ChunkedPairSampler:
         self.chunk_length = chunk_length
         self.num_batches = (len(self.pairs) + batch_size - 1) // batch_size
         self.random = np.random.RandomState(random_seed)
+        self.endless = endless
+        self.state = None  # (next batch index, pairs) inside an endless permutation
+        self._perm_rng_state = None  # the RNG just before the current permutation
 
     def num_frames(self) -> int:
         return self.num_batches * self.batch_size
@@ -159,28 +178,68 @@ class ChunkedPairSampler:
         else:
             self.random.set_state(state)
 
+    def _draw(self):
+        """A new permutation, the RNG's state before it kept."""
+        self._perm_rng_state = self.random.get_state()
+        return self.random.permutation(self.pairs)
+
+    def stream_state(self):
+        """An endless stream's position inside its permutation: ``(next batch
+        index, the RNG state just before the permutation was drawn)``; None at a
+        permutation boundary and for samplers that are not endless."""
+        if self.state is None or self._perm_rng_state is None:
+            return None
+        return int(self.state[0]), self._perm_rng_state
+
+    def set_stream_state(self, stream_state):
+        """Resume an endless stream where :meth:`stream_state` left it: rewind the
+        RNG, draw the same permutation again (which leaves the RNG where the
+        first draw did) and go on from the saved batch index; None restarts at a
+        permutation boundary."""
+        if stream_state is None:
+            self.state = None
+            return
+        start, rng_state = stream_state
+        self.random.set_state(rng_state)
+        self.state = (int(start), self._draw())
+
     def next_epoch(self):
-        pairs = self.random.permutation(self.pairs)
-        for b_i in range(self.num_batches):
-            chunks = pairs[b_i * self.batch_size: (b_i + 1) * self.batch_size]
-            n_valid = len(chunks)
-            if n_valid < self.batch_size:
-                filler = np.broadcast_to(chunks[0], (self.batch_size - n_valid, 4))
-                chunks = np.concatenate([chunks, filler], axis=0)
-            yield chunks.astype(np.int32), n_valid
+        if self.endless and self.num_batches == 0:
+            raise ValueError("no training chunks to sample: every sequence is empty")
+        while True:
+            start, pairs = (0, self._draw()) if self.state is None else self.state
+            for b_i in range(start, self.num_batches):
+                chunks = pairs[b_i * self.batch_size: (b_i + 1) * self.batch_size]
+                n_valid = len(chunks)
+                if n_valid < self.batch_size:
+                    filler = np.broadcast_to(chunks[0], (self.batch_size - n_valid, 4))
+                    chunks = np.concatenate([chunks, filler], axis=0)
+                if self.endless:
+                    self.state = (b_i + 1, pairs)
+                yield chunks.astype(np.int32), n_valid
+            self.state = None
+            if not self.endless:
+                return
 
 
 def assemble_chunked_batch_contiguous(dev: DeviceArrays, meta, *, pad: int,
                                       causal_shift: int, chunk_length: int,
-                                      gather_impl: str = "auto"):
+                                      gather_impl: str = "auto", with_3d: bool = True,
+                                      with_cameras: bool = False,
+                                      joint_axis_2d: bool = False):
     """A training batch from ``(B, 4)`` descriptors over the margin-padded
-    streams: ``(batch_3d (B, chunk, J3, 3), batch_2d (B, chunk + 2*pad, J*F))``.
+    streams: ``(cam (B, 9) | None, batch_3d (B, chunk, J3, 3) | None,
+    batch_2d (B, chunk + 2*pad, J*F))``.
 
     The 2D window of a descriptor starts at row
     ``base_2d[seq] + start - pad - causal_shift + flip * aug_offset_2d`` and
-    spans ``chunk_length + 2*pad`` rows; the 3D target window starts at
-    ``base_3d[seq] + start + flip * aug_offset_3d`` and spans ``chunk_length``.
-    A flip needs the baked flipped copies (``flip_perms=``).
+    spans ``chunk_length + 2*pad`` rows; the 3D target window (``with_3d``)
+    starts at ``base_3d[seq] + start + flip * aug_offset_3d`` and spans
+    ``chunk_length``.  A flip needs the baked flipped copies (``flip_perms=``),
+    which cover the keypoints and the targets; ``with_cameras`` returns each
+    row's intrinsics with entries 2 (centre x) and 7 (tangential x) negated on
+    the flipped rows.  ``joint_axis_2d`` returns the 2D windows as
+    ``(B, chunk + 2*pad, J, F)``, the same values.
 
     ``gather_impl`` copies the 2D windows: "pallas" through the window-gather
     kernel (``ops/kernels/gather_rows.py``; its plain version on a CPU tensor),
@@ -205,9 +264,19 @@ def assemble_chunked_batch_contiguous(dev: DeviceArrays, meta, *, pad: int,
         batch_2d = gather_windows_plain(flat, row0_2d, window=win_2d)
     else:
         raise ValueError(f"unknown gather_impl {gather_impl!r}")
-    row0_3d = dev.base_3d.long()[seq] + start + flip * dev.aug_offset_3d
-    idx = row0_3d[:, None] + torch.arange(chunk_length, device=row0_3d.device)
-    return dev.flat_3d_padded[idx], batch_2d
+    if joint_axis_2d:
+        batch_2d = batch_2d.reshape(batch_2d.shape[:2] + tuple(dev.kps_shape))
+    batch_3d = cam = None
+    if with_3d:
+        row0_3d = dev.base_3d.long()[seq] + start + flip * dev.aug_offset_3d
+        idx = row0_3d[:, None] + torch.arange(chunk_length, device=row0_3d.device)
+        batch_3d = dev.flat_3d_padded[idx]
+    if with_cameras:
+        cam = dev.cameras[seq]
+        flipped = cam.clone()
+        flipped[:, 2], flipped[:, 7] = -cam[:, 2], -cam[:, 7]
+        cam = torch.where(flip[:, None] != 0, flipped, cam)
+    return cam, batch_3d, batch_2d
 
 
 class UnchunkedBatcher:

@@ -195,3 +195,6 @@ class Human36mDataset(MocapDataset):
             self.remove_joints(H36M_STATIC_JOINTS)
             self._skeleton.reparent(11, 8)
             self._skeleton.reparent(14, 8)
+
+    def supports_semi_supervised(self) -> bool:
+        return True

@@ -43,6 +43,11 @@ class MocapDataset:
     def skeleton(self) -> Skeleton:
         return self._skeleton
 
+    def supports_semi_supervised(self) -> bool:
+        """Whether the dataset has the camera intrinsics the semi-supervised
+        reconstruction loss projects with; subclasses opt in."""
+        return False
+
     # -- mutation ----------------------------------------------------------
 
     def remove_joints(self, joints_to_remove) -> None:

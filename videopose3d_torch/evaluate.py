@@ -131,42 +131,81 @@ class Evaluator:
 
 class DeviceEvalSet:
     """Per-epoch evaluation set resident on the device (the JAX package's
-    ``DeviceEvalSet``, supervised losses).
+    ``DeviceEvalSet``).
 
     Every video's padded 2D input and its zero-padded, root-zeroed 3D target are
-    uploaded once; each epoch runs inference and the masked MPJPE per video on the
-    device, accumulates the frame-weighted sum there, and brings only that scalar
-    to the host.  No test-time augmentation.
+    uploaded once; with ``with_traj`` also its trajectory target (the root, before
+    root-zeroing) and its camera's intrinsics, for the semi-supervised losses.
+    Each epoch runs inference and the masked losses per video on the device,
+    accumulates the frame-weighted sums there, and brings only those to the host.
+    No test-time augmentation.
     """
 
-    def __init__(self, batcher, *, pad: int, device):
+    def __init__(self, batcher, *, pad: int, device, with_traj: bool = False):
         self.device = torch.device(device)
+        self.pad = pad
         self._videos = []
         self.n_frames = 0
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             self.device)
-        for _, batch_3d, batch_2d, n in batcher.next_epoch():
+        for cam, batch_3d, batch_2d, n in batcher.next_epoch():
             t_out = batch_2d.shape[1] - 2 * pad
-            target = np.zeros((1, t_out) + batch_3d.shape[2:], np.float32)
-            target[0, :n] = batch_3d[0]
-            target[:, :, 0] = 0.0
-            self._videos.append((put(batch_2d[:1]), put(target), n))
+            video = {"batch_2d": put(batch_2d[:1]), "n": n}
+            if batch_3d is not None:
+                target = np.zeros((1, t_out) + batch_3d.shape[2:], np.float32)
+                target[0, :n] = batch_3d[0]
+                if with_traj:
+                    video["traj_target"] = put(target[:, :, :1])
+                target[:, :, 0] = 0.0
+                video["target"] = put(target)
+            if with_traj and cam is not None:
+                video["cam"] = put(np.asarray(cam)[:1])
+            self._videos.append(video)
             self.n_frames += n
 
+    @staticmethod
+    def _masked_mpjpe(pred, target, n: int):
+        """MPJPE over the first ``n`` frames of (1, T, J, D) poses."""
+        dist = torch.linalg.vector_norm(pred - target, dim=-1)  # (1, T, J)
+        valid = (torch.arange(dist.shape[1], device=dist.device) < n)[None, :, None]
+        return torch.where(valid, dist, 0.0).sum() / max(n * dist.shape[2], 1)
+
     @torch.no_grad()
+    def losses(self, evaluator: Evaluator, model: TemporalModel,
+               traj_evaluator: Optional[Evaluator] = None,
+               traj_model: Optional[TemporalModel] = None):
+        """One epoch of frame-weighted losses: ``(loss_3d, loss_traj, loss_2d,
+        n_frames)``, the MPJPE of the poses, of the trajectory and of the 2D
+        reconstruction ``project_to_2d(pose + trajectory)`` against the input
+        keypoints (the last two with a trajectory model, each where its target
+        is there); zeros for an empty set."""
+        from videopose3d_torch.ops.camera import project_to_2d
+        if not self._videos:
+            return 0.0, 0.0, 0.0, 0
+        total = torch.zeros(3, dtype=torch.float32, device=self.device)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        for video in self._videos:
+            batch_2d, n = video["batch_2d"], video["n"]
+            pred = evaluator.infer(model, batch_2d)
+            l3d = (self._masked_mpjpe(pred, video["target"], n) if "target" in video
+                   else zero)
+            ltraj = lrecon = zero
+            if traj_model is not None and ("traj_target" in video or "cam" in video):
+                pred_traj = traj_evaluator.infer(traj_model, batch_2d)
+                if "traj_target" in video:
+                    ltraj = self._masked_mpjpe(pred_traj, video["traj_target"], n)
+                if "cam" in video:
+                    t_out = pred.shape[1]
+                    target_2d = batch_2d[:, self.pad:self.pad + t_out, :, :2]
+                    recon = project_to_2d(pred + pred_traj, video["cam"])
+                    lrecon = self._masked_mpjpe(recon, target_2d, n)
+            total = total + n * torch.stack([l3d, ltraj, lrecon])
+        total = total.double().cpu().numpy() / self.n_frames
+        return float(total[0]), float(total[1]), float(total[2]), self.n_frames
+
     def loss(self, evaluator: Evaluator, model: TemporalModel) -> float:
         """Frame-weighted MPJPE over the set (metres), 0.0 for an empty set."""
-        if not self._videos:
-            return 0.0
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for batch_2d, target, n in self._videos:
-            pred = evaluator.infer(model, batch_2d)
-            dist = torch.linalg.vector_norm(pred - target, dim=-1)  # (1, T, J)
-            valid = (torch.arange(dist.shape[1], device=self.device) < n)[None, :, None]
-            frame_mean = (torch.where(valid, dist, 0.0).sum()
-                          / max(n * dist.shape[2], 1))
-            total = total + n * frame_mean
-        return float(total) / self.n_frames
+        return self.losses(evaluator, model)[0]
 
 
 def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,

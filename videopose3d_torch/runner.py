@@ -1,9 +1,9 @@
 """End-to-end entry point of the port: data preparation -> model -> supervised
 training with per-epoch evaluation and checkpoints -> action-wise evaluation.
 
-Counterpart of ``videopose3d_tpu/runner.py`` for supervised training and
-``--evaluate`` (with ``--by-subject``): the same printed lines, schedules,
-checkpoint payload and protocol reports.  Semi-supervised training (``-sun``),
+Counterpart of ``videopose3d_tpu/runner.py`` for supervised and
+semi-supervised (``-sun``) training and ``--evaluate`` (with ``--by-subject``):
+the same printed lines, schedules, checkpoint payload and protocol reports.
 ``--render`` and ``--export-training-curves`` are not ported yet and raise.
 """
 
@@ -25,9 +25,9 @@ from videopose3d_torch.evaluate import (DeviceEvalSet, Evaluator, evaluate_actio
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 receptive_field)
 from videopose3d_torch.ops.camera import normalize_screen_coordinates, world_to_camera
-from videopose3d_torch.train import (SupervisedTrainer, TrainLoopConfig,
-                                     bn_momentum_for_epoch, make_optimizer,
-                                     set_learning_rate)
+from videopose3d_torch.train import (SemiSupervisedTrainer, SupervisedTrainer,
+                                     TrainLoopConfig, bn_momentum_for_epoch,
+                                     make_optimizer, set_learning_rate)
 from videopose3d_torch.utils import deterministic_random
 
 _NOT_PORTED = ("is not ported to videopose3d_torch yet (see ROADMAP.md, Queue 1); "
@@ -159,10 +159,12 @@ def _subsample_sequences(seqs_2d, seqs_3d, step: int, subset: float):
             seqs_3d[:] = [s[::step] for s in seqs_3d]
 
 
-def fetch(args, dataset, keypoints, subjects, action_filter=None, subset=1):
+def fetch(args, dataset, keypoints, subjects, action_filter=None, subset=1,
+          parse_3d_poses=True):
     """Per-(subject, action, camera) sequences: (intrinsics | None,
     poses_3d | None, poses_2d), one list entry per camera view, downsampled by
-    ``--downsample`` and cut to ``subset``."""
+    ``--downsample`` and cut to ``subset``; no 3D poses without
+    ``parse_3d_poses`` (the unlabeled split)."""
     seqs_2d, seqs_3d, intrinsics = [], [], []
     for subject in subjects:
         for action, kp_cams in keypoints[subject].items():
@@ -177,7 +179,7 @@ def fetch(args, dataset, keypoints, subjects, action_filter=None, subset=1):
                                      "mismatch vs detections")
                 intrinsics.extend(c["intrinsic"] for c in subject_cams
                                   if "intrinsic" in c)
-            if "positions_3d" in dataset[subject][action]:
+            if parse_3d_poses and "positions_3d" in dataset[subject][action]:
                 gt_cams = dataset[subject][action]["positions_3d"]
                 if len(gt_cams) != len(kp_cams):
                     raise ValueError(f"{subject}/{action}: camera count "
@@ -219,8 +221,6 @@ def load_model(model: TemporalModel, model_pos) -> None:
 def main(argv=None):
     args = parse_args(argv)
     print(args)
-    if args.subjects_unlabeled:
-        raise NotImplementedError(f"semi-supervised training (-sun) {_NOT_PORTED}")
     if args.render:
         raise NotImplementedError(f"--render {_NOT_PORTED}")
     if args.export_training_curves:
@@ -238,7 +238,10 @@ def main(argv=None):
     joints_right = list(dataset.skeleton().joints_right())
 
     subjects_train = args.subjects_train.split(",")
+    subjects_semi = args.subjects_unlabeled.split(",") if args.subjects_unlabeled else []
     subjects_test = args.subjects_test.split(",")
+    if subjects_semi and not dataset.supports_semi_supervised():
+        raise RuntimeError("Semi-supervised training is not implemented for this dataset")
     action_filter = None if args.actions == "*" else args.actions.split(",")
     if action_filter is not None:
         print("Selected actions:", action_filter)
@@ -256,6 +259,12 @@ def main(argv=None):
         filter_widths=filter_widths, causal=args.causal, dropout=args.dropout,
         channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype,
         train_engine=args.train_engine)
+    # The trajectory model: one output joint, and the plain train blocks (the JAX
+    # package gives it no train engine).
+    traj_cfg = TemporalModelConfig(
+        num_joints_in=num_kps, in_features=poses_valid_2d[0].shape[-1], num_joints_out=1,
+        filter_widths=filter_widths, causal=args.causal, dropout=args.dropout,
+        channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype)
 
     rf = receptive_field(model_cfg)
     print(f"INFO: Receptive field: {rf} frames")
@@ -294,9 +303,12 @@ def main(argv=None):
                           device=device)
 
     if not args.evaluate:
-        _train(args, dataset, keypoints, subjects_train, action_filter, model,
-               use_strided, kps_perm, joints_perm, pad, causal_shift, evaluator,
-               test_batcher, checkpoint, device)
+        traj_model = None
+        if subjects_semi:
+            traj_model = TemporalModel(traj_cfg).to(device)
+        _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filter,
+               model, traj_model, use_strided, kps_perm, joints_perm, pad, causal_shift,
+               evaluator, test_batcher, checkpoint, device)
 
     model.eval()
     print("Evaluating...")
@@ -309,12 +321,14 @@ def main(argv=None):
           f"({n_frames / seconds:.1f} frames/s, engine {engine}, device {device})")
 
 
-def _train(args, dataset, keypoints, subjects_train, action_filter, model,
-           use_strided, kps_perm, joints_perm, pad, causal_shift, evaluator,
-           test_batcher, checkpoint, device):
-    """The supervised training loop: epochs of train steps, the per-epoch
-    evaluation and epoch line, the lr and BatchNorm-momentum schedules, and
-    checkpoints every ``--checkpoint-frequency`` epochs."""
+def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filter,
+           model, traj_model, use_strided, kps_perm, joints_perm, pad, causal_shift,
+           evaluator, test_batcher, checkpoint, device):
+    """The training loop: epochs of train steps (semi-supervised with a
+    trajectory model), the per-epoch evaluation and epoch line, the lr and
+    BatchNorm-momentum schedules, and checkpoints every
+    ``--checkpoint-frequency`` epochs."""
+    semi = traj_model is not None
     cameras_train, poses_train, poses_train_2d = fetch(
         args, dataset, keypoints, subjects_train, action_filter, subset=args.subset)
 
@@ -322,13 +336,13 @@ def _train(args, dataset, keypoints, subjects_train, action_filter, model,
     loop_cfg = TrainLoopConfig(
         batch_size=args.batch_size // args.stride, chunk_length=args.stride, pad=pad,
         causal_shift=causal_shift, learning_rate=lr, lr_decay=args.lr_decay,
-        epochs=args.epochs, use_strided=use_strided, gather_impl=args.gather_impl)
+        epochs=args.epochs, use_strided=use_strided, warmup=args.warmup,
+        bone_length_term=args.bone_length_term, no_proj=args.no_proj,
+        linear_projection=args.linear_projection, gather_impl=args.gather_impl)
     flip_perms = (kps_perm, joints_perm) if args.data_augmentation else None
-    dev = FlatSequenceDataset(
-        poses_train_2d, poses_train,
-        margins=FlatSequenceDataset.training_margins(pad, causal_shift,
-                                                     loop_cfg.chunk_length),
-        flip_perms=flip_perms).to_device(device)
+    margins = FlatSequenceDataset.training_margins(pad, causal_shift, loop_cfg.chunk_length)
+    dev = FlatSequenceDataset(poses_train_2d, poses_train, cameras_train, margins=margins,
+                              flip_perms=flip_perms).to_device(device)
     sampler = ChunkedPairSampler(
         [p.shape[0] for p in poses_train_2d], loop_cfg.batch_size,
         loop_cfg.chunk_length, augment=args.data_augmentation)
@@ -336,8 +350,25 @@ def _train(args, dataset, keypoints, subjects_train, action_filter, model,
                                        cameras_train, poses_train, poses_train_2d)
     print("INFO: Training on {} frames".format(train_eval_batcher.num_frames()))
 
-    optimizer = make_optimizer(model, lr)
-    trainer = SupervisedTrainer(model, loop_cfg, optimizer)
+    if semi:
+        cameras_semi, _, poses_semi_2d = fetch(args, dataset, keypoints, subjects_semi,
+                                               action_filter, parse_3d_poses=False)
+        dev_semi = FlatSequenceDataset(poses_semi_2d, None, cameras_semi, margins=margins,
+                                       flip_perms=flip_perms).to_device(device)
+        sampler_semi = ChunkedPairSampler(
+            [p.shape[0] for p in poses_semi_2d], loop_cfg.batch_size,
+            loop_cfg.chunk_length, random_seed=4321, augment=args.data_augmentation,
+            endless=True)
+        semi_eval_batcher = _eval_batcher(args, pad, causal_shift, kps_perm, joints_perm,
+                                          cameras_semi, None, poses_semi_2d)
+        print("INFO: Semi-supervision on {} frames".format(
+            semi_eval_batcher.num_frames()))
+        optimizer = make_optimizer([model, traj_model], lr)
+        trainer = SemiSupervisedTrainer(model, traj_model, loop_cfg, optimizer,
+                                        dataset.skeleton().parents())
+    else:
+        optimizer = make_optimizer(model, lr)
+        trainer = SupervisedTrainer(model, loop_cfg, optimizer)
     # Dropout masks: one generator on the model's device, seeded from --seed.
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -353,6 +384,14 @@ def _train(args, dataset, keypoints, subjects_train, action_filter, model,
         else:
             print("WARNING: this checkpoint does not contain an optimizer state. "
                   "The optimizer will be reinitialized.")
+        if semi:
+            load_model(traj_model, checkpoint["model_traj"])
+            if checkpoint.get("random_state_semi") is not None:
+                sampler_semi.set_random_state(checkpoint["random_state_semi"])
+            if checkpoint.get("stream_rng_semi") is not None:
+                # The unlabeled stream goes on inside its permutation.
+                sampler_semi.set_stream_state((int(checkpoint["stream_idx_semi"]),
+                                               checkpoint["stream_rng_semi"]))
         step_rng = checkpoint.get("step_rng")
         if isinstance(step_rng, torch.Tensor) and step_rng.dtype == torch.uint8:
             generator.set_state(step_rng)
@@ -365,19 +404,35 @@ def _train(args, dataset, keypoints, subjects_train, action_filter, model,
 
     eval_sets = None
     if not args.no_eval:
-        eval_sets = {"test": DeviceEvalSet(test_batcher, pad=pad, device=device),
-                     "train": DeviceEvalSet(train_eval_batcher, pad=pad, device=device)}
-    losses_3d_train, losses_3d_train_eval, losses_3d_valid = [], [], []
+        eval_sets = {name: DeviceEvalSet(b, pad=pad, device=device, with_traj=semi)
+                     for name, b in (("test", test_batcher), ("train", train_eval_batcher))}
+        if semi:
+            eval_sets["semi"] = DeviceEvalSet(semi_eval_batcher, pad=pad, device=device,
+                                              with_traj=True)
+        # Trajectory inference stays on the plain float32 engine.
+        traj_evaluator = (Evaluator(traj_model.config, engine="xla", device=device)
+                          if semi else None)
+    semi_iter = sampler_semi.next_epoch() if semi else None
+    losses_3d_train = []
     train_seconds, train_steps, train_frames = 0.0, 0, 0
 
     while epoch < args.epochs:
         start_time = time.time()
         momentum = bn_momentum_for_epoch(loop_cfg, epoch - 1)
+        skip = epoch < loop_cfg.warmup
         losses, n_valids = [], []
         step_start = time.perf_counter()
         with full_float32():
             for meta, n_valid in sampler.next_epoch():
-                losses.append(trainer.step(dev, meta, n_valid, momentum, generator))
+                if semi:
+                    # One unlabeled batch per step, in warmup too: the stream
+                    # advances as the JAX CLI's does.
+                    meta_semi, n_valid_semi = next(semi_iter)
+                    losses.append(trainer.step(dev, dev_semi, meta, n_valid, meta_semi,
+                                               n_valid_semi, momentum, skip,
+                                               generator)[0])
+                else:
+                    losses.append(trainer.step(dev, meta, n_valid, momentum, generator))
                 n_valids.append(n_valid)
         vals = torch.stack(losses).double().cpu().numpy()  # waits for the steps
         train_seconds += time.perf_counter() - step_start
@@ -387,17 +442,28 @@ def _train(args, dataset, keypoints, subjects_train, action_filter, model,
         losses_3d_train.append(float(np.sum(vals * weights) / np.sum(weights)))
 
         if not args.no_eval:
-            losses_3d_valid.append(eval_sets["test"].loss(evaluator, model))
-            losses_3d_train_eval.append(eval_sets["train"].loss(evaluator, model))
+            if semi:
+                te, tr, se = (eval_sets[k].losses(evaluator, model, traj_evaluator,
+                                                  traj_model)
+                              for k in ("test", "train", "semi"))
+            else:
+                te, tr = ((eval_sets[k].loss(evaluator, model),) for k in ("test", "train"))
 
         elapsed = (time.time() - start_time) / 60
         if args.no_eval:
             print("[%d] time %.2f lr %f 3d_train %f" % (
                 epoch + 1, elapsed, lr, losses_3d_train[-1] * 1000))
+        elif semi:
+            print("[%d] time %.2f lr %f 3d_train %f 3d_eval %f traj_eval %f "
+                  "3d_valid %f traj_valid %f 2d_train_sup %f 2d_train_unsup %f "
+                  "2d_valid %f" % (
+                      epoch + 1, elapsed, lr, losses_3d_train[-1] * 1000,
+                      tr[0] * 1000, tr[1] * 1000, te[0] * 1000, te[1] * 1000, tr[2],
+                      se[2], te[2]))
         else:
             print("[%d] time %.2f lr %f 3d_train %f 3d_eval %f 3d_valid %f" % (
                 epoch + 1, elapsed, lr, losses_3d_train[-1] * 1000,
-                losses_3d_train_eval[-1] * 1000, losses_3d_valid[-1] * 1000))
+                tr[0] * 1000, te[0] * 1000))
 
         lr *= args.lr_decay
         set_learning_rate(optimizer, lr)
@@ -406,13 +472,19 @@ def _train(args, dataset, keypoints, subjects_train, action_filter, model,
         if epoch % args.checkpoint_frequency == 0:
             chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.bin")
             print("Saving checkpoint to", chk_path)
+            stream_semi = sampler_semi.stream_state() if semi else None
             save_checkpoint(chk_path, {
                 "epoch": epoch,
                 "lr": lr,
                 "random_state": sampler.random_state(),
                 "optimizer": optimizer.state_dict(),
                 "model_pos": model_state_dict(model),
-                "model_traj": None,
+                "model_traj": model_state_dict(traj_model) if semi else None,
+                "random_state_semi": sampler_semi.random_state() if semi else None,
+                # The unlabeled stream's place inside its permutation, so that a
+                # resume goes on with the same batches.
+                "stream_idx_semi": None if stream_semi is None else stream_semi[0],
+                "stream_rng_semi": None if stream_semi is None else stream_semi[1],
                 # The dropout generator's state: a resume replays the masks.
                 "step_rng": generator.get_state(),
             })

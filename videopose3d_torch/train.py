@@ -1,12 +1,12 @@
-"""Supervised training: the strided train step over the device-resident dataset.
+"""Training: the strided train steps over the device-resident dataset.
 
-Counterpart of the supervised half of ``videopose3d_tpu/train.py``
-(``TrainLoopConfig``, ``bn_momentum_for_epoch``, ``SupervisedTrainer``): batch
-assembly from ``(B, 4)`` chunk descriptors on the device, root-centring, the
-strided forward with train-mode BatchNorm and dropout, the masked MPJPE loss,
-its backward and an AMSGrad step (``torch.optim.Adam(amsgrad=True)``, which
+Counterpart of ``videopose3d_tpu/train.py`` (``TrainLoopConfig``,
+``bn_momentum_for_epoch``, ``SupervisedTrainer``, ``SemiSupervisedTrainer``):
+batch assembly from ``(B, 4)`` chunk descriptors on the device, root-centring,
+the strided forward with train-mode BatchNorm and dropout, the masked losses,
+their backward and an AMSGrad step (``torch.optim.Adam(amsgrad=True)``, which
 the JAX package's ``scale_by_torch_amsgrad`` reproduces).  Per step only the
-descriptors and the valid-row count go to the device.
+descriptors and the valid-row counts go to the device.
 
 The final partial batch of an epoch is padded with copies of its first row: the
 loss masks them out, while the BatchNorm batch statistics include them, as in
@@ -16,6 +16,8 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+from typing import Sequence, Union
 
 import numpy as np
 import torch
@@ -23,11 +25,12 @@ import torch
 from videopose3d_torch.data.generators import (FlatSequenceDataset,
                                                assemble_chunked_batch_contiguous)
 from videopose3d_torch.models.temporal import TemporalModel, forward_strided
+from videopose3d_torch.ops.camera import project_to_2d, project_to_2d_linear
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainLoopConfig:
-    """Schedule hyperparameters (the JAX package's, supervised part)."""
+    """Schedule and loss-composition hyperparameters (the JAX package's)."""
 
     batch_size: int              # chunks per step (= --batch-size // --stride)
     chunk_length: int            # --stride
@@ -39,6 +42,13 @@ class TrainLoopConfig:
     initial_momentum: float = 0.1
     final_momentum: float = 0.001
     use_strided: bool = True
+    # Semi-supervised terms: epochs of labeled-only warmup, the bone-length term,
+    # the reconstruction term left out of the total (--no-proj), and the pinhole
+    # projection in place of the distorting one (--linear-projection).
+    warmup: int = 1
+    bone_length_term: bool = True
+    no_proj: bool = False
+    linear_projection: bool = False
     # 2D-window copy: "auto" (the kernel on a CUDA stream, the plain version on
     # a CPU one), "pallas" (the kernel), "xla" (plain indexing).
     gather_impl: str = "auto"
@@ -59,9 +69,15 @@ def bn_momentum_for_epoch(cfg: TrainLoopConfig, epoch: int) -> float:
         -(epoch + 1) / cfg.epochs * np.log(cfg.initial_momentum / cfg.final_momentum)))
 
 
-def make_optimizer(model: TemporalModel, learning_rate: float) -> torch.optim.Adam:
-    """Adam with AMSGrad, the reference's optimizer; the lr is set per epoch."""
-    return torch.optim.Adam(model.parameters(), lr=learning_rate, amsgrad=True)
+def make_optimizer(models: Union[TemporalModel, Sequence[TemporalModel]],
+                   learning_rate: float) -> torch.optim.Adam:
+    """Adam with AMSGrad over the parameters of one model or of several (the
+    semi-supervised pose and trajectory models share one), the reference's
+    optimizer; the lr is set per epoch."""
+    if isinstance(models, torch.nn.Module):
+        models = [models]
+    return torch.optim.Adam(itertools.chain.from_iterable(m.parameters() for m in models),
+                            lr=learning_rate, amsgrad=True)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -94,6 +110,18 @@ def _check_margins(dev, loop: TrainLoopConfig) -> None:
             "FlatSequenceDataset.training_margins(...) for this model")
 
 
+def _strided_only(loop: TrainLoopConfig) -> None:
+    if not loop.use_strided:
+        raise NotImplementedError(
+            "training the dilated form (--stride > 1, --dense or "
+            "--disable-optimizations) is not ported to videopose3d_torch yet "
+            "(see ROADMAP.md, Queue 1)")
+
+
+def _descriptors(meta, device):
+    return torch.from_numpy(np.ascontiguousarray(meta, np.int32)).to(device)
+
+
 class SupervisedTrainer:
     """The supervised train step of one model and optimizer.
 
@@ -103,11 +131,7 @@ class SupervisedTrainer:
 
     def __init__(self, model: TemporalModel, loop_cfg: TrainLoopConfig,
                  optimizer: torch.optim.Optimizer):
-        if not loop_cfg.use_strided:
-            raise NotImplementedError(
-                "training the dilated form (--stride > 1, --dense or "
-                "--disable-optimizations) is not ported to videopose3d_torch yet "
-                "(see ROADMAP.md, Queue 1)")
+        _strided_only(loop_cfg)
         self.model = model
         self.loop_cfg = loop_cfg
         self.optimizer = optimizer
@@ -118,8 +142,8 @@ class SupervisedTrainer:
         loop = self.loop_cfg
         _check_margins(dev, loop)
         device = dev.base_2d.device
-        meta = torch.from_numpy(np.ascontiguousarray(meta, np.int32)).to(device)
-        batch_3d, batch_2d = assemble_chunked_batch_contiguous(
+        meta = _descriptors(meta, device)
+        _, batch_3d, batch_2d = assemble_chunked_batch_contiguous(
             dev, meta, pad=loop.pad, causal_shift=loop.causal_shift,
             chunk_length=loop.chunk_length, gather_impl=loop.gather_impl)
         batch_3d = batch_3d.clone()
@@ -133,3 +157,100 @@ class SupervisedTrainer:
         loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+
+class SemiSupervisedTrainer:
+    """The semi-supervised train step of a pose model and a trajectory model
+    under one optimizer (the JAX package's ``SemiSupervisedTrainer``, the
+    reference's ``run.py:319-398``):
+
+    * the masked MPJPE of the poses on the labeled rows;
+    * the trajectory MPJPE on the labeled rows, weighted by the inverse depth
+      of the root, which is taken before root-centring;
+    * after warmup (``skip`` false), the unlabeled batch (with its cameras) is
+      concatenated to the labeled one, and two terms join: the masked MPJPE of
+      the projected ``pose + trajectory`` against the unlabeled keypoints (left
+      out of the total under ``no_proj``), and the mean absolute difference of
+      the labeled and unlabeled halves' mean bone lengths.
+
+    BatchNorm statistics run over the whole concatenated batch, filler rows
+    included; dropout masks come from one generator, the pose model's first.
+    ``step`` returns ``(loss_pos, loss_traj, loss_recon, loss_total)`` as 0-d
+    tensors on the device, not yet synchronised.
+    """
+
+    def __init__(self, pos_model: TemporalModel, traj_model: TemporalModel,
+                 loop_cfg: TrainLoopConfig, optimizer: torch.optim.Optimizer,
+                 skeleton_parents):
+        _strided_only(loop_cfg)
+        self.pos_model = pos_model
+        self.traj_model = traj_model
+        self.loop_cfg = loop_cfg
+        self.optimizer = optimizer
+        self._parents = torch.as_tensor(np.asarray(skeleton_parents, np.int64)[1:])
+
+    def step(self, dev, dev_semi, meta, n_valid: int, meta_semi, n_valid_semi: int,
+             momentum: float, skip: bool, generator=None):
+        """One step on the labeled descriptors ``meta`` (B, 4) and, unless
+        ``skip`` (warmup), the unlabeled ``meta_semi``; dropout masks come from
+        ``generator`` (None: no dropout)."""
+        loop = self.loop_cfg
+        _check_margins(dev, loop)
+        _check_margins(dev_semi, loop)
+        device = dev.base_2d.device
+
+        def assemble(d, m, **kw):
+            return assemble_chunked_batch_contiguous(
+                d, _descriptors(m, device), pad=loop.pad, causal_shift=loop.causal_shift,
+                chunk_length=loop.chunk_length, gather_impl=loop.gather_impl,
+                joint_axis_2d=True, **kw)
+
+        def valid(rows, n):
+            return (torch.arange(rows, device=device) < n).float()
+
+        _, batch_3d, batch_2d = assemble(dev, meta)
+        inputs_traj = batch_3d[:, :, :1]  # the root, before root-centring
+        target_3d = batch_3d.clone()
+        target_3d[:, :, 0] = 0.0
+        b_l = batch_3d.shape[0]
+        mask_l = valid(b_l, n_valid)
+        inputs_2d = batch_2d
+        if not skip:
+            cam_semi, _, batch_2d_semi = assemble(dev_semi, meta_semi, with_3d=False,
+                                                  with_cameras=True)
+            inputs_2d = torch.cat([batch_2d, batch_2d_semi])
+            mask_u = valid(batch_2d_semi.shape[0], n_valid_semi)
+
+        self.optimizer.zero_grad(set_to_none=True)
+        pred_pos = forward_strided(self.pos_model, inputs_2d, momentum=momentum,
+                                   generator=generator)
+        pred_traj = forward_strided(self.traj_model, inputs_2d, momentum=momentum,
+                                    generator=generator)
+        loss_pos = _masked_sample_mean(_mpjpe_per_sample(pred_pos[:b_l], target_3d), mask_l)
+        w = torch.reciprocal(inputs_traj[..., 2])  # (B, T, 1)
+        dist_traj = torch.linalg.vector_norm(pred_traj[:b_l] - inputs_traj, dim=-1)
+        loss_traj = _masked_sample_mean((w * dist_traj).mean(dim=(1, 2)), mask_l)
+        total = loss_pos + loss_traj
+        loss_recon = torch.zeros((), device=device)
+        if not skip:
+            t = batch_2d_semi.shape[1]
+            target_semi = batch_2d_semi[:, loop.pad:t - loop.pad, :, :2]
+            project = project_to_2d_linear if loop.linear_projection else project_to_2d
+            reconstruction = project(pred_pos[b_l:] + pred_traj[b_l:], cam_semi)
+            loss_recon = _masked_sample_mean(
+                _mpjpe_per_sample(reconstruction, target_semi), mask_u)
+            if not loop.no_proj:
+                total = total + loss_recon
+            if loop.bone_length_term:
+                if self._parents.device != device:
+                    self._parents = self._parents.to(device)
+                dists = pred_pos[:, :, 1:] - pred_pos[:, :, self._parents]
+                bones = torch.linalg.vector_norm(dists, dim=-1).mean(dim=1)  # (B, J-1)
+                mean_l = ((bones[:b_l] * mask_l[:, None]).sum(0)
+                          / torch.clamp(mask_l.sum(), min=1.0))
+                mean_u = ((bones[b_l:] * mask_u[:, None]).sum(0)
+                          / torch.clamp(mask_u.sum(), min=1.0))
+                total = total + torch.mean(torch.abs(mean_l - mean_u))
+        total.backward()
+        self.optimizer.step()
+        return loss_pos.detach(), loss_traj.detach(), loss_recon.detach(), total.detach()
