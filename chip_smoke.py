@@ -75,6 +75,20 @@ epoch_1.bin prints the uninterrupted run's epoch 2; (b) runs once more under
 torch.profiler (device time per full step by part: K1, the pose model's K2
 wrappers and plain parts, the trajectory model, the optimizer, the projection
 and losses; the busy share).
+Phase 8 (data parallelism): 8a runs phase 4's pallas command line under
+``python -m torch.distributed.run --standalone --nproc_per_node 1`` (the rank
+calls ``runner.main``, as ``python -m videopose3d_torch.run`` does, on NCCL at
+world size 1) and checks that its epoch line, step losses and saved weights are
+bitwise phase 4's and its K1/K2 launches phase 4's, then profiles one more such
+epoch (the gradient all-reduce, the 18 BatchNorm-sum all-reduces and the
+dropout-mask draws per step); 8b spawns two ranks that share the card over gloo
+and drive the trainers at the global batch of 1,024, 512 rows each: the
+supervised and semi-supervised step-0 loss and every all-reduced gradient
+against one process from the same state, the ranks' parameters and running
+statistics bitwise equal after their steps, a DeviceEvalSet sharded over the
+ranks against an unsharded one, K1 and K2 launched on each rank, ms per step
+(two ranks on one card: not a scale-out number) and the dropout-mask draw at
+the global and at a rank's shape.  Each rank runs under a timeout.
 
 Each kernel's line in the final summary carries its time, its plain version's,
 its bound (the larger of the bytes it must move over the card's memory rate and
@@ -91,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -676,7 +691,7 @@ def phase2(model, tmp):
 
 # Ranges that the profiler shows on the device timeline beside the kernels: the
 # wrappers' and parts' own (record_function) and torch's "Optimizer.step#...".
-RANGE_PREFIXES = ("K1 ", "K2 ", "semi ", "Optimizer.")
+RANGE_PREFIXES = ("K1 ", "K2 ", "semi ", "DP ", "Optimizer.")
 
 
 def is_range(event):
@@ -1213,7 +1228,8 @@ _TRAINED = re.compile(r"^INFO: trained (\d+) steps in (\S+) s \((\S+) frames/s")
 
 def train_cli(argv, profiled=None):
     """runner.main training in-process; returns (per-step losses, epoch line
-    numbers, (steps, seconds, frames/s), final protocol numbers, launches).
+    numbers, (steps, seconds, frames/s, ms per step over the warm steps
+    PROFILE_STEPS), captured output, launches).
     ``profiled``: a dict that receives a torch.profiler trace of steps
     PROFILE_STEPS and their wall time; each K2 wrapper call then runs inside a
     ``K2 <key>`` profiler range, so that the trace splits the device time of
@@ -1222,23 +1238,26 @@ def train_cli(argv, profiled=None):
     from videopose3d_torch import runner, train
     from videopose3d_torch.ops.kernels import gather_rows as gr
     from videopose3d_torch.ops.kernels import train_block as trb
-    losses = []
+    losses, window = [], {}
     step = train.SupervisedTrainer.step
 
     def recording_step(self, *args, **kwargs):
         first, stop = PROFILE_STEPS
-        if profiled is not None and len(losses) == first:
+        if len(losses) == first:
             torch.cuda.synchronize()
-            profiled["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                   ProfilerActivity.CUDA])
-            profiled["prof"].start()
-            profiled["start"] = time.perf_counter()
+            if profiled is not None:
+                profiled["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA])
+                profiled["prof"].start()
+            window["start"] = time.perf_counter()
         loss = step(self, *args, **kwargs)
         losses.append(loss)
-        if profiled is not None and len(losses) == stop:
+        if len(losses) == stop:
             torch.cuda.synchronize()
-            profiled["wall"] = time.perf_counter() - profiled["start"]
-            profiled["prof"].stop()
+            window["wall"] = time.perf_counter() - window["start"]
+            if profiled is not None:
+                profiled["wall"] = window["wall"]
+                profiled["prof"].stop()
         return loss
 
     def annotated(key, fn):
@@ -1268,37 +1287,47 @@ def train_cli(argv, profiled=None):
     trained = [m for m in map(_TRAINED.match, out.splitlines()) if m]
     check(len(epoch) == 1 and len(trained) == 1, f"no epoch or trained line:\n{out}")
     numbers = [float(v) for v in epoch[0].groups()]
-    rate = (int(trained[0].group(1)), float(trained[0].group(2)), float(trained[0].group(3)))
+    check("wall" in window, f"fewer than {PROFILE_STEPS[1]} steps:\n{out}")
+    rate = (int(trained[0].group(1)), float(trained[0].group(2)), float(trained[0].group(3)),
+            window["wall"] * 1e3 / (PROFILE_STEPS[1] - PROFILE_STEPS[0]))
     check(all(math.isfinite(v) for v in numbers), f"non-finite epoch losses: {numbers}")
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite step losses: {losses}")
     return losses, numbers, rate, out, launches
 
 
+def train_argv(tmp, name, engine):
+    """Phase 4's training command line (one full-width epoch of batch 1,024 from
+    the random checkpoint, dropout 0.25) in a fresh checkpoint directory named
+    after the run: (directory, argv)."""
+    ckpt = os.path.join(tmp, "train_" + name.replace(" ", "_"))
+    os.makedirs(ckpt)
+    shutil.copy(os.path.join(tmp, "checkpoint", "random_full_width.bin"), ckpt)
+    return ckpt, ["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
+                  "-b", "1024", "-e", "1", "-drop", "0.25", "--seed", str(SEED),
+                  "-str", "S1,S5", "-ste", "S9,S11", "--subset", TRAIN_SUBSET,
+                  "--data-dir", os.path.join(tmp, "data"), "-c", ckpt,
+                  "-r", "random_full_width.bin", "--checkpoint-frequency", "1",
+                  "--device", "cuda", "--train-engine", engine]
+
+
 def phase4(tmp):
-    """One full-width training epoch per engine through runner.main."""
-    data = os.path.join(tmp, "data")
-    init = os.path.join(tmp, "checkpoint", "random_full_width.bin")
+    """One full-width training epoch per engine through runner.main.  Returns
+    the runs: name -> (losses, launches, checkpoint directory, output, rate)."""
     runs, profiles = {}, {}
     for name, engine in (("pallas", "pallas"), ("xla", "xla"), ("pallas again", "pallas"),
                          ("pallas profiled", "pallas"), ("xla profiled", "xla")):
-        ckpt = os.path.join(tmp, "train_" + name.replace(" ", "_"))
-        os.makedirs(ckpt)
-        shutil.copy(init, ckpt)
-        argv = ["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
-                "-b", "1024", "-e", "1", "-drop", "0.25", "--seed", str(SEED),
-                "-str", "S1,S5", "-ste", "S9,S11", "--subset", TRAIN_SUBSET,
-                "--data-dir", data, "-c", ckpt, "-r", "random_full_width.bin",
-                "--checkpoint-frequency", "1", "--device", "cuda",
-                "--train-engine", engine]
+        ckpt, argv = train_argv(tmp, name, engine)
         profiled = {} if name.endswith("profiled") else None
-        losses, numbers, (steps, seconds, fps), out, launches = train_cli(argv, profiled)
+        losses, numbers, rate, out, launches = train_cli(argv, profiled)
+        steps, seconds, fps, steady_ms = rate
         if profiled is not None:
             profiles[engine] = profiled
             continue
-        runs[name] = (losses, launches, ckpt, out)
+        runs[name] = (losses, launches, ckpt, out, rate)
         print(f"phase4 train {name:12s}: {steps} steps of batch 1024 in {seconds:.3f} s, "
-              f"{seconds / steps * 1e3:.2f} ms/step, {fps:.1f} training frames/s; "
+              f"{seconds / steps * 1e3:.2f} ms/step ({steady_ms:.2f} over steps "
+              f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1}), {fps:.1f} training frames/s; "
               f"first-step loss {float(losses[0]):.6f}, epoch 3d_train/3d_eval/3d_valid "
               f"{numbers[0]:.4f}/{numbers[1]:.4f}/{numbers[2]:.4f} mm; launches {launches}")
     # Where the time of a train step goes: device time per kernel over the
@@ -1352,14 +1381,15 @@ def phase4(tmp):
     trained = protocol_lines(runs["pallas"][3])
     evaluated, _, _, _ = run_cli(["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch",
                                   str(CHANNELS), "-str", "S1", "-ste", "S9,S11",
-                                  "--data-dir", data, "-c", runs["pallas"][2],
+                                  "--data-dir", os.path.join(tmp, "data"),
+                                  "-c", runs["pallas"][2],
                                   "--evaluate", "epoch_1.bin", "--device", "cuda"])
     worst = max(abs(g - w) / abs(w) for a in trained for g, w in zip(evaluated[a], trained[a]))
     print(f"phase4 epoch_1.bin --evaluate vs the training run's final evaluation: "
           f"worst relative protocol difference {worst:.3e}")
     check(evaluated.keys() == trained.keys() and worst <= 1e-5,
           f"reloaded checkpoint evaluates differently: {evaluated} vs {trained}")
-    return runs["pallas again"][1]
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -1827,6 +1857,496 @@ def phase7(tmp):
     check(evaluated.keys() == trained.keys() and worst <= 1e-5,
           f"(a) epoch_2.bin evaluates differently: {evaluated} vs {trained}")
     return runs["a", "pallas"]["launches"], runs["b", "pallas"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: data parallelism (NCCL at world size 1; two gloo ranks on one card)
+# ---------------------------------------------------------------------------
+
+# A rank that has not finished in this time fails the phase: a hung rendezvous
+# or collective ends as a failure, not as a hung run.
+RANK_TIMEOUT_S = 420
+# 8b against one process from the same state: the step-0 loss within
+# DP_LOSS_AGREE relative (the ranks' float32 partial sums add up in another
+# order than one process's, ~1e-7 relative); each all-reduced gradient tensor
+# within GRAD_NORM_TOL of the single process's in relative norm, phase 3's bound
+# for the same cause: a few pre-activations within ~1e-7 of 0 fall on the other
+# side of a ReLU gate under the other summation order, and each flip moves the
+# gradients built on it.  Entry by entry those flips reach ~1e-2 of a tensor's
+# largest gradient, as far as one process's own two engines (pallas against
+# xla) lie apart on the same step, so that figure is printed beside the
+# engines' own, not bounded.  The sharded per-epoch losses within DP_EVAL_AGREE relative (float32
+# per-rank sums).
+DP_LOSS_AGREE = 1e-5
+DP_EVAL_AGREE = 1e-6
+# 8b: supervised steps after which the ranks' weights must be bitwise equal,
+# full semi-supervised steps, and supervised steps timed after those.
+DP_STEPS, DP_SEMI_STEPS, DP_TIMED_STEPS = 8, 2, 6
+# 8b's training set: eight videos of 750 frames (S1's two actions from four
+# cameras at --subset 0.5, as phase 4), 12,000 windows with the flipped copies:
+# 11 steps of 1,024 and one of 736.  The sharded evaluation set: six videos of
+# 1,000 frames.
+DP_VIDEOS, DP_FRAMES, DP_EVAL_VIDEOS, DP_EVAL_FRAMES = 8, 750, 6, 1000
+DP_BATCH = 1024
+KPS_LEFT, KPS_RIGHT = [4, 5, 6, 11, 12, 13], [1, 2, 3, 14, 15, 16]
+# The Human3.6M skeleton's parents after the 32 -> 17 joint cut.
+PARENTS_17 = np.array([-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 9, 8, 11, 12, 8, 14, 15])
+# Profiler ranges of the profiled 8a epoch (dp_ranges).
+DP_RANGES = ("DP grad all-reduce", "DP BN all-reduce", "DP mask draw")
+
+
+@contextlib.contextmanager
+def dp_ranges():
+    """Each gradient all-reduce, BatchNorm-sum all-reduce and dropout-mask draw of
+    the training path inside a profiler range of DP_RANGES."""
+    from torch.profiler import record_function
+    from videopose3d_torch.models import temporal
+    from videopose3d_torch.parallel import mesh
+    grads, reduce_, masks = (mesh.all_reduce_gradients, mesh.all_reduce_,
+                             temporal.dropout_mask)
+    in_grads = []
+
+    def ranged_grads(*args, **kwargs):
+        in_grads.append(True)
+        try:
+            with record_function(DP_RANGES[0]):
+                return grads(*args, **kwargs)
+        finally:
+            in_grads.pop()
+
+    def ranged_reduce(t, group=None):
+        if in_grads:
+            return reduce_(t, group)
+        with record_function(DP_RANGES[1]):
+            return reduce_(t, group)
+
+    def ranged_masks(*args, **kwargs):
+        with record_function(DP_RANGES[2]):
+            return masks(*args, **kwargs)
+
+    mesh.all_reduce_gradients, mesh.all_reduce_ = ranged_grads, ranged_reduce
+    temporal.dropout_mask = ranged_masks
+    try:
+        yield
+    finally:
+        mesh.all_reduce_gradients, mesh.all_reduce_ = grads, reduce_
+        temporal.dropout_mask = masks
+
+
+def dp_profile_split(profiled):
+    """ms per step of the profiled steps: wall, device time, and each DP range's
+    device and host time."""
+    from torch.autograd import DeviceType
+    n_steps = PROFILE_STEPS[1] - PROFILE_STEPS[0]
+    split = {"wall_ms": profiled["wall"] * 1e3 / n_steps,
+             "device_ms": sum(device_times(profiled["prof"]).values()) / 1e3 / n_steps}
+    for name in DP_RANGES:
+        split[name] = {"device_ms": 0.0, "host_ms": 0.0, "calls": 0}
+    for avg in profiled["prof"].key_averages():
+        if avg.key in DP_RANGES:
+            part = split[avg.key]
+            if avg.device_type == DeviceType.CUDA:
+                part["device_ms"] += avg.self_device_time_total / 1e3 / n_steps
+            else:
+                part["host_ms"] += avg.cpu_time_total / 1e3 / n_steps
+                part["calls"] += avg.count // n_steps
+    split["top"] = sorted(((us / 1e3 / n_steps, key[:90]) for key, us in
+                           device_times(profiled["prof"]).items()), reverse=True)[:8]
+    return split
+
+
+def phase8a_rank(out_json, profiled, argv):
+    """One rank of 8a under torch.distributed.run: the runner's main (what
+    ``python -m videopose3d_torch.run`` calls) through train_cli, its results
+    written to ``out_json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    profile = {} if profiled else None
+    with dp_ranges() if profiled else contextlib.nullcontext():
+        losses, numbers, rate, out, launches = train_cli(argv, profile)
+    result = {"losses": losses.tolist(), "numbers": numbers, "rate": rate, "out": out,
+              "launches": launches}
+    if profiled:
+        result["profile"] = dp_profile_split(profile)
+    with open(out_json, "w") as f:
+        json.dump(result, f)
+
+
+def epoch_line(out):
+    """The text of the epoch line after its time."""
+    lines = [m.group(1) for m in map(re.compile(r"^\[1\] time \S+ (lr .*)$").match,
+                                     out.splitlines()) if m]
+    check(len(lines) == 1, f"no single epoch line:\n{out}")
+    return lines[0]
+
+
+def launch_8a(tmp, name, profiled, launcher=True):
+    """One 8a rank through ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` (or, without ``launcher``, the same program in a plain
+    process) on phase 4's pallas command line: (checkpoint directory, the rank's
+    results)."""
+    ckpt, argv = train_argv(tmp, name, "pallas")
+    out_json = os.path.join(tmp, name.replace(" ", "_") + ".json")
+    run = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1"] if launcher else [sys.executable])
+    cmd = [*run, os.path.abspath(__file__), "--dp-rank", out_json,
+           "--profiled" if profiled else "--unprofiled", "--", *argv]
+    try:
+        done = subprocess.run(cmd, capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"8a {name}: no result in {RANK_TIMEOUT_S} s") from e
+    check(done.returncode == 0 and os.path.exists(out_json),
+          f"8a {name} failed ({done.returncode}):\n{done.stdout[-4000:]}\n"
+          f"{done.stderr[-4000:]}")
+    with open(out_json) as f:
+        return ckpt, json.load(f)
+
+
+def phase8a(tmp, runs4):
+    """World size 1 on NCCL: the launcher's run of phase 4's pallas command line,
+    bitwise phase 4's (epoch line, per-step losses, saved weights, K1/K2
+    launches), its ms/step beside phase 4's and beside the same program's in a
+    fresh process without the launcher, and one profiled epoch.  Returns the
+    launches."""
+    from videopose3d_torch.checkpoint import load_any_checkpoint
+    losses4, launches4, ckpt4, out4, rate4 = runs4["pallas"]
+    ckpt, r = launch_8a(tmp, "dp nccl", False)
+    _, alone = launch_8a(tmp, "dp alone", False, launcher=False)
+    check(alone["losses"] == losses4.tolist() and "Data-parallel" not in alone["out"],
+          "8a: the program without the launcher differs from phase 4")
+    steps, seconds, _, steady_ms = r["rate"]
+    print(f"phase8a NCCL world size 1: {steps} steps in {seconds:.3f} s, "
+          f"{seconds / steps * 1e3:.2f} ms/step ({steady_ms:.2f} over steps "
+          f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1}); the same fresh process without "
+          f"the launcher {alone['rate'][1] / steps * 1e3:.2f} ({alone['rate'][3]:.2f}); "
+          f"phase 4 pallas {rate4[1] / rate4[0] * 1e3:.2f} ({rate4[3]:.2f}), pallas "
+          f"again ({runs4['pallas again'][4][3]:.2f})")
+    check("INFO: Data-parallel over 1 processes" in r["out"].splitlines(),
+          f"8a did not join a process group:\n{r['out'][:3000]}")
+    check(epoch_line(r["out"]) == epoch_line(out4),
+          f"8a epoch line {epoch_line(r['out'])!r} differs from phase 4's "
+          f"{epoch_line(out4)!r}")
+    check(r["losses"] == losses4.tolist(), "8a per-step losses differ from phase 4's")
+    mine = load_any_checkpoint(os.path.join(ckpt, "epoch_1.bin"))["model_pos"]
+    theirs = load_any_checkpoint(os.path.join(ckpt4, "epoch_1.bin"))["model_pos"]
+    check(mine.keys() == theirs.keys() and all(
+        torch.equal(torch.as_tensor(np.asarray(mine[k])), torch.as_tensor(np.asarray(theirs[k])))
+        for k in mine), "8a saved weights differ from phase 4's")
+    check(r["launches"] == launches4,
+          f"8a launches {r['launches']} differ from phase 4's {launches4}")
+    print(f"phase8a epoch line, {len(r['losses'])} step losses and the saved weights "
+          f"bitwise phase 4's; launches {r['launches']} (phase 4's)")
+    _, p = launch_8a(tmp, "dp nccl profiled", True)
+    prof = p["profile"]
+    print(f"phase8a profile: steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1}, "
+          f"{prof['wall_ms']:.3f} ms/step wall, {prof['device_ms']:.3f} ms/step device "
+          f"time, busy {100 * prof['device_ms'] / prof['wall_ms']:.1f} %")
+    for name in DP_RANGES:
+        part = prof[name]
+        print(f"phase8a profile   {name}: {part['device_ms']:.4f} ms/step device, "
+              f"{part['host_ms']:.4f} ms/step host, {part['calls']} calls/step")
+    for ms, key in prof["top"]:
+        print(f"phase8a profile   {ms:8.3f} ms/step  {key}")
+    check(prof[DP_RANGES[0]]["calls"] == 1 and prof[DP_RANGES[1]]["calls"] == 18,
+          f"8a profile: expected 1 gradient and 18 BatchNorm all-reduces a step: {prof}")
+    return r["launches"]
+
+
+def dp_videos(seed, n, frames, labeled=True):
+    """Synthetic normalized keypoints, 3D poses with their roots 3-5 m in front
+    of the camera, and intrinsics near Human3.6M's."""
+    rng = np.random.default_rng(seed)
+    p2, p3, cams = [], [], []
+    for _ in range(n):
+        x2d = rng.uniform(-0.8, 0.8, (frames, JOINTS, 2)).astype(np.float32)
+        pose = np.concatenate([0.5 * x2d, 0.3 * np.sin(2 * x2d[..., :1])], axis=-1)
+        pose[:, 0] = np.stack([rng.uniform(-0.5, 0.5, frames), rng.uniform(-0.5, 0.5, frames),
+                               rng.uniform(3.0, 5.0, frames)], axis=-1)
+        p2.append(x2d)
+        p3.append(pose.astype(np.float32))
+        cams.append(np.concatenate([rng.uniform(2.2, 2.4, 2), rng.uniform(-0.02, 0.02, 2),
+                                    rng.uniform(-0.2, 0.2, 3), rng.uniform(-0.003, 0.003, 2)]
+                                   ).astype(np.float32))
+    return p2, (p3 if labeled else None), cams
+
+
+def dp_models(device, semi):
+    """The full-width pose model (pallas train engine) and, with ``semi``, the
+    trajectory model (plain blocks), random from SEED, dropout 0.25."""
+    from videopose3d_torch.models.temporal import TemporalModel
+    cfg, pos = random_model(device)
+    models = []
+    for joints_out, engine in ((JOINTS, "pallas"), (1, "xla"))[:1 + semi]:
+        torch.manual_seed(SEED + joints_out)
+        m = TemporalModel(dataclasses.replace(cfg, num_joints_out=joints_out,
+                                              train_engine=engine, dropout=0.25))
+        if joints_out == JOINTS:
+            m.load_state_dict(pos.state_dict())
+        models.append(m.to(device).train())
+    return models
+
+
+def state_digest(models):
+    """sha256 of every parameter's and buffer's bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for m in models:
+        for t in itertools.chain(m.parameters(), m.buffers()):
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def grad_errors(models, ref_models):
+    """Over every parameter: the largest relative norm of (gradient - reference
+    gradient), and the largest |gradient - reference| over the tensor's largest
+    |reference gradient|."""
+    norm = entry = 0.0
+    for a, b in zip(models, ref_models):
+        for p, q in zip(a.parameters(), b.parameters()):
+            d = p.grad - q.grad
+            norm = max(norm, float(d.norm() / q.grad.norm().clamp_min(1e-30)))
+            entry = max(entry, float(d.abs().max() / q.grad.abs().max().clamp_min(1e-30)))
+    return norm, entry
+
+
+def phase8b_checks(rank, world, device):
+    """The body of one 8b rank: the supervised and semi-supervised trainers on
+    this rank's half of each full-width global batch against one process from
+    the same state (rank 0), the ranks' weights compared by digest, a sharded
+    DeviceEvalSet against an unsharded one, K1/K2 launches, ms/step and the
+    dropout-mask draw at the global and at the local shape.  Rank 0 also takes
+    the first step in one process with the pose model on the plain blocks
+    (``xla``): how far one process's own engines lie apart."""
+    import copy
+    from videopose3d_torch import train
+    from videopose3d_torch.data import generators as gen
+    from videopose3d_torch.evaluate import DeviceEvalSet, Evaluator, full_float32
+    from videopose3d_torch.models.temporal import dropout_mask
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import train_block as trb
+    from videopose3d_torch.parallel import mesh
+    dp = mesh.DataParallel.from_group()
+    pad = (receptive_field_of(ARCH) - 1) // 2
+    perm = np.arange(JOINTS)
+    perm[KPS_LEFT], perm[KPS_RIGHT] = KPS_RIGHT, KPS_LEFT
+    margins = gen.FlatSequenceDataset.training_margins(pad, 0, 1)
+
+    def dataset(seed, labeled=True):
+        p2, p3, cams = dp_videos(seed, DP_VIDEOS, DP_FRAMES, labeled)
+        flat = gen.FlatSequenceDataset(p2, p3, cams, margins=margins, flip_perms=(perm, perm))
+        return flat.to_device(device), [len(v) for v in p2]
+
+    counters = (gr.LAUNCHES, trb.LAUNCHES)
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+    @contextlib.contextmanager
+    def uncounted():
+        saved = [dict(c) for c in counters]
+        yield
+        for c, s in zip(counters, saved):
+            c.update(s)
+
+    loop = train.TrainLoopConfig(batch_size=DP_BATCH, chunk_length=1, pad=pad, causal_shift=0)
+    result = {"rank": rank}
+    dev, lengths = dataset(SEED + 81)
+    sampler = gen.ChunkedPairSampler(lengths, loop.batch_size, 1, augment=True)
+
+    def endless(s):
+        while True:
+            yield from s.next_epoch()
+
+    batches = endless(sampler)
+    for name, semi in (("supervised", False), ("semi", True)):
+        models = dp_models(device, semi)
+        for m in models:
+            mesh.broadcast_module(m)
+        refs = [copy.deepcopy(m) for m in models] if rank == 0 else None
+        plains = [copy.deepcopy(m) for m in models] if rank == 0 else None
+        if plains:
+            plains[0].config = dataclasses.replace(plains[0].config, train_engine="xla")
+
+        def trainer(ms, use_dp):
+            opt = train.make_optimizer(ms, loop.learning_rate)
+            if semi:
+                return train.SemiSupervisedTrainer(*ms, loop, opt, PARENTS_17,
+                                                   dp=dp if use_dp else None)
+            return train.SupervisedTrainer(ms[0], loop, opt, dp=dp if use_dp else None)
+
+        mine = trainer(models, True)
+        ref = trainer(refs, False) if rank == 0 else None
+        gens = [torch.Generator(device=device).manual_seed(SEED + 8) for _ in range(3)]
+        if semi:
+            dev_u, lengths_u = dataset(SEED + 82, labeled=False)
+            unlabeled = endless(gen.ChunkedPairSampler(lengths_u, loop.batch_size, 1,
+                                                       random_seed=4321, augment=True))
+            steps = [(*next(batches), *next(unlabeled)) for _ in range(DP_SEMI_STEPS)]
+            run = lambda t, s, g: t.step(dev, dev_u, s[0], s[1], s[2], s[3], 0.1, False, g)[3]
+        else:
+            steps = [next(batches) for _ in range(DP_STEPS)]
+            run = lambda t, s, g: t.step(dev, s[0], s[1], 0.1, g)
+        got, want = [], []
+        with full_float32():
+            for i, s in enumerate(steps):
+                if rank == 0:
+                    with uncounted():
+                        want.append(float(run(ref, s, gens[1])))
+                share = run(mine, s, gens[0])
+                got.append(float(mesh.all_reduce_(share.detach().reshape(1).clone())))
+                if i == 0 and rank == 0:
+                    with uncounted():
+                        run(trainer(plains, False), s, gens[2])
+                    result[name + " grad"] = grad_errors(models, refs)
+                    result[name + " engines"] = grad_errors(plains, refs)
+        result[name] = {"losses": got, "single": want, "digest": state_digest(models)}
+        if not semi:
+            # ms per supervised step of the two ranks together, after a barrier.
+            dist_barrier(device)
+            start = time.perf_counter()
+            with full_float32():
+                for _ in range(DP_TIMED_STEPS):
+                    share = run(mine, next(batches), gens[0])
+            float(share)
+            dist_barrier(device)
+            result["ms_per_step"] = (time.perf_counter() - start) * 1e3 / DP_TIMED_STEPS
+            # One gradient all-reduce alone: the flat bucket of the pose model.
+            flat = torch.cat([p.grad.reshape(-1) for p in models[0].parameters()])
+            dist_barrier(device)
+            start = time.perf_counter()
+            mesh.all_reduce_(flat)
+            dist_barrier(device)
+            result["grad_all_reduce_ms"] = (time.perf_counter() - start) * 1e3
+            result["grad_mb"] = flat.numel() * 4 / 1e6
+        else:
+            pos, traj = models
+    result["launches"] = {**gr.LAUNCHES, **trb.LAUNCHES}
+
+    p2, p3, cams = dp_videos(SEED + 83, DP_EVAL_VIDEOS, DP_EVAL_FRAMES)
+    batcher = lambda: gen.UnchunkedBatcher(cams, p3, p2, pad=pad, causal_shift=0,
+                                           kps_flip_perm=perm, joints_flip_perm=perm)
+    evaluators = (Evaluator(pos.config, joints_flip_perm=perm, device=device), pos,
+                  Evaluator(traj.config, device=device), traj)
+    result["eval sharded"] = DeviceEvalSet(batcher(), pad=pad, device=device, with_traj=True,
+                                           shard=(rank, world)).losses(*evaluators)
+    if rank == 0:
+        result["eval single"] = DeviceEvalSet(batcher(), pad=pad, device=device,
+                                              with_traj=True).losses(*evaluators)
+        # The dropout masks of one pose-model forward (the expand's and two per
+        # block), at the global batch and at a rank's half of it.
+        t = receptive_field_of(ARCH) // ARCH[0]
+        frames = [t]
+        for fw in ARCH[1:]:
+            t //= fw
+            frames += [t, t]
+        g = torch.Generator(device=device).manual_seed(SEED)
+        result["mask_ms"] = {b: cuda_ms(lambda b=b: [
+            dropout_mask(0.25, (b, t, CHANNELS), torch.float32, g) for t in frames])
+            for b in (DP_BATCH, DP_BATCH // 2)}
+    dist_barrier(device)
+    return result
+
+
+
+def receptive_field_of(arch):
+    from videopose3d_torch.models.temporal import TemporalModelConfig, receptive_field
+    return receptive_field(TemporalModelConfig(JOINTS, 2, JOINTS, tuple(arch)))
+
+
+def dist_barrier(device):
+    """All ranks here, with the card's queued work done."""
+    import torch.distributed as dist
+    torch.cuda.synchronize(device)
+    dist.barrier()
+
+
+def phase8b_rank(rank, world, rdv, out_json):
+    """One 8b rank: joins a gloo group of ``world`` ranks on card 0 through the
+    ``file://`` rendezvous ``rdv`` and writes phase8b_checks' results (or the
+    traceback) to ``out_json``."""
+    import traceback
+    import torch.distributed as dist
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
+                                world_size=world)
+        result = phase8b_checks(rank, world, device)
+    except BaseException:
+        result = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_json, "w") as f:
+        json.dump(result, f)
+
+
+def phase8b(tmp):
+    """Two ranks sharing the card over gloo, spawned with torch.multiprocessing:
+    the checks of phase8b_checks.  Returns the ranks' launches."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"dp_gloo_rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=phase8b_rank, args=(r, 2, os.path.join(tmp, "dp_gloo_rdv"),
+                                                    outs[r])) for r in range(2)]
+    start = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(0.0, RANK_TIMEOUT_S - (time.perf_counter() - start)))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not hung, f"8b ranks {hung} did not finish in {RANK_TIMEOUT_S} s")
+    results = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"8b rank {r} wrote no result (exit {procs[r].exitcode})")
+        with open(path) as f:
+            results.append(json.load(f))
+        check("error" not in results[r], f"8b rank {r} failed:\n{results[r].get('error')}")
+    r0 = results[0]
+    print(f"phase8b two gloo ranks sharing one card, {DP_BATCH // 2} rows each of a global "
+          f"batch of {DP_BATCH}: {r0['ms_per_step']:.2f} ms per supervised step (rank 1 "
+          f"{results[1]['ms_per_step']:.2f}; not a scale-out number); one gloo all-reduce "
+          f"of the {r0['grad_mb']:.1f} MB gradient alone {r0['grad_all_reduce_ms']:.2f} ms")
+    for name in ("supervised", "semi"):
+        got, want = r0[name]["losses"], r0[name]["single"]
+        gaps = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        (norm, entry), (e_norm, e_entry) = r0[name + " grad"], r0[name + " engines"]
+        print(f"phase8b {name}: step-0 loss {got[0]!r} vs one process {want[0]!r}, "
+              f"relative {gaps[0]:.3e} (bound {DP_LOSS_AGREE:.0e}); gradients, worst "
+              f"tensor: relative norm {norm:.3e} (bound {GRAD_NORM_TOL:.0e}), largest "
+              f"entry {entry:.3e} of the tensor's max; one process's xla engine against "
+              f"its pallas: {e_norm:.3e}, {e_entry:.3e}; loss gap per step: "
+              + " ".join(f"{g:.1e}" for g in gaps))
+        check(gaps[0] <= DP_LOSS_AGREE, f"8b {name} step-0 loss {got[0]} vs {want[0]}")
+        check(norm <= GRAD_NORM_TOL, f"8b {name} gradients differ: {r0[name + ' grad']}")
+        check(all(r[name]["losses"] == got for r in results),
+              f"8b {name}: the ranks' all-reduced losses differ")
+        check(len({r[name]["digest"] for r in results}) == 1,
+              f"8b {name}: the ranks' weights and statistics differ after {len(got)} steps")
+        print(f"phase8b {name}: parameters and running statistics bitwise equal on both "
+              f"ranks after {len(got)} steps")
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for r in results
+              for a, b in zip(r["eval sharded"][:3], r0["eval single"][:3]))
+    print(f"phase8b DeviceEvalSet over {DP_EVAL_VIDEOS} videos sharded over two ranks vs "
+          f"one: worst relative difference {rel:.3e} (bound {DP_EVAL_AGREE:.0e})")
+    check(rel <= DP_EVAL_AGREE and all(r["eval sharded"][3] == r0["eval single"][3]
+                                       for r in results), "8b sharded evaluation differs")
+    masks = r0["mask_ms"]
+    print(f"phase8b dropout masks of one pose forward: {masks[str(DP_BATCH)]:.3f} ms at the "
+          f"global shape ({DP_BATCH} rows), {masks[str(DP_BATCH // 2)]:.3f} ms at a rank's "
+          f"{DP_BATCH // 2}")
+    for r in results:
+        check(all(v > 0 for v in r["launches"].values()),
+              f"8b rank {r['rank']} did not launch every K1/K2 kernel: {r['launches']}")
+    print("phase8b launches per rank: " + "; ".join(
+        f"rank {r['rank']} {r['launches']}" for r in results))
+    return [r["launches"] for r in results]
 
 
 # ---------------------------------------------------------------------------
@@ -2388,9 +2908,12 @@ def main() -> int:
                                     device)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase2(model, tmp)
-        train_launches = phase4(tmp)
+        train_runs = phase4(tmp)
+        train_launches = train_runs["pallas again"][1]
         stream_launches = phase6_cli(scfg, smodel, device, tmp)
         semi_launches = phase7(tmp)
+        dp_launches = phase8a(tmp, train_runs)
+        gloo_launches = phase8b(tmp)
 
     keys = {name: (key, replaces) for name, key, replaces in KERNELS}
     dtypes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -2405,8 +2928,11 @@ def main() -> int:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
     for r in train_kernel_results:
+        key = r["key"][1]
         entries.append({**{k: v for k, v in r.items() if k != "key"},
-                        "launches": train_launches[r["key"][1]]})
+                        "launches": train_launches[key],
+                        "launches_phase8": {"8a": dp_launches[key],
+                                            "8b": [g[key] for g in gloo_launches]}})
     for r in semi_kernel_results:  # K2 at (b)'s first block and (a)'s last
         cell, key = r["key"]
         entries.append({**{k: v for k, v in r.items() if k != "key"},
@@ -2427,4 +2953,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 8a (launch_8a)
+        phase8a_rank(sys.argv[2], sys.argv[3] == "--profiled", sys.argv[5:])
+        sys.exit(0)
     sys.exit(main())

@@ -245,8 +245,8 @@ def test_validation_errors():
         ts.StreamingCausalLifter(tcfg, engine="bf16", device="cpu")
     with pytest.raises(ValueError, match="frames_per_step"):
         ts.StreamingCausalLifter(tcfg, model, frames_per_step=0, device="cpu")
-    with pytest.raises(ValueError, match="data-parallel"):
-        ts.StreamingCausalLifter(tcfg, model, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ts.StreamingCausalLifter(tcfg, model, mesh=["cpu"], device="cpu")
     w = ts.prepare_stream_weights(tcfg, model)
     multi = ts.init_stream_state_multi(tcfg, model, first, 2)
     with pytest.raises(ValueError, match="capacities"):

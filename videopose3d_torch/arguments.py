@@ -120,7 +120,8 @@ def parse_args(argv=None):
     # Port-specific (no reference equivalent)
     parser.add_argument("--device", default="cuda", type=str, metavar="DEVICE",
                         help="torch device to run the model on: 'cuda' (default; "
-                             "fails when no card is present) or 'cpu'")
+                             "fails when no card is present; cuda:$LOCAL_RANK under "
+                             "python -m torch.distributed.run) or 'cpu'")
     parser.add_argument("--data-dir", default="data", type=str, metavar="PATH",
                         help="directory holding data_3d_*.npz / data_2d_*.npz archives")
     parser.add_argument("--compute-dtype", default="float32", type=str,
@@ -155,17 +156,25 @@ def parse_args(argv=None):
                              "(default) the kernel on --device cuda and plain "
                              "indexing on --device cpu")
 
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="do not join the launcher's process group: trains on "
+                             "one process even under a one-process launcher "
+                             "(python -m torch.distributed.run); refused when "
+                             "WORLD_SIZE > 1, which would train independent copies")
+    parser.add_argument("--eval-devices", default=0, type=int, metavar="N",
+                        help="local devices to round-robin evaluation videos over "
+                             "(the protocol numbers do not depend on N); 0 "
+                             "(default): every local card of a single-process CUDA "
+                             "run, the process's own device otherwise")
+
     # TPU-only knobs of the JAX package: accepted and ignored here.
     tpu_only = "TPU-only (JAX package); accepted and ignored by videopose3d_torch"
-    parser.add_argument("--no-mesh", action="store_true", help=tpu_only)
     parser.add_argument("--rng-impl", default="rbg", type=str,
                         choices=["rbg", "threefry2x32"], help=tpu_only)
     parser.add_argument("--checkpoint-format", default="pickle", type=str,
                         choices=("pickle", "orbax"), metavar="FMT", help=tpu_only)
     parser.add_argument("--remat", action="store_true", help=tpu_only)
     parser.add_argument("--no-scan-epoch", dest="scan_epoch", action="store_false",
-                        help=tpu_only)
-    parser.add_argument("--eval-devices", default=0, type=int, metavar="N",
                         help=tpu_only)
     parser.add_argument("--scan-chunk", default=0, type=int, metavar="STEPS",
                         help=tpu_only)

@@ -3,13 +3,15 @@ protocols (MPJPE / P-MPJPE / N-MPJPE / MPJVE).
 
 Counterpart of ``videopose3d_tpu/evaluate.py`` (``Evaluator``, ``evaluate``,
 ``evaluate_actionwise``, ``DeviceEvalSet``); the printed protocol lines have the
-same format.  Inference and the TTA merge run on the evaluator's device; the
+same format.  Inference and the TTA merge run on the evaluator's device, or
+round-robin over several local ``devices`` (a copy of the model on each); the
 protocols run on host numpy, the per-epoch training losses on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import itertools
 from typing import Dict, Optional, Tuple
@@ -22,6 +24,7 @@ from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfi
                                                 forward_dilated_int8)
 from videopose3d_torch.ops.losses import (mean_velocity_error, mpjpe_np, n_mpjpe_np,
                                           p_mpjpe)
+from videopose3d_torch.parallel import mesh
 
 
 @contextlib.contextmanager
@@ -40,6 +43,10 @@ def full_float32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def _device_of(model: TemporalModel) -> torch.device:
+    return next(model.parameters()).device
+
+
 class Evaluator:
     """Whole-sequence inference on one device.
 
@@ -52,6 +59,10 @@ class Evaluator:
         predicted batch, or on :meth:`set_calibration` data, and requantized
         whenever a parameter or buffer of the model is replaced or written in
         place (``load_state_dict``, an optimizer step).
+
+    A batch on another device than the model's runs on a copy of the model there
+    (of the quantized model for ``int8``, quantized once on the model's device),
+    made once per model state.
     """
 
     def __init__(self, model_cfg: TemporalModelConfig,
@@ -68,6 +79,7 @@ class Evaluator:
                                  torch.as_tensor(np.asarray(joints_flip_perm),
                                                  dtype=torch.long, device=self.device))
         self._calibration = None
+        self._copies = {}  # (what, device) -> (key, the copy on that device)
         self.reset_quantization()
 
     def reset_quantization(self):
@@ -97,10 +109,28 @@ class Evaluator:
         tensors = list(itertools.chain(model.parameters(), model.buffers()))
         key = tuple((id(t), t._version) for t in tensors)
         if self._q is None or self._q_key != key:
-            calib = x if self._calibration is None else self._calibration.to(self.device)
-            self._q = quantize_temporal_model(self.model_cfg, model, calib)
+            calib = x if self._calibration is None else self._calibration
+            self._q = quantize_temporal_model(self.model_cfg, model,
+                                              calib.to(_device_of(model)))
             self._q_key, self._q_tensors = key, tensors
         return self._q
+
+    def _on(self, what: str, source, key, device, move):
+        """``move(source, device)``, made once per ``key`` and device."""
+        hit = self._copies.get((what, device))
+        if hit is None or hit[0] != key:
+            hit = (key, move(source, device))
+            self._copies[(what, device)] = hit
+        return hit[1]
+
+    def _model_on(self, model: TemporalModel, device):
+        """``model``, or its copy on ``device`` (remade when its tensors change)."""
+        if device == _device_of(model):
+            return model
+        key = tuple((id(t), t._version)
+                    for t in itertools.chain(model.parameters(), model.buffers()))
+        return self._on("model", model, key, device,
+                        lambda m, d: copy.deepcopy(m).to(d).eval())
 
     def _tta_merge(self, pred, augment: bool):
         if not augment:
@@ -109,23 +139,32 @@ class Evaluator:
         flipped = pred[1].clone()
         flipped[..., 0] *= -1.0
         if self.joints_flip_perm is not None:
-            flipped = flipped[:, self.joints_flip_perm]
+            perm = self._on("perm", self.joints_flip_perm, None, flipped.device,
+                            lambda t, d: t.to(d))
+            flipped = flipped[:, perm]
         return ((pred[0] + flipped) * 0.5)[None]
 
     @torch.no_grad()
     def infer(self, model: TemporalModel, x):
-        """(rows, T_in, J, C) keypoints on the device -> (rows, T_out, J_out, 3)."""
+        """(rows, T_in, J, C) keypoints on a device -> (rows, T_out, J_out, 3)
+        there."""
+        if self.engine == "int8":
+            q = self.quantized(model, x)
+            if x.device != _device_of(model):
+                from videopose3d_torch.streaming import _q_on
+                q = self._on("int8", q, self._q_key, x.device, _q_on)
+            return forward_dilated_int8(self.model_cfg, q, x)
+        model = self._model_on(model, x.device)
         if self.engine == "fused":
             return forward_dilated_fused(self.model_cfg, model, x)
-        if self.engine == "int8":
-            return forward_dilated_int8(self.model_cfg, self.quantized(model, x), x)
         with full_float32():
             return forward_dilated(model, x)
 
-    def predict_async(self, model: TemporalModel, batch_2d, augment: bool):
+    def predict_async(self, model: TemporalModel, batch_2d, augment: bool, device=None):
         """(rows, T_in, J, C) padded keypoints -> (1, T_out, J_out, 3) poses as a
-        tensor on the device, not yet synchronised."""
-        x = torch.as_tensor(np.asarray(batch_2d, np.float32), device=self.device)
+        tensor on ``device`` (default the evaluator's), not yet synchronised."""
+        x = torch.as_tensor(np.asarray(batch_2d, np.float32),
+                            device=self.device if device is None else device)
         return self._tta_merge(self.infer(model, x), augment)
 
 
@@ -139,16 +178,28 @@ class DeviceEvalSet:
     Each epoch runs inference and the masked losses per video on the device,
     accumulates the frame-weighted sums there, and brings only those to the host.
     No test-time augmentation.
+
+    ``shard=(rank, world_size)``: this rank keeps every world_size-th video from
+    its rank on, and :meth:`losses` all-reduces the ranks' sums and frame counts
+    over the default process group, so every rank returns the whole set's losses.
+    ``devices``: local devices the kept videos go round-robin over (default
+    ``[device]``); the per-video sums are added on ``device`` in video order, so
+    the result does not depend on the device count.
     """
 
-    def __init__(self, batcher, *, pad: int, device, with_traj: bool = False):
+    def __init__(self, batcher, *, pad: int, device, with_traj: bool = False,
+                 shard=None, devices=None):
         self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices] if devices else [self.device]
         self.pad = pad
+        self.shard = shard
         self._videos = []
         self.n_frames = 0
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            self.device)
-        for cam, batch_3d, batch_2d, n in batcher.next_epoch():
+        for seq_i, (cam, batch_3d, batch_2d, n) in enumerate(batcher.next_epoch()):
+            if shard is not None and seq_i % shard[1] != shard[0]:
+                continue
+            on = self.devices[len(self._videos) % len(self.devices)]
+            put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(on)
             t_out = batch_2d.shape[1] - 2 * pad
             video = {"batch_2d": put(batch_2d[:1]), "n": n}
             if batch_3d is not None:
@@ -178,14 +229,16 @@ class DeviceEvalSet:
         n_frames)``, the MPJPE of the poses, of the trajectory and of the 2D
         reconstruction ``project_to_2d(pose + trajectory)`` against the input
         keypoints (the last two with a trajectory model, each where its target
-        is there); zeros for an empty set."""
+        is there); zeros for an empty set.  A sharded set's ranks must all
+        call it: they exchange their sums."""
         from videopose3d_torch.ops.camera import project_to_2d
-        if not self._videos:
-            return 0.0, 0.0, 0.0, 0
         total = torch.zeros(3, dtype=torch.float32, device=self.device)
-        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        zeros = {}  # device -> a 0-d zero there
         for video in self._videos:
             batch_2d, n = video["batch_2d"], video["n"]
+            zero = zeros.get(batch_2d.device)
+            if zero is None:
+                zero = zeros[batch_2d.device] = torch.zeros((), device=batch_2d.device)
             pred = evaluator.infer(model, batch_2d)
             l3d = (self._masked_mpjpe(pred, video["target"], n) if "target" in video
                    else zero)
@@ -199,9 +252,16 @@ class DeviceEvalSet:
                     target_2d = batch_2d[:, self.pad:self.pad + t_out, :, :2]
                     recon = project_to_2d(pred + pred_traj, video["cam"])
                     lrecon = self._masked_mpjpe(recon, target_2d, n)
-            total = total + n * torch.stack([l3d, ltraj, lrecon])
-        total = total.double().cpu().numpy() / self.n_frames
-        return float(total[0]), float(total[1]), float(total[2]), self.n_frames
+            total = total + (n * torch.stack([l3d, ltraj, lrecon])).to(self.device)
+        n_frames = self.n_frames
+        if self.shard is not None:
+            sums = mesh.all_reduce_(torch.cat([total.double(), torch.tensor(
+                [float(n_frames)], dtype=torch.float64, device=self.device)]))
+            total, n_frames = sums[:3], int(sums[3].item())
+        if n_frames == 0:
+            return 0.0, 0.0, 0.0, 0
+        total = total.double().cpu().numpy() / n_frames
+        return float(total[0]), float(total[1]), float(total[2]), n_frames
 
     def loss(self, evaluator: Evaluator, model: TemporalModel) -> float:
         """Frame-weighted MPJPE over the set (metres), 0.0 for an empty set."""
@@ -209,20 +269,23 @@ class DeviceEvalSet:
 
 
 def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
-             action: Optional[str] = None,
-             verbose: bool = True) -> Tuple[float, float, float, float]:
+             action: Optional[str] = None, verbose: bool = True,
+             devices=None) -> Tuple[float, float, float, float]:
     """Run the four protocols over a batcher of whole videos.
 
     Errors are frame-weighted means, reported in mm.  A bounded queue of
     videos is in flight before the first fetch, so device work overlaps the
-    host-side protocol work.
+    host-side protocol work.  ``devices``: local devices to round-robin the
+    videos over (default the evaluator's); the protocols take the videos in
+    their order, so the numbers do not depend on the device count.
     """
     epoch_loss_3d_pos = 0.0
     epoch_loss_3d_pos_procrustes = 0.0
     epoch_loss_3d_pos_scale = 0.0
     epoch_loss_3d_vel = 0.0
     n_total = 0
-    in_flight = 16
+    devs = list(devices) if devices else [evaluator.device]
+    in_flight = max(16, 8 * len(devs))
     pending = []
 
     def consume(item):
@@ -248,9 +311,9 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
         epoch_loss_3d_vel += n * ev
         n_total += n
 
-    for _, batch_3d, batch_2d, n_frames in batcher.next_epoch():
-        pred = evaluator.predict_async(model, batch_2d,
-                                       augment=batcher.augment_enabled())
+    for seq_i, (_, batch_3d, batch_2d, n_frames) in enumerate(batcher.next_epoch()):
+        pred = evaluator.predict_async(model, batch_2d, augment=batcher.augment_enabled(),
+                                       device=devs[seq_i % len(devs)])
         pending.append((batch_3d, n_frames, pred))
         if len(pending) >= in_flight:
             consume(pending.pop(0))
@@ -278,13 +341,15 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
 
 def evaluate_actionwise(evaluator: Evaluator, model: TemporalModel,
                         all_actions: Dict, make_batcher, *, action_filter=None,
-                        verbose=True):
+                        verbose=True, devices=None):
     """Action-wise evaluation + averages.
 
     Args:
       all_actions: {action_name: [(subject, action), ...]}.
       make_batcher: callable mapping a list of (subject, action) pairs to an
         UnchunkedBatcher.
+      devices: local devices to round-robin each action's videos over
+        (:func:`evaluate`).
     """
     errors_p1, errors_p2, errors_p3, errors_vel = [], [], [], []
     for action_key in all_actions.keys():
@@ -293,7 +358,7 @@ def evaluate_actionwise(evaluator: Evaluator, model: TemporalModel,
                 continue
         batcher = make_batcher(all_actions[action_key])
         e1, e2, e3, ev = evaluate(evaluator, model, batcher, action=action_key,
-                                  verbose=verbose)
+                                  verbose=verbose, devices=devices)
         errors_p1.append(e1)
         errors_p2.append(e2)
         errors_p3.append(e3)

@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from videopose3d_torch.parallel import mesh
+
 BN_EPS = 1e-5  # PyTorch BatchNorm1d default, the JAX package's BN_EPS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -405,17 +407,26 @@ def _update_running(bn: nn.BatchNorm1d, mean, var, n: int, momentum: float) -> N
         bn.running_var.copy_((1.0 - momentum) * bn.running_var + momentum * unbiased)
 
 
-def batchnorm_train(x, bn: nn.BatchNorm1d, momentum: float):
+def batchnorm_train(x, bn: nn.BatchNorm1d, momentum: float, shard=None):
     """Train-mode BatchNorm over (B, T, C) with the JAX package's ``_batchnorm``
     semantics: shifted one-pass statistics centred on the running mean (float32),
     the biased variance to normalise, the unbiased one into the running stats
-    (updated in place, per-call ``momentum``), and the affine in x's dtype."""
+    (updated in place, per-call ``momentum``), and the affine in x's dtype.
+
+    With a ``shard`` (``parallel.BatchShard``, x being this rank's rows of it),
+    the statistics are the global batch's: the per-channel sums go through the
+    differentiable all-reduce and are divided by the global row count.  The
+    shift, the running mean, is the same on every rank, so the ranks' shifted
+    sums add up to the global batch's."""
     xf = x.float()
-    n = xf.shape[0] * xf.shape[1]
     shift = bn.running_mean.clone()
     centered = xf - shift
-    m1 = centered.mean(dim=(0, 1))
-    m2 = centered.square().mean(dim=(0, 1))
+    sums = torch.stack([centered.sum(dim=(0, 1)), centered.square().sum(dim=(0, 1))])
+    n = xf.shape[0] * xf.shape[1]
+    if shard is not None:
+        sums = mesh.all_reduce_sum(sums, shard.group)
+        n = shard.total * xf.shape[1]
+    m1, m2 = sums[0] / n, sums[1] / n
     mean = shift + m1
     var = torch.clamp(m2 - m1.square(), min=0.0)
     _update_running(bn, mean.detach(), var.detach(), n, momentum)
@@ -434,7 +445,7 @@ def _drop(y, mask):
     return y if mask is None else y * mask
 
 
-def _block_plain(model: TemporalModel, i: int, x, masks, momentum: float):
+def _block_plain(model: TemporalModel, i: int, x, masks, momentum: float, shard=None):
     """Residual block i of the strided form in plain torch (the ``xla`` engine):
     the strided conv is one matmul over the (B, T/fw, fw*C) taps, and the
     residual is their center tap."""
@@ -447,15 +458,16 @@ def _block_plain(model: TemporalModel, i: int, x, masks, momentum: float):
     res = taps[:, :, center * c:(center + 1) * c]
     wa = model.layers_conv[2 * i].weight.permute(2, 1, 0).reshape(fw * c, c)
     y = _matmul(taps, wa, mdt, adt)
-    y = _drop(batchnorm_train(y, model.layers_bn[2 * i], momentum), masks[0])
+    y = _drop(batchnorm_train(y, model.layers_bn[2 * i], momentum, shard), masks[0])
     y = _matmul(y, model.layers_conv[2 * i + 1].weight[:, :, 0].t(), mdt, adt)
-    y = _drop(batchnorm_train(y, model.layers_bn[2 * i + 1], momentum), masks[1])
+    y = _drop(batchnorm_train(y, model.layers_bn[2 * i + 1], momentum, shard), masks[1])
     return res + y
 
 
-def _block_fused(model: TemporalModel, i: int, x, masks, momentum: float):
+def _block_fused(model: TemporalModel, i: int, x, masks, momentum: float, shard=None):
     """The same block through the fused train-block kernels (the ``pallas``
-    engine), one homogeneous dtype."""
+    engine), one homogeneous dtype; with a ``shard``, global BatchNorm
+    statistics (``fused_train_block``)."""
     from videopose3d_torch.ops.kernels.train_block import fused_train_block
     cfg = model.config
     fw = cfg.filter_widths[i + 1]
@@ -467,14 +479,15 @@ def _block_fused(model: TemporalModel, i: int, x, masks, momentum: float):
         model.layers_conv[2 * i + 1].weight[:, :, 0].t().to(dt).contiguous(),
         bn_a.weight, bn_a.bias, bn_b.weight, bn_b.bias, masks[0], masks[1],
         bn_a.running_mean, bn_b.running_mean,
-        center=cfg.causal_shifts_strided[i + 1] + fw // 2, fw=fw)
-    n = b * (t // fw)
+        center=cfg.causal_shifts_strided[i + 1] + fw // 2, fw=fw, shard=shard)
+    n = (b if shard is None else shard.total) * (t // fw)
     _update_running(bn_a, mean_a, var_a, n, momentum)
     _update_running(bn_b, mean_b, var_b, n, momentum)
     return out
 
 
-def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None):
+def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None,
+                    shard=None):
     """Training forward of the strided form (the reference's
     ``TemporalModelOptimized1f``, the JAX ``forward_strided`` with ``train=True``).
 
@@ -484,6 +497,11 @@ def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None)
     ``generator`` (None: no dropout), in the same order for either engine.
     ``model.config.train_engine`` picks the residual blocks' engine; "mixed"
     compute runs plain, as in the JAX package.
+
+    Data parallel: with a ``shard`` (``parallel.BatchShard``), x holds this
+    rank's rows of the global batch; every BatchNorm takes the global batch's
+    statistics, and each dropout mask is drawn at the global shape and cut to
+    the rank's rows, so the ranks together see the single-process masks.
     """
     cfg = model.config
     if cfg.dense:
@@ -498,17 +516,21 @@ def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None)
     block = _block_fused if fused else _block_plain
 
     def masks(shape, count):
-        return [dropout_mask(cfg.dropout, shape, adt, generator) for _ in range(count)]
+        if shard is not None:
+            shape = (shard.total,) + tuple(shape[1:])
+        drawn = [dropout_mask(cfg.dropout, shape, adt, generator) for _ in range(count)]
+        return [m if m is None or shard is None else shard.take(m) for m in drawn]
 
     k0 = cfg.filter_widths[0]
     b, t, c_in = x.shape
     w0 = model.expand_conv.weight.permute(2, 1, 0).reshape(k0 * c_in, cfg.channels)
     y = _matmul(x.reshape(b, t // k0, k0 * c_in), w0, mdt, adt)
-    y = batchnorm_train(y, model.expand_bn, momentum)
+    y = batchnorm_train(y, model.expand_bn, momentum, shard)
     x = _drop(y, *masks(y.shape, 1))
     for i in range(len(cfg.filter_widths) - 1):
         b, t, c = x.shape
-        x = block(model, i, x, masks((b, t // cfg.filter_widths[i + 1], c), 2), momentum)
+        x = block(model, i, x, masks((b, t // cfg.filter_widths[i + 1], c), 2), momentum,
+                  shard)
     ws = model.shrink.weight[:, :, 0].t()
     x = _matmul(x, ws, mdt, adt) + model.shrink.bias.to(adt)
     return _finish_output(cfg, x.float())

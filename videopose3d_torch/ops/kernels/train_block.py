@@ -21,6 +21,12 @@ Pallas launch, each with a ``*_plain`` twin of the same signature:
 and the O(C) statistics glue between them in torch.  ``dWa = x3^T @ du`` is a
 plain matmul, as the JAX package leaves it to XLA.
 
+Data parallel (a ``parallel.BatchShard``): the batch statistics are the global
+batch's.  The forward sums of ``conv_stats`` and ``norm_drop_matmul_stats`` and
+the backward sums of both ``relu_mask_bn_sums`` are all-reduced between the
+launches and divided by the global row count; the gradients of the BatchNorm
+scale and bias leave as this rank's sums, which the gradient all-reduce adds up.
+
 Dtypes: activations, weights and masks share one dtype (float32 or bfloat16);
 BatchNorm parameters, statistics and every sum are float32.  Values are cast at
 the points the Pallas bodies cast, and the BatchNorm affine runs in the
@@ -43,6 +49,7 @@ import torch.nn.functional as F
 
 from videopose3d_torch.models.temporal import BN_EPS
 from videopose3d_torch.ops.kernels.temporal_block import _check
+from videopose3d_torch.parallel import mesh
 
 LAUNCHES = {"conv_stats": 0, "norm_drop_matmul_stats": 0, "norm_drop_res": 0,
             "relu_mask_bn_sums": 0, "dz_matmul_dd": 0, "dw_gemm": 0,
@@ -483,6 +490,14 @@ def _finalize_stats(s1, s2, n: int, shift):
     return shift + m1, torch.clamp(s2 / n - m1 * m1, min=0.0)
 
 
+def _global_sums(s1, s2, shard):
+    """The per-channel sums ``(s1, s2)`` over every rank of ``shard`` (one
+    all-reduce), or as they are without one."""
+    if shard is None:
+        return s1, s2
+    return tuple(mesh.all_reduce_(torch.stack([s1, s2]), shard.group))
+
+
 def _affine_consts(mean, var, scale, bias, dtype):
     """(3, C) ``[mean, inv * scale, bias]`` in the activation dtype: the
     constants of the forward's BatchNorm affine, which the backward gate reuses."""
@@ -512,7 +527,7 @@ class FusedTrainBlock(torch.autograd.Function):
     ``fused_train_block`` (``ops/pallas/train_block.py:282``).
 
     ``apply(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a, shift_b, center,
-    fw, plain)``:
+    fw, plain, shard)``:
       x: (B, T, C), T divisible by fw, float32 or bfloat16.
       wa: (fw, C, C), wb: (C, C) in x's dtype.
       sa/ba/sb/bb: (C,) float32 BatchNorm scale and bias.
@@ -522,6 +537,8 @@ class FusedTrainBlock(torch.autograd.Function):
       center: the residual tap, fw: the filter width.
       plain: run the plain versions on any device (the reference a CUDA run is
         held against); otherwise the kernels on a CUDA tensor.
+      shard: None, or the ``parallel.BatchShard`` whose rows x holds: the batch
+        statistics are then the global batch's.
 
     Returns (out (B, T/fw, C), mean_a, var_a, mean_b, var_b): the biased batch
     statistics carry no gradient.
@@ -529,24 +546,27 @@ class FusedTrainBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a, shift_b,
-                center, fw, plain):
+                center, fw, plain, shard=None):
         ops = _PLAIN if plain else _KERNELS
         b, t, c = x.shape
         n = b * (t // fw)
+        n_stats = n if shard is None else shard.total * (t // fw)
         dt = x.dtype
         x3 = x.reshape(n, fw, c)
         ma = None if mask_a is None else mask_a.reshape(n, c)
         mb = None if mask_b is None else mask_b.reshape(n, c)
         u, res, s1a, s2a = ops["conv_stats"](x3, wa, shift_a, center=center)
-        mean_a, var_a = _finalize_stats(s1a, s2a, n, shift_a)
+        s1a, s2a = _global_sums(s1a, s2a, shard)
+        mean_a, var_a = _finalize_stats(s1a, s2a, n_stats, shift_a)
         gate_a = _affine_consts(mean_a, var_a, sa, ba, dt)
         d, v, s1b, s2b = ops["norm_drop_matmul_stats"](u, ma, gate_a, wb, shift_b)
-        mean_b, var_b = _finalize_stats(s1b, s2b, n, shift_b)
+        s1b, s2b = _global_sums(s1b, s2b, shard)
+        mean_b, var_b = _finalize_stats(s1b, s2b, n_stats, shift_b)
         gate_b = _affine_consts(mean_b, var_b, sb, bb, dt)
         out = ops["norm_drop_res"](v, mb, gate_b, res)
         ctx.save_for_backward(x3, wa, wb, sa, sb, ma, mb, u, d, v, mean_a, var_a,
                               mean_b, var_b, gate_a, gate_b)
-        ctx.center, ctx.ops = center, ops
+        ctx.center, ctx.ops, ctx.shard, ctx.n_stats = center, ops, shard, n_stats
         ctx.mark_non_differentiable(mean_a, var_a, mean_b, var_b)
         return out.reshape(b, t // fw, c), mean_a, var_a, mean_b, var_b
 
@@ -554,30 +574,32 @@ class FusedTrainBlock(torch.autograd.Function):
     def backward(ctx, g, *_stats_grads):
         (x3, wa, wb, sa, sb, ma, mb, u, d, v, mean_a, var_a, mean_b, var_b, gate_a,
          gate_b) = ctx.saved_tensors
-        ops = ctx.ops
+        ops, shard, n_stats = ctx.ops, ctx.shard, ctx.n_stats
         n, fw, c = x3.shape
         g2 = g.reshape(n, c).to(x3.dtype).contiguous()
 
         def stat(mean, var):
             return torch.stack([mean, torch.rsqrt(var + BN_EPS)])
 
+        # The BatchNorm input gradients take the global sums; dsb/dbb/dsa/dba
+        # stay this rank's, as the gradient all-reduce adds them up.
         gz, dbb, dsb = ops["relu_mask_bn_sums"](g2, v, mb, stat(mean_b, var_b), gate_b)
-        dz, dd = ops["dz_matmul_dd"](gz, v, _bwd_consts(mean_b, var_b, sb, dbb, dsb, n),
-                                     wb)
+        consts_b = _bwd_consts(mean_b, var_b, sb, *_global_sums(dbb, dsb, shard), n_stats)
+        dz, dd = ops["dz_matmul_dd"](gz, v, consts_b, wb)
         dwb = ops["dw_gemm"](d, dz)
         ga, dba, dsa = ops["relu_mask_bn_sums"](dd, u, ma, stat(mean_a, var_a), gate_a)
-        du, dx3 = ops["du_dtaps_res"](ga, u, g2,
-                                      _bwd_consts(mean_a, var_a, sa, dba, dsa, n), wa,
-                                      center=ctx.center)
+        consts_a = _bwd_consts(mean_a, var_a, sa, *_global_sums(dba, dsa, shard), n_stats)
+        du, dx3 = ops["du_dtaps_res"](ga, u, g2, consts_a, wa, center=ctx.center)
         # The weight gradient over the batch: one large plain matmul.
         dwa = (x3.reshape(n, fw * c).float().t() @ du.float()).reshape(fw, c, c)
         return (dx3.reshape(g.shape[0], -1, c), dwa.to(wa.dtype), dwb.to(wb.dtype),
-                dsa, dba, dsb, dbb, None, None, None, None, None, None, None)
+                dsa, dba, dsb, dbb, None, None, None, None, None, None, None, None)
 
 
 def fused_train_block(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a, shift_b, *,
-                      center: int, fw: int, plain: bool = False):
-    """:class:`FusedTrainBlock` applied: (out, mean_a, var_a, mean_b, var_b).
+                      center: int, fw: int, plain: bool = False, shard=None):
+    """:class:`FusedTrainBlock` applied: (out, mean_a, var_a, mean_b, var_b); with
+    a ``shard``, the statistics are the global batch's.
 
     Any C: where C % 4 != 0 the channel axis is zero-padded to the kernels' next
     multiple of 4 on every device (so the CPU runs this route too), with
@@ -588,10 +610,10 @@ def fused_train_block(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a, shift_
     pad = -c % 4
     if not pad:
         return FusedTrainBlock.apply(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a,
-                                     shift_b, center, fw, plain)
+                                     shift_b, center, fw, plain, shard)
     last = lambda t, value=0.0: None if t is None else F.pad(t, (0, pad), value=value)
     outs = FusedTrainBlock.apply(
         last(x), F.pad(wa, (0, pad, 0, pad)), F.pad(wb, (0, pad, 0, pad)), last(sa, 1.0),
         last(ba), last(sb, 1.0), last(bb), last(mask_a), last(mask_b), last(shift_a),
-        last(shift_b), center, fw, plain)
+        last(shift_b), center, fw, plain, shard)
     return tuple(t[..., :c] for t in outs)

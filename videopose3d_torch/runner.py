@@ -5,10 +5,17 @@ Counterpart of ``videopose3d_tpu/runner.py`` for supervised and
 semi-supervised (``-sun``) training and ``--evaluate`` (with ``--by-subject``):
 the same printed lines, schedules, checkpoint payload and protocol reports.
 ``--render`` and ``--export-training-curves`` are not ported yet and raise.
+
+Under ``python -m torch.distributed.run`` every process trains one data-parallel
+rank (``parallel/mesh.py``): NCCL on CUDA, gloo on the CPU, the weights
+broadcast from rank 0, the per-epoch evaluation's videos shared out among the
+ranks, and only rank 0 writing checkpoints; every rank prints the same epoch
+lines and runs the final evaluation.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -25,6 +32,9 @@ from videopose3d_torch.evaluate import (DeviceEvalSet, Evaluator, evaluate_actio
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 receptive_field)
 from videopose3d_torch.ops.camera import normalize_screen_coordinates, world_to_camera
+from videopose3d_torch.parallel.mesh import (DataParallel, all_reduce_, broadcast_module,
+                                             initialize_distributed, launcher_world_size,
+                                             process_info, shard_batch_size)
 from videopose3d_torch.train import (SemiSupervisedTrainer, SupervisedTrainer,
                                      TrainLoopConfig, bn_momentum_for_epoch,
                                      make_optimizer, set_learning_rate)
@@ -54,12 +64,45 @@ def kernel_width_error(args):
 
 
 def resolve_device(name: str) -> torch.device:
-    """The torch device the CLI runs on; 'cuda' needs a card."""
+    """The torch device the CLI runs on; 'cuda' needs a card, and is the card of
+    ``LOCAL_RANK`` under a launcher (the current card otherwise)."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                              if launcher_world_size() else torch.cuda.current_device())
     return device
+
+
+def join_process_group(args, device):
+    """The run's ``DataParallel`` under a launcher, None otherwise."""
+    if args.no_mesh:
+        if launcher_world_size() > 1:
+            raise SystemExit(f"error: --no-mesh under a launcher of {launcher_world_size()} "
+                             "processes would train that many independent copies")
+        return None
+    if not initialize_distributed(device):
+        return None
+    dp = DataParallel.from_group()
+    info = process_info()
+    print("INFO: distributed runtime: process %d/%d, local rank %d, device %s" % (
+        info["rank"], info["world_size"], info["local_rank"], device))
+    print(f"INFO: Data-parallel over {dp.world_size} processes")
+    return dp
+
+
+def eval_devices(args, device, dp):
+    """Local devices to round-robin evaluation videos over (``--eval-devices``;
+    0: every local card of a single-process CUDA run, the process's own device
+    otherwise), or None for the one device."""
+    local = [device]
+    if device.type == "cuda" and dp is None:
+        local += [torch.device("cuda", i) for i in range(torch.cuda.device_count())
+                  if i != device.index]
+    n = min(args.eval_devices if args.eval_devices > 0 else len(local), len(local))
+    return local[:n] if n > 1 else None
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +272,7 @@ def main(argv=None):
     if refused:
         raise SystemExit(f"error: {refused}")
     device = resolve_device(args.device)
+    dp = join_process_group(args, device)
     os.makedirs(args.checkpoint, exist_ok=True)
 
     dataset = load_dataset(args)
@@ -301,6 +345,7 @@ def main(argv=None):
     engine = args.serving_engine if args.evaluate else "xla"
     evaluator = Evaluator(model_cfg, joints_flip_perm=joints_perm, engine=engine,
                           device=device)
+    devices = eval_devices(args, device, dp)
 
     if not args.evaluate:
         traj_model = None
@@ -308,14 +353,14 @@ def main(argv=None):
             traj_model = TemporalModel(traj_cfg).to(device)
         _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filter,
                model, traj_model, use_strided, kps_perm, joints_perm, pad, causal_shift,
-               evaluator, test_batcher, checkpoint, device)
+               evaluator, test_batcher, checkpoint, device, dp, devices)
 
     model.eval()
     print("Evaluating...")
     start = time.perf_counter()
     n_frames = _final_evaluation(args, dataset, keypoints, subjects_test,
                                  action_filter, model, evaluator, pad, causal_shift,
-                                 kps_perm, joints_perm)
+                                 kps_perm, joints_perm, devices)
     seconds = time.perf_counter() - start
     print(f"INFO: evaluated {n_frames} frames in {seconds:.3f} s "
           f"({n_frames / seconds:.1f} frames/s, engine {engine}, device {device})")
@@ -323,11 +368,11 @@ def main(argv=None):
 
 def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filter,
            model, traj_model, use_strided, kps_perm, joints_perm, pad, causal_shift,
-           evaluator, test_batcher, checkpoint, device):
+           evaluator, test_batcher, checkpoint, device, dp, devices):
     """The training loop: epochs of train steps (semi-supervised with a
     trajectory model), the per-epoch evaluation and epoch line, the lr and
     BatchNorm-momentum schedules, and checkpoints every
-    ``--checkpoint-frequency`` epochs."""
+    ``--checkpoint-frequency`` epochs; data-parallel under ``dp``."""
     semi = traj_model is not None
     cameras_train, poses_train, poses_train_2d = fetch(
         args, dataset, keypoints, subjects_train, action_filter, subset=args.subset)
@@ -339,6 +384,11 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         epochs=args.epochs, use_strided=use_strided, warmup=args.warmup,
         bone_length_term=args.bone_length_term, no_proj=args.no_proj,
         linear_projection=args.linear_projection, gather_impl=args.gather_impl)
+    if dp is not None and loop_cfg.batch_size % dp.world_size:
+        new_bs = shard_batch_size(loop_cfg.batch_size, dp.world_size)
+        print(f"INFO: rounding batch size {loop_cfg.batch_size} -> {new_bs} "
+              f"to divide across {dp.world_size} processes")
+        loop_cfg = dataclasses.replace(loop_cfg, batch_size=new_bs)
     flip_perms = (kps_perm, joints_perm) if args.data_augmentation else None
     margins = FlatSequenceDataset.training_margins(pad, causal_shift, loop_cfg.chunk_length)
     dev = FlatSequenceDataset(poses_train_2d, poses_train, cameras_train, margins=margins,
@@ -365,10 +415,10 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
             semi_eval_batcher.num_frames()))
         optimizer = make_optimizer([model, traj_model], lr)
         trainer = SemiSupervisedTrainer(model, traj_model, loop_cfg, optimizer,
-                                        dataset.skeleton().parents())
+                                        dataset.skeleton().parents(), dp=dp)
     else:
         optimizer = make_optimizer(model, lr)
-        trainer = SupervisedTrainer(model, loop_cfg, optimizer)
+        trainer = SupervisedTrainer(model, loop_cfg, optimizer, dp=dp)
     # Dropout masks: one generator on the model's device, seeded from --seed.
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -396,6 +446,9 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         if isinstance(step_rng, torch.Tensor) and step_rng.dtype == torch.uint8:
             generator.set_state(step_rng)
         set_learning_rate(optimizer, lr)
+    if dp is not None:
+        broadcast_module(model, group=dp.group)
+        broadcast_module(traj_model, group=dp.group)
 
     print("** Note: reported losses are averaged over all frames and test-time "
           "augmentation is not used here.")
@@ -404,11 +457,15 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
 
     eval_sets = None
     if not args.no_eval:
-        eval_sets = {name: DeviceEvalSet(b, pad=pad, device=device, with_traj=semi)
+        # The videos go round-robin over the ranks, and within a rank over its
+        # evaluation devices.
+        shard = None if dp is None else (dp.rank, dp.world_size)
+        eval_sets = {name: DeviceEvalSet(b, pad=pad, device=device, with_traj=semi,
+                                         shard=shard, devices=devices)
                      for name, b in (("test", test_batcher), ("train", train_eval_batcher))}
         if semi:
             eval_sets["semi"] = DeviceEvalSet(semi_eval_batcher, pad=pad, device=device,
-                                              with_traj=True)
+                                              with_traj=True, shard=shard, devices=devices)
         # Trajectory inference stays on the plain float32 engine.
         traj_evaluator = (Evaluator(traj_model.config, engine="xla", device=device)
                           if semi else None)
@@ -434,7 +491,10 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
                 else:
                     losses.append(trainer.step(dev, meta, n_valid, momentum, generator))
                 n_valids.append(n_valid)
-        vals = torch.stack(losses).double().cpu().numpy()  # waits for the steps
+        vals = torch.stack(losses)
+        if dp is not None:  # each rank's losses are its shares
+            all_reduce_(vals, dp.group)
+        vals = vals.double().cpu().numpy()  # waits for the steps
         train_seconds += time.perf_counter() - step_start
         train_steps += len(losses)
         train_frames += sum(n_valids)
@@ -469,7 +529,7 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         set_learning_rate(optimizer, lr)
         epoch += 1
 
-        if epoch % args.checkpoint_frequency == 0:
+        if epoch % args.checkpoint_frequency == 0 and (dp is None or dp.rank == 0):
             chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.bin")
             print("Saving checkpoint to", chk_path)
             stream_semi = sampler_semi.stream_state() if semi else None
@@ -495,9 +555,10 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
 
 
 def _final_evaluation(args, dataset, keypoints, subjects_test, action_filter,
-                      model, evaluator, pad, causal_shift, kps_perm, joints_perm):
-    """Action-wise protocols (per subject with ``--by-subject``); returns the
-    number of frames evaluated."""
+                      model, evaluator, pad, causal_shift, kps_perm, joints_perm,
+                      devices=None):
+    """Action-wise protocols (per subject with ``--by-subject``), the videos
+    round-robin over ``devices``; returns the number of frames evaluated."""
     all_actions = {}
     all_actions_by_subject = {}
     for subject in subjects_test:
@@ -534,12 +595,13 @@ def _final_evaluation(args, dataset, keypoints, subjects_test, action_filter,
 
     if not args.by_subject:
         evaluate_actionwise(evaluator, model, all_actions, make_batcher,
-                            action_filter=action_filter)
+                            action_filter=action_filter, devices=devices)
     else:
         for subject in all_actions_by_subject.keys():
             print("Evaluating on subject", subject)
             evaluate_actionwise(evaluator, model, all_actions_by_subject[subject],
-                                make_batcher, action_filter=action_filter)
+                                make_batcher, action_filter=action_filter,
+                                devices=devices)
             print("")
     return n_frames
 

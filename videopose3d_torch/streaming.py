@@ -520,8 +520,14 @@ class StreamingCausalLifter:
     ``quantized``.  ``frames_per_step`` k > 1 takes (B, k, J, F) per step and
     returns (B, k, J_out, 3): k frames of latency for fewer, wider dispatches.
     ``device`` defaults to the card; ``ring_impl="dma"`` writes the per-layer
-    ``bf16`` engine's block rings with the ring-push kernel (K7).  ``mesh=``
-    (GSPMD scale-out) belongs to the data-parallel slice and raises.
+    ``bf16`` engine's block rings with the ring-push kernel (K7).
+
+    ``mesh=``, a sequence of devices, scales the streams out: the stream batch
+    is split into contiguous equal shards, one per device, each with its own
+    copy of the weights and its own rings, and the steps exchange nothing;
+    ``step`` returns the whole batch on ``mesh[0]``.  The fused engines refuse
+    it, as in the JAX package: :class:`MultiDeviceStreamingLifter` runs them on
+    independent stream groups.
     """
 
     def __init__(self, config: TemporalModelConfig, model: TemporalModel = None, *,
@@ -539,17 +545,27 @@ class StreamingCausalLifter:
             _stream_dtype(config)  # reject 'mixed' with guidance up front
         if engine == "bf16_fused" and _stream_dtype(config) != torch.bfloat16:
             raise ValueError("engine='bf16_fused' requires compute_dtype='bfloat16'")
-        if mesh is not None:
-            raise ValueError("mesh= (GSPMD scale-out of the stream batch) is not ported "
-                             "to videopose3d_torch yet: it belongs to the data-parallel "
-                             "slice (ROADMAP.md, Queue 1 item 6); use "
-                             "MultiDeviceStreamingLifter for independent stream groups")
+        if engine.endswith("_fused") and mesh is not None:
+            raise ValueError(f"engine={engine!r} does not support mesh=; use the "
+                             "per-layer engines, or MultiDeviceStreamingLifter for "
+                             "independent stream groups on several devices")
+        if mesh is not None and device is not None:
+            raise ValueError("mesh= and device= are mutually exclusive")
         if ring_impl not in ("dus", "dma"):
             raise ValueError(f"unknown ring implementation {ring_impl!r}")
         self.config = config
         self.engine = engine
         self.frames_per_step = frames_per_step
         self.ring_impl = ring_impl
+        self._stream_state = None
+        self._shards = None
+        if mesh is not None:
+            self._shards = [StreamingCausalLifter(
+                config, model, engine=engine, quantized=quantized,
+                frames_per_step=frames_per_step, device=d, ring_impl=ring_impl)
+                for d in mesh]
+            self.device = self._shards[0].device
+            return
         self.device = torch.device("cuda" if device is None else device)
         self.model = None if model is None else _model_on(model, self.device)
         self.quantized = None if quantized is None else _q_on(quantized, self.device)
@@ -558,7 +574,15 @@ class StreamingCausalLifter:
             self._weights = prepare_stream_weights(config, self.model)
         elif engine == "int8_fused":
             self._weights = prepare_int8_fused(self.quantized)
-        self._stream_state = None
+
+    def _split(self, frames):
+        """The contiguous equal shards of a stream batch, one per mesh device."""
+        n = len(self._shards)
+        if frames.shape[0] % n:
+            raise ValueError(f"{frames.shape[0]} streams do not split evenly over the "
+                             f"mesh's {n} devices")
+        g = frames.shape[0] // n
+        return [frames[i * g:(i + 1) * g] for i in range(n)]
 
     def _frames(self, frames):
         if not isinstance(frames, torch.Tensor):
@@ -566,6 +590,11 @@ class StreamingCausalLifter:
         return frames.to(self.device, torch.float32)
 
     def reset(self, first_frames) -> None:
+        if self._shards is not None:
+            for lifter, part in zip(self._shards, self._split(first_frames)):
+                lifter.reset(part)
+            self._stream_state = [lifter._stream_state for lifter in self._shards]
+            return
         x = self._frames(first_frames)
         k = self.frames_per_step
         with full_float32():
@@ -582,6 +611,9 @@ class StreamingCausalLifter:
         """One dispatch: frame is (B, J, F), or (B, k, J, F) with k > 1."""
         if self._stream_state is None:
             raise RuntimeError("call reset() first")
+        if self._shards is not None:
+            return torch.cat([lifter.step(part).to(self.device)
+                              for lifter, part in zip(self._shards, self._split(frame))])
         x = self._frames(frame)
         multi = self.frames_per_step > 1
         if self.engine == "int8_fused":

@@ -11,13 +11,23 @@ descriptors and the valid-row counts go to the device.
 The final partial batch of an epoch is padded with copies of its first row: the
 loss masks them out, while the BatchNorm batch statistics include them, as in
 the JAX package.
+
+Data parallel (``dp=``, a ``parallel.DataParallel``): every rank runs the same
+samplers and receives the same global descriptors, and takes its contiguous
+rows of them (K1 gathers those rows from the rank's own copy of the dataset).
+The BatchNorm statistics are the global batch's and the dropout masks the
+global draw (``forward_strided(shard=)``); each rank's loss is its rows' masked
+sum over the global valid count, so the gradients, summed over the ranks in one
+flat all-reduce after ``backward``, are the global batch's, even where the
+final partial batch's valid rows all lie on the first ranks.  A rank's returned
+losses are its shares: summed over the ranks they are the global losses.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -26,6 +36,7 @@ from videopose3d_torch.data.generators import (FlatSequenceDataset,
                                                assemble_chunked_batch_contiguous)
 from videopose3d_torch.models.temporal import TemporalModel, forward_strided
 from videopose3d_torch.ops.camera import project_to_2d, project_to_2d_linear
+from videopose3d_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +101,21 @@ def _mpjpe_per_sample(pred, target):
     return torch.linalg.vector_norm(pred - target, dim=-1).mean(dim=(1, 2))
 
 
-def _masked_sample_mean(per_sample, mask):
-    """Mean over the valid samples; mask: (B,) float."""
-    return (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+def _masked_sample_mean(per_sample, mask, rows=None):
+    """Mean over the valid samples; mask: (B,) float over the global batch, of
+    which ``per_sample`` holds the rows ``[start, stop)`` (default all): those
+    rows' share of the global mean."""
+    start, stop = (0, mask.shape[0]) if rows is None else rows
+    return (per_sample * mask[start:stop]).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _valid(rows: int, n: int, device):
+    """(rows,) float mask of the first ``n`` rows."""
+    return (torch.arange(rows, device=device) < n).float()
+
+
+def _rows(dp: Optional[mesh.DataParallel], total: int):
+    return (0, total) if dp is None else dp.rows(total)
 
 
 def _check_margins(dev, loop: TrainLoopConfig) -> None:
@@ -123,38 +146,46 @@ def _descriptors(meta, device):
 
 
 class SupervisedTrainer:
-    """The supervised train step of one model and optimizer.
+    """The supervised train step of one model and optimizer, on this rank's rows
+    of each global batch under ``dp``.
 
-    ``step`` returns the step's loss as a 0-d tensor on the device, not yet
-    synchronised, so a loop of steps queues work without waiting for the card.
+    ``step`` returns the step's loss (this rank's share under ``dp``) as a 0-d
+    tensor on the device, not yet synchronised, so a loop of steps queues work
+    without waiting for the card.
     """
 
     def __init__(self, model: TemporalModel, loop_cfg: TrainLoopConfig,
-                 optimizer: torch.optim.Optimizer):
+                 optimizer: torch.optim.Optimizer, dp: Optional[mesh.DataParallel] = None):
         _strided_only(loop_cfg)
         self.model = model
         self.loop_cfg = loop_cfg
         self.optimizer = optimizer
+        self.dp = dp
 
     def step(self, dev, meta, n_valid: int, momentum: float, generator=None):
-        """One step on descriptors ``meta`` (B, 4) with ``n_valid`` real rows;
-        dropout masks come from ``generator`` (None: no dropout)."""
+        """One step on the global descriptors ``meta`` (B, 4) with ``n_valid``
+        real rows; dropout masks come from ``generator`` (None: no dropout)."""
         loop = self.loop_cfg
         _check_margins(dev, loop)
         device = dev.base_2d.device
-        meta = _descriptors(meta, device)
+        b = meta.shape[0]
+        rows = _rows(self.dp, b)
+        shard = None if self.dp is None else mesh.BatchShard((rows,), b, self.dp.group)
         _, batch_3d, batch_2d = assemble_chunked_batch_contiguous(
-            dev, meta, pad=loop.pad, causal_shift=loop.causal_shift,
-            chunk_length=loop.chunk_length, gather_impl=loop.gather_impl)
+            dev, _descriptors(meta[rows[0]:rows[1]], device), pad=loop.pad,
+            causal_shift=loop.causal_shift, chunk_length=loop.chunk_length,
+            gather_impl=loop.gather_impl)
         batch_3d = batch_3d.clone()
         batch_3d[:, :, 0] = 0.0  # root-centre: the trajectory is not learned here
-        mask = (torch.arange(meta.shape[0], device=device) < n_valid).float()
 
         self.optimizer.zero_grad(set_to_none=True)
         pred = forward_strided(self.model, batch_2d, momentum=momentum,
-                               generator=generator)
-        loss = _masked_sample_mean(_mpjpe_per_sample(pred, batch_3d), mask)
+                               generator=generator, shard=shard)
+        loss = _masked_sample_mean(_mpjpe_per_sample(pred, batch_3d),
+                                   _valid(b, n_valid, device), rows)
         loss.backward()
+        if self.dp is not None:
+            mesh.all_reduce_gradients(self.model.parameters(), self.dp.group)
         self.optimizer.step()
         return loss.detach()
 
@@ -177,59 +208,71 @@ class SemiSupervisedTrainer:
     included; dropout masks come from one generator, the pose model's first.
     ``step`` returns ``(loss_pos, loss_traj, loss_recon, loss_total)`` as 0-d
     tensors on the device, not yet synchronised.
+
+    Under ``dp`` a rank concatenates its rows of the labeled batch and of the
+    unlabeled one; the bone-length term's two means are global (an all-reduce
+    of their sums) and the term, alike on every rank, enters each rank's total
+    divided by the world size, so that its gradient is counted once.
     """
 
     def __init__(self, pos_model: TemporalModel, traj_model: TemporalModel,
                  loop_cfg: TrainLoopConfig, optimizer: torch.optim.Optimizer,
-                 skeleton_parents):
+                 skeleton_parents, dp: Optional[mesh.DataParallel] = None):
         _strided_only(loop_cfg)
         self.pos_model = pos_model
         self.traj_model = traj_model
         self.loop_cfg = loop_cfg
         self.optimizer = optimizer
+        self.dp = dp
         self._parents = torch.as_tensor(np.asarray(skeleton_parents, np.int64)[1:])
 
     def step(self, dev, dev_semi, meta, n_valid: int, meta_semi, n_valid_semi: int,
              momentum: float, skip: bool, generator=None):
-        """One step on the labeled descriptors ``meta`` (B, 4) and, unless
-        ``skip`` (warmup), the unlabeled ``meta_semi``; dropout masks come from
-        ``generator`` (None: no dropout)."""
+        """One step on the global labeled descriptors ``meta`` (B, 4) and, unless
+        ``skip`` (warmup), the global unlabeled ``meta_semi``; dropout masks come
+        from ``generator`` (None: no dropout)."""
         loop = self.loop_cfg
         _check_margins(dev, loop)
         _check_margins(dev_semi, loop)
         device = dev.base_2d.device
 
-        def assemble(d, m, **kw):
+        def assemble(d, m, rows, **kw):
             return assemble_chunked_batch_contiguous(
-                d, _descriptors(m, device), pad=loop.pad, causal_shift=loop.causal_shift,
-                chunk_length=loop.chunk_length, gather_impl=loop.gather_impl,
-                joint_axis_2d=True, **kw)
+                d, _descriptors(m[rows[0]:rows[1]], device), pad=loop.pad,
+                causal_shift=loop.causal_shift, chunk_length=loop.chunk_length,
+                gather_impl=loop.gather_impl, joint_axis_2d=True, **kw)
 
-        def valid(rows, n):
-            return (torch.arange(rows, device=device) < n).float()
-
-        _, batch_3d, batch_2d = assemble(dev, meta)
+        b = meta.shape[0]
+        rows_l = _rows(self.dp, b)
+        _, batch_3d, batch_2d = assemble(dev, meta, rows_l)
         inputs_traj = batch_3d[:, :, :1]  # the root, before root-centring
         target_3d = batch_3d.clone()
         target_3d[:, :, 0] = 0.0
         b_l = batch_3d.shape[0]
-        mask_l = valid(b_l, n_valid)
+        mask_l = _valid(b, n_valid, device)
         inputs_2d = batch_2d
+        segments, total_rows = (rows_l,), b
         if not skip:
-            cam_semi, _, batch_2d_semi = assemble(dev_semi, meta_semi, with_3d=False,
-                                                  with_cameras=True)
+            b_u = meta_semi.shape[0]
+            rows_u = _rows(self.dp, b_u)
+            cam_semi, _, batch_2d_semi = assemble(dev_semi, meta_semi, rows_u,
+                                                  with_3d=False, with_cameras=True)
             inputs_2d = torch.cat([batch_2d, batch_2d_semi])
-            mask_u = valid(batch_2d_semi.shape[0], n_valid_semi)
+            mask_u = _valid(b_u, n_valid_semi, device)
+            segments, total_rows = (rows_l, (b + rows_u[0], b + rows_u[1])), b + b_u
+        shard = (None if self.dp is None
+                 else mesh.BatchShard(segments, total_rows, self.dp.group))
 
         self.optimizer.zero_grad(set_to_none=True)
         pred_pos = forward_strided(self.pos_model, inputs_2d, momentum=momentum,
-                                   generator=generator)
+                                   generator=generator, shard=shard)
         pred_traj = forward_strided(self.traj_model, inputs_2d, momentum=momentum,
-                                    generator=generator)
-        loss_pos = _masked_sample_mean(_mpjpe_per_sample(pred_pos[:b_l], target_3d), mask_l)
+                                    generator=generator, shard=shard)
+        loss_pos = _masked_sample_mean(_mpjpe_per_sample(pred_pos[:b_l], target_3d), mask_l,
+                                       rows_l)
         w = torch.reciprocal(inputs_traj[..., 2])  # (B, T, 1)
         dist_traj = torch.linalg.vector_norm(pred_traj[:b_l] - inputs_traj, dim=-1)
-        loss_traj = _masked_sample_mean((w * dist_traj).mean(dim=(1, 2)), mask_l)
+        loss_traj = _masked_sample_mean((w * dist_traj).mean(dim=(1, 2)), mask_l, rows_l)
         total = loss_pos + loss_traj
         loss_recon = torch.zeros((), device=device)
         if not skip:
@@ -238,7 +281,7 @@ class SemiSupervisedTrainer:
             project = project_to_2d_linear if loop.linear_projection else project_to_2d
             reconstruction = project(pred_pos[b_l:] + pred_traj[b_l:], cam_semi)
             loss_recon = _masked_sample_mean(
-                _mpjpe_per_sample(reconstruction, target_semi), mask_u)
+                _mpjpe_per_sample(reconstruction, target_semi), mask_u, rows_u)
             if not loop.no_proj:
                 total = total + loss_recon
             if loop.bone_length_term:
@@ -246,11 +289,21 @@ class SemiSupervisedTrainer:
                     self._parents = self._parents.to(device)
                 dists = pred_pos[:, :, 1:] - pred_pos[:, :, self._parents]
                 bones = torch.linalg.vector_norm(dists, dim=-1).mean(dim=1)  # (B, J-1)
-                mean_l = ((bones[:b_l] * mask_l[:, None]).sum(0)
-                          / torch.clamp(mask_l.sum(), min=1.0))
-                mean_u = ((bones[b_l:] * mask_u[:, None]).sum(0)
-                          / torch.clamp(mask_u.sum(), min=1.0))
-                total = total + torch.mean(torch.abs(mean_l - mean_u))
+                sums = torch.stack([
+                    (bones[:b_l] * mask_l[rows_l[0]:rows_l[1], None]).sum(0),
+                    (bones[b_l:] * mask_u[rows_u[0]:rows_u[1], None]).sum(0)])
+                if self.dp is not None:
+                    sums = mesh.all_reduce_sum(sums, self.dp.group)
+                mean_l = sums[0] / torch.clamp(mask_l.sum(), min=1.0)
+                mean_u = sums[1] / torch.clamp(mask_u.sum(), min=1.0)
+                bone_term = torch.mean(torch.abs(mean_l - mean_u))
+                if self.dp is not None:
+                    bone_term = bone_term / self.dp.world_size
+                total = total + bone_term
         total.backward()
+        if self.dp is not None:
+            mesh.all_reduce_gradients(itertools.chain(self.pos_model.parameters(),
+                                                      self.traj_model.parameters()),
+                                      self.dp.group)
         self.optimizer.step()
         return loss_pos.detach(), loss_traj.detach(), loss_recon.detach(), total.detach()
