@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation,
-int8 serving, supervised and semi-supervised training and streaming serving
-paths at the full width of the README's model, through its hand-written CUDA
-kernels.
+int8 serving, supervised and semi-supervised training (strided and dilated
+forms, Human3.6M and HumanEva) and streaming serving paths at the full width of
+the README's model, through its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -89,8 +89,25 @@ statistics bitwise equal after their steps, a DeviceEvalSet sharded over the
 ranks against an unsharded one, K1 and K2 launched on each rank, ms per step
 (two ranks on one card: not a scale-out number) and the dropout-mask draw at
 the global and at a rank's shape.  Each rank runs under a timeout.
+Phase 9 (dilated-form training and HumanEva): (a) trains the full-width model in
+the dilated form (``--stride 2``: 512 chunks of 2 frames a step from 244-row
+windows) with ``runner.main`` twice with K1 and once with ``--gather-impl xla``,
+all three bitwise equal (epoch line, step losses, saved weights), with K1
+bitwise against plain on the run's first windows, ms/step, training frames/s
+and peak memory, one profiled run split into K1, the convolutions, BatchNorm,
+the mask draws and the optimizer, and the saved checkpoint evaluated through the
+fused blocks (K3) against the run's own evaluation; (b) trains ``-arc 3,3,3``
+with ``--disable-optimizations`` and with ``--dense`` (kernels of 7 and 19
+taps) and evaluates their checkpoints; (c) runs ``-sun`` with ``--stride 2`` at
+phase 7's (a) shape; (d) writes a synthetic 15-joint HumanEva archive and runs
+the README's recipe (``-arc 3,3,3 -b 128 --train-engine pallas``), holding K1
+(30-column rows) and K2 (n = 384, 128) against plain on the run's own first
+inputs, then ``--evaluate --by-subject`` with the fused engine against xla, K3
+(a 45-column shrink) held against plain on its first inputs; (e) phase 8b's
+ranks also take dilated supervised steps against one process.
 
 Each kernel's line in the final summary carries its time, its plain version's,
+its launches on the main path (K1, K2 and the float32 K3 entries also in phase 9),
 its bound (the larger of the bytes it must move over the card's memory rate and
 its operations over the card's peak rate for their type, from NVIDIA's H100 SXM
 data sheet) and, where one PyTorch call computes the same function, that call's
@@ -691,7 +708,7 @@ def phase2(model, tmp):
 
 # Ranges that the profiler shows on the device timeline beside the kernels: the
 # wrappers' and parts' own (record_function) and torch's "Optimizer.step#...".
-RANGE_PREFIXES = ("K1 ", "K2 ", "semi ", "DP ", "Optimizer.")
+RANGE_PREFIXES = ("K1 ", "K2 ", "semi ", "DP ", "dilated ", "Optimizer.")
 
 
 def is_range(event):
@@ -1226,37 +1243,37 @@ _EPOCH = re.compile(r"^\[1\] time \S+ lr \S+ 3d_train (\S+) 3d_eval (\S+) 3d_val
 _TRAINED = re.compile(r"^INFO: trained (\d+) steps in (\S+) s \((\S+) frames/s")
 
 
-def train_cli(argv, profiled=None):
+def train_cli(argv, profiled=None, window=PROFILE_STEPS):
     """runner.main training in-process; returns (per-step losses, epoch line
     numbers, (steps, seconds, frames/s, ms per step over the warm steps
-    PROFILE_STEPS), captured output, launches).
-    ``profiled``: a dict that receives a torch.profiler trace of steps
-    PROFILE_STEPS and their wall time; each K2 wrapper call then runs inside a
+    ``window``), captured output, launches).
+    ``profiled``: a dict that receives a torch.profiler trace of the steps of
+    ``window`` and their wall time; each K2 wrapper call then runs inside a
     ``K2 <key>`` profiler range, so that the trace splits the device time of
     kernels the wrappers share (the tap GEMM) by wrapper."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from videopose3d_torch import runner, train
     from videopose3d_torch.ops.kernels import gather_rows as gr
     from videopose3d_torch.ops.kernels import train_block as trb
-    losses, window = [], {}
+    losses, timed = [], {}
     step = train.SupervisedTrainer.step
 
     def recording_step(self, *args, **kwargs):
-        first, stop = PROFILE_STEPS
+        first, stop = window
         if len(losses) == first:
             torch.cuda.synchronize()
             if profiled is not None:
                 profiled["prof"] = profile(activities=[ProfilerActivity.CPU,
                                                        ProfilerActivity.CUDA])
                 profiled["prof"].start()
-            window["start"] = time.perf_counter()
+            timed["start"] = time.perf_counter()
         loss = step(self, *args, **kwargs)
         losses.append(loss)
         if len(losses) == stop:
             torch.cuda.synchronize()
-            window["wall"] = time.perf_counter() - window["start"]
+            timed["wall"] = time.perf_counter() - timed["start"]
             if profiled is not None:
-                profiled["wall"] = window["wall"]
+                profiled["wall"] = timed["wall"]
                 profiled["prof"].stop()
         return loss
 
@@ -1287,28 +1304,29 @@ def train_cli(argv, profiled=None):
     trained = [m for m in map(_TRAINED.match, out.splitlines()) if m]
     check(len(epoch) == 1 and len(trained) == 1, f"no epoch or trained line:\n{out}")
     numbers = [float(v) for v in epoch[0].groups()]
-    check("wall" in window, f"fewer than {PROFILE_STEPS[1]} steps:\n{out}")
+    check("wall" in timed, f"fewer than {window[1]} steps:\n{out}")
     rate = (int(trained[0].group(1)), float(trained[0].group(2)), float(trained[0].group(3)),
-            window["wall"] * 1e3 / (PROFILE_STEPS[1] - PROFILE_STEPS[0]))
+            timed["wall"] * 1e3 / (window[1] - window[0]))
     check(all(math.isfinite(v) for v in numbers), f"non-finite epoch losses: {numbers}")
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite step losses: {losses}")
     return losses, numbers, rate, out, launches
 
 
-def train_argv(tmp, name, engine):
+def train_argv(tmp, name, engine, subset=TRAIN_SUBSET, extra=()):
     """Phase 4's training command line (one full-width epoch of batch 1,024 from
     the random checkpoint, dropout 0.25) in a fresh checkpoint directory named
-    after the run: (directory, argv)."""
+    after the run: (directory, argv).  Phase 9 cuts the training videos to
+    ``subset`` and adds ``extra`` flags."""
     ckpt = os.path.join(tmp, "train_" + name.replace(" ", "_"))
     os.makedirs(ckpt)
     shutil.copy(os.path.join(tmp, "checkpoint", "random_full_width.bin"), ckpt)
     return ckpt, ["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
                   "-b", "1024", "-e", "1", "-drop", "0.25", "--seed", str(SEED),
-                  "-str", "S1,S5", "-ste", "S9,S11", "--subset", TRAIN_SUBSET,
+                  "-str", "S1,S5", "-ste", "S9,S11", "--subset", subset,
                   "--data-dir", os.path.join(tmp, "data"), "-c", ckpt,
                   "-r", "random_full_width.bin", "--checkpoint-frequency", "1",
-                  "--device", "cuda", "--train-engine", engine]
+                  "--device", "cuda", "--train-engine", engine, *extra]
 
 
 def phase4(tmp):
@@ -1882,6 +1900,8 @@ DP_EVAL_AGREE = 1e-6
 # 8b: supervised steps after which the ranks' weights must be bitwise equal,
 # full semi-supervised steps, and supervised steps timed after those.
 DP_STEPS, DP_SEMI_STEPS, DP_TIMED_STEPS = 8, 2, 6
+# Phase 9 (e): dilated-form supervised steps on the two ranks.
+DP_DILATED_STEPS = 2
 # 8b's training set: eight videos of 750 frames (S1's two actions from four
 # cameras at --subset 0.5, as phase 4), 12,000 windows with the flipped copies:
 # 11 steps of 1,024 and one of 736.  The sharded evaluation set: six videos of
@@ -2220,6 +2240,7 @@ def phase8b_checks(rank, world, device):
             result["grad_mb"] = flat.numel() * 4 / 1e6
         else:
             pos, traj = models
+    result.update(dp_dilated_steps(rank, dp, device, perm, uncounted))
     result["launches"] = {**gr.LAUNCHES, **trb.LAUNCHES}
 
     p2, p3, cams = dp_videos(SEED + 83, DP_EVAL_VIDEOS, DP_EVAL_FRAMES)
@@ -2246,6 +2267,52 @@ def phase8b_checks(rank, world, device):
     dist_barrier(device)
     return result
 
+
+
+def dp_dilated_steps(rank, dp, device, perm, uncounted):
+    """Phase 9 (e), inside an 8b rank: DP_DILATED_STEPS supervised steps of the
+    dilated form (-arc 3,3,3 at full width, chunks of 2 frames, a global batch of
+    512: -b 1024 --stride 2) on this rank's rows against one process from the
+    same state (rank 0): the step-0 loss and gradients, the weights' digest."""
+    import copy
+    from videopose3d_torch import train
+    from videopose3d_torch.data import generators as gen
+    from videopose3d_torch.evaluate import full_float32
+    from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
+    from videopose3d_torch.parallel import mesh
+    arch = (3, 3, 3)
+    pad = (receptive_field_of(arch) - 1) // 2
+    p2, p3, cams = dp_videos(SEED + 84, DP_VIDEOS, DP_FRAMES)
+    dev = gen.FlatSequenceDataset(
+        p2, p3, cams, margins=gen.FlatSequenceDataset.training_margins(pad, 0, 2),
+        flip_perms=(perm, perm)).to_device(device)
+    loop = train.TrainLoopConfig(batch_size=DP_BATCH // 2, chunk_length=2, pad=pad,
+                                 causal_shift=0, use_strided=False)
+    steps = list(itertools.islice(gen.ChunkedPairSampler(
+        [len(v) for v in p2], loop.batch_size, 2, augment=True).next_epoch(),
+        DP_DILATED_STEPS))
+    torch.manual_seed(SEED + 9)
+    model = TemporalModel(TemporalModelConfig(JOINTS, 2, JOINTS, arch, dropout=0.25,
+                                              channels=CHANNELS, train_engine="pallas"))
+    model = model.to(device).train()
+    mesh.broadcast_module(model)
+    ref = copy.deepcopy(model) if rank == 0 else None
+    mine = train.SupervisedTrainer(model, loop, train.make_optimizer(model, 1e-3), dp=dp)
+    single = (train.SupervisedTrainer(ref, loop, train.make_optimizer(ref, 1e-3))
+              if rank == 0 else None)
+    gens = [torch.Generator(device=device).manual_seed(SEED + 9) for _ in range(2)]
+    got, want, result = [], [], {}
+    with full_float32():
+        for i, (meta, n_valid) in enumerate(steps):
+            if rank == 0:
+                with uncounted():
+                    want.append(float(single.step(dev, meta, n_valid, 0.1, gens[1])))
+            share = mine.step(dev, meta, n_valid, 0.1, gens[0])
+            got.append(float(mesh.all_reduce_(share.detach().reshape(1).clone())))
+            if i == 0 and rank == 0:
+                result["dilated grad"] = grad_errors([model], [ref])
+    result["dilated"] = {"losses": got, "single": want, "digest": state_digest([model])}
+    return result
 
 
 def receptive_field_of(arch):
@@ -2331,6 +2398,21 @@ def phase8b(tmp):
               f"8b {name}: the ranks' weights and statistics differ after {len(got)} steps")
         print(f"phase8b {name}: parameters and running statistics bitwise equal on both "
               f"ranks after {len(got)} steps")
+    got, want = r0["dilated"]["losses"], r0["dilated"]["single"]
+    gaps = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    norm, entry = r0["dilated grad"]
+    print(f"phase9 (e) dilated form -arc 3,3,3 -b 1024 --stride 2 on two gloo ranks: step-0 "
+          f"loss {got[0]!r} vs one process {want[0]!r}, relative {gaps[0]:.3e} (bound "
+          f"{DP_LOSS_AGREE:.0e}); gradients, worst tensor: relative norm {norm:.3e} (bound "
+          f"{GRAD_NORM_TOL:.0e}), largest entry {entry:.3e} of the tensor's max; loss gap "
+          f"per step: " + " ".join(f"{g:.1e}" for g in gaps))
+    check(gaps[0] <= DP_LOSS_AGREE and norm <= GRAD_NORM_TOL,
+          f"(e) dilated: step-0 loss {got[0]} vs {want[0]}, gradients {r0['dilated grad']}")
+    check(all(r["dilated"]["losses"] == got for r in results)
+          and len({r["dilated"]["digest"] for r in results}) == 1,
+          "(e) dilated: the ranks' losses or weights differ")
+    print(f"phase9 (e) parameters and running statistics bitwise equal on both ranks after "
+          f"{len(got)} dilated steps")
     rel = max(abs(a - b) / max(abs(b), 1e-30) for r in results
               for a, b in zip(r["eval sharded"][:3], r0["eval single"][:3]))
     print(f"phase8b DeviceEvalSet over {DP_EVAL_VIDEOS} videos sharded over two ranks vs "
@@ -2347,6 +2429,424 @@ def phase8b(tmp):
     print("phase8b launches per rank: " + "; ".join(
         f"rank {r['rank']} {r['launches']}" for r in results))
     return [r["launches"] for r in results]
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: dilated-form training (--stride > 1, --dense, --disable-optimizations)
+# and HumanEva (K1 at the dilated windows; K1, K2 and K3 on 15 joints)
+# ---------------------------------------------------------------------------
+
+# (a) The main path's model in the dilated form: -b 1024 --stride 2 trains 512
+# chunks of 2 frames a step from windows of 244 rows; --subset 0.25 of S1 and S5
+# gives 12 steps (11 of 512 chunks, one of 384).  Steps [3, 11) are timed and
+# profiled: warm, and all full batches.
+DIL_SUBSET = "0.25"
+DIL_WINDOW = (3, 11)
+DIL_STEPS = 12
+# (b) --disable-optimizations and --dense at -arc 3,3,3, batch 1,024, on 10 % of
+# S1 and S5: 5 steps each (dense kernels of 7 and 19 taps).
+DIL_SMALL_ARCH, DIL_SMALL_SUBSET, DIL_SMALL_WINDOW = "3,3,3", "0.1", (1, 4)
+# (d) HumanEva: Train/ and Validate/ splits of three subjects, three actions and
+# three cameras of HE_FRAMES frames, 15 joints; the README recipe -arc 3,3,3
+# -b 128 (2,700 windows with their flips: 22 steps of 128, K2 at n = 384 and 128).
+HE_SPLIT_SUBJECTS = ("S1", "S2", "S3")
+HE_ACTIONS = ("Walking 1 chunk0", "Jog 1 chunk0", "Box 1 chunk0")
+HE_FRAMES, HE_JOINTS = 50, 15
+HE_KPS_SYMMETRY = [[2, 3, 4, 8, 9, 10], [5, 6, 7, 11, 12, 13]]
+HE_WINDOW = (4, 20)
+# A device kernel of a matrix product (cuBLAS / CUTLASS names), for the split of
+# the dilated step's profile: the 1x1 products' backward runs outside any range.
+_GEMM_KERNEL = re.compile(r"gemm|xmma|cutlass", re.I)
+
+
+@contextlib.contextmanager
+def first_calls(module, names, key=lambda args, kwargs: None):
+    """Each function ``names`` of ``module`` records its arguments at its first
+    call for each ``key(args, kwargs)`` into the yielded dict (name -> key ->
+    (args, kwargs)); the calls run as before."""
+    record = {name: {} for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def recording(name, fn):
+        def run(*args, **kwargs):
+            record[name].setdefault(key(args, kwargs), (args, kwargs))
+            return fn(*args, **kwargs)
+        return run
+
+    for name, fn in saved.items():
+        setattr(module, name, recording(name, fn))
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def dilated_ranges():
+    """The dilated form's parts inside profiler ranges: K1, each tap conv's
+    forward ("dilated conv") and backward ("dilated conv backward"), the 1x1
+    products' forward, each BatchNorm's forward and each dropout-mask draw."""
+    from torch.profiler import record_function
+    from videopose3d_torch.models import temporal
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    saved = (temporal._conv_train, temporal.batchnorm_train, temporal.dropout_mask,
+             temporal._DilatedConv.backward, gr.gather_windows)
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    temporal._conv_train = ranged("dilated conv", saved[0])
+    temporal.batchnorm_train = ranged("dilated batchnorm", saved[1])
+    temporal.dropout_mask = ranged("dilated mask draw", saved[2])
+    temporal._DilatedConv.backward = staticmethod(ranged("dilated conv backward", saved[3]))
+    gr.gather_windows = ranged("K1 gather_windows", saved[4])
+    try:
+        yield
+    finally:
+        (temporal._conv_train, temporal.batchnorm_train, temporal.dropout_mask) = saved[:3]
+        temporal._DilatedConv.backward = staticmethod(saved[3])
+        gr.gather_windows = saved[4]
+
+
+def dilated_split(profiled, steps):
+    """Device ms per step by part of a profiled dilated run (dilated_ranges), the
+    total and the busy share of the steps' wall time."""
+    from torch.autograd import DeviceType
+    events = [e for e in profiled["prof"].events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events if is_range(e)]
+    parts = {}
+    for e in events:
+        if is_range(e):
+            continue
+        t = e.time_range.start
+        inside = {name for name, a, b in spans if a <= t < b}
+        if "K1 gather_windows" in inside:
+            part = "K1 gather_windows"
+        elif any(name.startswith("Optimizer.") for name in inside):
+            part = "optimizer"
+        elif "dilated mask draw" in inside:
+            part = "dropout mask draws"
+        elif inside & {"dilated conv", "dilated conv backward"} or _GEMM_KERNEL.search(e.name):
+            part = "convolutions (products and tap copies, forward and backward)"
+        elif "dilated batchnorm" in inside:
+            part = "BatchNorm forward"
+        else:
+            part = "the rest: backward elementwise (BatchNorm, ReLU, dropout), losses"
+        parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    total = sum(parts.values())
+    return parts, total, total / (profiled["wall"] * 1e3 / steps)
+
+
+def dilated_flops(arch, batch, chunk, c_in, channels, j3):
+    """Forward FLOP of one dilated train step: every conv's products over its
+    output frames (the backward is twice this)."""
+    from videopose3d_torch.models.temporal import TemporalModelConfig, receptive_field
+    cfg = TemporalModelConfig(c_in // 2, 2, j3 // 3, tuple(arch), channels=channels)
+    t = chunk + receptive_field(cfg) - 1 - (arch[0] - 1)  # after the expand conv
+    flops = 2 * batch * t * arch[0] * c_in * channels
+    for i, fw in enumerate(arch[1:]):
+        t -= 2 * cfg.pads[i + 1]
+        flops += 2 * batch * t * (fw + 1) * channels ** 2
+    return flops + 2 * batch * t * channels * j3
+
+
+def k1_against_plain(what, calls):
+    """K1 bitwise against its plain version on each recorded (flat, row0,
+    keywords) gather (uncounted)."""
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    saved = dict(gr.LAUNCHES)
+    for flat, row0, kwargs in calls:
+        got = gr.gather_windows(flat, row0, **kwargs)
+        want = gr.gather_windows_plain(flat, row0, **kwargs)
+        check(torch.equal(got, want), f"{what}: K1 differs from plain")
+        print(f"phase9 {what}: K1 gather_windows from {flat.shape[0]} rows of "
+              f"{flat.shape[1]} float32 ({flat.shape[1] * 4} bytes): {tuple(got.shape)} "
+              f"windows bitwise equal to plain")
+    gr.LAUNCHES.update(saved)
+
+
+def phase9a(tmp):
+    """(a) The main path's model trained in the dilated form (--stride 2) through
+    runner.main: K1 twice, then with --gather-impl xla, all three bitwise equal
+    (epoch line, step losses, saved weights); ms/step, frames/s, peak memory;
+    one profiled run split by part.  Returns the first run's launches."""
+    from videopose3d_torch.checkpoint import load_any_checkpoint
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import train_block as trb
+    runs = {}
+    for name, extra in (("dilated", ()), ("dilated again", ()),
+                        ("dilated xla gather", ("--gather-impl", "xla")),
+                        ("dilated profiled", ())):
+        ckpt, argv = train_argv(tmp, name, "pallas", DIL_SUBSET, ("--stride", "2", *extra))
+        profiled = {} if name.endswith("profiled") else None
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with (dilated_ranges() if profiled is not None else contextlib.nullcontext()), \
+                first_calls(gr, ["gather_windows"]) as k1:
+            losses, numbers, rate, out, launches = train_cli(argv, profiled, DIL_WINDOW)
+        peak = torch.cuda.max_memory_allocated()
+        steps, seconds, fps, steady_ms = rate
+        check("INFO: Training the dilated form on chunks of 2 frames (plain blocks)" in out
+              and "frames/s, dilated form, device cuda" in out,
+              f"{name}: no dilated-form lines:\n{out[-3000:]}")
+        check(steps == DIL_STEPS, f"{name}: {steps} steps, expected {DIL_STEPS}")
+        check(not any(launches[k] for k in trb.LAUNCHES), f"{name} launched K2: {launches}")
+        k1_runs = launches["gather_windows"]
+        check(k1_runs == (0 if "xla" in name else steps),
+              f"{name}: K1 launched {k1_runs} times in {steps} steps")
+        if profiled is not None:
+            parts, total, busy = dilated_split(profiled, DIL_WINDOW[1] - DIL_WINDOW[0])
+            check(total > 0, "the dilated profile holds no device time")
+            print(f"phase9 (a) profile: steps {DIL_WINDOW[0]}-{DIL_WINDOW[1] - 1}, "
+                  f"{profiled['wall'] * 1e3 / (DIL_WINDOW[1] - DIL_WINDOW[0]):.3f} ms/step "
+                  f"wall, {total:.3f} ms/step device time, busy {100 * busy:.1f} %")
+            for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+                print(f"phase9 (a) profile   {ms:8.3f} ms/step  {part}")
+            continue
+        if name == "dilated":
+            k1_against_plain("(a) --stride 2", [(*a[:2], k) for a, k in
+                                                k1["gather_windows"].values()])
+        runs[name] = (losses, launches, ckpt, out)
+        flops = 3 * dilated_flops(ARCH, 512, 2, 2 * JOINTS, CHANNELS, 3 * JOINTS)
+        print(f"phase9 (a) {name:18s} -b 1024 --stride 2: {steps} steps of 512 chunks of 2 "
+              f"frames in {seconds:.3f} s, {steady_ms:.2f} ms/step over steps "
+              f"{DIL_WINDOW[0]}-{DIL_WINDOW[1] - 1} ({1024 / steady_ms * 1e3:.0f} training "
+              f"frames/s there, {fps:.1f} over the epoch; {flops / 1e12:.2f} TFLOP a step, "
+              f"{flops / (steady_ms * 1e-3) / 1e12:.1f} TFLOP/s); peak memory "
+              f"{peak / 2 ** 30:.2f} GiB ({(peak - held) / 2 ** 30:.2f} GiB over the "
+              f"{held / 2 ** 30:.2f} held before the run); first-step loss "
+              f"{float(losses[0]):.6f}; epoch 3d_train/3d_eval/3d_valid "
+              f"{numbers[0]:.4f}/{numbers[1]:.4f}/{numbers[2]:.4f} mm; launches {launches}")
+    first = runs["dilated"]
+    weights = lambda ckpt: load_any_checkpoint(os.path.join(ckpt, "epoch_1.bin"))["model_pos"]
+    mine = weights(first[2])
+    for name in ("dilated again", "dilated xla gather"):
+        losses, _, ckpt, out = runs[name]
+        other = weights(ckpt)
+        check(epoch_line(out) == epoch_line(first[3]), f"(a) {name}: epoch line differs")
+        check(torch.equal(losses, first[0]), f"(a) {name}: step losses differ")
+        check(other.keys() == mine.keys() and all(
+            np.array_equal(np.asarray(other[k]), np.asarray(mine[k])) for k in mine),
+            f"(a) {name}: saved weights differ")
+    print(f"phase9 (a) the two K1 runs and the --gather-impl xla run: epoch line, "
+          f"{first[0].numel()} step losses and saved weights bitwise equal")
+    # The dilated-trained checkpoint through the fused evaluation blocks (K3)
+    # against the run's own final (xla) evaluation.
+    from videopose3d_torch.ops.kernels import temporal_block as tb
+    reset_counts()
+    evaluated, fps, frames, _ = run_cli(
+        ["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS), "-str", "S1",
+         "-ste", "S9,S11", "--data-dir", os.path.join(tmp, "data"), "-c", first[2],
+         "--evaluate", "epoch_1.bin", "--serving-engine", "fused", "--device", "cuda"])
+    k3 = dict(tb.LAUNCHES)
+    trained = protocol_lines(first[3])
+    worst = max(abs(g - w) / abs(w) for a in trained for g, w in zip(evaluated[a], trained[a]))
+    print(f"phase9 (a) epoch_1.bin --evaluate --serving-engine fused ({frames} frames, "
+          f"{fps:.1f} frames/s) vs the run's final xla evaluation: worst relative protocol "
+          f"difference {worst:.3e} (bound {AGREE['float32']:.0e}); K3 launches {k3}")
+    check(evaluated.keys() == trained.keys() and worst <= AGREE["float32"]
+          and all(v > 0 for v in k3.values()), f"(a) fused evaluation: {worst}, {k3}")
+    return first[1], k3
+
+
+def phase9b(tmp):
+    """(b) --disable-optimizations and --dense at -arc 3,3,3, full width: a few
+    steps each, K1 and no K2, and the saved checkpoint (dense kernels of 7 and 19
+    taps) evaluates to the run's final numbers.  Returns the runs' launches."""
+    from videopose3d_torch.ops.kernels import train_block as trb
+    launches_all = []
+    for flag in ("--disable-optimizations", "--dense"):
+        ckpt = os.path.join(tmp, "train_dilated" + flag.replace("-", "_"))
+        os.makedirs(ckpt)
+        base = ["-k", "gt", "-arc", DIL_SMALL_ARCH, "-ch", str(CHANNELS), "-str", "S1,S5",
+                "-ste", "S9,S11", "--data-dir", os.path.join(tmp, "data"), "-c", ckpt,
+                "--device", "cuda", flag]
+        argv = base + ["-b", "1024", "-e", "1", "-drop", "0.25", "--seed", str(SEED),
+                       "--subset", DIL_SMALL_SUBSET, "--checkpoint-frequency", "1",
+                       "--train-engine", "pallas"]
+        losses, numbers, rate, out, launches = train_cli(argv, window=DIL_SMALL_WINDOW)
+        steps, seconds, _, steady_ms = rate
+        check("INFO: Training the dilated form on chunks of 1 frames (plain blocks)" in out,
+              f"{flag}: no dilated-form line")
+        check(launches["gather_windows"] == steps and not any(
+            launches[k] for k in trb.LAUNCHES), f"{flag}: launches {launches}")
+        evaluated, _, _, _ = run_cli(base + ["--evaluate", "epoch_1.bin"])
+        trained = protocol_lines(out)
+        worst = max(abs(g - w) / abs(w) for a in trained
+                    for g, w in zip(evaluated[a], trained[a]))
+        check(evaluated.keys() == trained.keys() and worst <= 1e-5,
+              f"{flag}: epoch_1.bin evaluates differently: {evaluated} vs {trained}")
+        print(f"phase9 (b) -arc {DIL_SMALL_ARCH} {flag}: {steps} steps of batch 1024 in "
+              f"{seconds:.3f} s, {steady_ms:.2f} ms/step over steps {DIL_SMALL_WINDOW[0]}-"
+              f"{DIL_SMALL_WINDOW[1] - 1}; losses {[round(v, 4) for v in losses.tolist()]}; "
+              f"epoch_1.bin --evaluate vs the run's final evaluation: worst relative "
+              f"protocol difference {worst:.3e}; launches {launches}")
+        launches_all.append(launches)
+    return launches_all
+
+
+def phase9c(tmp):
+    """(c) -sun with --stride 2 at phase 7's (a) shape: a warmup and a full epoch
+    in the dilated form, K1 once a warmup step and twice a full one, bitwise
+    against plain on both streams.  Returns the run's launches."""
+    from videopose3d_torch.ops.kernels import train_block as trb
+    ckpt = os.path.join(tmp, "semi_dilated")
+    os.makedirs(ckpt)
+    records, losses, lines, step_ms, out, launches, k1 = semi_cli(
+        _semi_argv(tmp, SEMI_RECIPE, "pallas", ckpt) + ["--stride", "2"])
+    warm = sum(1 for r in records if r[2])
+    check("INFO: Training the dilated form on chunks of 2 frames (plain blocks)" in out,
+          "(c): no dilated-form line")
+    check([r[1] for r in records] == [1] * warm + [2] * (len(records) - warm),
+          "(c): K1 launches per step are not 1 in warmup and 2 after")
+    check(not any(launches[k] for k in trb.LAUNCHES), f"(c) launched K2: {launches}")
+    check(float(lines[2].split("2d_train_unsup ")[1].split()[0]) > 0,
+          f"(c) 2d_train_unsup is not positive after warmup: {lines[2]}")
+    check(len(k1) == 2, "(c): K1 did not gather from both streams")
+    k1_against_plain("(c) -sun --stride 2", k1)
+    print(f"phase9 (c) -sun -arc {SEMI_RECIPE['arch']} -b {SEMI_RECIPE['batch']} --stride 2: "
+          f"{warm} warmup + {len(records) - warm} full steps, full steps {step_ms:.3f} "
+          f"ms/step; launches {launches}")
+    for epoch, line in sorted(lines.items()):
+        print(f"phase9 (c) [{epoch}] {line}")
+    return launches
+
+
+def write_humaneva(root):
+    """Synthetic HumanEva-format archives (15 joints, the Train/ and Validate/
+    prefixes of the preparation CLI), from SEED."""
+    rng = np.random.default_rng(SEED + 9)
+    subjects = [f"{split}/{s}" for split in ("Train", "Validate") for s in HE_SPLIT_SUBJECTS]
+    p3 = {s: {a: (rng.standard_normal((HE_FRAMES, HE_JOINTS, 3)) * 0.2).astype(np.float32)
+              for a in HE_ACTIONS} for s in subjects}
+    np.savez_compressed(os.path.join(root, "data_3d_humaneva15.npz"), positions_3d=p3)
+    p2 = {s: {a: [rng.uniform(50, 600, (HE_FRAMES, HE_JOINTS, 2)).astype(np.float32)
+                  for _ in range(3)] for a in HE_ACTIONS} for s in subjects}
+    meta = {"layout_name": "humaneva15", "num_joints": HE_JOINTS,
+            "keypoints_symmetry": HE_KPS_SYMMETRY}
+    np.savez_compressed(os.path.join(root, "data_2d_humaneva15_gt.npz"), positions_2d=p2,
+                        metadata=meta)
+
+
+def by_subject(out):
+    """{subject: {action: [P1, P2, P3, MPJVE]}} of a --by-subject evaluation."""
+    parts = re.split(r"^Evaluating on subject (\S+)$", out, flags=re.M)
+    return {parts[i]: protocol_lines(parts[i + 1]) for i in range(1, len(parts), 2)}
+
+
+def phase9d(tmp):
+    """(d) HumanEva's README recipe at full width through runner.main: one epoch
+    with the fused train engine (K1 on 30-column rows and K2 at n = 384 / 128,
+    each held against plain on the run's own first inputs), then --evaluate
+    --by-subject with the fused engine (K3 with a 45-column shrink, held against
+    plain on its first inputs) against xla.  Returns the launches of the
+    training and of the fused evaluation."""
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import temporal_block as tb
+    from videopose3d_torch.ops.kernels import train_block as trb
+    data, ckpt = os.path.join(tmp, "humaneva"), os.path.join(tmp, "train_humaneva")
+    os.makedirs(data)
+    os.makedirs(ckpt)
+    write_humaneva(data)
+    split = lambda prefix: ",".join(f"{prefix}/{s}" for s in HE_SPLIT_SUBJECTS)
+    base = ["-d", "humaneva15", "-k", "gt", "--data-dir", data, "-c", ckpt, "-arc", "3,3,3",
+            "-ch", str(CHANNELS), "-str", split("Train"), "-ste", split("Validate"),
+            "-a", "Walk,Jog,Box", "--by-subject", "--device", "cuda"]
+    with first_calls(gr, ["gather_windows"]) as k1, \
+            first_calls(trb, ["fused_train_block"], key=lambda a, k: tuple(a[0].shape)) as k2:
+        losses, numbers, rate, out, launches = train_cli(
+            base + ["-b", "128", "-e", "1", "--seed", str(SEED), "--checkpoint-frequency",
+                    "1", "--train-engine", "pallas"], window=HE_WINDOW)
+    steps, seconds, _, steady_ms = rate
+    check(all(v > 0 for v in launches.values()), f"(d) did not launch K1 and K2: {launches}")
+    print(f"phase9 (d) HumanEva -arc 3,3,3 -b 128: {steps} steps in {seconds:.3f} s, "
+          f"{steady_ms:.3f} ms/step over steps {HE_WINDOW[0]}-{HE_WINDOW[1] - 1}; epoch "
+          f"3d_train/3d_eval/3d_valid {numbers[0]:.4f}/{numbers[1]:.4f}/{numbers[2]:.4f} mm; "
+          f"launches {launches}")
+    k1_against_plain("(d) HumanEva", [(*a[:2], k) for a, k in k1["gather_windows"].values()])
+    saved = dict(trb.LAUNCHES)
+    g = torch.Generator("cuda").manual_seed(SEED + 10)
+    for shape, (args, kwargs) in sorted(k2["fused_train_block"].items(), reverse=True):
+        leaves = [t.detach().clone() for t in args[:7]]
+        rest = [None if t is None else t.detach() for t in args[7:]]
+        cot = None
+        results = []
+        for plain in (False, True):
+            ls = [t.clone().requires_grad_(True) for t in leaves]
+            outs = trb.fused_train_block(*ls, *rest, **{**kwargs, "plain": plain})
+            if cot is None:
+                cot = torch.randn(outs[0].shape, device="cuda", generator=g) * 1e-3
+            results.append([o.detach() for o in outs] + list(torch.autograd.grad(outs[0], ls, cot)))
+        got, want = results
+        n = shape[0] * shape[1] // kwargs["fw"]
+        for nm, a, w in zip(("out", "mean_a", "var_a", "mean_b", "var_b"), got, want):
+            compare(f"(d) K2 train block n={n} {nm}", a, w, torch.float32)
+        rel = max(float((a.double() - w.double()).norm() / w.double().norm())
+                  for a, w in zip(got[5:], want[5:]))
+        check(rel <= GRAD_NORM_TOL, f"(d) K2 n={n}: gradients differ ({rel})")
+        print(f"phase9 (d) K2 fused_train_block on the run's first block input {shape} "
+              f"(n={n}, C={shape[2]}): outputs and statistics within tolerance of plain, "
+              f"gradients within {rel:.2e} relative norm")
+    trb.LAUNCHES.update(saved)
+
+    evals = {}
+    for engine in ("xla", "fused"):
+        argv = base + ["--evaluate", "epoch_1.bin", "--serving-engine", engine]
+        reset_counts()
+        with first_calls(tb, ["fused_expand_block", "fused_dilated_block",
+                              "fused_shrink_block"]) as k3:
+            _, fps, frames, eval_out = run_cli(argv)
+        evals[engine] = (by_subject(eval_out), dict(tb.LAUNCHES), k3, fps, frames)
+    ref, xla_launches, _, _, _ = evals["xla"]
+    got, k3_launches, k3, fps, frames = evals["fused"]
+    # -arc 3,3,3 has two blocks: the expand stage and the shrink stage, no mid one.
+    check(not any(xla_launches.values()) and k3_launches["expand"] > 0
+          and k3_launches["shrink"] > 0 and not k3_launches["dilated"],
+          f"(d) K3 launches: xla {xla_launches}, fused {k3_launches}")
+    check(list(got) == list(ref) == [f"Validate/{s}" for s in HE_SPLIT_SUBJECTS]
+          and all(list(got[s]) == list(ref[s]) == ["Walking", "Jog", "Box"] for s in ref),
+          f"(d) --by-subject reports: {got} vs {ref}")
+    worst = max(abs(a - b) / abs(b) for s in ref for act in ref[s]
+                for a, b in zip(got[s][act], ref[s][act]))
+    print(f"phase9 (d) --evaluate --by-subject fused float32 vs xla over {frames} frames "
+          f"({fps:.1f} frames/s): worst relative protocol difference {worst:.3e} (bound "
+          f"{AGREE['float32']:.0e}); K3 launches {k3_launches}")
+    check(worst <= AGREE["float32"], f"(d) fused disagrees with xla: {worst}")
+    saved = dict(tb.LAUNCHES)
+    for name, calls in k3.items():
+        if not calls:
+            continue
+        (args, kwargs), = calls.values()
+        got_k, want_k = getattr(tb, name)(*args, **kwargs), getattr(tb, name + "_plain")(
+            *args, **kwargs)
+        torch.cuda.synchronize()
+        err = float((got_k.float() - want_k.float()).abs().max())
+        bound = TOL[torch.float32] * max(1.0, float(want_k.float().abs().max()))
+        check(got_k.shape == want_k.shape and err <= bound,
+              f"(d) {name}: {tuple(got_k.shape)} vs {tuple(want_k.shape)}, {err} > {bound}")
+        print(f"phase9 (d) K3 {name} on its first input {tuple(args[0].shape)} -> "
+              f"{tuple(got_k.shape)}: max_abs_err {err:.3e} (bound {bound:.3e})")
+    tb.LAUNCHES.update(saved)
+    return launches, k3_launches
+
+
+def phase9(tmp):
+    """Dilated-form training and HumanEva: (a)-(d) above ((e) runs in phase 8b).
+    Returns the launches of each K1, K2 and K3 wrapper over phase 9's counted
+    runs."""
+    launches = {}
+    parts = [*zip(("a", "a fused"), phase9a(tmp)), *(("b", l) for l in phase9b(tmp)),
+             ("c", phase9c(tmp)), *zip(("d train", "d fused"), phase9d(tmp))]
+    for _, counts in parts:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    print("phase9 launches per part: " + "; ".join(f"({p}) {c}" for p, c in parts))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2914,6 +3414,7 @@ def main() -> int:
         semi_launches = phase7(tmp)
         dp_launches = phase8a(tmp, train_runs)
         gloo_launches = phase8b(tmp)
+        launches9 = phase9(tmp)
 
     keys = {name: (key, replaces) for name, key, replaces in KERNELS}
     dtypes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -2925,6 +3426,8 @@ def main() -> int:
             "name": f"{r['name']} ({dname}, {r['where']}, C={CHANNELS})",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[("fused", dname)][key],
+            # Phase 9 evaluates in float32 only.
+            **({"launches_phase9": launches9[key]} if dname == "float32" else {}),
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
     for r in train_kernel_results:
@@ -2932,11 +3435,13 @@ def main() -> int:
         entries.append({**{k: v for k, v in r.items() if k != "key"},
                         "launches": train_launches[key],
                         "launches_phase8": {"8a": dp_launches[key],
-                                            "8b": [g[key] for g in gloo_launches]}})
+                                            "8b": [g[key] for g in gloo_launches]},
+                        "launches_phase9": launches9[key]})
     for r in semi_kernel_results:  # K2 at (b)'s first block and (a)'s last
         cell, key = r["key"]
         entries.append({**{k: v for k, v in r.items() if k != "key"},
-                        "launches": semi_launches[cell == "semi_b"][key]})
+                        "launches": semi_launches[cell == "semi_b"][key],
+                        "launches_phase9": launches9[key]})
     for r in int8_results:
         mode, key = r["key"]
         entries.append({**{k: v for k, v in r.items() if k != "key"},
@@ -2944,6 +3449,8 @@ def main() -> int:
     for key, r in stream_results.items():
         entries.append({**r, "launches": stream_launches[key]})
     check(all(e["launches"] > 0 for e in entries), "a kernel of the main path never launched")
+    check(all(e["launches_phase9"] > 0 for e in entries if "launches_phase9" in e),
+          "a K1, K2 or K3 kernel never launched in phase 9")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -240,6 +240,9 @@ def test_fused_forward_matches_plain_forward(cuda, dt, fw, causal, channels):
     (512, 51, 1, 64, None),           # 3D-target-sized windows
     (300, 34, 27, 16, 17),            # a column prefix
     (100, 33, 9, 8, None),            # odd row width: 2- or 4-byte words
+    (300_000, 34, 244, 512, None),    # dilated training: --stride 2 chunks at RF 243
+    (60_000, 30, 27, 128, None),      # HumanEva's 15 joints: 120-byte float32 rows
+    (60_000, 30, 244, 512, None),
 ])
 def test_gather_kernel_matches_plain(cuda, dt, rows, cols, window, batch, out_cols):
     g = torch.Generator().manual_seed(rows + window)
@@ -261,11 +264,14 @@ def test_gather_kernel_matches_plain(cuda, dt, rows, cols, window, batch, out_co
     (4096, 34, 1, None),           # one-row windows: head and tail only
     (4096, 34, 27, 17),            # a column prefix
     (3_000_000, 34, 243, None),    # a stream past the 50 MB L2, as a real epoch's
+    (4096, 34, 244, None),         # the dilated form's --stride 2 windows
+    (4096, 30, 27, None),          # HumanEva rows: 120 bytes, 8 (mod 16) in float32
 ])
 def test_gather_kernel_at_every_16_byte_phase(cuda, dt, rows, cols, window, out_cols):
     """Window starts of both parities at even and odd batch indices: a float32
-    window of 34 columns then starts at 0 or 8 (mod 16) in the stream and in the
-    output in all four pairs, and the copy is bitwise equal at each."""
+    window of 34 columns then starts at 0 or 8 (mod 16) in the stream and, for
+    an odd window, in the output, in all four pairs, and the copy is bitwise
+    equal at each."""
     flat = torch.randn(rows, cols, device=cuda,
                        generator=torch.Generator(cuda).manual_seed(rows + cols)).to(dt)
     rng = np.random.default_rng(window)
@@ -282,7 +288,9 @@ def test_gather_kernel_at_every_16_byte_phase(cuda, dt, rows, cols, window, out_
         row_bytes, span = cols * 4, window * cols * 4
         phases = {((flat.data_ptr() + r * row_bytes) % 16, (got.data_ptr() + b * span) % 16)
                   for b, r in enumerate(row0.tolist())}
-        assert phases == {(0, 0), (0, 8), (8, 0), (8, 8)}
+        # An even window spans whole 16-byte words: every output window starts at 0.
+        out_phases = (0, 8) if span % 16 else (0,)
+        assert phases == {(s, o) for s in (0, 8) for o in out_phases}
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

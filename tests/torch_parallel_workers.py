@@ -117,26 +117,32 @@ def model(joints_out=J, engine="xla", dropout=0.0, seed=0):
                                              channels=CHANNELS, train_engine=engine))
 
 
-def _dataset(p2, p3, cams):
+def _dataset(p2, p3, cams, chunk_length=1):
     perm = flip_perm()
     return tgen.FlatSequenceDataset(
-        p2, p3, cams, margins=tgen.FlatSequenceDataset.training_margins(PAD, 0, 1),
+        p2, p3, cams,
+        margins=tgen.FlatSequenceDataset.training_margins(PAD, 0, chunk_length),
         flip_perms=(perm, perm)).to_device(CPU)
 
 
-def supervised_losses(engine, dropout, dp=None):
+def supervised_losses(engine, dropout, dp=None, chunk_length=1):
     """STEPS supervised steps from one initialisation: (per-step losses, the final
-    state dicts of the model and of the optimizer)."""
+    state dicts of the model and of the optimizer).  ``chunk_length`` > 1 trains
+    the dilated form on chunks of that many frames, BATCH // chunk_length a
+    step (as --stride)."""
     p2, p3, cams = videos(**LABELED)
     net = model(engine=engine, dropout=dropout)
-    loop = ttrain.TrainLoopConfig(batch_size=BATCH, chunk_length=1, pad=PAD, causal_shift=0)
+    batch = BATCH // chunk_length
+    loop = ttrain.TrainLoopConfig(batch_size=batch, chunk_length=chunk_length, pad=PAD,
+                                  causal_shift=0, use_strided=chunk_length == 1)
     optimizer = ttrain.make_optimizer(net, loop.learning_rate)
     trainer = ttrain.SupervisedTrainer(net, loop, optimizer, dp=dp)
-    dev = _dataset(p2, p3, cams)
-    sampler = tgen.ChunkedPairSampler([len(s) for s in p2], BATCH, 1, augment=True)
+    dev = _dataset(p2, p3, cams, chunk_length)
+    sampler = tgen.ChunkedPairSampler([len(s) for s in p2], batch, chunk_length,
+                                      augment=True)
     generator = torch.Generator().manual_seed(7)
     steps = list(sampler.next_epoch())
-    assert len(steps) == STEPS and steps[-1][1] <= BATCH // 2
+    assert len(steps) == STEPS and steps[-1][1] <= batch // 2
     losses = [float(trainer.step(dev, meta, nv, 0.1, generator)) for meta, nv in steps]
     return losses, net.state_dict()
 
@@ -240,8 +246,8 @@ def train_block_rank(rank, world, inputs):
             **{"d" + k: p.grad for k, p in params.items()}}
 
 
-def supervised_rank(rank, world, engine, dropout):
-    return supervised_losses(engine, dropout, mesh.DataParallel.from_group())
+def supervised_rank(rank, world, engine, dropout, chunk_length=1):
+    return supervised_losses(engine, dropout, mesh.DataParallel.from_group(), chunk_length)
 
 
 def semi_rank(rank, world, engine, dropout):

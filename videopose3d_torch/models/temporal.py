@@ -15,7 +15,9 @@ blocks through the fused kernels of ``ops/kernels/temporal_block.py``, and
 ``TemporalModelOptimized1f``): input length = receptive field, one output frame,
 strided convolutions as reshape + matmul, train-mode BatchNorm and dropout; its
 ``pallas`` engine runs the residual blocks through the fused train-block kernels
-of ``ops/kernels/train_block.py``.
+of ``ops/kernels/train_block.py``.  ``forward_dilated_train`` is the dilated
+form in train mode (``--stride > 1``, ``--dense``, ``--disable-optimizations``):
+chunks of several output frames, in plain torch.
 """
 
 from __future__ import annotations
@@ -486,6 +488,21 @@ def _block_fused(model: TemporalModel, i: int, x, masks, momentum: float, shard=
     return out
 
 
+def _mask_draws(cfg: TemporalModelConfig, generator, shard):
+    """``draw(shape, count)``: ``count`` dropout masks of an activation ``shape``
+    (this rank's rows), in the activation dtype, in call order from
+    ``generator``.  Under a ``shard`` each mask is drawn at the global batch's
+    shape and cut to the rank's rows, so the ranks together see the
+    single-process masks."""
+    def draw(shape, count):
+        if shard is not None:
+            shape = (shard.total,) + tuple(shape[1:])
+        drawn = [dropout_mask(cfg.dropout, shape, cfg.activation_dtype, generator)
+                 for _ in range(count)]
+        return [m if m is None or shard is None else shard.take(m) for m in drawn]
+    return draw
+
+
 def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None,
                     shard=None):
     """Training forward of the strided form (the reference's
@@ -514,12 +531,7 @@ def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None,
                          f"({rf}), got {x.shape[1]}")
     fused = cfg.train_engine == "pallas" and cfg.compute_dtype != "mixed"
     block = _block_fused if fused else _block_plain
-
-    def masks(shape, count):
-        if shard is not None:
-            shape = (shard.total,) + tuple(shape[1:])
-        drawn = [dropout_mask(cfg.dropout, shape, adt, generator) for _ in range(count)]
-        return [m if m is None or shard is None else shard.take(m) for m in drawn]
+    masks = _mask_draws(cfg, generator, shard)
 
     k0 = cfg.filter_widths[0]
     b, t, c_in = x.shape
@@ -531,6 +543,110 @@ def forward_strided(model: TemporalModel, x, *, momentum: float, generator=None,
         b, t, c = x.shape
         x = block(model, i, x, masks((b, t // cfg.filter_widths[i + 1], c), 2), momentum,
                   shard)
+    ws = model.shrink.weight[:, :, 0].t()
+    x = _matmul(x, ws, mdt, adt) + model.shrink.bias.to(adt)
+    return _finish_output(cfg, x.float())
+
+
+class _DilatedConv(torch.autograd.Function):
+    """Valid dilated conv over channels-last (B, T, C_in) with a (k, C_in, C_out)
+    weight: the sum of the k tap products, operands rounded to ``mdt``, float32
+    sums, the result in ``adt`` (the JAX package's ``_conv_matmul``, which sums
+    the concatenated taps in one product: float32 sums in another order).
+
+    Only ``x`` and the weight are kept for the backward, which takes each tap's
+    rows again: the taps are never held at once, so a dense kernel of 2*pad + 1
+    taps costs no more memory than its input.  The gradients are those autograd
+    gives the tap products: float32 sums rounded to ``mdt``, then to each
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, dilation: int, mdt, adt):
+        (b, _, c_in), (k, _, c_out) = x.shape, w.shape
+        t_out = x.shape[1] - (k - 1) * dilation
+        xf, wf = x.to(mdt).float(), w.to(mdt).float()
+        # A tap's rows are a strided view that matmul cannot fold into one
+        # product (it would broadcast the weight over the batch): each tap is
+        # copied to (B * t_out, C_in) and added to the sum by the product itself.
+        tap = lambda j: xf[:, j * dilation: j * dilation + t_out].reshape(-1, c_in)
+        acc = tap(0) @ wf[0]
+        for j in range(1, k):
+            acc.addmm_(tap(j), wf[j])
+        ctx.save_for_backward(x, w)
+        ctx.geometry = (dilation, mdt)
+        return acc.view(b, t_out, c_out).to(adt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        d, mdt = ctx.geometry
+        k, c_in, c_out = w.shape
+        t_out = g.shape[1]
+        gf = g.float()
+        xf, wf = x.to(mdt).float(), w.to(mdt).float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dxf = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            for j in range(k):
+                dxf[:, j * d: j * d + t_out] += gf @ wf[j].t()
+            dx = dxf.to(mdt).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            g2 = gf.reshape(-1, c_out)
+            dw = torch.stack([xf[:, j * d: j * d + t_out].reshape(-1, c_in).t() @ g2
+                              for j in range(k)]).to(mdt).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def _conv_train(conv: nn.Conv1d, x, dilation: int, mdt, adt):
+    """A model conv (no bias) of the dilated form in train mode."""
+    w = conv.weight.permute(2, 1, 0)  # (k, C_in, C_out)
+    if w.shape[0] == 1:
+        return _matmul(x, w[0], mdt, adt)
+    return _DilatedConv.apply(x, w, dilation, mdt, adt)
+
+
+def forward_dilated_train(model: TemporalModel, x, *, momentum: float, generator=None,
+                          shard=None):
+    """Training forward of the dilated form (the JAX ``forward_dilated`` with
+    ``train=True``), taken by ``--stride > 1``, ``--dense`` and
+    ``--disable-optimizations``.
+
+    Input (B, T, J_in, F) or (B, T, J_in*F) with T >= receptive field; output
+    (B, T - receptive_field + 1, J_out, 3) float32.  Every BatchNorm normalises
+    over all B x T_i rows of its layer (T_i frames there) and updates the running
+    statistics in place with ``momentum``, the unbiased variance over those rows;
+    the dropout masks, drawn from ``generator`` (None: no dropout) at each
+    activation's shape, come in the order expand, then each block's conv and
+    1x1, both of a block drawn before it runs, as in :func:`forward_strided`.
+    Dense models (``config.dense``) run their 2*pad + 1 taps at dilation 1;
+    causal models take the residual at the causal shift.  Plain torch in every
+    engine: the JAX package runs no train-block kernel on this form.
+
+    Data parallel: with a ``shard``, x holds this rank's rows; the BatchNorm
+    statistics are the global batch's (``shard.total * T_i`` rows) and each mask
+    is the global draw cut to the rank's rows.
+    """
+    cfg = model.config
+    mdt, adt = cfg.matmul_dtype, cfg.activation_dtype
+    x = _prep_input(cfg, x)
+    rf = receptive_field(cfg)
+    if x.shape[1] < rf:
+        raise ValueError(f"dilated form expects at least the receptive field ({rf}) "
+                         f"input frames, got {x.shape[1]}")
+    masks = _mask_draws(cfg, generator, shard)
+    y = _conv_train(model.expand_conv, x, 1, mdt, adt)
+    x = _drop(batchnorm_train(y, model.expand_bn, momentum, shard), *masks(y.shape, 1))
+    convs, bns = model.layers_conv, model.layers_bn
+    for i in range(len(cfg.filter_widths) - 1):
+        pad, shift = cfg.pads[i + 1], cfg.causal_shifts_dilated[i + 1]
+        b, t, c = x.shape
+        mask_a, mask_b = masks((b, t - 2 * pad, c), 2)
+        res = x[:, pad + shift: t - pad + shift]
+        y = _conv_train(convs[2 * i], x, 1 if cfg.dense else cfg.dilations[i + 1], mdt, adt)
+        y = _drop(batchnorm_train(y, bns[2 * i], momentum, shard), mask_a)
+        y = _conv_train(convs[2 * i + 1], y, 1, mdt, adt)
+        y = _drop(batchnorm_train(y, bns[2 * i + 1], momentum, shard), mask_b)
+        x = res + y
     ws = model.shrink.weight[:, :, 0].t()
     x = _matmul(x, ws, mdt, adt) + model.shrink.bias.to(adt)
     return _finish_output(cfg, x.float())

@@ -1,5 +1,6 @@
 """Camera model: screen-coordinate normalization, world<->camera transforms on
-host numpy arrays, and the differentiable Human3.6M projection on tensors.
+host numpy arrays, and the differentiable Human3.6M projection on tensors (and
+on numpy arrays, for the dataset preparation).
 
 Counterpart of ``videopose3d_tpu/ops/camera.py``.  The numpy functions keep the
 JAX package's numpy paths (the float64 promotion of the ``[1, h/w]`` offset
@@ -85,6 +86,22 @@ def project_to_2d(X, camera_params):
     radial = 1.0 + torch.sum(k * torch.cat([r2, r2 * r2, r2 * r2 * r2], dim=-1),
                              dim=-1, keepdim=True)
     tan = torch.sum(p * XX, dim=-1, keepdim=True)
+    XXX = XX * (radial + tan) + p * r2
+    return f * XXX + c
+
+
+def project_to_2d_np(X, camera_params):
+    """:func:`project_to_2d` on host numpy arrays, the JAX package's numpy path
+    operation for operation, so the ground-truth 2D archives that
+    ``data/prepare/h36m_3d.py`` projects are bitwise the JAX package's."""
+    assert X.shape[-1] == 3, f"expected (...,3) points, got {X.shape}"
+    assert camera_params.ndim == 2 and X.shape[0] == camera_params.shape[0]
+    f, c, k, p = _split_intrinsics(camera_params, X.ndim)
+    XX = np.clip(X[..., :2] / X[..., 2:], -1.0, 1.0)
+    r2 = np.sum(XX * XX, axis=-1, keepdims=True)
+    radial = 1.0 + np.sum(k * np.concatenate([r2, r2 * r2, r2 * r2 * r2], axis=-1),
+                          axis=-1, keepdims=True)
+    tan = np.sum(p * XX, axis=-1, keepdims=True)
     XXX = XX * (radial + tan) + p * r2
     return f * XXX + c
 

@@ -2,9 +2,13 @@
 training with per-epoch evaluation and checkpoints -> action-wise evaluation.
 
 Counterpart of ``videopose3d_tpu/runner.py`` for supervised and
-semi-supervised (``-sun``) training and ``--evaluate`` (with ``--by-subject``):
-the same printed lines, schedules, checkpoint payload and protocol reports.
-``--render`` and ``--export-training-curves`` are not ported yet and raise.
+semi-supervised (``-sun``) training, in the strided form or the dilated one
+(``--stride > 1``, ``--dense``, ``--disable-optimizations``), and ``--evaluate``
+(with ``--by-subject``), on Human3.6M and HumanEva (``-d humaneva15``,
+``humaneva20``): the same printed lines, schedules, checkpoint payload and
+protocol reports.
+``--render``, ``-d custom`` and ``--export-training-curves`` are not ported yet
+and raise.
 
 Under ``python -m torch.distributed.run`` every process trains one data-parallel
 rank (``parallel/mesh.py``): NCCL on CUDA, gloo on the CPU, the weights
@@ -111,11 +115,17 @@ def eval_devices(args, device, dp):
 
 
 def load_dataset(args):
+    """The mocap dataset of ``-d``: ``h36m`` or ``humaneva15`` / ``humaneva20``,
+    from ``<data-dir>/data_3d_<dataset>.npz``."""
     print("Loading dataset...")
-    if args.dataset != "h36m":
-        raise NotImplementedError(f"dataset {args.dataset!r} {_NOT_PORTED}")
-    from videopose3d_torch.datasets.h36m import Human36mDataset
-    return Human36mDataset(os.path.join(args.data_dir, "data_3d_h36m.npz"))
+    path = os.path.join(args.data_dir, f"data_3d_{args.dataset}.npz")
+    if args.dataset == "h36m":
+        from videopose3d_torch.datasets.h36m import Human36mDataset
+        return Human36mDataset(path)
+    if args.dataset.startswith("humaneva"):
+        from videopose3d_torch.datasets.humaneva import HumanEvaDataset
+        return HumanEvaDataset(path)
+    raise NotImplementedError(f"dataset {args.dataset!r} {_NOT_PORTED}")
 
 
 def prepare_dataset_3d(dataset):
@@ -450,6 +460,12 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         broadcast_module(model, group=dp.group)
         broadcast_module(traj_model, group=dp.group)
 
+    # The dilated form runs no train-block kernel, whatever --train-engine says
+    # (as in the JAX package); the lines below name the form that ran.
+    form = f"engine {args.train_engine}" if use_strided else "dilated form"
+    if not use_strided:
+        print(f"INFO: Training the dilated form on chunks of {loop_cfg.chunk_length} "
+              "frames (plain blocks)")
     print("** Note: reported losses are averaged over all frames and test-time "
           "augmentation is not used here.")
     print("** The final evaluation will be carried out after the last training "
@@ -497,7 +513,7 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         vals = vals.double().cpu().numpy()  # waits for the steps
         train_seconds += time.perf_counter() - step_start
         train_steps += len(losses)
-        train_frames += sum(n_valids)
+        train_frames += sum(n_valids) * loop_cfg.chunk_length
         weights = np.asarray(n_valids, np.float64)
         losses_3d_train.append(float(np.sum(vals * weights) / np.sum(weights)))
 
@@ -550,8 +566,8 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
             })
 
     print(f"INFO: trained {train_steps} steps in {train_seconds:.3f} s "
-          f"({train_frames / max(train_seconds, 1e-9):.1f} frames/s, engine "
-          f"{args.train_engine}, device {device})")
+          f"({train_frames / max(train_seconds, 1e-9):.1f} frames/s, {form}, "
+          f"device {device})")
 
 
 def _final_evaluation(args, dataset, keypoints, subjects_test, action_filter,

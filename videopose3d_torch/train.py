@@ -1,11 +1,13 @@
-"""Training: the strided train steps over the device-resident dataset.
+"""Training: the train steps over the device-resident dataset.
 
 Counterpart of ``videopose3d_tpu/train.py`` (``TrainLoopConfig``,
 ``bn_momentum_for_epoch``, ``SupervisedTrainer``, ``SemiSupervisedTrainer``):
 batch assembly from ``(B, 4)`` chunk descriptors on the device, root-centring,
-the strided forward with train-mode BatchNorm and dropout, the masked losses,
-their backward and an AMSGrad step (``torch.optim.Adam(amsgrad=True)``, which
-the JAX package's ``scale_by_torch_amsgrad`` reproduces).  Per step only the
+the forward with train-mode BatchNorm and dropout (the strided form; under
+``use_strided=False`` the dilated form on chunks of ``chunk_length`` frames, as
+the JAX trainers pick ``forward_dilated``), the masked losses, their backward
+and an AMSGrad step (``torch.optim.Adam(amsgrad=True)``, which the JAX
+package's ``scale_by_torch_amsgrad`` reproduces).  Per step only the
 descriptors and the valid-row counts go to the device.
 
 The final partial batch of an epoch is padded with copies of its first row: the
@@ -16,7 +18,7 @@ Data parallel (``dp=``, a ``parallel.DataParallel``): every rank runs the same
 samplers and receives the same global descriptors, and takes its contiguous
 rows of them (K1 gathers those rows from the rank's own copy of the dataset).
 The BatchNorm statistics are the global batch's and the dropout masks the
-global draw (``forward_strided(shard=)``); each rank's loss is its rows' masked
+global draw (the forwards' ``shard=``); each rank's loss is its rows' masked
 sum over the global valid count, so the gradients, summed over the ranks in one
 flat all-reduce after ``backward``, are the global batch's, even where the
 final partial batch's valid rows all lie on the first ranks.  A rank's returned
@@ -34,7 +36,8 @@ import torch
 
 from videopose3d_torch.data.generators import (FlatSequenceDataset,
                                                assemble_chunked_batch_contiguous)
-from videopose3d_torch.models.temporal import TemporalModel, forward_strided
+from videopose3d_torch.models.temporal import (TemporalModel, forward_dilated_train,
+                                                forward_strided)
 from videopose3d_torch.ops.camera import project_to_2d, project_to_2d_linear
 from videopose3d_torch.parallel import mesh
 
@@ -133,12 +136,9 @@ def _check_margins(dev, loop: TrainLoopConfig) -> None:
             "FlatSequenceDataset.training_margins(...) for this model")
 
 
-def _strided_only(loop: TrainLoopConfig) -> None:
-    if not loop.use_strided:
-        raise NotImplementedError(
-            "training the dilated form (--stride > 1, --dense or "
-            "--disable-optimizations) is not ported to videopose3d_torch yet "
-            "(see ROADMAP.md, Queue 1)")
+def _forward(loop: TrainLoopConfig):
+    """The train-mode forward of the loop's form."""
+    return forward_strided if loop.use_strided else forward_dilated_train
 
 
 def _descriptors(meta, device):
@@ -156,7 +156,6 @@ class SupervisedTrainer:
 
     def __init__(self, model: TemporalModel, loop_cfg: TrainLoopConfig,
                  optimizer: torch.optim.Optimizer, dp: Optional[mesh.DataParallel] = None):
-        _strided_only(loop_cfg)
         self.model = model
         self.loop_cfg = loop_cfg
         self.optimizer = optimizer
@@ -179,8 +178,8 @@ class SupervisedTrainer:
         batch_3d[:, :, 0] = 0.0  # root-centre: the trajectory is not learned here
 
         self.optimizer.zero_grad(set_to_none=True)
-        pred = forward_strided(self.model, batch_2d, momentum=momentum,
-                               generator=generator, shard=shard)
+        pred = _forward(loop)(self.model, batch_2d, momentum=momentum,
+                              generator=generator, shard=shard)
         loss = _masked_sample_mean(_mpjpe_per_sample(pred, batch_3d),
                                    _valid(b, n_valid, device), rows)
         loss.backward()
@@ -195,14 +194,16 @@ class SemiSupervisedTrainer:
     under one optimizer (the JAX package's ``SemiSupervisedTrainer``, the
     reference's ``run.py:319-398``):
 
-    * the masked MPJPE of the poses on the labeled rows;
+    * the masked MPJPE of the poses on the labeled rows (per sample, the mean
+      over its ``chunk_length`` frames);
     * the trajectory MPJPE on the labeled rows, weighted by the inverse depth
       of the root, which is taken before root-centring;
     * after warmup (``skip`` false), the unlabeled batch (with its cameras) is
       concatenated to the labeled one, and two terms join: the masked MPJPE of
-      the projected ``pose + trajectory`` against the unlabeled keypoints (left
-      out of the total under ``no_proj``), and the mean absolute difference of
-      the labeled and unlabeled halves' mean bone lengths.
+      the projected ``pose + trajectory`` against the unlabeled keypoints of the
+      chunk's frames, ``[pad, T - pad)`` of the window (left out of the total
+      under ``no_proj``), and the mean absolute difference of the labeled and
+      unlabeled halves' bone lengths, each averaged over the chunk's frames.
 
     BatchNorm statistics run over the whole concatenated batch, filler rows
     included; dropout masks come from one generator, the pose model's first.
@@ -218,7 +219,6 @@ class SemiSupervisedTrainer:
     def __init__(self, pos_model: TemporalModel, traj_model: TemporalModel,
                  loop_cfg: TrainLoopConfig, optimizer: torch.optim.Optimizer,
                  skeleton_parents, dp: Optional[mesh.DataParallel] = None):
-        _strided_only(loop_cfg)
         self.pos_model = pos_model
         self.traj_model = traj_model
         self.loop_cfg = loop_cfg
@@ -264,10 +264,11 @@ class SemiSupervisedTrainer:
                  else mesh.BatchShard(segments, total_rows, self.dp.group))
 
         self.optimizer.zero_grad(set_to_none=True)
-        pred_pos = forward_strided(self.pos_model, inputs_2d, momentum=momentum,
-                                   generator=generator, shard=shard)
-        pred_traj = forward_strided(self.traj_model, inputs_2d, momentum=momentum,
-                                    generator=generator, shard=shard)
+        forward = _forward(loop)
+        pred_pos = forward(self.pos_model, inputs_2d, momentum=momentum,
+                           generator=generator, shard=shard)
+        pred_traj = forward(self.traj_model, inputs_2d, momentum=momentum,
+                            generator=generator, shard=shard)
         loss_pos = _masked_sample_mean(_mpjpe_per_sample(pred_pos[:b_l], target_3d), mask_l,
                                        rows_l)
         w = torch.reciprocal(inputs_traj[..., 2])  # (B, T, 1)
