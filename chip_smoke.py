@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of videopose3d_torch on one NVIDIA GPU: the port's evaluation,
 int8 serving, supervised and semi-supervised training (strided and dilated
-forms, Human3.6M and HumanEva) and streaming serving paths at the full width of
-the README's model, through its hand-written CUDA kernels.
+forms, Human3.6M and HumanEva), streaming serving, rendering and in-the-wild
+paths at the full width of the README's model, through its hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -105,9 +106,31 @@ the README's recipe (``-arc 3,3,3 -b 128 --train-engine pallas``), holding K1
 inputs, then ``--evaluate --by-subject`` with the fused engine against xla, K3
 (a 45-column shrink) held against plain on its first inputs; (e) phase 8b's
 ranks also take dilated supervised steps against one process.
+Phase 10 (videos in the wild, rendering, instrumented training, host cores):
+(a) writes Detectron-format detections of two 3,000-frame videos at 1,920 x
+1,080 (COCO keypoints, frames without any detection), turns them into a custom
+archive with ``python -m videopose3d_torch.data.prepare.custom_2d`` and runs
+``runner.main -d custom --evaluate --render --viz-export`` with the xla, fused
+float32 and bfloat16 and int8 (slice and accshift) engines: the exports against
+xla's, K3 launched only by the fused runs and K4 only by the int8 ones, frames
+per second of the prediction, and once more from a checkpoint with a
+trajectory model, which moves every joint alike; (b) renders a Human3.6M video
+through the fused engine, the export bitwise ``evaluate(...,
+return_predictions=True)``; (c) trains phase 4's model for five short epochs
+with ``--profile-dir``, ``--metrics-log`` and a checkpoint per epoch (written on
+the asynchronous checkpointer's thread): one Chrome trace naming K1's kernel,
+K2's kernels and the seven K2 wrappers' ranges, one JSON record per epoch with
+the JAX package's keys, and a resume from epoch 2 whose later epoch lines and
+last checkpoint are bitwise the uninterrupted run's; (d) shuffles the chunk
+pairs of Human3.6M's training size (600 sequences of 2,600 frames) with the
+native C++ core and with numpy, bitwise equal over two epochs, timed, and
+times a checkpoint of the full-width model with AMSGrad state on the step path,
+synchronous against the asynchronous checkpointer's blocked time, the two
+files bitwise equal although the next step's in-place writes begin at once.
 
 Each kernel's line in the final summary carries its time, its plain version's,
-its launches on the main path (K1, K2 and the float32 K3 entries also in phase 9),
+its launches on the main path (K1, K2 and the float32 K3 entries also in phase 9;
+K1 to K4 also in phase 10),
 its bound (the larger of the bytes it must move over the card's memory rate and
 its operations over the card's peak rate for their type, from NVIDIA's H100 SXM
 data sheet) and, where one PyTorch call computes the same function, that call's
@@ -1243,6 +1266,28 @@ _EPOCH = re.compile(r"^\[1\] time \S+ lr \S+ 3d_train (\S+) 3d_eval (\S+) 3d_val
 _TRAINED = re.compile(r"^INFO: trained (\d+) steps in (\S+) s \((\S+) frames/s")
 
 
+@contextlib.contextmanager
+def k2_ranges(on=True):
+    """While on, each K2 wrapper call runs inside a ``K2 <key>`` profiler range,
+    which a trace shows on the device timeline around the kernels it launched."""
+    from torch.profiler import record_function
+    from videopose3d_torch.ops.kernels import train_block as trb
+    wrappers = dict(trb._KERNELS)
+
+    def annotated(key, fn):
+        def run(*args, **kwargs):
+            with record_function(f"K2 {key}"):
+                return fn(*args, **kwargs)
+        return run
+
+    if on:
+        trb._KERNELS.update({k: annotated(k, fn) for k, fn in wrappers.items()})
+    try:
+        yield
+    finally:
+        trb._KERNELS.update(wrappers)
+
+
 def train_cli(argv, profiled=None, window=PROFILE_STEPS):
     """runner.main training in-process; returns (per-step losses, epoch line
     numbers, (steps, seconds, frames/s, ms per step over the warm steps
@@ -1251,7 +1296,7 @@ def train_cli(argv, profiled=None, window=PROFILE_STEPS):
     ``window`` and their wall time; each K2 wrapper call then runs inside a
     ``K2 <key>`` profiler range, so that the trace splits the device time of
     kernels the wrappers share (the tap GEMM) by wrapper."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     from videopose3d_torch import runner, train
     from videopose3d_torch.ops.kernels import gather_rows as gr
     from videopose3d_torch.ops.kernels import train_block as trb
@@ -1277,26 +1322,16 @@ def train_cli(argv, profiled=None, window=PROFILE_STEPS):
                 profiled["prof"].stop()
         return loss
 
-    def annotated(key, fn):
-        def run(*args, **kwargs):
-            with record_function(f"K2 {key}"):
-                return fn(*args, **kwargs)
-        return run
-
     for counts in (gr.LAUNCHES, trb.LAUNCHES):
         for k in counts:
             counts[k] = 0
     buf = io.StringIO()
-    wrappers = dict(trb._KERNELS)
     train.SupervisedTrainer.step = recording_step
-    if profiled is not None:
-        trb._KERNELS.update({k: annotated(k, fn) for k, fn in wrappers.items()})
     try:
-        with contextlib.redirect_stdout(buf):
+        with k2_ranges(profiled is not None), contextlib.redirect_stdout(buf):
             runner.main(argv)
     finally:
         train.SupervisedTrainer.step = step
-        trb._KERNELS.update(wrappers)
     torch.cuda.synchronize()
     launches = {**gr.LAUNCHES, **trb.LAUNCHES}
     out = buf.getvalue()
@@ -3359,6 +3394,421 @@ def phase6_cli(cfg, model, device, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: videos in the wild, rendering, instrumented training, host cores
+# ---------------------------------------------------------------------------
+
+WILD_VIDEOS = ("wild_0.mp4", "wild_1.mp4")
+WILD_FRAMES = 3000
+WILD_GAPS = 12  # frames of each video without any detection
+# Exports against xla's, in units of its max |pose| (the evaluation's protocol bounds).
+WILD_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+WILD_INT8_REL = 0.1  # int8: mean per-joint error below this share of xla's RMS
+# matplotlib is not among the card environment's Python packages (PIL is), so
+# this phase renders no GIF and no training curve: the GIFs and the curves'
+# PNGs are held byte for byte against the JAX package's on the CPU
+# (tests/test_torch_render.py, tests/test_torch_profiling.py).
+INSTRUMENTED = dict(subset="0.1", epochs=5, resume_from=2)
+# Human3.6M's training size, as tools/make_scale_archives.py writes it: 5 subjects
+# x 30 actions x 4 cameras = 600 sequences of 2,600 frames (1.56 M frames).
+SAMPLER_SEQS, SAMPLER_FRAMES = 600, 2600
+CKPT_REPS = 3
+EPOCH_LINE = re.compile(r"^\[(\d+)\] time \S+ (lr \S+ 3d_train \S+ 3d_eval \S+ 3d_valid \S+)$")
+METRIC_KEYS = {"epoch", "lr", "bn_momentum", "loss_3d_train", "step_steps", "step_mean_ms",
+               "step_p50_ms", "step_p95_ms", "step_max_ms"}
+# The kernels of train_block.cu that every full-width training step launches.
+K2_CUDA_KERNELS = ("tap_gemm_kernel", "norm_drop_kernel", "relu_mask_bn_sums_kernel",
+                   "bn_grad_kernel", "dw_gemm_kernel")
+
+
+def write_detections(root):
+    """Detectron-format .npz files (what inference/infer_video*.py writes) for
+    WILD_VIDEOS at 1,920 x 1,080: two people per frame in the COCO layout, the
+    best-scored one walking, and WILD_GAPS frames with no detection."""
+    rng = np.random.default_rng(SEED + 11)
+    n = WILD_FRAMES
+    for name in WILD_VIDEOS:
+        boxes, keypoints = np.empty((n, 2), object), np.empty((n, 2), object)
+        walk = (rng.uniform([500, 300], [1400, 800]) + rng.normal(0, 80, (JOINTS, 2))
+                + np.cumsum(rng.normal(0, 3, (n, JOINTS, 2)), axis=0))
+        gaps = set(rng.choice(np.arange(1, n - 1), WILD_GAPS, replace=False).tolist())
+        for i in range(n):
+            boxes[i, 0], keypoints[i, 0] = [], []
+            if i in gaps:
+                boxes[i, 1] = np.zeros((0, 5), np.float32)
+                keypoints[i, 1] = np.zeros((0, 4, JOINTS), np.float32)
+                continue
+            people = rng.uniform(0, 1, (2, 4, JOINTS)).astype(np.float32)
+            people[0, :2] = walk[i].T
+            people[1, :2] = rng.uniform(0, 1080, (2, JOINTS))
+            bbs = rng.uniform(0, 1000, (2, 5)).astype(np.float32)
+            bbs[:, 4] = [0.95, 0.4]
+            boxes[i, 1], keypoints[i, 1] = bbs, people
+        np.savez(os.path.join(root, name + ".npz"), boxes=boxes, keypoints=keypoints,
+                 segments=np.array([None] * n, dtype=object),
+                 metadata={"w": 1920, "h": 1080})
+
+
+def count_launches():
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    from videopose3d_torch.ops.kernels import temporal_block as tb
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+    from videopose3d_torch.ops.kernels import train_block as trb
+    return {name: dict(m.LAUNCHES) for name, m in (("K1", gr), ("K2", trb), ("K3", tb),
+                                                     ("K4", tq), ("K5-K7", sf))}
+
+
+def reset_all_counts():
+    from videopose3d_torch.ops.kernels import gather_rows as gr
+    from videopose3d_torch.ops.kernels import train_block as trb
+    reset_counts()
+    for counts in (gr.LAUNCHES, trb.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def render_cli(argv):
+    """runner.main --render in-process; returns (the --viz-export poses, the
+    seconds of its evaluate() calls, launches by kernel group, output)."""
+    from videopose3d_torch import runner
+    evaluate, spent = runner.evaluate, []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = evaluate(*args, **kwargs)
+        spent.append(time.perf_counter() - start)  # returns host numpy: synchronised
+        return out
+
+    reset_all_counts()
+    buf = io.StringIO()
+    runner.evaluate = timed
+    try:
+        with contextlib.redirect_stdout(buf):
+            runner.main(argv)
+    finally:
+        runner.evaluate = evaluate
+    torch.cuda.synchronize()
+    poses = np.load(argv[argv.index("--viz-export") + 1])
+    check(np.isfinite(poses).all(), "render export: non-finite poses")
+    return poses, sum(spent), count_launches(), buf.getvalue()
+
+
+def phase10a(tmp, model):
+    """The in-the-wild flow through the port's CLIs: Detectron detections ->
+    data.prepare.custom_2d -> -d custom --evaluate --render --viz-export with
+    each engine; the fused exports against xla's, the launches per engine, and
+    the trajectory model added from a checkpoint that has one."""
+    from videopose3d_torch.data.prepare import custom_2d
+    from videopose3d_torch.models.temporal import TemporalModel, TemporalModelConfig
+    from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
+    dets, data = os.path.join(tmp, "wild_dets"), os.path.join(tmp, "wild_data")
+    ckpt = os.path.join(tmp, "checkpoint")
+    os.makedirs(dets)
+    write_detections(dets)
+    with contextlib.redirect_stdout(io.StringIO()):
+        custom_2d.main(["-i", dets, "-o", "wild", "--data-dir", data])
+    torch.manual_seed(SEED + 12)
+    traj = TemporalModel(TemporalModelConfig(JOINTS, 2, 1, ARCH, channels=CHANNELS))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"epoch": 0, "lr": 0.001, "model_pos": state, "optimizer": None,
+                "model_traj": {k: v.detach() for k, v in traj.state_dict().items()}},
+               os.path.join(ckpt, "random_with_traj.bin"))
+
+    def argv(engine, dtype="float32", checkpoint="random_full_width.bin",
+             video=WILD_VIDEOS[0]):
+        return ["-d", "custom", "-k", "wild", "--data-dir", data, "-c", ckpt,
+                "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
+                "--evaluate", checkpoint, "--serving-engine", engine,
+                "--compute-dtype", dtype, "--render", "--viz-subject", video,
+                "--viz-action", "custom", "--viz-camera", "0", "--viz-export",
+                os.path.join(tmp, f"wild_{engine}_{dtype}_{checkpoint}.npy"),
+                "--device", "cuda"]
+
+    poses, launches = {}, {}
+    for run, (engine, dtype) in (("xla", ("xla", "float32")),
+                                 ("fused float32", ("fused", "float32")),
+                                 ("fused bfloat16", ("fused", "bfloat16")),
+                                 ("int8 slice", ("int8", "float32")),
+                                 ("int8 accshift", ("int8", "float32"))):
+        saved_min_d = tq.ACCSHIFT_MIN_DILATION
+        if run == "int8 accshift":
+            tq.ACCSHIFT_MIN_DILATION = 0  # every block in the accshift tap mode
+        try:
+            # A first call pays the engine's one-time setup (cuDNN's, the
+            # kernel modules'); the second is the measured and counted run.
+            warm, _, _, _ = render_cli(argv(engine, dtype))
+            pose, seconds, counts, out = render_cli(argv(engine, dtype))
+        finally:
+            tq.ACCSHIFT_MIN_DILATION = saved_min_d
+        check(engine == "xla" or np.array_equal(warm, pose), f"{run}: two runs differ")
+        check(pose.shape == (WILD_FRAMES, JOINTS, 3), f"{run}: export shape {pose.shape}")
+        check("this action is unlabeled" in out, f"{run}: no unlabeled note:\n{out}")
+        ran = {g: sum(c.values()) for g, c in counts.items()}
+        expect = {"xla": set(), "fused float32": {"K3"}, "fused bfloat16": {"K3"},
+                  "int8 slice": {"K4"}, "int8 accshift": {"K4"}}[run]
+        check({g for g, n in ran.items() if n} == expect,
+              f"{run} launched {ran}, expected only {expect}")
+        poses[run], launches[run] = pose, counts
+        print(f"phase10 (a) wild {run:14s}: {WILD_FRAMES} frames predicted in "
+              f"{seconds * 1e3:.1f} ms ({WILD_FRAMES / seconds:.1f} frames/s with TTA, the "
+              f"model's operands prepared in the call; the kernels' runs bitwise equal), "
+              f"launches {counts[next(iter(expect))] if expect else 0}")
+    ref = poses["xla"]
+    scale = float(np.abs(ref).max())
+    for dtype, bound in WILD_TOL.items():
+        err = float(np.abs(poses[f"fused {dtype}"] - ref).max())
+        print(f"phase10 (a) fused {dtype} vs xla: max |diff| {err:.3e} = "
+              f"{err / scale:.3e} of max |pose| {scale:.4f} (bound {bound:.1e})")
+        check(err <= bound * scale, f"fused {dtype} export disagrees with xla: {err}")
+    rms = float(np.sqrt(np.mean(ref ** 2)))
+    for mode in ("slice", "accshift"):
+        mpjpe = float(np.linalg.norm(poses[f"int8 {mode}"] - ref, axis=-1).mean())
+        print(f"phase10 (a) int8 {mode} vs xla: mean per-joint error {mpjpe:.4e} "
+              f"= {mpjpe / rms:.3e} of the RMS {rms:.4f} (bound {WILD_INT8_REL})")
+        check(mpjpe < WILD_INT8_REL * rms, f"int8 {mode} export disagrees with xla")
+    check(np.array_equal(poses["int8 slice"], poses["int8 accshift"]),
+          "int8 accshift export differs from slice")
+    # A checkpoint with a trajectory model: the unlabeled video's poses move by
+    # the predicted root trajectory, alike for every joint.
+    with_traj, _, counts, _ = render_cli(argv("fused", checkpoint="random_with_traj.bin"))
+    shift = with_traj - poses["fused float32"]
+    spread = float(np.abs(shift - shift[:, :1]).max())
+    print(f"phase10 (a) trajectory added: max |shift| {np.abs(shift).max():.4f}, "
+          f"spread across joints {spread:.2e}, launches {counts['K3']}")
+    check(np.abs(shift).max() > 1e-3 and spread <= 1e-5 * max(1.0, scale),
+          "the trajectory model's prediction was not added to every joint")
+    return {("fused", "float32"): launches["fused float32"]["K3"],
+            ("fused", "bfloat16"): launches["fused bfloat16"]["K3"],
+            ("int8", "slice"): launches["int8 slice"]["K4"],
+            ("int8", "accshift"): launches["int8 accshift"]["K4"]}
+
+
+def phase10b(tmp, cfg, model):
+    """--evaluate --render of a labeled Human3.6M video through the fused
+    engine: the export equals evaluate(..., return_predictions=True) called
+    directly on the same video."""
+    from videopose3d_torch import runner
+    from videopose3d_torch.arguments import parse_args
+    from videopose3d_torch.data.generators import UnchunkedBatcher
+    from videopose3d_torch.evaluate import Evaluator, evaluate
+    export = os.path.join(tmp, "h36m_render.npy")
+    argv = ["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
+            "--data-dir", os.path.join(tmp, "data"), "-c", os.path.join(tmp, "checkpoint"),
+            "--evaluate", "random_full_width.bin", "--serving-engine", "fused", "--render",
+            "--viz-subject", "S9", "--viz-action", "Walking 1", "--viz-camera", "0",
+            "--viz-export", export, "--device", "cuda"]
+    got, seconds, counts, out = render_cli(argv)
+    check("Rendering..." in out and "this action is unlabeled" not in out,
+          f"the Human3.6M rendering did not run with ground truth:\n{out}")
+    args = parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        dataset = runner.load_dataset(args)
+        runner.prepare_dataset_3d(dataset)
+        keypoints, _, kps_left, kps_right = runner.load_2d_detections(args, dataset)
+    skeleton = dataset.skeleton()
+    kps_perm = runner._flip_perm_from_lists(JOINTS, kps_left, kps_right)
+    joints_perm = runner._flip_perm_from_lists(skeleton.num_joints(), skeleton.joints_left(),
+                                               skeleton.joints_right())
+    pad = (receptive_field_of(ARCH) - 1) // 2
+    batcher = UnchunkedBatcher(None, None, [keypoints["S9"]["Walking 1"][0]], pad=pad,
+                               augment=True, kps_flip_perm=kps_perm,
+                               joints_flip_perm=joints_perm)
+    want = evaluate(Evaluator(cfg, joints_flip_perm=joints_perm, engine="fused",
+                              device=next(model.parameters()).device),
+                    model, batcher, return_predictions=True)
+    check(got.shape == want.shape == (1500, JOINTS, 3) and np.array_equal(got, want),
+          f"the render export differs from evaluate(return_predictions=True): "
+          f"{got.shape} vs {want.shape}, max |diff| {np.abs(got - want).max()}")
+    print(f"phase10 (b) Human3.6M render S9 'Walking 1' camera 0, fused: export "
+          f"{got.shape} bitwise equal to evaluate(return_predictions=True); predicted in "
+          f"{seconds * 1e3:.1f} ms, K3 launches {counts['K3']}")
+
+
+def phase10c(tmp):
+    """Instrumented training: phase 4's model and data for INSTRUMENTED epochs
+    with --profile-dir, --metrics-log and a checkpoint per epoch (written by
+    the asynchronous checkpointer); the trace, the records, and a resume from
+    epoch 2 whose epoch 3 equals the uninterrupted run's.  Returns the K1/K2
+    launches."""
+    from videopose3d_torch import runner
+    epochs, first = INSTRUMENTED["epochs"], INSTRUMENTED["resume_from"]
+    trace_dir, metrics = os.path.join(tmp, "trace"), os.path.join(tmp, "metrics.jsonl")
+    ckpt, argv = train_argv(tmp, "instrumented", "pallas", subset=INSTRUMENTED["subset"])
+    argv[argv.index("-e") + 1] = str(epochs)
+    reset_all_counts()
+    buf = io.StringIO()
+    start = time.perf_counter()
+    with k2_ranges(), contextlib.redirect_stdout(buf):
+        runner.main(argv + ["--profile-dir", trace_dir, "--metrics-log", metrics])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = count_launches()
+    launches = {**counts["K1"], **counts["K2"]}
+    check(all(v > 0 for v in launches.values()), f"instrumented run launches {launches}")
+    check(not any(counts["K3"].values()) and not any(counts["K4"].values()),
+          f"instrumented training launched evaluation kernels: {counts}")
+    out = buf.getvalue()
+    lines = {int(m.group(1)): m.group(2) for m in map(EPOCH_LINE.match, out.splitlines())
+             if m}
+    check(sorted(lines) == list(range(1, epochs + 1)), f"epoch lines:\n{out}")
+    # The trace of the first epoch: one Chrome trace that names K1's kernel, the
+    # kernels of K2 and the K2 wrappers' ranges on the device timeline.
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"trace files {os.listdir(trace_dir)}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    ranges = {e["name"] for e in events if e.get("cat") == "gpu_user_annotation"}
+    from videopose3d_torch.ops.kernels import train_block as trb
+    missing = ([k for k in ("window_kernel",) + K2_CUDA_KERNELS
+                if not any(k in name for name in kernels)]
+               + [f"K2 {k}" for k in trb.LAUNCHES if f"K2 {k}" not in ranges])
+    size_mb = os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6
+    print(f"phase10 (c) trace {traces[0]} ({size_mb:.1f} MB): {len(events)} events, "
+          f"{sum(kernels.values())} kernel launches of {len(kernels)} kernels, K2 ranges "
+          f"{sorted(r for r in ranges if r.startswith('K2 '))}")
+    for name, n in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"phase10 (c) trace kernel {n:6d} x {name[:100]}")
+    check(not missing, f"the trace lacks {missing}")
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f]
+    check([r["epoch"] for r in records] == list(range(1, epochs + 1))
+          and all(set(r) == METRIC_KEYS for r in records),
+          f"metrics records {records}")
+    for r in records:
+        print(f"phase10 (c) metrics epoch {r['epoch']}: lr {r['lr']:.6f} bn_momentum "
+              f"{r['bn_momentum']:.6f} loss_3d_train {r['loss_3d_train']:.6f} m, "
+              f"{r['step_steps']} steps, host ms/step mean {r['step_mean_ms']:.3f} p50 "
+              f"{r['step_p50_ms']:.3f} p95 {r['step_p95_ms']:.3f} max {r['step_max_ms']:.3f}")
+    print(f"phase10 (c) {epochs} epochs with the trace, the records and "
+          f"{epochs} asynchronous checkpoints in {wall:.1f} s; launches {launches}")
+    # Resume from epoch 2 in a fresh directory (the same -e: the BatchNorm
+    # momentum schedule spans it): every later epoch's line and the last
+    # checkpoint equal the uninterrupted run's (a torn checkpoint would not).
+    resumed_dir = os.path.join(tmp, "train_instrumented_resumed")
+    os.makedirs(resumed_dir)
+    shutil.copy(os.path.join(ckpt, f"epoch_{first}.bin"), resumed_dir)
+    again = list(argv)
+    again[again.index("-c") + 1] = resumed_dir
+    again[again.index("-r") + 1] = f"epoch_{first}.bin"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runner.main(again)
+    resumed = {int(m.group(1)): m.group(2)
+               for m in map(EPOCH_LINE.match, buf.getvalue().splitlines()) if m}
+    later = {e: line for e, line in lines.items() if e > first}
+    check(resumed == later, f"resumed epochs {resumed} vs {later}")
+    a = torch.load(os.path.join(ckpt, f"epoch_{epochs}.bin"), weights_only=False)
+    b = torch.load(os.path.join(resumed_dir, f"epoch_{epochs}.bin"), weights_only=False)
+    same = (all(torch.equal(a["model_pos"][k], b["model_pos"][k]) for k in a["model_pos"])
+            and all(torch.equal(v, b["optimizer"]["state"][i][k])
+                    for i, s in a["optimizer"]["state"].items() for k, v in s.items()))
+    check(same, f"epoch_{epochs}.bin of the resumed run differs from the uninterrupted")
+    print(f"phase10 (c) resumed epoch_{first}.bin: epochs {first + 1}-{epochs}' lines "
+          f"bitwise the uninterrupted run's (epoch {first + 1}: {lines[first + 1]}), "
+          f"epoch_{epochs}.bin's weights and AMSGrad moments bitwise equal")
+    return launches
+
+
+def phase10d(tmp, cfg, device):
+    """Host cores at Human3.6M's training size: the native and the numpy
+    shuffle of 1.56 M frames' chunk pairs, bitwise, timed; and a checkpoint of
+    the full-width model with AMSGrad state, synchronous against the
+    asynchronous checkpointer's blocked time, the files equal."""
+    from videopose3d_torch import native
+    from videopose3d_torch.checkpoint import (AsyncCheckpointer, model_state_dict,
+                                              save_checkpoint)
+    from videopose3d_torch.data.generators import ChunkedPairSampler
+    from videopose3d_torch.models.temporal import TemporalModel
+    from videopose3d_torch.train import make_optimizer
+    check(native.available(), "the native sampler core did not build (g++)")
+    lengths = [SAMPLER_FRAMES] * SAMPLER_SEQS
+    samplers = {p: ChunkedPairSampler(lengths, 1024, 1, augment=True, use_native=p == "native")
+                for p in ("native", "numpy")}
+    ms = {p: [] for p in samplers}
+    for epoch in range(2):
+        perms = {}
+        for p, s in samplers.items():
+            start = time.perf_counter()
+            perms[p] = s._draw()
+            ms[p].append((time.perf_counter() - start) * 1e3)
+        check(np.array_equal(perms["native"], perms["numpy"]),
+              f"native and numpy shuffles differ in epoch {epoch + 1}")
+    states = [s.random_state() for s in samplers.values()]
+    check(np.array_equal(states[0][1], states[1][1]) and states[0][2] == states[1][2],
+          "native and numpy RNG states differ after two epochs")
+    n_pairs = len(samplers["native"].pairs)
+    print(f"phase10 (d) shuffle of {n_pairs} chunk pairs ({SAMPLER_SEQS} x {SAMPLER_FRAMES} "
+          f"frames, flipped too): native {ms['native'][0]:.1f} / {ms['native'][1]:.1f} ms, "
+          f"numpy {ms['numpy'][0]:.1f} / {ms['numpy'][1]:.1f} ms per shuffle; permutations "
+          "and RNG states bitwise equal over two epochs")
+    # The README model's checkpoint, AMSGrad moments populated by one step.
+    torch.manual_seed(SEED + 13)
+    model = TemporalModel(cfg).to(device)
+    optimizer = make_optimizer(model, 1e-3)
+    for p in model.parameters():
+        p.grad = torch.randn_like(p) * 1e-3
+    optimizer.step()
+    sampler_state = samplers["numpy"].random_state()
+
+    def payload(copy):
+        return {"epoch": 1, "lr": 1e-3, "random_state": sampler_state,
+                "optimizer": optimizer.state_dict(),
+                "model_pos": model_state_dict(model, copy=copy), "model_traj": None}
+
+    sync_ms, blocked_ms, written_ms = [], [], []
+    checkpointer = AsyncCheckpointer()
+    for rep in range(CKPT_REPS):
+        sync_path = os.path.join(tmp, f"sync_{rep}.bin")
+        async_path = os.path.join(tmp, f"async_{rep}.bin")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        save_checkpoint(sync_path, payload(copy=True))  # what the step path did
+        sync_ms.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        checkpointer.save(async_path, payload(copy=False))
+        blocked_ms.append((time.perf_counter() - start) * 1e3)
+        # The next step writes weights and moments in place at once.
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+            for s in optimizer.state.values():
+                s["exp_avg"].mul_(2.0)
+        checkpointer.wait()
+        written_ms.append((time.perf_counter() - start) * 1e3)
+        a = torch.load(sync_path, weights_only=False)
+        b = torch.load(async_path, weights_only=False)
+        check(all(torch.equal(a["model_pos"][k], b["model_pos"][k]) for k in a["model_pos"])
+              and all(torch.equal(v.cpu(), b["optimizer"]["state"][i][k].cpu())
+                      for i, s in a["optimizer"]["state"].items() for k, v in s.items()),
+              f"rep {rep}: the asynchronous checkpoint differs from the synchronous one")
+    size_mb = os.path.getsize(async_path) / 1e6
+    print(f"phase10 (d) checkpoint of the README model with AMSGrad state ({size_mb:.1f} MB): "
+          f"step path blocked {statistics.median(sync_ms):.1f} ms synchronous "
+          f"({', '.join(f'{v:.1f}' for v in sync_ms)}) vs {statistics.median(blocked_ms):.2f} ms "
+          f"asynchronous ({', '.join(f'{v:.2f}' for v in blocked_ms)}; written after "
+          f"{statistics.median(written_ms):.1f} ms); files bitwise equal although the next "
+          "step's in-place writes began at once")
+    return {"shuffle_ms": ms, "sync_ms": sync_ms, "blocked_ms": blocked_ms}
+
+
+def phase10(tmp, cfg, model, device):
+    """Runs (a)-(d); returns the launches of (a) and (c) by kernel."""
+    start = time.perf_counter()
+    eval_launches = phase10a(tmp, model)
+    phase10b(tmp, cfg, model)
+    train_launches = phase10c(tmp)
+    phase10d(tmp, cfg, device)
+    print(f"phase10 done in {time.perf_counter() - start:.1f} s")
+    return eval_launches, train_launches
+
+
 def protocol_lines(out):
     numbers, action = {}, None
     for line in out.splitlines():
@@ -3415,6 +3865,7 @@ def main() -> int:
         dp_launches = phase8a(tmp, train_runs)
         gloo_launches = phase8b(tmp)
         launches9 = phase9(tmp)
+        launches10_eval, launches10_train = phase10(tmp, cfg, model, device)
 
     keys = {name: (key, replaces) for name, key, replaces in KERNELS}
     dtypes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -3428,6 +3879,7 @@ def main() -> int:
             "launches": launches[("fused", dname)][key],
             # Phase 9 evaluates in float32 only.
             **({"launches_phase9": launches9[key]} if dname == "float32" else {}),
+            "launches_phase10": launches10_eval[("fused", dname)][key],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
     for r in train_kernel_results:
@@ -3436,21 +3888,26 @@ def main() -> int:
                         "launches": train_launches[key],
                         "launches_phase8": {"8a": dp_launches[key],
                                             "8b": [g[key] for g in gloo_launches]},
-                        "launches_phase9": launches9[key]})
+                        "launches_phase9": launches9[key],
+                        "launches_phase10": launches10_train[key]})
     for r in semi_kernel_results:  # K2 at (b)'s first block and (a)'s last
         cell, key = r["key"]
         entries.append({**{k: v for k, v in r.items() if k != "key"},
                         "launches": semi_launches[cell == "semi_b"][key],
-                        "launches_phase9": launches9[key]})
+                        "launches_phase9": launches9[key],
+                        "launches_phase10": launches10_train[key]})
     for r in int8_results:
         mode, key = r["key"]
         entries.append({**{k: v for k, v in r.items() if k != "key"},
-                        "launches": launches[("int8", mode)][key]})
+                        "launches": launches[("int8", mode)][key],
+                        "launches_phase10": launches10_eval[("int8", mode)][key]})
     for key, r in stream_results.items():
         entries.append({**r, "launches": stream_launches[key]})
     check(all(e["launches"] > 0 for e in entries), "a kernel of the main path never launched")
     check(all(e["launches_phase9"] > 0 for e in entries if "launches_phase9" in e),
           "a K1, K2 or K3 kernel never launched in phase 9")
+    check(all(e["launches_phase10"] > 0 for e in entries if "launches_phase10" in e),
+          "a K1, K2, K3 or K4 kernel never launched in phase 10")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

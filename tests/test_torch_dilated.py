@@ -12,9 +12,10 @@ Tolerances, each with its reason:
   "mixed": outputs and statistics within 1.6e-2 of their largest entry (four
   bf16 steps, the bound of the kernel tests), gradients by cosine similarity
   above 0.995, the JAX package's bound for its bf16 train block (the JAX
-  backward rounds each cotangent to bf16 before its transposed product, the
-  port after it, and a bf16 pre-activation that rounds across 0 in one and not
-  the other flips a ReLU gate);
+  package sums the taps in one concatenated product and the port tap by tap
+  with ``addmm_``: the sums differ in their last bits, and a bf16
+  pre-activation that rounds across 0 in one order and not the other flips a
+  ReLU gate);
 * the batch assembly: bitwise (pure indexing);
 * the trainers: per-step losses within 1e-5 relative; weights rtol 2e-3 /
   atol 2e-5, running statistics rtol 1e-4 / atol 1e-6 and AMSGrad moments as in

@@ -1,10 +1,9 @@
 """Command-line interface.
 
 The flag surface of ``videopose3d_tpu/arguments.py`` (the reference's flags with
-their names, defaults and semantics), plus ``--device``.  The JAX package's
-TPU knobs are accepted and ignored, so one command line runs in both packages.
-Supervised training and ``--evaluate`` run in the port; the semi-supervised and
-rendering flags are parsed so that published commands parse unchanged.
+their names, defaults and semantics, and the JAX package's own), plus
+``--device``.  The JAX package's TPU knobs are accepted and ignored, so one
+command line runs in both packages.
 """
 
 from __future__ import annotations
@@ -166,6 +165,12 @@ def parse_args(argv=None):
                              "(the protocol numbers do not depend on N); 0 "
                              "(default): every local card of a single-process CUDA "
                              "run, the process's own device otherwise")
+
+    parser.add_argument("--profile-dir", default=None, type=str, metavar="PATH",
+                        help="capture a torch.profiler device trace of the first "
+                             "training epoch into this directory")
+    parser.add_argument("--metrics-log", default=None, type=str, metavar="PATH",
+                        help="append per-epoch structured metrics (JSON lines)")
 
     # TPU-only knobs of the JAX package: accepted and ignored here.
     tpu_only = "TPU-only (JAX package); accepted and ignored by videopose3d_torch"

@@ -11,13 +11,23 @@ CLI reads); its ``optimizer`` is a ``torch.optim`` state dict, which resumes
 training in the port and which the JAX CLI drops.  The port likewise resumes a
 JAX CLI checkpoint's optax state with a fresh optimizer
 (:func:`is_torch_optimizer_state` tells the two apart).
+
+:class:`AsyncCheckpointer` writes checkpoints on a background thread, as the
+JAX package's does.  Unlike JAX arrays, torch's parameters and optimizer
+moments are written in place by the next optimizer step, so the payload is
+snapshotted on the caller's thread first (:func:`snapshot`): each tensor is
+cloned on its own device, a CUDA tensor on the current (training) stream, with
+an event recorded after the clones.  The thread waits on that event from a
+stream of its own, copies the clones to the host there, pickles them and
+writes the file; the training stream never waits for the host copy.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict
+import threading
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 
@@ -91,10 +101,13 @@ def is_torch_optimizer_state(state) -> bool:
     return isinstance(state, dict) and {"state", "param_groups"} <= set(state)
 
 
-def model_state_dict(model) -> Dict[str, Any]:
-    """The model's weights and BatchNorm statistics under the reference keys, on
-    the CPU (BatchNorm's ``num_batches_tracked`` counters are left out)."""
-    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+def model_state_dict(model, copy: bool = True) -> Dict[str, Any]:
+    """The model's weights and BatchNorm statistics under the reference keys
+    (BatchNorm's ``num_batches_tracked`` counters are left out): copies on the
+    CPU, or with ``copy=False`` the live tensors themselves, for
+    :func:`snapshot`."""
+    return {k: v.detach().cpu().clone() if copy else v.detach()
+            for k, v in model.state_dict().items()
             if not k.endswith("num_batches_tracked")}
 
 
@@ -105,3 +118,108 @@ def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def _map_tensors(fn, tree):
+    """``tree`` with every tensor replaced by ``fn(tensor)``; dicts, lists and
+    tuples are rebuilt and numpy arrays copied, other leaves kept."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class Snapshot:
+    """A payload whose tensors are clones taken at one point of the caller's
+    streams (:func:`snapshot`); :meth:`to_host` gives it with every tensor on
+    the CPU, from any thread."""
+
+    def __init__(self, tree, events):
+        self._tree = tree
+        self._events = events  # CUDA device -> event recorded after its clones
+
+    def to_host(self):
+        import torch
+        if not self._events:
+            return self._tree
+        streams = {}
+        for device, event in self._events.items():
+            streams[device] = torch.cuda.Stream(device=device)
+            streams[device].wait_event(event)
+
+        def fetch(t):
+            if t.device.type != "cuda":
+                return t
+            with torch.cuda.stream(streams[t.device]):
+                return t.to("cpu")  # waits for this stream only
+        return _map_tensors(fetch, self._tree)
+
+
+def snapshot(payload) -> Snapshot:
+    """Clone every tensor of ``payload`` (detached) on its device, CUDA tensors
+    on their current stream, so that later in-place writes (an optimizer
+    step) cannot reach the snapshot."""
+    import torch
+    devices = set()
+
+    def clone(t):
+        if t.device.type == "cuda":
+            devices.add(t.device)
+        return t.detach().clone()
+    tree = _map_tensors(clone, payload)
+    events = {}
+    for device in devices:
+        events[device] = torch.cuda.Event()
+        events[device].record(torch.cuda.current_stream(device))
+    return Snapshot(tree, events)
+
+
+class AsyncCheckpointer:
+    """Background-thread checkpoint writer: the training loop hands over the
+    payload and goes on stepping while the device-to-host copy, the pickling
+    and the atomic write happen off the step path.
+
+    ``save`` snapshots a dict payload on the caller's thread (see the module
+    docstring); a callable payload runs on the writer thread and must itself
+    read nothing that the caller goes on changing (return a
+    :func:`snapshot`'s ``to_host()``, for one).  At most one save is in
+    flight: a new ``save()`` or ``wait()`` first joins the previous one and
+    re-raises its error.  ``wait()`` before reading the file back or exiting.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+
+    def save(self, path: str,
+             payload: Union[Dict[str, Any], Callable[[], Dict[str, Any]]],
+             save_fn: Callable[[str, Dict[str, Any]], None] = save_checkpoint) -> None:
+        """Queue an atomic checkpoint write of ``payload`` (a dict, or a
+        zero-argument callable building one) through ``save_fn``."""
+        self.wait()
+        build = payload if callable(payload) else snapshot(payload).to_host
+
+        def work():
+            try:
+                save_fn(path, build())
+            except BaseException as e:  # re-raised on the caller's thread
+                self._exc = e
+
+        self._thread = threading.Thread(target=work, name="checkpoint-writer", daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the save in flight (if any) is written; re-raise its
+        error if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc

@@ -6,8 +6,10 @@ Counterpart of ``videopose3d_tpu/data/generators.py``:
   margin-padded flat stream (with a pre-flipped copy for augmentation) that is
   uploaded to the device once (``to_device``), the 2D keypoints as
   ``(rows, J*F)``, with the videos' camera intrinsics beside them.
-* ``ChunkedPairSampler`` (host, numpy) enumerates and shuffles the reference's
-  ``(seq, start, end, flip)`` chunk pairs with the same ``RandomState`` stream and
+* ``ChunkedPairSampler`` (host) enumerates and shuffles the reference's
+  ``(seq, start, end, flip)`` chunk pairs with the same ``RandomState`` stream
+  (through the native C++ core of ``native.py`` when it is available, with
+  numpy's permutation otherwise: the same permutations) and
   emits one ``(B, 4)`` int32 descriptor array per step, the final partial batch
   padded with copies of its first row and a valid-row count; ``endless`` streams
   (the semi-supervised unlabeled split) run on across permutations and resume
@@ -15,6 +17,8 @@ Counterpart of ``videopose3d_tpu/data/generators.py``:
 * ``assemble_chunked_batch_contiguous`` turns descriptors into a batch on the
   device: the 2D windows through the window-gather kernel
   (``ops/kernels/gather_rows.py``), the 3D targets and cameras by plain indexing.
+  ``assemble_chunked_batch`` does the same over streams concatenated without
+  margins, clamping each window to its sequence's bounds (no CLI path uses it).
 * ``UnchunkedBatcher`` yields whole videos for evaluation.
 """
 
@@ -136,7 +140,10 @@ class ChunkedPairSampler:
     shuffle and RNG-state semantics (the JAX package's sampler, in numpy).
 
     The ``(seq, start_3d, end_3d, flip)`` pairs live in an ``(N, 4)`` int64 array,
-    permuted by ``np.random.RandomState(random_seed)`` once per permutation.
+    permuted by ``np.random.RandomState(random_seed)`` once per permutation:
+    through the native core (``native.permute_rows``) when ``use_native`` (None:
+    when it is available), with ``RandomState.permutation`` otherwise; both give
+    the same permutation and leave the same RNG state.
     Yields ``(meta, n_valid)`` per step: ``meta`` is a ``(batch_size, 4)`` int32
     array whose rows past ``n_valid`` are copies of row 0 and must be masked out.  An ``endless`` sampler's ``next_epoch`` never ends:
     it draws a new permutation whenever one is used up.
@@ -144,7 +151,8 @@ class ChunkedPairSampler:
 
     def __init__(self, sequence_lengths: Sequence[int], batch_size: int,
                  chunk_length: int, *, random_seed: int = 1234,
-                 augment: bool = False, endless: bool = False):
+                 augment: bool = False, endless: bool = False,
+                 use_native: Optional[bool] = None):
         pairs = []
         for i, seq_len in enumerate(sequence_lengths):
             n_chunks = (seq_len + chunk_length - 1) // chunk_length
@@ -165,6 +173,10 @@ class ChunkedPairSampler:
         self.endless = endless
         self.state = None  # (next batch index, pairs) inside an endless permutation
         self._perm_rng_state = None  # the RNG just before the current permutation
+        if use_native is None:
+            from videopose3d_torch import native
+            use_native = native.available()
+        self.use_native = use_native
 
     def num_frames(self) -> int:
         return self.num_batches * self.batch_size
@@ -181,6 +193,9 @@ class ChunkedPairSampler:
     def _draw(self):
         """A new permutation, the RNG's state before it kept."""
         self._perm_rng_state = self.random.get_state()
+        if self.use_native:
+            from videopose3d_torch import native
+            return native.permute_rows(self.random, self.pairs)
         return self.random.permutation(self.pairs)
 
     def stream_state(self):
@@ -276,6 +291,54 @@ def assemble_chunked_batch_contiguous(dev: DeviceArrays, meta, *, pad: int,
         flipped = cam.clone()
         flipped[:, 2], flipped[:, 7] = -cam[:, 2], -cam[:, 7]
         cam = torch.where(flip[:, None] != 0, flipped, cam)
+    return cam, batch_3d, batch_2d
+
+
+def assemble_chunked_batch(flat_2d, flat_3d, cameras, seq_bounds, meta, *, pad: int,
+                           causal_shift: int, chunk_length: int, kps_flip_perm,
+                           joints_flip_perm, with_3d: bool = True,
+                           with_cameras: bool = False):
+    """A training batch from ``(B, 4)`` descriptors ``(seq, start_3d, end_3d,
+    flip)`` over streams concatenated without margins: ``(cam (B, 9) | None,
+    batch_3d (B, chunk, J3, 3) | None, batch_2d (B, chunk + 2*pad, J, C))`` on
+    ``flat_2d``'s device.
+
+    ``seq_bounds`` (V, 2) holds each sequence's ``[lo, hi)`` rows of the flat
+    streams.  The 2D window spans ``[start_3d - pad - causal_shift, end_3d + pad
+    - causal_shift)`` and the 3D one ``[start_3d, end_3d)``, each row index
+    clamped into its sequence (edge replication).  A flipped row has x negated
+    and its left/right columns swapped (``kps_flip_perm`` /
+    ``joints_flip_perm``), and its camera entries 2 (centre x) and 7
+    (tangential x) negated.
+    """
+    device = flat_2d.device
+    meta = torch.as_tensor(meta).to(device).long()
+    bounds = torch.as_tensor(seq_bounds).to(device).long()
+    seq, start_3d = meta[:, 0], meta[:, 1]
+    flip = (meta[:, 3] != 0)
+    lo, hi = bounds[seq, 0], bounds[seq, 1]
+
+    def window(flat, start, length):
+        rel = start[:, None] + torch.arange(length, device=device)[None, :]
+        rows = lo[:, None] + torch.minimum(torch.clamp(rel, min=0), (hi - lo - 1)[:, None])
+        return flat[rows.reshape(-1)].reshape((meta.shape[0], length) + flat.shape[1:])
+
+    def flipped(batch, perm):
+        sign = torch.ones(batch.shape[-1], dtype=batch.dtype, device=device)
+        sign[0] = -1.0
+        mirrored = batch[:, :, torch.as_tensor(np.asarray(perm), device=device).long()] * sign
+        return torch.where(flip[:, None, None, None], mirrored, batch)
+
+    batch_2d = flipped(window(flat_2d, start_3d - pad - causal_shift, chunk_length + 2 * pad),
+                       kps_flip_perm)
+    batch_3d = (flipped(window(flat_3d, start_3d, chunk_length), joints_flip_perm)
+                if with_3d else None)
+    cam = None
+    if with_cameras:
+        cam = torch.as_tensor(cameras).to(device)[seq]
+        sign = torch.ones(cam.shape[-1], dtype=cam.dtype, device=device)
+        sign[2] = sign[7] = -1.0
+        cam = torch.where(flip[:, None], cam * sign, cam)
     return cam, batch_3d, batch_2d
 
 

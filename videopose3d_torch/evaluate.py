@@ -269,11 +269,14 @@ class DeviceEvalSet:
 
 
 def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
-             action: Optional[str] = None, verbose: bool = True,
-             devices=None) -> Tuple[float, float, float, float]:
+             action: Optional[str] = None, return_predictions: bool = False,
+             verbose: bool = True, devices=None) -> Tuple[float, float, float, float]:
     """Run the four protocols over a batcher of whole videos.
 
-    Errors are frame-weighted means, reported in mm.  A bounded queue of
+    Errors are frame-weighted means, reported in mm.  With
+    ``return_predictions`` the first video's (T, J, 3) camera-space prediction
+    (test-time augmentation merged) is returned instead, for rendering.  A
+    bounded queue of
     videos is in flight before the first fetch, so device work overlaps the
     host-side protocol work.  ``devices``: local devices to round-robin the
     videos over (default the evaluator's); the protocols take the videos in
@@ -314,6 +317,8 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
     for seq_i, (_, batch_3d, batch_2d, n_frames) in enumerate(batcher.next_epoch()):
         pred = evaluator.predict_async(model, batch_2d, augment=batcher.augment_enabled(),
                                        device=devs[seq_i % len(devs)])
+        if return_predictions:
+            return pred.cpu().numpy()[0, :n_frames]
         pending.append((batch_3d, n_frames, pred))
         if len(pending) >= in_flight:
             consume(pending.pop(0))

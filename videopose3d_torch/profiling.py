@@ -1,0 +1,99 @@
+"""Profiling and observability helpers.
+
+Counterpart of ``videopose3d_tpu/profiling.py``: a device trace of a block of
+work (``torch.profiler`` here, written as a Chrome trace ``*.pt.trace.json``
+that TensorBoard and Perfetto open), per-step wall-clock statistics and
+structured per-epoch metric records (JSON lines).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str], device=None):
+    """Capture a ``torch.profiler`` trace of the enclosed block into
+    ``log_dir`` (``<host>_<pid>.<time>.pt.trace.json``): CPU activity, and the
+    card's kernels and copies when ``device`` is a CUDA device (None: when a
+    card is available).  No-op when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    on_card = (torch.cuda.is_available() if device is None
+               else torch.device(device).type == "cuda")
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+class StepTimer:
+    """Lightweight per-step wall-clock statistics for a training epoch.
+
+    Measures the host's step cadence (a step returns before its kernels have
+    run); combine with :func:`device_trace` for the device timeline.
+    ``summary()`` returns mean/p50/p95/max milliseconds.
+    """
+
+    def __init__(self):
+        self._times: List[float] = []
+        self._last: Optional[float] = None
+
+    def start(self):
+        self._last = time.perf_counter()
+
+    def tick(self):
+        now = time.perf_counter()
+        if self._last is not None:
+            self._times.append(now - self._last)
+        self._last = now
+
+    def summary(self) -> Dict[str, float]:
+        if not self._times:
+            return {}
+        arr = np.asarray(self._times) * 1e3
+        return {
+            "steps": int(arr.size),
+            "mean_ms": float(arr.mean()),
+            "p50_ms": float(np.percentile(arr, 50)),
+            "p95_ms": float(np.percentile(arr, 95)),
+            "max_ms": float(arr.max()),
+        }
+
+    def report(self, prefix: str = "steps") -> str:
+        s = self.summary()
+        if not s:
+            return f"{prefix}: no steps recorded"
+        return (f"{prefix}: {s['steps']} steps, mean {s['mean_ms']:.2f} ms, "
+                f"p50 {s['p50_ms']:.2f} ms, p95 {s['p95_ms']:.2f} ms, "
+                f"max {s['max_ms']:.2f} ms")
+
+    def reset(self):
+        self._times.clear()
+        self._last = None
+
+
+def _json_default(obj):
+    """Coerce tensor and numpy scalars that reach a metric record (losses,
+    checkpoint payload entries) into JSON numbers."""
+    if hasattr(obj, "item"):
+        return obj.item()
+    raise TypeError(f"not JSON serializable: {type(obj)}")
+
+
+def log_metrics_jsonl(path: str, record: Dict) -> None:
+    """Append one JSON line of structured metrics (epoch losses, step stats)."""
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with open(path, "a") as f:
+        f.write(json.dumps(record, default=_json_default) + "\n")

@@ -1,14 +1,17 @@
-"""End-to-end entry point of the port: data preparation -> model -> supervised
-training with per-epoch evaluation and checkpoints -> action-wise evaluation.
+"""End-to-end entry point of the port: data preparation -> model -> training
+with per-epoch evaluation and checkpoints -> action-wise evaluation or a
+rendering.
 
 Counterpart of ``videopose3d_tpu/runner.py`` for supervised and
 semi-supervised (``-sun``) training, in the strided form or the dilated one
-(``--stride > 1``, ``--dense``, ``--disable-optimizations``), and ``--evaluate``
-(with ``--by-subject``), on Human3.6M and HumanEva (``-d humaneva15``,
-``humaneva20``): the same printed lines, schedules, checkpoint payload and
-protocol reports.
-``--render``, ``-d custom`` and ``--export-training-curves`` are not ported yet
-and raise.
+(``--stride > 1``, ``--dense``, ``--disable-optimizations``), ``--evaluate``
+(with ``--by-subject``) and ``--render`` (``--viz-export`` / ``--viz-output``),
+on Human3.6M, HumanEva (``-d humaneva15``, ``humaneva20``) and the detections
+of videos in the wild (``-d custom``): the same printed lines, schedules,
+checkpoint payload, protocol reports, exported poses and training curves.
+``--profile-dir`` traces the first training epoch with ``torch.profiler`` and
+``--metrics-log`` appends one JSON record per epoch; checkpoints are written on
+a background thread (``checkpoint.AsyncCheckpointer``).
 
 Under ``python -m torch.distributed.run`` every process trains one data-parallel
 rank (``parallel/mesh.py``): NCCL on CUDA, gloo on the CPU, the weights
@@ -27,25 +30,24 @@ import numpy as np
 import torch
 
 from videopose3d_torch.arguments import parse_args
-from videopose3d_torch.checkpoint import (is_torch_optimizer_state, load_any_checkpoint,
-                                          model_state_dict, save_checkpoint)
+from videopose3d_torch.checkpoint import (AsyncCheckpointer, is_torch_optimizer_state,
+                                          load_any_checkpoint, model_state_dict)
 from videopose3d_torch.data.generators import (ChunkedPairSampler, FlatSequenceDataset,
                                                UnchunkedBatcher)
-from videopose3d_torch.evaluate import (DeviceEvalSet, Evaluator, evaluate_actionwise,
-                                        full_float32)
+from videopose3d_torch.evaluate import (DeviceEvalSet, Evaluator, evaluate,
+                                        evaluate_actionwise, full_float32)
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 receptive_field)
-from videopose3d_torch.ops.camera import normalize_screen_coordinates, world_to_camera
+from videopose3d_torch.ops.camera import (camera_to_world, image_coordinates,
+                                          normalize_screen_coordinates, world_to_camera)
 from videopose3d_torch.parallel.mesh import (DataParallel, all_reduce_, broadcast_module,
                                              initialize_distributed, launcher_world_size,
                                              process_info, shard_batch_size)
+from videopose3d_torch.profiling import StepTimer, device_trace, log_metrics_jsonl
 from videopose3d_torch.train import (SemiSupervisedTrainer, SupervisedTrainer,
                                      TrainLoopConfig, bn_momentum_for_epoch,
                                      make_optimizer, set_learning_rate)
 from videopose3d_torch.utils import deterministic_random
-
-_NOT_PORTED = ("is not ported to videopose3d_torch yet (see ROADMAP.md, Queue 1); "
-               "run it with the JAX package (python run.py)")
 
 
 def kernel_width_error(args):
@@ -115,8 +117,9 @@ def eval_devices(args, device, dp):
 
 
 def load_dataset(args):
-    """The mocap dataset of ``-d``: ``h36m`` or ``humaneva15`` / ``humaneva20``,
-    from ``<data-dir>/data_3d_<dataset>.npz``."""
+    """The dataset of ``-d``: ``h36m`` or ``humaneva15`` / ``humaneva20`` from
+    ``<data-dir>/data_3d_<dataset>.npz``, or ``custom`` (videos in the wild, no
+    3D ground truth) from the 2D archive ``data_2d_custom_<keypoints>.npz``."""
     print("Loading dataset...")
     path = os.path.join(args.data_dir, f"data_3d_{args.dataset}.npz")
     if args.dataset == "h36m":
@@ -125,7 +128,11 @@ def load_dataset(args):
     if args.dataset.startswith("humaneva"):
         from videopose3d_torch.datasets.humaneva import HumanEvaDataset
         return HumanEvaDataset(path)
-    raise NotImplementedError(f"dataset {args.dataset!r} {_NOT_PORTED}")
+    if args.dataset.startswith("custom"):
+        from videopose3d_torch.datasets.custom import CustomDataset
+        return CustomDataset(os.path.join(
+            args.data_dir, f"data_2d_{args.dataset}_{args.keypoints}.npz"))
+    raise KeyError("Invalid dataset")
 
 
 def prepare_dataset_3d(dataset):
@@ -274,10 +281,6 @@ def load_model(model: TemporalModel, model_pos) -> None:
 def main(argv=None):
     args = parse_args(argv)
     print(args)
-    if args.render:
-        raise NotImplementedError(f"--render {_NOT_PORTED}")
-    if args.export_training_curves:
-        raise NotImplementedError(f"--export-training-curves {_NOT_PORTED}")
     refused = kernel_width_error(args)
     if refused:
         raise SystemExit(f"error: {refused}")
@@ -287,13 +290,13 @@ def main(argv=None):
 
     dataset = load_dataset(args)
     prepare_dataset_3d(dataset)
-    keypoints, _, kps_left, kps_right = load_2d_detections(args, dataset)
+    keypoints, keypoints_metadata, kps_left, kps_right = load_2d_detections(args, dataset)
     joints_left = list(dataset.skeleton().joints_left())
     joints_right = list(dataset.skeleton().joints_right())
 
     subjects_train = args.subjects_train.split(",")
     subjects_semi = args.subjects_unlabeled.split(",") if args.subjects_unlabeled else []
-    subjects_test = args.subjects_test.split(",")
+    subjects_test = [args.viz_subject] if args.render else args.subjects_test.split(",")
     if subjects_semi and not dataset.supports_semi_supervised():
         raise RuntimeError("Semi-supervised training is not implemented for this dataset")
     action_filter = None if args.actions == "*" else args.actions.split(",")
@@ -339,12 +342,17 @@ def main(argv=None):
         dataset.skeleton().num_joints(), joints_left, joints_right)
 
     checkpoint = None
+    traj_model = None
     if args.resume or args.evaluate:
         chk_filename = os.path.join(args.checkpoint, args.resume or args.evaluate)
         print("Loading checkpoint", chk_filename)
         checkpoint = load_any_checkpoint(chk_filename)
         print("This model was trained for {} epochs".format(checkpoint["epoch"]))
         load_model(model, checkpoint["model_pos"])
+        if args.evaluate and args.render and checkpoint.get("model_traj") is not None:
+            # A rendering of an unlabeled video adds the predicted trajectory.
+            traj_model = TemporalModel(traj_cfg).to(device)
+            load_model(traj_model, checkpoint["model_traj"])
 
     test_batcher = _eval_batcher(args, pad, causal_shift, kps_perm, joints_perm,
                                  cameras_valid, poses_valid, poses_valid_2d)
@@ -358,7 +366,6 @@ def main(argv=None):
     devices = eval_devices(args, device, dp)
 
     if not args.evaluate:
-        traj_model = None
         if subjects_semi:
             traj_model = TemporalModel(traj_cfg).to(device)
         _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filter,
@@ -366,6 +373,10 @@ def main(argv=None):
                evaluator, test_batcher, checkpoint, device, dp, devices)
 
     model.eval()
+    if args.render:
+        _render(args, dataset, keypoints, keypoints_metadata, model, traj_model, evaluator,
+                pad, causal_shift, kps_perm, joints_perm, device)
+        return
     print("Evaluating...")
     start = time.perf_counter()
     n_frames = _final_evaluation(args, dataset, keypoints, subjects_test,
@@ -486,27 +497,41 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         traj_evaluator = (Evaluator(traj_model.config, engine="xla", device=device)
                           if semi else None)
     semi_iter = sampler_semi.next_epoch() if semi else None
-    losses_3d_train = []
+    losses_3d_train, losses_3d_train_eval, losses_3d_valid = [], [], []
+    losses_traj_train, losses_traj_train_eval, losses_traj_valid = [], [], []
+    losses_2d_train_unlabeled, losses_2d_train_labeled_eval = [], []
+    losses_2d_train_unlabeled_eval, losses_2d_valid = [], []
     train_seconds, train_steps, train_frames = 0.0, 0, 0
+    writer = dp is None or dp.rank == 0  # the rank that writes files
+    step_timer = StepTimer()
+    first_epoch = epoch
+    checkpointer = AsyncCheckpointer()
 
     while epoch < args.epochs:
         start_time = time.time()
         momentum = bn_momentum_for_epoch(loop_cfg, epoch - 1)
         skip = epoch < loop_cfg.warmup
-        losses, n_valids = [], []
+        losses, n_valids, n_valids_semi = [], [], []
+        trace_dir = args.profile_dir if epoch == first_epoch else None
+        if trace_dir is not None and dp is not None:
+            trace_dir = os.path.join(trace_dir, f"rank{dp.rank}")
+        step_timer.reset()
+        step_timer.start()
         step_start = time.perf_counter()
-        with full_float32():
+        with device_trace(trace_dir, device), full_float32():
             for meta, n_valid in sampler.next_epoch():
                 if semi:
                     # One unlabeled batch per step, in warmup too: the stream
                     # advances as the JAX CLI's does.
                     meta_semi, n_valid_semi = next(semi_iter)
-                    losses.append(trainer.step(dev, dev_semi, meta, n_valid, meta_semi,
-                                               n_valid_semi, momentum, skip,
-                                               generator)[0])
+                    losses.append(torch.stack(trainer.step(
+                        dev, dev_semi, meta, n_valid, meta_semi, n_valid_semi, momentum,
+                        skip, generator)[:3]))
+                    n_valids_semi.append(n_valid_semi)
                 else:
                     losses.append(trainer.step(dev, meta, n_valid, momentum, generator))
                 n_valids.append(n_valid)
+                step_timer.tick()
         vals = torch.stack(losses)
         if dp is not None:  # each rank's losses are its shares
             all_reduce_(vals, dp.group)
@@ -515,15 +540,36 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         train_steps += len(losses)
         train_frames += sum(n_valids) * loop_cfg.chunk_length
         weights = np.asarray(n_valids, np.float64)
+        if semi:  # (pose, trajectory, 2D reconstruction) per step
+            weights_semi = np.asarray(n_valids_semi, np.float64)
+            losses_traj_train.append(float(np.sum(vals[:, 1] * weights) / np.sum(weights)))
+            losses_2d_train_unlabeled.append(
+                float(np.sum(vals[:, 2] * weights_semi) / np.sum(weights_semi)))
+            vals = vals[:, 0]
         losses_3d_train.append(float(np.sum(vals * weights) / np.sum(weights)))
+        if args.metrics_log and writer:
+            log_metrics_jsonl(args.metrics_log, {
+                "epoch": epoch + 1,
+                "lr": lr,
+                "bn_momentum": momentum,
+                "loss_3d_train": losses_3d_train[-1],
+                **{f"step_{k}": v for k, v in step_timer.summary().items()},
+            })
 
         if not args.no_eval:
             if semi:
                 te, tr, se = (eval_sets[k].losses(evaluator, model, traj_evaluator,
                                                   traj_model)
                               for k in ("test", "train", "semi"))
+                losses_traj_valid.append(te[1])
+                losses_2d_valid.append(te[2])
+                losses_traj_train_eval.append(tr[1])
+                losses_2d_train_labeled_eval.append(tr[2])
+                losses_2d_train_unlabeled_eval.append(se[2])
             else:
                 te, tr = ((eval_sets[k].loss(evaluator, model),) for k in ("test", "train"))
+            losses_3d_valid.append(te[0])
+            losses_3d_train_eval.append(tr[0])
 
         elapsed = (time.time() - start_time) / 60
         if args.no_eval:
@@ -545,17 +591,20 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         set_learning_rate(optimizer, lr)
         epoch += 1
 
-        if epoch % args.checkpoint_frequency == 0 and (dp is None or dp.rank == 0):
+        if epoch % args.checkpoint_frequency == 0 and writer:
             chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.bin")
             print("Saving checkpoint to", chk_path)
             stream_semi = sampler_semi.stream_state() if semi else None
-            save_checkpoint(chk_path, {
+            # The live tensors: the checkpointer clones them before the next
+            # step writes them in place, and copies them to the host off the
+            # step path.
+            checkpointer.save(chk_path, {
                 "epoch": epoch,
                 "lr": lr,
                 "random_state": sampler.random_state(),
                 "optimizer": optimizer.state_dict(),
-                "model_pos": model_state_dict(model),
-                "model_traj": model_state_dict(traj_model) if semi else None,
+                "model_pos": model_state_dict(model, copy=False),
+                "model_traj": model_state_dict(traj_model, copy=False) if semi else None,
                 "random_state_semi": sampler_semi.random_state() if semi else None,
                 # The unlabeled stream's place inside its permutation, so that a
                 # resume goes on with the same batches.
@@ -565,9 +614,65 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
                 "step_rng": generator.get_state(),
             })
 
+        if args.export_training_curves and epoch > 3 and writer:
+            _export_training_curves(
+                args, epoch, semi, losses_3d_train, losses_3d_train_eval, losses_3d_valid,
+                losses_traj_train, losses_traj_train_eval, losses_traj_valid,
+                losses_2d_train_labeled_eval, losses_2d_train_unlabeled,
+                losses_2d_train_unlabeled_eval, losses_2d_valid)
+
+    checkpointer.wait()  # the last save is on disk before evaluation or exit
     print(f"INFO: trained {train_steps} steps in {train_seconds:.3f} s "
           f"({train_frames / max(train_seconds, 1e-9):.1f} frames/s, {form}, "
           f"device {device})")
+
+
+def _export_training_curves(args, epoch, semi_supervised, losses_3d_train,
+                            losses_3d_train_eval, losses_3d_valid, losses_traj_train,
+                            losses_traj_train_eval, losses_traj_valid,
+                            losses_2d_train_labeled_eval, losses_2d_train_unlabeled,
+                            losses_2d_train_unlabeled_eval, losses_2d_valid):
+    """The loss curves from epoch 4 on as PNGs in the checkpoint directory:
+    ``loss_3d.png``, and under semi-supervision ``loss_traj.png`` and
+    ``loss_2d.png`` (the JAX package's figures)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.figure()
+    epoch_x = np.arange(3, len(losses_3d_train)) + 1
+    plt.plot(epoch_x, losses_3d_train[3:], "--", color="C0")
+    plt.plot(epoch_x, losses_3d_train_eval[3:], color="C0")
+    plt.plot(epoch_x, losses_3d_valid[3:], color="C1")
+    plt.legend(["3d train", "3d train (eval)", "3d valid (eval)"])
+    plt.ylabel("MPJPE (m)")
+    plt.xlabel("Epoch")
+    plt.xlim((3, epoch))
+    plt.savefig(os.path.join(args.checkpoint, "loss_3d.png"))
+
+    if semi_supervised:
+        plt.figure()
+        plt.plot(epoch_x, losses_traj_train[3:], "--", color="C0")
+        plt.plot(epoch_x, losses_traj_train_eval[3:], color="C0")
+        plt.plot(epoch_x, losses_traj_valid[3:], color="C1")
+        plt.legend(["traj. train", "traj. train (eval)", "traj. valid (eval)"])
+        plt.ylabel("Mean distance (m)")
+        plt.xlabel("Epoch")
+        plt.xlim((3, epoch))
+        plt.savefig(os.path.join(args.checkpoint, "loss_traj.png"))
+
+        plt.figure()
+        plt.plot(epoch_x, losses_2d_train_labeled_eval[3:], color="C0")
+        plt.plot(epoch_x, losses_2d_train_unlabeled[3:], "--", color="C1")
+        plt.plot(epoch_x, losses_2d_train_unlabeled_eval[3:], color="C1")
+        plt.plot(epoch_x, losses_2d_valid[3:], color="C2")
+        plt.legend(["2d train labeled (eval)", "2d train unlabeled",
+                    "2d train unlabeled (eval)", "2d valid (eval)"])
+        plt.ylabel("MPJPE (2D)")
+        plt.xlabel("Epoch")
+        plt.xlim((3, epoch))
+        plt.savefig(os.path.join(args.checkpoint, "loss_2d.png"))
+    plt.close("all")
 
 
 def _final_evaluation(args, dataset, keypoints, subjects_test, action_filter,
@@ -620,6 +725,78 @@ def _final_evaluation(args, dataset, keypoints, subjects_test, action_filter,
                                 devices=devices)
             print("")
     return n_frames
+
+
+def _render(args, dataset, keypoints, keypoints_metadata, model, traj_model, evaluator,
+            pad, causal_shift, kps_perm, joints_perm, device):
+    """One video (``--viz-subject`` / ``--viz-action`` / ``--viz-camera``)
+    through the evaluator: ``--viz-export`` saves the camera-space prediction
+    (plus the trajectory model's, for an unlabeled video when there is one);
+    ``--viz-output`` renders it in world space beside the input keypoints and
+    the ground truth, where the action has it."""
+    print("Rendering...")
+    input_keypoints = keypoints[args.viz_subject][args.viz_action][args.viz_camera].copy()
+    ground_truth = None
+    if (args.viz_subject in dataset.subjects()
+            and args.viz_action in dataset[args.viz_subject]):
+        if "positions_3d" in dataset[args.viz_subject][args.viz_action]:
+            ground_truth = dataset[args.viz_subject][args.viz_action][
+                "positions_3d"][args.viz_camera].copy()
+    if ground_truth is None:
+        print("INFO: this action is unlabeled. Ground truth will not be rendered.")
+
+    batcher = _eval_batcher(args, pad, causal_shift, kps_perm, joints_perm,
+                            None, None, [input_keypoints],
+                            augment=args.test_time_augmentation)
+    prediction = evaluate(evaluator, model, batcher, return_predictions=True)
+    if traj_model is not None and ground_truth is None:
+        traj_evaluator = Evaluator(traj_model.config, engine="xla", device=device)
+        prediction = prediction + evaluate(traj_evaluator, traj_model, batcher,
+                                           return_predictions=True)
+
+    if args.viz_export is not None:
+        print("Exporting joint positions to", args.viz_export)
+        np.save(args.viz_export, prediction)  # camera space
+
+    if args.viz_output is not None:
+        if ground_truth is not None:
+            trajectory = ground_truth[:, :1]
+            ground_truth[:, 1:] += trajectory
+            prediction = prediction + trajectory
+
+        cam = dataset.cameras()[args.viz_subject][args.viz_camera]
+        if ground_truth is not None:
+            prediction = camera_to_world(prediction, R=cam["orientation"],
+                                         t=cam["translation"])
+            ground_truth = camera_to_world(ground_truth, R=cam["orientation"],
+                                           t=cam["translation"])
+        else:
+            # A wild video has no extrinsics: borrow any subject's (for the
+            # view only) and put the lowest joint on the floor.
+            rot = None
+            for subject in dataset.cameras():
+                if "orientation" in dataset.cameras()[subject][args.viz_camera]:
+                    rot = dataset.cameras()[subject][args.viz_camera]["orientation"]
+                    break
+            prediction = camera_to_world(prediction, R=rot, t=0)
+            prediction[:, :, 2] -= np.min(prediction[:, :, 2])
+
+        anim_output = {"Reconstruction": prediction}
+        if ground_truth is not None and not args.viz_no_ground_truth:
+            anim_output["Ground truth"] = ground_truth
+
+        input_keypoints = image_coordinates(input_keypoints[..., :2], w=cam["res_w"],
+                                            h=cam["res_h"])
+
+        from videopose3d_torch.visualization import render_animation
+        render_animation(
+            input_keypoints, keypoints_metadata, anim_output,
+            dataset.skeleton(), dataset.fps(), args.viz_bitrate, cam["azimuth"],
+            args.viz_output, limit=args.viz_limit,
+            downsample=args.viz_downsample, size=args.viz_size,
+            input_video_path=args.viz_video,
+            viewport=(cam["res_w"], cam["res_h"]),
+            input_video_skip=args.viz_skip)
 
 
 if __name__ == "__main__":
