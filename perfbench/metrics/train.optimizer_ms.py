@@ -1,0 +1,10 @@
+"""train.optimizer_ms: device ms per traced step of the kernels and memsets
+launched inside the program's ``vp3d.train.optimizer`` span (the AMSGrad step)."""
+
+from perfbench import spans
+
+
+def read(ctx):
+    traced = ctx["traced"]
+    s = spans.device_s(traced["trace"], "vp3d.train.optimizer")
+    return None if s is None else s * 1e3 / traced["steps"]

@@ -25,6 +25,7 @@ from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfi
 from videopose3d_torch.ops.losses import (mean_velocity_error, mpjpe_np, n_mpjpe_np,
                                           p_mpjpe)
 from videopose3d_torch.parallel import mesh
+from videopose3d_torch.profiling import count, span
 
 
 @contextlib.contextmanager
@@ -163,9 +164,14 @@ class Evaluator:
     def predict_async(self, model: TemporalModel, batch_2d, augment: bool, device=None):
         """(rows, T_in, J, C) padded keypoints -> (1, T_out, J_out, 3) poses as a
         tensor on ``device`` (default the evaluator's), not yet synchronised."""
-        x = torch.as_tensor(np.asarray(batch_2d, np.float32),
-                            device=self.device if device is None else device)
-        return self._tta_merge(self.infer(model, x), augment)
+        with span("vp3d.eval.predict"):
+            with span("vp3d.eval.upload"):
+                x = torch.as_tensor(np.asarray(batch_2d, np.float32),
+                                    device=self.device if device is None else device)
+            with span("vp3d.eval.infer"):
+                pred = self.infer(model, x)
+            with span("vp3d.eval.merge"):
+                return self._tta_merge(pred, augment)
 
 
 class DeviceEvalSet:
@@ -232,36 +238,37 @@ class DeviceEvalSet:
         is there); zeros for an empty set.  A sharded set's ranks must all
         call it: they exchange their sums."""
         from videopose3d_torch.ops.camera import project_to_2d
-        total = torch.zeros(3, dtype=torch.float32, device=self.device)
-        zeros = {}  # device -> a 0-d zero there
-        for video in self._videos:
-            batch_2d, n = video["batch_2d"], video["n"]
-            zero = zeros.get(batch_2d.device)
-            if zero is None:
-                zero = zeros[batch_2d.device] = torch.zeros((), device=batch_2d.device)
-            pred = evaluator.infer(model, batch_2d)
-            l3d = (self._masked_mpjpe(pred, video["target"], n) if "target" in video
-                   else zero)
-            ltraj = lrecon = zero
-            if traj_model is not None and ("traj_target" in video or "cam" in video):
-                pred_traj = traj_evaluator.infer(traj_model, batch_2d)
-                if "traj_target" in video:
-                    ltraj = self._masked_mpjpe(pred_traj, video["traj_target"], n)
-                if "cam" in video:
-                    t_out = pred.shape[1]
-                    target_2d = batch_2d[:, self.pad:self.pad + t_out, :, :2]
-                    recon = project_to_2d(pred + pred_traj, video["cam"])
-                    lrecon = self._masked_mpjpe(recon, target_2d, n)
-            total = total + (n * torch.stack([l3d, ltraj, lrecon])).to(self.device)
-        n_frames = self.n_frames
-        if self.shard is not None:
-            sums = mesh.all_reduce_(torch.cat([total.double(), torch.tensor(
-                [float(n_frames)], dtype=torch.float64, device=self.device)]))
-            total, n_frames = sums[:3], int(sums[3].item())
-        if n_frames == 0:
-            return 0.0, 0.0, 0.0, 0
-        total = total.double().cpu().numpy() / n_frames
-        return float(total[0]), float(total[1]), float(total[2]), n_frames
+        with span("vp3d.eval.losses"):
+            total = torch.zeros(3, dtype=torch.float32, device=self.device)
+            zeros = {}  # device -> a 0-d zero there
+            for video in self._videos:
+                batch_2d, n = video["batch_2d"], video["n"]
+                zero = zeros.get(batch_2d.device)
+                if zero is None:
+                    zero = zeros[batch_2d.device] = torch.zeros((), device=batch_2d.device)
+                pred = evaluator.infer(model, batch_2d)
+                l3d = (self._masked_mpjpe(pred, video["target"], n) if "target" in video
+                       else zero)
+                ltraj = lrecon = zero
+                if traj_model is not None and ("traj_target" in video or "cam" in video):
+                    pred_traj = traj_evaluator.infer(traj_model, batch_2d)
+                    if "traj_target" in video:
+                        ltraj = self._masked_mpjpe(pred_traj, video["traj_target"], n)
+                    if "cam" in video:
+                        t_out = pred.shape[1]
+                        target_2d = batch_2d[:, self.pad:self.pad + t_out, :, :2]
+                        recon = project_to_2d(pred + pred_traj, video["cam"])
+                        lrecon = self._masked_mpjpe(recon, target_2d, n)
+                total = total + (n * torch.stack([l3d, ltraj, lrecon])).to(self.device)
+            n_frames = self.n_frames
+            if self.shard is not None:
+                sums = mesh.all_reduce_(torch.cat([total.double(), torch.tensor(
+                    [float(n_frames)], dtype=torch.float64, device=self.device)]))
+                total, n_frames = sums[:3], int(sums[3].item())
+            if n_frames == 0:
+                return 0.0, 0.0, 0.0, 0
+            total = total.double().cpu().numpy() / n_frames
+            return float(total[0]), float(total[1]), float(total[2]), n_frames
 
     def loss(self, evaluator: Evaluator, model: TemporalModel) -> float:
         """Frame-weighted MPJPE over the set (metres), 0.0 for an empty set."""
@@ -295,17 +302,24 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
         nonlocal epoch_loss_3d_pos, epoch_loss_3d_pos_procrustes, \
             epoch_loss_3d_pos_scale, epoch_loss_3d_vel, n_total
         batch_3d, n_frames, pred = item
-        pred = pred.cpu().numpy()[:, :n_frames]
-        target = np.asarray(batch_3d[:1], np.float32).copy()
-        target[:, :, 0] = 0.0
+        count("eval.frames", n_frames)
+        count("eval.frames_computed", pred.shape[1])  # bucket padding included
+        with span("vp3d.eval.fetch"):
+            pred = pred.cpu().numpy()[:, :n_frames]
+        with span("vp3d.eval.protocols"):
+            target = np.asarray(batch_3d[:1], np.float32).copy()
+            target[:, :, 0] = 0.0
+            with span("vp3d.eval.mpjpe"):
+                e1 = mpjpe_np(pred, target)
+            with span("vp3d.eval.n_mpjpe"):
+                e3 = n_mpjpe_np(pred, target)
 
-        e1 = mpjpe_np(pred, target)
-        e3 = n_mpjpe_np(pred, target)
-
-        pred_flat = pred.reshape(-1, pred.shape[-2], pred.shape[-1])
-        target_flat = target.reshape(-1, target.shape[-2], target.shape[-1])
-        e2 = float(p_mpjpe(pred_flat, target_flat))
-        ev = float(mean_velocity_error(pred_flat, target_flat))
+            pred_flat = pred.reshape(-1, pred.shape[-2], pred.shape[-1])
+            target_flat = target.reshape(-1, target.shape[-2], target.shape[-1])
+            with span("vp3d.eval.p_mpjpe"):
+                e2 = float(p_mpjpe(pred_flat, target_flat))
+            with span("vp3d.eval.mpjve"):
+                ev = float(mean_velocity_error(pred_flat, target_flat))
 
         n = target.shape[0] * target.shape[1]
         epoch_loss_3d_pos += n * e1

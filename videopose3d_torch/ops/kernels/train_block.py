@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from videopose3d_torch.models.temporal import BN_EPS
 from videopose3d_torch.ops.kernels.temporal_block import _check
 from videopose3d_torch.parallel import mesh
+from videopose3d_torch.profiling import span
 
 LAUNCHES = {"conv_stats": 0, "norm_drop_matmul_stats": 0, "norm_drop_res": 0,
             "relu_mask_bn_sums": 0, "dz_matmul_dd": 0, "dw_gemm": 0,
@@ -547,53 +548,55 @@ class FusedTrainBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a, shift_b,
                 center, fw, plain, shard=None):
-        ops = _PLAIN if plain else _KERNELS
-        b, t, c = x.shape
-        n = b * (t // fw)
-        n_stats = n if shard is None else shard.total * (t // fw)
-        dt = x.dtype
-        x3 = x.reshape(n, fw, c)
-        ma = None if mask_a is None else mask_a.reshape(n, c)
-        mb = None if mask_b is None else mask_b.reshape(n, c)
-        u, res, s1a, s2a = ops["conv_stats"](x3, wa, shift_a, center=center)
-        s1a, s2a = _global_sums(s1a, s2a, shard)
-        mean_a, var_a = _finalize_stats(s1a, s2a, n_stats, shift_a)
-        gate_a = _affine_consts(mean_a, var_a, sa, ba, dt)
-        d, v, s1b, s2b = ops["norm_drop_matmul_stats"](u, ma, gate_a, wb, shift_b)
-        s1b, s2b = _global_sums(s1b, s2b, shard)
-        mean_b, var_b = _finalize_stats(s1b, s2b, n_stats, shift_b)
-        gate_b = _affine_consts(mean_b, var_b, sb, bb, dt)
-        out = ops["norm_drop_res"](v, mb, gate_b, res)
-        ctx.save_for_backward(x3, wa, wb, sa, sb, ma, mb, u, d, v, mean_a, var_a,
-                              mean_b, var_b, gate_a, gate_b)
-        ctx.center, ctx.ops, ctx.shard, ctx.n_stats = center, ops, shard, n_stats
-        ctx.mark_non_differentiable(mean_a, var_a, mean_b, var_b)
-        return out.reshape(b, t // fw, c), mean_a, var_a, mean_b, var_b
+        with span("vp3d.k2.forward"):
+            ops = _PLAIN if plain else _KERNELS
+            b, t, c = x.shape
+            n = b * (t // fw)
+            n_stats = n if shard is None else shard.total * (t // fw)
+            dt = x.dtype
+            x3 = x.reshape(n, fw, c)
+            ma = None if mask_a is None else mask_a.reshape(n, c)
+            mb = None if mask_b is None else mask_b.reshape(n, c)
+            u, res, s1a, s2a = ops["conv_stats"](x3, wa, shift_a, center=center)
+            s1a, s2a = _global_sums(s1a, s2a, shard)
+            mean_a, var_a = _finalize_stats(s1a, s2a, n_stats, shift_a)
+            gate_a = _affine_consts(mean_a, var_a, sa, ba, dt)
+            d, v, s1b, s2b = ops["norm_drop_matmul_stats"](u, ma, gate_a, wb, shift_b)
+            s1b, s2b = _global_sums(s1b, s2b, shard)
+            mean_b, var_b = _finalize_stats(s1b, s2b, n_stats, shift_b)
+            gate_b = _affine_consts(mean_b, var_b, sb, bb, dt)
+            out = ops["norm_drop_res"](v, mb, gate_b, res)
+            ctx.save_for_backward(x3, wa, wb, sa, sb, ma, mb, u, d, v, mean_a, var_a,
+                                  mean_b, var_b, gate_a, gate_b)
+            ctx.center, ctx.ops, ctx.shard, ctx.n_stats = center, ops, shard, n_stats
+            ctx.mark_non_differentiable(mean_a, var_a, mean_b, var_b)
+            return out.reshape(b, t // fw, c), mean_a, var_a, mean_b, var_b
 
     @staticmethod
     def backward(ctx, g, *_stats_grads):
-        (x3, wa, wb, sa, sb, ma, mb, u, d, v, mean_a, var_a, mean_b, var_b, gate_a,
-         gate_b) = ctx.saved_tensors
-        ops, shard, n_stats = ctx.ops, ctx.shard, ctx.n_stats
-        n, fw, c = x3.shape
-        g2 = g.reshape(n, c).to(x3.dtype).contiguous()
+        with span("vp3d.k2.backward"):
+            (x3, wa, wb, sa, sb, ma, mb, u, d, v, mean_a, var_a, mean_b, var_b, gate_a,
+             gate_b) = ctx.saved_tensors
+            ops, shard, n_stats = ctx.ops, ctx.shard, ctx.n_stats
+            n, fw, c = x3.shape
+            g2 = g.reshape(n, c).to(x3.dtype).contiguous()
 
-        def stat(mean, var):
-            return torch.stack([mean, torch.rsqrt(var + BN_EPS)])
+            def stat(mean, var):
+                return torch.stack([mean, torch.rsqrt(var + BN_EPS)])
 
-        # The BatchNorm input gradients take the global sums; dsb/dbb/dsa/dba
-        # stay this rank's, as the gradient all-reduce adds them up.
-        gz, dbb, dsb = ops["relu_mask_bn_sums"](g2, v, mb, stat(mean_b, var_b), gate_b)
-        consts_b = _bwd_consts(mean_b, var_b, sb, *_global_sums(dbb, dsb, shard), n_stats)
-        dz, dd = ops["dz_matmul_dd"](gz, v, consts_b, wb)
-        dwb = ops["dw_gemm"](d, dz)
-        ga, dba, dsa = ops["relu_mask_bn_sums"](dd, u, ma, stat(mean_a, var_a), gate_a)
-        consts_a = _bwd_consts(mean_a, var_a, sa, *_global_sums(dba, dsa, shard), n_stats)
-        du, dx3 = ops["du_dtaps_res"](ga, u, g2, consts_a, wa, center=ctx.center)
-        # The weight gradient over the batch: one large plain matmul.
-        dwa = (x3.reshape(n, fw * c).float().t() @ du.float()).reshape(fw, c, c)
-        return (dx3.reshape(g.shape[0], -1, c), dwa.to(wa.dtype), dwb.to(wb.dtype),
-                dsa, dba, dsb, dbb, None, None, None, None, None, None, None, None)
+            # The BatchNorm input gradients take the global sums; dsb/dbb/dsa/dba
+            # stay this rank's, as the gradient all-reduce adds them up.
+            gz, dbb, dsb = ops["relu_mask_bn_sums"](g2, v, mb, stat(mean_b, var_b), gate_b)
+            consts_b = _bwd_consts(mean_b, var_b, sb, *_global_sums(dbb, dsb, shard), n_stats)
+            dz, dd = ops["dz_matmul_dd"](gz, v, consts_b, wb)
+            dwb = ops["dw_gemm"](d, dz)
+            ga, dba, dsa = ops["relu_mask_bn_sums"](dd, u, ma, stat(mean_a, var_a), gate_a)
+            consts_a = _bwd_consts(mean_a, var_a, sa, *_global_sums(dba, dsa, shard), n_stats)
+            du, dx3 = ops["du_dtaps_res"](ga, u, g2, consts_a, wa, center=ctx.center)
+            # The weight gradient over the batch: one large plain matmul.
+            dwa = (x3.reshape(n, fw * c).float().t() @ du.float()).reshape(fw, c, c)
+            return (dx3.reshape(g.shape[0], -1, c), dwa.to(wa.dtype), dwb.to(wb.dtype),
+                    dsa, dba, dsb, dbb, None, None, None, None, None, None, None, None)
 
 
 def fused_train_block(x, wa, wb, sa, ba, sb, bb, mask_a, mask_b, shift_a, shift_b, *,

@@ -45,6 +45,7 @@ from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfi
 from videopose3d_torch.ops.kernels import streaming_fused as sf
 from videopose3d_torch.ops.kernels.temporal_block_int8 import (Int8Block, QuantizedModel,
                                                                 _to_stream)
+from videopose3d_torch.profiling import span
 
 StreamState = Dict[str, Any]
 
@@ -196,18 +197,20 @@ def prepare_int8_fused(q: QuantizedModel) -> sf.Int8StepWeights:
 
 def _expand_float(w, taps, dt):
     """Expand conv + BatchNorm + ReLU on (rows, k0*C_in) taps: float32 (rows, C)."""
-    act = taps.to(dt).float() @ w["expand_w"].float()
-    return torch.relu(act * w["expand_s"] + w["expand_t"])
+    with span("vp3d.stream.expand"):
+        act = taps.to(dt).float() @ w["expand_w"].float()
+        return torch.relu(act * w["expand_s"] + w["expand_t"])
 
 
 def _expand_step_i8(q: QuantizedModel, raw_taps):
     """bf16 expand conv over (rows, k0*C_in) raw taps -> int8 expand stream: the
     bf16 products summed in float64 and rounded once to float32, as
     ``temporal_block_int8.int8_expand_block_plain``."""
-    k0, c_in, c = q.expand_w.shape
-    eacc = (raw_taps.to(torch.bfloat16).double()
-            @ q.expand_w.reshape(k0 * c_in, c).double()).float()
-    return _to_stream(torch.relu(eacc * q.expand_scale + q.expand_shift))
+    with span("vp3d.stream.expand"):
+        k0, c_in, c = q.expand_w.shape
+        eacc = (raw_taps.to(torch.bfloat16).double()
+                @ q.expand_w.reshape(k0 * c_in, c).double()).float()
+        return _to_stream(torch.relu(eacc * q.expand_scale + q.expand_shift))
 
 
 # ---------------------------------------------------------------------------
@@ -311,25 +314,29 @@ def init_stream_state_int8_multi(config: TemporalModelConfig, q: QuantizedModel,
 
 def _per_frame(config, stream_state, frame, dtype):
     """Raw-ring push and expand taps of a per-frame step: (bufs, ptr, caps, taps)."""
-    caps = _buffer_capacities(config)
-    bufs = list(stream_state["bufs"])
-    _check_per_frame_caps(bufs, caps)
-    ptr = list(stream_state["ptr"])
-    x = _frames_to_rows(frame, None, dtype)
-    taps = _raw_taps(bufs[0], ptr[0], caps[0], config.filter_widths[0], x, doubled=False)
-    return bufs, ptr, caps, taps
+    with span("vp3d.stream.ring"):
+        caps = _buffer_capacities(config)
+        bufs = list(stream_state["bufs"])
+        _check_per_frame_caps(bufs, caps)
+        ptr = list(stream_state["ptr"])
+        x = _frames_to_rows(frame, None, dtype)
+        taps = _raw_taps(bufs[0], ptr[0], caps[0], config.filter_widths[0], x,
+                         doubled=False)
+        return bufs, ptr, caps, taps
 
 
 def _multi(config, stream_state, frames, dtype):
     """The same for a k-frame step: (bufs, ptr, caps, k, taps)."""
-    bufs = list(stream_state["bufs"])
-    ptr = list(stream_state["ptr"])
-    caps = [buf.shape[0] // 2 for buf in bufs]
-    k = torch.as_tensor(frames).shape[1]
-    _check_multi_alignment(config, caps, k)
-    x = _frames_to_rows(frames, k, dtype)
-    taps = _raw_taps(bufs[0], ptr[0], caps[0], config.filter_widths[0], x, doubled=True)
-    return bufs, ptr, caps, k, taps
+    with span("vp3d.stream.ring"):
+        bufs = list(stream_state["bufs"])
+        ptr = list(stream_state["ptr"])
+        caps = [buf.shape[0] // 2 for buf in bufs]
+        k = torch.as_tensor(frames).shape[1]
+        _check_multi_alignment(config, caps, k)
+        x = _frames_to_rows(frames, k, dtype)
+        taps = _raw_taps(bufs[0], ptr[0], caps[0], config.filter_widths[0], x,
+                         doubled=True)
+        return bufs, ptr, caps, k, taps
 
 
 def _poses(config, flat, b: int, k: Optional[int]):
@@ -358,10 +365,11 @@ def stream_step(config: TemporalModelConfig, weights, stream_state, frame,
     dt = _stream_dtype(config)
     bufs, ptr, caps, taps = _per_frame(config, stream_state, frame, dt)
     a0 = _expand_float(weights, taps, dt)
-    idx, _ = _slots(config, ptr, caps, multi=False)
-    push = sf.ring_push if _ring_impl == "dma" else None
-    flat = sf.blocks_float_plain(weights, bufs[1:], a0[None], idx, config.filter_widths[1:],
-                                 None, False, dt, push)
+    with span("vp3d.stream.blocks"):
+        idx, _ = _slots(config, ptr, caps, multi=False)
+        push = sf.ring_push if _ring_impl == "dma" else None
+        flat = sf.blocks_float_plain(weights, bufs[1:], a0[None], idx, config.filter_widths[1:],
+                                     None, False, dt, push)
     return _poses(config, flat, a0.shape[0], None), {"bufs": bufs,
                                                     "ptr": _advance_ptrs(ptr, caps)}
 
@@ -376,9 +384,10 @@ def stream_step_bf16_fused(config: TemporalModelConfig, prepared, stream_state, 
     """
     bufs, ptr, caps, taps = _per_frame(config, stream_state, frame, torch.bfloat16)
     a0 = _expand_float(prepared, taps, torch.bfloat16)
-    idx, _ = _slots(config, ptr, caps, multi=False)
-    flat, _ = sf.fused_blocks_step_bf16(prepared, bufs[1:], a0, idx,
-                                        widths=config.filter_widths[1:])
+    with span("vp3d.stream.blocks"):
+        idx, _ = _slots(config, ptr, caps, multi=False)
+        flat, _ = sf.fused_blocks_step_bf16(prepared, bufs[1:], a0, idx,
+                                            widths=config.filter_widths[1:])
     return _poses(config, flat, a0.shape[0], None), {"bufs": bufs,
                                                     "ptr": _advance_ptrs(ptr, caps)}
 
@@ -395,9 +404,10 @@ def stream_step_int8(config: TemporalModelConfig, q: QuantizedModel, stream_stat
     """
     bufs, ptr, caps, taps = _per_frame(config, stream_state, frame, torch.bfloat16)
     eq = _expand_step_i8(q, taps)
-    idx, _ = _slots(config, ptr, caps, multi=False)
-    flat = sf.blocks_int8_plain(q, bufs[1:], eq[None], idx, config.filter_widths[1:],
-                                None, False)
+    with span("vp3d.stream.blocks"):
+        idx, _ = _slots(config, ptr, caps, multi=False)
+        flat = sf.blocks_int8_plain(q, bufs[1:], eq[None], idx, config.filter_widths[1:],
+                                    None, False)
     return _poses(config, flat, eq.shape[0], None), {"bufs": bufs,
                                                     "ptr": _advance_ptrs(ptr, caps)}
 
@@ -410,9 +420,10 @@ def stream_step_int8_fused(config: TemporalModelConfig, prepared: sf.Int8StepWei
     :func:`stream_step_int8`."""
     bufs, ptr, caps, taps = _per_frame(config, stream_state, frame, torch.bfloat16)
     eq = _expand_step_i8(prepared.q, taps)
-    idx, _ = _slots(config, ptr, caps, multi=False)
-    flat, _ = sf.fused_blocks_step(prepared, bufs[1:], eq, idx,
-                                   widths=config.filter_widths[1:])
+    with span("vp3d.stream.blocks"):
+        idx, _ = _slots(config, ptr, caps, multi=False)
+        flat, _ = sf.fused_blocks_step(prepared, bufs[1:], eq, idx,
+                                       widths=config.filter_widths[1:])
     return _poses(config, flat, eq.shape[0], None), {"bufs": bufs,
                                                     "ptr": _advance_ptrs(ptr, caps)}
 
@@ -431,9 +442,10 @@ def stream_step_multi(config: TemporalModelConfig, weights, stream_state, frames
     bufs, ptr, caps, k, taps = _multi(config, stream_state, frames, dt)
     a0 = _expand_float(weights, taps, dt)
     b = a0.shape[0] // k
-    idx, _ = _slots(config, ptr, caps, multi=True)
-    flat = sf.blocks_float_plain(weights, bufs[1:], a0.reshape(k, b, -1), idx,
-                                 config.filter_widths[1:], caps[1:], True, dt)
+    with span("vp3d.stream.blocks"):
+        idx, _ = _slots(config, ptr, caps, multi=True)
+        flat = sf.blocks_float_plain(weights, bufs[1:], a0.reshape(k, b, -1), idx,
+                                     config.filter_widths[1:], caps[1:], True, dt)
     return _poses(config, flat, b, k), {"bufs": bufs, "ptr": _advance_ptrs(ptr, caps, k)}
 
 
@@ -444,10 +456,11 @@ def stream_step_bf16_multi_fused(config: TemporalModelConfig, prepared, stream_s
     bufs, ptr, caps, k, taps = _multi(config, stream_state, frames, torch.bfloat16)
     a0 = _expand_float(prepared, taps, torch.bfloat16)
     b = a0.shape[0] // k
-    idx, lags = _slots(config, ptr, caps, multi=True)
-    flat, _ = sf.fused_blocks_step_bf16_multi(
-        prepared, bufs[1:], a0.reshape(k, b, -1), idx, widths=config.filter_widths[1:],
-        lags=lags, caps=caps[1:], k=k)
+    with span("vp3d.stream.blocks"):
+        idx, lags = _slots(config, ptr, caps, multi=True)
+        flat, _ = sf.fused_blocks_step_bf16_multi(
+            prepared, bufs[1:], a0.reshape(k, b, -1), idx, widths=config.filter_widths[1:],
+            lags=lags, caps=caps[1:], k=k)
     return _poses(config, flat, b, k), {"bufs": bufs, "ptr": _advance_ptrs(ptr, caps, k)}
 
 
@@ -459,9 +472,10 @@ def stream_step_int8_multi(config: TemporalModelConfig, q: QuantizedModel, strea
     bufs, ptr, caps, k, taps = _multi(config, stream_state, frames, torch.bfloat16)
     eq = _expand_step_i8(q, taps)
     b = eq.shape[0] // k
-    idx, _ = _slots(config, ptr, caps, multi=True)
-    flat = sf.blocks_int8_plain(q, bufs[1:], eq.reshape(k, b, -1), idx,
-                                config.filter_widths[1:], caps[1:], True)
+    with span("vp3d.stream.blocks"):
+        idx, _ = _slots(config, ptr, caps, multi=True)
+        flat = sf.blocks_int8_plain(q, bufs[1:], eq.reshape(k, b, -1), idx,
+                                    config.filter_widths[1:], caps[1:], True)
     return _poses(config, flat, b, k), {"bufs": bufs, "ptr": _advance_ptrs(ptr, caps, k)}
 
 
@@ -473,10 +487,11 @@ def stream_step_int8_multi_fused(config: TemporalModelConfig,
     bufs, ptr, caps, k, taps = _multi(config, stream_state, frames, torch.bfloat16)
     eq = _expand_step_i8(prepared.q, taps)
     b = eq.shape[0] // k
-    idx, lags = _slots(config, ptr, caps, multi=True)
-    flat, _ = sf.fused_blocks_step_multi(prepared, bufs[1:], eq.reshape(k, b, -1), idx,
-                                         widths=config.filter_widths[1:], lags=lags,
-                                         caps=caps[1:], k=k)
+    with span("vp3d.stream.blocks"):
+        idx, lags = _slots(config, ptr, caps, multi=True)
+        flat, _ = sf.fused_blocks_step_multi(prepared, bufs[1:], eq.reshape(k, b, -1), idx,
+                                             widths=config.filter_widths[1:], lags=lags,
+                                             caps=caps[1:], k=k)
     return _poses(config, flat, b, k), {"bufs": bufs, "ptr": _advance_ptrs(ptr, caps, k)}
 
 
@@ -611,24 +626,27 @@ class StreamingCausalLifter:
         """One dispatch: frame is (B, J, F), or (B, k, J, F) with k > 1."""
         if self._stream_state is None:
             raise RuntimeError("call reset() first")
-        if self._shards is not None:
-            return torch.cat([lifter.step(part).to(self.device)
-                              for lifter, part in zip(self._shards, self._split(frame))])
-        x = self._frames(frame)
-        multi = self.frames_per_step > 1
-        if self.engine == "int8_fused":
-            step = stream_step_int8_multi_fused if multi else stream_step_int8_fused
-        elif self.engine == "int8":
-            step = stream_step_int8_multi if multi else stream_step_int8
-        elif self.engine == "bf16_fused":
-            step = stream_step_bf16_multi_fused if multi else stream_step_bf16_fused
-        elif multi:
-            step = stream_step_multi
-        else:
-            step = lambda c, w, s, f: stream_step(c, w, s, f, _ring_impl=self.ring_impl)
-        with full_float32():
-            out, self._stream_state = step(self.config, self._weights, self._stream_state, x)
-        return out
+        with span("vp3d.stream.step"):
+            if self._shards is not None:
+                return torch.cat([lifter.step(part).to(self.device)
+                                  for lifter, part in zip(self._shards, self._split(frame))])
+            with span("vp3d.stream.frames"):
+                x = self._frames(frame)
+            multi = self.frames_per_step > 1
+            if self.engine == "int8_fused":
+                step = stream_step_int8_multi_fused if multi else stream_step_int8_fused
+            elif self.engine == "int8":
+                step = stream_step_int8_multi if multi else stream_step_int8
+            elif self.engine == "bf16_fused":
+                step = stream_step_bf16_multi_fused if multi else stream_step_bf16_fused
+            elif multi:
+                step = stream_step_multi
+            else:
+                step = lambda c, w, s, f: stream_step(c, w, s, f, _ring_impl=self.ring_impl)
+            with full_float32():
+                out, self._stream_state = step(self.config, self._weights,
+                                               self._stream_state, x)
+            return out
 
 
 class MultiDeviceStreamingLifter:

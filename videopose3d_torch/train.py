@@ -40,6 +40,7 @@ from videopose3d_torch.models.temporal import (TemporalModel, forward_dilated_tr
                                                 forward_strided)
 from videopose3d_torch.ops.camera import project_to_2d, project_to_2d_linear
 from videopose3d_torch.parallel import mesh
+from videopose3d_torch.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,29 +165,37 @@ class SupervisedTrainer:
     def step(self, dev, meta, n_valid: int, momentum: float, generator=None):
         """One step on the global descriptors ``meta`` (B, 4) with ``n_valid``
         real rows; dropout masks come from ``generator`` (None: no dropout)."""
-        loop = self.loop_cfg
-        _check_margins(dev, loop)
-        device = dev.base_2d.device
-        b = meta.shape[0]
-        rows = _rows(self.dp, b)
-        shard = None if self.dp is None else mesh.BatchShard((rows,), b, self.dp.group)
-        _, batch_3d, batch_2d = assemble_chunked_batch_contiguous(
-            dev, _descriptors(meta[rows[0]:rows[1]], device), pad=loop.pad,
-            causal_shift=loop.causal_shift, chunk_length=loop.chunk_length,
-            gather_impl=loop.gather_impl)
-        batch_3d = batch_3d.clone()
-        batch_3d[:, :, 0] = 0.0  # root-centre: the trajectory is not learned here
+        with span("vp3d.train.step"):
+            loop = self.loop_cfg
+            _check_margins(dev, loop)
+            device = dev.base_2d.device
+            b = meta.shape[0]
+            rows = _rows(self.dp, b)
+            shard = None if self.dp is None else mesh.BatchShard((rows,), b, self.dp.group)
+            with span("vp3d.train.upload"):
+                idx = _descriptors(meta[rows[0]:rows[1]], device)
+            with span("vp3d.train.assemble"):
+                _, batch_3d, batch_2d = assemble_chunked_batch_contiguous(
+                    dev, idx, pad=loop.pad, causal_shift=loop.causal_shift,
+                    chunk_length=loop.chunk_length, gather_impl=loop.gather_impl)
+                batch_3d = batch_3d.clone()
+                batch_3d[:, :, 0] = 0.0  # root-centre: the trajectory is not learned here
 
-        self.optimizer.zero_grad(set_to_none=True)
-        pred = _forward(loop)(self.model, batch_2d, momentum=momentum,
-                              generator=generator, shard=shard)
-        loss = _masked_sample_mean(_mpjpe_per_sample(pred, batch_3d),
-                                   _valid(b, n_valid, device), rows)
-        loss.backward()
-        if self.dp is not None:
-            mesh.all_reduce_gradients(self.model.parameters(), self.dp.group)
-        self.optimizer.step()
-        return loss.detach()
+            with span("vp3d.train.forward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                pred = _forward(loop)(self.model, batch_2d, momentum=momentum,
+                                      generator=generator, shard=shard)
+            with span("vp3d.train.loss"):
+                loss = _masked_sample_mean(_mpjpe_per_sample(pred, batch_3d),
+                                           _valid(b, n_valid, device), rows)
+            with span("vp3d.train.backward"):
+                loss.backward()
+            if self.dp is not None:
+                with span("vp3d.train.allreduce"):
+                    mesh.all_reduce_gradients(self.model.parameters(), self.dp.group)
+            with span("vp3d.train.optimizer"):
+                self.optimizer.step()
+            return loss.detach()
 
 
 class SemiSupervisedTrainer:
@@ -231,80 +240,100 @@ class SemiSupervisedTrainer:
         """One step on the global labeled descriptors ``meta`` (B, 4) and, unless
         ``skip`` (warmup), the global unlabeled ``meta_semi``; dropout masks come
         from ``generator`` (None: no dropout)."""
-        loop = self.loop_cfg
-        _check_margins(dev, loop)
-        _check_margins(dev_semi, loop)
-        device = dev.base_2d.device
+        with span("vp3d.train.step"):
+            loop = self.loop_cfg
+            _check_margins(dev, loop)
+            _check_margins(dev_semi, loop)
+            device = dev.base_2d.device
+            b = meta.shape[0]
+            rows_l = _rows(self.dp, b)
+            with span("vp3d.train.upload"):
+                idx_l = _descriptors(meta[rows_l[0]:rows_l[1]], device)
+                if not skip:
+                    b_u = meta_semi.shape[0]
+                    rows_u = _rows(self.dp, b_u)
+                    idx_u = _descriptors(meta_semi[rows_u[0]:rows_u[1]], device)
 
-        def assemble(d, m, rows, **kw):
-            return assemble_chunked_batch_contiguous(
-                d, _descriptors(m[rows[0]:rows[1]], device), pad=loop.pad,
-                causal_shift=loop.causal_shift, chunk_length=loop.chunk_length,
-                gather_impl=loop.gather_impl, joint_axis_2d=True, **kw)
+            def assemble(d, idx, **kw):
+                return assemble_chunked_batch_contiguous(
+                    d, idx, pad=loop.pad, causal_shift=loop.causal_shift,
+                    chunk_length=loop.chunk_length, gather_impl=loop.gather_impl,
+                    joint_axis_2d=True, **kw)
 
-        b = meta.shape[0]
-        rows_l = _rows(self.dp, b)
-        _, batch_3d, batch_2d = assemble(dev, meta, rows_l)
-        inputs_traj = batch_3d[:, :, :1]  # the root, before root-centring
-        target_3d = batch_3d.clone()
-        target_3d[:, :, 0] = 0.0
-        b_l = batch_3d.shape[0]
-        mask_l = _valid(b, n_valid, device)
-        inputs_2d = batch_2d
-        segments, total_rows = (rows_l,), b
-        if not skip:
-            b_u = meta_semi.shape[0]
-            rows_u = _rows(self.dp, b_u)
-            cam_semi, _, batch_2d_semi = assemble(dev_semi, meta_semi, rows_u,
-                                                  with_3d=False, with_cameras=True)
-            inputs_2d = torch.cat([batch_2d, batch_2d_semi])
-            mask_u = _valid(b_u, n_valid_semi, device)
-            segments, total_rows = (rows_l, (b + rows_u[0], b + rows_u[1])), b + b_u
-        shard = (None if self.dp is None
-                 else mesh.BatchShard(segments, total_rows, self.dp.group))
+            with span("vp3d.train.assemble"):
+                _, batch_3d, batch_2d = assemble(dev, idx_l)
+                inputs_traj = batch_3d[:, :, :1]  # the root, before root-centring
+                target_3d = batch_3d.clone()
+                target_3d[:, :, 0] = 0.0
+                b_l = batch_3d.shape[0]
+                mask_l = _valid(b, n_valid, device)
+                inputs_2d = batch_2d
+                segments, total_rows = (rows_l,), b
+                if not skip:
+                    cam_semi, _, batch_2d_semi = assemble(dev_semi, idx_u, with_3d=False,
+                                                          with_cameras=True)
+                    inputs_2d = torch.cat([batch_2d, batch_2d_semi])
+                    mask_u = _valid(b_u, n_valid_semi, device)
+                    segments, total_rows = (rows_l, (b + rows_u[0], b + rows_u[1])), b + b_u
+            shard = (None if self.dp is None
+                     else mesh.BatchShard(segments, total_rows, self.dp.group))
 
-        self.optimizer.zero_grad(set_to_none=True)
-        forward = _forward(loop)
-        pred_pos = forward(self.pos_model, inputs_2d, momentum=momentum,
-                           generator=generator, shard=shard)
-        pred_traj = forward(self.traj_model, inputs_2d, momentum=momentum,
-                            generator=generator, shard=shard)
-        loss_pos = _masked_sample_mean(_mpjpe_per_sample(pred_pos[:b_l], target_3d), mask_l,
-                                       rows_l)
-        w = torch.reciprocal(inputs_traj[..., 2])  # (B, T, 1)
-        dist_traj = torch.linalg.vector_norm(pred_traj[:b_l] - inputs_traj, dim=-1)
-        loss_traj = _masked_sample_mean((w * dist_traj).mean(dim=(1, 2)), mask_l, rows_l)
-        total = loss_pos + loss_traj
-        loss_recon = torch.zeros((), device=device)
-        if not skip:
-            t = batch_2d_semi.shape[1]
-            target_semi = batch_2d_semi[:, loop.pad:t - loop.pad, :, :2]
-            project = project_to_2d_linear if loop.linear_projection else project_to_2d
-            reconstruction = project(pred_pos[b_l:] + pred_traj[b_l:], cam_semi)
-            loss_recon = _masked_sample_mean(
-                _mpjpe_per_sample(reconstruction, target_semi), mask_u, rows_u)
-            if not loop.no_proj:
-                total = total + loss_recon
-            if loop.bone_length_term:
-                if self._parents.device != device:
-                    self._parents = self._parents.to(device)
-                dists = pred_pos[:, :, 1:] - pred_pos[:, :, self._parents]
-                bones = torch.linalg.vector_norm(dists, dim=-1).mean(dim=1)  # (B, J-1)
-                sums = torch.stack([
-                    (bones[:b_l] * mask_l[rows_l[0]:rows_l[1], None]).sum(0),
-                    (bones[b_l:] * mask_u[rows_u[0]:rows_u[1], None]).sum(0)])
-                if self.dp is not None:
-                    sums = mesh.all_reduce_sum(sums, self.dp.group)
-                mean_l = sums[0] / torch.clamp(mask_l.sum(), min=1.0)
-                mean_u = sums[1] / torch.clamp(mask_u.sum(), min=1.0)
-                bone_term = torch.mean(torch.abs(mean_l - mean_u))
-                if self.dp is not None:
-                    bone_term = bone_term / self.dp.world_size
-                total = total + bone_term
-        total.backward()
+            with span("vp3d.train.forward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                forward = _forward(loop)
+                pred_pos = forward(self.pos_model, inputs_2d, momentum=momentum,
+                                   generator=generator, shard=shard)
+                pred_traj = forward(self.traj_model, inputs_2d, momentum=momentum,
+                                    generator=generator, shard=shard)
+            with span("vp3d.train.loss"):
+                loss_pos = _masked_sample_mean(_mpjpe_per_sample(pred_pos[:b_l], target_3d),
+                                               mask_l, rows_l)
+                w = torch.reciprocal(inputs_traj[..., 2])  # (B, T, 1)
+                dist_traj = torch.linalg.vector_norm(pred_traj[:b_l] - inputs_traj, dim=-1)
+                loss_traj = _masked_sample_mean((w * dist_traj).mean(dim=(1, 2)), mask_l,
+                                                rows_l)
+                total = loss_pos + loss_traj
+                loss_recon = torch.zeros((), device=device)
+                if not skip:
+                    t = batch_2d_semi.shape[1]
+                    target_semi = batch_2d_semi[:, loop.pad:t - loop.pad, :, :2]
+                    project = project_to_2d_linear if loop.linear_projection else project_to_2d
+                    reconstruction = project(pred_pos[b_l:] + pred_traj[b_l:], cam_semi)
+                    loss_recon = _masked_sample_mean(
+                        _mpjpe_per_sample(reconstruction, target_semi), mask_u, rows_u)
+                    if not loop.no_proj:
+                        total = total + loss_recon
+                    if loop.bone_length_term:
+                        total = total + self._bone_term(pred_pos, b_l, mask_l, rows_l,
+                                                        mask_u, rows_u, device)
+            with span("vp3d.train.backward"):
+                total.backward()
+            if self.dp is not None:
+                with span("vp3d.train.allreduce"):
+                    mesh.all_reduce_gradients(itertools.chain(self.pos_model.parameters(),
+                                                              self.traj_model.parameters()),
+                                              self.dp.group)
+            with span("vp3d.train.optimizer"):
+                self.optimizer.step()
+            return (loss_pos.detach(), loss_traj.detach(), loss_recon.detach(),
+                    total.detach())
+
+    def _bone_term(self, pred_pos, b_l, mask_l, rows_l, mask_u, rows_u, device):
+        """The mean absolute difference of the labeled and unlabeled halves'
+        mean bone lengths; under ``dp`` the means are global and the term is
+        divided by the world size."""
+        if self._parents.device != device:
+            self._parents = self._parents.to(device)
+        dists = pred_pos[:, :, 1:] - pred_pos[:, :, self._parents]
+        bones = torch.linalg.vector_norm(dists, dim=-1).mean(dim=1)  # (B, J-1)
+        sums = torch.stack([
+            (bones[:b_l] * mask_l[rows_l[0]:rows_l[1], None]).sum(0),
+            (bones[b_l:] * mask_u[rows_u[0]:rows_u[1], None]).sum(0)])
         if self.dp is not None:
-            mesh.all_reduce_gradients(itertools.chain(self.pos_model.parameters(),
-                                                      self.traj_model.parameters()),
-                                      self.dp.group)
-        self.optimizer.step()
-        return loss_pos.detach(), loss_traj.detach(), loss_recon.detach(), total.detach()
+            sums = mesh.all_reduce_sum(sums, self.dp.group)
+        mean_l = sums[0] / torch.clamp(mask_l.sum(), min=1.0)
+        mean_u = sums[1] / torch.clamp(mask_u.sum(), min=1.0)
+        bone_term = torch.mean(torch.abs(mean_l - mean_u))
+        if self.dp is not None:
+            bone_term = bone_term / self.dp.world_size
+        return bone_term
