@@ -127,6 +127,14 @@ native C++ core and with numpy, bitwise equal over two epochs, timed, and
 times a checkpoint of the full-width model with AMSGrad state on the step path,
 synchronous against the asynchronous checkpointer's blocked time, the two
 files bitwise equal although the next step's in-place writes begin at once.
+Phase 11 (the evaluation protocols) holds the protocol kernel (P) at the
+evaluation path's shape (n = 2,242 frames read in place from 2,256 predicted, J =
+17, about half the frames aligned by an improper rotation) against its plain
+version on the card and on the CPU and against ``ops/losses.py``'s host
+protocols on float64 copies, to 1e-9 relative, checks two calls bitwise equal,
+and times it by CUDA-graph replay beside one call, one call of its plain version on
+the card, and the float32 host NumPy protocols it replaced; phase 2 counts its launches in
+every ``--evaluate`` run, one a video.
 
 Each kernel's line in the final summary carries its time, its plain version's,
 its launches on the main path (K1, K2 and the float32 K3 entries also in phase 9;
@@ -191,6 +199,14 @@ INT8_ACCURACY = 0.06
 # int8 --evaluate vs xla float32, per protocol number, relative: the poses move by
 # a few % of their RMS, the frame-averaged protocols far less.
 INT8_AGREE = 0.1
+# Phase 11, the protocol kernel (P): one video of the evaluation path, its first n
+# frames read in place from the predicted frames, against the plain version and the
+# host protocols, every one float64: relative 1e-9 per protocol mean (the sums
+# differ only in order, ~1e-15).
+PROTOCOLS_SOURCE = "videopose3d_torch/ops/kernels/csrc/protocols.cu"
+PROTOCOL_FRAMES = 2000 + 242
+PROTOCOL_PREDICTED = PROTOCOL_FRAMES + 14
+PROTOCOL_TOL = 1e-9
 INT8_SOURCE = "videopose3d_torch/ops/kernels/csrc/temporal_block_int8.cu"
 # K4 at other widths (phase 5), over a shorter video, each run as the forward runs it
 # (padded to a multiple of 16 channels): 30 (to 32), 1,000 (to 1,008: a ragged last
@@ -265,7 +281,8 @@ PROFILE_STEPS = (8, 16)
 # is the larger of its bytes over the memory rate and the sum, over the types its
 # operations run in, of operations over that type's peak.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+                  "float64": 34e12}
 
 # Phase 6, streaming: B = 1,024 streams for the kernel checks, k = 8 frames per
 # step for K6; the CLI serves 256 videos of 500 frames (past the 243-frame
@@ -568,12 +585,15 @@ def phase1(cfg, model, device):
     return results
 
 
+VIDEO_FRAMES = 1500  # every video of write_dataset's archives
+
+
 def write_dataset(root):
     """Synthetic H36M-format archives: training subjects S1 and S5, test subjects
     S9 and S11, 2 actions, 4 cameras, 1,500 frames each (random world-space mocap,
     uniform pixel keypoints)."""
     rng = np.random.default_rng(SEED + 2)
-    subjects, actions, n = ("S9", "S11", "S1", "S5"), ("Walking 1", "Eating 2"), 1500
+    subjects, actions, n = ("S9", "S11", "S1", "S5"), ("Walking 1", "Eating 2"), VIDEO_FRAMES
     p3 = {s: {a: (rng.standard_normal((n, 1, 3)) * 0.1
                   + rng.standard_normal((n, 32, 3)) * 0.2).astype(np.float32)
               for a in actions} for s in subjects}
@@ -612,17 +632,20 @@ def run_cli(argv):
 
 
 def reset_counts():
+    from videopose3d_torch.ops.kernels import protocols as pk
     from videopose3d_torch.ops.kernels import streaming_fused as sf
     from videopose3d_torch.ops.kernels import temporal_block as tb
     from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
-    for counts in (tb.LAUNCHES, tq.LAUNCHES, sf.LAUNCHES):
+    for counts in (tb.LAUNCHES, tq.LAUNCHES, sf.LAUNCHES, pk.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def phase2(model, tmp):
     """Writes the synthetic archives and the random full-width checkpoint the
-    CLI phases share, then runs --evaluate with each engine."""
+    CLI phases share, then runs --evaluate with each engine; the launches by
+    kernel, and the protocol kernel's by run under "protocols"."""
+    from videopose3d_torch.ops.kernels import protocols as pk
     from videopose3d_torch.ops.kernels import temporal_block as tb
     from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
     data = os.path.join(tmp, "data")
@@ -636,7 +659,14 @@ def phase2(model, tmp):
     base = ["-k", "gt", "-arc", ",".join(map(str, ARCH)), "-ch", str(CHANNELS),
             "-str", "S1", "-ste", "S9,S11", "--data-dir", data, "-c", ckpt,
             "--evaluate", "random_full_width.bin", "--device", "cuda"]
-    runs, launches = {}, {}
+    runs, launches = {}, {"protocols": {}}
+
+    def protocol_launches(run, frames):
+        got = pk.LAUNCHES["protocols"]
+        check(got == frames // VIDEO_FRAMES, f"{run}: {got} protocol kernel launches for "
+              f"{frames // VIDEO_FRAMES} videos")
+        launches["protocols"][run] = got
+
     for engine, dtype in (("fused", "float32"), ("fused", "bfloat16"),
                           ("xla", "float32")):
         argv = base + ["--serving-engine", engine, "--compute-dtype", dtype]
@@ -646,13 +676,14 @@ def phase2(model, tmp):
         reset_counts()
         numbers, fps, frames, _ = run_cli(argv)
         counts = dict(tb.LAUNCHES)
+        protocol_launches(f"{engine} {dtype}", frames)
         check(not any(tq.LAUNCHES.values()), f"{engine} run launched int8 kernels")
         if engine == "fused":  # no atomics: the kernels are deterministic
             check(numbers == warm, f"fused {dtype}: two runs differ: {warm} vs {numbers}")
         runs[(engine, dtype)] = numbers
         launches[(engine, dtype)] = counts
         print(f"phase2 {engine:5s} {dtype:8s}: {frames} frames, {fps:.1f} frames/s, "
-              f"kernel launches {counts}")
+              f"kernel launches {counts}, protocol kernel {pk.LAUNCHES['protocols']}")
         for action, vals in numbers.items():
             print(f"phase2 {engine:5s} {dtype:8s} {action:8s} P1 {vals[0]:.6f} "
                   f"P2 {vals[1]:.6f} P3 {vals[2]:.6f} MPJVE {vals[3]:.6f} mm")
@@ -684,8 +715,9 @@ def phase2(model, tmp):
             tq.ACCSHIFT_MIN_DILATION = saved_min_d
         counts = dict(tq.LAUNCHES)
         launches[("int8", mode)] = counts
+        protocol_launches(f"int8 {mode}", frames)
         print(f"phase2 int8  {mode:8s}: {frames} frames, {fps:.1f} frames/s, "
-              f"kernel launches {counts}")
+              f"kernel launches {counts}, protocol kernel {pk.LAUNCHES['protocols']}")
         for action, vals in numbers.items():
             print(f"phase2 int8  {mode:8s} {action:8s} P1 {vals[0]:.6f} "
                   f"P2 {vals[1]:.6f} P3 {vals[2]:.6f} MPJVE {vals[3]:.6f} mm")
@@ -3809,6 +3841,101 @@ def phase10(tmp, cfg, model, device):
     return eval_launches, train_launches
 
 
+def protocol_ops(n, joints):
+    """Float64 operations of ``csrc/protocols.cu`` on one video (an add, multiply,
+    divide or square root each): per frame and joint 124 (MPJPE 10, the sums and
+    means 18, the centred products, N-MPJPE and the covariance 46, P-MPJPE 34, MPJVE
+    16); per frame 1,727, of which the Jacobi SVD's 8 sweeps of 3 rotations of 67
+    take 1,608."""
+    return n * (124 * joints + 1727)
+
+
+def phase11(device):
+    """The protocol kernel (P) at the evaluation path's shape against its plain
+    version on the card and on the CPU and the host protocols on float64 copies;
+    two calls bitwise equal; timed beside its plain version and the host NumPy
+    protocols it replaced.  Returns its entry of the kernels line."""
+    from videopose3d_torch.ops import losses
+    from videopose3d_torch.ops.kernels import build
+    from videopose3d_torch.ops.kernels import protocols as pk
+
+    n, joints = PROTOCOL_FRAMES, JOINTS
+    g = torch.Generator().manual_seed(SEED + 11)
+    target = torch.randn(n, joints, 3, generator=g, dtype=torch.float64) * 0.25
+    # Random rotations, every other one mirrored (an improper alignment).
+    rot, _ = torch.linalg.qr(torch.randn(n, 3, 3, generator=g, dtype=torch.float64))
+    rot = rot * torch.where(torch.linalg.det(rot) > 0, 1.0, -1.0)[:, None, None]
+    rot[::2, 0] *= -1.0
+    pred = (target @ rot * (0.7 + 0.6 * torch.rand(n, 1, 1, generator=g, dtype=torch.float64))
+            + 0.1 * torch.randn(n, 1, 3, generator=g, dtype=torch.float64)
+            + 0.03 * torch.randn(n, joints, 3, generator=g, dtype=torch.float64))
+    tail = 1e4 * torch.randn(PROTOCOL_PREDICTED - n, joints, 3, generator=g,
+                             dtype=torch.float64)
+    pred, target = torch.cat([pred, tail]).float(), target.float()
+    improper = int((torch.linalg.det(rot) < 0).sum())
+    p, t = pred.to(device), target.to(device)
+    saved = dict(pk.LAUNCHES)
+
+    got = pk.video_protocols(p, t, n)
+    again = pk.video_protocols(p, t, n)
+    plain_card = pk.video_protocols_plain(p, t, n)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"protocols: two calls differ: {got} vs {again}")
+    p64, t64 = pred[:n].double().numpy(), target.double().numpy().copy()
+    t64[:, 0] = 0.0
+    host = torch.tensor([losses.mpjpe_np(p64, t64), float(losses.p_mpjpe(p64, t64)),
+                         losses.n_mpjpe_np(p64[None], t64[None]),
+                         float(losses.mean_velocity_error(p64, t64))], dtype=torch.float64)
+    wants = {"plain on the card": plain_card.cpu(),
+             "plain on the CPU": pk.video_protocols_plain(pred, target, n),
+             "host protocols (float64)": host}
+    got = got.cpu()
+    check(bool(torch.isfinite(got).all()), f"protocols: non-finite means {got}")
+    errs = {}
+    for what, want in wants.items():
+        rel = float(((got - want).abs() / want.abs()).max())
+        errs[what] = rel
+        check(rel <= PROTOCOL_TOL, f"protocols vs {what}: relative {rel} > {PROTOCOL_TOL} "
+                                   f"({got.tolist()} vs {want.tolist()})")
+    max_abs = max(float((got - want).abs().max()) for want in wants.values())
+
+    call = lambda: pk.video_protocols(p, t, n)  # noqa: E731
+    ms = graph_ms(call)
+    call_ms = cuda_ms(call)
+    host_ms = host_enqueue_ms(call)
+    plain_ms = cuda_ms(lambda: pk.video_protocols_plain(p, t, n))  # ~1,000 launches
+    p32, t32 = pred[:n].numpy(), target.numpy().copy()
+    t32[:, 0] = 0.0
+    numpy_ms = []
+    for _ in range(3):
+        start = time.perf_counter()
+        losses.mpjpe_np(p32, t32)
+        losses.p_mpjpe(p32, t32)
+        losses.n_mpjpe_np(p32[None], t32[None])
+        losses.mean_velocity_error(p32, t32)
+        numpy_ms.append((time.perf_counter() - start) * 1e3)
+    ops = protocol_ops(n, joints)
+    bound_ms, bound_by = roofline([("float64", ops)], nbytes(p[:n], t) + 32)
+    pk.LAUNCHES.clear()
+    pk.LAUNCHES.update(saved)  # comparison launches do not count
+    name = (f"video_protocols (n={n} of {PROTOCOL_PREDICTED} frames, J={joints}, "
+            f"{improper} improper, float64, repeat bitwise, CUDA-graph timed)")
+    rel = ", ".join(f"{v:.3e} vs {k}" for k, v in errs.items())
+    print(f"phase11 {name}: relative error {rel} (tol {PROTOCOL_TOL:.0e}), means "
+          f"{[f'{v:.9f}' for v in got.tolist()]} m; graph: kernel {ms:.4f} ms; one call: "
+          f"kernel {call_ms:.4f} ms, plain on the card {plain_ms:.4f} ms; host enqueue {host_ms:.4f} ms; host NumPy float32 (the path it replaced) "
+          f"{statistics.median(numpy_ms):.2f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{ops / 1e6:.2f} MFLOP float64, {nbytes(p[:n], t) / 1e6:.3f} MB)")
+    for line in ptxas_lines(build.build_log, "protocols"):
+        print(f"phase11 ptxas: {line}")
+    return {"name": name, "route": "cuda", "source": PROTOCOLS_SOURCE,
+            "replaces": "videopose3d_tpu/ops/losses.py (host NumPy, no TPU kernel)",
+            "max_abs_err": max_abs, "max_rel_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "one_call_ms": call_ms, "host_enqueue_ms": host_ms,
+            "host_numpy_ms": statistics.median(numpy_ms), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def protocol_lines(out):
     numbers, action = {}, None
     for line in out.splitlines():
@@ -3856,6 +3983,7 @@ def main() -> int:
                        generator=torch.Generator().manual_seed(SEED + 5)).to(device) * 2 - 1
     stream_results = phase6_kernels(scfg, smodel, quantize_temporal_model(scfg, smodel, calib),
                                     device)
+    protocol_result = phase11(device)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase2(model, tmp)
         train_runs = phase4(tmp)
@@ -3903,6 +4031,8 @@ def main() -> int:
                         "launches_phase10": launches10_eval[("int8", mode)][key]})
     for key, r in stream_results.items():
         entries.append({**r, "launches": stream_launches[key]})
+    entries.append({**protocol_result, "launches": launches["protocols"]["fused float32"],
+                    "launches_by_run": launches["protocols"]})
     check(all(e["launches"] > 0 for e in entries), "a kernel of the main path never launched")
     check(all(e["launches_phase9"] > 0 for e in entries if "launches_phase9" in e),
           "a K1, K2 or K3 kernel never launched in phase 9")

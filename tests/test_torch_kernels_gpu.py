@@ -2,7 +2,9 @@
 evaluation blocks (K3), the window gather (K1), the train block with its
 backward (K2), the int8 serving stages (K4, with the accshift tap mode K8), and
 the streaming step (K5 per frame, K6 k frames; int8 and bf16) with the ring
-push (K7).
+push (K7); the four evaluation protocols of a video (float64, against the host
+protocols on float64 copies to 1e-9 relative, bitwise on a second call) and
+``evaluate()`` on the card against the host path over the same poses.
 
 Needs a CUDA device (marker ``gpu``; skipped elsewhere).  Imports no JAX, so it
 also runs on a machine without it:
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from videopose3d_torch.ops.kernels import gather_rows as gr
+from videopose3d_torch.ops.kernels import protocols as pk
 from videopose3d_torch.ops.kernels import streaming_fused as sf
 from videopose3d_torch.ops.kernels import temporal_block as tb
 from videopose3d_torch.ops.kernels import temporal_block_int8 as tq
@@ -1177,3 +1180,112 @@ def test_streaming_lifter_engines_on_card(cuda):
         want = forward_dilated(model, padded)
     f32 = run(dataclasses.replace(cfg, compute_dtype="float32"))
     _check(torch.from_numpy(f32).to(cuda), want, torch.float32)
+
+
+# -- the evaluation protocols ----------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["mixed", "tiny", "huge"])
+@pytest.mark.parametrize("n", [2, 3, 129, 3500])
+@pytest.mark.parametrize("joints", [17, 15])
+def test_protocols_kernel_matches_host(cuda, joints, n, kind):
+    """The kernel against the host protocols on float64 copies of the same poses
+    (relative 1e-9: both float64), reading the first n of n + 7 predicted frames in
+    place; a second call bitwise equal (no floating-point atomics)."""
+    from protocol_cases import host_protocols, video
+    pred, target = video(n, joints, kind, seed=n + joints)
+    p, t = torch.from_numpy(pred).to(cuda), torch.from_numpy(target).to(cuda)
+    before = pk.LAUNCHES["protocols"]
+    got = pk.video_protocols(p, t, n)
+    again = pk.video_protocols(p, t, n)
+    assert pk.LAUNCHES["protocols"] == before + 2
+    assert got.dtype == torch.float64 and got.device == p.device
+    np.testing.assert_allclose(got.cpu().numpy(), host_protocols(pred[:n], target),
+                               rtol=1e-9, atol=0)
+    assert torch.equal(got, again)
+
+
+def test_protocols_kernel_of_one_frame_and_plain(cuda):
+    """n = 1 gives NaN MPJVE as the plain version; at 3,500 frames the plain version
+    on the card's inputs agrees to 1e-12."""
+    from protocol_cases import video
+    for n in (1, 3500):
+        pred, target = video(n, 17, seed=7)
+        got = pk.video_protocols(torch.from_numpy(pred).to(cuda),
+                                 torch.from_numpy(target).to(cuda), n).cpu()
+        want = pk.video_protocols_plain(torch.from_numpy(pred), torch.from_numpy(target), n)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=0)
+
+
+def test_protocols_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros(10, 17, 3, device=cuda)
+    t = torch.zeros(10, 17, 3, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        pk.video_protocols(p.double(), t, 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.video_protocols(torch.zeros(17, 10, 3, device=cuda).transpose(0, 1), t, 10)
+    with pytest.raises(ValueError, match="joints"):
+        pk.video_protocols(torch.zeros(10, 33, 3, device=cuda),
+                           torch.zeros(10, 33, 3, device=cuda), 10)
+    with pytest.raises(ValueError, match="target is on"):
+        pk.video_protocols(p, t.cpu(), 10)
+
+
+@pytest.mark.parametrize("engine,widths", [("xla", (3, 3)), ("fused", (3, 3)),
+                                           ("int8", (3, 3, 3))])
+def test_evaluate_on_card_matches_host_protocols(cuda, engine, widths):
+    """``evaluate()`` on the card (one protocol kernel a video, one fetch) equals
+    ``evaluate()`` on the CPU over the same predicted poses to 1e-6 relative (the
+    host sums in float32), with TTA; ``eval.protocols_on_device`` counts the videos,
+    ``vp3d.eval.protocols`` opens once a video and ``vp3d.eval.fetch`` once, the
+    card copies to the host once a call; two card devices round-robin give the
+    same numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch_parallel_workers as W
+    from videopose3d_torch import evaluate as ev
+    from videopose3d_torch import profiling
+    from videopose3d_torch.data import generators as tgen
+    from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
+                                                    receptive_field)
+    lengths = (21, 300, 129, 1000)
+    p2, p3, _ = W.videos(seed=9, lengths=lengths)
+    perm = W.flip_perm()
+    torch.manual_seed(4)
+    cfg = TemporalModelConfig(W.J, 2, W.J, widths, channels=W.CHANNELS)
+    net = TemporalModel(cfg).eval().to(cuda)
+    pad = (receptive_field(cfg) - 1) // 2
+    batcher = tgen.UnchunkedBatcher(None, p3, p2, pad=pad, causal_shift=0, augment=True,
+                                    kps_flip_perm=perm, joints_flip_perm=perm, bucket=16)
+    card = ev.Evaluator(net.config, joints_flip_perm=perm, engine=engine, device=cuda)
+    poses = []
+    predict = card.predict_async
+
+    def recorded(model, batch_2d, augment, device=None):
+        poses.append(predict(model, batch_2d, augment, device))
+        return poses[-1]
+
+    ev.evaluate(card, net, batcher, verbose=False)  # warm-up: copies, plans, pinned pool
+    card.predict_async = recorded
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = ev.evaluate(card, net, batcher, verbose=False)
+    counters = profiling.counters()
+    events = prof.events()
+    names = [e.name for e in events if e.device_type == DeviceType.CPU]
+    assert counters["eval.protocols_on_device"] == len(lengths)
+    assert counters["eval.frames"] == sum(lengths)
+    assert names.count("vp3d.eval.protocols") == len(lengths)
+    assert names.count("vp3d.eval.fetch") == 1
+    assert "vp3d.eval.p_mpjpe" not in names
+    fetches = [e.name for e in events if "DtoH" in e.name]
+    assert len(fetches) == 1, fetches
+    host = ev.Evaluator(net.config, joints_flip_perm=perm, engine=engine,
+                        device=torch.device("cpu"))
+    fetched = iter([p.cpu() for p in poses])
+    host.predict_async = lambda model, batch_2d, augment, device=None: next(fetched)
+    want = ev.evaluate(host, net, batcher, verbose=False)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    card.predict_async = predict
+    assert ev.evaluate(card, net, batcher, verbose=False, devices=[cuda, cuda]) == got

@@ -201,6 +201,21 @@ def test_evaluate_spans_and_counters():
         "eval.frames_computed": sum(-(-t // BUCKET) * BUCKET for t in EVAL_LENGTHS)}
 
 
+def test_cpu_evaluator_counts_no_protocols_on_device():
+    """An evaluator on the CPU keeps the host protocols: the device counter is absent."""
+    profiling.reset_counters()
+    _profiled(_evaluation())
+    assert "eval.protocols_on_device" not in profiling.counters()
+    assert profiling.counters()["eval.frames"] == sum(EVAL_LENGTHS)
+
+
+def test_host_protocols_stay_globals_of_evaluate():
+    """The benchmark's eval cells wrap these module globals by name (``_protocol_spans``)."""
+    from videopose3d_torch.ops import losses
+    for name in ("mpjpe_np", "n_mpjpe_np", "p_mpjpe", "mean_velocity_error"):
+        assert getattr(ev, name) is getattr(losses, name)
+
+
 def test_device_eval_set_losses_span():
     p2, p3, _ = W.videos(seed=9, lengths=EVAL_LENGTHS)
     batcher = tgen.UnchunkedBatcher(None, p3, p2, pad=W.PAD, causal_shift=0, bucket=BUCKET)

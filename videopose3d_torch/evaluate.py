@@ -4,8 +4,11 @@ protocols (MPJPE / P-MPJPE / N-MPJPE / MPJVE).
 Counterpart of ``videopose3d_tpu/evaluate.py`` (``Evaluator``, ``evaluate``,
 ``evaluate_actionwise``, ``DeviceEvalSet``); the printed protocol lines have the
 same format.  Inference and the TTA merge run on the evaluator's device, or
-round-robin over several local ``devices`` (a copy of the model on each); the
-protocols run on host numpy, the per-epoch training losses on the device.
+round-robin over several local ``devices`` (a copy of the model on each).  On
+CUDA devices the four protocols run there too, one kernel a video
+(``ops/kernels/protocols.py``), and one fetch a call brings their means back; on
+the CPU they run on host numpy, as in the JAX package.  The per-epoch training
+losses run on the device.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 forward_dilated, forward_dilated_fused,
                                                 forward_dilated_int8)
+from videopose3d_torch.ops.kernels.protocols import video_protocols
 from videopose3d_torch.ops.losses import (mean_velocity_error, mpjpe_np, n_mpjpe_np,
                                           p_mpjpe)
 from videopose3d_torch.parallel import mesh
@@ -46,6 +50,15 @@ def full_float32():
 
 def _device_of(model: TemporalModel) -> torch.device:
     return next(model.parameters()).device
+
+
+def _upload(array, device) -> torch.Tensor:
+    """``array`` as a float32 tensor on ``device``; to a card through pinned memory
+    and without waiting for the card (a pageable copy waits for its stream)."""
+    x = torch.as_tensor(np.asarray(array, np.float32))
+    if torch.device(device).type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
 
 
 class Evaluator:
@@ -166,8 +179,7 @@ class Evaluator:
         tensor on ``device`` (default the evaluator's), not yet synchronised."""
         with span("vp3d.eval.predict"):
             with span("vp3d.eval.upload"):
-                x = torch.as_tensor(np.asarray(batch_2d, np.float32),
-                                    device=self.device if device is None else device)
+                x = _upload(batch_2d, self.device if device is None else device)
             with span("vp3d.eval.infer"):
                 pred = self.infer(model, x)
             with span("vp3d.eval.merge"):
@@ -282,28 +294,24 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
 
     Errors are frame-weighted means, reported in mm.  With
     ``return_predictions`` the first video's (T, J, 3) camera-space prediction
-    (test-time augmentation merged) is returned instead, for rendering.  A
-    bounded queue of
-    videos is in flight before the first fetch, so device work overlaps the
-    host-side protocol work.  ``devices``: local devices to round-robin the
-    videos over (default the evaluator's); the protocols take the videos in
-    their order, so the numbers do not depend on the device count.
+    (test-time augmentation merged) is returned instead, for rendering.
+    ``devices``: local devices to round-robin the videos over (default the
+    evaluator's).  On CUDA devices each video's protocols run where its poses
+    are, one kernel call a video, and the videos' means come back in one fetch
+    at the end; otherwise a bounded queue of videos is in flight before the first
+    fetch, so device work overlaps the protocols on the host.  The frame-weighted
+    sums are taken on the host in the videos' order, so the numbers do not depend
+    on the device count.
     """
-    epoch_loss_3d_pos = 0.0
-    epoch_loss_3d_pos_procrustes = 0.0
-    epoch_loss_3d_pos_scale = 0.0
-    epoch_loss_3d_vel = 0.0
-    n_total = 0
-    devs = list(devices) if devices else [evaluator.device]
+    devs = [torch.device(d) for d in devices] if devices else [evaluator.device]
+    on_card = all(d.type == "cuda" for d in devs)
     in_flight = max(16, 8 * len(devs))
-    pending = []
+    pending = []    # on the host: videos in flight
+    on_device = []  # on the card: (frames, the video's four means there)
+    errors = []     # (frames, (MPJPE, P-MPJPE, N-MPJPE, MPJVE)) a video, in order
 
     def consume(item):
-        nonlocal epoch_loss_3d_pos, epoch_loss_3d_pos_procrustes, \
-            epoch_loss_3d_pos_scale, epoch_loss_3d_vel, n_total
         batch_3d, n_frames, pred = item
-        count("eval.frames", n_frames)
-        count("eval.frames_computed", pred.shape[1])  # bucket padding included
         with span("vp3d.eval.fetch"):
             pred = pred.cpu().numpy()[:, :n_frames]
         with span("vp3d.eval.protocols"):
@@ -320,24 +328,44 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
                 e2 = float(p_mpjpe(pred_flat, target_flat))
             with span("vp3d.eval.mpjve"):
                 ev = float(mean_velocity_error(pred_flat, target_flat))
-
-        n = target.shape[0] * target.shape[1]
-        epoch_loss_3d_pos += n * e1
-        epoch_loss_3d_pos_scale += n * e3
-        epoch_loss_3d_pos_procrustes += n * e2
-        epoch_loss_3d_vel += n * ev
-        n_total += n
+        errors.append((target.shape[0] * target.shape[1], (e1, e2, e3, ev)))
 
     for seq_i, (_, batch_3d, batch_2d, n_frames) in enumerate(batcher.next_epoch()):
         pred = evaluator.predict_async(model, batch_2d, augment=batcher.augment_enabled(),
                                        device=devs[seq_i % len(devs)])
         if return_predictions:
             return pred.cpu().numpy()[0, :n_frames]
+        count("eval.frames", n_frames)
+        count("eval.frames_computed", pred.shape[1])  # bucket padding included
+        if on_card:
+            with span("vp3d.eval.protocols"):
+                target = _upload(batch_3d[0], pred.device)
+                on_device.append((n_frames, video_protocols(pred[0].contiguous(), target,
+                                                            n_frames)))
+            count("eval.protocols_on_device")
+            continue
         pending.append((batch_3d, n_frames, pred))
         if len(pending) >= in_flight:
             consume(pending.pop(0))
     while pending:
         consume(pending.pop(0))
+    if on_device:
+        home = evaluator.device if evaluator.device.type == "cuda" else devs[0]
+        with span("vp3d.eval.fetch"):
+            means = torch.stack([m.to(home) for _, m in on_device]).cpu().numpy()
+        errors = [(n, tuple(float(e) for e in row)) for (n, _), row in zip(on_device, means)]
+
+    epoch_loss_3d_pos = 0.0
+    epoch_loss_3d_pos_procrustes = 0.0
+    epoch_loss_3d_pos_scale = 0.0
+    epoch_loss_3d_vel = 0.0
+    n_total = 0
+    for n, (e1, e2, e3, ev) in errors:
+        epoch_loss_3d_pos += n * e1
+        epoch_loss_3d_pos_scale += n * e3
+        epoch_loss_3d_pos_procrustes += n * e2
+        epoch_loss_3d_vel += n * ev
+        n_total += n
 
     if n_total == 0:
         raise ValueError(

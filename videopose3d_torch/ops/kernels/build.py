@@ -68,6 +68,8 @@ _ENTRY_ARGTYPES = {
     #   &slices)
     "vp3d_stream_bf16_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     "vp3d_stream_int8_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
+    # csrc/protocols.cu: (pred, target, n, joints, part, out, stream)
+    "vp3d_video_protocols": [_P, _P, _I, _I, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

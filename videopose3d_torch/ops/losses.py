@@ -1,8 +1,10 @@
 """Evaluation protocols: MPJPE, P-MPJPE, N-MPJPE and MPJVE.
 
-Counterpart of ``videopose3d_tpu/ops/losses.py``.  The four protocols run on
-host numpy over predictions already fetched from the device, as in the JAX
-package; :func:`mpjpe` is the torch form, for losses computed on the device.
+Counterpart of ``videopose3d_tpu/ops/losses.py``.  The numpy forms run on the
+host over fetched predictions, as in the JAX package: ``evaluate()`` takes them
+for an evaluator on the CPU, while on a card one kernel a video computes all four
+where the poses are (``ops/kernels/protocols.py``, float64, the same semantics).
+:func:`mpjpe` is the torch form, for losses computed on the device.
 """
 
 from __future__ import annotations
