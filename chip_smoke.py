@@ -73,9 +73,9 @@ warmup, the two fused runs bitwise equal, the first full step's loss against the
 plain engine's, K1 launched once per warmup step and twice per full step; for
 (a) the saved trajectory model loads, the checkpoint evaluates, and -r
 epoch_1.bin prints the uninterrupted run's epoch 2; (b) runs once more under
-torch.profiler (device time per full step by part: K1, the pose model's K2
-wrappers and plain parts, the trajectory model, the optimizer, the projection
-and losses; the busy share).
+torch.profiler (device time per full step by part: K1, both models' K2
+wrappers, each model's plain parts, the optimizer, the projection and losses;
+the busy share).
 Phase 8 (data parallelism): 8a runs phase 4's pallas command line under
 ``python -m torch.distributed.run --standalone --nproc_per_node 1`` (the rank
 calls ``runner.main``, as ``python -m videopose3d_torch.run`` does, on NCCL at
@@ -83,8 +83,8 @@ world size 1) and checks that its epoch line, step losses and saved weights are
 bitwise phase 4's and its K1/K2 launches phase 4's, then profiles one more such
 epoch (the gradient all-reduce, the 18 BatchNorm-sum all-reduces and the
 dropout-mask draws per step); 8b spawns two ranks that share the card over gloo
-and drive the trainers at the global batch of 1,024, 512 rows each: the
-supervised and semi-supervised step-0 loss and every all-reduced gradient
+and drive the trainers (every model on the pallas engine) at the global batch
+of 1,024, 512 rows each: the supervised and semi-supervised step-0 loss and every all-reduced gradient
 against one process from the same state, the ranks' parameters and running
 statistics bitwise equal after their steps, a DeviceEvalSet sharded over the
 ranks against an unsharded one, K1 and K2 launched on each rank, ms per step
@@ -1615,8 +1615,8 @@ def phase7_kernels(device):
 class SemiProfile:
     """torch.profiler over steps ``[start, stop)`` of a semi-supervised run's full
     epochs, with profiler ranges around the step's parts, so that its device time
-    splits into K1, the pose model's K2 wrappers, the rest of the pose model,
-    the trajectory model, the optimizer and the batch assembly; what none of
+    splits into K1, both models' K2 wrappers, the rest of the pose model, the
+    rest of the trajectory model, the optimizer and the batch assembly; what none of
     them holds is the projection and the losses.  The autograd engine runs the
     nodes recorded last first, so the backward runs the losses, then the whole
     trajectory model, then the whole pose model: the trajectory model's range
@@ -1672,13 +1672,13 @@ class SemiProfile:
             if any(n.startswith("K1 ") for n in inside):
                 part = "K1 gather_windows"
             elif any(n.startswith("K2 ") for n in inside):
-                part = "K2 wrappers (pose model)"
+                part = "K2 wrappers (both models)"
             elif any(n.startswith("Optimizer.step") for n in inside):
                 part = "optimizer"
             elif "semi assemble" in inside:
                 part = "batch assembly (indexing)"
             elif inside & {"semi traj forward", "semi traj backward"}:
-                part = "trajectory model (plain blocks)"
+                part = "trajectory model, plain parts"
             elif inside & {"semi pose forward", "semi pose backward"}:
                 part = "pose model, plain parts"
             else:
@@ -2158,15 +2158,16 @@ def dp_videos(seed, n, frames, labeled=True):
 
 
 def dp_models(device, semi):
-    """The full-width pose model (pallas train engine) and, with ``semi``, the
-    trajectory model (plain blocks), random from SEED, dropout 0.25."""
+    """The full-width pose model and, with ``semi``, the trajectory model, both
+    on the pallas train engine as the runner builds them, random from SEED,
+    dropout 0.25."""
     from videopose3d_torch.models.temporal import TemporalModel
     cfg, pos = random_model(device)
     models = []
-    for joints_out, engine in ((JOINTS, "pallas"), (1, "xla"))[:1 + semi]:
+    for joints_out in (JOINTS, 1)[:1 + semi]:
         torch.manual_seed(SEED + joints_out)
         m = TemporalModel(dataclasses.replace(cfg, num_joints_out=joints_out,
-                                              train_engine=engine, dropout=0.25))
+                                              train_engine="pallas", dropout=0.25))
         if joints_out == JOINTS:
             m.load_state_dict(pos.state_dict())
         models.append(m.to(device).train())
@@ -2202,7 +2203,7 @@ def phase8b_checks(rank, world, device):
     the same state (rank 0), the ranks' weights compared by digest, a sharded
     DeviceEvalSet against an unsharded one, K1/K2 launches, ms/step and the
     dropout-mask draw at the global and at the local shape.  Rank 0 also takes
-    the first step in one process with the pose model on the plain blocks
+    the first step in one process with the models on the plain blocks
     (``xla``): how far one process's own engines lie apart."""
     import copy
     from videopose3d_torch import train
@@ -2251,8 +2252,8 @@ def phase8b_checks(rank, world, device):
             mesh.broadcast_module(m)
         refs = [copy.deepcopy(m) for m in models] if rank == 0 else None
         plains = [copy.deepcopy(m) for m in models] if rank == 0 else None
-        if plains:
-            plains[0].config = dataclasses.replace(plains[0].config, train_engine="xla")
+        for p in plains or ():
+            p.config = dataclasses.replace(p.config, train_engine="xla")
 
         def trainer(ms, use_dp):
             opt = train.make_optimizer(ms, loop.learning_rate)

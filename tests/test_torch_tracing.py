@@ -175,9 +175,23 @@ def test_train_step_spans(engine):
 
 
 def test_semi_train_step_spans():
+    """A full step: the supervised step's spans, each network's forward inside
+    ``forward``, the back-projection and the bone term inside ``loss``, and the
+    valid rows and the step counted."""
+    profiling.reset_counters()
     _, spans = _profiled(_semi_trainer())
     (group,) = _inside(spans, "vp3d.train.step")
-    assert _children(group, "vp3d.train.") == [f"vp3d.train.{s}" for s in TRAIN_SPANS]
+    nested = {"vp3d.train.pose", "vp3d.train.traj", "vp3d.train.project",
+              "vp3d.train.bones"}
+    assert [n for n in _children(group, "vp3d.train.") if n not in nested] == \
+        [f"vp3d.train.{s}" for s in TRAIN_SPANS]
+    (fwd,) = _inside(spans, "vp3d.train.forward")
+    assert _children(fwd, "vp3d.train.") == ["vp3d.train.pose", "vp3d.train.traj"]
+    (loss,) = _inside(spans, "vp3d.train.loss")
+    assert _children(loss, "vp3d.train.") == ["vp3d.train.project", "vp3d.train.bones"]
+    counters = profiling.counters()
+    assert counters["train.full_steps"] == 1 and "train.warmup_steps" not in counters
+    assert counters["train.rows_labeled"] > 0 and counters["train.rows_unlabeled"] > 0
 
 
 def test_evaluate_spans_and_counters():

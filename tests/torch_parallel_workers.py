@@ -153,7 +153,8 @@ def semi_losses(engine, dropout, dp=None):
     final state dicts of both models)."""
     p2, p3, cams = videos(**LABELED)
     u2, _, ucams = videos(**UNLABELED)
-    pos, traj = model(engine=engine, dropout=dropout), model(1, dropout=dropout, seed=1)
+    pos = model(engine=engine, dropout=dropout)
+    traj = model(1, engine=engine, dropout=dropout, seed=1)
     loop = ttrain.TrainLoopConfig(batch_size=BATCH, chunk_length=1, pad=PAD, causal_shift=0)
     optimizer = ttrain.make_optimizer([pos, traj], loop.learning_rate)
     trainer = ttrain.SemiSupervisedTrainer(pos, traj, loop, optimizer, PARENTS, dp=dp)

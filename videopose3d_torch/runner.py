@@ -316,12 +316,10 @@ def main(argv=None):
         filter_widths=filter_widths, causal=args.causal, dropout=args.dropout,
         channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype,
         train_engine=args.train_engine)
-    # The trajectory model: one output joint, and the plain train blocks (the JAX
-    # package gives it no train engine).
-    traj_cfg = TemporalModelConfig(
-        num_joints_in=num_kps, in_features=poses_valid_2d[0].shape[-1], num_joints_out=1,
-        filter_widths=filter_widths, causal=args.causal, dropout=args.dropout,
-        channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype)
+    # The trajectory model: one output joint, and the pose model's train engine
+    # (its residual blocks have the pose model's shapes; the JAX package gives it
+    # the plain blocks).
+    traj_cfg = dataclasses.replace(model_cfg, num_joints_out=1)
 
     rf = receptive_field(model_cfg)
     print(f"INFO: Receptive field: {rf} frames")

@@ -40,7 +40,7 @@ from videopose3d_torch.models.temporal import (TemporalModel, forward_dilated_tr
                                                 forward_strided)
 from videopose3d_torch.ops.camera import project_to_2d, project_to_2d_linear
 from videopose3d_torch.parallel import mesh
-from videopose3d_torch.profiling import span
+from videopose3d_torch.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +111,14 @@ def _masked_sample_mean(per_sample, mask, rows=None):
     rows' share of the global mean."""
     start, stop = (0, mask.shape[0]) if rows is None else rows
     return (per_sample * mask[start:stop]).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _trajectory_per_sample(pred_traj, root):
+    """(B,) per-sample trajectory MPJPE weighted by the inverse depth of the
+    true root (camera space, taken before root-centring): far subjects move
+    less on screen, so their trajectory errors count less."""
+    w = torch.reciprocal(root[..., 2])  # (B, T, 1)
+    return (w * torch.linalg.vector_norm(pred_traj - root, dim=-1)).mean(dim=(1, 2))
 
 
 def _valid(rows: int, n: int, device):
@@ -217,7 +225,12 @@ class SemiSupervisedTrainer:
     BatchNorm statistics run over the whole concatenated batch, filler rows
     included; dropout masks come from one generator, the pose model's first.
     ``step`` returns ``(loss_pos, loss_traj, loss_recon, loss_total)`` as 0-d
-    tensors on the device, not yet synchronised.
+    tensors on the device, not yet synchronised.  Under a profiler it marks each
+    network's forward (``vp3d.train.pose``, ``vp3d.train.traj``), the
+    back-projection with its MPJPE (``vp3d.train.project``) and the bone term
+    (``vp3d.train.bones``), and counts the valid rows (``train.rows_labeled``,
+    ``train.rows_unlabeled``) and the steps (``train.full_steps``,
+    ``train.warmup_steps``).
 
     Under ``dp`` a rank concatenates its rows of the labeled batch and of the
     unlabeled one; the bone-length term's two means are global (an all-reduce
@@ -278,34 +291,42 @@ class SemiSupervisedTrainer:
             shard = (None if self.dp is None
                      else mesh.BatchShard(segments, total_rows, self.dp.group))
 
+            count("train.rows_labeled", n_valid)
+            count("train.warmup_steps" if skip else "train.full_steps")
+            if not skip:
+                count("train.rows_unlabeled", n_valid_semi)
+
             with span("vp3d.train.forward"):
                 self.optimizer.zero_grad(set_to_none=True)
                 forward = _forward(loop)
-                pred_pos = forward(self.pos_model, inputs_2d, momentum=momentum,
-                                   generator=generator, shard=shard)
-                pred_traj = forward(self.traj_model, inputs_2d, momentum=momentum,
-                                    generator=generator, shard=shard)
+                with span("vp3d.train.pose"):
+                    pred_pos = forward(self.pos_model, inputs_2d, momentum=momentum,
+                                       generator=generator, shard=shard)
+                with span("vp3d.train.traj"):
+                    pred_traj = forward(self.traj_model, inputs_2d, momentum=momentum,
+                                        generator=generator, shard=shard)
             with span("vp3d.train.loss"):
                 loss_pos = _masked_sample_mean(_mpjpe_per_sample(pred_pos[:b_l], target_3d),
                                                mask_l, rows_l)
-                w = torch.reciprocal(inputs_traj[..., 2])  # (B, T, 1)
-                dist_traj = torch.linalg.vector_norm(pred_traj[:b_l] - inputs_traj, dim=-1)
-                loss_traj = _masked_sample_mean((w * dist_traj).mean(dim=(1, 2)), mask_l,
-                                                rows_l)
+                loss_traj = _masked_sample_mean(
+                    _trajectory_per_sample(pred_traj[:b_l], inputs_traj), mask_l, rows_l)
                 total = loss_pos + loss_traj
                 loss_recon = torch.zeros((), device=device)
                 if not skip:
-                    t = batch_2d_semi.shape[1]
-                    target_semi = batch_2d_semi[:, loop.pad:t - loop.pad, :, :2]
-                    project = project_to_2d_linear if loop.linear_projection else project_to_2d
-                    reconstruction = project(pred_pos[b_l:] + pred_traj[b_l:], cam_semi)
-                    loss_recon = _masked_sample_mean(
-                        _mpjpe_per_sample(reconstruction, target_semi), mask_u, rows_u)
+                    with span("vp3d.train.project"):
+                        t = batch_2d_semi.shape[1]
+                        target_semi = batch_2d_semi[:, loop.pad:t - loop.pad, :, :2]
+                        project = (project_to_2d_linear if loop.linear_projection
+                                   else project_to_2d)
+                        reconstruction = project(pred_pos[b_l:] + pred_traj[b_l:], cam_semi)
+                        loss_recon = _masked_sample_mean(
+                            _mpjpe_per_sample(reconstruction, target_semi), mask_u, rows_u)
                     if not loop.no_proj:
                         total = total + loss_recon
                     if loop.bone_length_term:
-                        total = total + self._bone_term(pred_pos, b_l, mask_l, rows_l,
-                                                        mask_u, rows_u, device)
+                        with span("vp3d.train.bones"):
+                            total = total + self._bone_term(pred_pos, b_l, mask_l, rows_l,
+                                                            mask_u, rows_u, device)
             with span("vp3d.train.backward"):
                 total.backward()
             if self.dp is not None:
