@@ -54,7 +54,12 @@ every ring wraps (also at 1,000 channels, rows not 16-byte aligned) and bf16 per
 step from one shared state; for both, two launches from one state bitwise equal,
 timed by CUDA-graph replay beside one call, with the plan, the kernel's ptxas
 lines, its tensor-core SASS count and a cuBLAS chain of the step's products
-(torch._int_mm for int8) as a yardstick; and K6 against K5; then it writes a
+(torch._int_mm for int8) as a yardstick; and K6 against K5; the lifter's per-frame
+int8_fused dispatch as one CUDA graph (the front kernel F, K5 on the ring positions
+on the card, their advance) with poses and every ring bitwise equal to the eager
+step's through two wraps of the largest ring, F against its plain version and bound,
+and the graph dispatch's host enqueue, one replay and closed loop beside the eager
+dispatch's; then it writes a
 synthetic custom archive of 256 videos of 500 frames and a causal checkpoint and
 runs ``videopose3d_torch.streaming.main`` with every engine, checking the streams
 against the offline causal model and each other, and profiles one int8_fused and
@@ -279,10 +284,11 @@ PROFILE_STEPS = (8, 16)
 
 # Peaks of an H100 SXM (NVIDIA's data sheet, dense, at 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and the sum, over the types its
-# operations run in, of operations over that type's peak.
+# operations run in, of operations over that type's peak (float64 on the tensor
+# cores' DMMA: 67 TFLOP/s, twice the 34 of the FP64 units).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
-                  "float64": 34e12}
+                  "float64": 67e12}
 
 # Phase 6, streaming: B = 1,024 streams for the kernel checks, k = 8 frames per
 # step for K6; the CLI serves 256 videos of 500 frames (past the 243-frame
@@ -292,7 +298,8 @@ STREAM_K = 8
 STREAM_VIDEOS, STREAM_FRAMES = 256, 500
 STREAM_SOURCE = "videopose3d_torch/ops/kernels/csrc/streaming_fused.cu"
 STREAM_SOURCES = {"stream_int8": "videopose3d_torch/ops/kernels/csrc/stream_int8.cu",
-                  "stream_bf16": "videopose3d_torch/ops/kernels/csrc/stream_bf16.cu"}
+                  "stream_bf16": "videopose3d_torch/ops/kernels/csrc/stream_bf16.cu",
+                  "stream_front": "videopose3d_torch/ops/kernels/csrc/temporal_block_int8.cu"}
 # The int8 step at a width whose rows are not 16-byte aligned (element-by-element
 # loads, K and N tails), rings bitwise at every step, on the CLI's 256 streams.
 STREAM_ODD_CHANNELS, STREAM_ODD_B = 1000, 256
@@ -303,7 +310,11 @@ K7_ODD_ROWS = ((torch.float32, 1, 30), (torch.int8, 3, 1000))
 STREAM_KERNELS = {  # launch counter -> the TPU kernel it replaces
     "stream_int8": f"{STREAM_TPU}:201", "stream_bf16": f"{STREAM_TPU}:911",
     "stream_int8_multi": f"{STREAM_TPU}:520", "stream_bf16_multi": f"{STREAM_TPU}:760",
-    "ring_push": "videopose3d_tpu/streaming.py:76"}
+    "ring_push": "videopose3d_tpu/streaming.py:76",
+    "stream_front": "none: videopose3d_tpu/streaming.py:535-540 leaves the raw ring and "
+                    "the expand to XLA",
+    "ring_advance": "none: videopose3d_tpu/streaming.py:133 advances the positions in "
+                    "the step's XLA program"}
 # int8 streaming poses, kernel vs plain and int8_fused vs int8: the int8 streams are
 # equal bit for bit, and the shrink sums 1,024 bf16 products in float32 in another
 # order (~1e-7 relative); 1e-4 of max(1, max |plain|) as TOL[float32].
@@ -3151,6 +3162,8 @@ def phase6_kernels(cfg, model, q, device):
               f"{int8_chain_ms(q, kk * b)}")
         del a, p
 
+    phase6_graph(cfg, q, fq, device, first, rand, record)
+
     # The int8 step at C % 16 != 0: every ring bitwise through every wrap.
     ocfg, omodel = random_model(device, causal=True, channels=STREAM_ODD_CHANNELS)
     from videopose3d_torch.models.temporal import receptive_field
@@ -3254,6 +3267,115 @@ def phase6_kernels(cfg, model, q, device):
     return results
 
 
+def phase6_graph(cfg, q, fq, device, first, rand, record):
+    """The lifter's per-frame int8_fused dispatch as one CUDA graph (the front F,
+    K5 on the ring positions on the card, their advance): poses and every ring
+    bitwise against the eager step over two wraps of the largest ring, the positions
+    on the card equal to the host's after each; F and the advance kernel alone
+    against their plain versions and their bounds (``record``ed as phase 6's
+    kernels); the graph dispatch's host enqueue, one replay and the closed loop
+    (poses to the host) beside the eager dispatch's."""
+    from videopose3d_torch import streaming as st
+    from videopose3d_torch.ops.kernels import streaming_fused as sf
+    b, c = first.shape[0], CHANNELS
+    caps = st._buffer_capacities(cfg)
+    lifter = st.StreamingCausalLifter(cfg, engine="int8_fused", quantized=q, device=device)
+    lifter.reset(first)
+    check(lifter._graph is not None, "the int8_fused lifter made no CUDA graph")
+    eager = _clone_state(lifter._stream_state)
+    steps = 2 * max(caps) + 3
+    for t in range(steps):
+        x = rand(b, JOINTS, 2)
+        got = lifter.step(x.cpu().numpy() if t % 2 else x)
+        want, eager = st.stream_step_int8_fused(cfg, fq, eager, x)
+        check(torch.equal(got, want) and lifter._stream_state["ptr"] == eager["ptr"]
+              and all(torch.equal(r, e) for r, e in zip(lifter._stream_state["bufs"],
+                                                         eager["bufs"])),
+              f"graph dispatch {t}: the poses or a ring differ from the eager step's")
+        check(lifter._graph.pos.tolist() == eager["ptr"],
+              f"graph dispatch {t}: positions on the card {lifter._graph.pos.tolist()}, "
+              f"on the host {eager['ptr']}")
+    print(f"phase6 graph dispatch: {steps} dispatches of B={b}, C={c} (host and card frames "
+          f"in turn), poses and every ring bitwise equal to stream_step_int8_fused, the "
+          f"positions on the card equal to the host's")
+
+    # The advance kernel alone at the main path's capacities, through two wraps of the
+    # largest ring: bitwise against its plain version at every step.
+    pos = torch.zeros(len(caps), dtype=torch.int32, device=device)
+    want_pos = pos.clone()
+    caps_on_card = torch.tensor(caps, dtype=torch.int32, device=device)  # a graph copies none
+    for t in range(steps):
+        sf.ring_advance(pos, caps)
+        sf.ring_advance_plain(want_pos, caps)
+        check(torch.equal(pos, want_pos),
+              f"ring_advance step {t}: kernel {pos.tolist()}, plain {want_pos.tolist()}")
+    # Each position read and written once (int32).
+    record("ring_advance", f"positions of rings of {tuple(caps)} rows, {steps} steps, "
+           "bitwise, CUDA-graph timed", 0.0, graph_ms(lambda: sf.ring_advance(pos, caps)),
+           graph_ms(lambda: sf.ring_advance_plain(want_pos, caps_on_card)),
+           roofline([], 2 * nbytes(pos)))
+
+    # F alone: eq and the raw ring bitwise, then graph-timed beside its plain version.
+    k0, c_in, _ = q.expand_w.shape
+    w0 = q.expand_w.reshape(k0 * c_in, c).contiguous()
+    rows = rand(b, JOINTS * 2)
+    raw, want_raw = eager["bufs"][0].clone(), eager["bufs"][0].clone()
+    pos = torch.tensor(eager["ptr"], dtype=torch.int32, device=device)
+    eq = torch.empty(b, c, dtype=torch.int8, device=device)
+    front = lambda: sf.stream_front(rows, raw, pos, w0, q.expand_scale, q.expand_shift, eq)
+    front()
+    want = sf.stream_front_plain(rows, want_raw, eager["ptr"][0], w0, q.expand_scale,
+                                 q.expand_shift)
+    torch.cuda.synchronize()
+    check(torch.equal(eq, want) and torch.equal(raw, want_raw),
+          "stream_front: kernel and plain version differ")
+    plain = lambda: sf.stream_front_plain(rows, raw, eager["ptr"][0], w0, q.expand_scale,
+                                          q.expand_shift)
+    # The frame read once, the ring's k0 - 1 older rows read and one written (bf16),
+    # the weights, the affine and eq written.
+    n_bytes = nbytes(rows, w0, q.expand_scale, q.expand_shift, eq) + k0 * b * c_in * 2
+    record("stream_front", f"int8 expand of B={b} from the raw ring at a position on the "
+           f"card, C={c}, bitwise, CUDA-graph timed", 0.0, graph_ms(front), graph_ms(plain),
+           roofline([("float64", 2 * b * k0 * c_in * c)], n_bytes))
+
+    # The host's time in one dispatch called on an idle card (the stream cell's
+    # stream.enqueue_ms: back to back, the single staging tensor holds the host to the
+    # card's pace), one replay between CUDA events, and the closed loop of the stream
+    # cell (each dispatch's poses to the host before the next), for the graph and for
+    # the eager dispatch it replaces.
+    host = rand(b, JOINTS, 2).cpu().numpy()
+    eager_step = lambda: st.stream_step_int8_fused(cfg, fq, eager, torch.from_numpy(host)
+                                                   .to(device))
+
+    def idle_enqueue_ms(fn, n=200):
+        seconds = 0.0
+        for _ in range(n):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            seconds += time.perf_counter() - start
+        torch.cuda.synchronize()
+        return seconds / n * 1e3
+
+    def closed_loop_ms(fn, n=200):
+        fn().cpu()
+        start = time.perf_counter()
+        for _ in range(n):
+            fn().cpu()
+        return (time.perf_counter() - start) / n * 1e3
+
+    graph_host = idle_enqueue_ms(lambda: lifter.step(host))
+    replay = cuda_ms(lifter._graph.graph.replay, runs=50)
+    graph_loop = closed_loop_ms(lambda: lifter.step(host))
+    eager_host = idle_enqueue_ms(lambda: eager_step()[0], n=50)
+    eager_one = cuda_ms(eager_step, runs=20)
+    eager_loop = closed_loop_ms(lambda: eager_step()[0])
+    print(f"phase6 graph dispatch of B={b}: host enqueue {graph_host:.4f} ms, one replay "
+          f"{replay:.4f} ms (CUDA events), closed loop {graph_loop:.4f} ms; eager dispatch: "
+          f"host enqueue {eager_host:.4f} ms, one call {eager_one:.4f} ms, closed loop "
+          f"{eager_loop:.4f} ms")
+
+
 def write_custom_archive(root, name):
     """A synthetic custom-dataset archive (the format of data_2d_custom_<k>.npz):
     STREAM_VIDEOS videos of STREAM_FRAMES frames of 17 COCO keypoints in pixels of
@@ -3296,12 +3418,13 @@ def stream_cli(argv):
     return poses, float(rate.group(3)), out
 
 
-# Engine, compute dtype, frames per step, the kernel the run must launch.
-STREAM_RUNS = (("bf16", "float32", 1, None), ("bf16", "bfloat16", 1, None),
-               ("bf16_fused", "bfloat16", 1, "stream_bf16"), ("int8", "float32", 1, None),
-               ("int8_fused", "float32", 1, "stream_int8"),
-               ("bf16_fused", "bfloat16", STREAM_K, "stream_bf16_multi"),
-               ("int8_fused", "float32", STREAM_K, "stream_int8_multi"))
+# Engine, compute dtype, frames per step, the kernels the run must launch (int8_fused
+# per frame: the lifter's CUDA graph, F, K5 and the positions' advance a replay).
+STREAM_RUNS = (("bf16", "float32", 1, ()), ("bf16", "bfloat16", 1, ()),
+               ("bf16_fused", "bfloat16", 1, ("stream_bf16",)), ("int8", "float32", 1, ()),
+               ("int8_fused", "float32", 1, ("stream_int8", "stream_front", "ring_advance")),
+               ("bf16_fused", "bfloat16", STREAM_K, ("stream_bf16_multi",)),
+               ("int8_fused", "float32", STREAM_K, ("stream_int8_multi",)))
 
 
 def _stack(poses, videos):
@@ -3331,17 +3454,16 @@ def phase6_cli(cfg, model, device, tmp):
     # allocator's pools) outside the measured runs.
     stream_cli(argv("bf16", "float32", 1, "warm.npz") + ["--videos", ",".join(videos[:8])])
     runs, launches, rates_k1 = {}, {}, {}
-    for engine, dt, k, key in STREAM_RUNS:
+    for engine, dt, k, keys in STREAM_RUNS:
         reset_counts()
         poses, rate, _ = stream_cli(argv(engine, dt, k, f"{engine}_{dt}_{k}.npz"))
         if k == 1:
             rates_k1[(engine, dt)] = rate
         counts = dict(sf.LAUNCHES)
-        check(all(v == 0 for name, v in counts.items() if name != key)
-              and (key is None or counts[key] > 0),
-              f"{engine} {dt} k={k}: launched {counts}, expected only {key}")
-        if key is not None:
-            launches[key] = counts[key]
+        check(all(v == 0 for name, v in counts.items() if name not in keys)
+              and all(counts[key] > 0 for key in keys),
+              f"{engine} {dt} k={k}: launched {counts}, expected only {keys}")
+        launches.update({key: counts[key] for key in keys})
         runs[(engine, dt, k)] = _stack(poses, videos)
         print(f"phase6 streaming CLI --engine {engine:10s} --compute-dtype {dt:8s} "
               f"--frames-per-step {k}: {STREAM_VIDEOS * STREAM_FRAMES} poses, "

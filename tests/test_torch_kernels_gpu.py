@@ -2,9 +2,11 @@
 evaluation blocks (K3), the window gather (K1), the train block with its
 backward (K2), the int8 serving stages (K4, with the accshift tap mode K8), and
 the streaming step (K5 per frame, K6 k frames; int8 and bf16) with the ring
-push (K7); the four evaluation protocols of a video (float64, against the host
-protocols on float64 copies to 1e-9 relative, bitwise on a second call) and
-``evaluate()`` on the card against the host path over the same poses.
+push (K7), the streaming front (F) and the lifter's CUDA graph of the per-frame
+int8 step (poses and rings bitwise against the eager step); the four evaluation
+protocols of a video (float64, against the host protocols on float64 copies to
+1e-9 relative, bitwise on a second call) and ``evaluate()`` on the card against
+the host path over the same poses.
 
 Needs a CUDA device (marker ``gpu``; skipped elsewhere).  Imports no JAX, so it
 also runs on a machine without it:
@@ -1180,6 +1182,146 @@ def test_streaming_lifter_engines_on_card(cuda):
         want = forward_dilated(model, padded)
     f32 = run(dataclasses.replace(cfg, compute_dtype="float32"))
     _check(torch.from_numpy(f32).to(cuda), want, torch.float32)
+
+
+# -- the streaming lifter's CUDA graph (int8_fused, k = 1) ----------------------
+
+
+FRONT_CASES = [  # channels, filter widths, streams
+    (1024, (3, 3, 3, 3, 3), 1024),  # the main path's
+    (30, (3, 3, 3), 5),             # C % 4 != 0: the expand stores byte by byte
+    (1000, (5, 3, 3), 67),          # 5 raw taps; a ragged tile of rows
+]
+
+
+@pytest.mark.parametrize("c,fw,b", FRONT_CASES)
+def test_stream_front_and_advance_kernels_match_plain(cuda, c, fw, b):
+    """The streaming front (F) bitwise against its plain version, eq and the raw
+    ring, at every position of the raw ring through two wraps; the advance kernel
+    against its plain version at each step; the positions read, not moved, by F."""
+    from videopose3d_torch import streaming as st
+    cfg, _, _, q, _, first, frames = _stream_setup(c, fw, b, cuda)
+    ss = st.init_stream_state_int8(cfg, q, first)
+    caps = st._buffer_capacities(cfg)
+    k0, c_in, _ = q.expand_w.shape
+    w0 = q.expand_w.reshape(k0 * c_in, c).contiguous()
+    ring, want_ring = ss["bufs"][0], ss["bufs"][0].clone()
+    pos = torch.zeros(len(caps), dtype=torch.int32, device=cuda)
+    want_pos = pos.clone()
+    eq = torch.empty(b, c, dtype=torch.int8, device=cuda)
+    for t in range(2 * k0 + 1):
+        rows = frames[:, t].reshape(b, -1).contiguous()
+        before = sf.LAUNCHES["stream_front"]
+        sf.stream_front(rows, ring, pos, w0, q.expand_scale, q.expand_shift, eq)
+        assert sf.LAUNCHES["stream_front"] == before + 1
+        want = sf.stream_front_plain(rows, want_ring, int(want_pos[0]), w0, q.expand_scale,
+                                     q.expand_shift)
+        torch.cuda.synchronize()
+        assert torch.equal(eq, want) and torch.equal(ring, want_ring), t
+        assert torch.equal(pos, want_pos), t
+        sf.ring_advance(pos, caps)
+        sf.ring_advance_plain(want_pos, caps)
+        assert torch.equal(pos, want_pos), t
+
+
+def _graph_lifter(cfg, q, first, device):
+    from videopose3d_torch import streaming as st
+    lifter = st.StreamingCausalLifter(cfg, engine="int8_fused", quantized=q, device=device)
+    lifter.reset(first)
+    assert lifter._graph is not None
+    return lifter
+
+
+@pytest.mark.parametrize("c,fw,b,steps", [
+    (1024, (3, 3, 3, 3, 3), 1024, 400),  # the stream cell's shape: every ring wraps
+    (30, (3, 3, 3), 5, 40),
+    (1000, (3, 5, 5), 17, 60),
+])
+def test_stream_graph_lifter_matches_eager_step(cuda, c, fw, b, steps):
+    """The lifter's CUDA graph against stream_step_int8_fused from a copy of its
+    state: poses and every ring bitwise at every dispatch, through a reset() halfway
+    that reuses the graph; frames from the host and from the card alike."""
+    from videopose3d_torch import streaming as st
+    cfg, _, _, q, _, first, _ = _stream_setup(c, fw, b, cuda)
+    g = torch.Generator().manual_seed(7)
+    frames = torch.randn(b, steps, 17, 2, generator=g)
+    lifter = _graph_lifter(cfg, q, first, cuda)
+    graph = lifter._graph
+    w = st.prepare_int8_fused(lifter.quantized)
+    eager = _clone(lifter._stream_state)
+    for t in range(steps):
+        if t == steps // 2:
+            lifter.reset(frames[:, t].to(cuda))
+            assert lifter._graph is graph
+            eager = st.init_stream_state_int8(cfg, q, frames[:, t].to(cuda))
+        x = frames[:, t]
+        got = lifter.step(x.numpy() if t % 2 else x.to(cuda))
+        want, eager = st.stream_step_int8_fused(cfg, w, eager, x.to(cuda))
+        assert torch.equal(got, want), t
+        assert lifter._stream_state["ptr"] == eager["ptr"]
+        assert all(torch.equal(r, e) for r, e in zip(lifter._stream_state["bufs"],
+                                                     eager["bufs"])), t
+
+
+def test_stream_graph_lifter_steps_without_a_fetch(cuda):
+    """Two host frames stepped back to back, with no fetch between them: each
+    dispatch's poses stay its own (the next replay leaves them unchanged), equal to
+    the eager steps', and the profiler's counters show one replay a dispatch; the
+    launch counters move by what the capture launched (F, K5, the advance) a
+    dispatch."""
+    from torch.profiler import ProfilerActivity, profile
+    from videopose3d_torch import profiling
+    from videopose3d_torch import streaming as st
+    cfg, _, _, q, _, first, frames = _stream_setup(64, (3, 3, 3), 9, cuda, seed=5)
+    lifter = _graph_lifter(cfg, q, first, cuda)
+    w = st.prepare_int8_fused(lifter.quantized)
+    eager = _clone(lifter._stream_state)
+    host = frames.cpu().numpy()
+    profiling.reset_counters()
+    before = dict(sf.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU]):
+        outs = [lifter.step(host[:, t]) for t in range(6)]
+    counters = profiling.counters()
+    assert counters.get("stream.graph_replays") == 6
+    assert lifter._graph.launches == {"stream_int8": 1, "stream_front": 1, "ring_advance": 1}
+    assert {key: n - before[key] for key, n in sf.LAUNCHES.items() if n != before[key]} == {
+        key: 6 for key in lifter._graph.launches}
+    assert "stream.graph_captures" not in counters  # captured in reset(), unprofiled
+    for t, got in enumerate(outs):
+        want, eager = st.stream_step_int8_fused(cfg, w, eager, frames[:, t])
+        assert torch.equal(got, want), t
+
+
+def test_stream_graph_leaves_the_other_engines_eager(cuda):
+    """bf16_fused, int8_fused at k = 8 and MultiDeviceStreamingLifter's int8_fused
+    groups give the free step functions' poses bitwise; only the per-frame
+    int8_fused lifters hold a graph."""
+    from videopose3d_torch import streaming as st
+    cfg, bcfg, model, q, wb, first, frames = _stream_setup(64, (3, 3, 3), 4, cuda, seed=6)
+    bf16 = st.StreamingCausalLifter(bcfg, model, engine="bf16_fused", device=cuda)
+    multi = st.StreamingCausalLifter(cfg, engine="int8_fused", quantized=q,
+                                     frames_per_step=8, device=cuda)
+    groups = st.MultiDeviceStreamingLifter(cfg, engine="int8_fused", quantized=q,
+                                           devices=[cuda, cuda])
+    for lifter in (bf16, multi, groups):
+        lifter.reset(first.cpu().numpy())
+    assert bf16._graph is None and multi._graph is None
+    assert all(g._graph is not None for g in groups.lifters)
+    w = st.prepare_int8_fused(q)
+    sb = st.init_stream_state(bcfg, model, first)
+    s8 = st.init_stream_state_int8_multi(cfg, q, first, 8)
+    halves = [st.init_stream_state_int8(cfg, q, first[i:i + 2]) for i in (0, 2)]
+    for t in range(0, 32, 8):
+        for f in range(t, t + 8):
+            want, sb = st.stream_step_bf16_fused(bcfg, wb, sb, frames[:, f])
+            assert torch.equal(bf16.step(frames[:, f]), want), f
+            got = groups.step(frames[:, f].cpu().numpy())
+            for i, part in enumerate((0, 2)):
+                want, halves[i] = st.stream_step_int8_fused(cfg, w, halves[i],
+                                                            frames[part:part + 2, f])
+                assert torch.equal(got[i], want), (f, i)
+        want, s8 = st.stream_step_int8_multi_fused(cfg, w, s8, frames[:, t:t + 8])
+        assert torch.equal(multi.step(frames[:, t:t + 8]), want), t
 
 
 # -- the evaluation protocols ----------------------------------------------------

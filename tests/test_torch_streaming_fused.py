@@ -165,3 +165,99 @@ def test_plain_steps_update_the_rings_in_place():
     assert poses.shape == (2, 51) and [r.data_ptr() for r in out] == ids
     assert torch.equal(rings[0][4], eq)
     assert sf.LAUNCHES == {k: 0 for k in sf.LAUNCHES}   # the CPU launches no kernel
+
+
+def _torch_int8_model(fw, ch, seed):
+    """A causal model of the port alone (random BatchNorm statistics) and its w8a8
+    copy from the port's quantizer."""
+    from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
+                                                    receptive_field)
+    from videopose3d_torch.ops.kernels.temporal_block_int8 import quantize_temporal_model
+    torch.manual_seed(seed)
+    cfg = TemporalModelConfig(num_joints_in=17, in_features=2, num_joints_out=17,
+                              filter_widths=fw, causal=True, channels=ch)
+    model = TemporalModel(cfg).eval()
+    for bn in [model.expand_bn, *model.layers_bn]:
+        bn.running_var.uniform_(0.5, 2.0)
+        bn.bias.data.uniform_(-0.2, 0.2)
+    calib = torch.rand(1, receptive_field(cfg) + 64, 17, 2) * 2 - 1
+    return cfg, quantize_temporal_model(cfg, model, calib)
+
+
+# The 243-frame model's rings (3, 7, 19, 55, 163 rows): 330 dispatches wrap the
+# 163-row ring twice; and a narrow model at a width off the 16-byte word.
+DEVICE_POSITION_CASES = [((3, 3, 3, 3, 3), 16, 2, 330), ((3, 5, 5), 30, 3, 120)]
+
+
+@pytest.mark.parametrize("fw,ch,b,steps", DEVICE_POSITION_CASES)
+def test_front_and_device_positions_equal_the_eager_ring_and_slots(fw, ch, b, steps):
+    """The streaming front's plain version against the eager raw-ring push and
+    expand (``_per_frame`` + ``_expand_step_i8``): eq and the raw ring bitwise at
+    every dispatch; the slots and advance of the positions on the device equal
+    ``_slots`` and ``_advance_ptrs`` at every dispatch."""
+    cfg, q = _torch_int8_model(fw, ch, seed=7)
+    rng = np.random.default_rng(7)
+    ss = ts.init_stream_state_int8(cfg, q, torch.from_numpy(_frames(rng, b, 1)))
+    raw = ss["bufs"][0].clone()
+    caps = ts._buffer_capacities(cfg)
+    pos = torch.tensor(ss["ptr"], dtype=torch.int32)
+    k0, c_in, c = q.expand_w.shape
+    w0 = q.expand_w.reshape(k0 * c_in, c)
+    _, lags = ts._slots(cfg, ss["ptr"], caps, multi=False)
+    for t in range(steps):
+        frame = torch.from_numpy(_frames(rng, b, 1))
+        bufs, ptr, _, taps = ts._per_frame(cfg, ss, frame, torch.bfloat16)
+        want = ts._expand_step_i8(q, taps)
+        got = sf.stream_front_plain(frame.reshape(b, -1), raw, int(pos[0]), w0,
+                                    q.expand_scale, q.expand_shift)
+        assert torch.equal(got, want) and torch.equal(raw, bufs[0]), t
+        idx, _ = ts._slots(cfg, ptr, caps, multi=False)
+        assert sf.device_slots_plain(pos, caps[1:], lags) == idx, t
+        ss = {"bufs": bufs, "ptr": ts._advance_ptrs(ptr, caps)}
+        assert sf.ring_advance_plain(pos, caps).tolist() == ss["ptr"], t
+
+
+@pytest.mark.parametrize("fw,ch,b,steps", DEVICE_POSITION_CASES)
+def test_device_position_step_equals_the_eager_step(fw, ch, b, steps):
+    """What the lifter's CUDA graph captures (the front, K5 on the positions on the
+    device, the advance), run by its plain versions, against stream_step_int8_fused
+    from one state: poses, every ring and the positions bitwise at every dispatch."""
+    cfg, q = _torch_int8_model(fw, ch, seed=8)
+    w = ts.prepare_int8_fused(q)
+    rng = np.random.default_rng(8)
+    eager = ts.init_stream_state_int8(cfg, q, torch.from_numpy(_frames(rng, b, 1)))
+    bufs = [r.clone() for r in eager["bufs"]]
+    pos = torch.tensor(eager["ptr"], dtype=torch.int32)
+    k0, c_in, c = q.expand_w.shape
+    _, lags = ts._slots(cfg, eager["ptr"], ts._buffer_capacities(cfg), multi=False)
+    eq = torch.empty(b, c, dtype=torch.int8)
+    for t in range(steps):
+        frame = torch.from_numpy(_frames(rng, b, 1))
+        want, eager = ts.stream_step_int8_fused(cfg, w, eager, frame)
+        got = ts._step_on_device_positions(cfg, w, q.expand_w.reshape(k0 * c_in, c), lags,
+                                           bufs, pos, frame.reshape(b, -1), eq)
+        assert torch.equal(got.reshape(want.shape), want), t
+        assert all(torch.equal(r, e) for r, e in zip(bufs, eager["bufs"])), t
+        assert pos.tolist() == eager["ptr"], t
+
+
+def test_cpu_lifter_stays_eager():
+    """On the CPU the int8_fused lifter steps the free function's plain path: no
+    graph, no graph counters under a profiler, and its poses."""
+    from torch.profiler import ProfilerActivity, profile
+    from videopose3d_torch import profiling
+    cfg, q = _torch_int8_model((3, 3, 3), 16, seed=9)
+    rng = np.random.default_rng(9)
+    first = _frames(rng, 2, 1)
+    lifter = ts.StreamingCausalLifter(cfg, engine="int8_fused", quantized=q, device="cpu")
+    lifter.reset(first)
+    ss = ts.init_stream_state_int8(cfg, q, torch.from_numpy(first))
+    w = ts.prepare_int8_fused(q)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(4):
+            frame = _frames(rng, 2, 1)
+            want, ss = ts.stream_step_int8_fused(cfg, w, ss, torch.from_numpy(frame))
+            assert torch.equal(lifter.step(frame), want)
+    assert lifter._graph is None
+    assert not any(k.startswith("stream.graph") for k in profiling.counters())

@@ -58,12 +58,16 @@ _ENTRY_ARGTYPES = {
     "vp3d_int8_block": [_I] * 6 + [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I]
                        + [ctypes.POINTER(_P), ctypes.c_longlong, ctypes.c_longlong,
                           ctypes.POINTER(_I), _P, _P],
+    # (frame, ring, pos, batch, c_in, cap, w0, s0, b0, channels, eq, stream)
+    "vp3d_stream_front": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I, _P, _P],
     # csrc/streaming_fused.cu: (act_type, n_blocks, batch, channels, k, doubled, x, ws,
-    #   bs, j3, out, xbuf, ptrs (host void*[]), ints (host int[]), stream)
+    #   bs, j3, out, xbuf, ptrs (host void*[]), ints (host int[]), pos, stream)
     "vp3d_stream_step": [_I] * 6 + [_P] * 3 + [_I, _P, _P, ctypes.POINTER(_P),
-                                               ctypes.POINTER(_I), _P],
+                                               ctypes.POINTER(_I), _P, _P],
     # (ring, row, offset_bytes, n_bytes, stream)
     "vp3d_ring_push": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # (pos, caps (host int[]), n, stream)
+    "vp3d_ring_advance": [_P, ctypes.POINTER(_I), _I, _P],
     # csrc/stream_bf16.cu, csrc/stream_int8.cu: (batch, k, channels, sms, &rows,
     #   &slices)
     "vp3d_stream_bf16_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,

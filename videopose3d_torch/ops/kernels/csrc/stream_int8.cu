@@ -46,6 +46,10 @@
 //   4. after the last block bf16(v) goes through a (k * B, C) bf16 exchange buffer,
 //      and the shrink's output columns are split over the cluster, each summed whole
 //      by one block in a fixed order, so two launches from one state give equal bits.
+// Ring positions: from the host's ints by value, or, per frame (k = 1, single rings),
+// from the positions on the card (StepArgs::pos, the streaming lifter's CUDA graph):
+// each block then takes its write row and tap rows as (pos - lag) mod cap, so one
+// captured launch serves every dispatch.
 // Any C: the weights are packed once with K zero-padded to a multiple of 32 and N to
 // one of 8 (streaming_fused.pack_int8_step), K and N tails are zero-filled, and ring
 // and hq rows of C % 16 != 0 bytes, not 16-byte aligned, are loaded element by
@@ -173,10 +177,17 @@ __global__ void __launch_bounds__(kTcThreads, 1) stream_int8_kernel(const StepAr
     const bool last = bi == p.n_blocks - 1;
     int8_t* ring = static_cast<int8_t*>(bk.ring);
     const size_t copy = p.doubled ? (size_t)bk.cap * p.batch * c : 0;
-    push_rows(ring + (size_t)bk.write * p.batch * c, copy, act_s, row_off, M, nc, own, col0, c);
+    // The ring's position: the host's ints, or this block's position on the card.
+    const int at = p.pos ? p.pos[1 + bi] : 0;
+    const int write = p.pos ? ring_slot(at, 0, bk.cap) : bk.write;
+    push_rows(ring + (size_t)write * p.batch * c, copy, act_s, row_off, M, nc, own, col0, c);
     // Tap j's first ring row, oldest first; the newest tap is the pushed row.
     const int t = threadIdx.x;
-    if (t <= kMaxTaps) slot_s[t] = t + 1 < bk.width ? bk.slot[t] : bk.write;
+    if (t <= kMaxTaps) {
+      slot_s[t] = t + 1 >= bk.width ? write
+                  : p.pos        ? ring_slot(at, bk.lag[t], bk.cap)
+                                 : bk.slot[t];
+    }
     cluster_barrier();  // every slice of this block's input is in the ring
 
     Operand<I8Mma> op;

@@ -21,6 +21,7 @@ struct BlockArgs {
   void* ring;         // (cap, batch, c), or (2 * cap, batch, c) when doubled
   int width, cap, write;
   int slot[kMaxTaps];  // older taps' first ring rows, oldest first
+  int lag[kMaxTaps];   // older taps' lags (width - 1 - j) * dilation, oldest first
 };
 
 struct StepArgs {
@@ -36,7 +37,18 @@ struct StepArgs {
   // per CUDA block are the kernel's template argument).
   void* xbuf;
   int slices;
+  // Null, or the rings' positions on the card: the raw ring's, then one per residual
+  // block.  With them a per-frame int8 step (k = 1, single rings) takes `write` and
+  // every tap slot from its block's position and `lag`, not from the host's ints.
+  const int* pos;
 };
+
+// Ring row (pos - lag) mod cap, never negative: the floor modulo of the host's slots
+// (streaming._slots); pos and lag are below cap.
+__host__ __device__ __forceinline__ int ring_slot(int pos, int lag, int cap) {
+  const int s = (pos - lag) % cap;
+  return s < 0 ? s + cap : s;
+}
 
 // int8 weights packed for the m16n8k32 B fragment (streaming_fused.pack_int8_step):
 // (kp / 4, np) int32 with K zero-padded to a multiple of 32 and N to one of 8.

@@ -12,7 +12,10 @@
 // of a block reads lag L_j = (width-1-j) * dilation frames back; the newest tap (L
 // = 0) is the block's input itself.  The ring positions come from the host every
 // step, by value in the launch's argument struct: `write` (k-aligned with doubled
-// rings) and per tap its first slot `slot` (the ring row of frame 0's tap).
+// rings) and per tap its first slot `slot` (the ring row of frame 0's tap); or, for
+// the per-frame int8 step, from an int array on the card (`pos`: the raw ring's
+// position, then one per block), which ring_advance_kernel moves on by one frame
+// after the step, so that a CUDA graph of the step replays for every frame.
 
 #include <stdint.h>
 
@@ -57,6 +60,19 @@ __global__ void ring_push_kernel(char* __restrict__ dst, const char* __restrict_
   for (long long i = lo < 0 ? 0 : lo; i < lo + 16 && i < n; ++i) dst[i] = src[i];
 }
 
+// The rings' capacities, by value: the raw ring's, then one per residual block.
+struct RingCaps {
+  int n;
+  int cap[kMaxBlocks + 1];
+};
+
+// Every ring's position on the card one frame on, modulo its capacity (each wraps at
+// its own: a shared frame counter would wrap at the capacities' least common multiple).
+__global__ void ring_advance_kernel(int* __restrict__ pos, const RingCaps caps) {
+  const int i = threadIdx.x;
+  if (i < caps.n) pos[i] = ring_slot(pos[i] + 1, 0, caps.cap[i]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -72,17 +88,20 @@ int vp3d_stream_max_taps() { return kMaxTaps; }
 
 // Launches one fused streaming step on `stream`, with `xbuf` its exchange buffer
 // (stream_step.cuh).  Per residual block, `ptrs` holds 8 device pointers (wa, wb, the
-// 5 epilogue vectors, ring; bf16 takes 4 vectors) and `ints` 3 + kMaxTaps values
-// (width, cap, write, slot[kMaxTaps]), both host arrays.
-// Returns cudaGetLastError() after the launch (0 on success).  Shapes are checked
-// by the Python wrapper; this only refuses what would make the launch itself
+// 5 epilogue vectors, ring; bf16 takes 4 vectors) and `ints` 3 + 2 * kMaxTaps values
+// (width, cap, write, slot[kMaxTaps], lag[kMaxTaps]), both host arrays.
+// `pos` is null, or the rings' positions on the card (int8, k = 1, single rings only):
+// the kernel then derives every slot from them and the lags, and not from `write` and
+// `slot`.  Returns cudaGetLastError() after the launch (0 on success).  Shapes are
+// checked by the Python wrapper; this only refuses what would make the launch itself
 // invalid.
 int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
                      int doubled, const void* x, const void* ws, const void* bs, int j3,
                      void* out, void* xbuf, const void* const* ptrs, const int* ints,
-                     void* stream) {
+                     const void* pos, void* stream) {
   if (n_blocks < 1 || n_blocks > kMaxBlocks || batch <= 0 || channels <= 0 || k < 1 ||
-      k > kMaxFrames || j3 <= 0 || (act_type != 0 && act_type != 1)) {
+      k > kMaxFrames || j3 <= 0 || (act_type != 0 && act_type != 1) ||
+      (pos != nullptr && (act_type != 0 || k != 1 || doubled))) {
     return cudaErrorInvalidValue;
   }
   StepArgs p{};
@@ -97,7 +116,8 @@ int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
   p.bs = static_cast<const float*>(bs);
   p.out = static_cast<float*>(out);
   p.xbuf = xbuf;
-  constexpr int kInts = 3 + kMaxTaps;
+  p.pos = static_cast<const int*>(pos);
+  constexpr int kInts = 3 + 2 * kMaxTaps;
   for (int i = 0; i < n_blocks; ++i) {
     BlockArgs& bk = p.blk[i];
     const void* const* pp = ptrs + 8 * i;
@@ -109,8 +129,11 @@ int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
     bk.width = ii[0];
     bk.cap = ii[1];
     bk.write = ii[2];
-    if (bk.width < 1 || bk.width > kMaxTaps + 1) return cudaErrorInvalidValue;
-    for (int j = 0; j < kMaxTaps; ++j) bk.slot[j] = ii[3 + j];
+    if (bk.width < 1 || bk.width > kMaxTaps + 1 || bk.cap < 1) return cudaErrorInvalidValue;
+    for (int j = 0; j < kMaxTaps; ++j) {
+      bk.slot[j] = ii[3 + j];
+      bk.lag[j] = ii[3 + kMaxTaps + j];
+    }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return act_type == 0 ? launch_stream_int8(p, s) : launch_stream_bf16(p, s);
@@ -133,6 +156,22 @@ int vp3d_ring_push(void* ring, const void* row, long long offset_bytes, long lon
   } else {
     ring_push_kernel<false><<<blocks, threads, 0, s>>>(dst, src, n_bytes);
   }
+  return cudaGetLastError();
+}
+
+// Moves the n rings' positions `pos` (int32, on the card) one frame on, modulo their
+// capacities `caps` (a host array), on `stream`: the last node of the streaming
+// lifter's graph.
+int vp3d_ring_advance(void* pos, const int* caps, int n, void* stream) {
+  if (pos == nullptr || n < 1 || n > kMaxBlocks + 1) return cudaErrorInvalidValue;
+  RingCaps rc{};
+  rc.n = n;
+  for (int i = 0; i < n; ++i) {
+    if (caps[i] < 1) return cudaErrorInvalidValue;
+    rc.cap[i] = caps[i];
+  }
+  ring_advance_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<int*>(pos),
+                                                                      rc);
   return cudaGetLastError();
 }
 

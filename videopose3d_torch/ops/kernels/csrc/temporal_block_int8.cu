@@ -5,7 +5,12 @@
 //   kMid    -> int8_dilated_block  (_mid_block_i8_kernel, launched by _mid_block_i8 at :492)
 //   kShrink -> int8_shrink_block   (_shrink_block_i8_kernel, launched at :669)
 // and, as the accshift tap mode of all three, tools/exp_realign.py's _mid_block_psum
-// (launched at :122).
+// (launched at :122).  expand_kernel also serves the streaming front (F,
+// vp3d_stream_front), which replaces no TPU kernel: videopose3d_tpu/streaming.py's
+// stream_step_int8_fused (:535-540) leaves the raw ring push and the expand to XLA.
+// F reads its taps from the raw ring at a position on the card, so that the
+// per-frame int8 streaming step replays as one CUDA graph (streaming.py); its bound
+// is the float64 FMAs, 2 * B * 102 * C (6.3 us at B = C = 1,024 on 34 TFLOP/s).
 //
 // One stage, for output row t of batch row b (x an int8 stream in 0..127):
 //   acc  = sum_j x[t + j*d] @ Wa_j                     exact int32
@@ -420,18 +425,58 @@ __global__ void __launch_bounds__(NT) requant_kernel(const float* __restrict__ r
   }
 }
 
-// e (rows, c) int8 of the pre-tapped bf16 keypoints raw (rows, k_in) and w0 (k_in, c):
+// Where expand_kernel reads row r's summed column k (of k_in) of its A operand.
+// K4's: the pre-tapped bf16 keypoints, (rows, k_in).
+struct PreTapped {
+  const bf16* raw;
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void push(int, int) const {}
+  __device__ __forceinline__ float operator()(int r, int k, int k_in) const {
+    return __bfloat162float(raw[(size_t)r * k_in + k]);
+  }
+};
+
+// The streaming front's (F): the expand conv's taps of B streams, the older frames
+// from the raw ring at its position on the card, oldest first, then this dispatch's
+// float32 frame rounded to bf16.  The raw ring holds the conv's `cap` taps, so tap j
+// lags cap - 1 - j frames, and the frame's own row (lag 0) is the one `push` writes.
+struct FrontTaps {
+  const float* frame;  // (rows, c_in)
+  bf16* ring;          // (cap, rows, c_in)
+  const int* pos;      // the raw ring's position
+  int rows, c_in, cap;
+  int at;  // *pos, read once at the start
+  __device__ __forceinline__ void start() { at = *pos; }
+  // Rows [r0, r0 + n) of the frame into the ring's row `at`, rounded to bf16.  The
+  // taps read the other cap - 1 rows, so no block reads what another writes.
+  __device__ __forceinline__ void push(int r0, int n) const {
+    bf16* dst = ring + ((size_t)at * rows + r0) * c_in;
+    const float* src = frame + (size_t)r0 * c_in;
+    for (int i = threadIdx.x; i < n * c_in; i += NT) dst[i] = __float2bfloat16(src[i]);
+  }
+  __device__ __forceinline__ float operator()(int r, int k, int) const {
+    const int j = k / c_in, ch = k - j * c_in;
+    if (j == cap - 1) return round_to<bf16>(frame[(size_t)r * c_in + ch]);
+    // Ring row (at - lag) mod cap with lag = cap - 1 - j: at + 1 + j < 2 * cap.
+    const int s = at + 1 + j;
+    return __bfloat162float(ring[((size_t)(s < cap ? s : s - cap) * rows + r) * c_in + ch]);
+  }
+};
+
+// e (rows, c) int8 of the bf16 taps `src` gives (rows, k_in) and w0 (k_in, c):
 // clip(rint(relu(float(sum_k raw * w0) * s0 + b0)), 0, 127), the sum in float64 FMAs.
 // A CUDA block owns 64 rows x 64 columns: warp w rows 16 (w % 4) .., columns
 // 32 (w / 4) .., and each lane 4 consecutive rows (4 (lane % 4) ..) by 4 consecutive
 // columns (4 (lane / 4) ..) of its warp's.  The operands are staged as float64 in
 // equal chunks of kek <= kEK summed columns (k_in = 102 of the Human3.6M model: 3 of
 // 34), A transposed, so that per summed column a lane reads its 4 A and 4 W values
-// as four 16-byte words, for 16 FMAs.
+// as four 16-byte words, for 16 FMAs.  The blocks of the first column tile also
+// `push` their rows (the streaming front's ring write).  Any c: where c % 4 == 0 a
+// lane stores its 4 columns of a row as one word, else byte by byte.
 constexpr int kER = 64, kEC = 64, kEK = 40, kLdaT = kER + 2;
 
-__global__ void __launch_bounds__(NT) expand_kernel(const bf16* __restrict__ raw, int rows,
-                                                    int k_in, int kek,
+template <class Src>
+__global__ void __launch_bounds__(NT) expand_kernel(Src src, int rows, int k_in, int kek,
                                                     const bf16* __restrict__ w0,
                                                     const float* __restrict__ s0,
                                                     const float* __restrict__ b0, int c,
@@ -442,6 +487,8 @@ __global__ void __launch_bounds__(NT) expand_kernel(const bf16* __restrict__ raw
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tr = 16 * (warp % 4) + 4 * (lane % 4);  // this lane's first row
   const int tc = 32 * (warp / 4) + 4 * (lane / 4);  // and first column
+  src.start();
+  if (blockIdx.x == 0) src.push(r0, min(kER, rows - r0));
   double acc[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -452,9 +499,7 @@ __global__ void __launch_bounds__(NT) expand_kernel(const bf16* __restrict__ raw
     __syncthreads();  // every thread is done with the previous chunk
     for (int x = threadIdx.x; x < kER * kek; x += NT) {
       const int r = x / kek, k = x - r * kek;
-      a_t[k][r] = r0 + r < rows && k0 + k < k_in
-                      ? (double)__bfloat162float(raw[(size_t)(r0 + r) * k_in + k0 + k])
-                      : 0.0;
+      a_t[k][r] = r0 + r < rows && k0 + k < k_in ? (double)src(r0 + r, k0 + k, k_in) : 0.0;
     }
     for (int x = threadIdx.x; x < kek * kEC; x += NT) {
       const int k = x / kEC, j = x - k * kEC;
@@ -479,12 +524,13 @@ __global__ void __launch_bounds__(NT) expand_kernel(const bf16* __restrict__ raw
     }
   }
   const int col = c0 + tc;
-  if (col >= c) return;  // c % 16 == 0: a lane's 4 columns are all in or all out
+  if (col >= c) return;
+  const int nq = min(4, c - col);  // this lane's columns within c
   float s[4], sh[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    s[q] = s0[col + q];
-    sh[q] = b0[col + q];
+    s[q] = q < nq ? s0[col + q] : 0.f;
+    sh[q] = q < nq ? b0[col + q] : 0.f;
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -496,7 +542,11 @@ __global__ void __launch_bounds__(NT) expand_kernel(const bf16* __restrict__ raw
       const float v = __fadd_rn(__fmul_rn(__double2float_rn(acc[r][q]), s[q]), sh[q]);
       word |= (uint32_t)(uint8_t)to_stream(fmaxf(v, 0.f)) << (8 * q);
     }
-    *reinterpret_cast<uint32_t*>(e + (size_t)row * c + col) = word;
+    if (c % 4 == 0) {
+      *reinterpret_cast<uint32_t*>(e + (size_t)row * c + col) = word;
+    } else {
+      for (int q = 0; q < nq; ++q) e[(size_t)row * c + col + q] = (int8_t)(word >> (8 * q));
+    }
   }
 }
 
@@ -575,9 +625,9 @@ cudaError_t run_stage(const Stage& st, cudaStream_t stream) {
     const int rows = st.batch * st.t_in;
     const dim3 grid((c + kEC - 1) / kEC, (rows + kER - 1) / kER);
     const int chunks = (st.k_in + kEK - 1) / kEK;
-    expand_kernel<<<grid, NT, 0, stream>>>(static_cast<const bf16*>(st.x), rows, st.k_in,
-                                           (st.k_in + chunks - 1) / chunks, st.w0, st.s0,
-                                           st.b0, c, e);
+    expand_kernel<<<grid, NT, 0, stream>>>(PreTapped{static_cast<const bf16*>(st.x)}, rows,
+                                           st.k_in, (st.k_in + chunks - 1) / chunks, st.w0,
+                                           st.s0, st.b0, c, e);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     src = e;
@@ -705,6 +755,32 @@ int vp3d_int8_block(int variant, int accshift, int batch, int t_in, int t_out,
                  static_cast<const float*>(bs), j3, work, part_ints, fpart_floats, k_slices,
                  out};
   return run_stage(st, static_cast<cudaStream_t>(stream));
+}
+
+// The streaming front (F) of a per-frame int8 step on `stream`, for `batch` streams:
+// frame (batch, c_in) float32 rounded to bf16 into the raw ring (cap, batch, c_in)
+// bf16 at its position `pos` (int32, on the card); the expand conv over the ring's
+// cap taps, older frames oldest first and the frame last, with w0 (cap * c_in,
+// channels) bf16 and s0, b0 (channels) float32, as expand_kernel computes K4's:
+// eq (batch, channels) int8, block 0's input.  Reads `pos` on the card and moves
+// nothing, so a CUDA graph of it serves every frame.  Returns cudaGetLastError().
+int vp3d_stream_front(const void* frame, void* ring, const void* pos, int batch, int c_in,
+                      int cap, const void* w0, const void* s0, const void* b0, int channels,
+                      void* eq, void* stream) {
+  if (batch <= 0 || c_in <= 0 || cap <= 0 || channels <= 0 || pos == nullptr ||
+      (batch + kER - 1) / kER > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const int k_in = cap * c_in;
+  const int chunks = (k_in + kEK - 1) / kEK;
+  const FrontTaps src{static_cast<const float*>(frame), static_cast<bf16*>(ring),
+                      static_cast<const int*>(pos), batch, c_in, cap, 0};
+  const dim3 grid((channels + kEC - 1) / kEC, (batch + kER - 1) / kER);
+  expand_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, batch, k_in, (k_in + chunks - 1) / chunks, static_cast<const bf16*>(w0),
+      static_cast<const float*>(s0), static_cast<const float*>(b0), channels,
+      static_cast<int8_t*>(eq));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

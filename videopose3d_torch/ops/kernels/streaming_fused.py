@@ -1,6 +1,7 @@
 """The fused streaming step: every residual block and the shrink for one frame
-(K5) or k frames (K6) of B streams in one kernel, the in-place ring push (K7),
-and their plain PyTorch versions.
+(K5) or k frames (K6) of B streams in one kernel, the in-place ring push (K7), the
+streaming front (F: the frame into the raw ring and the int8 expand) and the
+rings' advance on the card, and their plain PyTorch versions.
 
 Counterpart of ``videopose3d_tpu/ops/pallas/streaming_fused.py`` and of
 ``_ring_push_dma`` in ``videopose3d_tpu/streaming.py``.  The plain versions follow
@@ -12,7 +13,11 @@ for k frames per step.  They are updated **in place** (the JAX package donates
 them) and returned.  ``idx`` holds, per residual block, ``[write_slot,
 tap_slot, ...]`` with the older taps oldest first, blocks concatenated, as host
 ints: the kernel takes them by value.  Tap j's slot is the ring row of the first
-frame's tap; with k frames, frame f's tap is row ``slot + f`` after the push.
+frame's tap; with k frames, frame f's tap is row ``slot + f`` after the push.  The
+per-frame int8 step may take its slots from ``pos`` instead, an int32 tensor of
+the rings' positions (the raw ring's, then one per block) that stays on the card:
+F and K5 read it, :func:`ring_advance` moves it on, and the host passes nothing
+that changes from one frame to the next, so the three replay as one CUDA graph.
 
 Dispatch: tensors on the CPU take the ``*_plain`` version; CUDA tensors launch
 the kernel (``csrc/stream_int8.cu`` and ``csrc/stream_bf16.cu``: the steps on the
@@ -32,7 +37,7 @@ from videopose3d_torch.ops.kernels.temporal_block import SMEM_OPT_IN, _check, _l
 from videopose3d_torch.ops.kernels.temporal_block_int8 import QMAX, _i8mm, _rdiv, _to_stream
 
 LAUNCHES = {"stream_int8": 0, "stream_bf16": 0, "stream_int8_multi": 0,
-            "stream_bf16_multi": 0, "ring_push": 0}
+            "stream_bf16_multi": 0, "ring_push": 0, "stream_front": 0, "ring_advance": 0}
 
 _ACT_TYPE = {"int8": 0, "bf16": 1}
 
@@ -70,6 +75,48 @@ def _split(idx: Sequence[int], widths):
         out.append((int(idx[off]), [int(t) for t in idx[off + 1: off + w]]))
         off += w
     return out
+
+
+def stream_front_plain(rows, ring, pos: int, w0, s0, b0):
+    """Plain version of :func:`stream_front`: bf16(rows) (B, C_in) pushed into the
+    raw ring (cap, B, C_in) at ``pos``, in place; the expand conv's cap taps, the
+    older frames from the ring oldest first, then the frame; and the expand as
+    ``streaming._expand_step_i8``: the bf16 products summed in float64, rounded once
+    to float32, then clip(rint(relu(v * s0 + b0)), 0, 127).  Returns the (B, C) int8
+    expand stream."""
+    cap = ring.shape[0]
+    x = rows.to(torch.bfloat16)
+    _push(ring, pos, x[None], cap, False)
+    taps = torch.cat([ring[(pos - lag) % cap] for lag in range(cap - 1, 0, -1)] + [x], -1)
+    eacc = (taps.double() @ w0.double()).float()
+    return _to_stream(torch.relu(eacc * s0 + b0))
+
+
+def _ring_slot(pos, lag: int, cap: int):
+    """(pos - lag) mod cap as the kernels take it (``ring_slot``,
+    csrc/stream_step.cuh): C's truncating remainder, then cap added to a negative
+    one."""
+    s = torch.fmod(pos - lag, cap)
+    return torch.where(s < 0, s + cap, s)
+
+
+def device_slots_plain(pos, caps, lags):
+    """The slots K5 derives from the positions on the card: ``pos`` the int32
+    positions (the raw ring's, then one per block), ``caps`` and ``lags`` per
+    residual block.  Returns per block ``[write_slot, tap_slot, ...]``, concatenated,
+    as ``streaming._slots`` gives them from the host's positions."""
+    idx = []
+    for i, (cap, block_lags) in enumerate(zip(caps, lags)):
+        idx += [int(_ring_slot(pos[1 + i], lag, cap)) for lag in [0, *block_lags]]
+    return idx
+
+
+def ring_advance_plain(pos, caps):
+    """Plain version of :func:`ring_advance`: each position one frame on, modulo its
+    ring's capacity, in place."""
+    caps = torch.as_tensor(caps, dtype=pos.dtype, device=pos.device)
+    pos.copy_(_ring_slot(pos + 1, 0, caps))
+    return pos
 
 
 def block_step_i8(blk, tap_rows, newest_q, *, last: bool):
@@ -338,9 +385,12 @@ class Int8StepWeights:
         return cls(q, [(blk.pa, blk.pb) for blk in q.blocks])
 
 
-def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs):
+def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs, pos=None,
+            lags=None):
     """Check every operand against the kernel's contract and launch the step.
-    ``blocks`` holds per residual block (wa, wb, [epilogue vectors])."""
+    ``blocks`` holds per residual block (wa, wb, [epilogue vectors]).  With ``pos``
+    (the per-frame int8 step only) the kernel derives every slot from the positions
+    on the card and the per-block ``lags``; ``idx`` is then not read."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the {kind} kernel runs on CUDA tensors, got {dev}")
@@ -355,6 +405,14 @@ def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs):
     if len(rings) != n or len(blocks) != n:
         raise ValueError(f"the {kind} kernel takes one ring per residual block, got "
                          f"{n} widths and {len(rings)} rings")
+    if pos is not None:
+        if kind != "stream_int8":
+            raise ValueError(f"the {kind} kernel takes its ring positions from the host")
+        _check("positions", pos, dev, torch.int32, (n + 1,))
+        if lags is None or [len(block) for block in lags] != [w - 1 for w in widths]:
+            raise ValueError(f"positions on the card need {[w - 1 for w in widths]} older "
+                             f"taps' lags per block, got {lags}")
+        idx = [0] * sum(widths)
     if len(idx) != sum(widths):
         raise ValueError(f"idx holds {len(idx)} slots, the widths {sum(widths)}")
     # The kernels read aligned rows of the rings, x and the shrink as 16-byte words.
@@ -379,14 +437,19 @@ def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs):
             _check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c), align=16)
         for v, vec in enumerate(vecs):
             _check(f"epilogue vector {v} of block {i}", vec, dev, torch.float32, (c,))
-        # Slots: a push of k rows at `write` and every tap's k rows must lie in the ring.
-        if not 0 <= write <= cap - k or any(not 0 <= t <= (2 if doubled else 1) * cap - k
-                                            for t in taps):
+        # Slots: a push of k rows at `write` and every tap's k rows must lie in the ring;
+        # from positions on the card, every lag must reach back less than the ring holds.
+        block_lags = [] if pos is None else list(lags[i])
+        if any(not 0 < lag < cap for lag in block_lags):
+            raise ValueError(f"ring {i} (cap {cap}): lags {block_lags} out of range")
+        if pos is None and (not 0 <= write <= cap - k or any(
+                not 0 <= t <= (2 if doubled else 1) * cap - k for t in taps)):
             raise ValueError(f"ring {i} (cap {cap}): slots {write}, {taps} out of range "
                              f"for {k} frame(s)")
         ptrs += [wa.data_ptr(), wb.data_ptr(), *(v.data_ptr() for v in vecs),
                  *([None] * (5 - len(vecs))), rings[i].data_ptr()]
-        ints += [kw, cap, write] + taps + [0] * (MAX_TAPS - len(taps))
+        ints += ([kw, cap, write] + taps + [0] * (MAX_TAPS - len(taps))
+                 + block_lags + [0] * (MAX_TAPS - len(block_lags)))
     # The exchange buffer between a cluster's column slices (csrc/stream_step.cuh):
     # bf16, h and the last block's bf16(act); int8, the last block's bf16(v), then hq.
     xbuf = torch.empty(k * b * c * (3 if int8 else 4), dtype=torch.int8, device=dev)
@@ -398,7 +461,7 @@ def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs):
             _ACT_TYPE["int8" if int8 else "bf16"], n, b, c, k, int(doubled), _ptr(x),
             _ptr(ws), _ptr(bs), j3, _ptr(out), _ptr(xbuf),
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
-            ctypes.c_void_p(stream))
+            _ptr(pos), ctypes.c_void_p(stream))
     if code != 0:
         raise RuntimeError(f"the {kind} kernel failed to launch: "
                            f"{lib.vp3d_error_string(code).decode()} ({code})")
@@ -416,7 +479,7 @@ def _bf16_blocks(weights, n):
             for i in range(n)]
 
 
-def fused_blocks_step(w, rings, eq, idx, *, widths):
+def fused_blocks_step(w, rings, eq, idx, *, widths, pos=None, lags=None):
     """Every int8 residual block and the shrink on one frame, in one kernel (K5).
 
     Args:
@@ -424,15 +487,20 @@ def fused_blocks_step(w, rings, eq, idx, *, widths):
         (``streaming.prepare_int8_fused``).
       rings: per-block int8 rings (cap_i, B, C), updated in place.
       eq: (B, C) int8 expand stream of this frame (block 0's newest tap).
-      idx: per block ``[write_slot, tap_slot, ...]``, host ints.
+      idx: per block ``[write_slot, tap_slot, ...]``, host ints; not read with ``pos``.
       widths: per-block filter widths.
+      pos: None, or the rings' positions as an int32 tensor on ``eq``'s device (the
+        raw ring's, then one per block); the slots are then derived from them and
+        ``lags``, per block the older taps' lags, where the kernel runs.
 
     Returns ((B, J3) float32 poses, rings).
     """
     if eq.device.type == "cpu":
+        if pos is not None:
+            idx = device_slots_plain(pos, [r.shape[0] for r in rings], lags)
         return fused_blocks_step_plain(w, rings, eq, idx, widths=widths)
     return _launch("stream_int8", eq[None], _int8_blocks(w, len(widths)), rings, idx,
-                   widths, None, 1, False, w.q.shrink_w, w.q.shrink_b)
+                   widths, None, 1, False, w.q.shrink_w, w.q.shrink_b, pos, lags)
 
 
 def fused_blocks_step_multi(w, rings, eq, idx, *, widths, lags, caps, k):
@@ -509,3 +577,56 @@ def ring_push(buf, slot: int, row):
                            f"{lib.vp3d_error_string(code).decode()} ({code})")
     LAUNCHES["ring_push"] += 1
     return buf
+
+
+def stream_front(rows, ring, pos, w0, s0, b0, eq):
+    """The streaming front of a per-frame int8 step (F), one kernel: bf16(rows)
+    (B, C_in) into the raw ring (cap, B, C_in) at its position ``pos[0]`` (int32, on
+    the card), the expand conv over the ring's cap taps (older frames oldest first,
+    the frame last) with ``w0`` (cap * C_in, C) bf16, and ``s0``, ``b0`` (C,) float32,
+    into ``eq`` (B, C) int8, as :func:`stream_front_plain`.  Moves no position.
+    Returns ``eq``."""
+    if rows.device.type == "cpu":
+        eq.copy_(stream_front_plain(rows, ring, int(pos[0]), w0, s0, b0))
+        return eq
+    dev = rows.device
+    b, c_in = rows.shape
+    cap = ring.shape[0]
+    c = eq.shape[1]
+    _check("frame rows", rows, dev, torch.float32, (b, c_in))
+    _check("raw ring", ring, dev, torch.bfloat16, (cap, b, c_in))
+    _check("positions", pos[:1], dev, torch.int32, (1,))
+    _check("expand weights", w0, dev, torch.bfloat16, (cap * c_in, c))
+    _check("expand scale", s0, dev, torch.float32, (c,))
+    _check("expand shift", b0, dev, torch.float32, (c,))
+    _check("eq", eq, dev, torch.int8, (b, c), align=4)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.vp3d_stream_front(_ptr(rows), _ptr(ring), _ptr(pos), b, c_in, cap,
+                                     _ptr(w0), _ptr(s0), _ptr(b0), c, _ptr(eq),
+                                     ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError(f"the stream_front kernel failed to launch: "
+                           f"{lib.vp3d_error_string(code).decode()} ({code})")
+    LAUNCHES["stream_front"] += 1
+    return eq
+
+
+def ring_advance(pos, caps):
+    """Every ring's position ``pos`` (int32, the raw ring's then one per block) one
+    frame on, modulo its capacity ``caps``, in place where it lies: one tiny kernel
+    on the card.  Returns ``pos``."""
+    if pos.device.type == "cpu":
+        return ring_advance_plain(pos, caps)
+    _check("positions", pos, pos.device, torch.int32, (len(caps),))
+    lib = _load()
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        code = lib.vp3d_ring_advance(_ptr(pos), (ctypes.c_int * len(caps))(*caps), len(caps),
+                                     ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError(f"the ring_advance kernel failed to launch: "
+                           f"{lib.vp3d_error_string(code).decode()} ({code})")
+    LAUNCHES["ring_advance"] += 1
+    return pos

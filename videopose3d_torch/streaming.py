@@ -10,8 +10,10 @@ warm-up, engines, lifters and CLI (``python -m videopose3d_torch.streaming``).
   (the JAX package donates them); a caller that steps two engines from one state
   clones it first.
 * State is ``{"bufs": [ring, ...], "ptr": [int, ...]}``: each layer's ring
-  position wraps at its own capacity and stays on the host, so the ring slots
-  of a step are computed without a device-to-host copy.
+  position wraps at its own capacity and is kept on the host, so the ring slots
+  of an eager step are computed without a device-to-host copy.  The lifter's
+  per-frame ``int8_fused`` dispatch on the card keeps a copy of the positions on
+  the card too, which its CUDA graph reads and advances (:class:`_Int8StepGraph`).
 * **Warm-up** fills every ring with the steady-state activation of the first
   frame: the offline causal model edge-pads the input, and a constant input is
   a fixed point of every layer, so the streamed poses equal the offline causal
@@ -21,7 +23,10 @@ warm-up, engines, lifters and CLI (``python -m videopose3d_torch.streaming``).
   block and the shrink), ``int8`` (per-layer w8a8 of ``quantize_temporal_model``)
   and ``int8_fused`` (K5 int8); each with a k-frames-per-step form on doubled,
   k-aligned rings (K6 for the fused engines).  The raw ring and the expand
-  stay in plain torch in every engine, as JAX leaves them to XLA.
+  are plain torch in the free step functions, as JAX leaves them to XLA; the
+  lifter's per-frame ``int8_fused`` dispatch on the card runs them in one kernel,
+  the streaming front (F), and replays F, K5 and the positions' advance as one
+  CUDA graph.
   ``ring_impl="dma"`` routes the per-layer engine's block-ring writes through
   the ring-push kernel (K7).
 
@@ -45,7 +50,7 @@ from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfi
 from videopose3d_torch.ops.kernels import streaming_fused as sf
 from videopose3d_torch.ops.kernels.temporal_block_int8 import (Int8Block, QuantizedModel,
                                                                 _to_stream)
-from videopose3d_torch.profiling import span
+from videopose3d_torch.profiling import count, span
 
 StreamState = Dict[str, Any]
 
@@ -428,6 +433,23 @@ def stream_step_int8_fused(config: TemporalModelConfig, prepared: sf.Int8StepWei
                                                     "ptr": _advance_ptrs(ptr, caps)}
 
 
+def _step_on_device_positions(config, prepared: sf.Int8StepWeights, w0, lags, bufs, pos,
+                              rows, eq):
+    """The per-frame ``int8_fused`` step with the ring positions on the device:
+    the front (F: ``rows``, (B, C_in) float32, into the raw ring and the expand into
+    ``eq``), K5 on ``eq`` and the block rings, then every position one frame on.
+    The host passes nothing that changes between frames, so this is what the
+    lifter's CUDA graph captures; on the CPU it runs the plain versions.  ``w0`` is
+    the expand weights as (k0 * C_in, C) and ``lags`` each block's older taps' lags.
+    Returns (B, J3) float32 poses."""
+    q = prepared.q
+    sf.stream_front(rows, bufs[0], pos, w0, q.expand_scale, q.expand_shift, eq)
+    flat, _ = sf.fused_blocks_step(prepared, bufs[1:], eq, None,
+                                   widths=config.filter_widths[1:], pos=pos, lags=lags)
+    sf.ring_advance(pos, [buf.shape[0] for buf in bufs])
+    return flat
+
+
 @torch.no_grad()
 def stream_step_multi(config: TemporalModelConfig, weights, stream_state, frames):
     """Advance all streams by k frames with the per-layer float engine.
@@ -521,6 +543,82 @@ def _q_on(q: QuantizedModel, device) -> QuantizedModel:
 ENGINES = ("bf16", "bf16_fused", "int8", "int8_fused")
 
 
+class _Int8StepGraph:
+    """A lifter's per-frame ``int8_fused`` dispatch on the card as one CUDA graph:
+    :func:`_step_on_device_positions` (F, K5 and the positions' advance) captured
+    once over fixed tensors (the rings of the state it is built on, the positions,
+    the frame input, K5's exchange buffer and its output) and replayed for every
+    frame.  A dispatch copies the frame into a reused pinned staging tensor (a frame
+    already on a card is copied directly), uploads it without blocking, replays, and
+    clones the poses so that each dispatch's stay its own: four calls into torch.
+    Every ring and pose is bitwise :func:`stream_step_int8_fused`'s."""
+
+    def __init__(self, config, prepared: sf.Int8StepWeights, state: StreamState, device):
+        self.bufs = state["bufs"]
+        self.caps = [buf.shape[0] for buf in self.bufs]
+        self.shape = (self.bufs[0].shape[1], config.num_joints_in, config.in_features)
+        self.pos = torch.tensor(state["ptr"], dtype=torch.int32, device=device)
+        self.input = torch.zeros(self.shape, device=device)
+        self.staging = torch.empty(self.shape, pin_memory=True)
+        self._staging_np = self.staging.numpy()
+        # Recorded by the graph's first node, so after the upload that precedes each
+        # replay: the host waits on it before it overwrites the staging tensor.
+        self.uploaded = torch.cuda.Event(external=True)
+        k0, c_in, c = prepared.q.expand_w.shape
+        w0 = prepared.q.expand_w.reshape(k0 * c_in, c).contiguous()
+        _, lags = _slots(config, state["ptr"], self.caps, multi=False)
+        rows = self.input.view(self.shape[0], -1)
+
+        def body(bufs, pos):
+            eq = torch.empty((self.shape[0], c), dtype=torch.int8, device=device)
+            return _step_on_device_positions(config, prepared, w0, lags, bufs, pos, rows, eq)
+
+        # One eager run on copies of the state loads every kernel before the capture.
+        body([buf.clone() for buf in self.bufs], self.pos.clone())
+        torch.cuda.synchronize(device)
+        counted = dict(sf.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.uploaded.record()
+            self.out = body(self.bufs, self.pos)
+        # A capture runs nothing: the launches its wrappers counted are what each
+        # replay runs, and are counted once a replay.
+        self.launches = {key: n - counted[key] for key, n in sf.LAUNCHES.items()
+                         if n != counted[key]}
+        sf.LAUNCHES.update(counted)
+        count("stream.graph_captures")
+
+    def reset(self, state: StreamState) -> None:
+        """The warm-up ``state`` written into the captured rings and positions."""
+        for buf, init in zip(self.bufs, state["bufs"]):
+            buf.copy_(init)
+        self.pos.copy_(torch.tensor(state["ptr"], dtype=torch.int32))
+
+    def step(self, frame) -> torch.Tensor:
+        """One dispatch of a (B, J, F) frame, a NumPy array or a tensor on any
+        device: the (B, J3) float32 poses.  Every operation names the graph's
+        device, so any device may be the current one."""
+        if frame.shape[0] != self.shape[0]:
+            raise ValueError(f"expected a {self.shape} frame, got {tuple(frame.shape)}")
+        frame = frame.reshape(self.shape)
+        with span("vp3d.stream.frames"):
+            if isinstance(frame, torch.Tensor) and frame.device.type == "cuda":
+                self.input.copy_(frame)
+            else:
+                self.uploaded.synchronize()  # the last upload has read the staging tensor
+                if isinstance(frame, torch.Tensor):
+                    self.staging.copy_(frame)
+                else:  # one memcpy on this thread (torch's copy_ wakes its CPU pool)
+                    np.copyto(self._staging_np, frame)
+                self.input.copy_(self.staging, non_blocking=True)
+        with span("vp3d.stream.blocks"):
+            self.graph.replay()
+        count("stream.graph_replays")
+        for key, n in self.launches.items():
+            sf.LAUNCHES[key] += n
+        return self.out.clone()
+
+
 class StreamingCausalLifter:
     """Many concurrent video streams on one device, one pose per frame.
 
@@ -582,6 +680,11 @@ class StreamingCausalLifter:
             self.device = self._shards[0].device
             return
         self.device = torch.device("cuda" if device is None else device)
+        # The per-frame int8_fused dispatch on a card replays a CUDA graph, made at
+        # the first reset(); every other engine, k > 1 and the CPU run eagerly.
+        self._graphed = (engine == "int8_fused" and frames_per_step == 1
+                         and self.device.type == "cuda")
+        self._graph = None
         self.model = None if model is None else _model_on(model, self.device)
         self.quantized = None if quantized is None else _q_on(quantized, self.device)
         self._weights = self.quantized
@@ -621,6 +724,21 @@ class StreamingCausalLifter:
                 self._stream_state = (
                     init_stream_state_multi(self.config, self.model, x, k) if k > 1
                     else init_stream_state(self.config, self.model, x))
+        if self._graphed:
+            self._graph_reset()
+
+    def _graph_reset(self) -> None:
+        """Writes the warm-up state into the graph's rings, or captures the graph
+        over this state's rings the first time and whenever the batch changes; the
+        lifter's state then holds the graph's rings."""
+        state = self._stream_state
+        with torch.cuda.device(self.device):
+            if self._graph is None or self._graph.shape[0] != state["bufs"][0].shape[1]:
+                self._graph = None  # frees the old graph's pool first
+                self._graph = _Int8StepGraph(self.config, self._weights, state, self.device)
+            else:
+                self._graph.reset(state)
+        self._stream_state = {"bufs": self._graph.bufs, "ptr": list(state["ptr"])}
 
     def step(self, frame) -> torch.Tensor:
         """One dispatch: frame is (B, J, F), or (B, k, J, F) with k > 1."""
@@ -630,6 +748,13 @@ class StreamingCausalLifter:
             if self._shards is not None:
                 return torch.cat([lifter.step(part).to(self.device)
                                   for lifter, part in zip(self._shards, self._split(frame))])
+            if self._graph is not None:
+                if not isinstance(frame, torch.Tensor):
+                    frame = np.asarray(frame, np.float32)
+                flat = self._graph.step(frame)
+                self._stream_state["ptr"] = _advance_ptrs(self._stream_state["ptr"],
+                                                          self._graph.caps)
+                return _poses(self.config, flat, flat.shape[0], None)
             with span("vp3d.stream.frames"):
                 x = self._frames(frame)
             multi = self.frames_per_step > 1
