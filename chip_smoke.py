@@ -3157,7 +3157,7 @@ def phase6_kernels(cfg, model, q, device):
         print(f"phase6 {key} one call between CUDA events (host enqueue included): "
               f"kernel {cuda_ms(lambda: run(kern, a)):.4f} ms, plain "
               f"{cuda_ms(lambda: run(plain_fn, p)):.4f} ms; plan (rows, column slices) "
-              f"{sf.kernel_plan('int8', b, kk, c, sms)}; cuBLASLt int8 chain of the step's "
+              f"{sf.stream_int8_plan(b, kk, c, sms)}; cuBLASLt int8 chain of the step's "
               f"products (torch._int_mm; yardstick, not a port path) "
               f"{int8_chain_ms(q, kk * b)}")
         del a, p
@@ -3174,7 +3174,7 @@ def phase6_kernels(cfg, model, q, device):
                                           rand(STREAM_ODD_B, JOINTS, 2), 1)
     print(f"phase6 stream_int8 at C={STREAM_ODD_CHANNELS} (rows not 16-byte aligned), "
           f"B={STREAM_ODD_B}, {steps} steps: every ring bitwise, pose error {err:.3e}; plan "
-          f"{sf.kernel_plan('int8', STREAM_ODD_B, 1, STREAM_ODD_CHANNELS, sms)}")
+          f"{sf.stream_int8_plan(STREAM_ODD_B, 1, STREAM_ODD_CHANNELS, sms)}")
     del ocfg, omodel, oq
     for line in ptxas_lines(build.build_log, "stream_int8_kernel"):
         print(f"phase6 stream_int8_kernel ptxas: {line}")
@@ -3230,7 +3230,7 @@ def phase6_kernels(cfg, model, q, device):
         print(f"phase6 {key} one call between CUDA events (host enqueue included): "
               f"kernel {cuda_ms(lambda: run(kern, a)):.4f} ms, plain "
               f"{cuda_ms(lambda: run(plain_fn, p)):.4f} ms; plan (rows, column slices) "
-              f"{sf.kernel_plan('bf16', b, kk, c, sms)}; cuBLAS bf16 chain of the step's "
+              f"{sf.stream_bf16_plan(b, kk, c, sms)}; cuBLAS bf16 chain of the step's "
               f"products (yardstick, not a port path) {bf16_chain_ms(prepared, kk * b):.4f} "
               "ms graph")
         del a, p

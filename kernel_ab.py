@@ -334,6 +334,7 @@ def sweep_relu_sums(torch, trb, dev, gen, graph_ms) -> dict:
     """relu_mask_bn_sums at the four n with its clusters forced to each size
     (the row slices of relu_sums_plan's shape), each run checked against the
     plain version; ``plan`` keys hold the size the plan picks."""
+    from videopose3d_torch.ops.kernels.build import launch
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt)[6:]
@@ -349,8 +350,8 @@ def sweep_relu_sums(torch, trb, dev, gen, graph_ms) -> dict:
                 sums = torch.empty((2, CHANNELS), dtype=torch.float32, device=dev)
 
                 def run():
-                    trb._call(None, "vp3d_tb_relu_mask_bn_sums", trb._DTYPE_CODE[dt], n,
-                              CHANNELS, k, rows, *args, gz, sums)
+                    launch("vp3d_tb_relu_mask_bn_sums", dev, trb._DTYPE_CODE[dt], n,
+                           CHANNELS, k, rows, *args, gz, sums)
                 run()
                 check_elementwise(torch, f"relu_mask_bn_sums {dname} n={n} k={k}",
                                   (gz, sums[0], sums[1]), want, dt)
@@ -680,9 +681,12 @@ def sweep_stream(torch, sf, dev, gen, graph_ms, kind) -> dict:
     """Graph time of the ``kind`` ("bf16" or "int8") streaming step at each of
     STREAM_CASES with every plan (rows per CUDA block, column slices per cluster)
     the kernel takes forced, the plan its ``stream_<kind>_plan`` picks, and how
-    many clusters of each plan the card runs at once."""
-    lib = sf._load()
-    force = getattr(lib, f"vp3d_stream_{kind}_force")
+    many clusters of each plan the card runs at once.  A plan is forced by replacing
+    ``stream_<kind>_plan``, which the step's launch reads."""
+    from videopose3d_torch.ops.kernels.build import load_library
+    lib = load_library()
+    name = f"stream_{kind}_plan"
+    picked = getattr(sf, name)
     smem = getattr(sf, f"{kind}_smem_bytes")
     make = stream_int8_step if kind == "int8" else stream_bf16_step
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -693,16 +697,16 @@ def sweep_stream(torch, sf, dev, gen, graph_ms, kind) -> dict:
     for b, k in STREAM_CASES:
         step = make(torch, sf, dev, gen, b, k)
         out[f"stream_{kind} B={b} k={k} plan"] = "x".join(
-            map(str, sf.kernel_plan(kind, b, k, CHANNELS, sms)))
+            map(str, picked(b, k, CHANNELS, sms)))
         for rows, slices in plans:
             if not sf._plan_valid(smem, rows, slices, k, CHANNELS):
                 continue
-            force(rows, slices)
+            setattr(sf, name, lambda *_, plan=(rows, slices): plan)
             try:
                 out[f"stream_{kind} B={b} k={k} rows={rows} slices={slices} graph"] = (
                     graph_ms(step, reps=10))
             finally:
-                force(0, 0)
+                setattr(sf, name, picked)
         del step
     return out
 

@@ -433,44 +433,131 @@ def test_width_mirrors_equal_the_kernels_own(cuda):
             assert sf.step_smem_bytes(int8, c) == lib.vp3d_stream_smem_bytes(int(not int8), c)
 
 
-def test_int8_plan_mirror_equals_the_kernels_own(cuda):
-    """The int8 step's plan and shared memory, pure Python, equal
-    csrc/stream_int8.cu's over a grid of widths (past its ceiling too), stream
-    counts and frames per step, on this card's SM count and 132."""
-    from videopose3d_torch.ops.kernels.build import load_library
-    lib = load_library()
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for c in (1, 8, 30, 64, 200, 1000, 1024, 2080, 4096, 8192, sf.INT8_MAX_CHANNELS,
-              sf.INT8_MAX_CHANNELS + 1):
-        for rows in sf.TC_ROWS:
-            for slices in (1, 2, 4, 8):
-                assert (sf.int8_smem_bytes(rows, slices, c)
-                        == lib.vp3d_stream_int8_smem(rows, slices, c))
-        for b in (1, 2, 5, 17, 256, 1000, 1024, 4096):
-            for k in (1, 2, 3, 8, 16):
-                for n_sms in {sms, 132}:
-                    want = sf.stream_int8_plan(b, k, c, n_sms)
-                    assert sf.kernel_plan("int8", b, k, c, n_sms) == want, (b, k, c, n_sms)
+# The grid of the step's plans: widths (the int8 step's ceiling too), stream counts
+# and frames per step, on this card's SM count and 132.
+PLAN_WIDTHS = {"int8": (1, 8, 30, 64, 200, 1000, 1024, 2080, 4096, 8192,
+                        sf.INT8_MAX_CHANNELS),
+               "bf16": (1, 8, 30, 64, 200, 1024, 1216, 2048, 2360, 4096, 9000,
+                        sf.BF16_MAX_CHANNELS)}
+PLAN_STREAMS, PLAN_FRAMES = (1, 2, 5, 17, 256, 1000, 1024, 4096), (1, 2, 3, 8, 16)
 
 
-def test_bf16_plan_mirror_equals_the_kernels_own(cuda):
-    """The bf16 step's plan (rows per CUDA block, column slices per cluster) and
-    its shared memory, pure Python, equal csrc/stream_bf16.cu's over a grid of
-    widths, stream counts and frames per step, on this card's SM count and 132."""
+def _plan_weights(kind, c, device):
+    """Seeded weights of a one-block step of filter width 2 at ``c`` channels (as
+    kernel_ab.py's stream steps make them), the kind's fused-step weights."""
+    gen = torch.Generator(device).manual_seed(c)
+    ws = (torch.randn(c, 8, device=device, generator=gen) * c ** -0.5).to(torch.bfloat16)
+    bs = torch.randn(8, device=device, generator=gen) * 0.1
+    if kind == "int8":
+        i8 = lambda *shape: torch.randint(-127, 128, shape, device=device, generator=gen,
+                                          dtype=torch.int8)
+        vec = lambda scale, shift: ((torch.rand(c, device=device, generator=gen) + 0.5)
+                                    * scale + shift * torch.randn(c, device=device,
+                                                                  generator=gen))
+        blk = tq.Int8Block(i8(2, c, c), i8(c, c), vec(1 / (127 * (2 * c) ** 0.5), 0),
+                           vec(0, 0.5), vec(1 / (127 * c ** 0.5), 0), vec(0, 0.5),
+                           vec(0.5, 0))
+        return sf.Int8StepWeights.of(tq.QuantizedModel(None, None, None, [blk], ws, bs))
+    bf = lambda *shape, scale: (torch.randn(shape, device=device, generator=gen)
+                                * scale).to(torch.bfloat16)
+    vecs = torch.stack([torch.rand(c, device=device, generator=gen) + 0.5,
+                        torch.randn(c, device=device, generator=gen) * 0.1] * 2)
+    return {"w1": [bf(2, c, c, scale=(2 * c) ** -0.5)], "w2": [bf(c, c, scale=c ** -0.5)],
+            "vecs": [vecs], "shrink_w": ws, "shrink_b": bs}
+
+
+def _plan_step(kind, w, k, device):
+    """The fused step (K5, or K6 at k > 1) on weights ``w`` of :func:`_plan_weights`
+    and one stream, its plain version, and seeded rings (doubled at k > 1): each
+    step a function of the rings, returning (poses, rings)."""
+    c = (w.q.blocks[0].wq_b if kind == "int8" else w["w2"][0]).shape[0]
+    gen = torch.Generator(device).manual_seed(c * 17 + k)
+    cap = 2 * k
+    idx = [0, cap - 1]  # write at 0; the tap one frame back
+    shape = ((2 if k > 1 else 1) * cap, 1, c)
+    if kind == "int8":
+        rings = [torch.randint(0, 128, shape, device=device, generator=gen,
+                               dtype=torch.int8)]
+        x = torch.randint(0, 128, (k, 1, c), device=device, generator=gen, dtype=torch.int8)
+        fns = ((sf.fused_blocks_step, sf.fused_blocks_step_plain) if k == 1 else
+               (sf.fused_blocks_step_multi, sf.fused_blocks_step_multi_plain))
+    else:
+        rings = [torch.randn(shape, device=device, generator=gen).to(torch.bfloat16)]
+        x = torch.rand(k, 1, c, device=device, generator=gen)
+        fns = ((sf.fused_blocks_step_bf16, sf.fused_blocks_step_bf16_plain) if k == 1 else
+               (sf.fused_blocks_step_bf16_multi, sf.fused_blocks_step_bf16_multi_plain))
+    if k == 1:
+        run = lambda fn, r: fn(w, r, x[0], idx, widths=(2,))
+    else:
+        run = lambda fn, r: fn(w, r, x, idx, widths=(2,), lags=[[1]], caps=[cap], k=k)
+    return (lambda r: run(fns[0], r)), (lambda r: run(fns[1], r)), rings
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_every_planned_stream_plan_launches(cuda, kind, monkeypatch):
+    """Every plan (rows per CUDA block, column slices per cluster) the Python
+    planner picks over the grid of widths, stream counts and frames per step, on
+    this card's SM count and 132, launches on one stream and gives the plain
+    version's poses and rings (int8 rings bitwise; bf16 at its bound): the C side
+    only checks the plan it is given, and whether a plan fits does not depend on
+    the stream count.  The plans' shared memory, pure Python, equals the kernel's
+    own (past the ceiling too)."""
     from videopose3d_torch.ops.kernels.build import load_library
-    lib = load_library()
+    lib_smem = getattr(load_library(), f"vp3d_stream_{kind}_smem")
+    plan_fn = getattr(sf, f"stream_{kind}_plan")
+    smem = getattr(sf, f"{kind}_smem_bytes")
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for c in (1, 8, 30, 64, 200, 1024, 1216, 2048, 2360, 4096, 9000, sf.BF16_MAX_CHANNELS,
-              sf.BF16_MAX_CHANNELS + 1):
+    for c in PLAN_WIDTHS[kind] + (PLAN_WIDTHS[kind][-1] + 1,):
         for rows in sf.TC_ROWS:
             for slices in (1, 2, 4, 8):
-                assert (sf.bf16_smem_bytes(rows, slices, c)
-                        == lib.vp3d_stream_bf16_smem(rows, slices, c))
-        for b in (1, 2, 5, 17, 256, 1000, 1024, 4096):
-            for k in (1, 2, 3, 8, 16):
-                for n_sms in {sms, 132}:
-                    want = sf.stream_bf16_plan(b, k, c, n_sms)
-                    assert sf.kernel_plan("bf16", b, k, c, n_sms) == want, (b, k, c, n_sms)
+                assert smem(rows, slices, c) == lib_smem(rows, slices, c), (rows, slices, c)
+    for c in PLAN_WIDTHS[kind]:
+        w = _plan_weights(kind, c, cuda)
+        for k in PLAN_FRAMES:
+            plans = {plan_fn(b, k, c, n_sms) for b in PLAN_STREAMS for n_sms in {sms, 132}}
+            assert None not in plans, (c, k)
+            kernel, plain, rings = _plan_step(kind, w, k, cuda)
+            for plan in sorted(plans):
+                assert smem(*plan, c) <= tb.SMEM_OPT_IN, (c, k, plan)
+                monkeypatch.setattr(sf, f"stream_{kind}_plan", lambda *_, p=plan: p)
+                want_rings = [r.clone() for r in rings]
+                got_rings = [r.clone() for r in rings]
+                want, _ = plain(want_rings)
+                got, _ = kernel(got_rings)
+                where = (c, k, plan)
+                if kind == "int8":
+                    assert torch.equal(got_rings[0], want_rings[0]), where
+                    _check(got, want, torch.float32)
+                else:
+                    _check(got, want, torch.bfloat16)
+                    _check(got_rings[0], want_rings[0], torch.bfloat16)
+            monkeypatch.setattr(sf, f"stream_{kind}_plan", plan_fn)
+        del w
+    assert plan_fn(1, 1, PLAN_WIDTHS[kind][-1] + 1, sms) is None
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_stream_step_refuses_a_plan_it_cannot_take(cuda, kind, monkeypatch):
+    """A plan that breaks plan_fits (rows not a multiple of 16, past 80 or fewer
+    than the step's frames; slices not a power of two or past the width's most; a
+    block's shared memory past the opt-in ceiling) is refused by the C side with
+    cudaErrorInvalidValue: the launch raises naming the kernel, counts nothing and
+    leaves the rings as they were."""
+    top = getattr(sf, f"{kind.upper()}_MAX_CHANNELS")
+    cases = [(64, 1, (24, 1)), (64, 8, (96, 1)), (64, 1, (0, 1)), (64, 1, (16, 0)),
+             (1024, 1, (16, 3)), (8, 4, (16, 2)), (1024, 1, (16, 16)), (top, 1, (80, 1))]
+    key = f"stream_{kind}"
+    for c, k, plan in cases:
+        kernel, _, rings = _plan_step(kind, _plan_weights(kind, c, cuda), k, cuda)
+        before_rings = [r.clone() for r in rings]
+        monkeypatch.setattr(sf, f"{key}_plan", lambda *_, p=plan: p)
+        before = dict(sf.LAUNCHES)
+        with pytest.raises(RuntimeError, match=f"the {key}(_multi)? kernel failed to "
+                                               "launch: invalid argument"):
+            kernel(rings)
+        torch.cuda.synchronize()
+        assert sf.LAUNCHES == before, (c, k, plan)
+        assert torch.equal(rings[0], before_rings[0]), (c, k, plan)
 
 
 def _one_tap_inputs(n, c, dt, dropout, device):
@@ -669,7 +756,7 @@ TRAIN_BLOCK_CASES = [  # batch, frames, channels, fw, center, dropout
 def test_train_block_plans_tile_the_rows_on_this_card(cuda, n):
     """At the semi-supervised steps' row counts and this card's SM count, each
     K2 plan cuts its dimension into in-order slices that tile it exactly."""
-    sms = trb._sms(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plans = [trb.relu_sums_plan(n, 1024, 4), trb.relu_sums_plan(n, 1024, 2),
              trb.dw_gemm_plan(n, 1024, sms), trb.tap_gemm_plan(n, 3072, 1024, sms),
              trb.tap_gemm_plan(n, 1024, 3072, sms), trb.tap_gemm_plan(n, 1024, 1024, sms)]
@@ -1283,9 +1370,11 @@ def test_stream_graph_lifter_steps_without_a_fetch(cuda):
         outs = [lifter.step(host[:, t]) for t in range(6)]
     counters = profiling.counters()
     assert counters.get("stream.graph_replays") == 6
-    assert lifter._graph.launches == {"stream_int8": 1, "stream_front": 1, "ring_advance": 1}
+    assert [(launches, key) for launches, key in lifter._graph.launches] == [
+        (sf.LAUNCHES, "stream_front"), (sf.LAUNCHES, "stream_int8"),
+        (sf.LAUNCHES, "ring_advance")]
     assert {key: n - before[key] for key, n in sf.LAUNCHES.items() if n != before[key]} == {
-        key: 6 for key in lifter._graph.launches}
+        "stream_front": 6, "stream_int8": 6, "ring_advance": 6}
     assert "stream.graph_captures" not in counters  # captured in reset(), unprofiled
     for t, got in enumerate(outs):
         want, eager = st.stream_step_int8_fused(cfg, w, eager, frames[:, t])

@@ -26,6 +26,8 @@ from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfi
                                                 forward_dilated, forward_dilated_fused,
                                                 forward_dilated_int8)
 from videopose3d_torch.ops.kernels.protocols import video_protocols
+from videopose3d_torch.ops.kernels.temporal_block_int8 import (quantize_temporal_model,
+                                                                quantized_on)
 from videopose3d_torch.ops.losses import (mean_velocity_error, mpjpe_np, n_mpjpe_np,
                                           p_mpjpe)
 from videopose3d_torch.parallel import mesh
@@ -118,8 +120,6 @@ class Evaluator:
         data or on ``x`` when the model's tensors changed.  The key is every
         parameter's and buffer's identity and version counter (in-place writes
         bump it); the tensors are held so that their ids stay unique."""
-        from videopose3d_torch.ops.kernels.temporal_block_int8 import (
-            quantize_temporal_model)
         tensors = list(itertools.chain(model.parameters(), model.buffers()))
         key = tuple((id(t), t._version) for t in tensors)
         if self._q is None or self._q_key != key:
@@ -165,8 +165,7 @@ class Evaluator:
         if self.engine == "int8":
             q = self.quantized(model, x)
             if x.device != _device_of(model):
-                from videopose3d_torch.streaming import _q_on
-                q = self._on("int8", q, self._q_key, x.device, _q_on)
+                q = self._on("int8", q, self._q_key, x.device, quantized_on)
             return forward_dilated_int8(self.model_cfg, q, x)
         model = self._model_on(model, x.device)
         if self.engine == "fused":

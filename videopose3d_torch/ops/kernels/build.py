@@ -7,19 +7,28 @@ loaded with ``ctypes``.  The build happens at first use, into
 hash of the sources and flags, so an edited source is rebuilt and an unchanged
 one is not.  Nothing here runs at import time: a machine without ``nvcc`` or a
 card can import every module of the package.
+
+Every kernel wrapper launches through :func:`launch`, which owns the calling
+convention (the device, the current stream, pointers, the library's error, the
+launch counts) and checks its operands with :func:`check`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -60,18 +69,15 @@ _ENTRY_ARGTYPES = {
                           ctypes.POINTER(_I), _P, _P],
     # (frame, ring, pos, batch, c_in, cap, w0, s0, b0, channels, eq, stream)
     "vp3d_stream_front": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I, _P, _P],
-    # csrc/streaming_fused.cu: (act_type, n_blocks, batch, channels, k, doubled, x, ws,
-    #   bs, j3, out, xbuf, ptrs (host void*[]), ints (host int[]), pos, stream)
-    "vp3d_stream_step": [_I] * 6 + [_P] * 3 + [_I, _P, _P, ctypes.POINTER(_P),
+    # csrc/streaming_fused.cu: (act_type, n_blocks, batch, channels, k, doubled, rows,
+    #   slices, x, ws, bs, j3, out, xbuf, ptrs (host void*[]), ints (host int[]), pos,
+    #   stream)
+    "vp3d_stream_step": [_I] * 8 + [_P] * 3 + [_I, _P, _P, ctypes.POINTER(_P),
                                                ctypes.POINTER(_I), _P, _P],
     # (ring, row, offset_bytes, n_bytes, stream)
     "vp3d_ring_push": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     # (pos, caps (host int[]), n, stream)
     "vp3d_ring_advance": [_P, ctypes.POINTER(_I), _I, _P],
-    # csrc/stream_bf16.cu, csrc/stream_int8.cu: (batch, k, channels, sms, &rows,
-    #   &slices)
-    "vp3d_stream_bf16_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
-    "vp3d_stream_int8_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     # csrc/protocols.cu: (pred, target, n, joints, part, out, stream)
     "vp3d_video_protocols": [_P, _P, _I, _I, _P, _P, _P],
 }
@@ -160,8 +166,6 @@ def load_library() -> ctypes.CDLL:
     for kind in ("bf16", "int8"):
         getattr(lib, f"vp3d_stream_{kind}_smem").argtypes = [_I] * 3
         getattr(lib, f"vp3d_stream_{kind}_smem").restype = ctypes.c_size_t
-        getattr(lib, f"vp3d_stream_{kind}_force").argtypes = [_I] * 2
-        getattr(lib, f"vp3d_stream_{kind}_force").restype = None
         getattr(lib, f"vp3d_stream_{kind}_max_clusters").argtypes = [_I] * 3
         getattr(lib, f"vp3d_stream_{kind}_max_clusters").restype = ctypes.c_int
     for name in ("vp3d_stream_max_blocks", "vp3d_stream_max_taps"):
@@ -169,3 +173,71 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def check(name, t, device, dtype, shape, align: int = 1):
+    """Raises a ValueError unless the operand ``name`` is a contiguous ``dtype``
+    tensor of ``shape`` on ``device`` whose data is ``align``-byte aligned."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of the card ``device`` (a tensor's device, so indexed)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The launch record of this thread's CUDA-graph capture, or None (recorded_launches).
+_capture = threading.local()
+
+
+def launch(name: str, device, *args, count=None) -> None:
+    """Launches the library's entry point ``name`` on ``device``'s current stream:
+    a tensor in ``args`` passes as its data pointer, None as a null pointer, and the
+    stream is appended last.  Raises a RuntimeError naming the kernel (``count``'s
+    key, else ``name``) and the library's error string if the launch failed.  A
+    launch that succeeded is counted at ``count``, a ``(LAUNCHES dict, key)`` pair
+    (None: not counted), or inside :func:`recorded_launches` recorded instead."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, name)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+            ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError(f"the {name if count is None else count[1]} kernel failed to "
+                           f"launch: {lib.vp3d_error_string(code).decode()} ({code})")
+    if count is not None:
+        record = getattr(_capture, "record", None)
+        if record is None:
+            count[0][count[1]] += 1
+        else:
+            record.append(count)
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Around a CUDA-graph capture: the launches this thread makes inside the block
+    run nothing, so they are recorded, not counted.  Yields the record, a list of
+    ``(LAUNCHES dict, key)`` in launch order; :func:`count_replay` counts it once a
+    replay of the graph."""
+    _capture.record = record = []
+    try:
+        yield record
+    finally:
+        _capture.record = None
+
+
+def count_replay(record) -> None:
+    """Counts each launch of a :func:`recorded_launches` record once: one replay."""
+    for launches, key in record:
+        launches[key] += 1

@@ -46,9 +46,9 @@
 // 0 channels (or J3 % 8 != 0 shrink columns) are not 16-byte aligned and are loaded
 // element by element; K and N tails are zero-filled.  One CUDA block per SM (512
 // threads of at most 128 registers), so a cluster of 8 fits in 120 of an H100's 132
-// SMs: the plan (M, n) keeps a step's clusters to one wave where it can (M = 80 at
-// B = 1,024: 13 clusters) by stream_tc.cuh's cost model, plan_cost, mirrored in
-// streaming_fused.py.
+// SMs: the plan (M, n), chosen by streaming_fused.stream_bf16_plan and passed with
+// the launch, keeps a step's clusters to one wave where it can (M = 80 at B = 1,024:
+// 13 clusters); plan_valid refuses one this kernel cannot take.
 
 #include "stream_step.cuh"
 #include "stream_tc.cuh"
@@ -58,8 +58,6 @@ namespace {
 
 constexpr int kBK = 32;  // summed-dimension columns per K tile
 
-int g_force_rows = 0, g_force_slices = 0;  // kernel_ab.py --sweep: a forced plan
-
 // Shared memory of one CUDA block: the float32 carry slice (M x nc), the row offsets
 // and tap slots, each warp group's cp.async ring.
 size_t smem_bytes(int m, int n, int c) {
@@ -68,10 +66,6 @@ size_t smem_bytes(int m, int n, int c) {
 }
 
 bool plan_valid(int m, int n, int k, int c) { return plan_fits(m, n, k, c, smem_bytes(m, n, c)); }
-
-void plan(int batch, int k, int c, int sms, int* rows, int* slices) {
-  plan_step(batch, k, c, sms, kBK, 0, smem_bytes, rows, slices);
-}
 
 // The K-tile machinery below is this kernel's own, not stream_tc.cuh's generic
 // Geo / Loader / gemm_pass over the operand kind: compiled through those, this step
@@ -436,14 +430,11 @@ Kern kernel_for(int rows) {
 
 size_t stream_bf16_min_smem(int c) { return smem_bytes(16, max_slices(c), c); }
 
-cudaError_t launch_stream_bf16(StepArgs& p, cudaStream_t stream) {
-  if (p.xbuf == nullptr) return cudaErrorInvalidValue;
-  int rows = g_force_rows, slices = g_force_slices;
-  if (rows == 0) plan(p.batch, p.k, p.c, device_sms(), &rows, &slices);
-  if (!plan_valid(rows, slices, p.k, p.c)) return cudaErrorInvalidValue;
-  p.slices = slices;
-  return launch_plan(kernel_for(rows), rows, slices, smem_bytes(rows, slices, p.c), p.batch,
-                     p.k, p, stream);
+cudaError_t launch_stream_bf16(const StepArgs& p, cudaStream_t stream) {
+  if (p.xbuf == nullptr || !plan_valid(p.rows, p.slices, p.k, p.c)) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_plan(kernel_for(p.rows), smem_bytes(p.rows, p.slices, p.c), p, stream);
 }
 
 }  // namespace vp3d
@@ -455,24 +446,9 @@ size_t vp3d_stream_bf16_smem(int rows, int slices, int channels) {
   return vp3d::smem_bytes(rows, slices, channels);
 }
 
-// The plan the bf16 step launches with for `batch` streams, k frames, c channels
-// on `sms` SMs: rows per CUDA block and column slices per cluster (0, 0 when c is
-// past the ceiling).  Returns 0.
-int vp3d_stream_bf16_plan(int batch, int k, int channels, int sms, int* rows, int* slices) {
-  vp3d::plan(batch, k, channels, sms, rows, slices);
-  return 0;
-}
-
-// Forces the plan of the following bf16 launches (0, 0: the planned one again).
-// For timing sweeps; a forced plan the step cannot take fails its launch.
-void vp3d_stream_bf16_force(int rows, int slices) {
-  vp3d::g_force_rows = rows;
-  vp3d::g_force_slices = slices;
-}
-
 // How many clusters of plan (rows, slices) at c channels the card runs at once
 // (cudaOccupancyMaxActiveClusters), or -1 when the plan is invalid: the check of
-// plan_cost's 120 usable SMs for clusters of 4 and 8 (kernel_ab.py --sweep).
+// the cost model's 120 usable SMs for clusters of 4 and 8 (kernel_ab.py --sweep).
 int vp3d_stream_bf16_max_clusters(int rows, int slices, int channels) {
   if (!vp3d::plan_valid(rows, slices, 1, channels)) return -1;
   return vp3d::max_active_clusters(vp3d::kernel_for(rows), slices,

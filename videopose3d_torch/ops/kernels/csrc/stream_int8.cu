@@ -54,9 +54,10 @@
 // one of 8 (streaming_fused.pack_int8_step), K and N tails are zero-filled, and ring
 // and hq rows of C % 16 != 0 bytes, not 16-byte aligned, are loaded element by
 // element.  The ceiling is the smallest plan's shared memory (16 rows, 8 slices: C
-// up to 15,168).  The plan (M, n) comes from the bf16 step's cost model (plan_cost)
-// over this kernel's shared memory, with a term for the cluster's meetings (kMeet),
-// mirrored in streaming_fused.py.
+// up to 15,168).  The plan (M, n) comes with the launch, chosen by
+// streaming_fused.stream_int8_plan (the bf16 step's cost model over this kernel's
+// shared memory, with a term for the cluster's meetings); plan_valid refuses one
+// this kernel cannot take.
 
 #include "int8_quant.cuh"
 #include "stream_step.cuh"
@@ -64,12 +65,6 @@
 
 namespace vp3d {
 namespace {
-
-int g_force_rows = 0, g_force_slices = 0;  // kernel_ab.py --sweep: a forced plan
-
-// plan_cost's K-tile rows per doubling of the cluster for its meetings within a
-// residual block (fitted to kernel_ab.py --sweep stream_int8 on an H100; PERF.md).
-constexpr int kMeet = 352;
 
 // Shared memory of one CUDA block: real (float32, M x nc), the row maxima, 127 / m
 // and m / 127 (M floats each), the row offsets and tap slots, the int8 carry slice
@@ -81,10 +76,6 @@ size_t smem_bytes(int m, int n, int c) {
 }
 
 bool plan_valid(int m, int n, int k, int c) { return plan_fits(m, n, k, c, smem_bytes(m, n, c)); }
-
-void plan(int batch, int k, int c, int sms, int* rows, int* slices) {
-  plan_step(batch, k, c, sms, I8Mma::kBK, kMeet, smem_bytes, rows, slices);
-}
 
 // This block's rows and column slice of the int8 carry into dst (row stride c) at
 // column col0, and into dst + copy when copy != 0; 8 bytes at a time where c % 8 == 0.
@@ -309,14 +300,11 @@ Kern kernel_for(int rows) {
 
 size_t stream_int8_min_smem(int c) { return smem_bytes(16, max_slices(c), c); }
 
-cudaError_t launch_stream_int8(StepArgs& p, cudaStream_t stream) {
-  if (p.xbuf == nullptr) return cudaErrorInvalidValue;
-  int rows = g_force_rows, slices = g_force_slices;
-  if (rows == 0) plan(p.batch, p.k, p.c, device_sms(), &rows, &slices);
-  if (!plan_valid(rows, slices, p.k, p.c)) return cudaErrorInvalidValue;
-  p.slices = slices;
-  return launch_plan(kernel_for(rows), rows, slices, smem_bytes(rows, slices, p.c), p.batch,
-                     p.k, p, stream);
+cudaError_t launch_stream_int8(const StepArgs& p, cudaStream_t stream) {
+  if (p.xbuf == nullptr || !plan_valid(p.rows, p.slices, p.k, p.c)) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_plan(kernel_for(p.rows), smem_bytes(p.rows, p.slices, p.c), p, stream);
 }
 
 }  // namespace vp3d
@@ -326,21 +314,6 @@ extern "C" {
 // Dynamic shared memory of the int8 step at plan (rows, slices) and c channels.
 size_t vp3d_stream_int8_smem(int rows, int slices, int channels) {
   return vp3d::smem_bytes(rows, slices, channels);
-}
-
-// The plan the int8 step launches with for `batch` streams, k frames, c channels
-// on `sms` SMs: rows per CUDA block and column slices per cluster (0, 0 when c is
-// past the ceiling).  Returns 0.
-int vp3d_stream_int8_plan(int batch, int k, int channels, int sms, int* rows, int* slices) {
-  vp3d::plan(batch, k, channels, sms, rows, slices);
-  return 0;
-}
-
-// Forces the plan of the following int8 launches (0, 0: the planned one again).
-// For timing sweeps; a forced plan the step cannot take fails its launch.
-void vp3d_stream_int8_force(int rows, int slices) {
-  vp3d::g_force_rows = rows;
-  vp3d::g_force_slices = slices;
 }
 
 // How many clusters of plan (rows, slices) at c channels the card runs at once, or

@@ -33,10 +33,11 @@ struct StepArgs {
   BlockArgs blk[kMaxBlocks];
   // The exchange buffer of the cluster's column slices: bf16, (2, k * batch, c) bf16
   // (h, then the last bf16(act)); int8, (k * batch, c) bf16 (the last bf16(v)), then
-  // (k * batch, c) int8 (hq).  And the launch's column slices per cluster (its rows
-  // per CUDA block are the kernel's template argument).
+  // (k * batch, c) int8 (hq).  And the launch's plan, chosen in Python
+  // (streaming_fused.py): rows per CUDA block (which pick the kernel's template
+  // instance) and column slices per cluster.
   void* xbuf;
-  int slices;
+  int rows, slices;
   // Null, or the rings' positions on the card: the raw ring's, then one per residual
   // block.  With them a per-frame int8 step (k = 1, single rings) takes `write` and
   // every tap slot from its block's position and `lag`, not from the host's ints.
@@ -55,9 +56,10 @@ __host__ __device__ __forceinline__ int ring_slot(int pos, int lag, int cap) {
 __host__ __device__ constexpr int packed_k(int c) { return (c + 31) / 32 * 32; }
 __host__ __device__ constexpr int packed_n(int c) { return (c + 7) / 8 * 8; }
 
-// The bf16 and int8 steps: each launches with its plan, or the forced one.
-cudaError_t launch_stream_bf16(StepArgs& p, cudaStream_t stream);
-cudaError_t launch_stream_int8(StepArgs& p, cudaStream_t stream);
+// The bf16 and int8 steps: each launches at the plan of `p`, or refuses one it
+// cannot take with cudaErrorInvalidValue.
+cudaError_t launch_stream_bf16(const StepArgs& p, cudaStream_t stream);
+cudaError_t launch_stream_int8(const StepArgs& p, cudaStream_t stream);
 // Dynamic shared memory of each step's smallest plan at c channels: c fits if
 // this does.
 size_t stream_bf16_min_smem(int c);

@@ -1,10 +1,11 @@
 // What the two streaming steps on the tensor cores (stream_bf16.cu, stream_int8.cu)
-// share: the cluster's column slices, the plan's cost model and search, the cluster
-// launch, the cp.async / ldmatrix / barrier instructions, the sum of the two warp
-// groups' halves and the walk over a warp's mma accumulators.  Besides, written over
-// the operand kind for the int8 step: the two products it runs on mma.sync (its int8
-// x int8 products summed exactly in int32, its bf16 x bf16 shrink summed in float32),
-// and the per-thread K-tile loader and its cp.async ring.  The bf16 step keeps its
+// share: the cluster's column slices, the check of a plan (which streaming_fused.py
+// chooses and passes in), the cluster launch, the cp.async / ldmatrix / barrier
+// instructions, the sum of the two warp groups' halves and the walk over a warp's
+// mma accumulators.  Besides, written over the operand kind for the int8 step: the
+// two products it runs on mma.sync (its int8 x int8 products summed exactly in int32,
+// its bf16 x bf16 shrink summed in float32), and the per-thread K-tile loader and its
+// cp.async ring.  The bf16 step keeps its
 // own loader and ring over bf16 (compiled through the generic ones it ran 1.5-5 %
 // slower in the same call, and spilled once: kernel_ab.py on an H100; PERF.md).
 //
@@ -25,8 +26,6 @@
 
 #include <cooperative_groups.h>
 #include <stdint.h>
-
-#include <algorithm>
 
 #include "common.cuh"
 
@@ -74,48 +73,6 @@ inline int max_slices(int c) {
 inline bool plan_fits(int m, int n, int k, int c, size_t smem) {
   return m % 16 == 0 && m >= 16 && m <= kTcMaxRows && m >= k && n >= 1 &&
          n <= max_slices(c) && (n & (n - 1)) == 0 && smem <= kMaxSmem;
-}
-
-// Cost of one C x C product of the step at plan (m, n), K tiles `bk` deep: each
-// block's K tiles (per 128-column pass) weighted by the rows of A and B they load,
-// plus `meet` K-tile rows per doubling of the cluster for a step whose cluster meets
-// within a product (the int8 step's row maxima and hq: each meeting waits for the
-// slowest block), times the waves of clusters (one CUDA block per SM; a cluster of 4
-// or 8 fits in 120 of an H100's 132 SMs, by its GPCs) plus the blocks' share of the
-// SMs (the L2 they share slows each block as more SMs load at once).  In units of
-// K-tile rows / sms.
-inline long long plan_cost(int m, int n, int batch, int k, int c, int sms, int bk, int meet) {
-  const long long tiles = (batch + m / k - 1) / (m / k);
-  const long long nc = slice_cols(c, n);
-  const long long passes = (nc + kTcNP - 1) / kTcNP;
-  const long long usable = n >= 4 ? (long long)sms * 120 / 132 : sms;
-  const long long per_wave = std::max(1LL, usable / n);
-  const long long waves = (tiles + per_wave - 1) / per_wave;
-  int doublings = 1;  // log2(2n)
-  for (int v = n; v > 1; v >>= 1) ++doublings;
-  const long long per_block = passes * ((c + bk - 1) / bk) * (m + 32) + (long long)meet * doublings;
-  return per_block * (waves * sms + tiles * n);
-}
-
-// The cheapest plan that fits (fewest rows, then fewest slices, among equals);
-// rows 0 when none fits (c past the ceiling).  smem(m, n, c): a block's bytes.
-template <typename Smem>
-void plan_step(int batch, int k, int c, int sms, int bk, int meet, Smem smem, int* rows,
-               int* slices) {
-  *rows = 0;
-  *slices = 0;
-  long long best = -1;
-  for (int m = 16; m <= kTcMaxRows; m += 16) {
-    for (int n = 1; n <= kTcMaxSlices; n *= 2) {
-      if (!plan_fits(m, n, k, c, smem(m, n, c))) continue;
-      const long long cost = plan_cost(m, n, batch, k, c, sms, bk, meet);
-      if (best < 0 || cost < best) {
-        best = cost;
-        *rows = m;
-        *slices = n;
-      }
-    }
-  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -528,19 +485,19 @@ inline void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, un
   cfg->numAttrs = 1;
 }
 
-// Launches kernel `kern` at plan (rows, slices) with `smem` bytes per CUDA block:
-// one cluster of `slices` blocks per tile of rows / k streams.
+// Launches kernel `kern` at the plan of `p` (p.rows per CUDA block, p.slices per
+// cluster) with `smem` bytes per CUDA block: one cluster of p.slices blocks per tile
+// of p.rows / p.k streams.
 template <typename Kern, typename Args>
-cudaError_t launch_plan(Kern kern, int rows, int slices, size_t smem, int batch, int k,
-                        const Args& p, cudaStream_t stream) {
+cudaError_t launch_plan(Kern kern, size_t smem, const Args& p, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int sb = rows / k;
-  const unsigned tiles = (batch + sb - 1) / sb;
+  const int sb = p.rows / p.k;
+  const unsigned tiles = (p.batch + sb - 1) / sb;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  launch_config(&cfg, attr, tiles * slices, slices, smem, stream);
+  launch_config(&cfg, attr, tiles * p.slices, p.slices, smem, stream);
   err = cudaLaunchKernelEx(&cfg, kern, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -86,19 +86,19 @@ size_t vp3d_stream_smem_bytes(int act_type, int channels) {
 int vp3d_stream_max_blocks() { return kMaxBlocks; }
 int vp3d_stream_max_taps() { return kMaxTaps; }
 
-// Launches one fused streaming step on `stream`, with `xbuf` its exchange buffer
-// (stream_step.cuh).  Per residual block, `ptrs` holds 8 device pointers (wa, wb, the
+// Launches one fused streaming step at plan (rows, slices) on `stream`, with `xbuf`
+// its exchange buffer (stream_step.cuh).  Per residual block, `ptrs` holds 8 device pointers (wa, wb, the
 // 5 epilogue vectors, ring; bf16 takes 4 vectors) and `ints` 3 + 2 * kMaxTaps values
 // (width, cap, write, slot[kMaxTaps], lag[kMaxTaps]), both host arrays.
 // `pos` is null, or the rings' positions on the card (int8, k = 1, single rings only):
 // the kernel then derives every slot from them and the lags, and not from `write` and
 // `slot`.  Returns cudaGetLastError() after the launch (0 on success).  Shapes are
-// checked by the Python wrapper; this only refuses what would make the launch itself
-// invalid.
+// checked and the plan chosen by the Python wrapper; this only refuses what would
+// make the launch itself invalid, a plan the kernel cannot take included.
 int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
-                     int doubled, const void* x, const void* ws, const void* bs, int j3,
-                     void* out, void* xbuf, const void* const* ptrs, const int* ints,
-                     const void* pos, void* stream) {
+                     int doubled, int rows, int slices, const void* x, const void* ws,
+                     const void* bs, int j3, void* out, void* xbuf, const void* const* ptrs,
+                     const int* ints, const void* pos, void* stream) {
   if (n_blocks < 1 || n_blocks > kMaxBlocks || batch <= 0 || channels <= 0 || k < 1 ||
       k > kMaxFrames || j3 <= 0 || (act_type != 0 && act_type != 1) ||
       (pos != nullptr && (act_type != 0 || k != 1 || doubled))) {
@@ -110,6 +110,8 @@ int vp3d_stream_step(int act_type, int n_blocks, int batch, int channels, int k,
   p.c = channels;
   p.k = k;
   p.doubled = doubled;
+  p.rows = rows;
+  p.slices = slices;
   p.j3 = j3;
   p.x = x;
   p.ws = static_cast<const __nv_bfloat16*>(ws);

@@ -15,10 +15,11 @@ counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
+
+from videopose3d_torch.ops.kernels.build import launch
 
 LAUNCHES = {"gather_windows": 0}
 
@@ -61,15 +62,6 @@ def gather_windows(flat, row0, *, window: int, out_cols: Optional[int] = None):
     out = torch.empty((row0.shape[0], window, oc), dtype=flat.dtype, device=flat.device)
     if row0.shape[0] == 0:
         return out
-    from videopose3d_torch.ops.kernels.build import load_library
-    lib = load_library()
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream(flat.device).cuda_stream
-        code = lib.vp3d_gather_rows(flat.data_ptr(), rows, cols, flat.element_size(),
-                                    row0.data_ptr(), row0.shape[0], window, oc,
-                                    out.data_ptr(), ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the gather kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES["gather_windows"] += 1
+    launch("vp3d_gather_rows", flat.device, flat, rows, cols, flat.element_size(), row0,
+           row0.shape[0], window, oc, out, count=(LAUNCHES, "gather_windows"))
     return out

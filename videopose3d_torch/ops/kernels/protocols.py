@@ -20,9 +20,9 @@ kernel's calls, each two launches (the blocks' sums, then their fixed-order sum)
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from videopose3d_torch.ops.kernels.build import launch
 
 LAUNCHES = {"protocols": 0}
 MAX_JOINTS = 32
@@ -135,17 +135,8 @@ def video_protocols(pred, target, n: int):
     if not 0 < joints <= MAX_JOINTS:
         raise ValueError(f"video_protocols: {joints} joints, the kernel takes 1 to "
                          f"{MAX_JOINTS}")
-    from videopose3d_torch.ops.kernels.build import load_library
-    lib = load_library()
     part = torch.empty(MAX_BLOCKS, 4, dtype=torch.float64, device=pred.device)
     out = torch.empty(4, dtype=torch.float64, device=pred.device)
-    stream = torch.cuda.current_stream(pred.device).cuda_stream
-    with torch.cuda.device(pred.device):
-        code = lib.vp3d_video_protocols(pred.data_ptr(), target.data_ptr(), n, joints,
-                                        part.data_ptr(), out.data_ptr(),
-                                        ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the protocols kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES["protocols"] += 1
+    launch("vp3d_video_protocols", pred.device, pred, target, n, joints, part, out,
+           count=(LAUNCHES, "protocols"))
     return out

@@ -29,11 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Sequence
 
 import torch
 
-from videopose3d_torch.ops.kernels.temporal_block import SMEM_OPT_IN, _check, _load, _ptr
+from videopose3d_torch.ops.kernels.build import check, launch, sm_count
+from videopose3d_torch.ops.kernels.temporal_block import SMEM_OPT_IN
 from videopose3d_torch.ops.kernels.temporal_block_int8 import QMAX, _i8mm, _rdiv, _to_stream
 
 LAUNCHES = {"stream_int8": 0, "stream_bf16": 0, "stream_int8_multi": 0,
@@ -221,7 +223,8 @@ MAX_BLOCKS, MAX_TAPS, MAX_FRAMES = 8, 8, 16
 # bytes; B: 8,704 bytes) and the ring's depth, warp groups per CUDA block, the
 # shared-memory ints (row offsets and 16 tap slots), and the most column slices per
 # cluster; the K-tile depth in elements of each kind, and the int8 step's cost of
-# its cluster's meetings (``kMeet``, csrc/stream_int8.cu).
+# its cluster's meetings in K-tile rows per doubling of the cluster (fitted to
+# kernel_ab.py --sweep stream_int8 on an H100; PERF.md).
 TC_ROWS = tuple(range(16, 81, 16))
 TC_NP, TC_STAGES, TC_GROUPS, TC_SLOT_INTS, TC_MAX_SLICES = 128, 4, 2, 16, 8
 BF16_BK, INT8_BK = 32, 64
@@ -323,28 +326,21 @@ def _plan(smem, bk: int, meet: int, b: int, k: int, c: int, sms: int):
     return None if best is None else best[1:]
 
 
+@functools.lru_cache(maxsize=None)
 def stream_bf16_plan(b: int, k: int, c: int, sms: int = 132):
-    """The bf16 step's plan for ``b`` streams of ``k`` frames at ``c`` channels on
-    ``sms`` SMs (``vp3d_stream_bf16_plan``): (rows per CUDA block, column slices
-    per cluster); None past BF16_MAX_CHANNELS."""
+    """The plan the bf16 step launches with for ``b`` streams of ``k`` frames at
+    ``c`` channels on ``sms`` SMs: (rows per CUDA block, column slices per
+    cluster); None past BF16_MAX_CHANNELS.  Made once per shape; the kernel only
+    checks it (``plan_valid``, csrc/stream_bf16.cu)."""
     return _plan(bf16_smem_bytes, BF16_BK, 0, b, k, c, sms)
 
 
+@functools.lru_cache(maxsize=None)
 def stream_int8_plan(b: int, k: int, c: int, sms: int = 132):
-    """The int8 step's plan (``vp3d_stream_int8_plan``), as :func:`stream_bf16_plan`
-    over its own shared memory, 64-deep K tiles and the cost of its cluster's
-    meetings; None past INT8_MAX_CHANNELS."""
+    """The int8 step's plan, as :func:`stream_bf16_plan` over its own shared
+    memory, 64-deep K tiles and the cost of its cluster's meetings; None past
+    INT8_MAX_CHANNELS."""
     return _plan(int8_smem_bytes, INT8_BK, INT8_MEET, b, k, c, sms)
-
-
-def kernel_plan(kind: str, b: int, k: int, c: int, sms: int):
-    """The plan ``csrc/stream_<kind>.cu`` (``kind`` "bf16" or "int8") launches
-    with (``vp3d_stream_<kind>_plan``), or None; :func:`stream_bf16_plan` and
-    :func:`stream_int8_plan` mirror it without the card."""
-    rows, slices = ctypes.c_int(), ctypes.c_int()
-    getattr(_load(), f"vp3d_stream_{kind}_plan")(b, k, c, sms, ctypes.byref(rows),
-                                                 ctypes.byref(slices))
-    return (rows.value, slices.value) if rows.value else None
 
 
 def step_limit_error(engine: str, c: int, widths, k: int):
@@ -408,7 +404,7 @@ def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs, pos=N
     if pos is not None:
         if kind != "stream_int8":
             raise ValueError(f"the {kind} kernel takes its ring positions from the host")
-        _check("positions", pos, dev, torch.int32, (n + 1,))
+        check("positions", pos, dev, torch.int32, (n + 1,))
         if lags is None or [len(block) for block in lags] != [w - 1 for w in widths]:
             raise ValueError(f"positions on the card need {[w - 1 for w in widths]} older "
                              f"taps' lags per block, got {lags}")
@@ -416,27 +412,27 @@ def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs, pos=N
     if len(idx) != sum(widths):
         raise ValueError(f"idx holds {len(idx)} slots, the widths {sum(widths)}")
     # The kernels read aligned rows of the rings, x and the shrink as 16-byte words.
-    _check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c), align=16)
+    check("x", x, dev, torch.int8 if int8 else torch.float32, (k, b, c), align=16)
     ring_dt = torch.int8 if int8 else torch.bfloat16
     j3 = ws.shape[1]
-    _check("shrink_w", ws, dev, torch.bfloat16, (c, j3), align=16)
-    _check("shrink_b", bs, dev, torch.float32, (j3,))
+    check("shrink_w", ws, dev, torch.bfloat16, (c, j3), align=16)
+    check("shrink_b", bs, dev, torch.float32, (j3,))
     kp, np_ = -(-c // 32) * 32, -(-c // 8) * 8
     ptrs: List[int] = []
     ints: List[int] = []
     for i, ((write, taps), (wa, wb, vecs)) in enumerate(zip(_split(idx, widths), blocks)):
         kw = widths[i]
         cap = caps[i] if doubled else rings[i].shape[0]
-        _check(f"ring {i}", rings[i], dev, ring_dt, ((2 if doubled else 1) * cap, b, c),
-               align=16)
+        check(f"ring {i}", rings[i], dev, ring_dt, ((2 if doubled else 1) * cap, b, c),
+              align=16)
         if int8:
-            _check(f"packed wq_a {i}", wa, dev, torch.int32, (kw, kp // 4, np_), align=16)
-            _check(f"packed wq_b {i}", wb, dev, torch.int32, (kp // 4, np_), align=16)
+            check(f"packed wq_a {i}", wa, dev, torch.int32, (kw, kp // 4, np_), align=16)
+            check(f"packed wq_b {i}", wb, dev, torch.int32, (kp // 4, np_), align=16)
         else:
-            _check(f"w1 {i}", wa, dev, torch.bfloat16, (kw, c, c), align=16)
-            _check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c), align=16)
+            check(f"w1 {i}", wa, dev, torch.bfloat16, (kw, c, c), align=16)
+            check(f"w2 {i}", wb, dev, torch.bfloat16, (c, c), align=16)
         for v, vec in enumerate(vecs):
-            _check(f"epilogue vector {v} of block {i}", vec, dev, torch.float32, (c,))
+            check(f"epilogue vector {v} of block {i}", vec, dev, torch.float32, (c,))
         # Slots: a push of k rows at `write` and every tap's k rows must lie in the ring;
         # from positions on the card, every lag must reach back less than the ring holds.
         block_lags = [] if pos is None else list(lags[i])
@@ -453,19 +449,12 @@ def _launch(kind, x, blocks, rings, idx, widths, caps, k, doubled, ws, bs, pos=N
     # The exchange buffer between a cluster's column slices (csrc/stream_step.cuh):
     # bf16, h and the last block's bf16(act); int8, the last block's bf16(v), then hq.
     xbuf = torch.empty(k * b * c * (3 if int8 else 4), dtype=torch.int8, device=dev)
-    lib = _load()
     out = torch.empty((k * b, j3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.vp3d_stream_step(
-            _ACT_TYPE["int8" if int8 else "bf16"], n, b, c, k, int(doubled), _ptr(x),
-            _ptr(ws), _ptr(bs), j3, _ptr(out), _ptr(xbuf),
-            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
-            _ptr(pos), ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the {kind} kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES[kind] += 1
+    rows, slices = (stream_int8_plan if int8 else stream_bf16_plan)(b, k, c, sm_count(dev))
+    launch("vp3d_stream_step", dev, _ACT_TYPE["int8" if int8 else "bf16"], n, b, c, k,
+           int(doubled), rows, slices, x, ws, bs, j3, out, xbuf,
+           (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints), pos,
+           count=(LAUNCHES, kind))
     return out, rings
 
 
@@ -562,20 +551,13 @@ def ring_push(buf, slot: int, row):
     if buf.ndim != 3:
         raise ValueError(f"ring must be (cap, B, C), got {tuple(buf.shape)}")
     cap, b, c = buf.shape
-    _check("row", row, dev, buf.dtype, (b, c))
-    _check("ring", buf, dev, buf.dtype, (cap, b, c))
+    check("row", row, dev, buf.dtype, (b, c))
+    check("ring", buf, dev, buf.dtype, (cap, b, c))
     if not 0 <= slot < cap:
         raise ValueError(f"slot {slot} out of range for a ring of {cap}")
     n_bytes = row.numel() * row.element_size()
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.vp3d_ring_push(_ptr(buf), _ptr(row), slot * n_bytes, n_bytes,
-                                  ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the ring_push kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES["ring_push"] += 1
+    launch("vp3d_ring_push", dev, buf, row, slot * n_bytes, n_bytes,
+           count=(LAUNCHES, "ring_push"))
     return buf
 
 
@@ -593,23 +575,15 @@ def stream_front(rows, ring, pos, w0, s0, b0, eq):
     b, c_in = rows.shape
     cap = ring.shape[0]
     c = eq.shape[1]
-    _check("frame rows", rows, dev, torch.float32, (b, c_in))
-    _check("raw ring", ring, dev, torch.bfloat16, (cap, b, c_in))
-    _check("positions", pos[:1], dev, torch.int32, (1,))
-    _check("expand weights", w0, dev, torch.bfloat16, (cap * c_in, c))
-    _check("expand scale", s0, dev, torch.float32, (c,))
-    _check("expand shift", b0, dev, torch.float32, (c,))
-    _check("eq", eq, dev, torch.int8, (b, c), align=4)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.vp3d_stream_front(_ptr(rows), _ptr(ring), _ptr(pos), b, c_in, cap,
-                                     _ptr(w0), _ptr(s0), _ptr(b0), c, _ptr(eq),
-                                     ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the stream_front kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES["stream_front"] += 1
+    check("frame rows", rows, dev, torch.float32, (b, c_in))
+    check("raw ring", ring, dev, torch.bfloat16, (cap, b, c_in))
+    check("positions", pos[:1], dev, torch.int32, (1,))
+    check("expand weights", w0, dev, torch.bfloat16, (cap * c_in, c))
+    check("expand scale", s0, dev, torch.float32, (c,))
+    check("expand shift", b0, dev, torch.float32, (c,))
+    check("eq", eq, dev, torch.int8, (b, c), align=4)
+    launch("vp3d_stream_front", dev, rows, ring, pos, b, c_in, cap, w0, s0, b0, c, eq,
+           count=(LAUNCHES, "stream_front"))
     return eq
 
 
@@ -619,14 +593,7 @@ def ring_advance(pos, caps):
     on the card.  Returns ``pos``."""
     if pos.device.type == "cpu":
         return ring_advance_plain(pos, caps)
-    _check("positions", pos, pos.device, torch.int32, (len(caps),))
-    lib = _load()
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        code = lib.vp3d_ring_advance(_ptr(pos), (ctypes.c_int * len(caps))(*caps), len(caps),
-                                     ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the ring_advance kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES["ring_advance"] += 1
+    check("positions", pos, pos.device, torch.int32, (len(caps),))
+    launch("vp3d_ring_advance", pos.device, pos, (ctypes.c_int * len(caps))(*caps),
+           len(caps), count=(LAUNCHES, "ring_advance"))
     return pos

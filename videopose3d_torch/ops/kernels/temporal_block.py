@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from videopose3d_torch.models.temporal import BN_EPS
+from videopose3d_torch.ops.kernels.build import check, launch, sm_count
 
 LAUNCHES = {"expand": 0, "dilated": 0, "shrink": 0}
 
@@ -207,28 +208,6 @@ def channel_limit_error(c: int):
     return None
 
 
-def _check(name, t, device, dtype, shape, align: int = 1):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name} must be {align}-byte aligned")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=None)
 def _layout(kind, batch, t_in, t_out, c, x_cols, k0, n_taps, j3, dtype, sms):
     """What a stage's launch takes besides its operands, once per shape: the rows
@@ -273,48 +252,34 @@ def _launch(kind, x, *, t_out, channels, w0=None, s0=None, b0=None, w_taps,
         if x_cols % wd:
             raise ValueError(f"{x_cols} input columns: the expand kernel takes a "
                              f"multiple of {wd} (forward_dilated_fused pads them)")
-        _check("w0", w0, dev, dt, (k0, x_cols, c), align=16)
-        _check("bn0_scale", s0, dev, torch.float32, (c,))
-        _check("bn0_shift", b0, dev, torch.float32, (c,))
+        check("w0", w0, dev, dt, (k0, x_cols, c), align=16)
+        check("bn0_scale", s0, dev, torch.float32, (c,))
+        check("bn0_shift", b0, dev, torch.float32, (c,))
     elif x_cols != c:
         raise ValueError(f"x has {x_cols} channels, the block {c}")
-    _check("x", x, dev, dt, (batch, t_in, x_cols), align=16)
-    _check("w_taps", w_taps, dev, dt, (n_taps, c, c), align=16)
-    _check("w2", w2, dev, dt, (c, c), align=16)
+    check("x", x, dev, dt, (batch, t_in, x_cols), align=16)
+    check("w_taps", w_taps, dev, dt, (n_taps, c, c), align=16)
+    check("w2", w2, dev, dt, (c, c), align=16)
     for name, v in (("bn1_scale", s1), ("bn1_shift", b1), ("bn2_scale", s2),
                     ("bn2_shift", b2)):
-        _check(name, v, dev, torch.float32, (c,))
+        check(name, v, dev, torch.float32, (c,))
     if ws is not None:
         j3 = bs.shape[0]
-        _check("b_shrink", bs, dev, torch.float32, (j3,))
-        _check("w_shrink", ws, dev, dt, (c, j3), align=16)
+        check("b_shrink", bs, dev, torch.float32, (j3,))
+        check("w_shrink", ws, dev, dt, (c, j3), align=16)
         if j3 % wd:
             raise ValueError(f"{j3} output columns: the shrink kernel takes a multiple "
                              f"of {wd} (forward_dilated_fused pads them)")
-    sms = _sms(dev.index if dev.index is not None else torch.cuda.current_device())
     k_slices, part_floats, offsets, size = _layout(kind, batch, t_in, t_out, c, x_cols,
-                                                   k0, n_taps, j3, dt, sms)
+                                                   k0, n_taps, j3, dt, sm_count(dev))
     work = torch.empty(size, dtype=torch.uint8, device=dev)
     base = work.data_ptr()
     e, h, y, part = (None if o is None else base + o for o in offsets)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.vp3d_temporal_block(
-            _VARIANT[kind], _DTYPE_CODE[dt], batch, t_in, t_out, c, _ptr(x), x_cols,
-            _ptr(w0), _ptr(s0), _ptr(b0), k0, _ptr(w_taps), _ptr(s1), _ptr(b1), n_taps,
-            dilation, res_offset, _ptr(w2), _ptr(s2), _ptr(b2), _ptr(ws), _ptr(bs), j3,
-            e, h, y, part, part_floats, k_slices, _ptr(out), ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the {kind} kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES[kind] += 1
+    launch("vp3d_temporal_block", dev, _VARIANT[kind], _DTYPE_CODE[dt], batch, t_in, t_out,
+           c, x, x_cols, w0, s0, b0, k0, w_taps, s1, b1, n_taps, dilation, res_offset, w2,
+           s2, b2, ws, bs, j3, e, h, y, part, part_floats, k_slices, out,
+           count=(LAUNCHES, kind))
     return out
-
-
-def _load():
-    from videopose3d_torch.ops.kernels.build import load_library
-    return load_library()
 
 
 def fused_dilated_block(x, w_taps, bn1_scale, bn1_shift, w2, bn2_scale, bn2_shift,

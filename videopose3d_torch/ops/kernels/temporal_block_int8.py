@@ -57,8 +57,8 @@ from typing import Dict, List, Optional
 import torch
 
 from videopose3d_torch.models.temporal import _channels_last, _fold, receptive_field
-from videopose3d_torch.ops.kernels.temporal_block import (_check, _geometry, _load, _ptr,
-                                                          _sms, k3_plan, pad, whole_words)
+from videopose3d_torch.ops.kernels.build import check, launch, sm_count
+from videopose3d_torch.ops.kernels.temporal_block import _geometry, k3_plan, pad, whole_words
 from videopose3d_torch.ops.kernels.train_block import (DW_BLOCKS_PER_SM, DW_TILE,
                                                        TAP_MAX_SLICES)
 
@@ -141,6 +141,17 @@ class QuantizedModel:
     # shrink_w and shrink_b padded to whole 16-byte words of outputs (shrink_operands).
     shrink_words: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+
+
+def quantized_on(q: QuantizedModel, device) -> QuantizedModel:
+    """``q`` on ``device`` (the int8 kernels' weight packing is rebuilt there)."""
+    to = lambda t: t.to(device)
+    return QuantizedModel(
+        expand_w=to(q.expand_w), expand_scale=to(q.expand_scale),
+        expand_shift=to(q.expand_shift),
+        blocks=[Int8Block(to(b.wq_a), to(b.wq_b), to(b.A1), to(b.B1), to(b.A2), to(b.B2),
+                          to(b.R)) for b in q.blocks],
+        shrink_w=to(q.shrink_w), shrink_b=to(q.shrink_b))
 
 
 # The stage kernels take a multiple of CHANNEL_MULTIPLE channels (their int8 rows are
@@ -539,47 +550,37 @@ def _launch(kind, x, blk: Int8Block, *, t_out, dilation, res_offset, tap_mode,
         raise ValueError(f"channels must be a multiple of {CHANNEL_MULTIPLE}, got {c} "
                          "(forward_dilated_int8 pads other widths)")
     if w0 is not None:
-        _check("x", x, dev, torch.bfloat16, (batch, t_in, x_cols))
-        _check("w0", w0, dev, torch.bfloat16, (x_cols, c))
-        _check("expand_scale", s0, dev, torch.float32, (c,))
-        _check("expand_shift", b0, dev, torch.float32, (c,))
+        check("x", x, dev, torch.bfloat16, (batch, t_in, x_cols))
+        check("w0", w0, dev, torch.bfloat16, (x_cols, c))
+        check("expand_scale", s0, dev, torch.float32, (c,))
+        check("expand_shift", b0, dev, torch.float32, (c,))
     else:
-        _check("x", x, dev, torch.int8, (batch, t_in, c), align=16)
+        check("x", x, dev, torch.int8, (batch, t_in, c), align=16)
     packed_rows = -(-c // 32) * 8
-    _check("packed wq_a", blk.pa, dev, torch.int32, (n_taps, packed_rows, c), align=16)
-    _check("packed wq_b", blk.pb, dev, torch.int32, (packed_rows, c), align=16)
+    check("packed wq_a", blk.pa, dev, torch.int32, (n_taps, packed_rows, c), align=16)
+    check("packed wq_b", blk.pb, dev, torch.int32, (packed_rows, c), align=16)
     for name in ("A1", "B1", "A2", "B2", "R"):
-        _check(name, getattr(blk, name), dev, torch.float32, (c,))
+        check(name, getattr(blk, name), dev, torch.float32, (c,))
     j3 = 0
     if ws is not None:
         j3 = ws.shape[1]
         if j3 != whole_words(j3, torch.bfloat16):
             raise ValueError(f"w_shrink must have a whole number of 16-byte bf16 words of "
                              f"columns, got {j3} (shrink_operands pads a model's)")
-        _check("w_shrink", ws, dev, torch.bfloat16, (c, j3), align=16)
-        _check("b_shrink", bs, dev, torch.float32, (j3,))
-        _check("out", out, dev, torch.float32, (batch, t_out, j3))
+        check("w_shrink", ws, dev, torch.bfloat16, (c, j3), align=16)
+        check("b_shrink", bs, dev, torch.float32, (j3,))
+        check("out", out, dev, torch.float32, (batch, t_out, j3))
     accshift = int(tap_mode == "accshift")
-    sms = _sms(dev.index if dev.index is not None else torch.cuda.current_device())
     k_slices, part_ints, fpart, offsets, size = _layout(
-        kind, accshift, batch, t_in, t_out, c, n_taps, dilation, j3, sms)
+        kind, accshift, batch, t_in, t_out, c, n_taps, dilation, j3, sm_count(dev))
     work = torch.empty(size, dtype=torch.uint8, device=dev)
     base = work.data_ptr()
     ptrs = (ctypes.c_void_p * len(_WORK))(*(None if o is None else base + o
                                             for o in offsets))
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.vp3d_int8_block(
-            _VARIANT[kind], accshift, batch, t_in, t_out, c, _ptr(x),
-            x_cols if w0 is not None else 0, _ptr(w0), _ptr(s0), _ptr(b0), _ptr(blk.pa),
-            _ptr(blk.A1), _ptr(blk.B1), n_taps, dilation, res_offset, _ptr(blk.pb),
-            _ptr(blk.A2), _ptr(blk.B2), _ptr(blk.R), _ptr(ws), _ptr(bs), j3, ptrs,
-            part_ints, fpart, k_slices, _ptr(out), ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the {kind} kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    LAUNCHES[kind + ("_accshift" if accshift else "")] += 1
+    launch("vp3d_int8_block", dev, _VARIANT[kind], accshift, batch, t_in, t_out, c, x,
+           x_cols if w0 is not None else 0, w0, s0, b0, blk.pa, blk.A1, blk.B1, n_taps,
+           dilation, res_offset, blk.pb, blk.A2, blk.B2, blk.R, ws, bs, j3, ptrs, part_ints,
+           fpart, k_slices, out, count=(LAUNCHES, kind + ("_accshift" if accshift else "")))
     return out
 
 

@@ -41,14 +41,13 @@ kernel launches per kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
 from videopose3d_torch.models.temporal import BN_EPS
-from videopose3d_torch.ops.kernels.temporal_block import _check
+from videopose3d_torch.ops.kernels.build import check, launch, sm_count
 from videopose3d_torch.parallel import mesh
 from videopose3d_torch.profiling import span
 
@@ -144,31 +143,6 @@ def du_dtaps_res_plain(ga, u, g, coef, wa, *, center: int):
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    from videopose3d_torch.ops.kernels.build import load_library
-    return load_library()
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _call(key, fn_name, *args):
-    """Launch one kernel on the current stream; raise if the launch failed."""
-    lib = _lib()
-    device = next(a for a in args if isinstance(a, torch.Tensor)).device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, fn_name)(
-            *[_ptr(a) if isinstance(a, torch.Tensor) or a is None else a for a in args],
-            ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError(f"the {key} kernel failed to launch: "
-                           f"{lib.vp3d_error_string(code).decode()} ({code})")
-    if key is not None:
-        LAUNCHES[key] += 1
-
-
 def channel_limit_error(c: int):
     """Why the train block (``--train-engine pallas`` on CUDA) cannot run at ``c``
     channels, or None: it takes any width, as the JAX package's.  The kernels
@@ -197,14 +171,14 @@ def _check_all(device, dt, **operands):
     """Operands as name=(tensor | None, dtype | None for dt, shape)."""
     for name, (t, dtype, shape) in operands.items():
         if t is not None:
-            _check(name, t, device, dtype or dt, shape)
+            check(name, t, device, dtype or dt, shape)
 
 
 def _reduce(part, c: int):
     """Sums the (2, n_tiles, C) per-tile partials in tile order -> (2, C)."""
     out = torch.empty((2, c), dtype=torch.float32, device=part.device)
-    _call(None, "vp3d_tb_stats_reduce", part.shape[1], c, part[0], part[1], out[0],
-          out[1])
+    launch("vp3d_tb_stats_reduce", part.device, part.shape[1], c, part[0], part[1],
+           out[0], out[1])
     return out
 
 
@@ -224,17 +198,18 @@ def conv_stats(x3, wa, shift, *, center: int):
     dt = x3.dtype
     _validate(x3, c)
     align = 4 * x3.element_size()  # whole 4-element rows of 16 (8) bytes
-    _check("x3", x3, x3.device, dt, (n, fw, c), align=align)
-    _check("wa", wa, x3.device, dt, (fw, c, c), align=align)
-    _check("shift", shift, x3.device, torch.float32, (c,))
+    check("x3", x3, x3.device, dt, (n, fw, c), align=align)
+    check("wa", wa, x3.device, dt, (fw, c, c), align=align)
+    check("shift", shift, x3.device, torch.float32, (c,))
     if not 0 <= center < fw:
         raise ValueError(f"center tap {center} out of range for {fw} taps")
-    plan = tap_gemm_plan(n, fw * c, c, _sms(x3.device))
+    plan = tap_gemm_plan(n, fw * c, c, sm_count(x3.device))
     u = torch.empty((n, c), dtype=dt, device=x3.device)
     res = torch.empty_like(u)
     part = _partials(n, c, x3.device)
-    _call("conv_stats", "vp3d_tb_conv_stats", _DTYPE_CODE[dt], n, c, fw, center, len(plan),
-          plan[0][1], x3, wa, shift, u, res, part[0], part[1], _split_scratch(plan, n, c, u))
+    launch("vp3d_tb_conv_stats", x3.device, _DTYPE_CODE[dt], n, c, fw, center, len(plan),
+           plan[0][1], x3, wa, shift, u, res, part[0], part[1],
+           _split_scratch(plan, n, c, u), count=(LAUNCHES, "conv_stats"))
     s = _reduce(part, c)
     return u, res, s[0], s[1]
 
@@ -252,14 +227,14 @@ def norm_drop_matmul_stats(u, mask, gate, wb, shift):
     _validate(u, c)
     _check_all(u.device, dt, u=(u, None, (n, c)), mask=(mask, None, (n, c)),
                gate=(gate, None, (3, c)), shift=(shift, torch.float32, (c,)))
-    _check("wb", wb, u.device, dt, (c, c), align=4 * u.element_size())
-    plan = tap_gemm_plan(n, c, c, _sms(u.device))
+    check("wb", wb, u.device, dt, (c, c), align=4 * u.element_size())
+    plan = tap_gemm_plan(n, c, c, sm_count(u.device))
     d = torch.empty_like(u)
     v = torch.empty_like(u)
     part = _partials(n, c, u.device)
-    _call("norm_drop_matmul_stats", "vp3d_tb_norm_drop_matmul_stats", _DTYPE_CODE[dt], n,
-          c, len(plan), plan[0][1], u, mask, gate, wb, shift, d, v, part[0], part[1],
-          _split_scratch(plan, n, c, u))
+    launch("vp3d_tb_norm_drop_matmul_stats", u.device, _DTYPE_CODE[dt], n, c, len(plan),
+           plan[0][1], u, mask, gate, wb, shift, d, v, part[0], part[1],
+           _split_scratch(plan, n, c, u), count=(LAUNCHES, "norm_drop_matmul_stats"))
     s = _reduce(part, c)
     return d, v, s[0], s[1]
 
@@ -274,8 +249,8 @@ def norm_drop_res(v, mask, gate, res):
     _check_all(v.device, dt, v=(v, None, (n, c)), mask=(mask, None, (n, c)),
                gate=(gate, None, (3, c)), res=(res, None, (n, c)))
     out = torch.empty_like(v)
-    _call("norm_drop_res", "vp3d_tb_norm_drop_res", _DTYPE_CODE[dt], n, c, v, mask, gate,
-          res, out)
+    launch("vp3d_tb_norm_drop_res", v.device, _DTYPE_CODE[dt], n, c, v, mask, gate, res,
+           out, count=(LAUNCHES, "norm_drop_res"))
     return out
 
 
@@ -324,13 +299,14 @@ def relu_mask_bn_sums(g, z, mask, stat, gate):
     for name, t, shape in (("g", g, (n, c)), ("z", z, (n, c)), ("mask", mask, (n, c)),
                            ("gate", gate, (3, c))):
         if t is not None:
-            _check(name, t, g.device, dt, shape, align=align)
-    _check("stat", stat, g.device, torch.float32, (2, c), align=16)
+            check(name, t, g.device, dt, shape, align=align)
+    check("stat", stat, g.device, torch.float32, (2, c), align=16)
     plan = relu_sums_plan(n, c, g.element_size())
     gz = torch.empty_like(g)
     sums = torch.empty((2, c), dtype=torch.float32, device=g.device)
-    _call("relu_mask_bn_sums", "vp3d_tb_relu_mask_bn_sums", _DTYPE_CODE[dt], n, c,
-          len(plan), plan[0][1], g, z, mask, stat, gate, gz, sums)
+    launch("vp3d_tb_relu_mask_bn_sums", g.device, _DTYPE_CODE[dt], n, c, len(plan),
+           plan[0][1], g, z, mask, stat, gate, gz, sums,
+           count=(LAUNCHES, "relu_mask_bn_sums"))
     return gz, sums[0], sums[1]
 
 
@@ -346,12 +322,12 @@ def dz_matmul_dd(gz, z, coef, wb):
     _validate(gz, c)
     _check_all(gz.device, dt, gz=(gz, None, (n, c)), z=(z, None, (n, c)),
                coef=(coef, torch.float32, (5, c)), wb=(wb, None, (c, c)))
-    plan = tap_gemm_plan(n, c, c, _sms(gz.device))
+    plan = tap_gemm_plan(n, c, c, sm_count(gz.device))
     dz = torch.empty_like(gz)
     dd = torch.empty_like(gz)
-    _call("dz_matmul_dd", "vp3d_tb_dz_matmul_dd", _DTYPE_CODE[dt], n, c, len(plan),
-          plan[0][1], gz, z, coef, wb.t().contiguous(), dz, dd,
-          _split_scratch(plan, n, c, gz))
+    launch("vp3d_tb_dz_matmul_dd", gz.device, _DTYPE_CODE[dt], n, c, len(plan), plan[0][1],
+           gz, z, coef, wb.t().contiguous(), dz, dd, _split_scratch(plan, n, c, gz),
+           count=(LAUNCHES, "dz_matmul_dd"))
     return dz, dd
 
 
@@ -424,10 +400,6 @@ def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132, *,
     return plan(min(range(1, min(slabs, TAP_MAX_SLICES) + 1), key=lambda s: (cost(s), s)))
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _split_scratch(plan, m: int, n: int, like):
     """The float32 (slices, m, n) products of a split tap GEMM, or None."""
     if len(plan) == 1:
@@ -445,13 +417,13 @@ def dw_gemm(a, b):
     n, c = a.shape
     _validate(a, c)
     for name, t in (("a", a), ("b", b)):  # whole 4-element cp.async copies
-        _check(name, t, a.device, dt, (n, c), align=4 * a.element_size())
-    plan = dw_gemm_plan(n, c, _sms(a.device))
+        check(name, t, a.device, dt, (n, c), align=4 * a.element_size())
+    plan = dw_gemm_plan(n, c, sm_count(a.device))
     dw = torch.empty((c, c), dtype=torch.float32, device=a.device)
     part = (None if len(plan) == 1 else
             torch.empty((len(plan), c, c), dtype=torch.float32, device=a.device))
-    _call("dw_gemm", "vp3d_tb_dw_gemm", _DTYPE_CODE[dt], n, c, len(plan), plan[0][1], a, b,
-          part, dw)
+    launch("vp3d_tb_dw_gemm", a.device, _DTYPE_CODE[dt], n, c, len(plan), plan[0][1], a, b,
+           part, dw, count=(LAUNCHES, "dw_gemm"))
     return dw
 
 
@@ -470,13 +442,12 @@ def du_dtaps_res(ga, u, g, coef, wa, *, center: int):
                wa=(wa, None, (fw, c, c)))
     if not 0 <= center < fw:
         raise ValueError(f"center tap {center} out of range for {fw} taps")
-    plan = tap_gemm_plan(n, c, fw * c, _sms(ga.device))
+    plan = tap_gemm_plan(n, c, fw * c, sm_count(ga.device))
     du = torch.empty_like(ga)
     dx3 = torch.empty((n, fw, c), dtype=dt, device=ga.device)
-    _call("du_dtaps_res", "vp3d_tb_du_dtaps_res", _DTYPE_CODE[dt], n, c, fw, center,
-          len(plan), plan[0][1], ga, u, g, coef,
-          wa.permute(2, 0, 1).reshape(c, fw * c).contiguous(),
-          du, dx3, _split_scratch(plan, n, fw * c, ga))
+    launch("vp3d_tb_du_dtaps_res", ga.device, _DTYPE_CODE[dt], n, c, fw, center, len(plan),
+           plan[0][1], ga, u, g, coef, wa.permute(2, 0, 1).reshape(c, fw * c).contiguous(),
+           du, dx3, _split_scratch(plan, n, fw * c, ga), count=(LAUNCHES, "du_dtaps_res"))
     return du, dx3
 
 

@@ -48,8 +48,9 @@ from videopose3d_torch.evaluate import full_float32
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 _channels_last, _fold, receptive_field)
 from videopose3d_torch.ops.kernels import streaming_fused as sf
-from videopose3d_torch.ops.kernels.temporal_block_int8 import (Int8Block, QuantizedModel,
-                                                                _to_stream)
+from videopose3d_torch.ops.kernels.build import count_replay, recorded_launches
+from videopose3d_torch.ops.kernels.temporal_block_int8 import (QuantizedModel, _to_stream,
+                                                                quantized_on)
 from videopose3d_torch.profiling import count, span
 
 StreamState = Dict[str, Any]
@@ -529,17 +530,6 @@ def _model_on(model: TemporalModel, device) -> TemporalModel:
     return copy.eval()
 
 
-def _q_on(q: QuantizedModel, device) -> QuantizedModel:
-    """``q`` on ``device`` (the int8 kernels' weight packing is rebuilt there)."""
-    to = lambda t: t.to(device)
-    return QuantizedModel(
-        expand_w=to(q.expand_w), expand_scale=to(q.expand_scale),
-        expand_shift=to(q.expand_shift),
-        blocks=[Int8Block(to(b.wq_a), to(b.wq_b), to(b.A1), to(b.B1), to(b.A2), to(b.B2),
-                          to(b.R)) for b in q.blocks],
-        shrink_w=to(q.shrink_w), shrink_b=to(q.shrink_b))
-
-
 ENGINES = ("bf16", "bf16_fused", "int8", "int8_fused")
 
 
@@ -576,16 +566,11 @@ class _Int8StepGraph:
         # One eager run on copies of the state loads every kernel before the capture.
         body([buf.clone() for buf in self.bufs], self.pos.clone())
         torch.cuda.synchronize(device)
-        counted = dict(sf.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # A capture runs nothing: its launches are recorded, and counted once a replay.
+        with recorded_launches() as self.launches, torch.cuda.graph(self.graph):
             self.uploaded.record()
             self.out = body(self.bufs, self.pos)
-        # A capture runs nothing: the launches its wrappers counted are what each
-        # replay runs, and are counted once a replay.
-        self.launches = {key: n - counted[key] for key, n in sf.LAUNCHES.items()
-                         if n != counted[key]}
-        sf.LAUNCHES.update(counted)
         count("stream.graph_captures")
 
     def reset(self, state: StreamState) -> None:
@@ -614,8 +599,7 @@ class _Int8StepGraph:
         with span("vp3d.stream.blocks"):
             self.graph.replay()
         count("stream.graph_replays")
-        for key, n in self.launches.items():
-            sf.LAUNCHES[key] += n
+        count_replay(self.launches)
         return self.out.clone()
 
 
@@ -686,7 +670,7 @@ class StreamingCausalLifter:
                          and self.device.type == "cuda")
         self._graph = None
         self.model = None if model is None else _model_on(model, self.device)
-        self.quantized = None if quantized is None else _q_on(quantized, self.device)
+        self.quantized = None if quantized is None else quantized_on(quantized, self.device)
         self._weights = self.quantized
         if engine in ("bf16", "bf16_fused"):
             self._weights = prepare_stream_weights(config, self.model)
