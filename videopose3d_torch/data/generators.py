@@ -19,11 +19,14 @@ Counterpart of ``videopose3d_tpu/data/generators.py``:
   (``ops/kernels/gather_rows.py``), the 3D targets and cameras by plain indexing.
   ``assemble_chunked_batch`` does the same over streams concatenated without
   margins, clamping each window to its sequence's bounds (no CLI path uses it).
-* ``UnchunkedBatcher`` yields whole videos for evaluation.
+* ``UnchunkedBatcher`` yields whole videos for evaluation: padded on the host
+  (``next_epoch``), or as stored (``raw_epoch``) for :func:`padded_rows` to pad
+  where the frames are.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -385,6 +388,32 @@ class UnchunkedBatcher:
     def augment_enabled(self) -> bool:
         return self.augment
 
+    def _bucket_length(self, n: int) -> int:
+        """The output frames computed for a video of ``n`` frames: ``n`` rounded up
+        to the next multiple of ``bucket`` (pow2 mode: ``bucket`` times a power of
+        two)."""
+        if self.bucket_pow2:
+            t_bucket = self.bucket
+            while t_bucket < n:
+                t_bucket *= 2
+            return t_bucket
+        return -(-n // self.bucket) * self.bucket
+
+    def raw_epoch(self):
+        """Yields a :class:`RawVideo` per video, in ``next_epoch``'s order and
+        skipping the same empty videos: the frames as stored, nothing padded,
+        flipped or copied.  :func:`padded_rows` builds ``next_epoch``'s
+        ``padded_2d`` from one, bit for bit."""
+        for i, seq_2d in enumerate(self.poses_2d):
+            n = seq_2d.shape[0]
+            if n == 0:
+                continue
+            yield RawVideo(
+                cam=self.cameras[i] if self.cameras is not None else None,
+                poses_3d=self.poses_3d[i] if self.poses_3d is not None else None,
+                poses_2d=seq_2d, n=n, t_bucket=self._bucket_length(n), pad=self.pad,
+                causal_shift=self.causal_shift, kps_flip_perm=self.kps_flip_perm)
+
     def next_epoch(self):
         """Yields (cam, seq_3d, padded_2d, n_out_frames) per video.
 
@@ -405,12 +434,7 @@ class UnchunkedBatcher:
                 # weighted means are unaffected by skipping it.
                 continue
 
-            if self.bucket_pow2:
-                t_bucket = self.bucket
-                while t_bucket < n:
-                    t_bucket *= 2
-            else:
-                t_bucket = -(-n // self.bucket) * self.bucket
+            t_bucket = self._bucket_length(n)
             pad_left = self.pad + self.causal_shift
             pad_right = (self.pad - self.causal_shift) + (t_bucket - n)
             batch_2d = np.pad(
@@ -430,3 +454,50 @@ class UnchunkedBatcher:
                     cam_flipped[0, 7] *= -1
                     batch_cam = np.concatenate([batch_cam, cam_flipped], axis=0)
             yield batch_cam, batch_3d, batch_2d.astype(np.float32), n
+
+
+@dataclasses.dataclass
+class RawVideo:
+    """One video of :meth:`UnchunkedBatcher.raw_epoch`: its frames as stored and
+    what :func:`padded_rows` needs to pad them as ``next_epoch`` does."""
+
+    cam: Optional[np.ndarray]       # (9,) intrinsics, or None
+    poses_3d: Optional[np.ndarray]  # (n, J3, 3) ground truth, or None
+    poses_2d: np.ndarray            # (n, J, C) keypoints
+    n: int                          # frames, the valid output frames
+    t_bucket: int                   # output frames computed (n bucketed)
+    pad: int
+    causal_shift: int
+    kps_flip_perm: Optional[np.ndarray]  # the mirrored row's keypoint order
+
+    @property
+    def left(self) -> int:
+        """Frames repeated before the first: ``pad + causal_shift``."""
+        return self.pad + self.causal_shift
+
+    @property
+    def length(self) -> int:
+        """Padded input frames: ``t_bucket + 2 * pad``."""
+        return self.t_bucket + 2 * self.pad
+
+
+def padded_rows(frames, n, *, length: int, left: int, flip_perm=None):
+    """``UnchunkedBatcher.next_epoch``'s ``padded_2d``, built from a video's raw
+    frames where they are (a plain torch function; the JAX package pads in NumPy).
+
+    ``frames`` (>= n, J, C): the first ``n`` rows are the video's, the rest is not
+    read.  ``n``: an int, or a 0-d integer tensor on ``frames``' device, so that one
+    CUDA-graph capture serves every length.  Returns (1, length, J, C), row ``i``
+    the frame ``clamp(i - left, 0, n - 1)`` (edge padding), with ``flip_perm`` (a
+    (J,) long tensor on that device) (2, length, J, C), the second row mirrored:
+    keypoints permuted, x negated.  Copies and a negation only, so bit for bit the
+    batcher's."""
+    device = frames.device
+    last = torch.as_tensor(n, device=device) - 1
+    rows = torch.minimum((torch.arange(length, device=device) - left).clamp(min=0), last)
+    x = frames[rows][None]
+    if flip_perm is None:
+        return x
+    mirrored = x[:, :, flip_perm]
+    mirrored[..., 0] *= -1
+    return torch.cat([x, mirrored])

@@ -5,10 +5,13 @@ Counterpart of ``videopose3d_tpu/evaluate.py`` (``Evaluator``, ``evaluate``,
 ``evaluate_actionwise``, ``DeviceEvalSet``); the printed protocol lines have the
 same format.  Inference and the TTA merge run on the evaluator's device, or
 round-robin over several local ``devices`` (a copy of the model on each).  On
-CUDA devices the four protocols run there too, one kernel a video
-(``ops/kernels/protocols.py``), and one fetch a call brings their means back; on
-the CPU they run on host numpy, as in the JAX package.  The per-epoch training
-losses run on the device.
+CUDA devices each video's raw frames and 3D poses go up in one copy from reused
+pinned memory, the edge padding and the mirrored row are made there, the
+``fused`` engine replays one CUDA graph per padded length, and the four
+protocols run there too, one kernel a video (``ops/kernels/protocols.py``), and
+one fetch a call brings their means back; on the CPU the batcher pads on the
+host and the protocols run on host numpy, as in the JAX package.  The per-epoch
+training losses run on the device.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from videopose3d_torch.data.generators import RawVideo, padded_rows
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 forward_dilated, forward_dilated_fused,
-                                                forward_dilated_int8)
+                                                _fused_operands, forward_dilated_int8,
+                                                tensor_state)
+from videopose3d_torch.ops.kernels.build import count_replay, recorded_launches
 from videopose3d_torch.ops.kernels.protocols import video_protocols
 from videopose3d_torch.ops.kernels.temporal_block_int8 import (quantize_temporal_model,
                                                                 quantized_on)
@@ -63,6 +69,151 @@ def _upload(array, device) -> torch.Tensor:
     return x.pin_memory().to(device, non_blocking=True)
 
 
+# float32 words of a staged video before its frames: n as an int32, then padding to
+# 16 bytes.  The frames follow, (n, J, C), and right after them the 3D poses.
+_HEADER = 4
+
+
+def _staged_words(video: RawVideo) -> int:
+    """Float32 words of ``video``'s staged form: the header, its frames and its 3D
+    poses (if any)."""
+    poses = 0 if video.poses_3d is None else video.poses_3d.size
+    return _HEADER + video.poses_2d.size + poses
+
+
+def _stage(words: np.ndarray, video: RawVideo) -> None:
+    """Writes ``video``'s staged form into the leading words of the float32 array
+    ``words``: one copy of the frames and one of the poses, on this thread."""
+    words[:1].view(np.int32)[0] = video.n
+    end = _HEADER + video.poses_2d.size
+    np.copyto(words[_HEADER:end].reshape(video.poses_2d.shape), video.poses_2d)
+    if video.poses_3d is not None:
+        np.copyto(words[end:end + video.poses_3d.size].reshape(video.poses_3d.shape),
+                  video.poses_3d)
+
+
+def _staged_frames(buf, rows: int, frame_shape):
+    """n (a 0-d int32 tensor) and ``rows`` frames of a video staged in ``buf``;
+    frames past the n-th hold other data and are never read."""
+    words = int(np.prod(frame_shape))
+    frames = buf[_HEADER:_HEADER + rows * words].view((rows,) + tuple(frame_shape))
+    return buf[:1].view(torch.int32)[0], frames
+
+
+def _staged_poses(buf, video: RawVideo):
+    """The 3D poses of ``video`` staged in ``buf``, or None."""
+    if video.poses_3d is None:
+        return None
+    start = _HEADER + video.poses_2d.size
+    return buf[start:start + video.poses_3d.size].view(video.poses_3d.shape)
+
+
+class _Staging:
+    """Pinned host buffers for one card's uploads, used in turn: a buffer is
+    overwritten only after the event recorded behind its last upload has passed, so
+    the host may run a few videos ahead of the card."""
+
+    SLOTS = 4
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._slots = [None] * self.SLOTS  # (pinned tensor, its NumPy view, event)
+        self._turn = 0
+
+    def upload(self, video: RawVideo, dst: torch.Tensor) -> None:
+        """``video``'s staged form into the leading words of ``dst`` on the card: one
+        host copy into a pinned buffer, one copy to the card that does not block."""
+        i, self._turn = self._turn, (self._turn + 1) % self.SLOTS
+        slot = self._slots[i]
+        if slot is not None:
+            slot[2].synchronize()  # its last upload has read it
+        need = _staged_words(video)
+        if slot is None or slot[0].numel() < need:
+            pinned = torch.empty(1 << (need - 1).bit_length(), pin_memory=True)
+            slot = (pinned, pinned.numpy(), torch.cuda.Event())
+            self._slots[i] = slot
+        _stage(slot[1], video)
+        dst[:need].copy_(slot[0][:need], non_blocking=True)
+        slot[2].record(torch.cuda.current_stream(self.device))
+
+
+class _GraphSet:
+    """One device's video graphs, all captured at one state of the model's tensors.
+    They allocate from one memory pool, on one capture stream (the allocator reuses
+    a block only on its stream): each reads only its own input buffer, kept alive
+    with it, and writes its intermediates before reading them, so the graphs replay
+    safely in any order."""
+
+    def __init__(self, state, device: torch.device):
+        self.state, self.device = state, device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        # (rows, padded length, dtype, J, C, pad, shift, mirror order) -> graph
+        self.graphs = {}
+        self.warm = False  # whether a video ran eagerly on the device at this state
+
+
+class _VideoGraph:
+    """The ``fused`` evaluation of one padded length on a card as one CUDA graph:
+    the edge padding and the mirrored row (:func:`padded_rows`, n read from the
+    staged header), the forward through ``Evaluator.infer`` and the TTA merge,
+    captured over a fixed input buffer at the first replay and replayed for every
+    video of that length.  The same kernels on the same inputs as the eager path,
+    so the poses are its bit for bit."""
+
+    def __init__(self, evaluator: "Evaluator", model: TemporalModel, video: RawVideo,
+                 augment: bool, graphs: _GraphSet):
+        self.evaluator, self.model, self.augment, self.set = evaluator, model, augment, graphs
+        self.rows, self.frame_shape = video.t_bucket, video.poses_2d.shape[1:]
+        self.length, self.left = video.length, video.left
+        poses = evaluator.model_cfg.num_joints_out * 3
+        self.buf = torch.zeros(_HEADER + self.rows * (video.poses_2d[0].size + poses),
+                               device=graphs.device)
+        self.perm = (torch.as_tensor(np.asarray(video.kps_flip_perm), dtype=torch.long,
+                                     device=graphs.device) if augment else None)
+        self.graph = None
+
+    def _body(self):
+        n, frames = _staged_frames(self.buf, self.rows, self.frame_shape)
+        x = padded_rows(frames, n, length=self.length, left=self.left, flip_perm=self.perm)
+        return self.evaluator._tta_merge(self.evaluator.infer(self.model, x), self.augment)
+
+    @torch.no_grad()
+    def _capture(self) -> None:
+        if not self.set.warm:
+            # The first video on a device at a model state runs eagerly: it loads the
+            # kernels and makes the device's copies (the joints' flip order), which a
+            # capture cannot.  None of it depends on the padded length, so the later
+            # lengths are captured directly.
+            self._body()
+            self.set.warm = True
+        # The graph reads the fused forward's operands but does not hold them: made
+        # here, outside the capture, and held with it, so that no later evaluation
+        # (of another dtype, say) frees what its replays read.
+        self.operands = _fused_operands(self.model, self.evaluator.model_cfg.matmul_dtype)
+        current = torch.cuda.current_stream(self.set.device)
+        self.set.stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        # A capture runs nothing: its launches are recorded, and counted once a replay.
+        with torch.cuda.stream(self.set.stream), recorded_launches() as self.launches:
+            graph.capture_begin(pool=self.set.pool, capture_error_mode="thread_local")
+            try:
+                self.out = self._body()
+            finally:
+                graph.capture_end()
+        current.wait_stream(self.set.stream)
+        self.graph = graph
+        count("eval.graph_captures")
+
+    def replay(self) -> None:
+        """Runs the graph on the video staged in ``buf``, into ``out``."""
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        count("eval.graph_replays")
+        count_replay(self.launches)
+
+
 class Evaluator:
     """Whole-sequence inference on one device.
 
@@ -79,6 +230,13 @@ class Evaluator:
     A batch on another device than the model's runs on a copy of the model there
     (of the quantized model for ``int8``, quantized once on the model's device),
     made once per model state.
+
+    On a card, ``fused`` evaluates each :class:`RawVideo` by one CUDA-graph replay,
+    one graph per device, padded length and mirroring, captured at the first video
+    of each and again after the model's tensors change (the first video on a device
+    at a model state also runs once eagerly, before its capture); ``xla`` and
+    ``int8`` run eagerly (cuDNN picks its own algorithms; int8 requantizes on model
+    changes).
     """
 
     def __init__(self, model_cfg: TemporalModelConfig,
@@ -96,6 +254,13 @@ class Evaluator:
                                                  dtype=torch.long, device=self.device))
         self._calibration = None
         self._copies = {}  # (what, device) -> (key, the copy on that device)
+        self._staging = {}  # device -> _Staging
+        self._graph_sets = {}  # device -> _GraphSet
+        # The 3D poses uploaded with the last raw video, on the card (None without):
+        # a view of the buffer they went up in, valid until the next upload into it,
+        # on the graph path the next video of the same padded length on that device.
+        # Kernels enqueued on the device's current stream before then read them.
+        self.target = None
         self.reset_quantization()
 
     def reset_quantization(self):
@@ -174,15 +339,76 @@ class Evaluator:
             return forward_dilated(model, x)
 
     def predict_async(self, model: TemporalModel, batch_2d, augment: bool, device=None):
-        """(rows, T_in, J, C) padded keypoints -> (1, T_out, J_out, 3) poses as a
-        tensor on ``device`` (default the evaluator's), not yet synchronised."""
+        """(rows, T_in, J, C) padded keypoints, or on a card a :class:`RawVideo` of
+        ``UnchunkedBatcher.raw_epoch`` -> (1, T_out, J_out, 3) poses as a tensor of
+        their own on ``device`` (default the evaluator's), not yet synchronised.
+
+        A raw video goes up with its 3D poses, which are left in ``self.target``
+        for the protocols, and is padded on the card."""
+        device = self.device if device is None else torch.device(device)
         with span("vp3d.eval.predict"):
+            if isinstance(batch_2d, RawVideo):
+                return self._predict_video(model, batch_2d, augment, device)
             with span("vp3d.eval.upload"):
-                x = _upload(batch_2d, self.device if device is None else device)
+                x = _upload(batch_2d, device)
             with span("vp3d.eval.infer"):
                 pred = self.infer(model, x)
             with span("vp3d.eval.merge"):
                 return self._tta_merge(pred, augment)
+
+    def _graph(self, model: TemporalModel, video: RawVideo, augment: bool, device):
+        """The graph of ``video``'s padded length on ``device``; a model state the
+        device's graphs were not captured at drops them all."""
+        model = self._model_on(model, device)
+        state = tensor_state(model)
+        graphs = self._graph_sets.get(device)
+        if graphs is None or graphs.state != state:
+            graphs = self._graph_sets[device] = _GraphSet(state, device)
+        perm = np.asarray(video.kps_flip_perm).tobytes() if augment else None
+        key = (2 if augment else 1, video.t_bucket, self.model_cfg.matmul_dtype,
+               video.poses_2d.shape[1:], video.pad, video.causal_shift, perm)
+        graph = graphs.graphs.get(key)
+        if graph is None:
+            graph = graphs.graphs[key] = _VideoGraph(self, model, video, augment, graphs)
+        return graph
+
+    def _predict_video(self, model: TemporalModel, video: RawVideo, augment: bool, device):
+        """``predict_async`` of a raw video: staged and uploaded, padded on the
+        card; one graph replay for ``fused``, else eagerly."""
+        if device.type != "cuda":
+            raise ValueError(f"a raw video is evaluated on a card, not on {device}: "
+                             "the batcher pads it on the host (next_epoch)")
+        if device.index is None:
+            # As a tensor's device: a model there is on it, not on a copy.
+            device = torch.device("cuda", torch.cuda.current_device())
+        graph = self._graph(model, video, augment, device) if self.engine == "fused" else None
+        with span("vp3d.eval.upload"):
+            buf = (graph.buf if graph is not None
+                   else torch.empty(_staged_words(video), device=device))
+            staging = self._staging.get(device)
+            if staging is None:
+                staging = self._staging[device] = _Staging(device)
+            staging.upload(video, buf)
+            self.target = _staged_poses(buf, video)
+            if graph is None:
+                n, frames = _staged_frames(buf, video.n, video.poses_2d.shape[1:])
+                perm = None
+                if augment:
+                    flip = np.asarray(video.kps_flip_perm)
+                    perm = self._on("kps_perm", flip, flip.tobytes(), device,
+                                    lambda a, d: torch.as_tensor(a, dtype=torch.long,
+                                                                 device=d))
+                x = padded_rows(frames, n, length=video.length, left=video.left,
+                                flip_perm=perm)
+        if graph is not None:
+            with span("vp3d.eval.infer"):
+                graph.replay()
+            with span("vp3d.eval.merge"):
+                return graph.out.clone()
+        with span("vp3d.eval.infer"):
+            pred = self.infer(model, x)
+        with span("vp3d.eval.merge"):
+            return self._tta_merge(pred, augment)
 
 
 class DeviceEvalSet:
@@ -295,12 +521,14 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
     ``return_predictions`` the first video's (T, J, 3) camera-space prediction
     (test-time augmentation merged) is returned instead, for rendering.
     ``devices``: local devices to round-robin the videos over (default the
-    evaluator's).  On CUDA devices each video's protocols run where its poses
-    are, one kernel call a video, and the videos' means come back in one fetch
-    at the end; otherwise a bounded queue of videos is in flight before the first
-    fetch, so device work overlaps the protocols on the host.  The frame-weighted
-    sums are taken on the host in the videos' order, so the numbers do not depend
-    on the device count.
+    evaluator's).  On CUDA devices the batcher's raw videos
+    (``UnchunkedBatcher.raw_epoch``) go to ``predict_async``, each video's
+    protocols run where its poses are, one kernel call a video on the 3D poses
+    uploaded with its frames, and the videos' means come back in one fetch at the
+    end; otherwise the batcher pads on the host (``next_epoch``) and a bounded
+    queue of videos is in flight before the first fetch, so device work overlaps
+    the protocols on the host.  The frame-weighted sums are taken on the host in
+    the videos' order, so the numbers do not depend on the device count.
     """
     devs = [torch.device(d) for d in devices] if devices else [evaluator.device]
     on_card = all(d.type == "cuda" for d in devs)
@@ -329,7 +557,11 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
                 ev = float(mean_velocity_error(pred_flat, target_flat))
         errors.append((target.shape[0] * target.shape[1], (e1, e2, e3, ev)))
 
-    for seq_i, (_, batch_3d, batch_2d, n_frames) in enumerate(batcher.next_epoch()):
+    if on_card:  # raw videos, padded on the card, their 3D poses uploaded with them
+        videos = ((None, video, video.n) for video in batcher.raw_epoch())
+    else:
+        videos = ((b3, b2, n) for _, b3, b2, n in batcher.next_epoch())
+    for seq_i, (batch_3d, batch_2d, n_frames) in enumerate(videos):
         pred = evaluator.predict_async(model, batch_2d, augment=batcher.augment_enabled(),
                                        device=devs[seq_i % len(devs)])
         if return_predictions:
@@ -338,9 +570,8 @@ def evaluate(evaluator: Evaluator, model: TemporalModel, batcher, *,
         count("eval.frames_computed", pred.shape[1])  # bucket padding included
         if on_card:
             with span("vp3d.eval.protocols"):
-                target = _upload(batch_3d[0], pred.device)
-                on_device.append((n_frames, video_protocols(pred[0].contiguous(), target,
-                                                            n_frames)))
+                on_device.append((n_frames, video_protocols(
+                    pred[0].contiguous(), evaluator.target, n_frames)))
             count("eval.protocols_on_device")
             continue
         pending.append((batch_3d, n_frames, pred))
