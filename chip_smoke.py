@@ -14,7 +14,7 @@ video plus 242 padding frames, 1024 channels), in float32 and bfloat16, checks t
 launches bitwise equal, times both by CUDA-graph replay beside one call, with the
 stage's slice plan and a cuBLAS chain of its products as a yardstick, holds every
 stage at 30, 1,000, 2,048 and 3,636 channels against its plain version too, and
-prints the K3 kernels' ptxas lines and the bf16 kernel's HMMA count.  Phase 2 writes synthetic Human3.6M archives and a random full-width
+prints the K3 kernels' ptxas lines and the HMMA counts of both dtypes' GEMM kernels.  Phase 2 writes synthetic Human3.6M archives and a random full-width
 checkpoint (-arc 3,3,3,3,3, 1024 channels) and runs
 ``videopose3d_torch.runner.main --evaluate`` with the fused engine in float32 and
 bfloat16 and with the plain float32 engine (each after a warm-up call), checking
@@ -29,7 +29,8 @@ float32; it times each kernel and plain version (K1 and every K2 kernel also
 from CUDA-graph replay, with a bitwise repeat of each K2 one), and beside each K2
 GEMM kernel one float32 torch.matmul of its product; it holds relu_mask_bn_sums
 at ragged n and widths (4, 1,028, 3,636 channels) too, and two CUDA-graph replays
-of it bitwise equal.  Phase 4
+of it bitwise equal, and counts the K2 GEMM kernels' HMMA instructions (every
+product on the tensor cores).  Phase 4
 trains the full-width model for one epoch of batch 1,024 with ``runner.main``
 from the random checkpoint, with the fused train engine twice and the plain one
 once (dropout 0.25, the same seed), and checks the losses, the kernel launches,
@@ -284,10 +285,12 @@ PROFILE_STEPS = (8, 16)
 
 # Peaks of an H100 SXM (NVIDIA's data sheet, dense, at 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and the sum, over the types its
-# operations run in, of operations over that type's peak (float64 on the tensor
-# cores' DMMA: 67 TFLOP/s, twice the 34 of the FP64 units).
+# operations run in, of operations over that type's peak (float32 on the TF32 tensor
+# cores, 495 TFLOP/s: the float32 GEMMs run there in 3xTF32 and pass the 67 of the
+# FP32 units; float64 on the tensor cores' DMMA: 67 TFLOP/s, twice the 34 of the
+# FP64 units).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+PEAK_OPS_PER_S = {"float32": 495e12, "bfloat16": 989e12, "int8": 1979e12,
                   "float64": 67e12}
 
 # Phase 6, streaming: B = 1,024 streams for the kernel checks, k = 8 frames per
@@ -588,10 +591,11 @@ def phase1(cfg, model, device):
     for kernel in ("k3_sgemm_kernel", "k3_mma_kernel", "k3_reduce_kernel"):
         for line in ptxas_lines(build.build_log, kernel):
             print(f"phase1 {kernel} ptxas: {line}")
-    hmma = sass_count(build.library_path(), "k3_mma_kernel", "HMMA")
-    print(f"phase1 k3_mma_kernel SASS (cuobjdump -sass): "
-          f"{'no cuobjdump' if hmma is None else f'{hmma} HMMA instructions'}")
-    check(hmma != 0, "k3_mma_kernel has no bf16 tensor-core (HMMA) instruction")
+    for kernel in ("k3_mma_kernel", "k3_sgemm_kernel"):
+        hmma = sass_count(build.library_path(), kernel, "HMMA")
+        print(f"phase1 {kernel} SASS (cuobjdump -sass): "
+              f"{'no cuobjdump' if hmma is None else f'{hmma} HMMA instructions'}")
+        check(hmma != 0, f"{kernel} has no tensor-core (HMMA) instruction")
     tb.LAUNCHES.update(saved)  # comparison launches do not count
     return results
 
@@ -1245,6 +1249,13 @@ def phase3(device):
                       f"train block n={n}: gradients differ: {rel}")
             del p
     relu_sums_checks(device)
+    # Every GEMM of K2 runs on the tensor cores: float32 in 3xTF32, bf16 in one pass.
+    from videopose3d_torch.ops.kernels import build
+    for kernel in ("tap_gemm_kernel", "dw_gemm_kernel"):
+        hmma = sass_count(build.library_path(), kernel, "HMMA")
+        print(f"phase3 {kernel} SASS (cuobjdump -sass): "
+              f"{'no cuobjdump' if hmma is None else f'{hmma} HMMA instructions'}")
+        check(hmma != 0, f"{kernel} has no tensor-core (HMMA) instruction")
     gr.LAUNCHES.update(saved[0])  # comparison launches do not count
     trb.LAUNCHES.update(saved[1])
     return results

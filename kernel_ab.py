@@ -2,9 +2,10 @@
 """A/B timing of the port's GEMM kernels on one NVIDIA GPU: the fused evaluation
 blocks (K3, float32 and bf16, its four stages), the fused int8 and
 bf16 streaming steps (K5 at k = 1, K6 at k = 8), the window gather (K1) and the train
-block's GEMMs (K2: the weight gradient ``dw_gemm``, the three-tap
-``conv_stats`` and ``du_dtaps_res`` and the one-tap ``norm_drop_matmul_stats``
-and ``dz_matmul_dd``) of this checkout against those of another checkout (for
+block's GEMMs (K2: the weight gradients, ``dw_gemm`` (dWb) and dWa, the
+three-tap ``conv_stats`` and ``du_dtaps_res`` and the one-tap
+``norm_drop_matmul_stats`` and ``dz_matmul_dd``) of this checkout against those
+of another checkout (for
 example the parent commit, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists), in turns other, this, this, other:
 
@@ -27,7 +28,9 @@ its plain version.  The other shapes are those of
 ``chip_smoke.py`` phase 3 in float32: K1 gathers 1,024 windows of 243
 rows of 34 columns from a 300,000- and a 3,000,000-row stream; the K2 kernels run
 at n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024 channels (3 taps, residual
-tap 1).  Each is timed as the median device time of CUDA-graph replays
+tap 1); the dWa row, x3^T du of (n, 3,072) by (n, 1,024), times the checkout's own
+route (``dw_gemm`` where it takes the (n, fw C) operand, else the float32 matmul
+the block ran).  Each is timed as the median device time of CUDA-graph replays
 (``graph``) and as one call between CUDA events, its host enqueue included
 (``call``), K3 also by the host's time to enqueue one call (``host``);
 ``torch.matmul`` (TF32 off) of each K2 product and the indexing
@@ -41,7 +44,8 @@ every turn's times.
 
 times the four tap GEMM kernels of this checkout at those n with the summed
 dimension forced into 1, 2, 3, 4 and 8 slices (graph replay), beside the count
-``tap_gemm_plan`` picks, to check its cost model;
+``tap_gemm_plan`` picks, to check its cost model, and ``dw_gemm`` at dWb's and
+dWa's shapes with its rows forced into as many slices, beside ``dw_gemm_plan``'s;
 
     python3 kernel_ab.py --sweep stream_bf16
 
@@ -217,13 +221,16 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
     wt = wa.permute(2, 0, 1).reshape(CHANNELS, 3 * CHANNELS).contiguous()
     wb = wa[0].contiguous()
     mask, gate = one_tap_operands(torch, dev, gen)
+    dwa = dwa_route(torch, trb)
     digest = hashlib.sha256()
     for n in DW_ROWS:
         an, bn, xn = a[:n].contiguous(), b[:n].contiguous(), x3[:n].contiguous()
-        mn = mask[:n].contiguous()
+        mn, rows = mask[:n].contiguous(), x3[:n].reshape(n, -1)
         cases = {
             "dw_gemm": (lambda: trb.dw_gemm(an, bn), lambda: torch.matmul(an.t(), bn),
                         lambda: trb.dw_gemm_plain(an, bn)),
+            "dWa": (lambda: dwa(rows, bn), lambda: torch.matmul(rows.t(), bn),
+                    lambda: trb.dw_gemm_plain(rows, bn)),
             "conv_stats": (
                 lambda: trb.conv_stats(xn, wa, shift, center=1),
                 lambda: torch.matmul(xn.reshape(n, -1), wa.reshape(-1, CHANNELS)),
@@ -255,7 +262,8 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
                 out[f"{label} n={n} graph"] = graph_ms(fn)
                 out[f"{label} n={n} call"] = call_ms(fn)
     out["dw_gemm sha256"] = digest.hexdigest()
-    out["ptxas"] += ptxas_report(build.build_log, "tap_gemm")
+    out["ptxas"] += ptxas_report(build.build_log, "tap_gemm") + ptxas_report(
+        build.build_log, "dw_gemm")
     return out
 
 
@@ -561,6 +569,16 @@ def sweep_int8(torch, tb, dev, graph_ms) -> dict:
     return out
 
 
+def dwa_route(torch, trb):
+    """The checkout's dWa = x3^T du, (n, fw C) by (n, C): ``dw_gemm`` where its
+    plan takes an (m, C) output, else the float32 ``torch.matmul`` (TF32 off)
+    that the checkout's block ran."""
+    import inspect
+    if "m" in inspect.signature(trb.dw_gemm_plan).parameters:
+        return trb.dw_gemm
+    return lambda rows, du: torch.matmul(rows.t(), du)
+
+
 def ptxas_report(log: str, name: str) -> list:
     """The ``-Xptxas -v`` lines of the kernels whose symbol holds ``name``:
     registers, stack frame and spills."""
@@ -750,6 +768,20 @@ def sweep_tap_gemms(torch, trb, dev, gen, graph_ms) -> dict:
                     out[f"{name} n={n} slices={len(plan)} graph"] = graph_ms(kernel)
                 finally:
                     trb.tap_gemm_plan = picked
+        picked_dw = trb.dw_gemm_plan
+        for name, m in (("dw_gemm dWb", CHANNELS), ("dw_gemm dWa", 3 * CHANNELS)):
+            rows = x3[:n].reshape(n, -1)[:, :m].contiguous()
+            out[f"{name} n={n} plan"] = len(picked_dw(n, m, CHANNELS))
+            slabs = -(-n // trb.DW_ROWS)
+            for want in SWEEP_SLICES:
+                step = -(-slabs // want) * trb.DW_ROWS
+                plan = [(s, min(n, s + step)) for s in range(0, n, step)]
+                trb.dw_gemm_plan = lambda *_, plan=plan: plan
+                try:
+                    out[f"{name} n={n} slices={len(plan)} graph"] = graph_ms(
+                        lambda: trb.dw_gemm(rows, an))
+                finally:
+                    trb.dw_gemm_plan = picked_dw
     return out
 
 

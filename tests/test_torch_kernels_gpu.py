@@ -758,9 +758,10 @@ def test_train_block_plans_tile_the_rows_on_this_card(cuda, n):
     K2 plan cuts its dimension into in-order slices that tile it exactly."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plans = [trb.relu_sums_plan(n, 1024, 4), trb.relu_sums_plan(n, 1024, 2),
-             trb.dw_gemm_plan(n, 1024, sms), trb.tap_gemm_plan(n, 3072, 1024, sms),
-             trb.tap_gemm_plan(n, 1024, 3072, sms), trb.tap_gemm_plan(n, 1024, 1024, sms)]
-    for plan, length in zip(plans, (n, n, n, 3072, 1024, 1024)):
+             trb.dw_gemm_plan(n, 1024, 1024, sms), trb.dw_gemm_plan(n, 3072, 1024, sms),
+             trb.tap_gemm_plan(n, 3072, 1024, sms), trb.tap_gemm_plan(n, 1024, 3072, sms),
+             trb.tap_gemm_plan(n, 1024, 1024, sms)]
+    for plan, length in zip(plans, (n, n, n, n, 3072, 1024, 1024)):
         assert plan[0][0] == 0 and plan[-1][1] == length
         assert all(a < b for a, b in plan)
         assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
@@ -769,16 +770,74 @@ def test_train_block_plans_tile_the_rows_on_this_card(cuda, n):
 @pytest.mark.parametrize("b,t,c,fw,center,dropout", TRAIN_BLOCK_CASES)
 def test_train_block_kernels_match_plain(cuda, b, t, c, fw, center, dropout):
     """float32: out, both stat pairs and every gradient within 1e-4 of the
-    plain versions (float32 sums in other orders), all seven kernels launched."""
+    plain versions (float32 sums in other orders), all seven kernels launched
+    (dw_gemm twice: dWb and dWa)."""
     p = _train_block_inputs(b * c + fw, b, t, c, fw, torch.float32, dropout, cuda)
     before = dict(trb.LAUNCHES)
     got = _block_run(p, fw, center, plain=False)
     launched = {k: trb.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {**{k: 1 for k in launched}, "relu_mask_bn_sums": 2}
+    assert launched == {**{k: 1 for k in launched}, "relu_mask_bn_sums": 2, "dw_gemm": 2}
     want = _block_run(p, fw, center, plain=True)
     for i, (a, w) in enumerate(zip(got, want)):
         assert a.shape == w.shape and a.dtype == w.dtype, i
         _check(a, w, torch.float32)
+
+
+def _product_operands(name, n, c, device):
+    """Seeded float32 operands (a, b) of one K2 product at n rows of C channels,
+    the kernel's call on them, and the product as float64 and as one
+    ``torch.matmul`` in float32: the four tap GEMMs (the product alone: no
+    residual cotangent, BatchNorm coefficients that pass du through) and both
+    weight gradients."""
+    gen = torch.Generator(device).manual_seed(n + len(name))
+    f = lambda *shape, scale=1.0: torch.randn(*shape, device=device, generator=gen) * scale
+    ones, zeros = torch.ones(c, device=device), torch.zeros(c, device=device)
+    coef = torch.stack([ones, zeros, zeros, ones, zeros])  # bn input gradient = gz
+    gate = torch.stack([zeros, ones, zeros])  # d = relu(u)
+    wa = f(3, c, c, scale=(3 * c) ** -0.5)
+    if name == "conv_stats":
+        x3 = f(n, 3, c)
+        a, b = x3.reshape(n, 3 * c), wa.reshape(3 * c, c)
+        kernel = lambda: trb.conv_stats(x3, wa, zeros, center=1)[0]
+    elif name == "du_dtaps_res":
+        ga = f(n, c)
+        a, b = ga, wa.permute(2, 0, 1).reshape(c, 3 * c).contiguous()
+        kernel = lambda: trb.du_dtaps_res(ga, ga, torch.zeros_like(ga), coef, wa,
+                                          center=1)[1].reshape(n, 3 * c)
+    elif name == "norm_drop_matmul_stats":
+        u = f(n, c)
+        a, b = torch.relu(u), wa[0].contiguous()
+        kernel = lambda: trb.norm_drop_matmul_stats(u, None, gate, b, zeros)[1]
+    elif name == "dz_matmul_dd":
+        gz = f(n, c)
+        a, b = gz, wa[0].t().contiguous()
+        kernel = lambda: trb.dz_matmul_dd(gz, gz, coef, wa[0])[1]
+    else:  # dWb = d^T dz, dWa = x3^T du (n rows of fw C)
+        rows, b = f(n, 3 * c if name == "dwa" else c), f(n, c)
+        kernel = lambda: trb.dw_gemm(rows, b)
+        a = rows.t()
+    return kernel, (a.double() @ b.double()), lambda: torch.matmul(a, b)
+
+
+@pytest.mark.parametrize("name", ["conv_stats", "du_dtaps_res", "norm_drop_matmul_stats",
+                                  "dz_matmul_dd", "dwb", "dwa"])
+@pytest.mark.parametrize("n", [27_648, 3072])
+def test_k2_products_keep_float32_accuracy(cuda, n, name):
+    """Each float32 K2 product (3xTF32 on the tensor cores) against float64: no
+    more than 4x the max error of a float32 ``torch.matmul`` (TF32 off), and
+    under 1/8 of a TF32 ``torch.matmul``'s, which a one-pass TF32 product fails."""
+    kernel, want, library = _product_operands(name, n, 1024, cuda)
+    err = lambda got: float((got.double() - want).abs().max())
+    got = kernel()
+    assert got.dtype == torch.float32
+    fp32 = err(library())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = err(library())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert err(got) <= 4 * fp32, (err(got), fp32, tf32)
+    assert err(got) < tf32 / 8, (err(got), fp32, tf32)
 
 
 @pytest.mark.parametrize("b,t,c,fw,center,dropout", TRAIN_BLOCK_CASES[:3])

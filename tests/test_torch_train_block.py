@@ -108,23 +108,31 @@ def test_train_block_matches_jax(b, t, c, fw, center, dropout):
                                    err_msg=f"gradient {i}")
 
 
-@pytest.mark.parametrize("c", [68, 1024, 1028])
-@pytest.mark.parametrize("n", [1, 31, 64, 128, 384, 1024, 27_648, 55_296])
-def test_dw_gemm_plan_tiles_the_rows(n, c):
-    """dw_gemm's split over the rows: in-order slices that tile [0, n) exactly,
-    all but the last of one whole number of slabs, and no more CUDA blocks than
-    one wave of the card holds (132 SMs)."""
-    plan = trb.dw_gemm_plan(n, c, sms=132)
+@pytest.mark.parametrize("m,c", [
+    pytest.param(68, 68, id="68"), pytest.param(1024, 1024, id="1024"),
+    pytest.param(1028, 1028, id="1028"),
+    pytest.param(3072, 1024, id="dWa-3072x1024"),  # dWa = x3^T du: fw C x C
+])
+@pytest.mark.parametrize("n", [1, 31, 64, 128, 384, 1024, 27_648, 55_296,
+                               3072, 9216, 2048, 6144, 18_432])
+def test_dw_gemm_plan_tiles_the_rows(n, m, c):
+    """dw_gemm's split over the rows for an (m, c) output (dWb: C x C, dWa:
+    3 C x C): in-order slices that tile [0, n) exactly, all but the last of one
+    whole number of slabs, at most TAP_MAX_SLICES of them; at the steps' shapes
+    both weight gradients split in 2, as the slice sweeps on the card found
+    fastest (132 SMs)."""
+    plan = trb.dw_gemm_plan(n, m, c, sms=132)
     assert len(plan) >= 1 and plan[0][0] == 0 and plan[-1][1] == n
     assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
     rows = plan[0][1]
     assert all(stop - start == rows for start, stop in plan[:-1])
     assert 0 < plan[-1][1] - plan[-1][0] <= rows
     assert len(plan) == 1 or rows % trb.DW_ROWS == 0
-    tiles = (-(-c // trb.DW_TILE)) ** 2
-    assert len(plan) * tiles <= max(tiles, trb.DW_BLOCKS_PER_SM * 132)
-    if (n, c) == (27_648, 1024):  # the first residual block: 4 x 64 CUDA blocks
-        assert plan == [(0, 6912), (6912, 13824), (13824, 20736), (20736, 27648)]
+    assert len(plan) <= trb.TAP_MAX_SLICES
+    if (n, m, c) == (27_648, 1024, 1024):  # the first residual block: 2 x 64 CUDA blocks
+        assert plan == [(0, 13824), (13824, 27648)]
+    if c == 1024 and n >= 1024:  # dWb's 64 tiles and dWa's 192 at every n of the steps
+        assert len(plan) == 2
 
 
 @pytest.mark.parametrize("m,k,n", [
@@ -138,6 +146,11 @@ def test_dw_gemm_plan_tiles_the_rows(n, c):
     (64, 3072, 1024), (128, 3072, 1024), (384, 3072, 1024), (55_296, 3072, 1024),
     (64, 1024, 3072), (384, 1024, 3072), (55_296, 1024, 3072),
     (64, 1024, 1024), (128, 1024, 1024), (384, 1024, 1024), (55_296, 1024, 1024),
+    (3072, 1024, 3072), (9216, 1024, 3072),  # du_dtaps_res at the supervised n
+    # the other row counts of the semi step's blocks (n = 2,048 / 6,144 / 18,432)
+    (2048, 3072, 1024), (6144, 3072, 1024), (18_432, 3072, 1024),
+    (2048, 1024, 3072), (6144, 1024, 3072), (18_432, 1024, 3072),
+    (2048, 1024, 1024), (6144, 1024, 1024), (18_432, 1024, 1024),
 ])
 def test_tap_gemm_plan_slices_the_summed_dimension(m, k, n):
     """The tap GEMMs' split over their summed dimension: in-order slices that

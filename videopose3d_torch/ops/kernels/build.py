@@ -57,7 +57,7 @@ _ENTRY_ARGTYPES = {
     "vp3d_tb_relu_mask_bn_sums": [_I] * 5 + [_P] * 8,
     "vp3d_tb_dz_matmul_dd": [_I] * 5 + [_P] * 8,
     "vp3d_tb_du_dtaps_res": [_I] * 7 + [_P] * 9,
-    "vp3d_tb_dw_gemm": [_I] * 5 + [_P] * 5,
+    "vp3d_tb_dw_gemm": [_I] * 6 + [_P] * 5,
     "vp3d_tb_stats_reduce": [_I] * 2 + [_P] * 5,
     "vp3d_tb_geometry": [_I],
     # csrc/temporal_block_int8.cu: (variant, accshift, batch, t_in, t_out, channels,

@@ -14,10 +14,11 @@
 // bf16) at exactly the points where the TPU kernel casts; every sum is float32.
 //
 // What bounds it on this card: the products, 8 * C^2 FLOP per output row (3 taps +
-// the 1x1), on the CUDA cores' FP32 FMAs (67 TFLOP/s) in float32 and on the bf16
-// tensor cores (989 TFLOP/s) in bf16.  vp3d_temporal_block, one host call per stage,
-// enqueues the stage as a chain of tile GEMMs over M = B * T_out rows, each of
-// 128 x 128 output tiles, so a stage reads its weights once per 128-row tile:
+// the 1x1), on the tensor cores in 3xTF32 in float32 (three TF32 MMAs a product, at
+// most 495 / 3 TFLOP/s) and in bf16 (989 TFLOP/s).  vp3d_temporal_block, one host
+// call per stage, enqueues the stage as a chain of tile GEMMs over M = B * T_out
+// rows, each of 128 x 128 output tiles, so a stage reads its weights once per
+// 128-row tile:
 //   (kExpand) e = act(relu(raw window @ W0 * s0 + b0)), K = k0 * c_in;
 //   h = act(relu(taps @ W_taps * s1 + b1)), K = n_taps * C;
 //   out = act(res + relu(h @ W2 * s2 + b2)), the residual row read in the epilogue;
@@ -27,9 +28,9 @@
 // t = i % T_out of batch row b = i / T_out, and its tap j reads input row t + j * d
 // of batch row b in place: the taps are never materialised.
 // - float32 (k3_sgemm_kernel): the train block's tap GEMM main loop, tile_gemm_loop
-//   of sgemm_tile.cuh, on the 128 x 128 CUDA-core tile with this row map: A read by
-//   rows into registers and stored transposed and XOR-swizzled, B through a 3-stage
-//   cp.async ring, an FMA chain in k order (no TF32), two CUDA blocks per SM.
+//   of sgemm_tile.cuh, on its 128 x 128 tile with this row map: A's rows and B
+//   through 3-stage cp.async rings, 3xTF32 mma.sync m16n8k8 (float32's accuracy),
+//   two CUDA blocks per SM.
 // - bf16 (k3_mma_kernel): mma.sync m16n8k16 with float32 sums on tc_tile.cuh's
 //   128 x 128 tile (stream_tc.cuh's instruction wrappers and stage layout, 8 warps of
 //   64 x 32), both operands staged by 16-byte cp.async into padded tiles of a 4-stage
@@ -116,20 +117,21 @@ __device__ __forceinline__ void k3_store(const K3Gemm<T>& p, int i, int col,
   }
 }
 
-// The epilogue of this thread's part of a finished 128 x 128 register tile.
+// The epilogue of this thread's part of a finished 128 x 128 tile (sgemm_tile.cuh's
+// accumulator layout: column pairs).
 template <typename T>
-__device__ __forceinline__ void k3_store_tile(const K3Gemm<T>& p, const float (&acc)[GRT][GRT]) {
-  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT, ty = tile_ty(), tx = tile_tx();
+__device__ __forceinline__ void k3_store_tile(const K3Gemm<T>& p,
+                                              const float (&acc)[GRT][GRT]) {
+  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
 #pragma unroll
   for (int r = 0; r < GRT; ++r) {
-    const int i = i0 + tile_row(ty, r);
+    const int i = i0 + tile_row(r);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + tile_col(tx, h);
+    for (int h = 0; h < GRT / 2; ++h) {
+      const int j = j0 + tile_col(2 * h);
       if (i >= p.m || j >= p.n) continue;
-      const float v[4] = {acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
-                          acc[r][4 * h + 3]};
-      k3_store<T, 4>(p, i, j, v);
+      const float v[2] = {acc[r][2 * h], acc[r][2 * h + 1]};
+      k3_store<T, 2>(p, i, j, v);
     }
   }
 }
@@ -140,31 +142,25 @@ __device__ __forceinline__ void k3_store_tile(const K3Gemm<T>& p, const float (&
 __global__ void __launch_bounds__(GT_THREADS, 2) k3_sgemm_kernel(
     const __grid_constant__ K3Gemm<float> p) {
   extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);  // [A_STAGES][GK][GT]
-  float* b_s = a_s + A_STAGES * TAP_SLAB;        // [B_STAGES][GK][GT]
+  float* a_s = reinterpret_cast<float*>(smem4);    // [B_STAGES][GT][a_ld]
+  float* b_s = a_s + B_STAGES * a_slab<float>();   // [B_STAGES][GK][GLD]
   int* rows_s = reinterpret_cast<int*>(b_s + B_STAGES * TAP_SLAB);  // a_row of each tile row
   const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
   const int k_begin = blockIdx.z * p.k_slice;
   const int k_end = min(p.k, k_begin + p.k_slice);
   if (threadIdx.x < GT) rows_s[threadIdx.x] = a_row(p, i0 + threadIdx.x);
   __syncthreads();
-  // This thread's 4 x 4 block of A: tile rows 4 (threadIdx.x / 8) + r, summed
-  // columns kk .. kk + 3, all in tap kk / kc (kc % 4 == 0).
-  auto a_load = [&](float4(&ra)[4], int k0) {
-    const int kk = k0 + (threadIdx.x % 8) * 4;
-    const int j = kk / p.kc;
-    const float* a = p.a + (size_t)j * p.dil * p.lda + (kk - j * p.kc);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rows_s[4 * (threadIdx.x / 8) + r];
-      ra[r] = row >= 0 && kk < k_end
-                  ? __ldg(reinterpret_cast<const float4*>(a + (size_t)row * p.lda))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
   float acc[GRT][GRT];
-  tile_gemm_loop(acc, a_s, b_s, p.w, p.n, j0, k_begin, k_end, a_load,
-                 [](float* as, const float4(&ra)[4], int) { a_store_slab(as, ra); });
+  // Summed columns kk .. kk + 3 of tile row r: all in tap kk / kc (kc % 4 == 0).
+  tile_gemm_loop(
+      acc, a_s, b_s, p.w, p.n, j0, k_begin, k_end, p.a,
+      [&](int r, int kk) -> const float* {
+        const int row = rows_s[r], j = kk / p.kc;
+        return row >= 0 && kk < k_end
+                   ? p.a + (size_t)(row + j * p.dil) * p.lda + (kk - j * p.kc)
+                   : nullptr;
+      },
+      [](const float*, int) {});
   if (p.part != nullptr) {
     tile_store_part(acc, p.part, p.m, p.n, i0, j0);
   } else {
@@ -289,7 +285,8 @@ cudaError_t launch_gemm(K3Gemm<T> g, float* part, long long part_floats, cudaStr
     if (err != cudaSuccess) return err;
     k3_mma_kernel<<<grid, NT, smem, s>>>(g);
   } else {
-    const size_t smem = sizeof(float) * (A_STAGES + B_STAGES) * TAP_SLAB + sizeof(int) * GT;
+    const size_t smem =
+        sizeof(float) * B_STAGES * (a_slab<float>() + TAP_SLAB) + sizeof(int) * GT;
     cudaError_t err = configure<k3_sgemm_kernel>(smem);
     if (err != cudaSuccess) return err;
     k3_sgemm_kernel<<<grid, GT_THREADS, smem, s>>>(g);

@@ -18,8 +18,9 @@
 // with train-mode BatchNorm: the biased batch statistics come from per-channel sums
 // of (u - shift) and (u - shift)^2 taken in the GEMM epilogues.  Its backward runs
 // the ReLU/dropout gate with the BatchNorm sums (relu_mask_bn_sums), the BatchNorm
-// input gradient and the next product (dz_matmul_dd, du_dtaps_res), and dWb
-// as its own GEMM; dWa stays a plain matmul outside, as in the JAX package.
+// input gradient and the next product (dz_matmul_dd, du_dtaps_res), and both weight
+// gradients as their own GEMMs (dw_gemm: dWb = d^T dz, and dWa = x3^T du, which the
+// JAX package leaves to XLA).
 //
 // Numerics: values are cast to the activation type T (float or bf16) at exactly the
 // points the Pallas bodies cast; the elementwise BatchNorm affine is evaluated in T
@@ -29,39 +30,39 @@
 // both passes.  Every sum is float32.
 //
 // What bounds it on this card: the products, 2 * n * C^2 * (fw + 1) FLOP forward and
-// 2 * n * C^2 * (fw + 2) in these kernels backward, on CUDA-core FP32 FMAs (67 TFLOP/s
-// peak); tensor cores (wgmma) are later work.
+// 2 * n * C^2 * (2 fw + 2) backward, on the tensor cores in 3xTF32 (three TF32 MMAs a
+// float32 product, float32's accuracy; 495 TFLOP/s of TF32 dense, so 165 of float32
+// work at most, against 67 for float32 FMAs).  mma.sync m16n8k8 reaches about half
+// of that rate (one TF32 MMA per ~9 cycles of an SM quarter on an H100); wgmma,
+// which takes TF32 operands only K-major in shared memory, is later work.
 //
-// Every product is a 128 x 128-tile SGEMM on sgemm_tile.cuh: a CUDA block of 256
-// threads owns a 128 x 128 output tile, each thread an 8 x 8 register tile (four
-// FMAs per shared-memory float, ~32 FLOP per byte staged), 32-deep slabs of the
-// summed dimension flow through rings of shared memory, and two CUDA blocks share
-// an SM.
-// - dw_gemm (dWb = d^T dz over the n rows): both operands are row-major in the
-//   summed dimension, so both go to shared memory by 16-byte cp.async as they are,
-//   in a 3-stage ring.  At C = 1,024 there are only 64 tiles for 132 SMs, so the
-//   rows are split into slices (split-K, planned by the Python wrapper: 4 slices,
-//   256 CUDA blocks, one wave); each slice writes a float32 partial and dw_reduce
-//   adds the partials in slice order.
+// Every product is a 128 x 128-tile GEMM on sgemm_tile.cuh: a CUDA block of 256
+// threads owns a 128 x 128 output tile, each warp 64 x 32 of it in m16n8k8 MMAs,
+// 32-deep slabs of both operands flow through 3-stage cp.async rings of shared
+// memory, and two CUDA blocks share an SM.
+// - dw_gemm (dW (m, C) = a^T b over the n rows: dWb = d^T dz, m = C, and dWa = x3^T
+//   du, m = fw C): both operands are row-major in the summed dimension, so both
+//   are staged summed-index-major.  At C = 1,024 the 64 (dWb) or 192 (dWa) tiles
+//   leave the 132 SMs a ragged round, so the rows are split into slices (split-K,
+//   planned by the Python wrapper with the tap GEMMs' cost model: 2 slices); each
+//   slice writes a float32 partial and dw_reduce adds the partials in slice order.
 // - The other four products are tap GEMMs (tap_gemm_kernel): conv_stats (u = x3
 //   (n, fw C) @ Wa (fw C, C)), du_dtaps_res (dx3 (n, fw C) = du (n, C) @ Wa^T (C, fw
 //   C)) and the one-tap norm_drop_matmul_stats (v = d @ Wb) and dz_matmul_dd (dd =
-//   dz @ Wb^T).  B goes through the same cp.async ring, but A is row-major in the
-//   summed dimension, so each thread reads a 4 x 4 block of its next slab into
-//   registers by 16-byte loads while the current one is used, then stores it
-//   transposed by four vector stores (XOR-swizzled by 4-row group, no bank
-//   conflicts) into a 2-stage ring.  The epilogues are fused: the cast to T, the
-//   BatchNorm partial sums per 128-row tile (conv_stats, norm_drop_matmul_stats),
-//   conv_stats's residual tap (written by column tile 0 from the A values it
-//   stages), du_dtaps_res's residual cotangent added to the center tap in T.  The
-//   one-tap kernels' and du_dtaps_res's A operands (d, dz, du) are outputs too, so
-//   a first, elementwise launch writes them (norm_drop_kernel, bn_grad_kernel) and
+//   dz @ Wb^T).  A is row-major in the summed dimension and is staged so, tile row
+//   by tile row.  The epilogues are fused: the cast to T, the BatchNorm partial
+//   sums per 128-row tile (conv_stats, norm_drop_matmul_stats), conv_stats's
+//   residual tap (copied out by column tile 0 from the A slabs it stages),
+//   du_dtaps_res's residual cotangent added to the center tap in T.  The one-tap
+//   kernels' and du_dtaps_res's A operands (d, dz, du) are outputs too, so a
+//   first, elementwise launch writes them (norm_drop_kernel, bn_grad_kernel) and
 //   the GEMM reads them back: one more read of n x C, ~0.03 ms at n = 27,648.
 //   Where shorter blocks even out the SMs' shares of a ragged last round of tiles
 //   (at C = 1,024: 64 tiles at n = 1,024, 192 at n = 3,072), the summed dimension
 //   is split (planned by the wrapper) and tap_gemm_reduce adds the slices in order
 //   before the epilogue.
-// bf16 operands are staged as they are and widened when read from shared memory.
+// bf16 operands are staged as they are and widened when read from shared memory:
+// exact in TF32, each product is one MMA.
 //
 // The TPU grid runs in order, so the Pallas bodies carry the BatchNorm sums and dWb
 // in VMEM scratch across grid steps.  CUDA blocks run in parallel, so each row tile
@@ -93,6 +94,7 @@
 
 #include <algorithm>
 #include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 #include "sgemm_tile.cuh"
@@ -284,90 +286,70 @@ struct TapGemm {
   int g_col0, g_n;
 };
 
-// Loads this thread's 4 x 4 block of A's slab [k0, k0 + GK) into registers: rows
-// i0 + 4 (threadIdx.x / 8) + r, columns k0 + (threadIdx.x % 8) * 4 .. + 3, so that
-// 8 lanes read one row's whole slab segment; zeros outside.
+// Copies the residual tap's part of a landed A slab (summed rows [k0, k0 + GK)) to
+// res: this thread's own words of a_slab_cp_async, read back from shared memory.
 template <typename T>
-__device__ __forceinline__ void a_load(typename Vec4<T>::type (&ra)[4],
-                                       const TapGemm<T>& p, int i0, int k0, int k_end) {
-  using V = typename Vec4<T>::type;
-  const int kc = k0 + (threadIdx.x % 8) * 4;
+__device__ __forceinline__ void copy_res(const TapGemm<T>& p, const T* as, int i0, int k0,
+                                         int k_end) {
+  using V = std::conditional_t<sizeof(T) == 4, float4, uint2>;
+  const int kk = k0 + 4 * (threadIdx.x % 8);
+  if (kk >= k_end || kk < p.res_k0 || kk >= p.res_k0 + p.res_n) return;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 4 * (threadIdx.x / 8) + r;
-    ra[r] = (i < p.m && kc < k_end)
-                ? __ldg(reinterpret_cast<const V*>(p.a + (size_t)i * p.k + kc))
-                : V{};
-  }
-}
-
-// Stores the block of a_load transposed into the slab (a_store_slab).  Column tile
-// 0 also copies the rows that lie in the residual tap to res.
-template <typename T>
-__device__ __forceinline__ void a_store(T* as, const typename Vec4<T>::type (&ra)[4],
-                                        const TapGemm<T>& p, int i0, int k0, int k_end,
-                                        bool res) {
-  using V = typename Vec4<T>::type;
-  const int kl = (threadIdx.x % 8) * 4, kc = k0 + kl, gi = threadIdx.x / 8;
-  a_store_slab(as, ra);
-  if (res && kc < k_end && kc >= p.res_k0 && kc < p.res_k0 + p.res_n) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + 4 * gi + r;
-      if (i < p.m) *reinterpret_cast<V*>(p.res + (size_t)i * p.res_n + kc - p.res_k0) = ra[r];
+  for (int q = 0; q < GK * GT / 4 / GT_THREADS; ++q) {
+    const int r = threadIdx.x / 8 + 32 * q;
+    if (i0 + r < p.m) {
+      *reinterpret_cast<V*>(p.res + (size_t)(i0 + r) * p.res_n + kk - p.res_k0) =
+          *reinterpret_cast<const V*>(as + r * a_ld<T>() + kk - k0);
     }
   }
 }
 
 // The epilogue of a finished tile: cast to T (then + g in T), store, and the
 // tile's per-column sums of (out - shift) and its square, each thread's 8 rows in
-// order, then the 16 row groups in order (red: 2 x 16 x GT floats of shared
-// memory), written to row tile blockIdx.y of part1 / part2.
+// order, then the 16 threads of a column in row-group order (red: 2 x 16 x GT
+// floats of shared memory), written to row tile blockIdx.y of part1 / part2.
 template <typename T>
 __device__ __forceinline__ void tap_epilogue(const TapGemm<T>& p, float (&acc)[GRT][GRT],
                                              float* red) {
-  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT, ty = tile_ty(), tx = tile_tx();
+  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
 #pragma unroll
   for (int r = 0; r < GRT; ++r) {
-    const int i = i0 + tile_row(ty, r);
+    const int i = i0 + tile_row(r);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + tile_col(tx, h);
+    for (int h = 0; h < GRT / 2; ++h) {
+      const int j = j0 + tile_col(2 * h);
       const bool add_g = p.g != nullptr && i < p.m && j >= p.g_col0 && j < p.g_col0 + p.g_n;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = round_to<T>(acc[r][4 * h + e]);
+      for (int e = 0; e < 2; ++e) {
+        float v = round_to<T>(acc[r][2 * h + e]);
         if (add_g) {
           v = round_to<T>(__fadd_rn(v, to_f<T>(p.g[(size_t)i * p.g_n + j + e - p.g_col0])));
         }
-        acc[r][4 * h + e] = v;
+        acc[r][2 * h + e] = v;
       }
       if (i < p.m && j < p.n) {
-        store4<T>(p.out + (size_t)i * p.n + j, acc[r][4 * h], acc[r][4 * h + 1],
-                  acc[r][4 * h + 2], acc[r][4 * h + 3]);
+        store2<T>(p.out + (size_t)i * p.n + j, acc[r][2 * h], acc[r][2 * h + 1]);
       }
     }
   }
   if (p.shift == nullptr) return;
   constexpr int GROUPS = GT / GRT;
+  const int group = tile_row_group();
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int q = 0; q < GRT; ++q) {
+    const int col = tile_col(q);
+    const float sh = j0 + col < p.n ? p.shift[j0 + col] : 0.f;
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = tile_col(tx, h) + e;
-      const float sh = j0 + col < p.n ? p.shift[j0 + col] : 0.f;
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int r = 0; r < GRT; ++r) {
-        if (i0 + tile_row(ty, r) < p.m) {
-          const float y = __fsub_rn(acc[r][4 * h + e], sh);
-          s1 = __fadd_rn(s1, y);
-          s2 = __fadd_rn(s2, __fmul_rn(y, y));
-        }
+    for (int r = 0; r < GRT; ++r) {
+      if (i0 + tile_row(r) < p.m) {
+        const float y = __fsub_rn(acc[r][q], sh);
+        s1 = __fadd_rn(s1, y);
+        s2 = __fadd_rn(s2, __fmul_rn(y, y));
       }
-      red[ty * GT + col] = s1;
-      red[(GROUPS + ty) * GT + col] = s2;
     }
+    red[group * GT + col] = s1;
+    red[(GROUPS + group) * GT + col] = s2;
   }
   __syncthreads();
   const int j = j0 + threadIdx.x;
@@ -389,19 +371,22 @@ __device__ __forceinline__ void tap_epilogue(const TapGemm<T>& p, float (&acc)[G
 template <typename T>
 __global__ void __launch_bounds__(GT_THREADS, 2) tap_gemm_kernel(
     const __grid_constant__ TapGemm<T> p) {
-  using V = typename Vec4<T>::type;
   extern __shared__ float4 smem4[];
-  T* a_s = reinterpret_cast<T*>(smem4);  // [A_STAGES][GK][GT]
-  T* b_s = a_s + A_STAGES * TAP_SLAB;    // [B_STAGES][GK][GT]
+  T* a_s = reinterpret_cast<T*>(smem4);     // [B_STAGES][GT][a_ld]
+  T* b_s = a_s + B_STAGES * a_slab<T>();    // [B_STAGES][GK][GLD]
   const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
   const int k_begin = blockIdx.z * p.k_slice;
   const int k_end = min(p.k, k_begin + p.k_slice);
   const bool res = p.res != nullptr && blockIdx.x == 0;
   float acc[GRT][GRT];
   tile_gemm_loop(
-      acc, a_s, b_s, p.b, p.n, j0, k_begin, k_end,
-      [&](V(&ra)[4], int k0) { a_load(ra, p, i0, k0, k_end); },
-      [&](T* as, const V(&ra)[4], int k0) { a_store(as, ra, p, i0, k0, k_end, res); });
+      acc, a_s, b_s, p.b, p.n, j0, k_begin, k_end, p.a,
+      [&](int r, int kk) -> const T* {
+        return i0 + r < p.m && kk < k_end ? p.a + (size_t)(i0 + r) * p.k + kk : nullptr;
+      },
+      [&](const T* as, int k0) {
+        if (res) copy_res(p, as, i0, k0, k_end);
+      });
   if (p.part != nullptr) {
     tile_store_part(acc, p.part, p.m, p.n, i0, j0);
     return;
@@ -411,39 +396,36 @@ __global__ void __launch_bounds__(GT_THREADS, 2) tap_gemm_kernel(
 }
 
 // The split form's second launch, in a grid of (column tiles, row tiles): the
-// tile's slices of the float32 products added in slice order into the register
-// tile (zeros past m or n), then the epilogue.  Each slice's 16 loads of a thread
+// tile's slices of the float32 products added in slice order into the accumulator
+// layout (zeros past m or n), then the epilogue.  Each slice's 32 loads of a thread
 // are issued before its adds, so that they are in flight together.
 template <typename T>
 __global__ void __launch_bounds__(GT_THREADS) tap_gemm_reduce_kernel(
     const __grid_constant__ TapGemm<T> p, int slices) {
   __shared__ float red[2 * (GT / GRT) * GT];
-  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT, ty = tile_ty(), tx = tile_tx();
+  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
   float acc[GRT][GRT];
   tile_zero(acc);
   const float* part = p.part;
   for (int z = 0; z < slices; ++z, part += (size_t)p.m * p.n) {
-    float4 v[GRT][2];
+    float2 v[GRT][GRT / 2];
 #pragma unroll
     for (int r = 0; r < GRT; ++r) {
-      const int i = i0 + tile_row(ty, r);
+      const int i = i0 + tile_row(r);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = j0 + tile_col(tx, h);
+      for (int h = 0; h < GRT / 2; ++h) {
+        const int j = j0 + tile_col(2 * h);
         v[r][h] = i < p.m && j < p.n
-                      ? *reinterpret_cast<const float4*>(part + (size_t)i * p.n + j)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+                      ? *reinterpret_cast<const float2*>(part + (size_t)i * p.n + j)
+                      : make_float2(0.f, 0.f);
       }
     }
 #pragma unroll
     for (int r = 0; r < GRT; ++r) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float x[4] = {v[r][h].x, v[r][h].y, v[r][h].z, v[r][h].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[r][4 * h + e] = z == 0 ? x[e] : __fadd_rn(acc[r][4 * h + e], x[e]);
-        }
+      for (int h = 0; h < GRT / 2; ++h) {
+        acc[r][2 * h] = z == 0 ? v[r][h].x : __fadd_rn(acc[r][2 * h], v[r][h].x);
+        acc[r][2 * h + 1] = z == 0 ? v[r][h].y : __fadd_rn(acc[r][2 * h + 1], v[r][h].y);
       }
     }
   }
@@ -453,8 +435,8 @@ __global__ void __launch_bounds__(GT_THREADS) tap_gemm_reduce_kernel(
 template <typename T>
 cudaError_t launch_tap_gemm(const TapGemm<T>& p, int slices, cudaStream_t s) {
   const dim3 grid((p.n + GT - 1) / GT, (p.m + GT - 1) / GT, slices);
-  const size_t smem = sizeof(T) * (A_STAGES + B_STAGES) * TAP_SLAB;
-  // Two CUDA blocks of 80 KB (float32) share an SM only with the whole carveout.
+  const size_t smem = sizeof(T) * B_STAGES * (a_slab<T>() + TAP_SLAB);
+  // Two CUDA blocks of 105 KB (float32) share an SM only with the whole carveout.
   cudaError_t err = cudaFuncSetAttribute(tap_gemm_kernel<T>,
                                          cudaFuncAttributePreferredSharedMemoryCarveout,
                                          (int)cudaSharedmemCarveoutMaxShared);
@@ -465,48 +447,48 @@ cudaError_t launch_tap_gemm(const TapGemm<T>& p, int slices, cudaStream_t s) {
                           0, s, p, slices);
 }
 
-// Starts the copy of rows [r0, min(r0 + GK, r_end)) of a's columns i0.. and b's
-// columns j0.. (GT each) into one slab of dw_gemm's ring; rows and columns outside
-// are zero-filled.  Each warp copies whole 512-byte (float32) row segments.  One
-// loop for both operands: two slab_cp_async calls spill dw_gemm's registers.
+// Starts the copy of rows [r0, min(r0 + GK, r_end)) of a's columns i0.. (a: m
+// columns) and b's columns j0.. (b: c columns), GT each, into one slab of dw_gemm's
+// ring; rows and columns outside are zero-filled.  Each warp copies whole 512-byte
+// (float32) row segments.  One loop for both operands: two slab_cp_async calls
+// spill dw_gemm's registers.
 template <typename T>
 __device__ __forceinline__ void dw_load_slab(T* a_s, T* b_s, const T* __restrict__ a,
-                                             const T* __restrict__ b, int c, int r0,
+                                             const T* __restrict__ b, int m, int c, int r0,
                                              int r_end, int i0, int j0) {
   constexpr int PER_ROW = GT / 4;
 #pragma unroll
   for (int q = 0; q < GK * PER_ROW / GT_THREADS; ++q) {
     const int e = threadIdx.x + q * GT_THREADS;
     const int rr = e / PER_ROW, cc = (e % PER_ROW) * 4, r = r0 + rr;
-    const bool a_ok = r < r_end && i0 + cc < c, b_ok = r < r_end && j0 + cc < c;
-    const size_t row = r < r_end ? (size_t)r * c : 0;
-    cp_async4(a_s + rr * GT + cc, a + (a_ok ? row + i0 + cc : 0), a_ok);
-    cp_async4(b_s + rr * GT + cc, b + (b_ok ? row + j0 + cc : 0), b_ok);
+    const bool a_ok = r < r_end && i0 + cc < m, b_ok = r < r_end && j0 + cc < c;
+    cp_async4(a_s + rr * GLD + cc, a + (a_ok ? (size_t)r * m + i0 + cc : 0), a_ok);
+    cp_async4(b_s + rr * GLD + cc, b + (b_ok ? (size_t)r * c + j0 + cc : 0), b_ok);
   }
 }
 
-// out[blockIdx.z] = a[rows]^T @ b[rows], float32, over the rows of slice blockIdx.z:
-// [z * slice_rows, min(n, (z + 1) * slice_rows)), one GT x GT tile of dw per CUDA
-// block.  Both operands are row-major in the summed dimension, so their slabs go
-// to shared memory by cp.async as they are, in a DW_STAGES-deep ring.
+// out[blockIdx.z] = a[rows]^T @ b[rows] (m x c), float32, over the rows of slice
+// blockIdx.z: [z * slice_rows, min(n, (z + 1) * slice_rows)), one GT x GT tile of dw
+// per CUDA block (blockIdx.x: column tile, blockIdx.y: row tile).  Both operands
+// are row-major in the summed dimension, so their slabs go to shared memory by
+// cp.async as they are, in a DW_STAGES-deep ring.
 template <typename T>
 __global__ void __launch_bounds__(GT_THREADS, 2) dw_gemm_kernel(
-    const T* __restrict__ a, const T* __restrict__ b, int n, int c, int slice_rows,
+    const T* __restrict__ a, const T* __restrict__ b, int n, int m, int c, int slice_rows,
     float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  T* a_s = reinterpret_cast<T*>(smem4);  // [DW_STAGES][GK][GT]
+  T* a_s = reinterpret_cast<T*>(smem4);  // [DW_STAGES][GK][GLD]
   T* b_s = a_s + DW_STAGES * TAP_SLAB;
   const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
   const int r_begin = blockIdx.z * slice_rows;
   const int r_end = min(n, r_begin + slice_rows);
   const int slabs = (r_end - r_begin + GK - 1) / GK;
-  const int ty = tile_ty(), tx = tile_tx();
   float acc[GRT][GRT];
   tile_zero(acc);
   for (int s = 0; s < DW_STAGES - 1; ++s) {
     if (s < slabs) {
-      dw_load_slab(a_s + s * TAP_SLAB, b_s + s * TAP_SLAB, a, b, c, r_begin + s * GK, r_end,
-                   i0, j0);
+      dw_load_slab(a_s + s * TAP_SLAB, b_s + s * TAP_SLAB, a, b, m, c, r_begin + s * GK,
+                   r_end, i0, j0);
     }
     cp_async_commit();
   }
@@ -516,38 +498,30 @@ __global__ void __launch_bounds__(GT_THREADS, 2) dw_gemm_kernel(
     const int next = t + DW_STAGES - 1;
     if (next < slabs) {
       const int st = next % DW_STAGES;
-      dw_load_slab(a_s + st * TAP_SLAB, b_s + st * TAP_SLAB, a, b, c, r_begin + next * GK,
+      dw_load_slab(a_s + st * TAP_SLAB, b_s + st * TAP_SLAB, a, b, m, c, r_begin + next * GK,
                    r_end, i0, j0);
     }
     cp_async_commit();
-    const T* as = a_s + (t % DW_STAGES) * TAP_SLAB;
-    const T* bs = b_s + (t % DW_STAGES) * TAP_SLAB;
-#pragma unroll
-    for (int k = 0; k < GK; ++k) {
-      float af[GRT], bf[GRT];
-      tile_frag(af, as + k * GT, ty * 4);
-      tile_frag(bf, bs + k * GT, tx * 4);
-      tile_fma(acc, af, bf);
-    }
+    tile_mma_slab<false>(acc, a_s + (t % DW_STAGES) * TAP_SLAB,
+                         b_s + (t % DW_STAGES) * TAP_SLAB);
   }
-  out += (size_t)blockIdx.z * c * c;
+  out += (size_t)blockIdx.z * m * c;
 #pragma unroll
   for (int r = 0; r < GRT; ++r) {
-    const int i = i0 + tile_row(ty, r);
-    if (i >= c) continue;
+    const int i = i0 + tile_row(r);
+    if (i >= m) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + tile_col(tx, h);
-      if (j < c) {  // c % 4 == 0: a 4-column group is wholly in or out
-        *reinterpret_cast<float4*>(out + (size_t)i * c + j) =
-            make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
-                        acc[r][4 * h + 3]);
+    for (int h = 0; h < GRT / 2; ++h) {
+      const int j = j0 + tile_col(2 * h);
+      if (j < c) {  // c % 4 == 0: a column pair is wholly in or out
+        *reinterpret_cast<float2*>(out + (size_t)i * c + j) =
+            make_float2(acc[r][2 * h], acc[r][2 * h + 1]);
       }
     }
   }
 }
 
-// dw[k] = sum over slices s, in order, of part[s][k]: (slices, c * c) -> (c * c).
+// dw[k] = sum over slices s, in order, of part[s][k]: (slices, n4 float4) -> (n4).
 __global__ void __launch_bounds__(NT) dw_reduce_kernel(const float4* __restrict__ part,
                                                        int slices, size_t n4,
                                                        float4* __restrict__ dw) {
@@ -564,21 +538,20 @@ __global__ void __launch_bounds__(NT) dw_reduce_kernel(const float4* __restrict_
 }
 
 template <typename T>
-cudaError_t launch_dw_gemm(int n, int c, int slices, int slice_rows, const void* a,
+cudaError_t launch_dw_gemm(int n, int m, int c, int slices, int slice_rows, const void* a,
                            const void* b, void* part, void* dw, cudaStream_t s) {
-  const int tiles = (c + GT - 1) / GT;
   const size_t smem = 2 * sizeof(T) * DW_STAGES * TAP_SLAB;
   float* target = static_cast<float*>(slices == 1 ? dw : part);
-  // Two CUDA blocks of 96 KB (float32) share an SM only with the whole carveout.
+  // Two CUDA blocks of 102 KB (float32) share an SM only with the whole carveout.
   cudaError_t err = cudaFuncSetAttribute(dw_gemm_kernel<T>,
                                          cudaFuncAttributePreferredSharedMemoryCarveout,
                                          (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  err = launch_with_smem(dw_gemm_kernel<T>, dim3(tiles, tiles, slices), dim3(GT_THREADS),
-                         smem, s, static_cast<const T*>(a), static_cast<const T*>(b), n, c,
-                         slice_rows, target);
+  err = launch_with_smem(dw_gemm_kernel<T>, dim3((c + GT - 1) / GT, (m + GT - 1) / GT, slices),
+                         dim3(GT_THREADS), smem, s, static_cast<const T*>(a),
+                         static_cast<const T*>(b), n, m, c, slice_rows, target);
   if (err != cudaSuccess || slices == 1) return err;
-  const size_t n4 = (size_t)c * c / 4;
+  const size_t n4 = (size_t)m * c / 4;
   const dim3 grid((unsigned)std::min<size_t>((n4 + NT - 1) / NT, 132 * 8));
   return launch_with_smem(dw_reduce_kernel, grid, dim3(NT), 0, s,
                           static_cast<const float4*>(part), slices, n4,
@@ -879,14 +852,15 @@ int vp3d_tb_du_dtaps_res(int dtype, int n, int c, int fw, int center, int slices
   return cudaErrorInvalidValue;
 }
 
-// dw (c, c) = a^T @ b over n rows, split into `slices` row slices of slice_rows rows
-// (the last one ragged): with one slice the kernel writes dw itself; otherwise each
-// slice writes its (c, c) partial into part (slices, c, c) and a second launch adds
-// them up in slice order.  a and b must be 16-byte (float32) or 8-byte (bf16)
-// aligned; every slice must hold at least one row.
-int vp3d_tb_dw_gemm(int dtype, int n, int c, int slices, int slice_rows, const void* a,
-                    const void* b, void* part, void* dw, void* stream) {
-  if (bad_shape(n, c) || slices <= 0 || slice_rows <= 0 ||
+// dw (m, c) = a^T @ b over n rows, a (n, m) and b (n, c), split into `slices` row
+// slices of slice_rows rows (the last one ragged): with one slice the kernel writes
+// dw itself; otherwise each slice writes its (m, c) partial into part (slices, m, c)
+// and a second launch adds them up in slice order.  a and b must be 16-byte
+// (float32) or 8-byte (bf16) aligned; every slice must hold at least one row.
+int vp3d_tb_dw_gemm(int dtype, int n, int m, int c, int slices, int slice_rows,
+                    const void* a, const void* b, void* part, void* dw, void* stream) {
+  if (bad_shape(n, c) || bad_shape(n, m) || (m + GT - 1) / GT > 65535 || slices <= 0 ||
+      slice_rows <= 0 ||
       (long long)(slices - 1) * slice_rows >= n || (long long)slices * slice_rows < n ||
       slices > 65535 || (slices > 1 && part == nullptr)) {
     return cudaErrorInvalidValue;
@@ -896,9 +870,11 @@ int vp3d_tb_dw_gemm(int dtype, int n, int c, int slices, int slice_rows, const v
     return cudaErrorMisalignedAddress;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dw_gemm<float>(n, c, slices, slice_rows, a, b, part, dw, s);
+  if (dtype == 0) {
+    return launch_dw_gemm<float>(n, m, c, slices, slice_rows, a, b, part, dw, s);
+  }
   if (dtype == 1) {
-    return launch_dw_gemm<__nv_bfloat16>(n, c, slices, slice_rows, a, b, part, dw, s);
+    return launch_dw_gemm<__nv_bfloat16>(n, m, c, slices, slice_rows, a, b, part, dw, s);
   }
   return cudaErrorInvalidValue;
 }

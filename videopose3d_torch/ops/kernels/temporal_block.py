@@ -137,9 +137,10 @@ def fused_shrink_block_plain(x, w_taps, bn1_scale, bn1_shift, w2, bn2_scale,
 SMEM_OPT_IN = 232_448
 
 # k3_plan's rates: a stage GEMM's products per second on one SM, float32 at 45
-# TFLOP/s (the train block's tap GEMM rate on the same 128 x 128 tile) and bf16 at
-# 216 TFLOP/s (k3_mma_kernel's rate within a wave), over 132 SMs; and the cost of a
-# split's second launch.  Fitted to kernel_ab.py's K3 sweep on an H100 (PERF.md).
+# TFLOP/s (fitted to the CUDA-core tile; on the 3xTF32 one its picks stay the fastest
+# slice counts) and bf16 at 216 TFLOP/s (k3_mma_kernel's rate within a wave), over
+# 132 SMs; and the cost of a split's second launch.  Fitted to kernel_ab.py's K3
+# sweep on an H100 (PERF.md).
 K3_SM_FLOPS = {torch.float32: 45e12 / 132, torch.bfloat16: 216e12 / 132}
 K3_SPLIT_LAUNCH_S = 3e-6
 

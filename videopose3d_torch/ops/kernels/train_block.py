@@ -18,8 +18,10 @@ Pallas launch, each with a ``*_plain`` twin of the same signature:
     backward: relu_mask_bn_sums (once per BatchNorm), dz_matmul_dd + dw_gemm
               (together the Pallas ``_dz_matmul_dw_kernel``), du_dtaps_res
 
-and the O(C) statistics glue between them in torch.  ``dWa = x3^T @ du`` is a
-plain matmul, as the JAX package leaves it to XLA.
+and the O(C) statistics glue between them in torch.  ``dWa = x3^T @ du``, which
+the JAX package leaves to XLA, is a second ``dw_gemm`` launch (an (fw C, C)
+output).  Every product runs on the tensor cores: float32 in 3xTF32 (float32's
+accuracy), bfloat16 exactly in one TF32 pass.
 
 Data parallel (a ``parallel.BatchShard``): the batch statistics are the global
 batch's.  The forward sums of ``conv_stats`` and ``norm_drop_matmul_stats`` and
@@ -125,7 +127,7 @@ def dz_matmul_dd_plain(gz, z, coef, wb):
 
 
 def dw_gemm_plain(a, b):
-    """a^T @ b over the rows, float32: (n, C) x (n, C) -> (C, C)."""
+    """a^T @ b over the rows, float32: (n, m) x (n, C) -> (m, C)."""
     return a.float().t() @ b.float()
 
 
@@ -331,33 +333,29 @@ def dz_matmul_dd(gz, z, coef, wb):
     return dz, dd
 
 
-# The 128 x 128-tile SGEMMs' geometry (csrc/sgemm_tile.cuh): DW_TILE x DW_TILE output
+# The 128 x 128-tile GEMMs' geometry (csrc/sgemm_tile.cuh): DW_TILE x DW_TILE output
 # tiles per CUDA block, slabs of DW_ROWS rows of the summed dimension, and
 # DW_BLOCKS_PER_SM CUDA blocks resident per SM.
 DW_TILE, DW_ROWS, DW_BLOCKS_PER_SM = 128, 32, 2
 
 
-def dw_gemm_plan(n: int, c: int, sms: int = 132):
-    """The row slices of dw_gemm's split over n: ``[(start, stop), ...]`` in
-    order, each a whole number of DW_ROWS slabs but the last, together [0, n).
+def dw_gemm_plan(n: int, m: int, c: int, sms: int = 132):
+    """The row slices of dw_gemm's split over n for an (m, c) output:
+    ``[(start, stop), ...]`` in order, each a whole number of DW_ROWS slabs but
+    the last, together [0, n).
 
-    C = 1,024 has only 64 output tiles for the card's ``sms`` SMs, so the rows
-    are split into as many slices as one wave of resident CUDA blocks holds
-    (``DW_BLOCKS_PER_SM * sms // tiles``, 4 at C = 1,024 on 132 SMs), and never
-    more slices than slabs."""
-    slabs = -(-n // DW_ROWS)
-    tiles = (-(-c // DW_TILE)) ** 2
-    want = max(1, min(slabs, DW_BLOCKS_PER_SM * sms // tiles))
-    rows = -(-slabs // want) * DW_ROWS
-    return [(s, min(n, s + rows)) for s in range(0, n, rows)]
+    The same tiles as a tap GEMM's, the rows its summed dimension, so the same
+    cost model picks the count (:func:`tap_gemm_plan`): at C = 1,024 on 132 SMs
+    dWb's 64 tiles and dWa's 192 (m = 3 C) split in 2 at every n of the step."""
+    return list(tap_gemm_plan(m, n, c, sms))
 
 
-# tap_gemm_plan's cost model of a tap GEMM on the card: each SM works through its
-# share of the CUDA blocks at TAP_SM_FLOPS (45 TFLOP/s over 132 SMs, the kernel's
-# rate at full size); a split adds its float32 partials' write and read-back at
-# SPLIT_BYTES_PER_S and a second launch.  Fitted to the slice sweeps of both
-# kernels at n = 1,024 to 27,648 on an H100 (PERF.md, section 6).
-TAP_SM_FLOPS = 45e12 / 132
+# tap_gemm_plan's cost model of a tap GEMM (and dw_gemm) on the card: each SM works
+# through its share of the CUDA blocks at TAP_SM_FLOPS (52 TFLOP/s over 132 SMs, the
+# 3xTF32 kernels' rate at full size); a split adds its float32 partials' write and
+# read-back at SPLIT_BYTES_PER_S and a second launch.  Checked against the slice
+# sweeps of the kernels at n = 1,024 to 27,648 on an H100 (PERF.md, section 6).
+TAP_SM_FLOPS = 52e12 / 132
 SPLIT_BYTES_PER_S, SPLIT_LAUNCH_S = 3e12, 1e-5
 TAP_MAX_SLICES = 8
 
@@ -408,22 +406,24 @@ def _split_scratch(plan, m: int, n: int, like):
 
 
 def dw_gemm(a, b):
-    """Kernel of :func:`dw_gemm_plain`: one launch of the tiled GEMM over the
-    :func:`dw_gemm_plan` slices and, with more than one slice, one of their
-    in-order sum."""
+    """Kernel of :func:`dw_gemm_plain` (a (n, m), b (n, C), m % 4 == 0): one
+    launch of the tiled GEMM over the :func:`dw_gemm_plan` slices and, with
+    more than one slice, one of their in-order sum."""
     if a.device.type == "cpu":
         return dw_gemm_plain(a, b)
     dt = a.dtype
-    n, c = a.shape
-    _validate(a, c)
-    for name, t in (("a", a), ("b", b)):  # whole 4-element cp.async copies
-        check(name, t, a.device, dt, (n, c), align=4 * a.element_size())
-    plan = dw_gemm_plan(n, c, sm_count(a.device))
-    dw = torch.empty((c, c), dtype=torch.float32, device=a.device)
+    n, m = a.shape
+    c = b.shape[-1]
+    _validate(a, m)
+    _validate(b, c)
+    for name, t, shape in (("a", a, (n, m)), ("b", b, (n, c))):  # whole 4-element copies
+        check(name, t, a.device, dt, shape, align=4 * a.element_size())
+    plan = dw_gemm_plan(n, m, c, sm_count(a.device))
+    dw = torch.empty((m, c), dtype=torch.float32, device=a.device)
     part = (None if len(plan) == 1 else
-            torch.empty((len(plan), c, c), dtype=torch.float32, device=a.device))
-    launch("vp3d_tb_dw_gemm", a.device, _DTYPE_CODE[dt], n, c, len(plan), plan[0][1], a, b,
-           part, dw, count=(LAUNCHES, "dw_gemm"))
+            torch.empty((len(plan), m, c), dtype=torch.float32, device=a.device))
+    launch("vp3d_tb_dw_gemm", a.device, _DTYPE_CODE[dt], n, m, c, len(plan), plan[0][1], a,
+           b, part, dw, count=(LAUNCHES, "dw_gemm"))
     return dw
 
 
@@ -564,8 +564,7 @@ class FusedTrainBlock(torch.autograd.Function):
             ga, dba, dsa = ops["relu_mask_bn_sums"](dd, u, ma, stat(mean_a, var_a), gate_a)
             consts_a = _bwd_consts(mean_a, var_a, sa, *_global_sums(dba, dsa, shard), n_stats)
             du, dx3 = ops["du_dtaps_res"](ga, u, g2, consts_a, wa, center=ctx.center)
-            # The weight gradient over the batch: one large plain matmul.
-            dwa = (x3.reshape(n, fw * c).float().t() @ du.float()).reshape(fw, c, c)
+            dwa = ops["dw_gemm"](x3.reshape(n, fw * c), du).reshape(fw, c, c)
             return (dx3.reshape(g.shape[0], -1, c), dwa.to(wa.dtype), dwb.to(wb.dtype),
                     dsa, dba, dsb, dbb, None, None, None, None, None, None, None, None)
 
