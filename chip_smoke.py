@@ -29,8 +29,9 @@ float32; it times each kernel and plain version (K1 and every K2 kernel also
 from CUDA-graph replay, with a bitwise repeat of each K2 one), and beside each K2
 GEMM kernel one float32 torch.matmul of its product; it holds relu_mask_bn_sums
 at ragged n and widths (4, 1,028, 3,636 channels) too, and two CUDA-graph replays
-of it bitwise equal, and counts the K2 GEMM kernels' HMMA instructions (every
-product on the tensor cores).  Phase 4
+of it bitwise equal, and counts the K2 GEMM kernels' tensor-core instructions
+(every product on the tensor cores: HMMA in the bf16 kernels, HGMMA in the float32
+ones).  Phase 4
 trains the full-width model for one epoch of batch 1,024 with ``runner.main``
 from the random checkpoint, with the fused train engine twice and the plain one
 once (dropout 0.25, the same seed), and checks the losses, the kernel launches,
@@ -334,6 +335,16 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def launched_every_kernel(launches) -> bool:
+    """Every kernel counted in ``launches`` (K1's and K2's LAUNCHES of a float32
+    training run) ran, and every K2 GEMM (three a dw_gemm launch: conv_stats,
+    norm_drop_matmul_stats, and dz_matmul_dd or du_dtaps_res with it) on warpgroup
+    MMAs after its own B split."""
+    return (all(v > 0 for v in launches.values())
+            and launches.get("k2_wgmma_gemms") == launches.get("tf32_split")
+            == 3 * launches.get("dw_gemm", 0))
 
 
 def gpu_line() -> str:
@@ -1249,13 +1260,15 @@ def phase3(device):
                       f"train block n={n}: gradients differ: {rel}")
             del p
     relu_sums_checks(device)
-    # Every GEMM of K2 runs on the tensor cores: float32 in 3xTF32, bf16 in one pass.
+    # Every GEMM of K2 runs on the tensor cores: float32 in 3xTF32 on warpgroup MMAs
+    # (HGMMA), bf16 in one pass on mma.sync (HMMA).
     from videopose3d_torch.ops.kernels import build
-    for kernel in ("tap_gemm_kernel", "dw_gemm_kernel"):
-        hmma = sass_count(build.library_path(), kernel, "HMMA")
+    for kernel, op in (("tap_gemm_kernel", "HMMA"), ("dw_gemm_kernel", "HMMA"),
+                       ("tap_wgmma_kernel", "HGMMA"), ("dw_wgmma_kernel", "HGMMA")):
+        mma = sass_count(build.library_path(), kernel, op)
         print(f"phase3 {kernel} SASS (cuobjdump -sass): "
-              f"{'no cuobjdump' if hmma is None else f'{hmma} HMMA instructions'}")
-        check(hmma != 0, f"{kernel} has no tensor-core (HMMA) instruction")
+              f"{'no cuobjdump' if mma is None else f'{mma} {op} instructions'}")
+        check(mma != 0, f"{kernel} has no tensor-core ({op}) instruction")
     gr.LAUNCHES.update(saved[0])  # comparison launches do not count
     trb.LAUNCHES.update(saved[1])
     return results
@@ -1475,7 +1488,7 @@ def phase4(tmp):
     check(rel <= FIRST_STEP_AGREE, f"first-step losses differ: {first_p} vs {first_x}")
     for name in ("pallas", "pallas again"):
         launches = runs[name][1]
-        check(all(v > 0 for v in launches.values()),
+        check(launched_every_kernel(launches),
               f"{name} run did not launch every training kernel: {launches}")
     from videopose3d_torch.ops.kernels import train_block as trb
     check(not any(runs["xla"][1][k] for k in trb.LAUNCHES),
@@ -1880,7 +1893,7 @@ def phase7(tmp):
         check(k1 == [1] * warm + [2] * (len(k1) - warm),
               f"({cell}) {name}: K1 launches per step are not 1 in warmup and 2 after: {k1}")
         if engine == "pallas":
-            check(all(v > 0 for v in launches.values()),
+            check(launched_every_kernel(launches),
                   f"({cell}) {name} did not launch every training kernel: {launches}")
         else:
             check(not any(launches[k] for k in trb.LAUNCHES),
@@ -2514,7 +2527,7 @@ def phase8b(tmp):
           f"global shape ({DP_BATCH} rows), {masks[str(DP_BATCH // 2)]:.3f} ms at a rank's "
           f"{DP_BATCH // 2}")
     for r in results:
-        check(all(v > 0 for v in r["launches"].values()),
+        check(launched_every_kernel(r["launches"]),
               f"8b rank {r['rank']} did not launch every K1/K2 kernel: {r['launches']}")
     print("phase8b launches per rank: " + "; ".join(
         f"rank {r['rank']} {r['launches']}" for r in results))
@@ -2853,7 +2866,7 @@ def phase9d(tmp):
             base + ["-b", "128", "-e", "1", "--seed", str(SEED), "--checkpoint-frequency",
                     "1", "--train-engine", "pallas"], window=HE_WINDOW)
     steps, seconds, _, steady_ms = rate
-    check(all(v > 0 for v in launches.values()), f"(d) did not launch K1 and K2: {launches}")
+    check(launched_every_kernel(launches), f"(d) did not launch K1 and K2: {launches}")
     print(f"phase9 (d) HumanEva -arc 3,3,3 -b 128: {steps} steps in {seconds:.3f} s, "
           f"{steady_ms:.3f} ms/step over steps {HE_WINDOW[0]}-{HE_WINDOW[1] - 1}; epoch "
           f"3d_train/3d_eval/3d_valid {numbers[0]:.4f}/{numbers[1]:.4f}/{numbers[2]:.4f} mm; "
@@ -3582,9 +3595,9 @@ CKPT_REPS = 3
 EPOCH_LINE = re.compile(r"^\[(\d+)\] time \S+ (lr \S+ 3d_train \S+ 3d_eval \S+ 3d_valid \S+)$")
 METRIC_KEYS = {"epoch", "lr", "bn_momentum", "loss_3d_train", "step_steps", "step_mean_ms",
                "step_p50_ms", "step_p95_ms", "step_max_ms"}
-# The kernels of train_block.cu that every full-width training step launches.
-K2_CUDA_KERNELS = ("tap_gemm_kernel", "norm_drop_kernel", "relu_mask_bn_sums_kernel",
-                   "bn_grad_kernel", "dw_gemm_kernel")
+# The kernels of train_block.cu that every full-width (float32) training step launches.
+K2_CUDA_KERNELS = ("tap_wgmma_kernel", "norm_drop_kernel", "relu_mask_bn_sums_kernel",
+                   "bn_grad_kernel", "dw_wgmma_kernel", "tf32_split_kernel")
 
 
 def write_detections(root):
@@ -3812,7 +3825,7 @@ def phase10c(tmp):
     wall = time.perf_counter() - start
     counts = count_launches()
     launches = {**counts["K1"], **counts["K2"]}
-    check(all(v > 0 for v in launches.values()), f"instrumented run launches {launches}")
+    check(launched_every_kernel(launches), f"instrumented run launches {launches}")
     check(not any(counts["K3"].values()) and not any(counts["K4"].values()),
           f"instrumented training launched evaluation kernels: {counts}")
     out = buf.getvalue()
@@ -3833,7 +3846,7 @@ def phase10c(tmp):
     from videopose3d_torch.ops.kernels import train_block as trb
     missing = ([k for k in ("window_kernel",) + K2_CUDA_KERNELS
                 if not any(k in name for name in kernels)]
-               + [f"K2 {k}" for k in trb.LAUNCHES if f"K2 {k}" not in ranges])
+               + [f"K2 {k}" for k in trb._KERNELS if f"K2 {k}" not in ranges])
     size_mb = os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6
     print(f"phase10 (c) trace {traces[0]} ({size_mb:.1f} MB): {len(events)} events, "
           f"{sum(kernels.values())} kernel launches of {len(kernels)} kernels, K2 ranges "

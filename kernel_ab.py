@@ -9,10 +9,11 @@ of another checkout (for
 example the parent commit, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists), in turns other, this, this, other:
 
-    python3 kernel_ab.py --other build/parent [--kernels k3 | int8 | k2ew]
+    python3 kernel_ab.py --other build/parent [--kernels k3 | int8 | k2ew | k2]
 
 (``--kernels k3``: K3 alone; ``--kernels int8``: the int8 evaluation stages, K4
-in both tap modes (the accshift mode is K8), then K3; ``--kernels k2ew``: the
+in both tap modes (the accshift mode is K8), then K3; ``--kernels k2``: the K2
+GEMMs alone; ``--kernels k2ew``: the
 train block's two elementwise kernels alone, ``relu_mask_bn_sums`` and
 ``norm_drop_res``, at the four n in float32 and bfloat16 with a dropout mask,
 each launched twice and held bitwise equal, gz and the residual output bitwise
@@ -28,24 +29,26 @@ its plain version.  The other shapes are those of
 ``chip_smoke.py`` phase 3 in float32: K1 gathers 1,024 windows of 243
 rows of 34 columns from a 300,000- and a 3,000,000-row stream; the K2 kernels run
 at n = 27,648 / 9,216 / 3,072 / 1,024 rows of 1,024 channels (3 taps, residual
-tap 1); the dWa row, x3^T du of (n, 3,072) by (n, 1,024), times the checkout's own
-route (``dw_gemm`` where it takes the (n, fw C) operand, else the float32 matmul
-the block ran).  Each is timed as the median device time of CUDA-graph replays
-(``graph``) and as one call between CUDA events, its host enqueue included
-(``call``), K3 also by the host's time to enqueue one call (``host``);
-``torch.matmul`` (TF32 off) of each K2 product and the indexing
-gather ``flat[rows]`` are timed in every turn as yardsticks.  ``dw_gemm``'s
-outputs must be bitwise equal in every turn (a SHA-256 of their bytes).  Each
-turn also reports its build's ``-Xptxas -v`` lines of the tap GEMM kernels
+tap 1), and the float32 GEMMs' split of B where the checkout has one
+(``tf32_split``: dw_gemm's (n, C) operand transposed, a three-tap weight); the dWa
+row, x3^T du of (n, 3,072) by (n, 1,024), times the checkout's own kernel
+(``dw_gemm`` where it takes the (n, fw C) operand, else the float32 matmul the block
+ran).  Each is timed as the median
+device time of CUDA-graph replays (``graph``) and as one call between CUDA events, its
+host enqueue included (``call``), K3 also by the host's time to enqueue one call
+(``host``); ``torch.matmul`` (TF32 off) of each K2 product and the indexing gather
+``flat[rows]`` are timed in every turn as yardsticks.  ``dw_gemm``'s outputs must be
+bitwise equal in every turn of a checkout (a SHA-256 of their bytes).  Each
+turn also reports its build's ``-Xptxas -v`` lines of the K2 GEMM kernels
 (registers, spills).  The last line of standard output is a JSON object with
 every turn's times.
 
     python3 kernel_ab.py --sweep
 
-times the four tap GEMM kernels of this checkout at those n with the summed
-dimension forced into 1, 2, 3, 4 and 8 slices (graph replay), beside the count
-``tap_gemm_plan`` picks, to check its cost model, and ``dw_gemm`` at dWb's and
-dWa's shapes with its rows forced into as many slices, beside ``dw_gemm_plan``'s;
+times the four tap GEMM kernels of this checkout at those n and HumanEva's 384 and
+128 with the summed dimension forced into 1, 2, 3, 4 and 8 slices (graph replay),
+beside the count ``tap_gemm_plan`` picks, to check its cost model, and ``dw_gemm``
+at dWb's and dWa's shapes with its rows forced as well, beside ``dw_gemm_plan``'s;
 
     python3 kernel_ab.py --sweep stream_bf16
 
@@ -79,6 +82,8 @@ import time
 GATHER_ROWS = (300_000, 3_000_000)
 BATCH, WINDOW, COLS = 1024, 243, 34
 DW_ROWS = (27_648, 9_216, 3_072, 1_024)
+# HumanEva's K2 blocks (chip_smoke.py phase 9): swept too.
+SWEEP_ROWS = DW_ROWS + (384, 128)
 CHANNELS = 1024
 RUNS = 10
 
@@ -165,6 +170,8 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
         return sweep_relu_sums(torch, trb, dev, gen, graph_ms)
     if kernels == "k2ew":
         return k2_elementwise(torch, trb, build, dev, gen, graph_ms, call_ms)
+    if kernels == "k2":
+        return k2_gemms(torch, trb, build, dev, gen, graph_ms, call_ms)
     if kernels == "int8":
         for label, mode, v, kernel, plain in int8_stages(torch, dev):
             check_int8(torch, root, label, kernel(v, mode), plain(v, "slice"))
@@ -211,6 +218,17 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
         for name, fn in (("gather_windows", kernel), ("flat[rows]", lambda: flat[idx])):
             out[f"{name} rows={rows} graph"] = graph_ms(fn, reps=100)
             out[f"{name} rows={rows} call"] = call_ms(fn)
+    k2 = k2_gemms(torch, trb, build, dev, gen, graph_ms, call_ms)
+    out["ptxas"] += k2.pop("ptxas")
+    out.update(k2)
+    return out
+
+
+def k2_gemms(torch, trb, build, dev, gen, graph_ms, call_ms) -> dict:
+    """The K2 GEMMs (float32, C = 1,024, 3 taps) at each n of DW_ROWS, each checked
+    against its plain version, and one float32 ``torch.matmul`` of each product:
+    graph and one-call times.  ``dw_gemm``'s outputs go to a SHA-256; the ``-Xptxas
+    -v`` lines of the GEMM kernels go to "ptxas"."""
     a = torch.randn(DW_ROWS[0], CHANNELS, device=dev, generator=gen)
     b = torch.randn(DW_ROWS[0], CHANNELS, device=dev, generator=gen)
     x3 = torch.randn(DW_ROWS[0], 3, CHANNELS, device=dev, generator=gen)
@@ -223,6 +241,7 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
     mask, gate = one_tap_operands(torch, dev, gen)
     dwa = dwa_route(torch, trb)
     digest = hashlib.sha256()
+    out = {}
     for n in DW_ROWS:
         an, bn, xn = a[:n].contiguous(), b[:n].contiguous(), x3[:n].contiguous()
         mn, rows = mask[:n].contiguous(), x3[:n].reshape(n, -1)
@@ -254,16 +273,22 @@ def worker(root: str, sweep: str = "", kernels: str = "all") -> dict:
             want = want if isinstance(want, tuple) else (want,)
             for g, w in zip(got, want):
                 if float((g - w).abs().max()) > 1e-4 * max(1.0, float(w.abs().max())):
-                    raise RuntimeError(f"{root}: {name} n={n} differs from its plain "
-                                       "version")
+                    raise RuntimeError(f"{name} n={n} differs from its plain version")
             if name == "dw_gemm":
                 digest.update(got[0].cpu().numpy().tobytes())
             for label, fn in ((name, kernel), (f"{name} torch.matmul", library)):
                 out[f"{label} n={n} graph"] = graph_ms(fn)
                 out[f"{label} n={n} call"] = call_ms(fn)
+        if hasattr(trb, "tf32_parts"):  # the float32 GEMMs' B split: dw_gemm's, transposed
+            out[f"tf32_split (n, C) transposed n={n} graph"] = graph_ms(
+                lambda: trb.tf32_parts(bn, transpose=True))
+    if hasattr(trb, "tf32_parts"):  # and a three-tap weight's, either way
+        for flag in (False, True):
+            out[f"tf32_split (3 C, C) transpose={flag} graph"] = graph_ms(
+                lambda: trb.tf32_parts(wa.reshape(-1, CHANNELS), transpose=flag))
     out["dw_gemm sha256"] = digest.hexdigest()
-    out["ptxas"] += ptxas_report(build.build_log, "tap_gemm") + ptxas_report(
-        build.build_log, "dw_gemm")
+    out["ptxas"] = [line for name in ("tap_gemm", "dw_gemm", "wgmma", "tf32_split")
+                    for line in ptxas_report(build.build_log, name)]
     return out
 
 
@@ -730,10 +755,11 @@ def sweep_stream(torch, sf, dev, gen, graph_ms, kind) -> dict:
 
 
 def sweep_tap_gemms(torch, trb, dev, gen, graph_ms) -> dict:
-    """Graph time of each tap GEMM kernel at each n with its summed dimension
-    forced into each of SWEEP_SLICES slices (``tap_gemm_plan`` replaced), and
-    the count ``tap_gemm_plan`` picks ("plan")."""
-    picked = trb.tap_gemm_plan
+    """Graph time of each K2 GEMM kernel (the four tap GEMMs, dw_gemm at dWb's and
+    dWa's shapes) at each n with its summed dimension forced into each of
+    SWEEP_SLICES slices (the plans replaced), and the slice count its plan picks
+    ("plan")."""
+    picked = trb.tap_gemm_plan, trb.dw_gemm_plan
     n_max = DW_ROWS[0]
     a = torch.randn(n_max, CHANNELS, device=dev, generator=gen)
     x3 = torch.randn(n_max, 3, CHANNELS, device=dev, generator=gen)
@@ -742,46 +768,40 @@ def sweep_tap_gemms(torch, trb, dev, gen, graph_ms) -> dict:
     shift = torch.randn(CHANNELS, device=dev, generator=gen) * 0.1
     coef = torch.rand(5, CHANNELS, device=dev, generator=gen) + 0.5
     mask, gate = one_tap_operands(torch, dev, gen)
+
+    def forced(k, slices):
+        slabs = -(-k // trb.DW_ROWS)
+        rows = -(-slabs // slices) * trb.DW_ROWS
+        return tuple((s, min(k, s + rows)) for s in range(0, k, rows))
+
     out = {}
-    for n in DW_ROWS:
+    for n in SWEEP_ROWS:
         an, xn, mn = a[:n].contiguous(), x3[:n].contiguous(), mask[:n].contiguous()
         kernels = {
             "conv_stats": (lambda: trb.conv_stats(xn, wa, shift, center=1),
-                           (n, 3 * CHANNELS, CHANNELS)),
+                           (n, 3 * CHANNELS, CHANNELS), 0),
             "du_dtaps_res": (lambda: trb.du_dtaps_res(an, an, an, coef, wa, center=1),
-                             (n, CHANNELS, 3 * CHANNELS)),
+                             (n, CHANNELS, 3 * CHANNELS), 0),
             "norm_drop_matmul_stats": (
                 lambda: trb.norm_drop_matmul_stats(an, mn, gate, wb, shift),
-                (n, CHANNELS, CHANNELS)),
+                (n, CHANNELS, CHANNELS), 0),
             "dz_matmul_dd": (lambda: trb.dz_matmul_dd(an, an, coef, wb),
-                             (n, CHANNELS, CHANNELS)),
+                             (n, CHANNELS, CHANNELS), 0),
         }
-        for name, (kernel, shape) in kernels.items():
-            out[f"{name} n={n} plan"] = len(picked(*shape))
-            k = shape[1]
-            slabs = -(-k // trb.DW_ROWS)
+        for name, m in (("dw_gemm dWb", CHANNELS), ("dw_gemm dWa", 3 * CHANNELS)):
+            rows = x3[:n].reshape(n, -1)[:, :m].contiguous()
+            kernels[name] = (lambda rows=rows: trb.dw_gemm(rows, an), (n, m, CHANNELS), 1)
+        for name, (kernel, shape, which) in kernels.items():
+            out[f"{name} n={n} plan"] = len(picked[which](*shape))
+            k = shape[1] if which == 0 else shape[0]
             for want in SWEEP_SLICES:
-                rows = -(-slabs // want) * trb.DW_ROWS
-                plan = tuple((s, min(k, s + rows)) for s in range(0, k, rows))
-                trb.tap_gemm_plan = lambda *_, plan=plan: plan
+                plan = forced(k, want)
+                setattr(trb, ("tap_gemm_plan", "dw_gemm_plan")[which],
+                        lambda *_, plan=plan: plan)
                 try:
                     out[f"{name} n={n} slices={len(plan)} graph"] = graph_ms(kernel)
                 finally:
-                    trb.tap_gemm_plan = picked
-        picked_dw = trb.dw_gemm_plan
-        for name, m in (("dw_gemm dWb", CHANNELS), ("dw_gemm dWa", 3 * CHANNELS)):
-            rows = x3[:n].reshape(n, -1)[:, :m].contiguous()
-            out[f"{name} n={n} plan"] = len(picked_dw(n, m, CHANNELS))
-            slabs = -(-n // trb.DW_ROWS)
-            for want in SWEEP_SLICES:
-                step = -(-slabs // want) * trb.DW_ROWS
-                plan = [(s, min(n, s + step)) for s in range(0, n, step)]
-                trb.dw_gemm_plan = lambda *_, plan=plan: plan
-                try:
-                    out[f"{name} n={n} slices={len(plan)} graph"] = graph_ms(
-                        lambda: trb.dw_gemm(rows, an))
-                finally:
-                    trb.dw_gemm_plan = picked_dw
+                    trb.tap_gemm_plan, trb.dw_gemm_plan = picked
     return out
 
 
@@ -795,10 +815,11 @@ def main() -> int:
                              "(default), a streaming step at forced plans, K3 or the "
                              "int8 stages at forced slice counts, or relu_mask_bn_sums "
                              "at forced cluster sizes")
-    parser.add_argument("--kernels", choices=("all", "k3", "int8", "k2ew"), default="all",
+    parser.add_argument("--kernels", choices=("all", "k3", "int8", "k2ew", "k2"),
+                        default="all",
                         help="the kernels of the A/B (k3: K3 alone; int8: the int8 "
                              "stages, then K3; k2ew: relu_mask_bn_sums and "
-                             "norm_drop_res)")
+                             "norm_drop_res; k2: the K2 GEMMs)")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
@@ -841,16 +862,18 @@ def main() -> int:
     # Output digests: dw_gemm's (all), the elementwise outputs' and the sums'
     # (k2ew), the sums in each checkout's own order.
     bitwise = {}
-    for key in [k for k in turns[0][1] if k.endswith(" sha256")]:
-        found = [(label, t.pop(key)) for label, t in turns]
+    cases = list(dict.fromkeys(k for _, t in turns for k in t))
+    for key in [k for k in cases if k.endswith(" sha256")]:
+        found = [(label, t.pop(key)) for label, t in turns if key in t]
         bitwise[key[:-7]] = {
             "every turn": len({d for _, d in found}) == 1,
             **{label: len({d for l, d in found if l == label}) == 1
-               for label in ("other", "this")}}
+               for label in ("other", "this") if any(l == label for l, _ in found)}}
         print(f"{key[:-7]} outputs bitwise equal: {bitwise[key[:-7]]}")
     print(f"{'case':40s} " + " ".join(f"{label:>9s}" for label, _ in turns))
-    for case in turns[0][1]:
-        print(f"{case:40s} " + " ".join(f"{t[case]:9.4f}" for _, t in turns))
+    for case in [k for k in cases if not k.endswith(" sha256")]:
+        print(f"{case:40s} " + " ".join(f"{t[case]:9.4f}" if case in t else f"{'-':>9s}"
+                                        for _, t in turns))
     print(json.dumps({"device": smi, "other": other, "bitwise": bitwise,
                       "turns": [{"checkout": label, "ms": t} for label, t in turns]}))
     return 0

@@ -771,11 +771,13 @@ def test_train_block_plans_tile_the_rows_on_this_card(cuda, n):
 def test_train_block_kernels_match_plain(cuda, b, t, c, fw, center, dropout):
     """float32: out, both stat pairs and every gradient within 1e-4 of the
     plain versions (float32 sums in other orders), all seven kernels launched
-    (dw_gemm twice: dWb and dWa)."""
+    (dw_gemm twice: dWb and dWa), each of the six GEMMs counted on warpgroup MMAs
+    (k2_wgmma_gemms) with one B split (tf32_split) for each."""
     p = _train_block_inputs(b * c + fw, b, t, c, fw, torch.float32, dropout, cuda)
     before = dict(trb.LAUNCHES)
     got = _block_run(p, fw, center, plain=False)
     launched = {k: trb.LAUNCHES[k] - before[k] for k in before}
+    assert launched.pop("k2_wgmma_gemms") == launched.pop("tf32_split") == 6
     assert launched == {**{k: 1 for k in launched}, "relu_mask_bn_sums": 2, "dw_gemm": 2}
     want = _block_run(p, fw, center, plain=True)
     for i, (a, w) in enumerate(zip(got, want)):
@@ -819,25 +821,85 @@ def _product_operands(name, n, c, device):
     return kernel, (a.double() @ b.double()), lambda: torch.matmul(a, b)
 
 
-@pytest.mark.parametrize("name", ["conv_stats", "du_dtaps_res", "norm_drop_matmul_stats",
-                                  "dz_matmul_dd", "dwb", "dwa"])
-@pytest.mark.parametrize("n", [27_648, 3072])
-def test_k2_products_keep_float32_accuracy(cuda, n, name):
-    """Each float32 K2 product (3xTF32 on the tensor cores) against float64: no
-    more than 4x the max error of a float32 ``torch.matmul`` (TF32 off), and
-    under 1/8 of a TF32 ``torch.matmul``'s, which a one-pass TF32 product fails."""
-    kernel, want, library = _product_operands(name, n, 1024, cuda)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("rows,cols", [(1, 4), (31, 68), (3072, 1024), (27_649, 1024)])
+def test_tf32_parts_kernel_matches_plain(cuda, rows, cols, transpose):
+    """The float32 GEMMs' split of B (tf32_split_kernel): big and small bitwise equal
+    to the plain version's integer rounding, transposed with zeros past the rows
+    (ragged 32 x 32 tiles, a row count off the 16-byte words), one launch counted."""
+    gen = torch.Generator(cuda).manual_seed(rows + cols)
+    x = torch.randn(rows, cols, device=cuda, generator=gen) * 10.0 ** torch.randint(
+        -4, 4, (rows, cols), device=cuda, generator=gen)
+    before = trb.LAUNCHES["tf32_split"]
+    got = trb.tf32_parts(x, transpose=transpose)
+    assert trb.LAUNCHES["tf32_split"] == before + 1
+    want = trb.tf32_parts_plain(x, transpose=transpose)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and torch.equal(a, w)
+
+
+# Each K2 product's plan function and the (m, k, n) or (n, m, c) it takes at n rows of
+# C channels (3 taps).
+PRODUCT_PLANS = {
+    "conv_stats": ("tap_gemm_plan", lambda n, c: (n, 3 * c, c)),
+    "du_dtaps_res": ("tap_gemm_plan", lambda n, c: (n, c, 3 * c)),
+    "norm_drop_matmul_stats": ("tap_gemm_plan", lambda n, c: (n, c, c)),
+    "dz_matmul_dd": ("tap_gemm_plan", lambda n, c: (n, c, c)),
+    "dwb": ("dw_gemm_plan", lambda n, c: (n, c, c)),
+    "dwa": ("dw_gemm_plan", lambda n, c: (n, 3 * c, c)),
+}
+
+
+def _float32_errors(want, library):
+    """The max error against float64 of the float32 torch.matmul of the product, TF32
+    off and on."""
     err = lambda got: float((got.double() - want).abs().max())
-    got = kernel()
-    assert got.dtype == torch.float32
     fp32 = err(library())
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         tf32 = err(library())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    assert err(got) <= 4 * fp32, (err(got), fp32, tf32)
-    assert err(got) < tf32 / 8, (err(got), fp32, tf32)
+    return fp32, tf32
+
+
+@pytest.mark.parametrize("name", list(PRODUCT_PLANS))
+@pytest.mark.parametrize("n", [55_296, 27_648, 3072, 2048])
+def test_k2_products_keep_float32_accuracy(cuda, n, name):
+    """Each float32 K2 product (3xTF32 on warpgroup MMAs) against float64: no
+    more than 4x the max error of a float32 ``torch.matmul`` (TF32 off), and under
+    1/8 of a TF32 ``torch.matmul``'s, which a one-pass TF32 product fails."""
+    kernel, want, library = _product_operands(name, n, 1024, cuda)
+    before = trb.LAUNCHES["k2_wgmma_gemms"]
+    got = kernel()
+    assert got.dtype == torch.float32
+    assert trb.LAUNCHES["k2_wgmma_gemms"] == before + 1
+    fp32, tf32 = _float32_errors(want, library)
+    err = float((got.double() - want).abs().max())
+    assert err <= 4 * fp32, (err, fp32, tf32)
+    assert err < tf32 / 8, (err, fp32, tf32)
+
+
+@pytest.mark.parametrize("n", [55_296, 18_432, 6144, 2048, 27_648, 9216, 3072])
+def test_every_planned_k2_gemm_plan_launches(cuda, n, monkeypatch):
+    """Every plan (slices) the K2 plans pick for each float32 product at
+    the training cells' row counts, on this card's SM count and 132, launches and
+    gives the product within 4x a float32 torch.matmul's error of float64 (1/8 of
+    TF32's), the same bits in two launches (fixed summation order, no atomics)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name, (fn, shape) in PRODUCT_PLANS.items():
+        plan_fn = getattr(trb, fn)
+        plans = {plan_fn(*shape(n, 1024), n_sms) for n_sms in {sms, 132}}
+        kernel, want, library = _product_operands(name, n, 1024, cuda)
+        fp32, tf32 = _float32_errors(want, library)
+        for plan in sorted(plans):
+            monkeypatch.setattr(trb, fn, lambda *_, p=plan: p)
+            got, again = kernel(), kernel()
+            err = float((got.double() - want).abs().max())
+            assert err <= 4 * fp32 and err < tf32 / 8, (name, plan, err, fp32, tf32)
+            assert torch.equal(got, again), (name, plan)
+        monkeypatch.setattr(trb, fn, plan_fn)
+        del kernel, want, library
 
 
 @pytest.mark.parametrize("b,t,c,fw,center,dropout", TRAIN_BLOCK_CASES[:3])
@@ -921,6 +983,8 @@ def test_pallas_train_engine_trains_at_any_width(cuda, c):
                     for p in model.parameters():
                         p -= 0.01 * p.grad
         launched = {k: trb.LAUNCHES[k] - before[k] for k in before}
+        wgmma = launched.pop("k2_wgmma_gemms")
+        assert launched.pop("tf32_split") == wgmma == launched["dw_gemm"] * 3
         assert all(launched.values()) == (engine == "pallas"), launched
         assert losses[1] < losses[0]
         results[engine] = (losses[0], grads)

@@ -240,6 +240,25 @@ def test_k3_plan_slices_cover_the_summed_dimension(m, k, n, dtype, sms):
         assert rows * cols * len(plan) <= trb.DW_BLOCKS_PER_SM * sms
 
 
+@pytest.mark.parametrize("dtype,want", [
+    (torch.float32, [((0, 108),), tuple((a, a + 512) for a in range(0, 3072, 512)),
+                     tuple((a, a + 256) for a in range(0, 1024, 256))]),
+    (torch.bfloat16, [((0, 108),), ((0, 1536), (1536, 3072)), ((0, 1024),)]),
+])
+def test_k3_plan_keeps_its_slices_whatever_k2s_routes(dtype, want, monkeypatch):
+    """K3 runs the mma.sync tile at its own rates, apart from K2's: at B = 2,
+    T_out = 2,234, C = 1,024 on 132 SMs the expand stage's GEMMs keep their slices
+    (the tap GEMM in 6 in float32 and in 2 in bf16, the float32 1x1 in 4) with K2's
+    rates (K2_SM_FLOPS, float32's on warpgroup MMAs) at any value."""
+    gemms = ttb.k3_gemms("expand", 2, 2242, 2234, 1024, x_cols=36, k0=3)
+    assert [ttb.k3_plan(*g, 132, dtype) for g in gemms] == want
+    for k2_dtype in (torch.float32, torch.bfloat16):
+        monkeypatch.setitem(trb.K2_SM_FLOPS, k2_dtype, 1e15)
+    trb.tap_gemm_plan.cache_clear()
+    assert [ttb.k3_plan(*g, 132, dtype) for g in gemms] == want
+    trb.tap_gemm_plan.cache_clear()
+
+
 def test_k3_plan_at_the_evaluation_shapes():
     """At B = 2, T = 2,242, C = 1,024 on 132 SMs (the expand stage: 4,468 rows)
     the tap GEMM's 280 tiles, which spill past one wave of 264 resident blocks,

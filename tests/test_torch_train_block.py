@@ -108,6 +108,18 @@ def test_train_block_matches_jax(b, t, c, fw, center, dropout):
                                    err_msg=f"gradient {i}")
 
 
+def _assert_tiles(plan, length):
+    """In-order slices that tile [0, length) exactly, all but the last of one whole
+    number of slabs, at most TAP_MAX_SLICES of them."""
+    assert len(plan) >= 1 and plan[0][0] == 0 and plan[-1][1] == length
+    assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
+    rows = plan[0][1]
+    assert all(stop - start == rows for start, stop in plan[:-1])
+    assert 0 < plan[-1][1] - plan[-1][0] <= rows
+    assert len(plan) == 1 or rows % trb.DW_ROWS == 0
+    assert len(plan) <= trb.TAP_MAX_SLICES
+
+
 @pytest.mark.parametrize("m,c", [
     pytest.param(68, 68, id="68"), pytest.param(1024, 1024, id="1024"),
     pytest.param(1028, 1028, id="1028"),
@@ -116,23 +128,23 @@ def test_train_block_matches_jax(b, t, c, fw, center, dropout):
 @pytest.mark.parametrize("n", [1, 31, 64, 128, 384, 1024, 27_648, 55_296,
                                3072, 9216, 2048, 6144, 18_432])
 def test_dw_gemm_plan_tiles_the_rows(n, m, c):
-    """dw_gemm's split over the rows for an (m, c) output (dWb: C x C, dWa:
-    3 C x C): in-order slices that tile [0, n) exactly, all but the last of one
-    whole number of slabs, at most TAP_MAX_SLICES of them; at the steps' shapes
-    both weight gradients split in 2, as the slice sweeps on the card found
-    fastest (132 SMs)."""
-    plan = trb.dw_gemm_plan(n, m, c, sms=132)
-    assert len(plan) >= 1 and plan[0][0] == 0 and plan[-1][1] == n
-    assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
-    rows = plan[0][1]
-    assert all(stop - start == rows for start, stop in plan[:-1])
-    assert 0 < plan[-1][1] - plan[-1][0] <= rows
-    assert len(plan) == 1 or rows % trb.DW_ROWS == 0
-    assert len(plan) <= trb.TAP_MAX_SLICES
+    """dw_gemm's split over the rows for an (m, c) output (dWb: C x C, dWa: 3 C x
+    C), float32 and bf16: in-order slices that tile [0, n) exactly, all but the
+    last of one whole number of slabs, at most TAP_MAX_SLICES of them.  At the
+    steps' shapes on 132 SMs both weight gradients split in 2 in either dtype, but
+    float32's dWa at n = 1,024 in 1: the slice sweeps on an H100 found those
+    fastest (bf16's rate, the mma.sync sweep in 3xTF32 float32; float32, the
+    wgmma sweep at n = 1,024 to 27,648), but float32's dWb at n = 27,648, where 4
+    slices ran 9 % faster than 2."""
+    plans = {dtype: trb.dw_gemm_plan(n, m, c, 132, dtype)
+             for dtype in (torch.float32, torch.bfloat16)}
+    for plan in plans.values():
+        _assert_tiles(plan, n)
     if (n, m, c) == (27_648, 1024, 1024):  # the first residual block: 2 x 64 CUDA blocks
-        assert plan == [(0, 13824), (13824, 27648)]
+        assert plans[torch.float32] == plans[torch.bfloat16] == ((0, 13824), (13824, 27648))
     if c == 1024 and n >= 1024:  # dWb's 64 tiles and dWa's 192 at every n of the steps
-        assert len(plan) == 2
+        assert len(plans[torch.bfloat16]) == 2
+        assert len(plans[torch.float32]) == (1 if (n, m) == (1024, 3072) else 2)
 
 
 @pytest.mark.parametrize("m,k,n", [
@@ -153,24 +165,72 @@ def test_dw_gemm_plan_tiles_the_rows(n, m, c):
     (2048, 1024, 1024), (6144, 1024, 1024), (18_432, 1024, 1024),
 ])
 def test_tap_gemm_plan_slices_the_summed_dimension(m, k, n):
-    """The tap GEMMs' split over their summed dimension: in-order slices that
-    tile [0, k) exactly, all but the last of one whole number of slabs, at most
-    TAP_MAX_SLICES of them; the training step's shapes split as the slice
-    sweeps on the card found fastest (132 SMs)."""
-    plan = trb.tap_gemm_plan(m, k, n, sms=132)
-    assert len(plan) >= 1 and plan[0][0] == 0 and plan[-1][1] == k
-    assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
-    rows = plan[0][1]
-    assert all(stop - start == rows for start, stop in plan[:-1])
-    assert 0 < plan[-1][1] - plan[-1][0] <= rows
-    assert len(plan) == 1 or rows % trb.DW_ROWS == 0
-    assert len(plan) <= trb.TAP_MAX_SLICES
+    """The tap GEMMs' split over their summed dimension, float32 and bf16:
+    in-order slices that tile [0, k) exactly, all but the last of one whole number
+    of slabs, at most TAP_MAX_SLICES of them; the training step's shapes split as
+    the slice sweeps on an H100 found fastest (132 SMs): bf16 at the mma.sync
+    kernels' rate, float32 on warpgroup MMAs (the one-tap GEMM at n = 3,072: 1 and 2 slices
+    within 0.1 %)."""
+    plans = {dtype: trb.tap_gemm_plan(m, k, n, 132, dtype)
+             for dtype in (torch.float32, torch.bfloat16)}
+    for plan in plans.values():
+        _assert_tiles(plan, k)
     want = {(1024, 3072, 1024): 2, (3072, 3072, 1024): 2, (9216, 3072, 1024): 2,
             (27_648, 3072, 1024): 1, (1024, 1024, 3072): 2, (27_648, 1024, 3072): 1,
             (1024, 1024, 1024): 2, (3072, 1024, 1024): 2, (9216, 1024, 1024): 1,
             (27_648, 1024, 1024): 1}
     if (m, k, n) in want:
-        assert len(plan) == want[(m, k, n)]
+        assert len(plans[torch.bfloat16]) == want[(m, k, n)]
+    want_f32 = {**want, (1024, 1024, 3072): 1, (3072, 1024, 3072): 1,
+                (9216, 1024, 3072): 1, (3072, 1024, 1024): 1}
+    if (m, k, n) in want_f32:
+        assert len(plans[torch.float32]) == want_f32[(m, k, n)]
+
+
+# The training cells' row counts of their K2 GEMMs at C = 1,024 and the float32
+# plans' slice counts there (conv_stats, du_dtaps_res, the one-tap GEMMs, dWb, dWa):
+# the supervised step's 27,648 / 9,216 / 3,072, where the wgmma slice sweep on an H100
+# (PERF.md, section 6) found these fastest but dWb at 27,648 (4 slices 9 % faster),
+# and the semi-supervised step's 55,296 / 18,432 / 6,144, unswept.
+CELL_PLANS = {27_648: (1, 1, 1, 2, 2), 9216: (2, 1, 1, 2, 2), 3072: (2, 1, 1, 2, 2),
+              55_296: (1, 1, 1, 2, 2), 18_432: (1, 1, 1, 2, 2), 6144: (1, 1, 1, 2, 2)}
+
+
+@pytest.mark.parametrize("n", list(CELL_PLANS))
+def test_k2_plans_take_wgmma_at_the_cells_shapes(n):
+    """Every float32 K2 GEMM at the training cells' row counts is sliced at the
+    rate of the warpgroup-MMA kernels (K2_SM_FLOPS), which float32 launches, into
+    CELL_PLANS's counts on 132 SMs."""
+    c = 1024
+    plans = [trb.tap_gemm_plan(n, 3 * c, c, 132, torch.float32),
+             trb.tap_gemm_plan(n, c, 3 * c, 132, torch.float32),
+             trb.tap_gemm_plan(n, c, c, 132, torch.float32),
+             trb.dw_gemm_plan(n, c, c, 132, torch.float32),
+             trb.dw_gemm_plan(n, 3 * c, c, 132, torch.float32)]
+    assert plans[2] == trb.tap_gemm_plan(n, c, c, 132, torch.float32,
+                                         sm_flops=trb.K2_SM_FLOPS[torch.float32])
+    assert tuple(len(p) for p in plans) == CELL_PLANS[n]
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("rows,cols", [(1, 4), (37, 21), (64, 1024)])
+def test_tf32_parts_plain_splits_into_two_tf32_values(rows, cols, transpose):
+    """The float32 GEMMs' split of B: big and small both TF32 values (13 low bits
+    clear), big within half a TF32 step of x, big + small within 2^-21 of x
+    relative; transposed, (cols, rows rounded up to 4) with zeros past rows."""
+    x = torch.from_numpy(np.random.default_rng(rows * cols).standard_normal(
+        (rows, cols)).astype(np.float32)) * 10.0 ** torch.arange(-3, 3).repeat(cols)[:cols]
+    big, small = trb.tf32_parts_plain(x, transpose=transpose)
+    if transpose:
+        ld = -(-rows // 4) * 4
+        assert big.shape == small.shape == (cols, ld)
+        assert not big[:, rows:].any() and not small[:, rows:].any()
+        big, small = big[:, :rows].t(), small[:, :rows].t()
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    assert not (small.view(torch.int32) & 0x1FFF).any()
+    assert torch.all((big - x).abs() <= x.abs() * 2.0 ** -11)
+    assert torch.all((big.double() + small.double() - x.double()).abs()
+                     <= x.abs().double() * 2.0 ** -21)
 
 
 @pytest.mark.parametrize("esize", [4, 2])

@@ -51,13 +51,14 @@ _ENTRY_ARGTYPES = {
     # (flat, rows, cols, esize, row0, batch, window, out_cols, out, stream)
     "vp3d_gather_rows": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
     # csrc/train_block.cu
-    "vp3d_tb_conv_stats": [_I] * 7 + [_P] * 9,
-    "vp3d_tb_norm_drop_matmul_stats": [_I] * 5 + [_P] * 11,
+    "vp3d_tb_conv_stats": [_I] * 7 + [_P] * 10,
+    "vp3d_tb_norm_drop_matmul_stats": [_I] * 5 + [_P] * 12,
     "vp3d_tb_norm_drop_res": [_I] * 3 + [_P] * 6,
     "vp3d_tb_relu_mask_bn_sums": [_I] * 5 + [_P] * 8,
-    "vp3d_tb_dz_matmul_dd": [_I] * 5 + [_P] * 8,
-    "vp3d_tb_du_dtaps_res": [_I] * 7 + [_P] * 9,
-    "vp3d_tb_dw_gemm": [_I] * 6 + [_P] * 5,
+    "vp3d_tb_dz_matmul_dd": [_I] * 5 + [_P] * 9,
+    "vp3d_tb_du_dtaps_res": [_I] * 7 + [_P] * 10,
+    "vp3d_tb_dw_gemm": [_I] * 7 + [_P] * 6,
+    "vp3d_tb_tf32_split": [_I] * 4 + [_P] * 4,
     "vp3d_tb_stats_reduce": [_I] * 2 + [_P] * 5,
     "vp3d_tb_geometry": [_I],
     # csrc/temporal_block_int8.cu: (variant, accshift, batch, t_in, t_out, channels,

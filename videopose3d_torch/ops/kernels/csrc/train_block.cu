@@ -33,11 +33,20 @@
 // 2 * n * C^2 * (2 fw + 2) backward, on the tensor cores in 3xTF32 (three TF32 MMAs a
 // float32 product, float32's accuracy; 495 TFLOP/s of TF32 dense, so 165 of float32
 // work at most, against 67 for float32 FMAs).  mma.sync m16n8k8 reaches about half
-// of that rate (one TF32 MMA per ~9 cycles of an SM quarter on an H100); wgmma,
-// which takes TF32 operands only K-major in shared memory, is later work.
+// of that rate (one TF32 MMA per ~9 cycles of an SM quarter on an H100), so the
+// GEMMs run by dtype on two main loops of one 128 x 128 output tile:
+// - float32: Hopper's warpgroup MMAs (wgmma_tile.cuh): a persistent CUDA block an SM,
+//   two consumer warpgroups fed by TMA through an mbarrier ring.  wgmma reads TF32
+//   from shared memory only K-major, so B arrives K-major and already split into big
+//   and small parts by tf32_split_kernel: the weights once a call (transposed for
+//   conv_stats and norm_drop_matmul_stats, as they are for du_dtaps_res and
+//   dz_matmul_dd), and dw_gemm's second operand (dz, du: n x C) transposed.  A is
+//   split in registers.  The epilogues do the bf16 kernels' work from wgmma's
+//   accumulator layout.
+// - bf16: mma.sync on sgemm_tile.cuh, as below.
 //
-// Every product is a 128 x 128-tile GEMM on sgemm_tile.cuh: a CUDA block of 256
-// threads owns a 128 x 128 output tile, each warp 64 x 32 of it in m16n8k8 MMAs,
+// In bf16 every product is a 128 x 128-tile GEMM on sgemm_tile.cuh: a CUDA block of
+// 256 threads owns a 128 x 128 output tile, each warp 64 x 32 of it in m16n8k8 MMAs,
 // 32-deep slabs of both operands flow through 3-stage cp.async rings of shared
 // memory, and two CUDA blocks share an SM.
 // - dw_gemm (dW (m, C) = a^T b over the n rows: dWb = d^T dz, m = C, and dWa = x3^T
@@ -98,6 +107,7 @@
 
 #include "common.cuh"
 #include "sgemm_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -269,11 +279,14 @@ __global__ void __launch_bounds__(NT) bn_grad_kernel(
 // as they are staged) or of du_dtaps_res (g set: g added in T to columns [g_col0,
 // g_col0 + g_n)); dz_matmul_dd's has none of these.  With part set, each
 // blockIdx.z slice of k_slice summed rows writes its float32 product there and
-// tap_gemm_reduce adds the slices in order and runs the epilogue.
+// tap_gemm_reduce adds the slices in order and runs the epilogue.  In float32 (the
+// wgmma kernel) b is B's big part K-major, (n x k) row-major, and b_small its small
+// part; in bf16 b is B (k x n) and b_small unused.
 template <typename T>
 struct TapGemm {
   const T* a;
   const T* b;
+  const T* b_small;
   int m, k, n, k_slice;
   float* part;  // (slices, m, n), or null
   T* out;
@@ -395,6 +408,130 @@ __global__ void __launch_bounds__(GT_THREADS, 2) tap_gemm_kernel(
   tap_epilogue(p, acc, reinterpret_cast<float*>(smem4));
 }
 
+// 1,024-byte aligned dynamic shared memory of the wgmma kernels (the 128-byte
+// swizzle's period; W_SMEM_BYTES holds the slack).
+__device__ __forceinline__ unsigned char* wg_smem(float4* raw) {
+  const uint32_t pad = (1024 - smem_addr(raw) % 1024) % 1024;
+  return reinterpret_cast<unsigned char*>(raw) + pad;
+}
+
+// conv_stats's residual tap from a landed A slab of tap_wgmma_kernel (summed values
+// k0.., rows i0.., the [GT][WK] swizzled tile), its 16-byte words shared by the 256
+// consumers.
+__device__ __forceinline__ void copy_res_wg(const TapGemm<float>& p, const unsigned char* a_s,
+                                            int i0, int k0) {
+  if (k0 + WK <= p.res_k0 || k0 >= p.res_k0 + p.res_n) return;
+#pragma unroll
+  for (int q = 0; q < GT * WK / 4 / WG_CONSUMERS; ++q) {
+    const int e = threadIdx.x + WG_CONSUMERS * q, r = e / 8, kk = k0 + 4 * (e % 8);
+    if (kk >= p.res_k0 && kk < p.res_k0 + p.res_n && i0 + r < p.m) {
+      *reinterpret_cast<float4*>(p.res + (size_t)(i0 + r) * p.res_n + kk - p.res_k0) =
+          *reinterpret_cast<const float4*>(a_s + sw128(r, e % 8));
+    }
+  }
+}
+
+// tap_epilogue of tap_wgmma_kernel (float32) from d, a tile's sums in wgmma's layout
+// (wg_row, wg_col): + g, store, and the tile's per-column sums of (out - shift) and
+// its square, each thread's 2 rows in order, then the 8 threads of a warp that share
+// a column by a fixed xor butterfly, then the 8 warps in order (red: 2 x 8 x GT
+// floats).  Tile (tx, ty); run by the 256 consumers.
+__device__ __forceinline__ void tap_epilogue_wg(const TapGemm<float>& p, float (&d)[64], int tx,
+                                                int ty, float* red) {
+  const int i0 = ty * GT, j0 = tx * GT;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wg_row(h), c = j0 + wg_col(j);
+      if (p.g != nullptr && i < p.m && c >= p.g_col0 && c < p.g_col0 + p.g_n) {
+        const float2 g = *reinterpret_cast<const float2*>(p.g + (size_t)i * p.g_n + c - p.g_col0);
+        d[4 * j + 2 * h] = __fadd_rn(d[4 * j + 2 * h], g.x);
+        d[4 * j + 2 * h + 1] = __fadd_rn(d[4 * j + 2 * h + 1], g.y);
+      }
+    }
+  }
+  wg_store(d, p.out, p.m, p.n, i0, j0);
+  if (p.shift == nullptr) return;
+  constexpr int WARPS = WG_CONSUMERS / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  consumer_sync();  // every consumer is done with the last tile's sums
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = wg_col(j) + e;
+      const float sh = j0 + col < p.n ? p.shift[j0 + col] : 0.f;
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (i0 + wg_row(h) < p.m) {
+          const float y = __fsub_rn(d[4 * j + 2 * h + e], sh);
+          s1 = __fadd_rn(s1, y);
+          s2 = __fadd_rn(s2, __fmul_rn(y, y));
+        }
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {  // a + b == b + a: every lane the same
+        s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, off));
+        s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, off));
+      }
+      if (lane < 4) {
+        red[warp * GT + col] = s1;
+        red[(WARPS + warp) * GT + col] = s2;
+      }
+    }
+  }
+  consumer_sync();
+  const int c = j0 + threadIdx.x;
+  if (threadIdx.x < GT && c < p.n) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      s1 = __fadd_rn(s1, red[w * GT + threadIdx.x]);
+      s2 = __fadd_rn(s2, red[(WARPS + w) * GT + threadIdx.x]);
+    }
+    p.part1[(size_t)ty * p.n + c] = s1;
+    p.part2[(size_t)ty * p.n + c] = s2;
+  }
+}
+
+// tap_gemm_kernel's tiles in float32 on warpgroup MMAs, a persistent CUDA block an SM:
+// wgmma_tile.cuh's main loop over A's rows as they are (column tile 0 also copies the
+// residual tap's), then tap_epilogue_wg, or the float32 sums of a split's slice.
+// maps: A's, B's parts' (p.b, p.b_small).
+__global__ void __launch_bounds__(WG_THREADS, 1) tap_wgmma_kernel(
+    const __grid_constant__ TapGemm<float> p, const __grid_constant__ WgMaps maps, int slices) {
+  extern __shared__ float4 smem4[];
+  wg_tiles<true>(
+      wg_smem(smem4), maps, (p.n + GT - 1) / GT, (p.m + GT - 1) / GT, slices, p.k, p.k_slice,
+      [&](const unsigned char* a_s, int k0, int x, int y) {
+        if (p.res != nullptr && x == 0) copy_res_wg(p, a_s, y * GT, k0);
+      },
+      [&](float (&d)[64], int x, int y, int z, float* red) {
+        if (p.part != nullptr) {
+          wg_store(d, p.part + (size_t)z * p.m * p.n, p.m, p.n, y * GT, x * GT);
+        } else {
+          tap_epilogue_wg(p, d, x, y, red);
+        }
+      });
+}
+
+// The wgmma kernels' grid: a persistent CUDA block on each SM that has a tile (the
+// SM count read once a device).
+cudaError_t wg_grid(int tiles, dim3* grid) {
+  static int sms_of[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *grid = dim3((unsigned)std::min(tiles, sms_of[dev]));
+  return cudaSuccess;
+}
+
 // The split form's second launch, in a grid of (column tiles, row tiles): the
 // tile's slices of the float32 products added in slice order into the accumulator
 // layout (zeros past m or n), then the epilogue.  Each slice's 32 loads of a thread
@@ -435,13 +572,26 @@ __global__ void __launch_bounds__(GT_THREADS) tap_gemm_reduce_kernel(
 template <typename T>
 cudaError_t launch_tap_gemm(const TapGemm<T>& p, int slices, cudaStream_t s) {
   const dim3 grid((p.n + GT - 1) / GT, (p.m + GT - 1) / GT, slices);
-  const size_t smem = sizeof(T) * B_STAGES * (a_slab<T>() + TAP_SLAB);
-  // Two CUDA blocks of 105 KB (float32) share an SM only with the whole carveout.
-  cudaError_t err = cudaFuncSetAttribute(tap_gemm_kernel<T>,
-                                         cudaFuncAttributePreferredSharedMemoryCarveout,
-                                         (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  err = launch_with_smem(tap_gemm_kernel<T>, grid, dim3(GT_THREADS), smem, s, p);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    WgMaps maps;
+    dim3 blocks;
+    err = wg_tensor_map(&maps.a, p.a, p.m, p.k, p.k, GT);
+    if (err == cudaSuccess) err = wg_tensor_map(&maps.b_big, p.b, p.n, p.k, p.k, GT);
+    if (err == cudaSuccess) err = wg_tensor_map(&maps.b_small, p.b_small, p.n, p.k, p.k, GT);
+    if (err == cudaSuccess) err = wg_grid(grid.x * grid.y * grid.z, &blocks);
+    if (err != cudaSuccess) return err;
+    err = launch_with_smem(tap_wgmma_kernel, blocks, dim3(WG_THREADS), W_SMEM_BYTES, s, p,
+                           maps, slices);
+  } else {
+    const size_t smem = sizeof(T) * B_STAGES * (a_slab<T>() + TAP_SLAB);
+    // Two CUDA blocks share an SM only with the whole carveout.
+    err = cudaFuncSetAttribute(tap_gemm_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    err = launch_with_smem(tap_gemm_kernel<T>, grid, dim3(GT_THREADS), smem, s, p);
+  }
   if (err != cudaSuccess || slices == 1) return err;
   return launch_with_smem(tap_gemm_reduce_kernel<T>, dim3(grid.x, grid.y), dim3(GT_THREADS),
                           0, s, p, slices);
@@ -537,19 +687,88 @@ __global__ void __launch_bounds__(NT) dw_reduce_kernel(const float4* __restrict_
   }
 }
 
+// dw_gemm_kernel's tiles in float32 on warpgroup MMAs, a persistent CUDA block an
+// SM: out[z] = a[rows]^T @ b[rows] over the rows of slice z (slice_rows each),
+// through maps: a's (A^T, row-major over the summed rows) and those of b's
+// transposed split parts (c x n).
+__global__ void __launch_bounds__(WG_THREADS, 1) dw_wgmma_kernel(
+    const __grid_constant__ WgMaps maps, int n, int m, int c, int slices, int slice_rows,
+    float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  wg_tiles<false>(
+      wg_smem(smem4), maps, (c + GT - 1) / GT, (m + GT - 1) / GT, slices, n, slice_rows,
+      [](const unsigned char*, int, int, int) {},
+      [&](float (&d)[64], int x, int y, int z, float*) {
+        wg_store(d, out + (size_t)z * m * c, m, c, y * GT, x * GT);
+      });
+}
+
+// big (and small) = the 3xTF32 parts of src (rows x cols, row-major): big =
+// tf32(x), small = tf32(x - big), as sgemm_tile.cuh's tf32_split.  TRANS: written
+// transposed, (cols x ld) with zeros in columns [rows, ld); else (rows x cols), ld =
+// cols.  A CUDA block of NT threads moves a 32 x 32 tile through shared memory, so
+// reads and writes both run along rows.
+template <bool TRANS>
+__global__ void __launch_bounds__(NT) tf32_split_kernel(const float* __restrict__ src,
+                                                        int rows, int cols, int ld,
+                                                        float* __restrict__ big,
+                                                        float* __restrict__ small) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;  // src rows, src columns
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 8 * i, c = c0 + tx;
+    tile[ty + 8 * i][tx] = r < rows && c < cols ? src[(size_t)r * cols + c] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // TRANS: output row c0 + ty + 8 i (a src column), column r0 + tx (a src row)
+    const int orow = TRANS ? c0 + ty + 8 * i : r0 + ty + 8 * i;
+    const int ocol = TRANS ? r0 + tx : c0 + tx;
+    if (orow < (TRANS ? cols : rows) && ocol < ld) {
+      const float x = TRANS ? tile[tx][ty + 8 * i] : tile[ty + 8 * i][tx];
+      const uint32_t hi = tf32_rna(x);
+      const size_t o = (size_t)orow * ld + ocol;
+      big[o] = __uint_as_float(hi);
+      small[o] = __uint_as_float(tf32_rna(__fsub_rn(x, __uint_as_float(hi))));
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch_dw_gemm(int n, int m, int c, int slices, int slice_rows, const void* a,
-                           const void* b, void* part, void* dw, cudaStream_t s) {
-  const size_t smem = 2 * sizeof(T) * DW_STAGES * TAP_SLAB;
+                           const void* b, const void* b_small, int ldb, void* part, void* dw,
+                           cudaStream_t s) {
   float* target = static_cast<float*>(slices == 1 ? dw : part);
-  // Two CUDA blocks of 102 KB (float32) share an SM only with the whole carveout.
-  cudaError_t err = cudaFuncSetAttribute(dw_gemm_kernel<T>,
-                                         cudaFuncAttributePreferredSharedMemoryCarveout,
-                                         (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  err = launch_with_smem(dw_gemm_kernel<T>, dim3((c + GT - 1) / GT, (m + GT - 1) / GT, slices),
-                         dim3(GT_THREADS), smem, s, static_cast<const T*>(a),
-                         static_cast<const T*>(b), n, m, c, slice_rows, target);
+  const dim3 tiles((c + GT - 1) / GT, (m + GT - 1) / GT, slices);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    WgMaps maps;
+    err = wg_tensor_map(&maps.a, static_cast<const float*>(a), n, m, m, WK);
+    if (err == cudaSuccess) {
+      err = wg_tensor_map(&maps.b_big, static_cast<const float*>(b), c, n, ldb, GT);
+    }
+    if (err == cudaSuccess) {
+      err = wg_tensor_map(&maps.b_small, static_cast<const float*>(b_small), c, n, ldb, GT);
+    }
+    dim3 blocks;
+    if (err == cudaSuccess) err = wg_grid(tiles.x * tiles.y * tiles.z, &blocks);
+    if (err != cudaSuccess) return err;
+    err = launch_with_smem(dw_wgmma_kernel, blocks, dim3(WG_THREADS), W_SMEM_BYTES, s, maps, n,
+                           m, c, slices, slice_rows, target);
+  } else {
+    const size_t smem = 2 * sizeof(T) * DW_STAGES * TAP_SLAB;
+    // Two CUDA blocks share an SM only with the whole carveout.
+    err = cudaFuncSetAttribute(dw_gemm_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    err = launch_with_smem(dw_gemm_kernel<T>, tiles, dim3(GT_THREADS), smem, s,
+                           static_cast<const T*>(a), static_cast<const T*>(b), n, m, c,
+                           slice_rows, target);
+  }
   if (err != cudaSuccess || slices == 1) return err;
   const size_t n4 = (size_t)m * c / 4;
   const dim3 grid((unsigned)std::min<size_t>((n4 + NT - 1) / NT, 132 * 8));
@@ -589,6 +808,11 @@ bool bad_tap_gemm(int m, int k, int n, int slices, int k_slice, const void* part
          (long long)slices * k_slice < k || (slices > 1 && part == nullptr);
 }
 
+// Whether a float32 GEMM's B lacks its small part, or it misses the 16-byte alignment.
+bool bad_b_small(int dtype, const void* b_small) {
+  return dtype == 0 && (b_small == nullptr || reinterpret_cast<uintptr_t>(b_small) % 16);
+}
+
 // Whether any pointer misses the 16-byte (float32) or 8-byte (bf16) alignment of
 // the kernels' vector loads and stores.
 bool misaligned(int dtype, std::initializer_list<const void*> ptrs) {
@@ -599,14 +823,16 @@ bool misaligned(int dtype, std::initializer_list<const void*> ptrs) {
   return false;
 }
 
-// The tap GEMM out (m, n) = a (m, k) @ b (k, n) in `slices` slices of k_slice summed
-// rows (part: their float32 products when slices > 1), without an epilogue's extras.
+// The tap GEMM out (m, n) = a (m, k) @ B (TapGemm's b, b_small) in `slices` slices of
+// k_slice summed rows (part: their float32 products when slices > 1), without an
+// epilogue's extras.
 template <typename T>
-TapGemm<T> tap_gemm_of(const void* a, const void* b, int m, int k, int n, int slices,
-                       int k_slice, void* part, void* out) {
+TapGemm<T> tap_gemm_of(const void* a, const void* b, const void* b_small, int m, int k,
+                       int n, int slices, int k_slice, void* part, void* out) {
   TapGemm<T> p{};
   p.a = cp<T>(a);
   p.b = cp<T>(b);
+  p.b_small = cp<T>(b_small);
   p.m = m;
   p.k = k;
   p.n = n;
@@ -617,10 +843,11 @@ TapGemm<T> tap_gemm_of(const void* a, const void* b, int m, int k, int n, int sl
 }
 
 template <typename T>
-cudaError_t conv_stats_t(int n, int c, int fw, int center, int slices, int k_slice,
-                         const void* x3, const void* wa, const void* shift, void* u,
-                         void* res, void* part1, void* part2, void* part, cudaStream_t s) {
-  TapGemm<T> p = tap_gemm_of<T>(x3, wa, n, fw * c, c, slices, k_slice, part, u);
+cudaError_t conv_stats_t(int n, int c, int fw, int center, int slices,
+                         int k_slice, const void* x3, const void* wa, const void* wa_small,
+                         const void* shift, void* u, void* res, void* part1, void* part2,
+                         void* part, cudaStream_t s) {
+  TapGemm<T> p = tap_gemm_of<T>(x3, wa, wa_small, n, fw * c, c, slices, k_slice, part, u);
   p.shift = cp<float>(shift);
   p.part1 = mp<float>(part1);
   p.part2 = mp<float>(part2);
@@ -631,16 +858,17 @@ cudaError_t conv_stats_t(int n, int c, int fw, int center, int slices, int k_sli
 }
 
 template <typename T>
-cudaError_t norm_drop_matmul_stats_t(int n, int c, int slices, int k_slice, const void* u,
-                                     const void* mask, const void* gate, const void* wb,
-                                     const void* shift, void* d, void* v, void* part1,
-                                     void* part2, void* part, cudaStream_t s) {
+cudaError_t norm_drop_matmul_stats_t(int n, int c, int slices, int k_slice,
+                                     const void* u, const void* mask, const void* gate,
+                                     const void* wb, const void* wb_small, const void* shift,
+                                     void* d, void* v, void* part1, void* part2, void* part,
+                                     cudaStream_t s) {
   const size_t total = (size_t)n * c;
   cudaError_t err = launch_with_smem(norm_drop_kernel<T>, elementwise_grid(total), dim3(NT),
                                      0, s, cp<T>(u), cp<T>(mask), cp<T>(gate),
                                      static_cast<const T*>(nullptr), total, c, mp<T>(d));
   if (err != cudaSuccess) return err;
-  TapGemm<T> p = tap_gemm_of<T>(d, wb, n, c, c, slices, k_slice, part, v);
+  TapGemm<T> p = tap_gemm_of<T>(d, wb, wb_small, n, c, c, slices, k_slice, part, v);
   p.shift = cp<float>(shift);
   p.part1 = mp<float>(part1);
   p.part2 = mp<float>(part2);
@@ -649,27 +877,29 @@ cudaError_t norm_drop_matmul_stats_t(int n, int c, int slices, int k_slice, cons
 
 template <typename T>
 cudaError_t dz_matmul_dd_t(int n, int c, int slices, int k_slice, const void* gz,
-                           const void* z, const void* coef, const void* wbt, void* dz,
-                           void* dd, void* part, cudaStream_t s) {
+                           const void* z, const void* coef, const void* wbt,
+                           const void* wbt_small, void* dz, void* dd, void* part,
+                           cudaStream_t s) {
   const size_t total = (size_t)n * c;
   cudaError_t err = launch_with_smem(bn_grad_kernel<T>, elementwise_grid(total), dim3(NT), 0,
                                      s, cp<T>(gz), cp<T>(z), cp<float>(coef), total, c,
                                      mp<T>(dz));
   if (err != cudaSuccess) return err;
-  return launch_tap_gemm(tap_gemm_of<T>(dz, wbt, n, c, c, slices, k_slice, part, dd), slices,
-                         s);
+  return launch_tap_gemm(
+      tap_gemm_of<T>(dz, wbt, wbt_small, n, c, c, slices, k_slice, part, dd), slices, s);
 }
 
 template <typename T>
-cudaError_t du_dtaps_res_t(int n, int c, int fw, int center, int slices, int k_slice,
-                           const void* ga, const void* u, const void* g, const void* coef,
-                           const void* wt, void* du, void* dx3, void* part, cudaStream_t s) {
+cudaError_t du_dtaps_res_t(int n, int c, int fw, int center, int slices,
+                           int k_slice, const void* ga, const void* u, const void* g,
+                           const void* coef, const void* wt, const void* wt_small, void* du,
+                           void* dx3, void* part, cudaStream_t s) {
   const size_t total = (size_t)n * c;
   cudaError_t err = launch_with_smem(bn_grad_kernel<T>, elementwise_grid(total), dim3(NT), 0,
                                      s, cp<T>(ga), cp<T>(u), cp<float>(coef), total, c,
                                      mp<T>(du));
   if (err != cudaSuccess) return err;
-  TapGemm<T> p = tap_gemm_of<T>(du, wt, n, c, fw * c, slices, k_slice, part, dx3);
+  TapGemm<T> p = tap_gemm_of<T>(du, wt, wt_small, n, c, fw * c, slices, k_slice, part, dx3);
   p.g = cp<T>(g);
   p.g_col0 = center * c;
   p.g_n = c;
@@ -714,28 +944,31 @@ extern "C" {
 // after the launch (0 on success).  dtype 0 = float32, 1 = bfloat16 for the T
 // operands; BatchNorm statistics, shifts, coefficients, partial sums and dw are
 // float32.  A null mask means no dropout.  Shapes are checked by the Python wrapper.
+// A float32 GEMM takes its B as tf32_split's parts, K-major (n, k), B and B_small,
+// 16-byte aligned; a bf16 one its B as given, (k, n), the _small pointer unused.
 
 // u (n, c) = x3 (n, fw * c) @ wa (fw * c, c) cast to T, res = x3[:, center], and
 // per 128-row tile partial sums of (u - shift) and its square into part1 / part2
 // ((n + 127) / 128, c); the summed dimension in `slices` slices of k_slice (part:
 // (slices, n, c) float32 scratch when slices > 1).  x3 and wa 16-byte (float32) or
 // 8-byte (bf16) aligned.
-int vp3d_tb_conv_stats(int dtype, int n, int c, int fw, int center, int slices, int k_slice,
-                       const void* x3, const void* wa, const void* shift, void* u, void* res,
-                       void* part1, void* part2, void* part, void* stream) {
+int vp3d_tb_conv_stats(int dtype, int n, int c, int fw, int center, int slices,
+                       int k_slice, const void* x3, const void* wa, const void* wa_small,
+                       const void* shift, void* u, void* res, void* part1, void* part2,
+                       void* part, void* stream) {
   if (c <= 0 || fw <= 0 || center < 0 || center >= fw ||
-      bad_tap_gemm(n, fw * c, c, slices, k_slice, part)) {
+      bad_tap_gemm(n, fw * c, c, slices, k_slice, part) || bad_b_small(dtype, wa_small)) {
     return cudaErrorInvalidValue;
   }
   if (misaligned(dtype, {x3, wa, u, res, part})) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return conv_stats_t<float>(n, c, fw, center, slices, k_slice, x3, wa, shift, u, res,
-                               part1, part2, part, s);
+    return conv_stats_t<float>(n, c, fw, center, slices, k_slice, x3, wa, wa_small,
+                               shift, u, res, part1, part2, part, s);
   }
   if (dtype == 1) {
-    return conv_stats_t<__nv_bfloat16>(n, c, fw, center, slices, k_slice, x3, wa, shift, u,
-                                       res, part1, part2, part, s);
+    return conv_stats_t<__nv_bfloat16>(n, c, fw, center, slices, k_slice, x3, wa,
+                                       wa_small, shift, u, res, part1, part2, part, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -744,20 +977,24 @@ int vp3d_tb_conv_stats(int dtype, int n, int c, int fw, int center, int slices, 
 // to T with the per 128-row tile partial sums of (v - shift) and its square into
 // part1 / part2 ((n + 127) / 128, c) (a second launch, split as conv_stats's).  gate
 // rows: [mean, inv, bias] in T.  wb 16-byte (float32) or 8-byte (bf16) aligned.
-int vp3d_tb_norm_drop_matmul_stats(int dtype, int n, int c, int slices, int k_slice,
-                                   const void* u, const void* mask, const void* gate,
-                                   const void* wb, const void* shift, void* d, void* v,
-                                   void* part1, void* part2, void* part, void* stream) {
-  if (bad_tap_gemm(n, c, c, slices, k_slice, part)) return cudaErrorInvalidValue;
+int vp3d_tb_norm_drop_matmul_stats(int dtype, int n, int c, int slices,
+                                   int k_slice, const void* u, const void* mask,
+                                   const void* gate, const void* wb, const void* wb_small,
+                                   const void* shift, void* d, void* v, void* part1,
+                                   void* part2, void* part, void* stream) {
+  if (bad_tap_gemm(n, c, c, slices, k_slice, part) || bad_b_small(dtype, wb_small)) {
+    return cudaErrorInvalidValue;
+  }
   if (misaligned(dtype, {wb, d, v, part})) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return norm_drop_matmul_stats_t<float>(n, c, slices, k_slice, u, mask, gate, wb, shift,
-                                           d, v, part1, part2, part, s);
+    return norm_drop_matmul_stats_t<float>(n, c, slices, k_slice, u, mask, gate, wb,
+                                           wb_small, shift, d, v, part1, part2, part, s);
   }
   if (dtype == 1) {
-    return norm_drop_matmul_stats_t<__nv_bfloat16>(n, c, slices, k_slice, u, mask, gate, wb,
-                                                   shift, d, v, part1, part2, part, s);
+    return norm_drop_matmul_stats_t<__nv_bfloat16>(n, c, slices, k_slice, u, mask,
+                                                   gate, wb, wb_small, shift, d, v, part1,
+                                                   part2, part, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -811,43 +1048,48 @@ int vp3d_tb_relu_mask_bn_sums(int dtype, int n, int c, int cluster, int rows,
 
 // dz (n, c) = the BatchNorm input gradient of gz, cast to T (one launch), then dd
 // (n, c) = dz @ wbt (c, c) cast to T (a second launch, split as conv_stats's); wbt is
-// Wb transposed, 16-byte (float32) or 8-byte (bf16) aligned.
-int vp3d_tb_dz_matmul_dd(int dtype, int n, int c, int slices, int k_slice, const void* gz,
-                         const void* z, const void* coef, const void* wbt, void* dz, void* dd,
-                         void* part, void* stream) {
-  if (bad_tap_gemm(n, c, c, slices, k_slice, part)) return cudaErrorInvalidValue;
+// Wb transposed (in float32 K-major: Wb's split parts as they are), 16-byte
+// (float32) or 8-byte (bf16) aligned.
+int vp3d_tb_dz_matmul_dd(int dtype, int n, int c, int slices, int k_slice,
+                         const void* gz, const void* z, const void* coef, const void* wbt,
+                         const void* wbt_small, void* dz, void* dd, void* part, void* stream) {
+  if (bad_tap_gemm(n, c, c, slices, k_slice, part) || bad_b_small(dtype, wbt_small)) {
+    return cudaErrorInvalidValue;
+  }
   if (misaligned(dtype, {wbt, dz, dd, part})) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dz_matmul_dd_t<float>(n, c, slices, k_slice, gz, z, coef, wbt, dz, dd, part, s);
+    return dz_matmul_dd_t<float>(n, c, slices, k_slice, gz, z, coef, wbt, wbt_small,
+                                 dz, dd, part, s);
   }
   if (dtype == 1) {
-    return dz_matmul_dd_t<__nv_bfloat16>(n, c, slices, k_slice, gz, z, coef, wbt, dz, dd,
-                                         part, s);
+    return dz_matmul_dd_t<__nv_bfloat16>(n, c, slices, k_slice, gz, z, coef, wbt,
+                                         wbt_small, dz, dd, part, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // du (n, c) = the BatchNorm input gradient of ga (one launch), then dx3 (n, fw * c)
 // = du @ wt (c, fw * c) cast to T, with g (n, c) added in T to the center tap's
-// columns (a second launch, split as conv_stats's).  wt[o][j * c + i] = wa[j][i][o].
+// columns (a second launch, split as conv_stats's).  wt[o][j * c + i] = wa[j][i][o]
+// (in float32 K-major: wa's split parts as they are, (fw * c, c)).
 int vp3d_tb_du_dtaps_res(int dtype, int n, int c, int fw, int center, int slices,
                          int k_slice, const void* ga, const void* u, const void* g,
-                         const void* coef, const void* wt, void* du, void* dx3, void* part,
-                         void* stream) {
+                         const void* coef, const void* wt, const void* wt_small, void* du,
+                         void* dx3, void* part, void* stream) {
   if (fw <= 0 || center < 0 || center >= fw ||
-      bad_tap_gemm(n, c, fw * c, slices, k_slice, part)) {
+      bad_tap_gemm(n, c, fw * c, slices, k_slice, part) || bad_b_small(dtype, wt_small)) {
     return cudaErrorInvalidValue;
   }
   if (misaligned(dtype, {wt, du, dx3, part})) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return du_dtaps_res_t<float>(n, c, fw, center, slices, k_slice, ga, u, g, coef, wt, du,
-                                 dx3, part, s);
+    return du_dtaps_res_t<float>(n, c, fw, center, slices, k_slice, ga, u, g, coef,
+                                 wt, wt_small, du, dx3, part, s);
   }
   if (dtype == 1) {
-    return du_dtaps_res_t<__nv_bfloat16>(n, c, fw, center, slices, k_slice, ga, u, g, coef,
-                                         wt, du, dx3, part, s);
+    return du_dtaps_res_t<__nv_bfloat16>(n, c, fw, center, slices, k_slice, ga, u, g,
+                                         coef, wt, wt_small, du, dx3, part, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -855,28 +1097,49 @@ int vp3d_tb_du_dtaps_res(int dtype, int n, int c, int fw, int center, int slices
 // dw (m, c) = a^T @ b over n rows, a (n, m) and b (n, c), split into `slices` row
 // slices of slice_rows rows (the last one ragged): with one slice the kernel writes
 // dw itself; otherwise each slice writes its (m, c) partial into part (slices, m, c)
-// and a second launch adds them up in slice order.  a and b must be 16-byte
-// (float32) or 8-byte (bf16) aligned; every slice must hold at least one row.
+// and a second launch adds them up in slice order.  In float32 b and b_small are b's
+// tf32_split parts transposed, (c, ldb), ldb >= n a multiple of 4, zeros past n (ldb
+// unused in bf16).  a and b must be 16-byte (float32) or 8-byte
+// (bf16) aligned; every slice must hold at least one row.
 int vp3d_tb_dw_gemm(int dtype, int n, int m, int c, int slices, int slice_rows,
-                    const void* a, const void* b, void* part, void* dw, void* stream) {
+                    int ldb, const void* a, const void* b, const void* b_small, void* part,
+                    void* dw, void* stream) {
   if (bad_shape(n, c) || bad_shape(n, m) || (m + GT - 1) / GT > 65535 || slices <= 0 ||
       slice_rows <= 0 ||
       (long long)(slices - 1) * slice_rows >= n || (long long)slices * slice_rows < n ||
-      slices > 65535 || (slices > 1 && part == nullptr)) {
+      slices > 65535 || (slices > 1 && part == nullptr) || bad_b_small(dtype, b_small) ||
+      (dtype == 0 && (ldb < n || ldb % 4 != 0))) {
     return cudaErrorInvalidValue;
   }
-  const size_t align = dtype == 0 ? 16 : 8;
-  if (reinterpret_cast<uintptr_t>(a) % align || reinterpret_cast<uintptr_t>(b) % align) {
-    return cudaErrorMisalignedAddress;
-  }
+  if (misaligned(dtype, {a, b})) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_dw_gemm<float>(n, m, c, slices, slice_rows, a, b, part, dw, s);
+    return launch_dw_gemm<float>(n, m, c, slices, slice_rows, a, b, b_small, ldb, part,
+                                 dw, s);
   }
   if (dtype == 1) {
-    return launch_dw_gemm<__nv_bfloat16>(n, m, c, slices, slice_rows, a, b, part, dw, s);
+    return launch_dw_gemm<__nv_bfloat16>(n, m, c, slices, slice_rows, a, b, b_small,
+                                         ldb, part, dw, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// big and small (float32) = the 3xTF32 parts of src (rows, cols) float32, as the
+// float32 GEMMs' B takes them: with trans, transposed into (cols, ld), zeros in
+// columns [rows, ld), ld >= rows a multiple of 4; else (rows, cols) with ld = cols.
+int vp3d_tb_tf32_split(int trans, int rows, int cols, int ld, const void* src, void* big,
+                       void* small, void* stream) {
+  if (rows <= 0 || cols <= 0 || (trans ? ld < rows || ld % 4 != 0 : ld != cols) ||
+      (cols + 31) / 32 > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)((trans ? ld : rows) + 31) / 32, (unsigned)(cols + 31) / 32);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return trans ? launch_with_smem(tf32_split_kernel<true>, grid, dim3(NT), 0, s, cp<float>(src),
+                                  rows, cols, ld, mp<float>(big), mp<float>(small))
+               : launch_with_smem(tf32_split_kernel<false>, grid, dim3(NT), 0, s,
+                                  cp<float>(src), rows, cols, ld, mp<float>(big),
+                                  mp<float>(small));
 }
 
 int vp3d_tb_stats_reduce(int n_parts, int c, const void* part1, const void* part2,

@@ -21,7 +21,10 @@ Pallas launch, each with a ``*_plain`` twin of the same signature:
 and the O(C) statistics glue between them in torch.  ``dWa = x3^T @ du``, which
 the JAX package leaves to XLA, is a second ``dw_gemm`` launch (an (fw C, C)
 output).  Every product runs on the tensor cores: float32 in 3xTF32 (float32's
-accuracy), bfloat16 exactly in one TF32 pass.
+accuracy) on Hopper's warpgroup MMAs (``wgmma``), whose B operand a
+:func:`tf32_parts` pass first splits K-major, bfloat16 exactly in one TF32 pass on
+``mma.sync``; the plans (:func:`tap_gemm_plan`, :func:`dw_gemm_plan`) slice each at
+its dtype's rate.
 
 Data parallel (a ``parallel.BatchShard``): the batch statistics are the global
 batch's.  The forward sums of ``conv_stats`` and ``norm_drop_matmul_stats`` and
@@ -38,7 +41,9 @@ replays the forward's pre-activation exactly.
 Dispatch: tensors on the CPU take the plain versions (inside the same
 ``FusedTrainBlock``, so the CPU tests exercise its backward); CUDA tensors
 launch the kernels of ``csrc/train_block.cu`` or raise.  ``LAUNCHES`` counts
-kernel launches per kernel.
+kernel launches per kernel, and the float32 GEMMs on warpgroup MMAs
+(``k2_wgmma_gemms``), which the profiling counter ``train.k2_wgmma_gemms`` also
+counts while a profiler records.
 """
 
 from __future__ import annotations
@@ -51,11 +56,11 @@ import torch.nn.functional as F
 from videopose3d_torch.models.temporal import BN_EPS
 from videopose3d_torch.ops.kernels.build import check, launch, sm_count
 from videopose3d_torch.parallel import mesh
-from videopose3d_torch.profiling import span
+from videopose3d_torch.profiling import count, span
 
 LAUNCHES = {"conv_stats": 0, "norm_drop_matmul_stats": 0, "norm_drop_res": 0,
             "relu_mask_bn_sums": 0, "dz_matmul_dd": 0, "dw_gemm": 0,
-            "du_dtaps_res": 0}
+            "du_dtaps_res": 0, "tf32_split": 0, "k2_wgmma_gemms": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -205,13 +210,17 @@ def conv_stats(x3, wa, shift, *, center: int):
     check("shift", shift, x3.device, torch.float32, (c,))
     if not 0 <= center < fw:
         raise ValueError(f"center tap {center} out of range for {fw} taps")
-    plan = tap_gemm_plan(n, fw * c, c, sm_count(x3.device))
+    plan = tap_gemm_plan(n, fw * c, c, sm_count(x3.device), dt)
+    # B = wa (fw C, C); float32 takes it K-major: transposed
+    b = (tf32_parts(wa.reshape(fw * c, c), transpose=True) if dt == torch.float32 else
+         (wa, None))
     u = torch.empty((n, c), dtype=dt, device=x3.device)
     res = torch.empty_like(u)
     part = _partials(n, c, x3.device)
     launch("vp3d_tb_conv_stats", x3.device, _DTYPE_CODE[dt], n, c, fw, center, len(plan),
-           plan[0][1], x3, wa, shift, u, res, part[0], part[1],
+           plan[0][1], x3, *b, shift, u, res, part[0], part[1],
            _split_scratch(plan, n, c, u), count=(LAUNCHES, "conv_stats"))
+    _count_gemm(dt)
     s = _reduce(part, c)
     return u, res, s[0], s[1]
 
@@ -230,13 +239,15 @@ def norm_drop_matmul_stats(u, mask, gate, wb, shift):
     _check_all(u.device, dt, u=(u, None, (n, c)), mask=(mask, None, (n, c)),
                gate=(gate, None, (3, c)), shift=(shift, torch.float32, (c,)))
     check("wb", wb, u.device, dt, (c, c), align=4 * u.element_size())
-    plan = tap_gemm_plan(n, c, c, sm_count(u.device))
+    plan = tap_gemm_plan(n, c, c, sm_count(u.device), dt)
+    b = tf32_parts(wb, transpose=True) if dt == torch.float32 else (wb, None)
     d = torch.empty_like(u)
     v = torch.empty_like(u)
     part = _partials(n, c, u.device)
     launch("vp3d_tb_norm_drop_matmul_stats", u.device, _DTYPE_CODE[dt], n, c, len(plan),
-           plan[0][1], u, mask, gate, wb, shift, d, v, part[0], part[1],
+           plan[0][1], u, mask, gate, *b, shift, d, v, part[0], part[1],
            _split_scratch(plan, n, c, u), count=(LAUNCHES, "norm_drop_matmul_stats"))
+    _count_gemm(dt)
     s = _reduce(part, c)
     return d, v, s[0], s[1]
 
@@ -324,60 +335,68 @@ def dz_matmul_dd(gz, z, coef, wb):
     _validate(gz, c)
     _check_all(gz.device, dt, gz=(gz, None, (n, c)), z=(z, None, (n, c)),
                coef=(coef, torch.float32, (5, c)), wb=(wb, None, (c, c)))
-    plan = tap_gemm_plan(n, c, c, sm_count(gz.device))
+    plan = tap_gemm_plan(n, c, c, sm_count(gz.device), dt)
+    # B = Wb^T: K-major as Wb is; bf16 takes it (k, n) row-major.
+    b = tf32_parts(wb, transpose=False) if dt == torch.float32 else (wb.t().contiguous(), None)
     dz = torch.empty_like(gz)
     dd = torch.empty_like(gz)
     launch("vp3d_tb_dz_matmul_dd", gz.device, _DTYPE_CODE[dt], n, c, len(plan), plan[0][1],
-           gz, z, coef, wb.t().contiguous(), dz, dd, _split_scratch(plan, n, c, gz),
+           gz, z, coef, *b, dz, dd, _split_scratch(plan, n, c, gz),
            count=(LAUNCHES, "dz_matmul_dd"))
+    _count_gemm(dt)
     return dz, dd
 
 
-# The 128 x 128-tile GEMMs' geometry (csrc/sgemm_tile.cuh): DW_TILE x DW_TILE output
-# tiles per CUDA block, slabs of DW_ROWS rows of the summed dimension, and
-# DW_BLOCKS_PER_SM CUDA blocks resident per SM.
+# The 128 x 128-tile GEMMs' geometry (csrc/sgemm_tile.cuh, csrc/wgmma_tile.cuh):
+# DW_TILE x DW_TILE output tiles per CUDA block, slabs of DW_ROWS rows of the summed
+# dimension, and DW_BLOCKS_PER_SM CUDA blocks resident per SM in bf16 (one
+# persistent block an SM in float32).
 DW_TILE, DW_ROWS, DW_BLOCKS_PER_SM = 128, 32, 2
 
 
-def dw_gemm_plan(n: int, m: int, c: int, sms: int = 132):
-    """The row slices of dw_gemm's split over n for an (m, c) output:
-    ``[(start, stop), ...]`` in order, each a whole number of DW_ROWS slabs but
-    the last, together [0, n).
+def dw_gemm_plan(n: int, m: int, c: int, sms: int = 132, dtype=torch.float32):
+    """The row slices of dw_gemm's split over n for an (m, c) output in ``dtype``:
+    ``((start, stop), ...)`` in order, each a whole number of DW_ROWS slabs but the
+    last, together [0, n).
 
     The same tiles as a tap GEMM's, the rows its summed dimension, so the same
     cost model picks the count (:func:`tap_gemm_plan`): at C = 1,024 on 132 SMs
-    dWb's 64 tiles and dWa's 192 (m = 3 C) split in 2 at every n of the step."""
-    return list(tap_gemm_plan(m, n, c, sms))
+    dWb's 64 tiles and dWa's 192 (m = 3 C) split in 2 at every n of the step, but
+    dWa in float32 at n = 1,024."""
+    return tap_gemm_plan(m, n, c, sms, dtype)
 
 
-# tap_gemm_plan's cost model of a tap GEMM (and dw_gemm) on the card: each SM works
-# through its share of the CUDA blocks at TAP_SM_FLOPS (52 TFLOP/s over 132 SMs, the
-# 3xTF32 kernels' rate at full size); a split adds its float32 partials' write and
-# read-back at SPLIT_BYTES_PER_S and a second launch.  Checked against the slice
-# sweeps of the kernels at n = 1,024 to 27,648 on an H100 (PERF.md, section 6).
-TAP_SM_FLOPS = 52e12 / 132
+# tap_gemm_plan's cost model of a K2 GEMM on the card: each SM works through its
+# share of the CUDA blocks at its dtype's rate (K2_SM_FLOPS over 132 SMs: float32's
+# 3xTF32 work at 100 TFLOP/s on warpgroup MMAs, bf16 at 52 on mma.sync); a split adds
+# its float32 partials' write and read-back at SPLIT_BYTES_PER_S and a second launch.
+# Checked against the slice sweeps of the kernels at n = 128 to 27,648 on an H100
+# (PERF.md, section 6).
+K2_SM_FLOPS = {torch.float32: 100e12 / 132, torch.bfloat16: 52e12 / 132}
 SPLIT_BYTES_PER_S, SPLIT_LAUNCH_S = 3e12, 1e-5
 TAP_MAX_SLICES = 8
 
 
 @functools.lru_cache(maxsize=None)
-def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132, *,
-                  sm_flops: float = TAP_SM_FLOPS, launch_s: float = SPLIT_LAUNCH_S,
+def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132, dtype=torch.float32, *,
+                  sm_flops: float | None = None, launch_s: float = SPLIT_LAUNCH_S,
                   one_wave: bool = False):
     """The slices ``((start, stop), ...)`` of the summed dimension of a tap GEMM
-    (m x k) @ (k x n), the products of conv_stats, norm_drop_matmul_stats,
-    dz_matmul_dd and du_dtaps_res: in order, each a whole number of DW_ROWS
-    slabs but the last, together [0, k).
+    (m x k) @ (k x n) in ``dtype``, the products of conv_stats,
+    norm_drop_matmul_stats, dz_matmul_dd and du_dtaps_res: in order, each a whole
+    number of DW_ROWS slabs but the last, together [0, k).
 
     The count (at most TAP_MAX_SLICES, the smallest of equals) is the one the
     cost model above puts first: ceil(blocks / sms) blocks of the slice's work
     per SM, plus the split's partials.  Shorter blocks even out the SMs' shares
-    where the tiles leave a ragged last round; at C = 1,024 on 132 SMs
-    conv_stats splits in 2 at n <= 9,216 and du_dtaps_res at n = 1,024.  The
-    evaluation blocks' GEMMs (``temporal_block.k3_plan``) run the same tile at
-    their own rate per SM (``sm_flops``) and cost of a second launch
-    (``launch_s``); with ``one_wave``, tiles that one wave of DW_BLOCKS_PER_SM
-    resident CUDA blocks per SM holds are split no further than it holds."""
+    where the tiles leave a ragged last round; at C = 1,024 on 132 SMs conv_stats
+    splits in 2 at n <= 9,216 and du_dtaps_res in bf16 at n = 1,024.  The
+    evaluation blocks' GEMMs (``temporal_block.k3_plan``) run the mma.sync tile at
+    their own rate per SM (``sm_flops``, else the dtype's K2_SM_FLOPS) and cost of
+    a second launch (``launch_s``); with ``one_wave``, tiles that one wave of
+    DW_BLOCKS_PER_SM resident CUDA blocks per SM holds are split no further than
+    it holds."""
+    sm_flops = K2_SM_FLOPS[dtype] if sm_flops is None else sm_flops
     tiles = -(-m // DW_TILE) * -(-n // DW_TILE)
     slabs = -(-k // DW_ROWS)
 
@@ -398,6 +417,48 @@ def tap_gemm_plan(m: int, k: int, n: int, sms: int = 132, *,
     return plan(min(range(1, min(slabs, TAP_MAX_SLICES) + 1), key=lambda s: (cost(s), s)))
 
 
+def _count_gemm(dtype) -> None:
+    """One K2 GEMM launched: a float32 one, on warpgroup MMAs, counts in LAUNCHES and
+    the profiling counter."""
+    if dtype == torch.float32:
+        LAUNCHES["k2_wgmma_gemms"] += 1
+        count("train.k2_wgmma_gemms")
+
+
+def tf32_parts(src, *, transpose: bool):
+    """The float32 GEMMs' B: big = tf32(x) and small = tf32(x - big) (float32, round
+    to nearest, ties away) of the float32 matrix ``src`` (rows, cols), one launch of
+    ``tf32_split_kernel``; with ``transpose``, transposed into (cols, ld), ld = rows
+    rounded up to whole 16-byte words, with zeros past rows; else (rows, cols)."""
+    if src.device.type == "cpu":
+        return tf32_parts_plain(src, transpose=transpose)
+    rows, cols = src.shape
+    if transpose:
+        ld = -(-rows // 4) * 4
+        shape = (cols, ld)
+    else:
+        ld, shape = cols, (rows, cols)
+    big = torch.empty(shape, dtype=torch.float32, device=src.device)
+    small = torch.empty_like(big)
+    launch("vp3d_tb_tf32_split", src.device, int(transpose), rows, cols, ld,
+           src.contiguous(), big, small, count=(LAUNCHES, "tf32_split"))
+    return big, small
+
+
+def tf32_parts_plain(src, *, transpose: bool):
+    """Plain version of :func:`tf32_parts`: the same parts by integer arithmetic on
+    the float32 bits (add half a TF32 step, clear the 13 low bits)."""
+    def rna(x):
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    big = rna(src.float())
+    small = rna(src.float() - big)
+    if not transpose:
+        return big, small
+    pad = -src.shape[0] % 4
+    return tuple(F.pad(t.t(), (0, pad)).contiguous() for t in (big, small))
+
+
 def _split_scratch(plan, m: int, n: int, like):
     """The float32 (slices, m, n) products of a split tap GEMM, or None."""
     if len(plan) == 1:
@@ -407,8 +468,9 @@ def _split_scratch(plan, m: int, n: int, like):
 
 def dw_gemm(a, b):
     """Kernel of :func:`dw_gemm_plain` (a (n, m), b (n, C), m % 4 == 0): one
-    launch of the tiled GEMM over the :func:`dw_gemm_plan` slices and, with
-    more than one slice, one of their in-order sum."""
+    launch of the tiled GEMM (float32: after b's transposed :func:`tf32_parts`)
+    over the :func:`dw_gemm_plan` slices and, with more than one slice, one of
+    their in-order sum."""
     if a.device.type == "cpu":
         return dw_gemm_plain(a, b)
     dt = a.dtype
@@ -418,12 +480,15 @@ def dw_gemm(a, b):
     _validate(b, c)
     for name, t, shape in (("a", a, (n, m)), ("b", b, (n, c))):  # whole 4-element copies
         check(name, t, a.device, dt, shape, align=4 * a.element_size())
-    plan = dw_gemm_plan(n, m, c, sm_count(a.device))
+    plan = dw_gemm_plan(n, m, c, sm_count(a.device), dt)
     dw = torch.empty((m, c), dtype=torch.float32, device=a.device)
     part = (None if len(plan) == 1 else
             torch.empty((len(plan), m, c), dtype=torch.float32, device=a.device))
-    launch("vp3d_tb_dw_gemm", a.device, _DTYPE_CODE[dt], n, m, c, len(plan), plan[0][1], a,
-           b, part, dw, count=(LAUNCHES, "dw_gemm"))
+    # float32: b^T K-major, (c, ldb), its rows padded to whole 16-byte words
+    bt = tf32_parts(b, transpose=True) if dt == torch.float32 else (b, None)
+    launch("vp3d_tb_dw_gemm", a.device, _DTYPE_CODE[dt], n, m, c, len(plan), plan[0][1],
+           bt[0].shape[-1], a, *bt, part, dw, count=(LAUNCHES, "dw_gemm"))
+    _count_gemm(dt)
     return dw
 
 
@@ -442,12 +507,16 @@ def du_dtaps_res(ga, u, g, coef, wa, *, center: int):
                wa=(wa, None, (fw, c, c)))
     if not 0 <= center < fw:
         raise ValueError(f"center tap {center} out of range for {fw} taps")
-    plan = tap_gemm_plan(n, c, fw * c, sm_count(ga.device))
+    plan = tap_gemm_plan(n, c, fw * c, sm_count(ga.device), dt)
+    # B = Wt: K-major as wa (fw C, C) is; bf16 takes Wt itself.
+    b = (tf32_parts(wa.reshape(fw * c, c), transpose=False) if dt == torch.float32 else
+         (wa.permute(2, 0, 1).reshape(c, fw * c).contiguous(), None))
     du = torch.empty_like(ga)
     dx3 = torch.empty((n, fw, c), dtype=dt, device=ga.device)
     launch("vp3d_tb_du_dtaps_res", ga.device, _DTYPE_CODE[dt], n, c, fw, center, len(plan),
-           plan[0][1], ga, u, g, coef, wa.permute(2, 0, 1).reshape(c, fw * c).contiguous(),
-           du, dx3, _split_scratch(plan, n, fw * c, ga), count=(LAUNCHES, "du_dtaps_res"))
+           plan[0][1], ga, u, g, coef, *b, du, dx3, _split_scratch(plan, n, fw * c, ga),
+           count=(LAUNCHES, "du_dtaps_res"))
+    _count_gemm(dt)
     return du, dx3
 
 
