@@ -1,10 +1,10 @@
 """The evaluator's card path against its eager path, on the card: a raw video
 (``UnchunkedBatcher.raw_epoch``) staged with its 3D poses in one pinned upload,
-padded and mirrored on the card and, on the ``fused`` engine, evaluated by one
-CUDA-graph replay per padded length, gives the poses and the four protocol means
-of the batcher's padded input through the eager path bit for bit; the poses it
-returns stay each video's own; a change to the model's tensors recaptures; the
-replays count as the eager path's launches.
+padded and mirrored on the card and, on the ``fused`` and ``int8`` engines,
+evaluated by one CUDA-graph replay per padded length, gives the poses and the four
+protocol means of the batcher's padded input through the eager path bit for bit;
+the poses it returns stay each video's own; a change to the model's tensors
+recaptures; the replays count as the eager path's launches.
 
 Needs a CUDA device (marker ``gpu``; skipped elsewhere).  Imports no JAX:
 
@@ -123,6 +123,26 @@ def test_graph_matches_eager_bit_for_bit(cuda, dtype, augment):
     assert numbers == tuple(sums / total * 1000)
 
 
+@pytest.mark.parametrize("augment", [True, False])
+def test_int8_graph_matches_eager_bit_for_bit(cuda, augment):
+    """The ``int8`` engine's graphs, calibrated: poses and the four means bitwise
+    the eager int8 path's, one capture a padded length; a new calibration
+    captures again, and the poses are the eager path's on it."""
+    cfg, net = _model(cuda, "float32")
+    batcher = _batcher(cfg, augment)
+    rng = np.random.default_rng(5)
+    evaluator = Evaluator(net.config, joints_flip_perm=PERM, engine="int8", device=cuda)
+    for scale in (0.3, 0.6):
+        evaluator.set_calibration((rng.standard_normal((2, 40, J, 2)) * scale).astype(np.float32))
+        want = _eager(evaluator, net, batcher, cuda)
+        got, counters = _counted(lambda: _raw(evaluator, net, batcher))
+        assert counters["eval.graph_captures"] == 3
+        assert counters["eval.graph_replays"] == len(LENGTHS)
+        for (p_got, m_got), (p_want, m_want), n in zip(got, want, LENGTHS):
+            assert torch.equal(p_got, p_want), n
+            assert torch.equal(m_got, m_want), n
+
+
 def test_returned_poses_stay_each_videos_own(cuda):
     """Three videos of one bucket, then more replays of it: each tensor returned
     still holds its own video's poses."""
@@ -220,8 +240,9 @@ def test_replays_count_as_eager_launches(cuda):
 
 @pytest.mark.parametrize("engine", ["xla", "int8"])
 def test_eager_engines_take_raw_videos(cuda, engine):
-    """``xla`` and ``int8`` run a raw video eagerly, padded on the card: the padded
-    input's poses bit for bit, and no graph."""
+    """``xla`` runs a raw video eagerly and ``int8`` (quantized on the first
+    video, no calibration set) by its graphs, padded on the card: the padded
+    input's poses bit for bit, and a replay a video only for ``int8``."""
     cfg, net = _model(cuda, "float32")
     batcher = _batcher(cfg, True)
     evaluator = Evaluator(net.config, joints_flip_perm=PERM, engine=engine, device=cuda)
@@ -230,4 +251,4 @@ def test_eager_engines_take_raw_videos(cuda, engine):
     for (p_got, m_got), (p_want, m_want), n in zip(got, want, LENGTHS):
         assert torch.equal(p_got, p_want), n
         assert torch.equal(m_got, m_want), n
-    assert "eval.graph_replays" not in counters
+    assert counters.get("eval.graph_replays", 0) == (len(LENGTHS) if engine == "int8" else 0)

@@ -83,8 +83,10 @@ def _flag_set(parse_args, monkeypatch):
 def test_the_parsers_take_the_same_flags(monkeypatch):
     from videopose3d_torch.arguments import parse_args
     from videopose3d_tpu.arguments import parse_args as jax_parse_args
+    # The port's own flags: --device, and --model (the DSTformer, which the JAX
+    # package does not have).
     assert _flag_set(parse_args, monkeypatch) == (
-        _flag_set(jax_parse_args, monkeypatch) | {"--device"})
+        _flag_set(jax_parse_args, monkeypatch) | {"--device", "--model"})
     args = parse_args(["--profile-dir", "p", "--metrics-log", "m.jsonl"])
     assert (args.profile_dir, args.metrics_log) == ("p", "m.jsonl")
     assert parse_args([]).profile_dir is None and parse_args([]).metrics_log is None

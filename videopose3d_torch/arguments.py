@@ -2,13 +2,28 @@
 
 The flag surface of ``videopose3d_tpu/arguments.py`` (the reference's flags with
 their names, defaults and semantics, and the JAX package's own), plus
-``--device``.  The JAX package's TPU knobs are accepted and ignored, so one
-command line runs in both packages.
+``--device`` and ``--model``.  The JAX package's TPU knobs are accepted and
+ignored, so one command line runs in both packages.
+
+``--model dstformer`` trains and evaluates MotionBERT's DSTformer at its
+published sizes (``models/dstformer.py``) in place of the temporal ConvNet:
+``-b`` then counts clips of 243 frames (default 32), ``-lr`` defaults to 2e-4 and
+``-lrd`` to 0.99 (AdamW, the recipe's), and the ConvNet's flags are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
+
+# Defaults that depend on --model: (tcn, dstformer).
+MODEL_DEFAULTS = {"batch_size": (1024, 32), "learning_rate": (0.001, 2e-4),
+                  "lr_decay": (0.95, 0.99)}
+# Flags of the temporal ConvNet (its shape, form and dropout) and of
+# semi-supervised training, which --model dstformer refuses.
+CONVNET_ONLY = ("architecture", "causal", "channels", "dense", "dropout", "stride",
+                "disable_optimizations", "subjects_unlabeled", "warmup",
+                "linear_projection", "bone_length_term", "no_proj", "compute_dtype")
 
 
 def parse_args(argv=None):
@@ -49,14 +64,17 @@ def parse_args(argv=None):
                         help="chunk size to use during training")
     parser.add_argument("-e", "--epochs", default=60, type=int, metavar="N",
                         help="number of training epochs")
-    parser.add_argument("-b", "--batch-size", default=1024, type=int, metavar="N",
-                        help="batch size in terms of predicted frames")
+    parser.add_argument("-b", "--batch-size", default=None, type=int, metavar="N",
+                        help="batch size in terms of predicted frames (default 1024; "
+                             "--model dstformer: clips of 243 frames, default 32)")
     parser.add_argument("-drop", "--dropout", default=0.25, type=float, metavar="P",
                         help="dropout probability")
-    parser.add_argument("-lr", "--learning-rate", default=0.001, type=float,
-                        metavar="LR", help="initial learning rate")
-    parser.add_argument("-lrd", "--lr-decay", default=0.95, type=float, metavar="LR",
-                        help="learning rate decay per epoch")
+    parser.add_argument("-lr", "--learning-rate", default=None, type=float,
+                        metavar="LR", help="initial learning rate (default 0.001; "
+                                           "--model dstformer: 2e-4)")
+    parser.add_argument("-lrd", "--lr-decay", default=None, type=float, metavar="LR",
+                        help="learning rate decay per epoch (default 0.95; "
+                             "--model dstformer: 0.99)")
     parser.add_argument("-no-da", "--no-data-augmentation", dest="data_augmentation",
                         action="store_false", help="disable train-time flipping")
     parser.add_argument("-no-tta", "--no-test-time-augmentation",
@@ -117,6 +135,12 @@ def parse_args(argv=None):
                         help="image size")
 
     # Port-specific (no reference equivalent)
+    parser.add_argument("--model", default="tcn", type=str, choices=["tcn", "dstformer"],
+                        help="the pose model: 'tcn' the dilated temporal ConvNet "
+                             "(default), 'dstformer' MotionBERT's DSTformer at its "
+                             "published sizes (depth 5, 512 features, 8 heads, MLP "
+                             "ratio 2, clips of 243 frames), trained with AdamW on "
+                             "MPJPE + 0.5 N-MPJPE + 20 velocity error")
     parser.add_argument("--device", default="cuda", type=str, metavar="DEVICE",
                         help="torch device to run the model on: 'cuda' (default; "
                              "fails when no card is present; cuda:$LOCAL_RANK under "
@@ -189,6 +213,11 @@ def parse_args(argv=None):
     parser.set_defaults(test_time_augmentation=True)
 
     args = parser.parse_args(argv)
+    for dest, defaults in MODEL_DEFAULTS.items():
+        if getattr(args, dest) is None:
+            setattr(args, dest, defaults[args.model == "dstformer"])
+    if args.model == "dstformer":
+        _check_dstformer(parser, args, sys.argv[1:] if argv is None else argv)
 
     # Invalid-combination checks (as the reference).
     if args.resume and args.evaluate:
@@ -200,3 +229,23 @@ def parse_args(argv=None):
         raise SystemExit(1)
 
     return args
+
+
+def _check_dstformer(parser, args, argv) -> None:
+    """Refuse what ``--model dstformer`` cannot run: a flag of the ConvNet or of
+    semi-supervised training given on the command line, and the engines that
+    have no DSTformer kernels."""
+    given = [a for a in parser._actions if a.dest in CONVNET_ONLY and any(
+        tok == opt or tok.startswith(opt + "=") for tok in argv for opt in a.option_strings)]
+    if given:
+        parser.error("--model dstformer does not take " + ", ".join(
+            "/".join(a.option_strings) for a in given) + " (ConvNet or semi-supervised "
+            "flags; the DSTformer's sizes are the published ones)")
+    if args.train_engine != "xla":
+        from videopose3d_torch.models.dstformer import MISSING_KERNELS
+        parser.error(f"--model dstformer: --train-engine {args.train_engine} needs "
+                     f"hand-written kernels the port does not have for it ({MISSING_KERNELS}); "
+                     "it trains on --train-engine xla (cuBLAS float32, TF32 off)")
+    if args.serving_engine != "xla":
+        parser.error(f"--model dstformer: --serving-engine {args.serving_engine} has no "
+                     "DSTformer kernels; it evaluates on --serving-engine xla")

@@ -7,11 +7,14 @@ same format.  Inference and the TTA merge run on the evaluator's device, or
 round-robin over several local ``devices`` (a copy of the model on each).  On
 CUDA devices each video's raw frames and 3D poses go up in one copy from reused
 pinned memory, the edge padding and the mirrored row are made there, the
-``fused`` engine replays one CUDA graph per padded length, and the four
+``fused`` and ``int8`` engines replay one CUDA graph per padded length, and the four
 protocols run there too, one kernel a video (``ops/kernels/protocols.py``), and
 one fetch a call brings their means back; on the CPU the batcher pads on the
 host and the protocols run on host numpy, as in the JAX package.  The per-epoch
-training losses run on the device.
+training losses run on the device.  A DSTformer (``models/dstformer.py``)
+evaluates on the ``xla`` engine, each video (pad 0) cut into consecutive clips of
+``maxlen`` frames, the last edge-padded and its padded frames dropped
+(``forward_clips``); the TTA merge and the protocols are the ConvNet's.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from videopose3d_torch.data.generators import RawVideo, padded_rows
+from videopose3d_torch.models.dstformer import DSTformerConfig, forward_clips
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 forward_dilated, forward_dilated_fused,
                                                 _fused_operands, forward_dilated_int8,
@@ -154,9 +158,9 @@ class _GraphSet:
 
 
 class _VideoGraph:
-    """The ``fused`` evaluation of one padded length on a card as one CUDA graph:
-    the edge padding and the mirrored row (:func:`padded_rows`, n read from the
-    staged header), the forward through ``Evaluator.infer`` and the TTA merge,
+    """The ``fused`` or ``int8`` evaluation of one padded length on a card as one
+    CUDA graph: the edge padding and the mirrored row (:func:`padded_rows`, n read
+    from the staged header), the forward through ``Evaluator.infer`` and the TTA merge,
     captured over a fixed input buffer at the first replay and replayed for every
     video of that length.  The same kernels on the same inputs as the eager path,
     so the poses are its bit for bit."""
@@ -187,10 +191,11 @@ class _VideoGraph:
             # lengths are captured directly.
             self._body()
             self.set.warm = True
-        # The graph reads the fused forward's operands but does not hold them: made
-        # here, outside the capture, and held with it, so that no later evaluation
-        # (of another dtype, say) frees what its replays read.
-        self.operands = _fused_operands(self.model, self.evaluator.model_cfg.matmul_dtype)
+        # The graph reads operands of the model it does not hold (the fused forward's,
+        # or the quantized model): made here, outside the capture, and held with it,
+        # so that no later evaluation (of another dtype, say) frees what its replays
+        # read.
+        self.operands = self.evaluator._graph_operands(self.model, self.set.device)
         current = torch.cuda.current_stream(self.set.device)
         self.set.stream.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
@@ -219,7 +224,8 @@ class Evaluator:
 
     Engines:
       * ``"xla"`` (default) — metric grade: the plain torch model in float32
-        with TF32 off, whatever the configured compute dtype.
+        with TF32 off, whatever the configured compute dtype (a DSTformer's
+        config takes this engine only, on clips of ``maxlen`` frames).
       * ``"fused"`` — the fused CUDA block kernels at the model's compute dtype.
       * ``"int8"`` — the w8a8 int8 stage kernels, for bulk serving (mm-level
         accuracy, not metric grade).  The model is quantized on the first
@@ -231,12 +237,13 @@ class Evaluator:
     (of the quantized model for ``int8``, quantized once on the model's device),
     made once per model state.
 
-    On a card, ``fused`` evaluates each :class:`RawVideo` by one CUDA-graph replay,
-    one graph per device, padded length and mirroring, captured at the first video
-    of each and again after the model's tensors change (the first video on a device
-    at a model state also runs once eagerly, before its capture); ``xla`` and
-    ``int8`` run eagerly (cuDNN picks its own algorithms; int8 requantizes on model
-    changes).
+    On a card, ``fused`` and ``int8`` evaluate each :class:`RawVideo` by one
+    CUDA-graph replay, one graph per device, padded length and mirroring, captured
+    at the first video of each and again after the model's tensors change or the
+    quantization is reset (the first video on a device at a model state also runs
+    once eagerly, before its capture: it quantizes an ``int8`` model on its input
+    when no calibration was set); ``xla`` runs eagerly (cuDNN picks its own
+    algorithms).
     """
 
     def __init__(self, model_cfg: TemporalModelConfig,
@@ -244,6 +251,8 @@ class Evaluator:
                  engine: str = "xla", device: torch.device = torch.device("cuda")):
         if engine not in ("xla", "fused", "int8"):
             raise ValueError(f"unknown engine {engine!r}")
+        if isinstance(model_cfg, DSTformerConfig) and engine != "xla":
+            raise ValueError(f"the DSTformer evaluates on the xla engine only, not {engine!r}")
         if engine == "xla" and model_cfg.compute_dtype != "float32":
             model_cfg = dataclasses.replace(model_cfg, compute_dtype="float32")
         self.engine = engine
@@ -253,6 +262,7 @@ class Evaluator:
                                  torch.as_tensor(np.asarray(joints_flip_perm),
                                                  dtype=torch.long, device=self.device))
         self._calibration = None
+        self._q_resets = 0  # resets of the quantization: the int8 graphs' state
         self._copies = {}  # (what, device) -> (key, the copy on that device)
         self._staging = {}  # device -> _Staging
         self._graph_sets = {}  # device -> _GraphSet
@@ -264,10 +274,12 @@ class Evaluator:
         self.reset_quantization()
 
     def reset_quantization(self):
-        """Drop the quantized model; the next int8 inference quantizes anew."""
+        """Drop the quantized model; the next int8 inference quantizes anew (and
+        captures the int8 video graphs again)."""
         self._q = None
         self._q_key = None
         self._q_tensors = None
+        self._q_resets += 1
 
     def set_calibration(self, batch_2d) -> None:
         """Calibrate the int8 scales on this (B, T, J, C) batch, or on a list of
@@ -336,6 +348,8 @@ class Evaluator:
         if self.engine == "fused":
             return forward_dilated_fused(self.model_cfg, model, x)
         with full_float32():
+            if isinstance(self.model_cfg, DSTformerConfig):
+                return forward_clips(model, x)
             return forward_dilated(model, x)
 
     def predict_async(self, model: TemporalModel, batch_2d, augment: bool, device=None):
@@ -357,10 +371,13 @@ class Evaluator:
                 return self._tta_merge(pred, augment)
 
     def _graph(self, model: TemporalModel, video: RawVideo, augment: bool, device):
-        """The graph of ``video``'s padded length on ``device``; a model state the
-        device's graphs were not captured at drops them all."""
-        model = self._model_on(model, device)
-        state = tensor_state(model)
+        """The graph of ``video``'s padded length on ``device``; a model state (or a
+        reset of the quantization) the device's graphs were not captured at drops
+        them all.  ``int8`` graphs infer on the model itself: the quantized model
+        is copied to ``device`` (``infer``)."""
+        if self.engine == "fused":
+            model = self._model_on(model, device)
+        state = (tensor_state(model), self._q_resets)
         graphs = self._graph_sets.get(device)
         if graphs is None or graphs.state != state:
             graphs = self._graph_sets[device] = _GraphSet(state, device)
@@ -372,16 +389,27 @@ class Evaluator:
             graph = graphs.graphs[key] = _VideoGraph(self, model, video, augment, graphs)
         return graph
 
+    def _graph_operands(self, model: TemporalModel, device):
+        """What a video graph on ``device`` reads of ``model`` and does not hold: the
+        fused forward's operands, or the quantized model there (quantized by the
+        eager run before the first capture)."""
+        if self.engine == "int8":
+            if device == _device_of(model):
+                return self._q
+            return self._on("int8", self._q, self._q_key, device, quantized_on)
+        return _fused_operands(model, self.model_cfg.matmul_dtype)
+
     def _predict_video(self, model: TemporalModel, video: RawVideo, augment: bool, device):
         """``predict_async`` of a raw video: staged and uploaded, padded on the
-        card; one graph replay for ``fused``, else eagerly."""
+        card; one graph replay for ``fused`` and ``int8``, else eagerly."""
         if device.type != "cuda":
             raise ValueError(f"a raw video is evaluated on a card, not on {device}: "
                              "the batcher pads it on the host (next_epoch)")
         if device.index is None:
             # As a tensor's device: a model there is on it, not on a copy.
             device = torch.device("cuda", torch.cuda.current_device())
-        graph = self._graph(model, video, augment, device) if self.engine == "fused" else None
+        graph = (self._graph(model, video, augment, device)
+                 if self.engine in ("fused", "int8") else None)
         with span("vp3d.eval.upload"):
             buf = (graph.buf if graph is not None
                    else torch.empty(_staged_words(video), device=device))

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from videopose3d_torch.ops.losses import mpjpe_per_sample
 from videopose3d_torch.parallel import mesh
 
 BN_EPS = 1e-5  # PyTorch BatchNorm1d default, the JAX package's BN_EPS
@@ -123,6 +124,8 @@ class TemporalModel(nn.Module):
     by PyTorch's defaults.
     """
 
+    kind = "tcn"
+
     def __init__(self, config: TemporalModelConfig):
         super().__init__()
         self.config = config
@@ -160,6 +163,15 @@ class TemporalModel(nn.Module):
             x = res + y
         x = self.shrink(x).permute(0, 2, 1)
         return _finish_output(cfg, x)
+
+    def train_forward(self, use_strided: bool):
+        """The training forward the trainer calls: the strided form, or the
+        dilated one on chunks of several frames."""
+        return forward_strided if use_strided else forward_dilated_train
+
+    def per_sample_loss(self, pred, target):
+        """(B,) MPJPE of each sample, the reference's training loss."""
+        return mpjpe_per_sample(pred, target)
 
 
 def _prep_input(config: TemporalModelConfig, x):

@@ -19,6 +19,12 @@ def mpjpe(predicted, target):
     return torch.mean(torch.linalg.vector_norm(predicted - target, dim=-1))
 
 
+def mpjpe_per_sample(pred, target):
+    """(B,) per-sample MPJPE of (B, T, J, 3) tensors (mean over frames and
+    joints)."""
+    return torch.linalg.vector_norm(pred - target, dim=-1).mean(dim=(1, 2))
+
+
 def mpjpe_np(predicted, target):
     """Protocol #1 on host numpy."""
     assert predicted.shape == target.shape, (predicted.shape, target.shape)

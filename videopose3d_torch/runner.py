@@ -13,6 +13,13 @@ checkpoint payload, protocol reports, exported poses and training curves.
 ``--metrics-log`` appends one JSON record per epoch; checkpoints are written on
 a background thread (``checkpoint.AsyncCheckpointer``).
 
+``--model dstformer`` (no JAX counterpart) runs MotionBERT's DSTformer at its
+published sizes in place of the ConvNet: keypoints without a confidence get 1.0,
+training takes clips of 243 frames (pad 0, ``-b`` clips a step) through the same
+``SupervisedTrainer`` with AdamW, evaluation cuts each video into clips, and a
+checkpoint records ``model_kind`` and ``model_config``; a checkpoint of the other
+model is refused.
+
 Under ``python -m torch.distributed.run`` every process trains one data-parallel
 rank (``parallel/mesh.py``): NCCL on CUDA, gloo on the CPU, the weights
 broadcast from rank 0, the per-epoch evaluation's videos shared out among the
@@ -36,6 +43,7 @@ from videopose3d_torch.data.generators import (ChunkedPairSampler, FlatSequenceD
                                                UnchunkedBatcher)
 from videopose3d_torch.evaluate import (DeviceEvalSet, Evaluator, evaluate,
                                         evaluate_actionwise, full_float32)
+from videopose3d_torch.models.dstformer import DSTformer, DSTformerConfig
 from videopose3d_torch.models.temporal import (TemporalModel, TemporalModelConfig,
                                                 receptive_field)
 from videopose3d_torch.ops.camera import (camera_to_world, image_coordinates,
@@ -266,6 +274,24 @@ def _eval_batcher(args, pad, causal_shift, kps_perm, joints_perm, cameras,
         bucket=args.eval_bucket, bucket_pow2=args.eval_bucket_pow2)
 
 
+def _dstformer_config(num_kps: int, num_joints: int) -> DSTformerConfig:
+    """The published DSTformer for ``num_kps`` keypoints in, the same joints out."""
+    if num_kps != num_joints:
+        raise SystemExit(f"error: the DSTformer lifts each keypoint to its joint: {num_kps} "
+                         f"keypoints for {num_joints} joints")
+    return DSTformerConfig(num_joints=num_kps)
+
+
+def _with_confidence(keypoints) -> None:
+    """Append a confidence of 1.0 to every keypoint of a dataset without scores
+    (MotionBERT's input for ground-truth 2D), in place."""
+    for actions in keypoints.values():
+        for cams in actions.values():
+            for i, kps in enumerate(cams):
+                if kps.shape[-1] == 2:
+                    cams[i] = np.concatenate([kps, np.ones_like(kps[..., :1])], axis=-1)
+
+
 def load_model(model: TemporalModel, model_pos) -> None:
     """Load a reference-layout state dict (numpy or torch values) strictly."""
     device = next(model.parameters()).device
@@ -286,6 +312,9 @@ def main(argv=None):
         raise SystemExit(f"error: {refused}")
     device = resolve_device(args.device)
     dp = join_process_group(args, device)
+    if dp is not None and args.model == "dstformer":
+        raise SystemExit("error: --model dstformer trains on one process, not "
+                         f"{dp.world_size} data-parallel ones")
     os.makedirs(args.checkpoint, exist_ok=True)
 
     dataset = load_dataset(args)
@@ -303,35 +332,46 @@ def main(argv=None):
     if action_filter is not None:
         print("Selected actions:", action_filter)
 
+    if args.model == "dstformer":
+        _with_confidence(keypoints)
     cameras_valid, poses_valid, poses_valid_2d = fetch(
         args, dataset, keypoints, subjects_test, action_filter)
 
-    filter_widths = tuple(int(x) for x in args.architecture.split(","))
     num_kps = poses_valid_2d[0].shape[-2]
-    use_strided = (not args.disable_optimizations and not args.dense
-                   and args.stride == 1)
-    model_cfg = TemporalModelConfig(
-        num_joints_in=num_kps, in_features=poses_valid_2d[0].shape[-1],
-        num_joints_out=dataset.skeleton().num_joints(),
-        filter_widths=filter_widths, causal=args.causal, dropout=args.dropout,
-        channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype,
-        train_engine=args.train_engine)
-    # The trajectory model: one output joint, and the pose model's train engine
-    # (its residual blocks have the pose model's shapes; the JAX package gives it
-    # the plain blocks).
-    traj_cfg = dataclasses.replace(model_cfg, num_joints_out=1)
-
-    rf = receptive_field(model_cfg)
-    print(f"INFO: Receptive field: {rf} frames")
-    pad = (rf - 1) // 2
-    if args.causal:
-        print("INFO: Using causal convolutions")
-        causal_shift = pad
+    if args.model == "dstformer":
+        model_cfg = _dstformer_config(num_kps, dataset.skeleton().num_joints())
+        use_strided, pad, causal_shift = False, 0, 0
+        # It computes whole clips: the evaluated videos are bucketed to them.
+        args.eval_bucket, args.eval_bucket_pow2 = model_cfg.maxlen, False
+        print(f"INFO: DSTformer on clips of {model_cfg.maxlen} frames")
+        torch.manual_seed(args.seed)
+        model = DSTformer(model_cfg).to(device)
     else:
-        causal_shift = 0
+        filter_widths = tuple(int(x) for x in args.architecture.split(","))
+        use_strided = (not args.disable_optimizations and not args.dense
+                       and args.stride == 1)
+        model_cfg = TemporalModelConfig(
+            num_joints_in=num_kps, in_features=poses_valid_2d[0].shape[-1],
+            num_joints_out=dataset.skeleton().num_joints(),
+            filter_widths=filter_widths, causal=args.causal, dropout=args.dropout,
+            channels=args.channels, dense=args.dense, compute_dtype=args.compute_dtype,
+            train_engine=args.train_engine)
+        # The trajectory model: one output joint, and the pose model's train engine
+        # (its residual blocks have the pose model's shapes; the JAX package gives it
+        # the plain blocks).
+        traj_cfg = dataclasses.replace(model_cfg, num_joints_out=1)
 
-    torch.manual_seed(args.seed)
-    model = TemporalModel(model_cfg).to(device)
+        rf = receptive_field(model_cfg)
+        print(f"INFO: Receptive field: {rf} frames")
+        pad = (rf - 1) // 2
+        if args.causal:
+            print("INFO: Using causal convolutions")
+            causal_shift = pad
+        else:
+            causal_shift = 0
+
+        torch.manual_seed(args.seed)
+        model = TemporalModel(model_cfg).to(device)
     print("INFO: Trainable parameter count:",
           sum(p.numel() for p in model.parameters()))
 
@@ -345,6 +385,10 @@ def main(argv=None):
         chk_filename = os.path.join(args.checkpoint, args.resume or args.evaluate)
         print("Loading checkpoint", chk_filename)
         checkpoint = load_any_checkpoint(chk_filename)
+        kind = checkpoint.get("model_kind", "tcn")
+        if kind != model.kind:
+            raise SystemExit(f"error: {chk_filename} holds a {kind} model, not the "
+                             f"{model.kind} that --model {args.model} builds")
         print("This model was trained for {} epochs".format(checkpoint["epoch"]))
         load_model(model, checkpoint["model_pos"])
         if args.evaluate and args.render and checkpoint.get("model_traj") is not None:
@@ -397,8 +441,10 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
         args, dataset, keypoints, subjects_train, action_filter, subset=args.subset)
 
     lr = args.learning_rate
+    dst = args.model == "dstformer"
     loop_cfg = TrainLoopConfig(
-        batch_size=args.batch_size // args.stride, chunk_length=args.stride, pad=pad,
+        batch_size=args.batch_size if dst else args.batch_size // args.stride,
+        chunk_length=model.config.maxlen if dst else args.stride, pad=pad,
         causal_shift=causal_shift, learning_rate=lr, lr_decay=args.lr_decay,
         epochs=args.epochs, use_strided=use_strided, warmup=args.warmup,
         bone_length_term=args.bone_length_term, no_proj=args.no_proj,
@@ -471,8 +517,12 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
 
     # The dilated form runs no train-block kernel, whatever --train-engine says
     # (as in the JAX package); the lines below name the form that ran.
-    form = f"engine {args.train_engine}" if use_strided else "dilated form"
-    if not use_strided:
+    form = (f"engine {args.train_engine}" if use_strided or dst
+            else "dilated form")
+    if dst:
+        print(f"INFO: Training the DSTformer on clips of {loop_cfg.chunk_length} frames "
+              f"({loop_cfg.batch_size} a step, AdamW)")
+    elif not use_strided:
         print(f"INFO: Training the dilated form on chunks of {loop_cfg.chunk_length} "
               "frames (plain blocks)")
     print("** Note: reported losses are averaged over all frames and test-time "
@@ -610,6 +660,9 @@ def _train(args, dataset, keypoints, subjects_train, subjects_semi, action_filte
                 "stream_rng_semi": None if stream_semi is None else stream_semi[1],
                 # The dropout generator's state: a resume replays the masks.
                 "step_rng": generator.get_state(),
+                # Which model the weights are of (absent: the ConvNet).
+                **({"model_kind": model.kind,
+                    "model_config": dataclasses.asdict(model.config)} if dst else {}),
             })
 
         if args.export_training_curves and epoch > 3 and writer:

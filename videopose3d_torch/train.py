@@ -8,7 +8,11 @@ the forward with train-mode BatchNorm and dropout (the strided form; under
 the JAX trainers pick ``forward_dilated``), the masked losses, their backward
 and an AMSGrad step (``torch.optim.Adam(amsgrad=True)``, which the JAX
 package's ``scale_by_torch_amsgrad`` reproduces).  Per step only the
-descriptors and the valid-row counts go to the device.
+descriptors and the valid-row counts go to the device.  The model supplies its
+training forward (``train_forward``) and its per-sample loss: MotionBERT's
+DSTformer (``models/dstformer.py``, no JAX counterpart) takes the same
+supervised step on clips of ``chunk_length`` frames with pad 0, every output
+frame supervised, its recipe's loss and AdamW (``make_optimizer``).
 
 The final partial batch of an epoch is padded with copies of its first row: the
 loss masks them out, while the BatchNorm batch statistics include them, as in
@@ -36,9 +40,9 @@ import torch
 
 from videopose3d_torch.data.generators import (FlatSequenceDataset,
                                                assemble_chunked_batch_contiguous)
-from videopose3d_torch.models.temporal import (TemporalModel, forward_dilated_train,
-                                                forward_strided)
+from videopose3d_torch.models.temporal import TemporalModel
 from videopose3d_torch.ops.camera import project_to_2d, project_to_2d_linear
+from videopose3d_torch.ops.losses import mpjpe_per_sample
 from videopose3d_torch.parallel import mesh
 from videopose3d_torch.profiling import count, span
 
@@ -85,11 +89,14 @@ def bn_momentum_for_epoch(cfg: TrainLoopConfig, epoch: int) -> float:
 
 
 def make_optimizer(models: Union[TemporalModel, Sequence[TemporalModel]],
-                   learning_rate: float) -> torch.optim.Adam:
+                   learning_rate: float) -> torch.optim.Optimizer:
     """Adam with AMSGrad over the parameters of one model or of several (the
     semi-supervised pose and trajectory models share one), the reference's
-    optimizer; the lr is set per epoch."""
+    optimizer; a model with a recipe of its own (the DSTformer's AdamW) gets
+    that.  The lr is set per epoch."""
     if isinstance(models, torch.nn.Module):
+        if hasattr(models, "optimizer"):
+            return models.optimizer(learning_rate)
         models = [models]
     return torch.optim.Adam(itertools.chain.from_iterable(m.parameters() for m in models),
                             lr=learning_rate, amsgrad=True)
@@ -100,9 +107,7 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _mpjpe_per_sample(pred, target):
-    """(B,) per-sample MPJPE (mean over frames and joints)."""
-    return torch.linalg.vector_norm(pred - target, dim=-1).mean(dim=(1, 2))
+_mpjpe_per_sample = mpjpe_per_sample  # the semi-supervised trainer's pose loss
 
 
 def _masked_sample_mean(per_sample, mask, rows=None):
@@ -145,9 +150,10 @@ def _check_margins(dev, loop: TrainLoopConfig) -> None:
             "FlatSequenceDataset.training_margins(...) for this model")
 
 
-def _forward(loop: TrainLoopConfig):
-    """The train-mode forward of the loop's form."""
-    return forward_strided if loop.use_strided else forward_dilated_train
+def _forward(model, loop: TrainLoopConfig):
+    """The model's train-mode forward for the loop's form (the model knows its
+    own: the ConvNet's strided or dilated form, the DSTformer's clips)."""
+    return model.train_forward(loop.use_strided)
 
 
 def _descriptors(meta, device):
@@ -185,16 +191,17 @@ class SupervisedTrainer:
             with span("vp3d.train.assemble"):
                 _, batch_3d, batch_2d = assemble_chunked_batch_contiguous(
                     dev, idx, pad=loop.pad, causal_shift=loop.causal_shift,
-                    chunk_length=loop.chunk_length, gather_impl=loop.gather_impl)
+                    chunk_length=loop.chunk_length, gather_impl=loop.gather_impl,
+                    joint_axis_2d=True)
                 batch_3d = batch_3d.clone()
                 batch_3d[:, :, 0] = 0.0  # root-centre: the trajectory is not learned here
 
             with span("vp3d.train.forward"):
                 self.optimizer.zero_grad(set_to_none=True)
-                pred = _forward(loop)(self.model, batch_2d, momentum=momentum,
-                                      generator=generator, shard=shard)
+                pred = _forward(self.model, loop)(self.model, batch_2d, momentum=momentum,
+                                                  generator=generator, shard=shard)
             with span("vp3d.train.loss"):
-                loss = _masked_sample_mean(_mpjpe_per_sample(pred, batch_3d),
+                loss = _masked_sample_mean(self.model.per_sample_loss(pred, batch_3d),
                                            _valid(b, n_valid, device), rows)
             with span("vp3d.train.backward"):
                 loss.backward()
@@ -298,7 +305,7 @@ class SemiSupervisedTrainer:
 
             with span("vp3d.train.forward"):
                 self.optimizer.zero_grad(set_to_none=True)
-                forward = _forward(loop)
+                forward = _forward(self.pos_model, loop)
                 with span("vp3d.train.pose"):
                     pred_pos = forward(self.pos_model, inputs_2d, momentum=momentum,
                                        generator=generator, shard=shard)
